@@ -1,0 +1,238 @@
+"""
+Smoke run of the PyTorch port on one CUDA card: builds the fbank kernel
+from this checkout, holds it against its plain PyTorch version, drives the
+on-device augment→fbank path through ``OnDeviceAugmenter`` at the 15 s ×
+256 bucket, and checks what comes out.
+
+    python3 chip_smoke.py
+
+It needs a CUDA card and the checkout beside it; without either it exits
+non-zero and prints no result. It imports neither ``jax`` nor
+``lhotse_tpu``. Every check raises on failure, so a zero exit means every
+phase passed. The line before the last is a JSON record of the kernel
+(launches on the main path, max-abs error against the plain version, median
+times); the last line is ``{"ok": true, "device": {...}}``.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SR = 16000
+SPEED = 1.1
+KERNEL_TOL = 5e-5  # the JAX package's own bound for the fused fbank (tests/test_fbank_pallas.py)
+CHAIN_TOL = 1e-4  # the feature parity budget (BASELINE.md)
+TIMING_RUNS = 10
+
+
+def _median_ms(fn) -> float:
+    """Median of ``TIMING_RUNS`` CUDA-event timings of ``fn`` after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMING_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _mel_bank(n_mels: int, ops) -> np.ndarray:
+    mel, _ = ops.get_mel_banks(n_mels, 512, SR, 20.0, -400.0)
+    fb = np.zeros((257, n_mels), np.float32)
+    fb[:256] = mel.T
+    return fb
+
+
+def _expected_feat_lens(lens: np.ndarray) -> np.ndarray:
+    """ceil(lens · 16000 / 17600) samples after speed 1.1, then the hop rule."""
+    return (-(-lens * 10 // 11) + 80) // 160
+
+
+class _PlainFbank:
+    """The default fbank layer's computation with the kernel's plain version
+    in place of the kernel, for the chain comparison."""
+
+    frame_shift = 0.01
+
+    def __init__(self, layer, fbank_cuda):
+        self.layer = layer
+        self.fbank_cuda = fbank_cuda
+
+    def __call__(self, x):
+        Mc, Ms, fb, _ = self.layer._fused_matrices()
+        padded = self.fbank_cuda.edge_pad(x)
+        return self.fbank_cuda.reference_fbank(padded, Mc, Ms, fb)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False.")
+    import lhotse_tpu_torch
+
+    if Path(lhotse_tpu_torch.__file__).resolve().parent.parent != ROOT:
+        sys.exit(f"lhotse_tpu_torch was imported from {lhotse_tpu_torch.__file__}, not from {ROOT}.")
+    from lhotse_tpu_torch import _build
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+    from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank
+    from lhotse_tpu_torch.ops import fbank as ops
+    from lhotse_tpu_torch.ops import fbank_cuda
+    from lhotse_tpu_torch.ops.augment import make_augment_fbank_pipeline
+
+    assert "jax" not in sys.modules and "lhotse_tpu" not in sys.modules
+    # The plain versions this script compares against must be IEEE fp32:
+    # TF32 keeps ~3 decimal digits. Matmuls default to fp32 already; cuDNN
+    # convolutions default to TF32 (the port's resampler turns it off itself).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+
+    # -- 1. environment -------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    fbank_cuda._lib()
+    print(f"fbank kernel built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({_build.library_path('fbank')})")
+
+    # -- 2. kernel vs plain version -------------------------------------------
+    Mc, Ms = ops.dft_analysis_matrices(400, 512)
+    cases = [(1, 100, 23), (3, 1001, 80), (256, 1364, 80)]
+    max_err, main_ms, main_plain_ms = 0.0, None, None
+    for B, T, n_mels in cases:
+        Mc_d, Ms_d, fb_d = (
+            torch.from_numpy(np.ascontiguousarray(m)).to(device)
+            for m in fbank_cuda._squeeze_nyquist(Mc, Ms, _mel_bank(n_mels, ops)))
+        N = (T - 1) * 160 + 400
+        x = torch.from_numpy(
+            np.random.default_rng(B).standard_normal((B, N), np.float32) * 0.1).to(device)
+        out = fbank_cuda.fbank_cuda(x, Mc_d, Ms_d, fb_d)
+        ref = fbank_cuda.reference_fbank(x, Mc_d, Ms_d, fb_d)
+        torch.cuda.synchronize()
+        if out.shape != (B, T, n_mels) or not torch.isfinite(out).all():
+            raise AssertionError(f"kernel output {tuple(out.shape)} wrong or not finite")
+        err = (out - ref).abs().max().item()
+        ms = _median_ms(lambda: fbank_cuda.fbank_cuda(x, Mc_d, Ms_d, fb_d))
+        plain_ms = _median_ms(lambda: fbank_cuda.reference_fbank(x, Mc_d, Ms_d, fb_d))
+        print(f"fbank B={B} T={T} n_mels={n_mels}: max_abs_err {err!r} (tol {KERNEL_TOL}); "
+              f"kernel {ms!r} ms, plain {plain_ms!r} ms (median of {TIMING_RUNS})")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"kernel disagrees with its plain version: {err} > {KERNEL_TOL}")
+        max_err = max(max_err, err)
+        main_ms, main_plain_ms = ms, plain_ms  # the last case is the main path's shape
+
+    # -- 3. main path ---------------------------------------------------------
+    rng = np.random.default_rng(0)
+    noise_pool = rng.standard_normal((16, 16 * SR), np.float32) * 0.1
+    t_rir = np.arange(SR // 2, dtype=np.float32)
+    rir = (rng.standard_normal(SR // 2).astype(np.float32) * np.exp(-t_rir / 1600.0)).astype(
+        np.float32)
+    rir[0] = 1.0
+    common = dict(speed_factor=SPEED, gain_range=(0.9, 1.1), noise_pool=noise_pool,
+                  snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
+                  device=device)
+    aug = OnDeviceAugmenter(buckets=[(15.0, 256)], wire_format="int16", **common)
+    doc_buckets = [(6.0, 40), (9.0, 27), (12.0, 20)]
+    aug_doc = OnDeviceAugmenter(buckets=doc_buckets, wire_format="float32", **common)
+    aug.precompile()
+    aug_doc.precompile()
+    batches = []
+    for i in range(3):
+        lens = rng.integers(8 * SR, 15 * SR + 1, size=256)
+        lens[0] = 15 * SR
+        audio = rng.standard_normal((256, 15 * SR), np.float32) * 0.1
+        batches.append((audio, lens))
+    doc_batches = []
+    for sec, bsz in doc_buckets:
+        lens = rng.integers(int((sec - 3) * SR), int(sec * SR) + 1, size=bsz - 1)
+        lens[0] = int(sec * SR)
+        audio = rng.standard_normal((bsz - 1, int(lens.max())), np.float32) * 0.1
+        doc_batches.append((audio, lens))
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    staged = [aug.stage(audio, lens) for audio, lens in batches]
+    outs = [aug.compute(s) for s in staged]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    doc_outs = [aug_doc(audio, lens) for audio, lens in doc_batches]
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+    print(f"main path: fbank kernel launches {launches}")
+    if launches < len(batches) + len(doc_batches):
+        raise AssertionError(f"the main path launched the fbank kernel {launches} times")
+
+    audio_sec = sum(int(lens.sum()) for _, lens in batches) / SR
+    print(f"15 s x 256 bucket, int16 wire: {len(batches)} batches, {audio_sec!r} audio-s in "
+          f"{elapsed!r} s (stage + compute): {audio_sec / elapsed!r} audio-s/s")
+    for (feats, feat_lens), (_, lens) in zip(outs, batches):
+        if tuple(feats.shape) != (256, 1364, 80) or not torch.isfinite(feats).all():
+            raise AssertionError(f"main-path features {tuple(feats.shape)} wrong or not finite")
+        if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
+            raise AssertionError("main-path feat_lens differ from the hop rule")
+    for (feats, feat_lens), (sec, bsz), (_, lens) in zip(doc_outs, doc_buckets, doc_batches):
+        frames = (math.ceil(int(sec * SR) * 10 / 11) + 80) // 160
+        full_lens = np.zeros(bsz, np.int64)
+        full_lens[: len(lens)] = lens
+        if tuple(feats.shape) != (bsz, frames, 80) or not torch.isfinite(feats).all():
+            raise AssertionError(f"{sec} s bucket features {tuple(feats.shape)} wrong or not finite")
+        if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(full_lens)):
+            raise AssertionError(f"{sec} s bucket feat_lens differ from the hop rule")
+        print(f"{sec} s x {bsz} bucket, float32 wire: features {tuple(feats.shape)} finite")
+
+    # The same chain with the kernel's plain version on the card, on the
+    # first staged batch (these plain runs launch no kernel).
+    plain_pipe = make_augment_fbank_pipeline(
+        sampling_rate=SR, speed_factor=SPEED, wire_format="int16", rir=rir, device=device,
+        fbank=_PlainFbank(Wav2LogFilterBank(device=device), fbank_cuda))
+    plain_feats, plain_lens = plain_pipe(staged[0].audio, staged[0].lens, **staged[0].kwargs)
+    chain_err = (plain_feats - outs[0][0]).abs().max().item()
+    print(f"main path vs the same chain with the plain fbank: max_abs_err {chain_err!r} "
+          f"(tol {CHAIN_TOL})")
+    if not chain_err <= CHAIN_TOL or not torch.equal(plain_lens, outs[0][1]):
+        raise AssertionError("the main path disagrees with the plain chain")
+
+    # A small batch through the CPU port (plain versions throughout) as the
+    # reference for the card's result.
+    audio, lens = doc_batches[0][0][:4], doc_batches[0][1][:4]
+    small = dict(common, device="cpu")
+    cpu_feats, cpu_lens = OnDeviceAugmenter(buckets=[(6.0, 4)], **small)(audio, lens)
+    gpu_feats, gpu_lens = OnDeviceAugmenter(buckets=[(6.0, 4)], **common)(audio, lens)
+    cross_err = (gpu_feats.cpu() - cpu_feats).abs().max().item()
+    print(f"6 s x 4 batch, card vs CPU port: max_abs_err {cross_err!r} (tol {CHAIN_TOL})")
+    if not cross_err <= CHAIN_TOL or not torch.equal(gpu_lens.cpu(), cpu_lens):
+        raise AssertionError("the card's result disagrees with the CPU port's")
+
+    record = {"kernels": [{
+        "name": "fbank_logmel",
+        "route": "cuda",
+        "source": "lhotse_tpu_torch/csrc/fbank.cu",
+        "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": main_ms,
+        "plain_ms": main_plain_ms,
+    }]}
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
