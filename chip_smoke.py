@@ -10,8 +10,10 @@ It needs a CUDA card and the checkout beside it; without either it exits
 non-zero and prints no result. It imports neither ``jax`` nor
 ``lhotse_tpu``. Every check raises on failure, so a zero exit means every
 phase passed. The line before the last is a JSON record of the kernel
-(launches on the main path, max-abs error against the plain version, median
-times); the last line is ``{"ok": true, "device": {...}}``.
+(launches on the main path, max-abs error against the plain version, per
+call times by CUDA events and device times by ``torch.profiler`` for the
+kernel and its plain version at each shape, and the near-silent check
+against float64); the last line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -29,6 +31,48 @@ SPEED = 1.1
 KERNEL_TOL = 5e-5  # the JAX package's own bound for the fused fbank (tests/test_fbank_pallas.py)
 CHAIN_TOL = 1e-4  # the feature parity budget (BASELINE.md)
 TIMING_RUNS = 10
+
+
+def _device_ms(fn, kernel: str = "") -> float:
+    """Device time per call of ``fn`` from ``torch.profiler`` over
+    ``TIMING_RUNS`` calls after one warm-up: the sum of the device
+    activities whose name contains ``kernel`` (all of them when empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMING_RUNS):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name)
+    if not us > 0:
+        raise AssertionError(f"torch.profiler recorded no device time for {kernel or 'the call'}")
+    return us / 1000.0 / TIMING_RUNS
+
+
+def _near_silent_errors(device, ops, fbank_cuda) -> tuple:
+    """Max-abs error from float64 of the kernel and of its plain version on
+    a 3 x 1001-frame 1 kHz tone at 0.3 over 1e-3 white noise, whose low mel
+    bins nearly cancel; the truth is the same frames through float64
+    matrices on the card."""
+    B, T = 3, 1001
+    N = (T - 1) * 160 + 400
+    t = np.arange(N) / SR
+    x_np = 0.3 * np.sin(2 * np.pi * 1000.0 * t) + 1e-3 * np.random.default_rng(9).standard_normal((B, N))
+    x = torch.from_numpy(x_np.astype(np.float32)).to(device)
+    Mc, Ms = ops.dft_analysis_matrices(400, 512)
+    f32 = [torch.from_numpy(np.ascontiguousarray(m)).to(device)
+           for m in fbank_cuda._squeeze_nyquist(Mc, Ms, _mel_bank(80, ops))]
+    f64 = [m.double() for m in f32]
+    frames = x.double().unfold(-1, 400, 160)
+    power = (frames @ f64[0]) ** 2 + (frames @ f64[1]) ** 2
+    truth = torch.log(torch.clamp_min(power @ f64[2], ops.FLT_EPS))
+    kernel = fbank_cuda.fbank_cuda(x, *f32).double()
+    plain = fbank_cuda.reference_fbank(x, *f32).double()
+    return (kernel - truth).abs().max().item(), (plain - truth).abs().max().item()
 
 
 def _median_ms(fn) -> float:
@@ -110,30 +154,49 @@ def main() -> None:
           f"({_build.library_path('fbank')})")
 
     # -- 2. kernel vs plain version -------------------------------------------
+    # The kernel gets the packed DFT operand as the layers hold it, so its
+    # times are of the launch alone.
     Mc, Ms = ops.dft_analysis_matrices(400, 512)
-    cases = [(1, 100, 23), (3, 1001, 80), (256, 1364, 80)]
-    max_err, main_ms, main_plain_ms = 0.0, None, None
-    for B, T, n_mels in cases:
+    cases = []
+    for B, T, n_mels in [(1, 100, 23), (3, 1001, 80), (256, 1364, 80)]:
         Mc_d, Ms_d, fb_d = (
             torch.from_numpy(np.ascontiguousarray(m)).to(device)
             for m in fbank_cuda._squeeze_nyquist(Mc, Ms, _mel_bank(n_mels, ops)))
+        dft = fbank_cuda.pack_dft(Mc_d, Ms_d)
         N = (T - 1) * 160 + 400
         x = torch.from_numpy(
             np.random.default_rng(B).standard_normal((B, N), np.float32) * 0.1).to(device)
-        out = fbank_cuda.fbank_cuda(x, Mc_d, Ms_d, fb_d)
-        ref = fbank_cuda.reference_fbank(x, Mc_d, Ms_d, fb_d)
+
+        def kernel():
+            return fbank_cuda.fbank_cuda(x, Mc_d, Ms_d, fb_d, dft=dft)
+
+        def plain():
+            return fbank_cuda.reference_fbank(x, Mc_d, Ms_d, fb_d)
+
+        out, ref = kernel(), plain()
         torch.cuda.synchronize()
         if out.shape != (B, T, n_mels) or not torch.isfinite(out).all():
             raise AssertionError(f"kernel output {tuple(out.shape)} wrong or not finite")
-        err = (out - ref).abs().max().item()
-        ms = _median_ms(lambda: fbank_cuda.fbank_cuda(x, Mc_d, Ms_d, fb_d))
-        plain_ms = _median_ms(lambda: fbank_cuda.reference_fbank(x, Mc_d, Ms_d, fb_d))
-        print(f"fbank B={B} T={T} n_mels={n_mels}: max_abs_err {err!r} (tol {KERNEL_TOL}); "
-              f"kernel {ms!r} ms, plain {plain_ms!r} ms (median of {TIMING_RUNS})")
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"kernel disagrees with its plain version: {err} > {KERNEL_TOL}")
-        max_err = max(max_err, err)
-        main_ms, main_plain_ms = ms, plain_ms  # the last case is the main path's shape
+        case = {"shape": [B, T, n_mels], "max_abs_err": (out - ref).abs().max().item(),
+                "ms": _median_ms(kernel), "plain_ms": _median_ms(plain),
+                "device_ms": _device_ms(kernel, "fbank_logmel"), "plain_device_ms": _device_ms(plain)}
+        flop = B * T * (400 * 256 * 4 + 256 * n_mels * 2)
+        print(f"fbank B={B} T={T} n_mels={n_mels}: max_abs_err {case['max_abs_err']!r} "
+              f"(tol {KERNEL_TOL}); per call (CUDA events, median of {TIMING_RUNS}) kernel "
+              f"{case['ms']!r} ms, plain {case['plain_ms']!r} ms; device (torch.profiler) "
+              f"kernel {case['device_ms']!r} ms ({flop / case['device_ms'] / 1e9:.1f} TFLOP/s), "
+              f"plain {case['plain_device_ms']!r} ms")
+        if not case["max_abs_err"] <= KERNEL_TOL:
+            raise AssertionError(
+                f"kernel disagrees with its plain version: {case['max_abs_err']} > {KERNEL_TOL}")
+        cases.append(case)
+    main_case = cases[-1]  # the main path's shape
+
+    kernel_err, plain_err = _near_silent_errors(device, ops, fbank_cuda)
+    print(f"near-silent 3 x 1001 x 80 against float64: kernel {kernel_err!r}, plain {plain_err!r} "
+          f"(the kernel may be at most twice as far off)")
+    if not kernel_err <= 2 * plain_err:
+        raise AssertionError(f"kernel lost digits on a near-silent input: {kernel_err} > 2 x {plain_err}")
 
     # -- 3. main path ---------------------------------------------------------
     rng = np.random.default_rng(0)
@@ -224,9 +287,13 @@ def main() -> None:
         "source": "lhotse_tpu_torch/csrc/fbank.cu",
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "device_ms": main_case["device_ms"],
+        "plain_device_ms": main_case["plain_device_ms"],
+        "cases": cases,
+        "near_silent_err": {"kernel": kernel_err, "plain": plain_err},
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

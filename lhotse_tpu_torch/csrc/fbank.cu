@@ -6,177 +6,381 @@
 // goes through the folded analysis matrices [Mc | Ms] (DC removal,
 // pre-emphasis 0.97, povey window and the 512-point real DFT in one linear
 // map, see lhotse_tpu_torch/ops/fbank.py), then power re^2 + im^2, the mel
-// GEMM, and log(max(., eps)). Frames never touch device memory: only the
+// product, and log(max(., eps)). Frames never touch device memory: only the
 // audio is read and only the (B, T, n_mels) log-mel is written.
 //
-// What bounds it on this card: arithmetic. Per frame it does 400 x 2 x 256
-// multiply-adds for the spectrum and 256 x n_mels for the mel bank, against
-// 640 bytes of new audio and 320 bytes of output (80 mels), so it is some
-// 500 FLOP per byte, far above the H100's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20). The parity budget (5e-5 on the log-mel) rules out TF32 and
-// bf16x3 tensor-core products (the JAX package measured bf16x3 ~1.4e-3 off),
-// so the work runs as fp32 FMAs on the CUDA cores.
+// What bounds it on this card: fp32 FMAs and what feeds them. Per frame it
+// does 400 x 2 x 256 multiply-adds for the spectrum against 640 bytes of new
+// audio, far above the H100's fp32 ridge. The parity budget (5e-5 on the
+// log-mel) rules out TF32 and bf16x3 tensor-core products (the JAX package
+// measured bf16x3 ~1.4e-3 off), so the work runs as fp32 FMAs on the CUDA
+// cores, fed from shared memory: the 800 KB DFT operand does not fit in L1,
+// and a design that streams it from L2 for every few frames waits on it.
+// Shared memory is itself a limit: a warp-wide broadcast float4 load issues
+// at about half a warp-load per clock per SM, so a lane needs a register
+// tile large enough that its loads take less time than its FMAs.
 //
-// What the design does about it: one block takes a tile of 64 frames of one
-// utterance and stages their contiguous span of 63 x 160 + 400 samples in
-// shared memory once; the overlapping frames are read from there. Each warp
-// owns 8 frames and each lane 4 bins, so every lane keeps an 8 x 4 register
-// tile of re and of im: per DFT row it reads one float4 of Mc and of Ms
-// (coalesced across the warp, served from L1/L2: the matrices are 800 KB and
-// every block reads the same rows) and 8 broadcast samples from shared
-// memory, and issues 64 FMAs. The power of a 128-bin chunk goes to a shared
-// tile that only the owning warp reads back, and the mel product
-// accumulates into 8 x 4 registers per lane (n_mels <= 128). The frame tail
-// of an utterance that is no multiple of 64 is masked: samples past the end
-// load as 0 and frames past the end are not stored.
+// What the design does about it:
+// - The bins are split into 64-bin quarters (two for 128 bins). Each block
+//   computes one quarter for a tile of 128 frames; the quarters of one tile
+//   form a thread-block cluster along x.
+// - The block's quarter of [Mc | Ms], packed (bins / 64, 400, 128) by
+//   `pack_dft` so that 16 rows are 8 contiguous KB, streams through a ring
+//   of 4 slots, one Hopper bulk copy (cp.async.bulk) per slot completing on
+//   an mbarrier. The copy takes uniform operands, so one large copy, not one
+//   per lane. The last warp done with a slot refills it (a counter in shared
+//   memory): no warp waits on another, only on data. Every operand fetched
+//   from L2 serves the block's 128 frames.
+// - The tile's audio span (127 x 160 + 400 samples) is staged in shared
+//   memory by bulk copies of a 16-byte aligned row, and by the threads for
+//   what those do not cover (an unaligned row, its last samples, zeros past
+//   its end).
+// - Each warp owns 16 frames and each lane 2 bins x (re, im): 64
+//   accumulators. Per 4 k-steps a lane reads 4 operand rows as float2s and
+//   each frame's 4 samples as one broadcast float4, and issues 256 FMAs.
+//   Each re and im is one accumulator summed over k = 0..399 in order.
+// - The quarter's power (128 x 64) goes to shared memory over the ring. Mel
+//   filter m sums only the bins between its first and last nonzero weight in
+//   the quarter, in order; the skipped terms are exactly zero. The result is
+//   a partial (128 x n_mels) tile over the span.
+// - After a cluster barrier, block r of the cluster sums its slice of frames
+//   over the partial tiles of ranks 0..Q-1 in that order through distributed
+//   shared memory, takes the eps-floored log and stores whole rows. No
+//   atomics touch the output: it is the same from run to run.
+// - 115,704 bytes of shared memory and __launch_bounds__(256, 2): two
+//   blocks per SM. The frame tail of an utterance that is no multiple of
+//   128 is masked: samples past the end load as 0 and frames past the end
+//   are not stored.
 //
 // Plain C interface, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes from lhotse_tpu_torch/ops/fbank_cuda.py. The
-// launch goes on the caller's stream; the function returns cudaGetLastError().
+// launch goes on the caller's stream; the function returns the launch's
+// cudaError_t.
 
+#include <atomic>
+#include <cstdint>
+#include <initializer_list>
+
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kFrameLen = 400;
 constexpr int kHop = 160;
 constexpr int kThreads = 256;
+constexpr int kMinBlocks = 2;                                // per SM
 constexpr int kWarps = kThreads / 32;
-constexpr int kFramesPerWarp = 8;
-constexpr int kTileFrames = kWarps * kFramesPerWarp;         // 64
-constexpr int kBinChunk = 128;                               // 4 bins per lane
-constexpr int kMaxMels = 128;                                // 4 mels per lane
-constexpr int kMelsPerLane = kMaxMels / 32;
-constexpr int kSpan = (kTileFrames - 1) * kHop + kFrameLen;  // 10480 samples
-constexpr int kSmemBytes = (kSpan + kTileFrames * kBinChunk) * sizeof(float);
+constexpr int kQuarter = 64;                                 // bins per block, 2 per lane
+constexpr int kFramesPerWarp = 16;
+constexpr int kTileFrames = kWarps * kFramesPerWarp;         // 128
+constexpr int kRowFloats = 2 * kQuarter;                     // a ring row: 64 re | 64 im
+constexpr int kSliceRows = 16;
+constexpr int kSlices = kFrameLen / kSliceRows;              // 25
+constexpr int kStages = 4;
+constexpr int kSliceFloats = kSliceRows * kRowFloats;
+constexpr unsigned kSliceBytes = kSliceFloats * sizeof(float);  // 8 KB
+constexpr int kMaxMels = 128;
+constexpr int kSpan = (kTileFrames - 1) * kHop + kFrameLen;  // 20720 samples
+constexpr int kRingBytes = kStages * kSliceFloats * sizeof(float);
+constexpr int kSpanBytes = kSpan * sizeof(float);
+constexpr int kSpanChunk = 4096;                             // samples per bulk copy
+constexpr int kSmemBytes =
+    kRingBytes + kSpanBytes + (kStages + 1) * sizeof(uint64_t) + kStages * sizeof(unsigned);
 
-__global__ void __launch_bounds__(kThreads, 2)
-fbank_logmel_kernel(const float* __restrict__ audio, const float* __restrict__ mc,
-                    const float* __restrict__ ms, const float* __restrict__ mel,
+static_assert(kFrameLen % kSliceRows == 0, "whole slices");
+static_assert(kTileFrames * kQuarter * sizeof(float) <= kRingBytes, "the power tile fits the ring");
+static_assert(kTileFrames * kMaxMels * sizeof(float) <= kSpanBytes, "the partial tile fits the span");
+static_assert(kHop % 4 == 0 && kSliceRows % 4 == 0, "frames are read as aligned float4s");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One thread's bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void expect_bytes(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Slice s (rows [16 s, 16 s + 16)) of this block's quarter of the packed
+// operand into a ring slot: 8 KB, contiguous, one copy.
+__device__ __forceinline__ void issue_slice(float* dst, uint32_t bar, const float* quarter,
+                                            int s) {
+  expect_bytes(bar, kSliceBytes);
+  bulk_copy(dst, quarter + s * kSliceFloats, kSliceBytes, bar);
+}
+
+// The first n samples (a multiple of 4) of the tile's span from a 16-byte
+// aligned row, in copies of kSpanChunk samples.
+__device__ __forceinline__ void issue_span(float* span, uint32_t bar, const float* src, int n) {
+  expect_bytes(bar, n * sizeof(float));
+  for (int i = 0; i < n; i += kSpanChunk)
+    bulk_copy(span + i, src + i, min(kSpanChunk, n - i) * sizeof(float), bar);
+}
+
+// Q quarters of 64 bins: a cluster of Q blocks per tile of 128 frames.
+template <int Q>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fbank_logmel_kernel(const float* __restrict__ audio, const float* __restrict__ dft,
+                    const float* __restrict__ mel,
                     float* __restrict__ out, int n_samples, int row_stride, int n_frames,
-                    int bins, int n_mels, float eps) {
-  extern __shared__ float smem[];
-  float* span = smem;                 // kSpan samples of this tile
-  float* power = smem + kSpan;        // kTileFrames x kBinChunk
+                    int n_mels, float eps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);                    // kStages slices
+  float* span = reinterpret_cast<float*>(smem_raw + kRingBytes);       // kSpan samples
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + kRingBytes + kSpanBytes);
+  unsigned* done = reinterpret_cast<unsigned*>(bars + kStages + 1);  // warps done, per slot
+  float* power = ring;  // (kTileFrames, kQuarter) once the DFT is done
+  float* partial = span;  // (kTileFrames, kMaxMels) once the DFT is done
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int bin0 = q * kQuarter;
+  const float* quarter = dft + static_cast<size_t>(q) * kFrameLen * kRowFloats;
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kTileFrames;
+  const int t0 = (blockIdx.x / Q) * kTileFrames;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const uint32_t bar0 = smem_addr(bars);  // kStages ring slots, then the span
+  const uint32_t span_bar = bar0 + 8 * kStages;
 
-  const float* x = audio + static_cast<size_t>(b) * row_stride;
-  const long long start = static_cast<long long>(t0) * kHop;
-  for (int i = threadIdx.x; i < kSpan; i += kThreads) {
-    const long long s = start + i;
-    span[i] = s < n_samples ? x[s] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar0 + 8 * i) : "memory");
+    for (int i = 0; i < kStages; ++i) done[i] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const float* frames = span + warp * kFramesPerWarp * kHop;  // this warp's first frame
-  float* pow_rows = power + warp * kFramesPerWarp * kBinChunk;
-  const int row4 = bins / 4;
+  // The tile's audio and the first ring slices by bulk copies; the threads
+  // load what the copies do not cover: the span of a row that is not 16-byte
+  // aligned, the last samples of a row, and the zeros past its end.
+  const float* x = audio + static_cast<size_t>(b) * row_stride;
+  const long long start = static_cast<long long>(t0) * kHop;
+  const long long avail = n_samples - start;  // >= 400: the tile holds a frame
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int n_bulk = aligned ? static_cast<int>(avail < kSpan ? avail : kSpan) & ~3 : 0;
+  if (threadIdx.x == 0) {
+    if (n_bulk > 0) issue_span(span, span_bar, x + start, n_bulk);
+    for (int s = 0; s < kStages; ++s) issue_slice(ring + s * kSliceFloats, bar0 + 8 * s, quarter, s);
+  }
+  for (int i = n_bulk + threadIdx.x; i < kSpan; i += kThreads) {
+    const long long s = start + i;
+    span[i] = s < n_samples ? __ldg(x + s) : 0.f;
+  }
+  // Thread m < n_mels finds the bins [lo, hi) of this quarter between mel
+  // filter m's first and last nonzero weight: its sum skips the others,
+  // whose terms are exactly zero, and keeps the order of the rest.
+  const float* mel_rows = mel + static_cast<size_t>(bin0) * n_mels;
+  unsigned range = 0;  // lo | hi << 8
+  if (threadIdx.x < n_mels) {
+    int lo = kQuarter, hi = 0;
+#pragma unroll 16
+    for (int k = 0; k < kQuarter; ++k)
+      if (__ldg(mel_rows + k * n_mels + threadIdx.x) != 0.f) lo = min(lo, k), hi = k + 1;
+    range = lo < hi ? lo | hi << 8 : 0;
+  }
+  __syncthreads();
+  if (n_bulk > 0) mbar_wait(span_bar, 0);
 
-  float acc[kFramesPerWarp][kMelsPerLane];
+  // -- DFT: 16 frames x 2 bins x (re, im) per lane, each sum over k in order --
+  const int col = 2 * lane;  // this lane's first bin in the quarter
+  float re[kFramesPerWarp][2];
+  float im[kFramesPerWarp][2];
 #pragma unroll
-  for (int i = 0; i < kFramesPerWarp; ++i)
-#pragma unroll
-    for (int j = 0; j < kMelsPerLane; ++j) acc[i][j] = 0.f;
+  for (int f = 0; f < kFramesPerWarp; ++f) re[f][0] = re[f][1] = im[f][0] = im[f][1] = 0.f;
 
-  for (int c0 = 0; c0 < bins; c0 += kBinChunk) {
-    float re[kFramesPerWarp][4];
-    float im[kFramesPerWarp][4];
+  const float* frames = span + warp * kFramesPerWarp * kHop;
+  for (int s = 0; s < kSlices; ++s) {
+    const int slot = s % kStages;
+    mbar_wait(bar0 + 8 * slot, (s / kStages) & 1);
+    const float* op = ring + slot * kSliceFloats + col;
+    const float* fr = frames + s * kSliceRows;
 #pragma unroll
-    for (int i = 0; i < kFramesPerWarp; ++i)
+    for (int k4 = 0; k4 < kSliceRows; k4 += 4) {
+      float2 c[4], sn[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) re[i][q] = im[i][q] = 0.f;
-
-    const float4* mc4 = reinterpret_cast<const float4*>(mc + c0) + lane;
-    const float4* ms4 = reinterpret_cast<const float4*>(ms + c0) + lane;
-#pragma unroll 2
-    for (int k = 0; k < kFrameLen; ++k) {
-      const float4 c = __ldg(mc4 + k * row4);
-      const float4 s = __ldg(ms4 + k * row4);
+      for (int u = 0; u < 4; ++u) {
+        c[u] = *reinterpret_cast<const float2*>(op + (k4 + u) * kRowFloats);
+        sn[u] = *reinterpret_cast<const float2*>(op + (k4 + u) * kRowFloats + kQuarter);
+      }
 #pragma unroll
-      for (int i = 0; i < kFramesPerWarp; ++i) {
-        const float a = frames[i * kHop + k];
-        re[i][0] = fmaf(a, c.x, re[i][0]);
-        re[i][1] = fmaf(a, c.y, re[i][1]);
-        re[i][2] = fmaf(a, c.z, re[i][2]);
-        re[i][3] = fmaf(a, c.w, re[i][3]);
-        im[i][0] = fmaf(a, s.x, im[i][0]);
-        im[i][1] = fmaf(a, s.y, im[i][1]);
-        im[i][2] = fmaf(a, s.z, im[i][2]);
-        im[i][3] = fmaf(a, s.w, im[i][3]);
+      for (int f = 0; f < kFramesPerWarp; ++f) {
+        const float4 a4 = *reinterpret_cast<const float4*>(fr + f * kHop + k4);
+        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          re[f][0] = fmaf(a[u], c[u].x, re[f][0]);
+          im[f][0] = fmaf(a[u], sn[u].x, im[f][0]);
+          re[f][1] = fmaf(a[u], c[u].y, re[f][1]);
+          im[f][1] = fmaf(a[u], sn[u].y, im[f][1]);
+        }
       }
     }
-
-#pragma unroll
-    for (int i = 0; i < kFramesPerWarp; ++i) {
-      float4 p;
-      p.x = re[i][0] * re[i][0] + im[i][0] * im[i][0];
-      p.y = re[i][1] * re[i][1] + im[i][1] * im[i][1];
-      p.z = re[i][2] * re[i][2] + im[i][2] * im[i][2];
-      p.w = re[i][3] * re[i][3] + im[i][3] * im[i][3];
-      reinterpret_cast<float4*>(pow_rows + i * kBinChunk)[lane] = p;
+    // The last warp done with this slot refills it: no warp waits for the
+    // others except on the data it needs.
+    if (s + kStages < kSlices) {
+      __syncwarp();
+      if (lane == 0) {
+        __threadfence_block();
+        if ((atomicAdd(done + slot, 1u) + 1) % kWarps == 0) {
+          __threadfence_block();
+          issue_slice(ring + slot * kSliceFloats, bar0 + 8 * slot, quarter, s + kStages);
+        }
+      }
     }
-    __syncwarp();  // the power rows are read back by the warp that wrote them
+  }
+  __syncthreads();  // the ring and the span are free
+  unsigned short* ranges = reinterpret_cast<unsigned short*>(partial + kTileFrames * kMaxMels);
+  if (threadIdx.x < n_mels) ranges[threadIdx.x] = static_cast<unsigned short>(range);
 
-    const float* mel_rows = mel + static_cast<size_t>(c0) * n_mels;
+  // -- power, then this quarter's share of the mel product ------------------
+  // A warp reads back only the power rows of its own frames, and writes only
+  // its own rows of the partial tile.
+  float* pow_rows = power + warp * kFramesPerWarp * kQuarter;
+#pragma unroll
+  for (int f = 0; f < kFramesPerWarp; ++f)
+    *reinterpret_cast<float2*>(pow_rows + f * kQuarter + col) =
+        make_float2(re[f][0] * re[f][0] + im[f][0] * im[f][0],
+                    re[f][1] * re[f][1] + im[f][1] * im[f][1]);
+  __syncthreads();  // the power rows and the mel ranges are written
+  float* part_rows = partial + warp * kFramesPerWarp * kMaxMels;
+  for (int m = lane; m < n_mels; m += 32) {
+    const unsigned r = ranges[m];
+    const int hi = r >> 8;
+    float acc[kFramesPerWarp];
+#pragma unroll
+    for (int f = 0; f < kFramesPerWarp; ++f) acc[f] = 0.f;
+    int k = r & 0xff;
+    float w = k < hi ? __ldg(mel_rows + k * n_mels + m) : 0.f;
+    for (; k < hi; ++k) {
+      const float cur = w;
+      if (k + 1 < hi) w = __ldg(mel_rows + (k + 1) * n_mels + m);
+#pragma unroll
+      for (int f = 0; f < kFramesPerWarp; ++f) acc[f] = fmaf(pow_rows[f * kQuarter + k], cur, acc[f]);
+    }
+#pragma unroll
+    for (int f = 0; f < kFramesPerWarp; ++f) part_rows[f * kMaxMels + m] = acc[f];
+  }
+
+  // -- sum the Q partial tiles across the cluster, log, store ---------------
+  cluster.sync();
+  constexpr int kRows = kTileFrames / Q;
+  const int f0 = q * kRows;
+  const int valid = min(kRows, n_frames - (t0 + f0));
+  if (valid > 0) {
+    const float* parts[Q];
+#pragma unroll
+    for (int r = 0; r < Q; ++r) parts[r] = cluster.map_shared_rank(partial, r);
+    float* dst = out + (static_cast<size_t>(b) * n_frames + t0 + f0) * n_mels;
+    const int count = valid * n_mels;
 #pragma unroll 4
-    for (int k = 0; k < kBinChunk; ++k) {
-      float w[kMelsPerLane];
+    for (int i = threadIdx.x; i < count; i += kThreads) {
+      const int f = i / n_mels;
+      const int off = (f0 + f) * kMaxMels + (i - f * n_mels);
+      float v = parts[0][off];
 #pragma unroll
-      for (int j = 0; j < kMelsPerLane; ++j) {
-        const int m = lane + 32 * j;
-        w[j] = m < n_mels ? __ldg(mel_rows + k * n_mels + m) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kFramesPerWarp; ++i) {
-        const float p = pow_rows[i * kBinChunk + k];
-#pragma unroll
-        for (int j = 0; j < kMelsPerLane; ++j) acc[i][j] = fmaf(p, w[j], acc[i][j]);
-      }
+      for (int r = 1; r < Q; ++r) v += parts[r][off];
+      dst[i] = logf(fmaxf(v, eps));
     }
-    __syncwarp();  // before the next chunk overwrites the power rows
   }
+  // No block leaves while another still reads its tile; nothing is
+  // published here, so the arrival is relaxed.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
 
-#pragma unroll
-  for (int i = 0; i < kFramesPerWarp; ++i) {
-    const int f = t0 + warp * kFramesPerWarp + i;
-    if (f >= n_frames) continue;
-    float* row = out + (static_cast<size_t>(b) * n_frames + f) * n_mels;
-#pragma unroll
-    for (int j = 0; j < kMelsPerLane; ++j) {
-      const int m = lane + 32 * j;
-      if (m < n_mels) row[m] = logf(fmaxf(acc[i][j], eps));
-    }
+template <int Q>
+cudaError_t launch(const float* audio, const float* dft, const float* mel,
+                   float* out, int batch, int n_samples, int row_stride, int n_frames,
+                   int n_mels, float eps, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = Q;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Q * ((n_frames + kTileFrames - 1) / kTileFrames), batch);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, fbank_logmel_kernel<Q>, audio, dft, mel, out, n_samples,
+                            row_stride, n_frames, n_mels, eps);
+}
+
+// The shared-memory size and carveout are set once per device, not per launch.
+cudaError_t configure_device() {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load() & bit) return cudaSuccess;
+  for (const void* fn : {reinterpret_cast<const void*>(fbank_logmel_kernel<2>),
+                         reinterpret_cast<const void*>(fbank_logmel_kernel<4>)}) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
   }
+  done.fetch_or(bit);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // audio (B, n_samples), rows row_stride floats apart, with
-// n_frames = (n_samples - 400) / 160 + 1; mc, ms (400, bins) with bins a
-// multiple of 128; mel (bins, n_mels) with n_mels <= 128; out
-// (B, n_frames, n_mels). All float32; the matrices and the output contiguous
-// and 16-byte aligned. The caller checks these. Returns a cudaError_t as int.
-extern "C" int fbank_logmel_f32(const void* audio, const void* mc, const void* ms,
-                                const void* mel, void* out, int batch, int n_samples,
-                                int row_stride, int n_frames, int bins, int n_mels,
-                                float eps, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fbank_logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+// n_frames = (n_samples - 400) / 160 + 1; dft (bins / 64, 400, 128), the
+// packed [Mc | Ms] of lhotse_tpu_torch.ops.fbank_cuda.pack_dft, with bins
+// 128 or 256; mel (bins, n_mels) with n_mels <= 128; out (B, n_frames,
+// n_mels). All float32; dft, mel and out contiguous, dft 16-byte aligned.
+// The caller checks these. Returns a cudaError_t as int.
+extern "C" int fbank_logmel_f32(const void* audio, const void* dft, const void* mel, void* out,
+                                int batch, int n_samples, int row_stride, int n_frames, int bins,
+                                int n_mels, float eps, void* stream) {
+  cudaError_t err = configure_device();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, batch);
-  fbank_logmel_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(audio), static_cast<const float*>(mc),
-      static_cast<const float*>(ms), static_cast<const float*>(mel),
-      static_cast<float*>(out), n_samples, row_stride, n_frames, bins, n_mels, eps);
-  return static_cast<int>(cudaGetLastError());
+  const auto* a = static_cast<const float*>(audio);
+  const auto* w = static_cast<const float*>(dft);
+  const auto* m = static_cast<const float*>(mel);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bins == 4 * kQuarter)
+    err = launch<4>(a, w, m, o, batch, n_samples, row_stride, n_frames, n_mels, eps, st);
+  else if (bins == 2 * kQuarter)
+    err = launch<2>(a, w, m, o, batch, n_samples, row_stride, n_frames, n_mels, eps, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }
 
-// Limits the Python wrapper checks against, read from here so they cannot
-// drift apart.
+// The limit the Python wrapper checks against, read from here so the two
+// cannot drift apart.
 extern "C" int fbank_logmel_max_mels() { return kMaxMels; }
-extern "C" int fbank_logmel_bin_chunk() { return kBinChunk; }

@@ -335,14 +335,16 @@ class _MelBase(_GemmSpectrum):
             self._refresh_fused()
 
     def _refresh_fused(self) -> None:
-        """(Re)derive the kernel's 256-bin matrices from ``Mc``/``Ms``/``_fb``:
-        contiguous non-persistent buffers, so the forward pass neither copies
-        nor checks the Nyquist row (which would wait for the device)."""
+        """(Re)derive the kernel's 256-bin matrices from ``Mc``/``Ms``/``_fb``
+        and the kernel's packed operand ``_fused_dft``: contiguous
+        non-persistent buffers, so the forward pass neither copies nor checks
+        the Nyquist row (which would wait for the device)."""
         if not self._fused:
             return
         Mc, Ms, fb = fbank_cuda._squeeze_nyquist(self.Mc, self.Ms, self._fb)
         for name, t in (("_fused_Mc", Mc), ("_fused_Ms", Ms), ("_fused_fb", fb)):
             self.register_buffer(name, t.contiguous().clone(), persistent=False)
+        self.register_buffer("_fused_dft", fbank_cuda.pack_dft(Mc, Ms), persistent=False)
 
     def _fused_matrices(self):
         """(Mc, Ms, fb, n_mels) as the fused kernel takes them (256 bins,
@@ -362,7 +364,8 @@ class _MelBase(_GemmSpectrum):
         # Dithering applies to the raw waveform exactly as in Wav2Win.forward;
         # DC-removal/pre-emphasis/window are folded into the analysis matrices.
         dithered = self.wav2win._maybe_dither(x)
-        return fbank_cuda.fbank_fused_padded(dithered, Mc, Ms, fb, snip_edges=self.wav2win.snip_edges)
+        return fbank_cuda.fbank_fused_padded(
+            dithered, Mc, Ms, fb, snip_edges=self.wav2win.snip_edges, dft=self._fused_dft)
 
 
 class Wav2LogFilterBank(_MelBase):

@@ -31,6 +31,7 @@ HOP = 160
 # fbank_fused's input contract, kept from the JAX package: num_frames * HOP + ROW samples.
 ROW = 640
 FLT_EPS = ops.FLT_EPS
+QUARTER = 64  # bins per block of the kernel; a cluster of bins // 64 blocks per frame tile
 
 LAUNCHES = 0  # kernel launches; fbank_cuda adds one per launch
 
@@ -39,11 +40,10 @@ LAUNCHES = 0  # kernel launches; fbank_cuda adds one per launch
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fbank")
     lib.fbank_logmel_f32.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     lib.fbank_logmel_f32.restype = ctypes.c_int
-    for name in ("fbank_logmel_max_mels", "fbank_logmel_bin_chunk"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
+    lib.fbank_logmel_max_mels.argtypes = []
+    lib.fbank_logmel_max_mels.restype = ctypes.c_int
     return lib
 
 
@@ -65,6 +65,16 @@ def _squeeze_nyquist(Mc, Ms, mel_fb):
     raise ValueError(f"Unsupported spectrum bin count for the fbank kernel: {bins}")
 
 
+def pack_dft(Mc: torch.Tensor, Ms: torch.Tensor) -> torch.Tensor:
+    """The kernel's layout of the DFT operand: (400, bins) ``Mc`` and ``Ms``
+    -> (bins // 64, 400, 128), where row k of quarter q holds
+    ``Mc[k, 64q:64q+64]`` then ``Ms[k, 64q:64q+64]``. Sixteen rows of a
+    quarter are then one contiguous 8 KB bulk copy."""
+    K, bins = Mc.shape
+    parts = [m.reshape(K, bins // QUARTER, QUARTER) for m in (Mc, Ms)]
+    return torch.cat(parts, dim=2).transpose(0, 1).contiguous()
+
+
 def reference_fbank(audio: torch.Tensor, Mc, Ms, mel_fb, eps: float = FLT_EPS) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: snip-edges frames
     as an ``unfold`` view, the two DFT products, power, the mel product and
@@ -75,7 +85,8 @@ def reference_fbank(audio: torch.Tensor, Mc, Ms, mel_fb, eps: float = FLT_EPS) -
     return torch.log(torch.clamp_min(torch.matmul(ps, mel_fb), eps))
 
 
-def fbank_cuda(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS) -> torch.Tensor:
+def fbank_cuda(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS,
+               dft: torch.Tensor = None) -> torch.Tensor:
     """
     Launch the fused kernel on ``torch.cuda.current_stream()``.
 
@@ -84,6 +95,8 @@ def fbank_cuda(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS) -> 
     :param Mc/Ms: (400, bins) folded DFT analysis matrices (bins = 257 with a
         zero-Nyquist mel row, or 128 or 256).
     :param mel_fb: (bins, n_mels) mel filterbank, n_mels <= 128.
+    :param dft: ``pack_dft`` of the 128- or 256-bin ``Mc``/``Ms``, as the
+        layers hold it; packed here when not given.
     :return: (B, num_frames, n_mels) float32 log-mel features.
     """
     global LAUNCHES
@@ -104,22 +117,27 @@ def fbank_cuda(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS) -> 
         raise ValueError(
             f"Mc/Ms must be ({FRAME_LEN}, bins) and mel_fb (bins, n_mels); got "
             f"{tuple(Mc.shape)}, {tuple(Ms.shape)}, {tuple(mel_fb.shape)}.")
-    if bins > 257 or bins % lib.fbank_logmel_bin_chunk():
+    if bins not in (2 * QUARTER, 4 * QUARTER):
         raise ValueError(f"The fbank kernel takes 128 or 256 bins; got {bins}.")
     if not 1 <= n_mels <= lib.fbank_logmel_max_mels():
         raise ValueError(
             f"The fbank kernel takes 1..{lib.fbank_logmel_max_mels()} mel filters; got {n_mels}.")
     if not 1 <= B <= 65535:
         raise ValueError(f"The fbank kernel takes 1..65535 utterances per launch; got {B}.")
-    if any(t.data_ptr() % 16 for t in (Mc, Ms)):
-        raise ValueError("Mc/Ms must be 16-byte aligned for the kernel's vector loads.")
+    if dft is None:
+        dft = pack_dft(Mc, Ms)
+    if (dft.shape != (bins // QUARTER, FRAME_LEN, 2 * QUARTER) or dft.dtype != torch.float32
+            or dft.device != device or not dft.is_contiguous() or dft.data_ptr() % 16):
+        raise ValueError(
+            f"dft must be pack_dft(Mc, Ms): a contiguous, 16-byte aligned float32 "
+            f"({bins // QUARTER}, {FRAME_LEN}, {2 * QUARTER}) tensor on {device}.")
     num_frames = (N - FRAME_LEN) // HOP + 1 if N >= FRAME_LEN else 0
     out = torch.empty((B, num_frames, n_mels), dtype=torch.float32, device=device)
     if num_frames == 0:
         return out
     with torch.cuda.device(device):
         err = lib.fbank_logmel_f32(
-            audio.data_ptr(), Mc.data_ptr(), Ms.data_ptr(), mel_fb.data_ptr(), out.data_ptr(),
+            audio.data_ptr(), dft.data_ptr(), mel_fb.data_ptr(), out.data_ptr(),
             B, N, audio.stride(0), num_frames, bins, n_mels, eps,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -128,11 +146,13 @@ def fbank_cuda(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS) -> 
     return out
 
 
-def fbank_logmel(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS) -> torch.Tensor:
+def fbank_logmel(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS,
+                 dft: torch.Tensor = None) -> torch.Tensor:
     """Log-mel of every snip-edges frame of (B, N) audio: the kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
+    CUDA tensor (``dft`` as in :func:`fbank_cuda`), the plain version for a
+    CPU tensor."""
     if audio.device.type == "cuda":
-        return fbank_cuda(audio, Mc, Ms, mel_fb, eps=eps)
+        return fbank_cuda(audio, Mc, Ms, mel_fb, eps=eps, dft=dft)
     if audio.device.type == "cpu":
         Mc, Ms, mel_fb = _squeeze_nyquist(*(_as_f32(m, audio.device) for m in (Mc, Ms, mel_fb)))
         return reference_fbank(audio, Mc, Ms, mel_fb, eps=eps)
@@ -158,11 +178,12 @@ def edge_pad(x: torch.Tensor, snip_edges: bool = False) -> torch.Tensor:
 
 def fbank_fused_padded(
     x: torch.Tensor, Mc, Ms, mel_fb, *, snip_edges: bool = False, eps: float = FLT_EPS,
+    dft: torch.Tensor = None,
 ) -> torch.Tensor:
     """Fused fbank over raw (B, N) audio with the frame count of
     ``ops.frame_signal``: the snip_edges=False edge padding, then
     :func:`fbank_logmel`."""
-    return fbank_logmel(edge_pad(x, snip_edges), Mc, Ms, mel_fb, eps=eps)
+    return fbank_logmel(edge_pad(x, snip_edges), Mc, Ms, mel_fb, eps=eps, dft=dft)
 
 
 def fbank_fused(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS) -> torch.Tensor:

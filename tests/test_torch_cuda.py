@@ -48,7 +48,11 @@ def _audio(shape, seed=0):
     return (0.1 * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
 
 
-@pytest.mark.parametrize("B,T,n_mels", [(1, 100, 23), (3, 1001, 80), (16, 1364, 80), (2, 1, 80)])
+# The last five cases are the edges of the kernel's 128-frame tile and of
+# its (128, n_mels) partial mel tile.
+@pytest.mark.parametrize("B,T,n_mels", [
+    (1, 100, 23), (3, 1001, 80), (16, 1364, 80), (2, 1, 80),
+    (2, 127, 80), (2, 128, 80), (2, 129, 80), (1, 1, 80), (2, 300, 128)])
 def test_kernel_matches_plain_version(cuda, B, T, n_mels):
     Mc, Ms = ops.dft_analysis_matrices(400, 512)
     x = torch.from_numpy(_audio((B, (T - 1) * 160 + 400), seed=T)).to(cuda)
@@ -73,6 +77,66 @@ def test_kernel_reads_a_strided_view(cuda):
     assert torch.equal(a, b)
 
 
+def test_kernel_128_bin_route(cuda):
+    """128 bins run as a cluster of two blocks; a 40-mel bank up to 3.9 kHz
+    lies inside them."""
+    Mc, Ms = ops.dft_analysis_matrices(400, 512)
+    mel, _ = ops.get_mel_banks(40, 512, 16000, 20.0, 3900.0)
+    assert not mel[:, 128:].any()
+    mats = [torch.from_numpy(np.ascontiguousarray(m)).to(cuda)
+            for m in (Mc[:, :128], Ms[:, :128], mel.T[:128])]
+    x = torch.from_numpy(_audio((3, 200 * 160 + 400), seed=7)).to(cuda)
+    out = fbank_cuda.fbank_cuda(x, *mats)
+    ref = fbank_cuda.reference_fbank(x, *mats)
+    assert out.shape == (3, 201, 40)
+    assert (out - ref).abs().max().item() <= LOGMEL_TOL
+
+
+def test_kernel_is_deterministic(cuda):
+    """No atomics: two launches on the same input agree bit for bit."""
+    Mc, Ms = ops.dft_analysis_matrices(400, 512)
+    x = torch.from_numpy(_audio((8, 1363 * 160 + 400), seed=8)).to(cuda)
+    a = fbank_cuda.fbank_cuda(x, Mc, Ms, _bank(80))
+    b = fbank_cuda.fbank_cuda(x, Mc, Ms, _bank(80))
+    assert torch.equal(a, b)
+
+
+def test_kernel_near_silent_against_float64(cuda):
+    """A 1 kHz tone at 0.3 over 1e-3 noise leaves mel bins whose DFT sums
+    nearly cancel. Both fp32 routes are held to float64 frames on the card:
+    the kernel may be no more than twice as far off as the plain version,
+    which catches a lost digit (TF32 is some 1e3 times worse) and not a
+    benign change of summation order."""
+    B, T = 3, 1001
+    N = (T - 1) * 160 + 400
+    t = np.arange(N) / 16000.0
+    rng = np.random.default_rng(9)
+    x_np = (0.3 * np.sin(2 * np.pi * 1000.0 * t) + 1e-3 * rng.standard_normal((B, N)))
+    x = torch.from_numpy(x_np.astype(np.float32)).to(cuda)
+    Mc, Ms = ops.dft_analysis_matrices(400, 512)
+    mats = fbank_cuda._squeeze_nyquist(Mc, Ms, _bank(80))
+    f32 = [torch.from_numpy(np.ascontiguousarray(m)).to(cuda) for m in mats]
+    f64 = [m.double() for m in f32]
+    frames = x.double().unfold(-1, 400, 160)
+    power = (frames @ f64[0]) ** 2 + (frames @ f64[1]) ** 2
+    truth = torch.log(torch.clamp_min(power @ f64[2], ops.FLT_EPS))
+    kernel_err = (fbank_cuda.fbank_cuda(x, *f32).double() - truth).abs().max().item()
+    plain_err = (fbank_cuda.reference_fbank(x, *f32).double() - truth).abs().max().item()
+    assert kernel_err <= 2 * plain_err, (kernel_err, plain_err)
+
+
+def test_kernel_reads_unaligned_rows(cuda):
+    """Rows that are not 16-byte aligned are staged by the threads, not by
+    bulk copies; with an odd row stride the two routes mix in one launch."""
+    Mc, Ms = ops.dft_analysis_matrices(400, 512)
+    big = torch.from_numpy(_audio((4, 30001), seed=10)).to(cuda)
+    view = big[:, 1:20001]
+    assert [view[b].data_ptr() % 16 == 0 for b in range(4)] == [False, False, False, True]
+    a = fbank_cuda.fbank_cuda(view, Mc, Ms, _bank(80))
+    b = fbank_cuda.fbank_cuda(view.contiguous(), Mc, Ms, _bank(80))
+    assert torch.equal(a, b)
+
+
 def test_kernel_wrapper_refuses_what_it_cannot_take(cuda):
     Mc, Ms = ops.dft_analysis_matrices(400, 512)
     x = torch.zeros(2, 16000, device=cuda)
@@ -82,6 +146,11 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda):
         fbank_cuda.fbank_cuda(torch.zeros(16000, 2, device=cuda).t(), Mc, Ms, _bank(80))
     with pytest.raises(ValueError, match="mel filters"):
         fbank_cuda.fbank_cuda(x, Mc, Ms, np.zeros((257, 200), np.float32))
+    with pytest.raises(ValueError, match="128 or 256 bins"):
+        wide = np.zeros((400, 384), np.float32)
+        fbank_cuda.fbank_cuda(x, wide, wide, np.zeros((384, 80), np.float32))
+    with pytest.raises(ValueError, match="pack_dft"):
+        fbank_cuda.fbank_cuda(x, Mc, Ms, _bank(80), dft=torch.zeros(4, 400, 64, device=cuda))
     with pytest.raises(ValueError, match="Nyquist"):
         bad = _bank(80)
         bad[256, 3] = 1.0

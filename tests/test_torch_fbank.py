@@ -219,6 +219,19 @@ def test_fbank_fused_padded_matches_jax_frames(matrices, n, snip_edges):
         assert np.abs(ours - theirs).max() <= LOGMEL_TOL
 
 
+@pytest.mark.parametrize("bins", [256, 128])
+def test_pack_dft_layout(matrices, bins):
+    """The kernel's packed operand: row k of quarter q is Mc[k, 64q:64q+64]
+    then Ms[k, 64q:64q+64]."""
+    Mc, Ms, _ = matrices
+    Mc, Ms = torch.from_numpy(Mc[:, :bins].copy()), torch.from_numpy(Ms[:, :bins].copy())
+    packed = fbank_cuda.pack_dft(Mc, Ms)
+    assert packed.shape == (bins // 64, 400, 128) and packed.is_contiguous()
+    for q in range(bins // 64):
+        assert torch.equal(packed[q, :, :64], Mc[:, 64 * q:64 * q + 64])
+        assert torch.equal(packed[q, :, 64:], Ms[:, 64 * q:64 * q + 64])
+
+
 def test_nonzero_nyquist_row_raises(matrices):
     Mc, Ms, fb = matrices
     bad = fb.copy()
