@@ -2,7 +2,9 @@
 Smoke run of the PyTorch port on one CUDA card: builds the fbank kernel
 from this checkout, holds it against its plain PyTorch version, drives the
 on-device augment→fbank path through ``OnDeviceAugmenter`` at the 15 s ×
-256 bucket, and checks what comes out.
+256 bucket with the int16 and the adpcm4 wire, through the device sample
+cache over two epochs fed by ``transfer_stream``, and through the ``Fbank``
+and ``Mfcc`` extractors on the card, and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -12,13 +14,16 @@ non-zero and prints no result. It imports neither ``jax`` nor
 phase passed. The line before the last is a JSON record of the kernel
 (launches on the main path, max-abs error against the plain version, per
 call times by CUDA events and device times by ``torch.profiler`` for the
-kernel and its plain version at each shape, and the near-silent check
-against float64); the last line is ``{"ok": true, "device": {...}}``.
+kernel and its plain version at each shape, the near-silent check against
+float64, and the kernel's launches on each path); the last line is
+``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import queue
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -30,7 +35,9 @@ SR = 16000
 SPEED = 1.1
 KERNEL_TOL = 5e-5  # the JAX package's own bound for the fused fbank (tests/test_fbank_pallas.py)
 CHAIN_TOL = 1e-4  # the feature parity budget (BASELINE.md)
+CACHE_TOL = 1e-5  # cached vs wire features (tests/test_device_cache.py's bound)
 TIMING_RUNS = 10
+BUCKET = (15.0, 256)
 
 
 def _device_ms(fn, kernel: str = "") -> float:
@@ -51,6 +58,34 @@ def _device_ms(fn, kernel: str = "") -> float:
     if not us > 0:
         raise AssertionError(f"torch.profiler recorded no device time for {kernel or 'the call'}")
     return us / 1000.0 / TIMING_RUNS
+
+
+def _device_busy(fn):
+    """Run ``fn`` once under ``torch.profiler``. Returns its host-clock wall
+    ms, the ms in which the device was busy (the union of the intervals of
+    its device activities: kernels, copies, sets) and the device ms by
+    activity name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, reach = 0.0, -math.inf
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    if not busy_us > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return wall_ms, busy_us / 1e3, by_name
 
 
 def _near_silent_errors(device, ops, fbank_cuda) -> tuple:
@@ -103,6 +138,227 @@ def _expected_feat_lens(lens: np.ndarray) -> np.ndarray:
     return (-(-lens * 10 // 11) + 80) // 160
 
 
+def _check_chain(staged, feats, feat_lens, wire_format, rir, device, fbank_cuda) -> float:
+    """Max-abs of the path's features against the same chain with the
+    kernel's plain version on the card (these plain runs launch no kernel);
+    raises past ``CHAIN_TOL`` or on other ``feat_lens``."""
+    from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank
+    from lhotse_tpu_torch.ops.augment import make_augment_fbank_pipeline
+
+    plain_pipe = make_augment_fbank_pipeline(
+        sampling_rate=SR, speed_factor=SPEED, wire_format=wire_format, rir=rir, device=device,
+        fbank=_PlainFbank(Wav2LogFilterBank(device=device), fbank_cuda))
+    plain_feats, plain_lens = plain_pipe(staged.audio, staged.lens, **staged.kwargs)
+    err = (plain_feats - feats).abs().max().item()
+    print(f"{wire_format} path vs the same chain with the plain fbank: max_abs_err {err!r} "
+          f"(tol {CHAIN_TOL})")
+    if not err <= CHAIN_TOL or not torch.equal(plain_lens, feat_lens):
+        raise AssertionError(f"the {wire_format} path disagrees with the plain chain")
+    return err
+
+
+def _phase_adpcm4(common, batch, rir, device, fbank_cuda) -> int:
+    """4. The adpcm4 wire at the full bucket: the card's decode of a staged
+    batch against the numpy decode bit for bit, the features against the
+    plain chain. Returns the kernel's launches on the path."""
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.ops import wire
+
+    from lhotse_tpu_torch.dataset import device_augment
+
+    aug = OnDeviceAugmenter(buckets=[BUCKET], wire_format="adpcm4", **common)
+    audio, lens = batch
+    encode_s = []
+
+    def timed_encode(x, wire_format):  # the stage's own encode, timed
+        t = time.perf_counter()
+        out = wire.encode_wire(x, wire_format)
+        encode_s.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    device_augment.encode_wire = timed_encode
+    try:
+        staged = aug.stage(audio, lens)
+    finally:
+        device_augment.encode_wire = wire.encode_wire
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    encode_ms = encode_s[0] * 1e3
+    feats, feat_lens = aug.compute(staged)
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+    elapsed = time.perf_counter() - t0
+    decoded = wire.decode_wire(staged.audio, "adpcm4")
+    if not torch.equal(decoded.cpu(), torch.from_numpy(wire.adpcm4_decode_np(staged.audio.cpu().numpy()))):
+        raise AssertionError("the card's adpcm4 decode differs from adpcm4_decode_np")
+    decode_ms = _device_ms(lambda: wire.decode_wire(staged.audio, "adpcm4"))
+    width = tuple(staged.audio.shape)
+    print(f"adpcm4 {BUCKET[0]:g} s x {BUCKET[1]}: wire {width} uint8 ({wire.wire_bytes_per_sample('adpcm4')} B/sample); "
+          f"host encode {encode_ms!r} ms (numpy), stage {stage_ms!r} ms; decode on the card "
+          f"bit-exact, device {decode_ms!r} ms per batch (torch.profiler); "
+          f"{float(lens.sum()) / SR / elapsed!r} audio-s/s (stage + compute); "
+          f"fbank kernel launches {launches}")
+    frames = (math.ceil(int(BUCKET[0] * SR) * 10 / 11) + 80) // 160
+    if tuple(feats.shape) != (BUCKET[1], frames, 80) or not torch.isfinite(feats).all():
+        raise AssertionError(f"adpcm4 features {tuple(feats.shape)} wrong or not finite")
+    if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
+        raise AssertionError("adpcm4 feat_lens differ from the hop rule")
+    _check_chain(staged, feats, feat_lens, "adpcm4", common["rir"], device, fbank_cuda)
+    return launches
+
+
+def _produce(stage, epoch_batches, ids_of, placeholder: bool):
+    """A producer thread that stages the epoch's batches with
+    ``transfer=False`` (an epoch of a fully cached corpus stages from
+    ``(B, 0)`` placeholders, as a cache-aware input strategy gives them), and
+    a generator over what it staged. The generator re-raises the thread's
+    error and joins it."""
+    out = queue.Queue(maxsize=2)
+
+    def run():
+        try:
+            for i, (audio, lens) in enumerate(epoch_batches):
+                if placeholder:
+                    audio = np.zeros((audio.shape[0], 0), np.float32)
+                out.put(stage(audio, lens, ids=ids_of(i), transfer=False))
+        except Exception as e:  # handed to the consumer, which raises it
+            out.put(e)
+        out.put(None)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def items():
+        try:
+            while (item := out.get()) is not None:
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            thread.join(timeout=60)
+            if thread.is_alive():
+                raise AssertionError("the producer thread did not stop")
+
+    return items()
+
+
+def _phase_cache(common, cache_batches, device, fbank_cuda) -> int:
+    """5. The sample cache over two epochs, fed through ``transfer_stream``
+    by a producer thread, and a third (cached) epoch under ``torch.profiler``
+    for the device's busy share. Returns the kernel's launches in the cached
+    epoch."""
+    from lhotse_tpu_torch.dataset.device_augment import CachedBatch, OnDeviceAugmenter, StagedBatch
+    from lhotse_tpu_torch.dataset.device_cache import DeviceSampleCache
+    from lhotse_tpu_torch.dataset.loader import transfer_stream
+
+    n, (sec, bsz) = len(cache_batches), BUCKET
+    cache = DeviceSampleCache(capacity_seconds=n * bsz * sec)
+    aug = OnDeviceAugmenter(buckets=[BUCKET], wire_format="int16", sample_cache=cache, **common)
+
+    def ids_of(i):
+        return [f"b{i}_{k}" for k in range(bsz)]
+
+    def run_epoch(placeholder):
+        staged, outs = [], []
+        for s in transfer_stream(_produce(aug.stage, cache_batches, ids_of, placeholder),
+                                 lookahead=2, device=device):
+            staged.append(s)
+            outs.append(aug.compute(s))
+        return staged, outs
+
+    audio_sec = sum(float(lens.sum()) for _, lens in cache_batches) / SR
+    epochs, launches = [], 0
+    for epoch in range(2):
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        staged, outs = run_epoch(epoch == 1)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = fbank_cuda.LAUNCHES
+        if epoch == 0 and not all(isinstance(s, StagedBatch) and s.insert_slots is not None
+                                  for s in staged):
+            raise AssertionError("epoch 1 of the cache phase was not all misses with inserts")
+        if epoch == 1 and not all(isinstance(s, CachedBatch) for s in staged):
+            raise AssertionError("epoch 2 of the cache phase was not all cached")
+        epochs.append((staged, outs))
+        print(f"sample cache epoch {epoch + 1}: {n} batches of {sec:g} s x {bsz}, {audio_sec!r} audio-s in "
+              f"{elapsed!r} s: {audio_sec / elapsed!r} audio-s/s; fbank kernel launches {launches}")
+    if launches < n:
+        raise AssertionError(f"the cached epoch launched the fbank kernel {launches} times")
+    stats = cache.stats()
+    print(f"sample cache: hit rate {stats['hit_rate']!r}, {stats['resident_items']} items resident, "
+          f"memory_bytes {stats['memory_bytes']}")
+    wall_ms, busy_ms, by_name = _device_busy(lambda: run_epoch(True))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"sample cache epoch 3 (cached, under torch.profiler): wall {wall_ms!r} ms, device busy "
+          f"{busy_ms!r} ms ({busy_ms / n!r} ms per batch, {busy_ms / wall_ms!r} of the wall); "
+          f"device ms by activity: " + "; ".join(f"{k[:60]} {v!r}" for k, v in top))
+
+    # Epoch 2 against a cache-less augmenter with the same seed, at the
+    # counters epoch 2 was staged with.
+    cached, cached_outs = epochs[1]
+    ref = OnDeviceAugmenter(buckets=[BUCKET], wire_format="int16", **common)
+    ref.load_state_dict({"seed": 0, "next_counter": cached[0].aug_counter})
+    err = 0.0
+    for (audio, lens), (feats, feat_lens) in zip(cache_batches, cached_outs):
+        ref_feats, ref_lens = ref(audio, lens)
+        if not torch.equal(ref_lens, feat_lens):
+            raise AssertionError("cached feat_lens differ from the cache-less augmenter's")
+        real = feat_lens > 0
+        err = max(err, (feats[real] - ref_feats[real]).abs().max().item())
+    grouped = aug.compute_grouped(cached[:2])
+    group_equal = all(torch.equal(g, o[0]) for (g, _), o in zip(grouped, cached_outs))
+    print(f"cached epoch vs the cache-less augmenter: max_abs_err {err!r} (tol {CACHE_TOL}); "
+          f"compute_grouped of 2 cached batches equal to compute: {group_equal}")
+    if not err <= CACHE_TOL or not group_equal:
+        raise AssertionError("the cached path disagrees with the wire path")
+    if aug.state_dict(after=cached[0])["next_counter"] != cached[0].aug_counter + 1:
+        raise AssertionError("state_dict(after=cached_batch) is not its counter + 1")
+    return launches
+
+
+def _phase_extractors(device, fbank_cuda, ops) -> dict:
+    """6. ``Fbank`` and ``Mfcc`` extraction on the card against the same
+    extractors on the CPU (the port's plain route). Returns the kernel's
+    launches per extractor."""
+    from lhotse_tpu_torch.features.kaldi import extractors
+
+    rng = np.random.default_rng(6)
+    items = [(0.1 * rng.standard_normal(n)).astype(np.float32)
+             for n in rng.integers(1 * SR, 20 * SR + 1, size=8)]
+    audio_sec = sum(len(x) for x in items) / SR
+    launches = {}
+    for kind in ("Fbank", "Mfcc"):
+        cls, cfg_cls = getattr(extractors, kind), getattr(extractors, f"{kind}Config")
+        on_card = cls(cfg_cls(device=device))
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        feats = on_card.extract_batch(items, SR)
+        first_s = time.perf_counter() - t0
+        launches[f"extractor_{kind.lower()}"] = fbank_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        on_card.extract_batch(items, SR)
+        warm_s = time.perf_counter() - t0
+        ref = cls(cfg_cls(device="cpu")).extract_batch(items, SR)
+        err = max(float(np.abs(a - b).max()) for a, b in zip(feats, ref))
+        snip = cls(cfg_cls(device=device, snip_edges=True)).extract_batch(items, SR)
+        want = [ops.compute_num_frames_pad(len(x), 160) for x in items]
+        want_snip = [ops.compute_num_frames_snip(len(x), 400, 160) for x in items]
+        print(f"{kind} extractor on the card, 8 items of 1-20 s: max_abs_err vs the CPU route "
+              f"{err!r} (tol {CHAIN_TOL}); {audio_sec / first_s!r} audio-s/s first call, "
+              f"{audio_sec / warm_s!r} audio-s/s second call; fbank kernel launches "
+              f"{launches[f'extractor_{kind.lower()}']}")
+        if [f.shape[0] for f in feats] != want or [f.shape[0] for f in snip] != want_snip:
+            raise AssertionError(f"{kind} frame counts differ from _num_frames")
+        if not err <= CHAIN_TOL or not all(np.isfinite(f).all() for f in feats):
+            raise AssertionError(f"{kind} on the card disagrees with the CPU route")
+    return launches
+
+
 class _PlainFbank:
     """The default fbank layer's computation with the kernel's plain version
     in place of the kernel, for the chain comparison."""
@@ -120,6 +376,7 @@ class _PlainFbank:
 
 
 def main() -> None:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() is False.")
     import lhotse_tpu_torch
@@ -129,10 +386,8 @@ def main() -> None:
     from lhotse_tpu_torch import _build
     from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
     from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
-    from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank
     from lhotse_tpu_torch.ops import fbank as ops
     from lhotse_tpu_torch.ops import fbank_cuda
-    from lhotse_tpu_torch.ops.augment import make_augment_fbank_pipeline
 
     assert "jax" not in sys.modules and "lhotse_tpu" not in sys.modules
     # The plain versions this script compares against must be IEEE fp32:
@@ -158,7 +413,8 @@ def main() -> None:
     # times are of the launch alone.
     Mc, Ms = ops.dft_analysis_matrices(400, 512)
     cases = []
-    for B, T, n_mels in [(1, 100, 23), (3, 1001, 80), (256, 1364, 80)]:
+    # 200 filters run in two of the kernel's 128-filter chunks.
+    for B, T, n_mels in [(1, 100, 23), (3, 1001, 80), (3, 1001, 200), (256, 1364, 80)]:
         Mc_d, Ms_d, fb_d = (
             torch.from_numpy(np.ascontiguousarray(m)).to(device)
             for m in fbank_cuda._squeeze_nyquist(Mc, Ms, _mel_bank(n_mels, ops)))
@@ -258,17 +514,7 @@ def main() -> None:
             raise AssertionError(f"{sec} s bucket feat_lens differ from the hop rule")
         print(f"{sec} s x {bsz} bucket, float32 wire: features {tuple(feats.shape)} finite")
 
-    # The same chain with the kernel's plain version on the card, on the
-    # first staged batch (these plain runs launch no kernel).
-    plain_pipe = make_augment_fbank_pipeline(
-        sampling_rate=SR, speed_factor=SPEED, wire_format="int16", rir=rir, device=device,
-        fbank=_PlainFbank(Wav2LogFilterBank(device=device), fbank_cuda))
-    plain_feats, plain_lens = plain_pipe(staged[0].audio, staged[0].lens, **staged[0].kwargs)
-    chain_err = (plain_feats - outs[0][0]).abs().max().item()
-    print(f"main path vs the same chain with the plain fbank: max_abs_err {chain_err!r} "
-          f"(tol {CHAIN_TOL})")
-    if not chain_err <= CHAIN_TOL or not torch.equal(plain_lens, outs[0][1]):
-        raise AssertionError("the main path disagrees with the plain chain")
+    _check_chain(staged[0], *outs[0], "int16", rir, device, fbank_cuda)
 
     # A small batch through the CPU port (plain versions throughout) as the
     # reference for the card's result.
@@ -280,6 +526,17 @@ def main() -> None:
     print(f"6 s x 4 batch, card vs CPU port: max_abs_err {cross_err!r} (tol {CHAIN_TOL})")
     if not cross_err <= CHAIN_TOL or not torch.equal(gpu_lens.cpu(), cpu_lens):
         raise AssertionError("the card's result disagrees with the CPU port's")
+
+    # -- 4. adpcm4 wire, 5. sample cache, 6. extractors -------------------------
+    by_path = {"augment_int16": launches}
+    by_path["augment_adpcm4"] = _phase_adpcm4(common, batches[0], rir, device, fbank_cuda)
+    extra = rng.integers(8 * SR, 15 * SR + 1, size=256)
+    cache_batches = batches + [(rng.standard_normal((256, 15 * SR), np.float32) * 0.1, extra)]
+    by_path["cached"] = _phase_cache(common, cache_batches, device, fbank_cuda)
+    by_path.update(_phase_extractors(device, fbank_cuda, ops))
+    print(f"fbank kernel launches by path: {by_path}")
+    if not all(n > 0 for n in by_path.values()):
+        raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
     record = {"kernels": [{
         "name": "fbank_logmel",
@@ -294,7 +551,9 @@ def main() -> None:
         "plain_device_ms": main_case["plain_device_ms"],
         "cases": cases,
         "near_silent_err": {"kernel": kernel_err, "plain": plain_err},
+        "launches_by_path": by_path,
     }]}
+    print(f"chip_smoke.py wall time {time.perf_counter() - start!r} s")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

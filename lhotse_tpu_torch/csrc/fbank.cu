@@ -41,12 +41,14 @@
 //   Each re and im is one accumulator summed over k = 0..399 in order.
 // - The quarter's power (128 x 64) goes to shared memory over the ring. Mel
 //   filter m sums only the bins between its first and last nonzero weight in
-//   the quarter, in order; the skipped terms are exactly zero. The result is
-//   a partial (128 x n_mels) tile over the span.
+//   the quarter, in order; the skipped terms are exactly zero. The filters
+//   go in chunks of 128: each chunk is a partial (128 x 128) tile over the
+//   span.
 // - After a cluster barrier, block r of the cluster sums its slice of frames
-//   over the partial tiles of ranks 0..Q-1 in that order through distributed
-//   shared memory, takes the eps-floored log and stores whole rows. No
-//   atomics touch the output: it is the same from run to run.
+//   over the chunk's partial tiles of ranks 0..Q-1 in that order through
+//   distributed shared memory, takes the eps-floored log and stores it; a
+//   second barrier frees the tiles for the next chunk. No atomics touch the
+//   output: it is the same from run to run.
 // - 115,704 bytes of shared memory and __launch_bounds__(256, 2): two
 //   blocks per SM. The frame tail of an utterance that is no multiple of
 //   128 is masked: samples past the end load as 0 and frames past the end
@@ -83,17 +85,21 @@ constexpr int kSlices = kFrameLen / kSliceRows;              // 25
 constexpr int kStages = 4;
 constexpr int kSliceFloats = kSliceRows * kRowFloats;
 constexpr unsigned kSliceBytes = kSliceFloats * sizeof(float);  // 8 KB
-constexpr int kMaxMels = 128;
+constexpr int kMelChunk = 128;                               // mel filters per partial tile
 constexpr int kSpan = (kTileFrames - 1) * kHop + kFrameLen;  // 20720 samples
 constexpr int kRingBytes = kStages * kSliceFloats * sizeof(float);
 constexpr int kSpanBytes = kSpan * sizeof(float);
+constexpr int kPartialBytes = kTileFrames * kMelChunk * sizeof(float);
+// The filters' bin ranges (2 bytes each) sit in the span after the partial tile.
+constexpr int kMaxMels = 8192;
 constexpr int kSpanChunk = 4096;                             // samples per bulk copy
 constexpr int kSmemBytes =
     kRingBytes + kSpanBytes + (kStages + 1) * sizeof(uint64_t) + kStages * sizeof(unsigned);
 
 static_assert(kFrameLen % kSliceRows == 0, "whole slices");
 static_assert(kTileFrames * kQuarter * sizeof(float) <= kRingBytes, "the power tile fits the ring");
-static_assert(kTileFrames * kMaxMels * sizeof(float) <= kSpanBytes, "the partial tile fits the span");
+static_assert(kPartialBytes + kMaxMels * sizeof(unsigned short) <= kSpanBytes,
+              "the partial tile and the mel ranges fit the span");
 static_assert(kHop % 4 == 0 && kSliceRows % 4 == 0, "frames are read as aligned float4s");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -141,6 +147,18 @@ __device__ __forceinline__ void issue_span(float* span, uint32_t bar, const floa
     bulk_copy(span + i, src + i, min(kSpanChunk, n - i) * sizeof(float), bar);
 }
 
+// The bins [lo, hi) of a quarter between mel filter m's first and last
+// nonzero weight, as lo | hi << 8 (0 when the quarter holds none): the
+// filter's sum skips the others, whose terms are exactly zero, and keeps
+// the order of the rest.
+__device__ __forceinline__ unsigned mel_range(const float* mel_rows, int n_mels, int m) {
+  int lo = kQuarter, hi = 0;
+#pragma unroll 16
+  for (int k = 0; k < kQuarter; ++k)
+    if (__ldg(mel_rows + k * n_mels + m) != 0.f) lo = min(lo, k), hi = k + 1;
+  return lo < hi ? lo | hi << 8 : 0;
+}
+
 // Q quarters of 64 bins: a cluster of Q blocks per tile of 128 frames.
 template <int Q>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -154,7 +172,7 @@ fbank_logmel_kernel(const float* __restrict__ audio, const float* __restrict__ d
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw + kRingBytes + kSpanBytes);
   unsigned* done = reinterpret_cast<unsigned*>(bars + kStages + 1);  // warps done, per slot
   float* power = ring;  // (kTileFrames, kQuarter) once the DFT is done
-  float* partial = span;  // (kTileFrames, kMaxMels) once the DFT is done
+  float* partial = span;  // (kTileFrames, kMelChunk) once the DFT is done
 
   cg::cluster_group cluster = cg::this_cluster();
   const int q = static_cast<int>(cluster.block_rank());
@@ -191,18 +209,10 @@ fbank_logmel_kernel(const float* __restrict__ audio, const float* __restrict__ d
     const long long s = start + i;
     span[i] = s < n_samples ? __ldg(x + s) : 0.f;
   }
-  // Thread m < n_mels finds the bins [lo, hi) of this quarter between mel
-  // filter m's first and last nonzero weight: its sum skips the others,
-  // whose terms are exactly zero, and keeps the order of the rest.
+  // Thread m finds mel filter m's bins while the copies are in flight;
+  // filters past the block's threads wait until after the DFT.
   const float* mel_rows = mel + static_cast<size_t>(bin0) * n_mels;
-  unsigned range = 0;  // lo | hi << 8
-  if (threadIdx.x < n_mels) {
-    int lo = kQuarter, hi = 0;
-#pragma unroll 16
-    for (int k = 0; k < kQuarter; ++k)
-      if (__ldg(mel_rows + k * n_mels + threadIdx.x) != 0.f) lo = min(lo, k), hi = k + 1;
-    range = lo < hi ? lo | hi << 8 : 0;
-  }
+  const unsigned range = threadIdx.x < n_mels ? mel_range(mel_rows, n_mels, threadIdx.x) : 0;
   __syncthreads();
   if (n_bulk > 0) mbar_wait(span_bar, 0);
 
@@ -254,12 +264,12 @@ fbank_logmel_kernel(const float* __restrict__ audio, const float* __restrict__ d
     }
   }
   __syncthreads();  // the ring and the span are free
-  unsigned short* ranges = reinterpret_cast<unsigned short*>(partial + kTileFrames * kMaxMels);
+  unsigned short* ranges = reinterpret_cast<unsigned short*>(span + kTileFrames * kMelChunk);
   if (threadIdx.x < n_mels) ranges[threadIdx.x] = static_cast<unsigned short>(range);
+  for (int m = kThreads + threadIdx.x; m < n_mels; m += kThreads)
+    ranges[m] = static_cast<unsigned short>(mel_range(mel_rows, n_mels, m));
 
-  // -- power, then this quarter's share of the mel product ------------------
-  // A warp reads back only the power rows of its own frames, and writes only
-  // its own rows of the partial tile.
+  // -- power ----------------------------------------------------------------
   float* pow_rows = power + warp * kFramesPerWarp * kQuarter;
 #pragma unroll
   for (int f = 0; f < kFramesPerWarp; ++f)
@@ -267,44 +277,53 @@ fbank_logmel_kernel(const float* __restrict__ audio, const float* __restrict__ d
         make_float2(re[f][0] * re[f][0] + im[f][0] * im[f][0],
                     re[f][1] * re[f][1] + im[f][1] * im[f][1]);
   __syncthreads();  // the power rows and the mel ranges are written
-  float* part_rows = partial + warp * kFramesPerWarp * kMaxMels;
-  for (int m = lane; m < n_mels; m += 32) {
-    const unsigned r = ranges[m];
-    const int hi = r >> 8;
-    float acc[kFramesPerWarp];
-#pragma unroll
-    for (int f = 0; f < kFramesPerWarp; ++f) acc[f] = 0.f;
-    int k = r & 0xff;
-    float w = k < hi ? __ldg(mel_rows + k * n_mels + m) : 0.f;
-    for (; k < hi; ++k) {
-      const float cur = w;
-      if (k + 1 < hi) w = __ldg(mel_rows + (k + 1) * n_mels + m);
-#pragma unroll
-      for (int f = 0; f < kFramesPerWarp; ++f) acc[f] = fmaf(pow_rows[f * kQuarter + k], cur, acc[f]);
-    }
-#pragma unroll
-    for (int f = 0; f < kFramesPerWarp; ++f) part_rows[f * kMaxMels + m] = acc[f];
-  }
 
-  // -- sum the Q partial tiles across the cluster, log, store ---------------
-  cluster.sync();
+  // -- per chunk of filters: this quarter's share of the mel product, then
+  // the sum of the Q partial tiles across the cluster, log, store ----------
   constexpr int kRows = kTileFrames / Q;
   const int f0 = q * kRows;
   const int valid = min(kRows, n_frames - (t0 + f0));
-  if (valid > 0) {
-    const float* parts[Q];
+  float* dst = out + (static_cast<size_t>(b) * n_frames + t0 + f0) * n_mels;
+  const float* parts[Q];
 #pragma unroll
-    for (int r = 0; r < Q; ++r) parts[r] = cluster.map_shared_rank(partial, r);
-    float* dst = out + (static_cast<size_t>(b) * n_frames + t0 + f0) * n_mels;
-    const int count = valid * n_mels;
+  for (int r = 0; r < Q; ++r) parts[r] = cluster.map_shared_rank(partial, r);
+  float* part_rows = partial + warp * kFramesPerWarp * kMelChunk;
+  for (int c0 = 0; c0 < n_mels; c0 += kMelChunk) {
+    const int nc = min(kMelChunk, n_mels - c0);
+    if (c0 > 0) cluster.sync();  // every rank has read the last chunk's tile
+    // A warp reads back only the power rows of its own frames, and writes
+    // only its own rows of the partial tile.
+    for (int m = lane; m < nc; m += 32) {
+      const unsigned r = ranges[c0 + m];
+      const int hi = r >> 8;
+      const float* w_col = mel_rows + c0 + m;
+      float acc[kFramesPerWarp];
+#pragma unroll
+      for (int f = 0; f < kFramesPerWarp; ++f) acc[f] = 0.f;
+      int k = r & 0xff;
+      float w = k < hi ? __ldg(w_col + k * n_mels) : 0.f;
+      for (; k < hi; ++k) {
+        const float cur = w;
+        if (k + 1 < hi) w = __ldg(w_col + (k + 1) * n_mels);
+#pragma unroll
+        for (int f = 0; f < kFramesPerWarp; ++f) acc[f] = fmaf(pow_rows[f * kQuarter + k], cur, acc[f]);
+      }
+#pragma unroll
+      for (int f = 0; f < kFramesPerWarp; ++f) part_rows[f * kMelChunk + m] = acc[f];
+    }
+    cluster.sync();
+    if (valid > 0) {
+      const int count = valid * nc;
 #pragma unroll 4
-    for (int i = threadIdx.x; i < count; i += kThreads) {
-      const int f = i / n_mels;
-      const int off = (f0 + f) * kMaxMels + (i - f * n_mels);
-      float v = parts[0][off];
+      for (int i = threadIdx.x; i < count; i += kThreads) {
+        const int f = i / nc;
+        const int j = i - f * nc;
+        const int off = (f0 + f) * kMelChunk + j;
+        float v = parts[0][off];
 #pragma unroll
-      for (int r = 1; r < Q; ++r) v += parts[r][off];
-      dst[i] = logf(fmaxf(v, eps));
+        for (int r = 1; r < Q; ++r) v += parts[r][off];
+        dst[f * n_mels + c0 + j] = logf(fmaxf(v, eps));
+      }
     }
   }
   // No block leaves while another still reads its tile; nothing is
@@ -358,7 +377,7 @@ cudaError_t configure_device() {
 // audio (B, n_samples), rows row_stride floats apart, with
 // n_frames = (n_samples - 400) / 160 + 1; dft (bins / 64, 400, 128), the
 // packed [Mc | Ms] of lhotse_tpu_torch.ops.fbank_cuda.pack_dft, with bins
-// 128 or 256; mel (bins, n_mels) with n_mels <= 128; out (B, n_frames,
+// 128 or 256; mel (bins, n_mels) with n_mels <= 8192; out (B, n_frames,
 // n_mels). All float32; dft, mel and out contiguous, dft 16-byte aligned.
 // The caller checks these. Returns a cudaError_t as int.
 extern "C" int fbank_logmel_f32(const void* audio, const void* dft, const void* mel, void* out,

@@ -38,11 +38,7 @@ import torch
 
 from lhotse_tpu_torch.ops.augment import make_augment_fbank_pipeline, resolve_fbank_layer
 from lhotse_tpu_torch.ops.resample import resampled_num_samples
-from lhotse_tpu_torch.ops.wire import encode_wire, wire_row_width
-
-_SAMPLE_CACHE_TODO = (
-    "sample_cache is not ported to lhotse_tpu_torch yet "
-    "(ROADMAP.md, queue A: dataset/device_cache.py with CachedBatch).")
+from lhotse_tpu_torch.ops.wire import encode_wire, wire_np_dtype, wire_row_width
 
 
 def _to_device(x, device: torch.device):
@@ -65,11 +61,27 @@ class StagedBatch:
     audio: Any  # device tensor, bucket shape (B_b, T_b), wire dtype (numpy if transfer=False)
     lens: np.ndarray  # (B_b,) valid sample counts (0 = padding row)
     kwargs: Dict[str, Any] = field(default_factory=dict)
+    # Sample-cache bookkeeping (miss path): write these rows into the
+    # bucket pool at compute time — zero extra wire bytes.
     bucket_t: Optional[int] = None
+    insert_slots: Optional[np.ndarray] = None
     # Staging counter this batch's augmentation randomness was keyed by —
     # pass to OnDeviceAugmenter.state_dict(after=...) for checkpoints that
     # stay consistent while a prefetch thread stages ahead.
     aug_counter: Optional[int] = None
+
+
+@dataclass
+class CachedBatch:
+    """A batch whose audio is already resident in the device sample cache —
+    :meth:`OnDeviceAugmenter.compute` gathers pool rows by slot; nothing
+    crosses the wire."""
+
+    bucket_t: int
+    slots: np.ndarray  # (B_b,) int32 pool rows (scratch slot = padding)
+    lens: np.ndarray  # (B_b,) valid sample counts (0 = padding row)
+    kwargs: Dict[str, Any] = field(default_factory=dict)
+    aug_counter: Optional[int] = None  # see StagedBatch.aug_counter
 
 
 class OnDeviceAugmenter:
@@ -90,10 +102,15 @@ class OnDeviceAugmenter:
     :param rir: optional (L,) float32 impulse response (shared; kept on the
         host side of the pipeline so its peak is found once).
     :param wire_format: host->device transfer encoding — "float32"
-        (lossless), "int16" (half the bytes) or "mulaw" (8-bit, lossy); see
-        :mod:`lhotse_tpu_torch.ops.wire`.
+        (lossless), "int16" (half the bytes), "mulaw" (8-bit, lossy) or
+        "adpcm4" (4-bit block ADPCM, lossy, ~1/7 the bytes; bucket shapes
+        must be multiples of 64 samples); see :mod:`lhotse_tpu_torch.ops.wire`.
     :param seed: host RNG seed for gains/SNRs/noise choice.
-    :param sample_cache: not ported yet; must be None.
+    :param sample_cache: optional
+        :class:`~lhotse_tpu_torch.dataset.device_cache.DeviceSampleCache`
+        keeping wire-format audio resident on ``device`` across epochs —
+        fully-resident batches skip the host→device transfer. Pass the
+        batch's cut ids to :meth:`stage`.
     :param specaugment: optional
         :class:`~lhotse_tpu_torch.dataset.signal_transforms.SpecAugment`;
         its randomness is drawn host-side per batch over the bucket's frame
@@ -120,12 +137,10 @@ class OnDeviceAugmenter:
         *,
         device,
     ) -> None:
-        if sample_cache is not None:
-            raise NotImplementedError(_SAMPLE_CACHE_TODO)
         assert len(buckets) > 0
         for ub, _ in buckets:
-            # Raises ValueError for an unknown format, NotImplementedError
-            # for one not ported yet.
+            # Raises ValueError for an unknown format, and for adpcm4 on a
+            # bucket that is not a whole number of blocks.
             wire_row_width(int(float(ub) * sampling_rate), wire_format)
         self.device = torch.device(device)
         self.buckets = sorted((float(s), int(b)) for s, b in buckets)
@@ -159,6 +174,9 @@ class OnDeviceAugmenter:
             None if noise_pool is None else np.asarray(noise_pool, np.float32)
         )
         self._noise_device: dict = {}
+        self.sample_cache = sample_cache
+        if sample_cache is not None:
+            sample_cache.configure([ub for ub, _ in self.buckets], self.device)
 
     # -- shapes -----------------------------------------------------------------
 
@@ -212,66 +230,48 @@ class OnDeviceAugmenter:
     def precompile(self, group: int = 1) -> None:
         """Run every bucket once outside the hot loop: builds the fbank
         kernel at first use, plans the FFTs and convolutions, and stages the
-        per-bucket noise. ``group > 1`` also runs the :meth:`compute_grouped`
-        shape of ``group * B`` rows.
+        per-bucket noise. With a sample cache attached, the cached gather
+        path runs per bucket too (the warmup rows land in ring slots and are
+        evicted naturally). ``group`` is accepted for the JAX package's
+        signature: :meth:`compute_grouped` runs batch by batch here, so it
+        has no shape of its own to warm.
 
         RNG-neutral: the warmup draws (and discards) per-batch augmentation
         randomness, so the stream state is snapshotted and restored."""
         rng_snapshot = self.state_dict()
-        for ub, bsz in self.buckets:
+        for bi, (ub, bsz) in enumerate(self.buckets):
             t = int(ub * self.sampling_rate)
             zeros = np.zeros((bsz, t), np.float32)
             lens = np.full(bsz, t, np.int64)
-            self(zeros, lens)
-            if group > 1:
-                self.compute_grouped([self.stage(zeros, lens) for _ in range(group)])
+            if self.sample_cache is None:
+                self(zeros, lens)
+            else:
+                ids = [f"__precompile_{bi}_{k}__" for k in range(bsz)]
+                self.compute(self.stage(zeros, lens, ids=ids))  # miss+insert
+                self.compute(self.stage(zeros, lens, ids=ids))  # cached path
         self.load_state_dict(rng_snapshot)
 
-    def _merge_kwargs(self, staged_batches, B_total: int, t_bucket: int) -> dict:
-        """Concatenate per-batch draws on the device for a ``k*B``
-        mega-batch. The ``noise`` entry is the same shape-keyed tensor in
-        every batch of one bucket, so the merged noise is built once per
-        (k*B, T') and cached; row ``i`` of each sub-batch sees exactly the
-        noise row it would have seen alone."""
-        keys = staged_batches[0].kwargs.keys()
-        kwargs = {
-            k: torch.cat([_to_device(s.kwargs[k], self.device) for s in staged_batches])
-            for k in keys
-            if k != "noise"
-        }
-        if "noise" in keys:
-            key = ("grouped", B_total, self._post_perturb_len(t_bucket))
-            staged_noise = self._noise_device.get(key)
-            if staged_noise is None:
-                staged_noise = torch.cat([s.kwargs["noise"] for s in staged_batches], dim=0)
-                self._noise_device[key] = staged_noise
-            kwargs["noise"] = staged_noise
-        return kwargs
-
     def compute_grouped(self, staged_batches):
-        """Run ``k`` staged batches of the SAME bucket as one ``k*B``
-        mega-batch, returning per-batch ``(feats, feat_lens)`` views. The
-        wire batches are concatenated on the device."""
+        """Run ``k`` staged batches of the SAME bucket, returning per-batch
+        ``(feats, feat_lens)``. Takes either all-:class:`CachedBatch` or
+        all-:class:`StagedBatch`; cache-miss batches go through
+        :meth:`compute`, as in the JAX package.
+
+        The JAX package runs the group as one ``k*B`` mega-batch and is
+        bit-identical to per-batch compute. Here each batch runs on its own:
+        torch's row reductions (the SNR and reverb energies) round
+        differently in a ``k*B`` batch, which moved near-silent log-mel bins
+        by up to 1.6e-4, past the feature budget. So the result is exactly
+        :meth:`compute`'s."""
         assert staged_batches, "compute_grouped needs at least one batch"
-        if len(staged_batches) == 1:
-            return [self.compute(staged_batches[0])]
-        assert all(isinstance(s, StagedBatch) for s in staged_batches), (
-            "compute_grouped takes StagedBatch instances"
-        )
-        shape0 = tuple(staged_batches[0].audio.shape)
-        assert all(tuple(s.audio.shape) == shape0 for s in staged_batches), (
-            "grouped batches must share one bucket shape"
-        )
-        t0 = staged_batches[0].bucket_t
-        lens = np.concatenate([s.lens for s in staged_batches])
-        kwargs = self._merge_kwargs(staged_batches, len(lens), t0)
-        audio = torch.cat([_to_device(s.audio, self.device) for s in staged_batches], dim=0)
-        feats, feat_lens = self._pipeline(audio, lens, **kwargs)
-        B = len(staged_batches[0].lens)
-        return [
-            (feats[i * B : (i + 1) * B], feat_lens[i * B : (i + 1) * B])
-            for i in range(len(staged_batches))
-        ]
+        assert (all(isinstance(s, StagedBatch) for s in staged_batches)
+                or all(isinstance(s, CachedBatch) for s in staged_batches)), (
+            "compute_grouped needs all-cached or all-transfer batches")
+        assert all(s.bucket_t == staged_batches[0].bucket_t for s in staged_batches), (
+            "grouped batches must share one bucket shape")
+        assert all(getattr(s, "insert_slots", None) is None for s in staged_batches), (
+            "cache-miss batches carry pool writes; dispatch them individually through compute()")
+        return [self.compute(s) for s in staged_batches]
 
     def batch_rng(self, counter: int) -> np.random.Generator:
         """The keyed per-batch generator: all of batch ``counter``'s host
@@ -378,7 +378,7 @@ class OnDeviceAugmenter:
         audio_lens: Union[np.ndarray, Sequence[int]],
         ids: Optional[Sequence[str]] = None,
         transfer: bool = True,
-    ) -> StagedBatch:
+    ) -> Union[StagedBatch, CachedBatch]:
         """
         Host-side half of :meth:`__call__`: pad ``(B, T)`` float32 (or int16)
         audio up to its bucket shape, encode the wire format, draw the
@@ -388,8 +388,14 @@ class OnDeviceAugmenter:
         Call this from a prefetch thread so the host→device transfer of batch
         N+1 overlaps the device compute of batch N, then hand the result to
         :meth:`compute`. ``transfer=False`` leaves the wire bytes and draws
-        on the host (numpy) for a downstream transfer stage. ``ids`` belongs
-        to the sample cache, which is not ported yet, and is ignored.
+        on the host (numpy) for a downstream transfer stage
+        (:func:`lhotse_tpu_torch.dataset.loader.transfer_stream`).
+
+        With a :class:`~lhotse_tpu_torch.dataset.device_cache.DeviceSampleCache`
+        attached and ``ids`` given, a fully-resident batch returns a
+        :class:`CachedBatch` (slot indices only, no audio transfer; ``audio``
+        may then be a ``(B, 0)`` placeholder), and a miss batch is
+        transferred once and written into the pool by :meth:`compute`.
         """
         audio = np.asarray(audio)
         if audio.dtype == np.int16:
@@ -410,9 +416,20 @@ class OnDeviceAugmenter:
         lens[:B] = np.minimum(audio_lens, T_b)
         counter = self._stage_counter  # the value _draw_kwargs consumes
         kwargs = self._draw_kwargs(B_b, T_b)
+
+        cache = self.sample_cache
+        if cache is not None and ids is not None and cache.has_all(ids, T_b):
+            if transfer:
+                kwargs = {k: _to_device(v, self.device) for k, v in kwargs.items()}
+            return CachedBatch(
+                T_b, cache.slots(ids, T_b, B_b), lens, kwargs, aug_counter=counter)
+
         if audio.shape[1] == 0:
             raise ValueError(
-                "Got a zero-width audio placeholder; pass the real samples."
+                "Got a zero-width audio placeholder for a batch that is not "
+                "fully cache-resident — pass the real samples (is the "
+                "sampler's duration_bins vocabulary aligned with the "
+                "augmenter buckets?)"
             )
         # np.empty + explicit pad fills: zeroing the full (B_b, T_b) canvas
         # before overwriting most of it costs real time per batch.
@@ -427,14 +444,28 @@ class OnDeviceAugmenter:
         if transfer:
             padded = _to_device(padded, self.device)
             kwargs = {k: _to_device(v, self.device) for k, v in kwargs.items()}
-        return StagedBatch(padded, lens, kwargs, bucket_t=T_b, aug_counter=counter)
+        staged = StagedBatch(padded, lens, kwargs, bucket_t=T_b, aug_counter=counter)
+        if cache is not None and ids is not None:
+            staged.insert_slots = cache.reserve(ids, T_b, B_b, self.sampling_rate)
+        return staged
 
-    def compute(self, staged: StagedBatch):
-        """Device-side half: run the bucket pipeline on a staged batch.
-        Returns device tensors ``(feats (B', T_frames, F), feat_lens (B',))``
-        where ``B'`` is the bucket batch size (padding rows have
-        ``feat_lens == 0``)."""
-        return self._pipeline(staged.audio, staged.lens, **staged.kwargs)
+    def compute(self, staged: Union[StagedBatch, CachedBatch]):
+        """Device-side half: run the bucket pipeline on a staged batch (a
+        :class:`CachedBatch` gathers its wire rows from the pool; a miss
+        batch writes its wire rows into the pool first). Returns device
+        tensors ``(feats (B', T_frames, F), feat_lens (B',))`` where ``B'``
+        is the bucket batch size (padding rows have ``feat_lens == 0``)."""
+        if isinstance(staged, CachedBatch):
+            pool = self.sample_cache.pool(
+                staged.bucket_t, wire_np_dtype(self.wire_format),
+                row_width=wire_row_width(staged.bucket_t, self.wire_format))
+            slots = _to_device(staged.slots.astype(np.int64), self.device)
+            return self._pipeline(pool[slots], staged.lens, **staged.kwargs)
+        audio = staged.audio
+        if staged.insert_slots is not None:
+            audio = _to_device(audio, self.device)
+            self.sample_cache.insert(staged.bucket_t, audio, staged.insert_slots)
+        return self._pipeline(audio, staged.lens, **staged.kwargs)
 
     def __call__(
         self,

@@ -94,7 +94,8 @@ def fbank_cuda(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS,
         every snip-edges frame, ``(N - 400) // 160 + 1`` of them, is computed.
     :param Mc/Ms: (400, bins) folded DFT analysis matrices (bins = 257 with a
         zero-Nyquist mel row, or 128 or 256).
-    :param mel_fb: (bins, n_mels) mel filterbank, n_mels <= 128.
+    :param mel_fb: (bins, n_mels) mel filterbank, n_mels up to
+        ``fbank_logmel_max_mels()`` (8192).
     :param dft: ``pack_dft`` of the 128- or 256-bin ``Mc``/``Ms``, as the
         layers hold it; packed here when not given.
     :return: (B, num_frames, n_mels) float32 log-mel features.

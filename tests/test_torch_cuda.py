@@ -1,6 +1,7 @@
 """
-The port on a CUDA card: the fbank kernel against its plain PyTorch version,
-and the layers and augmenter on the card against the same port on the CPU.
+The port on a CUDA card: the fbank kernel against its plain PyTorch version;
+the layers, augmenter, adpcm4 decode, sample cache and extractors on the
+card against the same port on the CPU.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -12,11 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+from lhotse_tpu_torch.dataset.device_augment import CachedBatch, OnDeviceAugmenter
+from lhotse_tpu_torch.dataset.device_cache import DeviceSampleCache
 from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+from lhotse_tpu_torch.features.kaldi import extractors
 from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank, Wav2MFCC
 from lhotse_tpu_torch.ops import fbank as ops
-from lhotse_tpu_torch.ops import fbank_cuda
+from lhotse_tpu_torch.ops import fbank_cuda, wire
 
 pytestmark = pytest.mark.cuda
 
@@ -48,11 +51,13 @@ def _audio(shape, seed=0):
     return (0.1 * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
 
 
-# The last five cases are the edges of the kernel's 128-frame tile and of
-# its (128, n_mels) partial mel tile.
+# Then the edges of the kernel's 128-frame tile and of its 128-filter
+# chunks: more filters than one chunk, than the block's 256 threads (their
+# bin ranges are found after the DFT), and filters with no bins at all.
 @pytest.mark.parametrize("B,T,n_mels", [
     (1, 100, 23), (3, 1001, 80), (16, 1364, 80), (2, 1, 80),
-    (2, 127, 80), (2, 128, 80), (2, 129, 80), (1, 1, 80), (2, 300, 128)])
+    (2, 127, 80), (2, 128, 80), (2, 129, 80), (1, 1, 80), (2, 300, 128),
+    (2, 300, 129), (3, 1001, 200), (2, 129, 256), (1, 130, 300)])
 def test_kernel_matches_plain_version(cuda, B, T, n_mels):
     Mc, Ms = ops.dft_analysis_matrices(400, 512)
     x = torch.from_numpy(_audio((B, (T - 1) * 160 + 400), seed=T)).to(cuda)
@@ -145,7 +150,7 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="unit time stride"):
         fbank_cuda.fbank_cuda(torch.zeros(16000, 2, device=cuda).t(), Mc, Ms, _bank(80))
     with pytest.raises(ValueError, match="mel filters"):
-        fbank_cuda.fbank_cuda(x, Mc, Ms, np.zeros((257, 200), np.float32))
+        fbank_cuda.fbank_cuda(x, Mc, Ms, np.zeros((257, 8193), np.float32))
     with pytest.raises(ValueError, match="128 or 256 bins"):
         wide = np.zeros((400, 384), np.float32)
         fbank_cuda.fbank_cuda(x, wide, wide, np.zeros((384, 80), np.float32))
@@ -183,3 +188,68 @@ def test_augmenter_on_card_matches_cpu(cuda):
     feats, feat_lens = card.compute(staged)
     assert torch.equal(feat_lens.cpu(), cpu_lens)
     torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
+
+
+def test_adpcm4_decode_bit_exact_on_card(cuda):
+    audio = _audio((8, 64 * 500), seed=11) * 3.0  # clips in places
+    audio[1] = 0.0
+    packed = wire.encode_wire(audio, "adpcm4")
+    on_card = wire.decode_wire(torch.from_numpy(packed).to(cuda), "adpcm4")
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), torch.from_numpy(wire.adpcm4_decode_np(packed)))
+
+
+@pytest.mark.parametrize("wire_format", ["int16", "adpcm4"])
+def test_cached_and_wire_features_agree_on_card(cuda, wire_format):
+    cfg = dict(buckets=[(1.0, 4)], speed_factor=1.1, noise_pool=_audio((2, 40000), seed=3),
+               mix_prob=1.0, seed=2, wire_format=wire_format, device=cuda)
+    cache = DeviceSampleCache(capacity_seconds=30)
+    cached_aug, plain_aug = OnDeviceAugmenter(sample_cache=cache, **cfg), OnDeviceAugmenter(**cfg)
+    x, lens, ids = _audio((3, 16000), seed=6), [16000, 12000, 9000], ["a", "b", "c"]
+    for epoch in range(2):
+        staged = cached_aug.stage(x, lens, ids=ids)
+        assert isinstance(staged, CachedBatch) == (epoch == 1)
+        feats, feat_lens = cached_aug.compute(staged)
+        ref, ref_lens = plain_aug(x, lens)
+        assert torch.equal(feat_lens, ref_lens)
+        real = feat_lens > 0
+        torch.testing.assert_close(feats[real], ref[real], rtol=0, atol=1e-5)
+    assert cache.pool(16000, wire.wire_np_dtype(wire_format)).device.type == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["Fbank", "Mfcc"])
+def test_extractor_on_card_launches_the_kernel(cuda, kind):
+    items = [_audio((n,), seed=n) for n in (16000, 12345, 3000)]
+    on_cpu = getattr(extractors, kind)().extract_batch(items, 16000)
+    ext = getattr(extractors, kind)(getattr(extractors, f"{kind}Config")(device="cuda"))
+    before = fbank_cuda.LAUNCHES
+    on_card = ext.extract_batch(items, 16000)
+    assert fbank_cuda.LAUNCHES == before + 1
+    for a, b in zip(on_card, on_cpu):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=0, atol=FEATURE_TOL)
+
+
+def test_extractor_wide_mel_bank_on_card(cuda):
+    """200 mel filters, which the JAX package's kernel also takes, run on the
+    kernel in two 128-filter chunks. (``Mfcc`` shares the kernel; its DCT
+    over 200 log-mels near -140 carries float32 rounding past 1e-4.)"""
+    cfg = dict(num_filters=200, low_freq=20.0, high_freq=-400.0)
+    x = _audio((16000,), seed=12)
+    on_cpu = extractors.Fbank(extractors.FbankConfig(**cfg)).extract(x, 16000)
+    before = fbank_cuda.LAUNCHES
+    on_card = extractors.Fbank(extractors.FbankConfig(device="cuda", **cfg)).extract(x, 16000)
+    assert fbank_cuda.LAUNCHES == before + 1
+    assert on_card.shape == on_cpu.shape == (100, 200)
+    np.testing.assert_allclose(on_card, on_cpu, rtol=0, atol=FEATURE_TOL)
+
+
+def test_extractor_kernel_failure_raises_on_card(cuda):
+    """8193 mel filters meet the kernel route's conditions but exceed what
+    the kernel's shared memory indexes: the card raises where the CPU takes
+    the plain version."""
+    cfg = dict(num_filters=8193, low_freq=20.0, high_freq=-400.0)
+    x = _audio((16000,), seed=12)
+    assert extractors.Fbank(extractors.FbankConfig(**cfg)).extract(x, 16000).shape == (100, 8193)
+    with pytest.raises(ValueError, match="mel filters"):
+        extractors.Fbank(extractors.FbankConfig(device="cuda", **cfg)).extract(x, 16000)

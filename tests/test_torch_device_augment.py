@@ -10,6 +10,7 @@ import torch
 from lhotse_tpu.dataset.device_augment import OnDeviceAugmenter as JAugmenter
 from lhotse_tpu.dataset.signal_transforms import SpecAugment as JSpecAugment
 from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter, StagedBatch
+from lhotse_tpu_torch.dataset.device_cache import DeviceSampleCache
 from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
 
 SR = 16000
@@ -87,7 +88,7 @@ def _assert_same_draws(ours: StagedBatch, theirs) -> None:
         assert a.dtype == b.dtype and np.array_equal(a, b), k
 
 
-@pytest.mark.parametrize("wire_format", ["int16", "float32"])
+@pytest.mark.parametrize("wire_format", ["int16", "float32", "adpcm4"])
 def test_draws_and_features_match_jax(wire_format):
     ours, theirs = _port(wire_format), _jax(wire_format)
     for audio, lens in _batches():
@@ -128,12 +129,9 @@ def test_compute_grouped_equals_per_batch():
     assert len(grouped) == 3
     for s, (feats, feat_lens) in zip(staged, grouped):
         single, single_lens = aug.compute(s)
-        assert torch.equal(feat_lens, single_lens)
-        # Not bit-identical as in the JAX package: torch's FFT vectorizes
-        # rows in groups, so a row's rounding in the reverb depends on the
-        # batch it sits in (1.4e-5 in a near-silent log-mel bin here). The
-        # bound is the feature budget (BASELINE.md).
-        torch.testing.assert_close(feats, single, rtol=0, atol=1e-4)
+        # Bit-identical, as in the JAX package: the port runs each batch of
+        # the group on its own.
+        assert torch.equal(feat_lens, single_lens) and torch.equal(feats, single)
     assert aug.state_dict(after=staged)["next_counter"] == 3
     # Host-side (transfer=False) batches group too.
     host = [aug.stage(np.zeros((4, 16000), np.float32), [16000] * 4, transfer=False)
@@ -184,10 +182,11 @@ def test_precompile_is_rng_neutral_and_load_state_checks():
         aug.state_dict(after=object())
 
 
-def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="device_cache"):
-        OnDeviceAugmenter(BUCKETS, sample_cache=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="adpcm4"):
-        OnDeviceAugmenter(BUCKETS, wire_format="adpcm4", device="cpu")
+def test_cache_and_adpcm4_accepted_unknown_format_raises():
+    cache = DeviceSampleCache()
+    aug = OnDeviceAugmenter(BUCKETS, sample_cache=cache, wire_format="adpcm4", device="cpu")
+    assert aug.sample_cache is cache and cache.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="T % 64 == 0"):
+        OnDeviceAugmenter([(1.001, 2)], wire_format="adpcm4", device="cpu")
     with pytest.raises(ValueError, match="Unknown wire format"):
         OnDeviceAugmenter(BUCKETS, wire_format="opus", device="cpu")
