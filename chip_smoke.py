@@ -4,7 +4,13 @@ from this checkout, holds it against its plain PyTorch version, drives the
 on-device augment→fbank path through ``OnDeviceAugmenter`` at the 15 s ×
 256 bucket with the int16 and the adpcm4 wire, through the device sample
 cache over two epochs fed by ``transfer_stream``, and through the ``Fbank``
-and ``Mfcc`` extractors on the card, and checks what comes out.
+and ``Mfcc`` extractors on the card; then the model path (int16 audio → the
+augmenter → ``Encoder(EncoderConfig())`` in bf16: a forward at 15 s × 64,
+20 AdamW steps and one SGD step at 15 s × 32, both batches' features held
+against the chain with the kernel's plain version), the ``entry()``
+fbank→encoder entry (its fbank layer against the plain version, its output
+against the CPU port), and WPE of a 2-channel 10 s signal against the CPU
+port; and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -14,9 +20,12 @@ non-zero and prints no result. It imports neither ``jax`` nor
 phase passed. The line before the last is a JSON record of the kernel
 (launches on the main path, max-abs error against the plain version, per
 call times by CUDA events and device times by ``torch.profiler`` for the
-kernel and its plain version at each shape, the near-silent check against
-float64, and the kernel's launches on each path); the last line is
-``{"ok": true, "device": {...}}``.
+kernel and its plain version at each shape, its bound at each shape (the
+mel product counted over each filter's nonzero bins, as the kernel runs it), the
+near-silent check against float64, and ``launches_by_path``: the kernel's
+launches on each path, ``augment_int16``, ``augment_adpcm4``, ``cached``,
+``extractor_fbank``, ``extractor_mfcc``, ``model`` and ``entry``); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
@@ -38,6 +47,17 @@ CHAIN_TOL = 1e-4  # the feature parity budget (BASELINE.md)
 CACHE_TOL = 1e-5  # cached vs wire features (tests/test_device_cache.py's bound)
 TIMING_RUNS = 10
 BUCKET = (15.0, 256)
+# The encoder's bf16 hidden states against the CPU port, as the CPU tests
+# hold the port to JAX (tests/test_torch_entry.py); float32 at 1e-4.
+ENTRY_BF16_TOL = 5e-2
+ENTRY_F32_TOL = 1e-4
+# WPE on the card against the CPU port, at tests/test_torch_wpe.py's bounds
+# against the JAX function.
+WPE_CORR, WPE_REL = 0.99, 0.1
+# The card's peaks (H100 SXM data sheet, dense): float32 outside the tensor
+# cores, and HBM.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def _device_ms(fn, kernel: str = "") -> float:
@@ -133,15 +153,27 @@ def _mel_bank(n_mels: int, ops) -> np.ndarray:
     return fb
 
 
+def _mel_macs(fb: torch.Tensor) -> int:
+    """Multiply-adds per frame of the mel product as the kernel does it: each
+    filter over the bins from its first to its last nonzero weight."""
+    nz = fb != 0
+    bins = torch.arange(fb.shape[0], device=fb.device)[:, None]
+    first = torch.where(nz, bins, fb.shape[0]).amin(0)
+    last = torch.where(nz, bins, -1).amax(0)
+    return int((last - first + 1).clamp_min(0).sum())
+
+
 def _expected_feat_lens(lens: np.ndarray) -> np.ndarray:
     """ceil(lens · 16000 / 17600) samples after speed 1.1, then the hop rule."""
     return (-(-lens * 10 // 11) + 80) // 160
 
 
-def _check_chain(staged, feats, feat_lens, wire_format, rir, device, fbank_cuda) -> float:
+def _check_chain(staged, feats, feat_lens, wire_format, rir, device, fbank_cuda,
+                 path: str = "") -> float:
     """Max-abs of the path's features against the same chain with the
     kernel's plain version on the card (these plain runs launch no kernel);
     raises past ``CHAIN_TOL`` or on other ``feat_lens``."""
+    path = path or f"{wire_format} path"
     from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank
     from lhotse_tpu_torch.ops.augment import make_augment_fbank_pipeline
 
@@ -150,10 +182,9 @@ def _check_chain(staged, feats, feat_lens, wire_format, rir, device, fbank_cuda)
         fbank=_PlainFbank(Wav2LogFilterBank(device=device), fbank_cuda))
     plain_feats, plain_lens = plain_pipe(staged.audio, staged.lens, **staged.kwargs)
     err = (plain_feats - feats).abs().max().item()
-    print(f"{wire_format} path vs the same chain with the plain fbank: max_abs_err {err!r} "
-          f"(tol {CHAIN_TOL})")
+    print(f"{path} vs the same chain with the plain fbank: max_abs_err {err!r} (tol {CHAIN_TOL})")
     if not err <= CHAIN_TOL or not torch.equal(plain_lens, feat_lens):
-        raise AssertionError(f"the {wire_format} path disagrees with the plain chain")
+        raise AssertionError(f"the {path} disagrees with the plain chain")
     return err
 
 
@@ -359,6 +390,168 @@ def _phase_extractors(device, fbank_cuda, ops) -> dict:
     return launches
 
 
+def _int16_batch(rng, bsz: int, sec: int):
+    """A (bsz, sec) batch of 0.1-scale noise with lengths from half of sec to sec."""
+    lens = rng.integers(sec * SR // 2, sec * SR + 1, size=bsz)
+    lens[0] = sec * SR
+    return rng.standard_normal((bsz, sec * SR), np.float32) * 0.1, lens
+
+
+def _phase_model(common, rng, device, fbank_cuda, sec: int = 15, train_b: int = 32,
+                 fwd_b: int = 64) -> int:
+    """7. The model path at full width: int16 batches through the augmenter
+    (the fbank kernel) into ``Encoder(EncoderConfig())`` in bf16; a forward
+    at 15 s x 64 with no grad, then 20 AdamW steps and one SGD step at
+    15 s x 32. Both batches' features are then held against the plain chain.
+    Returns the kernel's launches on the path."""
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.models import encoder as enc_mod
+
+    cfg = enc_mod.EncoderConfig()
+    aug32 = OnDeviceAugmenter(buckets=[(sec, train_b)], wire_format="int16", **common)
+    aug64 = OnDeviceAugmenter(buckets=[(sec, fwd_b)], wire_format="int16", **common)
+    batch32, batch64 = _int16_batch(rng, train_b, sec), _int16_batch(rng, fwd_b, sec)
+    model = enc_mod.Encoder(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    frames = (math.ceil(sec * SR * 10 / 11) + 80) // 160
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    staged64 = aug64.stage(*batch64)
+    feats64, lens64 = aug64.compute(staged64)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        hidden = model(feats64, lens64)
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated()
+    staged32 = aug32.stage(*batch32)
+    feats, feat_lens = aug32.compute(staged32)
+    init, adamw_step = enc_mod.make_adamw_train_step(lr=1e-3)
+    opt = init(model)
+
+    def masks(n):
+        return [enc_mod.draw_mask(feat_lens, frames, cfg.mask_prob, gen) for _ in range(n)]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(adamw_step(model, opt, feats, feat_lens, m)) for m in masks(15)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 15
+    step_masks = masks(5)
+    _, busy_ms, by_name = _device_busy(
+        lambda: losses.extend(float(adamw_step(model, opt, feats, feat_lens, m)) for m in step_masks))
+    train_peak = torch.cuda.max_memory_allocated()
+    sgd_loss = float(enc_mod.sgd_train_step(model, feats, feat_lens, masks(1)[0], lr=1e-3))
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+
+    with torch.no_grad():
+        fwd_ms = _device_ms(lambda: model(feats64, lens64))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"model path: features {tuple(feats64.shape)} -> hidden {tuple(hidden.shape)} {hidden.dtype}; "
+          f"forward at {sec} s x {fwd_b} {fwd_ms!r} ms device (torch.profiler), peak memory "
+          f"{fwd_peak!r} B; AdamW at {sec} s x {train_b}: losses {losses[0]!r} -> {losses[-1]!r} over "
+          f"{len(losses)} steps, {busy_ms / 5!r} ms device per step (torch.profiler, 5 steps), "
+          f"{wall_ms!r} ms wall per step (15 steps), peak memory {train_peak!r} B; SGD loss "
+          f"{sgd_loss!r}; fbank kernel launches {launches}")
+    print("model step device ms by activity (5 steps): "
+          + "; ".join(f"{k[:60]} {v!r}" for k, v in top))
+    for t, b in ((feats64, fwd_b), (feats, train_b)):
+        if tuple(t.shape) != (b, frames, 80) or not torch.isfinite(t).all():
+            raise AssertionError(f"model-path features {tuple(t.shape)} wrong or not finite")
+    for staged, f, n, b in ((staged64, feats64, lens64, fwd_b), (staged32, feats, feat_lens, train_b)):
+        _check_chain(staged, f, n, "int16", common["rir"], device, fbank_cuda,
+                     path=f"model path's {sec} s x {b} features")
+    if tuple(hidden.shape) != (fwd_b, frames, cfg.d_model) or not torch.isfinite(hidden).all():
+        raise AssertionError(f"hidden states {tuple(hidden.shape)} wrong or not finite")
+    if not all(math.isfinite(x) for x in losses + [sgd_loss]) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the AdamW loss did not fall or is not finite: {losses}, {sgd_loss}")
+    return launches
+
+
+def _phase_entry(device, fbank_cuda) -> int:
+    """8. ``entry()`` on the card: its fbank layer (the kernel) against the
+    kernel's plain version on the entry's audio; then the whole entry
+    against the same entry on the CPU port, bf16 at the entry's
+    configuration, and a float32 encoder at a small size on the same
+    features. Returns the kernel's launches on the path."""
+    from lhotse_tpu_torch import entry as entry_mod
+    from lhotse_tpu_torch.models.encoder import Encoder, EncoderConfig
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    fn, (audio, audio_lens, encoder, fbank) = entry_mod.entry(device)
+    with torch.no_grad():
+        hidden, feat_lens = fn(audio, audio_lens, encoder, fbank)
+    torch.cuda.synchronize()
+    launches = fbank_cuda.LAUNCHES
+    with torch.no_grad():
+        feats = fbank(audio)
+        fbank_err = (feats - _PlainFbank(fbank, fbank_cuda)(audio)).abs().max().item()
+    cpu_fn, cpu_args = entry_mod.entry("cpu")
+    with torch.no_grad():
+        cpu_hidden, cpu_lens = cpu_fn(*cpu_args)
+        # float32 at a small size, on the card's features on both sides: the
+        # encoder alone (the features differ by the kernel's ~1e-5).
+        cfg = EncoderConfig(num_layers=2, d_model=64, num_heads=4, ffn_dim=128, dtype=torch.float32)
+        f32 = Encoder(cfg, device=device)(feats, feat_lens).cpu()
+        f32_cpu = Encoder(cfg, device="cpu")(feats.cpu(), cpu_lens)
+    bf16_err = (hidden.float().cpu() - cpu_hidden.float()).abs().max().item()
+    f32_err = (f32 - f32_cpu).abs().max().item()
+    print(f"entry: fbank layer {tuple(feats.shape)} vs the kernel's plain version max_abs_err "
+          f"{fbank_err!r} (tol {KERNEL_TOL}); hidden {tuple(hidden.shape)} {hidden.dtype}, feat_lens "
+          f"{feat_lens.tolist()}; card vs CPU port max_abs_err bf16 {bf16_err!r} (tol "
+          f"{ENTRY_BF16_TOL}), float32 {f32_err!r} (tol {ENTRY_F32_TOL}); fbank kernel launches "
+          f"{launches}")
+    if not fbank_err <= KERNEL_TOL:
+        raise AssertionError(f"the entry's fbank disagrees with the plain version: {fbank_err}")
+    if tuple(hidden.shape) != (4, 400, 128) or not torch.isfinite(hidden).all():
+        raise AssertionError(f"entry output {tuple(hidden.shape)} wrong or not finite")
+    if not torch.equal(feat_lens.cpu(), cpu_lens) or feat_lens.tolist() != [400, 398, 400, 200]:
+        raise AssertionError(f"entry feat_lens {feat_lens.tolist()} differ")
+    if not bf16_err <= ENTRY_BF16_TOL or not f32_err <= ENTRY_F32_TOL:
+        raise AssertionError("the card's entry disagrees with the CPU port's")
+    return launches
+
+
+def _reverberant(channels: int, seconds: float, seed: int) -> np.ndarray:
+    """tests/test_ops_wpe.py's signal: three harmonics of 150 Hz, amplitude-
+    modulated at 3 Hz, through a decaying random RIR per channel."""
+    rng = np.random.RandomState(seed)
+    n = int(SR * seconds)
+    t = np.arange(n) / SR
+    dry = sum(np.sin(2 * np.pi * 150 * (h + 1) * t) / (h + 1) for h in range(3))
+    dry = (0.2 * dry * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))).astype(np.float32)
+    out = []
+    for _ in range(channels):
+        rir = np.exp(-np.arange(2000) / 300.0) * rng.randn(2000) * 0.3
+        rir[0] = 1.0
+        out.append(np.convolve(dry, rir)[:n])
+    return np.stack(out).astype(np.float32)
+
+
+def _phase_wpe(device) -> None:
+    """9. WPE of a 2-channel 10 s reverberant signal on the card against
+    the CPU port."""
+    from lhotse_tpu_torch.ops.wpe import dereverb_wpe
+
+    audio = _reverberant(channels=2, seconds=10.0, seed=0)
+    x = torch.from_numpy(audio).to(device)
+    out = dereverb_wpe(x).cpu().numpy()
+    ref = dereverb_wpe(audio, device="cpu").numpy()
+    corr = float(np.corrcoef(out.ravel(), ref.ravel())[0, 1])
+    rel = float(np.linalg.norm(out - ref) / np.linalg.norm(ref))
+    e_ratio = float(np.sum(out ** 2) / np.sum(audio ** 2))
+    ms = _device_ms(lambda: dereverb_wpe(x))
+    print(f"WPE 2 x 10 s on the card: {ms!r} ms device (torch.profiler); vs the CPU port "
+          f"correlation {corr!r} (> {WPE_CORR}), relative error {rel!r} (< {WPE_REL}); output "
+          f"energy / input energy {e_ratio!r}")
+    if out.shape != audio.shape or not np.isfinite(out).all():
+        raise AssertionError("WPE output wrong or not finite")
+    if not corr > WPE_CORR or not rel < WPE_REL or not e_ratio < 1.0:
+        raise AssertionError("WPE on the card disagrees with the CPU port")
+
+
 class _PlainFbank:
     """The default fbank layer's computation with the kernel's plain version
     in place of the kernel, for the chain comparison."""
@@ -436,12 +629,20 @@ def main() -> None:
         case = {"shape": [B, T, n_mels], "max_abs_err": (out - ref).abs().max().item(),
                 "ms": _median_ms(kernel), "plain_ms": _median_ms(plain),
                 "device_ms": _device_ms(kernel, "fbank_logmel"), "plain_device_ms": _device_ms(plain)}
-        flop = B * T * (400 * 256 * 4 + 256 * n_mels * 2)
+        # The two DFT products and the mel product over each filter's bins.
+        flop = B * T * (400 * 256 * 4 + 2 * _mel_macs(fb_d))
+        case["flop"] = flop
+        # Each input read once (audio, packed DFT, mel bank), the output written once.
+        nbytes = 4 * (B * N + dft.numel() + fb_d.numel() + B * T * n_mels)
+        t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        case["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        case["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         print(f"fbank B={B} T={T} n_mels={n_mels}: max_abs_err {case['max_abs_err']!r} "
               f"(tol {KERNEL_TOL}); per call (CUDA events, median of {TIMING_RUNS}) kernel "
               f"{case['ms']!r} ms, plain {case['plain_ms']!r} ms; device (torch.profiler) "
               f"kernel {case['device_ms']!r} ms ({flop / case['device_ms'] / 1e9:.1f} TFLOP/s), "
-              f"plain {case['plain_device_ms']!r} ms")
+              f"plain {case['plain_device_ms']!r} ms; bound {case['bound_ms']!r} ms "
+              f"({case['bound_by']})")
         if not case["max_abs_err"] <= KERNEL_TOL:
             raise AssertionError(
                 f"kernel disagrees with its plain version: {case['max_abs_err']} > {KERNEL_TOL}")
@@ -534,6 +735,11 @@ def main() -> None:
     cache_batches = batches + [(rng.standard_normal((256, 15 * SR), np.float32) * 0.1, extra)]
     by_path["cached"] = _phase_cache(common, cache_batches, device, fbank_cuda)
     by_path.update(_phase_extractors(device, fbank_cuda, ops))
+
+    # -- 7. model path, 8. entry, 9. WPE --------------------------------------
+    by_path["model"] = _phase_model(common, rng, device, fbank_cuda)
+    by_path["entry"] = _phase_entry(device, fbank_cuda)
+    _phase_wpe(device)
     print(f"fbank kernel launches by path: {by_path}")
     if not all(n > 0 for n in by_path.values()):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
@@ -547,6 +753,9 @@ def main() -> None:
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the Kaldi log-mel
         "device_ms": main_case["device_ms"],
         "plain_device_ms": main_case["plain_device_ms"],
         "cases": cases,

@@ -3,7 +3,9 @@ Kaldi-compatible feature extractors — Fbank, Mfcc, Spectrogram,
 LogSpectrogram — and their configs (port of the device route of
 ``lhotse_tpu/features/kaldi/extractors.py``).
 
-``config.device`` is the torch device the extraction runs on. Each item is
+``config.device`` is the torch device the extraction runs on: ``"cuda"``
+unless the caller asks for another (``device="cpu"`` runs the kernel's plain
+version). With no card, a ``"cuda"`` extractor raises. Each item is
 given the snip_edges=False symmetric edge padding on the host, the batch is
 zero-padded to its longest prepared item and copied to the device, and the
 device frames it with snip-edges semantics: frames that cover real audio are
@@ -298,7 +300,7 @@ class FbankConfig:
     num_mel_bins: Optional[int] = None  # do not use
     norm_filters: bool = False
     torchaudio_compatible_mel_scale: bool = True
-    device: str = "cpu"
+    device: str = "cuda"
 
     def __post_init__(self):
         if self.num_mel_bins is not None:
@@ -375,7 +377,7 @@ class MfccConfig:
     num_ceps: int = 13
     cepstral_lifter: int = 22
     torchaudio_compatible_mel_scale: bool = True
-    device: str = "cpu"
+    device: str = "cuda"
 
     def __post_init__(self):
         if self.num_mel_bins is not None:
@@ -425,7 +427,7 @@ class SpectrogramConfig:
     raw_energy: bool = True
     use_energy: bool = False
     use_fft_mag: bool = False
-    device: str = "cpu"
+    device: str = "cuda"
 
     def to_dict(self) -> Dict[str, Any]:
         return asdict_nonull(self)
@@ -478,7 +480,7 @@ class LogSpectrogramConfig:
     raw_energy: bool = True
     use_energy: bool = False
     use_fft_mag: bool = False
-    device: str = "cpu"
+    device: str = "cuda"
 
     def to_dict(self) -> Dict[str, Any]:
         return asdict_nonull(self)

@@ -1,7 +1,7 @@
 """
 The port on a CUDA card: the fbank kernel against its plain PyTorch version;
-the layers, augmenter, adpcm4 decode, sample cache and extractors on the
-card against the same port on the CPU.
+the layers, augmenter, adpcm4 decode, sample cache, extractors, encoder,
+entry and WPE on the card against the same port on the CPU.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -18,13 +18,17 @@ from lhotse_tpu_torch.dataset.device_cache import DeviceSampleCache
 from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
 from lhotse_tpu_torch.features.kaldi import extractors
 from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank, Wav2MFCC
+from lhotse_tpu_torch.models import encoder as enc
 from lhotse_tpu_torch.ops import fbank as ops
 from lhotse_tpu_torch.ops import fbank_cuda, wire
+from lhotse_tpu_torch.ops.wpe import dereverb_wpe
 
 pytestmark = pytest.mark.cuda
 
 LOGMEL_TOL = 5e-5  # the JAX package's own bound for the fused fbank
 FEATURE_TOL = 1e-4  # the feature parity budget (BASELINE.md)
+# The encoder's hidden states, as tests/test_torch_encoder.py holds the port to JAX.
+ENCODER_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
 @pytest.fixture
@@ -220,7 +224,8 @@ def test_cached_and_wire_features_agree_on_card(cuda, wire_format):
 @pytest.mark.parametrize("kind", ["Fbank", "Mfcc"])
 def test_extractor_on_card_launches_the_kernel(cuda, kind):
     items = [_audio((n,), seed=n) for n in (16000, 12345, 3000)]
-    on_cpu = getattr(extractors, kind)().extract_batch(items, 16000)
+    on_cpu = getattr(extractors, kind)(
+        getattr(extractors, f"{kind}Config")(device="cpu")).extract_batch(items, 16000)
     ext = getattr(extractors, kind)(getattr(extractors, f"{kind}Config")(device="cuda"))
     before = fbank_cuda.LAUNCHES
     on_card = ext.extract_batch(items, 16000)
@@ -236,7 +241,7 @@ def test_extractor_wide_mel_bank_on_card(cuda):
     over 200 log-mels near -140 carries float32 rounding past 1e-4.)"""
     cfg = dict(num_filters=200, low_freq=20.0, high_freq=-400.0)
     x = _audio((16000,), seed=12)
-    on_cpu = extractors.Fbank(extractors.FbankConfig(**cfg)).extract(x, 16000)
+    on_cpu = extractors.Fbank(extractors.FbankConfig(device="cpu", **cfg)).extract(x, 16000)
     before = fbank_cuda.LAUNCHES
     on_card = extractors.Fbank(extractors.FbankConfig(device="cuda", **cfg)).extract(x, 16000)
     assert fbank_cuda.LAUNCHES == before + 1
@@ -250,6 +255,100 @@ def test_extractor_kernel_failure_raises_on_card(cuda):
     the plain version."""
     cfg = dict(num_filters=8193, low_freq=20.0, high_freq=-400.0)
     x = _audio((16000,), seed=12)
-    assert extractors.Fbank(extractors.FbankConfig(**cfg)).extract(x, 16000).shape == (100, 8193)
+    assert extractors.Fbank(extractors.FbankConfig(device="cpu", **cfg)).extract(
+        x, 16000).shape == (100, 8193)
     with pytest.raises(ValueError, match="mel filters"):
         extractors.Fbank(extractors.FbankConfig(device="cuda", **cfg)).extract(x, 16000)
+
+
+@pytest.mark.parametrize("kind", ["Fbank", "Mfcc", "Spectrogram", "LogSpectrogram"])
+def test_extractor_default_runs_on_the_card(cuda, kind):
+    ext = getattr(extractors, kind)()
+    assert ext.config.device == "cuda"
+    x = _audio((16000,), seed=13)
+    before = fbank_cuda.LAUNCHES
+    out = ext.extract(x, 16000)
+    assert ext.extractor.device.type == "cuda"
+    assert fbank_cuda.LAUNCHES == before + (kind in ("Fbank", "Mfcc"))
+    ref = getattr(extractors, kind)(getattr(extractors, f"{kind}Config")(device="cpu")).extract(x, 16000)
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    if kind in ("Fbank", "Mfcc"):
+        np.testing.assert_allclose(out, ref, rtol=0, atol=FEATURE_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_on_card_matches_cpu(cuda, dtype):
+    cfg = enc.EncoderConfig(num_layers=2, d_model=64, num_heads=4, ffn_dim=128, dtype=dtype)
+    feats = torch.from_numpy(np.random.default_rng(14).standard_normal((3, 50, 80), np.float32))
+    lens = torch.tensor([50, 30, 7])
+    with torch.no_grad():
+        on_cpu = enc.Encoder(cfg, device="cpu")(feats, lens)
+        on_card = enc.Encoder(cfg, device=cuda)(feats.to(cuda), lens.to(cuda))
+    assert on_card.dtype == dtype and on_card.device.type == "cuda"
+    assert (on_card.float().cpu() - on_cpu.float()).abs().max().item() <= ENCODER_TOL[dtype]
+
+
+def test_encoder_training_steps_on_card(cuda):
+    """One SGD step and three AdamW steps in float32 on the card against the
+    same steps on the CPU."""
+    cfg = enc.EncoderConfig(num_layers=2, d_model=64, num_heads=4, ffn_dim=128, dtype=torch.float32)
+    feats = torch.from_numpy(np.random.default_rng(15).standard_normal((4, 32, 80), np.float32))
+    lens = torch.tensor([32, 20, 32, 11])
+    gen = torch.Generator().manual_seed(3)
+    masks = [enc.draw_mask(lens, 32, cfg.mask_prob, gen) for _ in range(4)]
+    models = {d: enc.Encoder(cfg, device=d) for d in ("cpu", cuda)}
+    start = {k: v.detach().clone() for k, v in models["cpu"].named_parameters()}
+    losses = {}
+    for d, model in models.items():
+        f, l = feats.to(d), lens.to(d)
+        init, step = enc.make_adamw_train_step(lr=1e-3)
+        opt = init(model)
+        losses[d] = [float(enc.sgd_train_step(model, f, l, masks[0].to(d), lr=1e-2))]
+        for m in masks[1:]:
+            losses[d].append(float(step(model, opt, f, l, m.to(d))))
+            if d == "cpu" and len(losses[d]) == 2:  # the first AdamW step's gradients
+                first_grads = {n: p.grad.abs().clone() for n, p in model.named_parameters()}
+    np.testing.assert_allclose(losses[cuda], losses["cpu"], rtol=1e-5)
+    # The updates since the start, at tests/test_torch_encoder.py's AdamW
+    # bounds: tight where the first AdamW gradient is past 1e-6, up to lr
+    # where it is near Adam's eps (a rounding difference may flip those).
+    for (name, a), b in zip(models["cpu"].named_parameters(), models[cuda].parameters()):
+        theirs, mine = a.detach() - start[name], b.detach().cpu() - start[name]
+        well = first_grads[name] > 1e-6
+        diff = mine - theirs
+        well_abs, near_abs = (diff.abs() * well).max().item(), (diff.abs() * ~well).max().item()
+        well_rel = ((diff * well).norm() / (theirs * well).norm()).item()
+        assert well_abs <= 1e-5 and well_rel <= 1e-3 and near_abs <= 1e-3, (
+            name, well_abs, well_rel, near_abs)
+
+
+def test_entry_on_card_launches_the_kernel(cuda):
+    from lhotse_tpu_torch import entry
+
+    before = fbank_cuda.LAUNCHES
+    fn, args = entry.entry()
+    cpu_fn, cpu_args = entry.entry("cpu")
+    with torch.no_grad():
+        hidden, feat_lens = fn(*args)
+        ref, ref_lens = cpu_fn(*cpu_args)
+    assert fbank_cuda.LAUNCHES == before + 1
+    assert hidden.device.type == "cuda" and torch.equal(feat_lens.cpu(), ref_lens)
+    assert (hidden.float().cpu() - ref.float()).abs().max().item() <= ENCODER_TOL[torch.bfloat16]
+
+
+def test_wpe_on_card_matches_cpu(cuda):
+    rng = np.random.RandomState(16)
+    t = np.arange(16000) / 16000
+    dry = 0.2 * sum(np.sin(2 * np.pi * 150 * (h + 1) * t) / (h + 1) for h in range(3))
+    audio = np.stack([np.convolve(dry, np.r_[1.0, np.exp(-np.arange(1999) / 300.0)
+                                            * rng.randn(1999) * 0.3])[:16000]
+                      for _ in range(2)]).astype(np.float32)
+    on_card = dereverb_wpe(audio)
+    assert on_card.device.type == "cuda"
+    ref = dereverb_wpe(audio, device="cpu").numpy()
+    out = on_card.cpu().numpy()
+    # tests/test_torch_wpe.py's bounds against the JAX function.
+    assert np.corrcoef(out.ravel(), ref.ravel())[0, 1] > 0.99
+    assert np.linalg.norm(out - ref) / np.linalg.norm(ref) < 0.1
+    batched = dereverb_wpe(np.stack([audio, audio])).cpu().numpy()
+    np.testing.assert_allclose(batched[1], batched[0], atol=1e-6)

@@ -125,7 +125,7 @@ def test_snip_edges_frame_counts_are_the_host_routes(kind):
     12,345 samples, as the JAX package's host route gives, where its device
     route gives 77 (frames that overlap the zero padding)."""
     x = _items()[0]
-    ours = getattr(P, kind)(getattr(P, f"{kind}Config")(snip_edges=True))
+    ours = getattr(P, kind)(getattr(P, f"{kind}Config")(snip_edges=True, device="cpu"))
     host = getattr(J, kind)(getattr(J, f"{kind}Config")(snip_edges=True, device="cpu"))
     device_route = getattr(J, kind)(getattr(J, f"{kind}Config")(snip_edges=True, device="tpu"))
     got = ours.extract_batch([x, x[:12345]], SR)
@@ -163,7 +163,7 @@ def test_kernel_route_conditions(kind, config, kernel, monkeypatch):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_every_extraction_method_checks_the_sampling_rate(kind):
-    ours = getattr(P, kind)()
+    ours = getattr(P, kind)(getattr(P, f"{kind}Config")(device="cpu"))
     x = _items()[0]
     for call in (lambda: ours.extract(x, 8000), lambda: ours.extract_batch([x], 8000),
                  lambda: ours.extract_batch_collated([x], 8000)):
@@ -179,7 +179,10 @@ def test_config_dicts_and_dims_equal_jax(kind):
     over = {"Fbank": {"num_mel_bins": 40}, "Mfcc": {"num_ceps": 20}}.get(kind, {})
     jcfg = getattr(J, f"{kind}Config")(**over)
     pcfg = getattr(P, f"{kind}Config")(**over)
-    assert pcfg.to_dict() == jcfg.to_dict()
+    # The port runs on the card unless asked for the CPU; the JAX package's
+    # extractors default to its host route.
+    assert pcfg.device == "cuda" and jcfg.device == "cpu"
+    assert pcfg.to_dict() == {**jcfg.to_dict(), "device": "cuda"}
     assert list(pcfg.to_dict()) == list(jcfg.to_dict())
     assert type(pcfg).from_dict(pcfg.to_dict()) == pcfg
     theirs, ours = getattr(J, kind)(jcfg), getattr(P, kind)(pcfg)
@@ -212,21 +215,34 @@ def test_dither_is_drawn_on_the_host():
     """dither != 0 draws from the ambient numpy RNG as in the JAX package;
     the layer underneath never dithers (it would need a torch.Generator)."""
     x = _items()[0]
-    ours = P.Fbank(P.FbankConfig(dither=0.1))
+    ours = P.Fbank(P.FbankConfig(dither=0.1, device="cpu"))
     assert ours.extractor.dither == 0.0
     np.random.seed(3)
     a = ours.extract(x, SR)
     np.random.seed(3)
     b = ours.extract(x, SR)
     assert np.array_equal(a, b)
-    assert not np.array_equal(a, P.Fbank().extract(x, SR))
+    assert not np.array_equal(a, P.Fbank(P.FbankConfig(device="cpu")).extract(x, SR))
     np.random.seed(3)
     jax_dithered = J.Fbank(J.FbankConfig(dither=0.1, device="tpu")).extract(x, SR)
     assert _err("Fbank", jax_dithered, a) <= TOL["Fbank"]
 
 
 def test_result_is_on_the_host_and_layer_follows_the_device():
-    ours = P.Fbank()
+    ours = P.Fbank(P.FbankConfig(device="cpu"))
     out = ours.extract(_items()[0], SR)
     assert isinstance(out, np.ndarray)
     assert ours.extractor.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_configs_default_to_the_card(kind):
+    """Every extractor runs on the card unless the caller asks for the CPU:
+    with no card, the default extractor raises instead of running here."""
+    cfg = getattr(P, f"{kind}Config")()
+    assert cfg.device == "cuda"
+    assert type(cfg).from_dict(cfg.to_dict()).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        getattr(P, kind)().extract(_items()[0], SR)

@@ -31,7 +31,9 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.ops.fbank_cuda, lhotse_tpu_torch.convert, "
         "lhotse_tpu_torch.dataset.signal_transforms, lhotse_tpu_torch.ops.wire, "
         "lhotse_tpu_torch.dataset.device_cache, lhotse_tpu_torch.dataset.loader, "
-        "lhotse_tpu_torch.features.kaldi.extractors; import sys; "
+        "lhotse_tpu_torch.features.kaldi.extractors, lhotse_tpu_torch.models, "
+        "lhotse_tpu_torch.models.encoder, lhotse_tpu_torch.entry, lhotse_tpu_torch.ops.wpe, "
+        "lhotse_tpu_torch.parallel, lhotse_tpu_torch.parallel.mesh; import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
     assert proc.returncode == 0, proc.stderr
