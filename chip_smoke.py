@@ -9,8 +9,12 @@ augmenter → ``Encoder(EncoderConfig())`` in bf16: a forward at 15 s × 64,
 20 AdamW steps and one SGD step at 15 s × 32, both batches' features held
 against the chain with the kernel's plain version), the ``entry()``
 fbank→encoder entry (its fbank layer against the plain version, its output
-against the CPU port), and WPE of a 2-channel 10 s signal against the CPU
-port; and checks what comes out.
+against the CPU port), WPE of a 2-channel 10 s signal against the CPU port,
+and the host data path into the trainer step (a 160-recording FLAC corpus
+through ``CutSet.from_jsonl_lazy``, ``DynamicBucketingSampler``,
+``K2SpeechRecognitionDataset`` and ``DataLoader`` into the augmenter and an
+AdamW step of ``Encoder(EncoderConfig())``, with a mid-epoch resume, and
+the same over the device sample cache); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -24,8 +28,9 @@ kernel and its plain version at each shape, its bound at each shape (the
 mel product counted over each filter's nonzero bins, as the kernel runs it), the
 near-silent check against float64, and ``launches_by_path``: the kernel's
 launches on each path, ``augment_int16``, ``augment_adpcm4``, ``cached``,
-``extractor_fbank``, ``extractor_mfcc``, ``model`` and ``entry``); the last
-line is ``{"ok": true, "device": {...}}``.
+``extractor_fbank``, ``extractor_mfcc``, ``model``, ``entry``, ``e2e`` and
+``e2e_cached``); the last line is ``{"ok": true, "device": {...}}``. The
+corpus and the codec's build go under ``build/`` in the checkout.
 """
 import json
 import math
@@ -552,6 +557,319 @@ def _phase_wpe(device) -> None:
         raise AssertionError("WPE on the card disagrees with the CPU port")
 
 
+# -- 10. the host data path into the trainer step -------------------------------
+# bench.py:528 (the e2e legs' shape vocabulary) and bench.py::_synthesize_corpus.
+E2E_BUCKETS = [(6.0, 41), (9.0, 28), (12.0, 21), (14.0, 19)]
+E2E_RECORDINGS = 160
+E2E_SECONDS = (4.0, 14.0)  # the corpus's uniform duration range
+
+
+def _synthesize_corpus(root: Path, n_recordings: int) -> Path:
+    """``bench.py::_synthesize_corpus`` with the port: FLAC tone bursts of
+    uniform 4-14 s at 16 kHz (numpy seed 1234), one supervision each,
+    written with ``write_flac`` and ``CutSet.to_file``."""
+    from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.supervision import SupervisionSegment
+
+    rng = np.random.RandomState(1234)
+
+    def tone_burst(duration):
+        n = int(SR * duration)
+        t = np.arange(n) / SR
+        f0 = rng.uniform(80, 220)
+        wave = sum(np.sin(2 * np.pi * f0 * (h + 1) * t) / (h + 1) for h in range(4)) * 0.2
+        wave += rng.randn(n) * 0.01
+        return wave.astype(np.float32)
+
+    cuts = []
+    for i in range(n_recordings):
+        duration = float(rng.uniform(*E2E_SECONDS))
+        path = root / f"utt{i:04d}.flac"
+        write_flac(str(path), tone_burst(duration), SR)
+        cut = Recording.from_file(path).to_cut()
+        cut.supervisions.append(SupervisionSegment(
+            id=f"sup{i:04d}", recording_id=cut.recording_id, start=0.0, duration=cut.duration,
+            text="synthetic"))
+        cuts.append(cut)
+    path = root / "cuts.jsonl"
+    CutSet.from_cuts(cuts).to_file(path)
+    return path
+
+
+def _e2e_augmenter(device, sample_cache=None):
+    """The augmenter of ``bench.py::bench_e2e_tpu`` (bench.py:531-559) on
+    ``device``, and its RIR."""
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+
+    rng_init = np.random.RandomState(99)
+    L = SR // 2
+    rir = (np.exp(-np.arange(L) / (L / 6.0)) * rng_init.randn(L) * 0.5).astype(np.float32)
+    rir[L // 50] = 1.0
+    noise = (rng_init.randn(4, 10 * SR) * 0.05).astype(np.float32)
+    aug = OnDeviceAugmenter(
+        E2E_BUCKETS, sampling_rate=SR, speed_factor=SPEED, gain_range=(0.8, 1.2),
+        noise_pool=noise, snr=(10, 20), mix_prob=1.0, rir=rir, wire_format="int16", seed=0,
+        specaugment=SpecAugment(seed=0), sample_cache=sample_cache, device=device)
+    return aug, rir
+
+
+def _e2e_loader(cuts_path: Path, aug, device, cached: bool = False):
+    """The sampler, dataset and loader of ``bench.py:568-600``: lazy cuts,
+    ``FixedBucketBatchSizeConstraint`` over the bucket vocabulary, shuffled
+    with seed 0, ``K2SpeechRecognitionDataset`` with ``AudioSamples`` (with
+    ``CacheAwareAudioSamples`` when ``cached``), the augmenter's
+    ``stage(..., transfer=False)`` in the main thread and the copy to the
+    card two batches ahead. Each item is ``(staged, cut ids, lens,
+    placeholder)``."""
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.device_cache import CacheAwareAudioSamples, batch_cut_info
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import (
+        DynamicBucketingSampler, FixedBucketBatchSizeConstraint)
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.tracing import trace_span
+
+    sampler = DynamicBucketingSampler(
+        CutSet.from_jsonl_lazy(cuts_path),
+        constraint=FixedBucketBatchSizeConstraint(
+            max_seq_len_buckets=[ub for ub, _ in E2E_BUCKETS],
+            batch_sizes=[bsz for _, bsz in E2E_BUCKETS]),
+        num_buckets=None, duration_bins=[ub for ub, _ in E2E_BUCKETS[:-1]],
+        buffer_size=max(E2E_RECORDINGS, 16), shuffle=True, seed=0, world_size=1, rank=0)
+    strategy = CacheAwareAudioSamples(aug) if cached else AudioSamples()
+    dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=strategy)
+
+    def stage(batch):
+        ids, lens = batch_cut_info(batch)
+        with trace_span("augmenter.stage"):
+            staged = aug.stage(batch["inputs"], lens, ids=ids if cached else None, transfer=False)
+        return staged, ids, lens, batch["inputs"].shape[1] == 0
+
+    loader = DataLoader(sampler, dataset, prefetch_batches=3, main_apply_fn=stage,
+                        transfer_lookahead=2, checkpoint_objects=[aug], device=device)
+    return loader, sampler
+
+
+class _Trainer:
+    """One AdamW step of ``Encoder(EncoderConfig())`` per batch of
+    features, with masks from a seeded generator on the card."""
+
+    def __init__(self, device):
+        from lhotse_tpu_torch.models import encoder as enc_mod
+
+        self.enc = enc_mod
+        self.cfg = enc_mod.EncoderConfig()
+        self.model = enc_mod.Encoder(self.cfg, device=device)
+        init, self.adamw_step = enc_mod.make_adamw_train_step(lr=1e-3)
+        self.opt = init(self.model)
+        self.gen = torch.Generator(device=device).manual_seed(10)
+
+    def step(self, feats, feat_lens) -> float:
+        mask = self.enc.draw_mask(feat_lens, feats.shape[1], self.cfg.mask_prob, self.gen)
+        return float(self.adamw_step(self.model, self.opt, feats, feat_lens, mask))
+
+
+def _run_epoch(loader, aug, trainer, on_batch=None) -> dict:
+    """Consume one epoch of ``loader``: features on the card (the fbank
+    kernel), then the trainer's step. ``on_batch(i, item, feats,
+    feat_lens)`` sees each batch before its step."""
+    items, losses, wait_s, audio_s = [], [], 0.0, 0.0
+    it = iter(loader)
+    t0 = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            break
+        wait_s += time.perf_counter() - t
+        staged, ids, lens, placeholder = item
+        feats, feat_lens = aug.compute(staged)
+        if on_batch is not None:
+            on_batch(len(items), item, feats, feat_lens)
+        losses.append(trainer.step(feats, feat_lens))
+        items.append((type(staged).__name__, list(ids), np.asarray(lens), placeholder,
+                      getattr(staged, "insert_slots", None) is not None))
+        audio_s += float(np.sum(lens)) / SR
+    torch.cuda.synchronize()
+    return {"items": items, "losses": losses, "wait_s": wait_s, "audio_s": audio_s,
+            "elapsed_s": time.perf_counter() - t0}
+
+
+def _host_split(report: dict, n: int, wait_s: float) -> str:
+    def ms(span):
+        return report.get(span, {}).get("total_s", 0.0) * 1e3 / n
+
+    return (f"host ms per batch: decode+collate (dataset.assemble, loader thread) "
+            f"{ms('dataset.assemble')!r} (of which audio.decode {ms('audio.decode')!r}), "
+            f"stage {ms('augmenter.stage')!r}, consumer's wait in next() (stage and the copy "
+            f"included) {wait_s * 1e3 / n!r}")
+
+
+def _phase_e2e(device, fbank_cuda, smi: str) -> dict:
+    """10. The host data path into the trainer step, as a trainer runs it:
+    a FLAC corpus read back lazily into ``DynamicBucketingSampler`` →
+    ``K2SpeechRecognitionDataset`` → ``DataLoader`` (staging and the copy
+    two batches ahead) → the augmenter (the fbank kernel) → an AdamW step of
+    ``Encoder(EncoderConfig())``. Path ``e2e``: one timed epoch (cut
+    coverage, bucket sizes, the first batch against the plain chain, a
+    falling loss, one launch per batch), a second under ``torch.profiler``
+    for the busy share, and a mid-epoch resume from ``loader.state_dict()``
+    after batch 3 into a fresh sampler, augmenter and loader. Path
+    ``e2e_cached``: the same loader over a ``DeviceSampleCache`` with
+    ``CacheAwareAudioSamples``, two epochs, the second all hits. Returns
+    the kernel's launches per path."""
+    import tempfile
+
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.device_cache import DeviceSampleCache
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples
+    from lhotse_tpu_torch.tracing import reset_tracing, set_tracing_enabled, tracing_report
+
+    set_caching_enabled(True)  # the decoded-audio LRU, as bench.py's e2e legs
+    set_tracing_enabled(True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        cuts_path = _synthesize_corpus(Path(tmp), E2E_RECORDINGS)
+        all_cuts = list(CutSet.from_jsonl_lazy(cuts_path))
+        corpus_s = sum(c.duration for c in all_cuts)
+        print(f"e2e corpus: {len(all_cuts)} FLAC recordings, {corpus_s!r} audio-s, written in "
+              f"{time.perf_counter() - t0!r} s")
+        trainer = _Trainer(device)
+
+        # -- e2e: the timed epoch ----------------------------------------------
+        aug, rir = _e2e_augmenter(device)
+        loader, sampler = _e2e_loader(cuts_path, aug, device)
+        kept = {}
+
+        def keep(i, item, feats, feat_lens):
+            staged = item[0]
+            if i == 0:
+                kept["first"] = (staged, feats.clone(), feat_lens.clone())
+            if i == 2:  # three batches consumed
+                kept["ckpt"] = loader.state_dict()
+            if i in (3, 4):
+                kept[i] = (item[1], staged.audio.cpu().numpy(),
+                           {k: v.cpu().numpy() for k, v in staged.kwargs.items()}, feats.clone())
+
+        reset_tracing()
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        run = _run_epoch(loader, aug, trainer, on_batch=keep)
+        launches = fbank_cuda.LAUNCHES
+        n = len(run["items"])
+        split = _host_split(tracing_report(), n, run["wait_s"])
+        ids = [i for _, batch_ids, *_ in run["items"] for i in batch_ids]
+        print(f"[{smi}] e2e epoch: {n} batches, {run['audio_s']!r} audio-s in {run['elapsed_s']!r} s "
+              f"(host clock, AdamW steps included): {run['audio_s'] / run['elapsed_s']!r} audio-s/s; "
+              f"losses {run['losses'][0]!r} -> {run['losses'][-1]!r}; fbank kernel launches {launches}")
+        print(f"[{smi}] e2e {split}")
+        if sorted(ids) != sorted(c.id for c in all_cuts):
+            raise AssertionError("the e2e epoch did not bring every cut exactly once")
+        for _, batch_ids, lens, _, _ in run["items"]:
+            ub, size = next((ub, size) for ub, size in E2E_BUCKETS if lens.max() <= ub * SR)
+            if len(batch_ids) > size:
+                raise AssertionError(f"a {ub:g} s batch of {len(batch_ids)} exceeds its size {size}")
+        if launches != n:
+            raise AssertionError(f"the e2e path launched the fbank kernel {launches} times for {n} batches")
+        losses = run["losses"]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the e2e loss did not fall or is not finite: {losses}")
+        staged0, feats0, lens0 = kept["first"]
+        _check_chain(staged0, feats0, lens0, "int16", rir, device, fbank_cuda,
+                     path="e2e first batch")
+
+        # -- e2e: a second epoch under torch.profiler ------------------------------
+        sampler.set_epoch(1)
+        wall_ms, busy_ms, by_name = _device_busy(lambda: _run_epoch(loader, aug, trainer))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"[{smi}] e2e epoch 2 under torch.profiler: wall {wall_ms!r} ms, device busy "
+              f"{busy_ms!r} ms ({busy_ms / wall_ms!r} of the wall); device ms by activity: "
+              + "; ".join(f"{k[:60]} {v!r}" for k, v in top))
+
+        # -- e2e: mid-epoch resume into a fresh sampler, augmenter and loader ------
+        aug2, _ = _e2e_augmenter(device)
+        loader2, _ = _e2e_loader(cuts_path, aug2, device)
+        loader2.load_state_dict(kept["ckpt"])
+        it2 = iter(loader2)
+        for i in (3, 4):
+            staged, batch_ids, _, _ = next(it2)
+            feats, _ = aug2.compute(staged)
+            want_ids, want_audio, want_draws, want_feats = kept[i]
+            same = (batch_ids == want_ids and np.array_equal(staged.audio.cpu().numpy(), want_audio)
+                    and set(staged.kwargs) == set(want_draws)
+                    and all(np.array_equal(v.cpu().numpy(), want_draws[k])
+                            for k, v in staged.kwargs.items())
+                    and torch.equal(feats, want_feats))
+            if not same:
+                raise AssertionError(f"batch {i + 1} after the resume differs from the first run")
+        it2.close()
+        print(f"e2e mid-epoch resume from loader.state_dict() after batch 3: batches 4 and 5 "
+              f"equal (cut ids, wire audio, draws, torch.equal features)")
+
+        # -- e2e_cached: two epochs over the device sample cache -------------------
+        cache = DeviceSampleCache(capacity_seconds=2 * 3600)
+        aug_c, _ = _e2e_augmenter(device, sample_cache=cache)
+        loader_c, sampler_c = _e2e_loader(cuts_path, aug_c, device, cached=True)
+        cached_out = []
+
+        def keep_cached(i, item, feats, feat_lens):
+            cached_out.append((item[0].aug_counter, list(item[1]), feats.clone()))
+
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        epochs = []
+        for epoch in range(2):
+            sampler_c.set_epoch(epoch)
+            cached_out.clear()
+            reset_tracing()
+            epochs.append(_run_epoch(loader_c, aug_c, trainer, on_batch=keep_cached))
+            report = tracing_report()
+            r = epochs[-1]
+            print(f"[{smi}] e2e_cached epoch {epoch + 1}: {len(r['items'])} batches, "
+                  f"{r['audio_s']!r} audio-s in {r['elapsed_s']!r} s: "
+                  f"{r['audio_s'] / r['elapsed_s']!r} audio-s/s (AdamW steps included); "
+                  f"{_host_split(report, len(r['items']), r['wait_s'])}")
+        launches_cached = fbank_cuda.LAUNCHES
+        first, second = epochs
+        if not all(kind == "StagedBatch" and inserted and not ph
+                   for kind, _, _, ph, inserted in first["items"]):
+            raise AssertionError("e2e_cached epoch 1 was not all misses with inserts")
+        if not all(kind == "CachedBatch" and ph for kind, _, _, ph, _ in second["items"]):
+            raise AssertionError("e2e_cached epoch 2 was not all hits with (B, 0) placeholders")
+        if tracing_report().get("audio.decode", {}).get("calls", 0):
+            raise AssertionError("e2e_cached epoch 2 decoded audio on the host")
+        n_cached = len(first["items"]) + len(second["items"])
+        if launches_cached != n_cached:
+            raise AssertionError(
+                f"e2e_cached launched the fbank kernel {launches_cached} times for {n_cached} batches")
+        # Epoch 2 against a cache-less augmenter on the decoded audio, at the
+        # counters epoch 2 was staged with.
+        ref, _ = _e2e_augmenter(device)
+        ref.load_state_dict({"seed": 0, "next_counter": cached_out[0][0]})
+        by_id = {c.id: c for c in all_cuts}
+        err = 0.0
+        for _, batch_ids, feats in cached_out:
+            audio, lens = AudioSamples()(CutSet.from_cuts([by_id[i] for i in batch_ids]))
+            ref_feats, ref_lens = ref(audio, lens)
+            real = ref_lens > 0
+            err = max(err, (feats[real] - ref_feats[real]).abs().max().item())
+        print(f"e2e_cached epoch 2 vs the wire path: max_abs_err {err!r} (tol {CACHE_TOL}); "
+              f"hit rate {cache.stats()['hit_rate']!r}, memory_bytes {cache.memory_bytes()}; "
+              f"fbank kernel launches {launches_cached}")
+        if not err <= CACHE_TOL:
+            raise AssertionError("e2e_cached epoch 2 disagrees with the wire path")
+    set_tracing_enabled(False)
+    set_caching_enabled(False)
+    return {"e2e": launches, "e2e_cached": launches_cached}
+
+
 class _PlainFbank:
     """The default fbank layer's computation with the kernel's plain version
     in place of the kernel, for the chain comparison."""
@@ -740,6 +1058,9 @@ def main() -> None:
     by_path["model"] = _phase_model(common, rng, device, fbank_cuda)
     by_path["entry"] = _phase_entry(device, fbank_cuda)
     _phase_wpe(device)
+
+    # -- 10. the host data path into the trainer step --------------------------
+    by_path.update(_phase_e2e(device, fbank_cuda, smi))
     print(f"fbank kernel launches by path: {by_path}")
     if not all(n > 0 for n in by_path.values()):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")

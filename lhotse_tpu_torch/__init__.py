@@ -1,12 +1,16 @@
 """
-PyTorch/CUDA port of the on-device augment→fbank path of :mod:`lhotse_tpu`.
+PyTorch/CUDA port of :mod:`lhotse_tpu`: the host data path and the on-device
+augment→fbank→encoder path.
 
 The module paths and public names mirror the JAX package, so
 ``lhotse_tpu/ops/augment.py`` has its counterpart in
 ``lhotse_tpu_torch/ops/augment.py``. The port imports ``torch`` and numpy
-only: never ``jax`` and never ``lhotse_tpu``. The few numpy builders it
-shares with the JAX package are copied, and the tests hold each copy equal
-to its original.
+only: never ``jax`` and never ``lhotse_tpu``. The host data layer it needs
+(manifests, WAV/FLAC audio, ``CutSet``, ``DynamicBucketingSampler``,
+``K2SpeechRecognitionDataset`` with ``AudioSamples``, ``DataLoader``) is
+copied function by function from the JAX package's modules of the same
+paths; a copied body that reaches a part not copied yet raises
+``NotImplementedError``. The tests hold each copy to its original.
 
 The one hand-written kernel is the fused log-mel fbank
 (:mod:`lhotse_tpu_torch.ops.fbank_cuda`, CUDA C++ in ``csrc/fbank.cu``),

@@ -1,0 +1,62 @@
+"""
+MonoCut: a single-channel concrete cut (copied from
+``lhotse_tpu/cut/mono.py``): audio loading, supervision handling and
+(de)serialization. A manifest cut with ``features`` raises
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import Recording
+from lhotse_tpu_torch.cut.data import DataCut
+from lhotse_tpu_torch.supervision import SupervisionSegment
+from lhotse_tpu_torch.utils import not_ported, rich_exception_info
+
+
+@dataclass
+class MonoCut(DataCut):
+    """A Cut of a single channel of a Recording — the most common cut type."""
+
+    channel: int = 0
+
+    @property
+    def num_channels(self) -> int:
+        return 1
+
+    def _span(self) -> dict:
+        return dict(channels=self.channel, offset=self.start, duration=self.duration)
+
+    @rich_exception_info
+    def load_features(self) -> Optional[np.ndarray]:
+        """Load features trimmed to this cut's [start, start+duration] span,
+        forgiving off-by-one frame count mismatches."""
+        if not self.has_features:
+            return None
+        raise not_ported(f"Features manifests (cut {self.id!r})")
+
+    @rich_exception_info
+    def load_audio(self) -> Optional[np.ndarray]:
+        """Load this cut's audio span: shape (1, num_samples)."""
+        if not self.has_recording:
+            return None
+        return self.recording.load_audio(**self._span())
+
+    @staticmethod
+    def from_dict(data: dict) -> "MonoCut":
+        from lhotse_tpu_torch.serialization import deserialize_custom_field
+
+        data.pop("type", None)
+        if "features" in data:
+            raise not_ported(f"Features manifests (cut {data.get('id')!r})")
+        features = None
+        recording = Recording.from_dict(data.pop("recording")) if "recording" in data else None
+        supervision_infos = data.pop("supervisions") if "supervisions" in data else []
+        if "custom" in data:
+            deserialize_custom_field(data["custom"])
+        return MonoCut(
+            **data, features=features, recording=recording,
+            supervisions=[SupervisionSegment.from_dict(s) for s in supervision_infos])

@@ -18,14 +18,16 @@ Design, as in the JAX package:
   occupant from the index, so an over-capacity corpus degrades to partial
   caching, never to wrong data.
 
-The JAX package's ``CacheAwareAudioSamples`` input strategy subclasses its
-host data layer, which this package does not import; it is not ported.
+- :class:`CacheAwareAudioSamples` skips the host decode of a batch that is
+  wholly resident and hands the dataset a ``(B, 0)`` placeholder.
 
 Typical use::
 
     cache = DeviceSampleCache(capacity_seconds=4 * 3600)
     aug = OnDeviceAugmenter(BUCKETS, ..., sample_cache=cache, device="cuda")
-    for batch in batches:              # epoch 1 fills, epoch 2+ hits
+    dataset = K2SpeechRecognitionDataset(
+        return_cuts=True, input_strategy=CacheAwareAudioSamples(aug))
+    for batch in DataLoader(sampler, dataset):   # epoch 1 fills, epoch 2+ hits
         ids, lens = batch_cut_info(batch)
         feats, feat_lens = aug.compute(aug.stage(batch["inputs"], lens, ids=ids))
 """
@@ -35,6 +37,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from lhotse_tpu_torch.dataset.input_strategies import AudioSamples
 
 
 def _canonical(device) -> torch.device:
@@ -183,6 +187,35 @@ class DeviceSampleCache:
             "memory_bytes": self.memory_bytes(),
             "resident_items": sum(len(i) for i in self._index.values()),
         }
+
+
+class CacheAwareAudioSamples(AudioSamples):
+    """
+    ``AudioSamples`` that skips host decode when the entire batch is
+    resident in the augmenter's :class:`DeviceSampleCache` — it returns a
+    zero-width input placeholder (the device gathers the rows instead).
+
+    Pair with ``OnDeviceAugmenter(sample_cache=...)``, build the dataset
+    with ``return_cuts=True``, and pass :func:`batch_cut_info`'s ids/lens
+    to :meth:`~lhotse_tpu_torch.dataset.device_augment.OnDeviceAugmenter.stage`.
+    """
+
+    def __init__(self, augmenter, **kwargs) -> None:
+        super().__init__(**kwargs)
+        self.augmenter = augmenter
+
+    def __call__(self, cuts, recording_field: Optional[str] = None):
+        cache = self.augmenter.sample_cache
+        if cache is not None and recording_field is None:
+            cuts_list = list(cuts)
+            ids = [c.id for c in cuts_list]
+            lens = np.array([c.num_samples for c in cuts_list], dtype=np.int64)
+            t_b, _ = self.augmenter.bucket_shape(int(lens.max()))
+            if cache.has_all(ids, t_b):
+                # Whole batch resident: no reads, no decode. The (B, 0)
+                # placeholder keeps the dataset contract (row count = B).
+                return np.zeros((len(cuts_list), 0), np.float32), lens
+        return super().__call__(cuts, recording_field=recording_field)
 
 
 def batch_cut_info(batch) -> Tuple[List[str], np.ndarray]:

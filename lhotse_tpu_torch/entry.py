@@ -7,8 +7,9 @@ Transformer encoder.
     fn, args = entry()            # on the card
     hidden, feat_lens = fn(*args)
 
-The JAX package's multi-chip dry-run (``dryrun_multichip``) waits for a
-JAX-free import path to its host data layer and is not ported.
+The JAX package's multi-chip dry-run (``dryrun_multichip``) is not ported
+yet: it also needs ``OnTheFlyFeatures`` and Shar, which the port's copy of
+the host data layer does not have.
 """
 from __future__ import annotations
 

@@ -88,9 +88,10 @@ class _KaldiExtractorBase:
         config_dict = self.config.to_dict()
         config_dict.pop("device", None)
         # The extractor dithers on the host (see _apply_dither), so its layer
-        # holds the constants only and never dithers.
+        # holds the constants only and never dithers. It is built on the CPU
+        # and moves to the config's device at first use (_layer).
         config_dict["dither"] = 0.0
-        self.extractor = self._layer_type(**config_dict)
+        self.extractor = self._layer_type(**config_dict, device="cpu")
         self._gemm_mats: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     # ---- config plumbing ----

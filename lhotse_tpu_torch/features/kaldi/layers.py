@@ -4,7 +4,8 @@ Kaldi-compatible feature extraction layers as ``nn.Module`` s (port of
 
 Each layer takes ``(batch, num_samples)`` (or ``(num_samples,)``) float32
 audio and keeps its constant matrices as registered buffers, created on the
-``device`` given to the constructor. ``Wav2LogFilterBank`` and ``Wav2MFCC``
+``device`` given to the constructor: the card (``"cuda"``) unless the caller
+asks for another, as the CPU tests do with ``device="cpu"``. ``Wav2LogFilterBank`` and ``Wav2MFCC``
 route every configuration that maps onto the fused fbank kernel (400-sample
 frames, 160-sample hop, 512-point FFT, no energy column, power spectrum,
 zero Nyquist mel row) to :func:`lhotse_tpu_torch.ops.fbank_cuda.fbank_fused_padded`,
@@ -92,7 +93,7 @@ class Wav2Win(nn.Module):
         remove_dc_offset: bool = True, preemph_coeff: float = 0.97, window_type: str = "povey",
         dither: float = 0.0, snip_edges: bool = False, energy_floor: float = EPSILON,
         raw_energy: bool = True, return_log_energy: bool = False,
-        generator: Optional[torch.Generator] = None, device=None) -> None:
+        generator: Optional[torch.Generator] = None, device="cuda") -> None:
         super().__init__()
         if dither != 0.0 and generator is None:
             raise ValueError("dither != 0 needs a torch.Generator (generator=...) to draw from.")
@@ -184,7 +185,7 @@ class Wav2FFT(nn.Module):
         remove_dc_offset: bool = True, preemph_coeff: float = 0.97, window_type: str = "povey",
         dither: float = 0.0, snip_edges: bool = False, energy_floor: float = EPSILON,
         raw_energy: bool = True, use_energy: bool = True,
-        generator: Optional[torch.Generator] = None, device=None) -> None:
+        generator: Optional[torch.Generator] = None, device="cuda") -> None:
         super().__init__()
         self.use_energy = use_energy
         N = int(math.floor(frame_length * sampling_rate))
@@ -264,7 +265,7 @@ class Wav2Spec(_GemmSpectrum):
         remove_dc_offset: bool = True, preemph_coeff: float = 0.97, window_type: str = "povey",
         dither: float = 0.0, snip_edges: bool = False, energy_floor: float = EPSILON,
         raw_energy: bool = True, use_energy: bool = True, use_fft_mag: bool = False,
-        generator: Optional[torch.Generator] = None, device=None) -> None:
+        generator: Optional[torch.Generator] = None, device="cuda") -> None:
         super().__init__(
             sampling_rate, frame_length, frame_shift, round_to_power_of_two=round_to_power_of_two,
             remove_dc_offset=remove_dc_offset, preemph_coeff=preemph_coeff, window_type=window_type,
@@ -383,7 +384,7 @@ class Wav2LogFilterBank(_MelBase):
         raw_energy: bool = True, use_energy: bool = False, use_fft_mag: bool = False,
         low_freq: float = 20.0, high_freq: float = -400.0, num_filters: int = 80,
         norm_filters: bool = False, torchaudio_compatible_mel_scale: bool = True,
-        generator: Optional[torch.Generator] = None, device=None):
+        generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__(
             sampling_rate, frame_length, frame_shift, round_to_power_of_two=round_to_power_of_two,
             remove_dc_offset=remove_dc_offset, preemph_coeff=preemph_coeff, window_type=window_type,
@@ -422,7 +423,7 @@ class Wav2MFCC(_MelBase):
         low_freq: float = 20.0, high_freq: float = -400.0, num_filters: int = 23,
         norm_filters: bool = False, num_ceps: int = 13, cepstral_lifter: int = 22,
         torchaudio_compatible_mel_scale: bool = True,
-        generator: Optional[torch.Generator] = None, device=None):
+        generator: Optional[torch.Generator] = None, device="cuda"):
         super().__init__(
             sampling_rate, frame_length, frame_shift, round_to_power_of_two=round_to_power_of_two,
             remove_dc_offset=remove_dc_offset, preemph_coeff=preemph_coeff, window_type=window_type,

@@ -1,0 +1,106 @@
+"""
+Timing and throughput spans of the host data path (copied from
+``lhotse_tpu/tracing.py``): :func:`trace_span` times a named region,
+:func:`add_work` attributes work units (audio seconds) to the innermost
+span, :func:`tracing_report` sums them. Off by default, when a span costs
+one boolean check; turn it on with :func:`set_tracing_enabled`.
+
+Spans the ported path records: ``sampler.next`` and ``dataset.assemble``
+(the loader), ``collation.read_audio`` and ``audio.decode`` (decode and
+collate).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+from typing import Any, Dict, Optional
+
+_ENABLED = False
+_LOCK = threading.Lock()
+_LOCAL = threading.local()
+
+
+class _SpanStats:
+    __slots__ = ("calls", "total_time", "work")
+
+    def __init__(self):
+        self.calls = 0
+        self.total_time = 0.0
+        self.work = 0.0
+
+
+_STATS: Dict[str, _SpanStats] = defaultdict(_SpanStats)
+
+
+def set_tracing_enabled(enabled: bool = True) -> None:
+    global _ENABLED
+    _ENABLED = enabled
+
+
+def is_tracing_enabled() -> bool:
+    return _ENABLED
+
+
+def reset_tracing() -> None:
+    with _LOCK:
+        _STATS.clear()
+
+
+def _stack():
+    if not hasattr(_LOCAL, "stack"):
+        _LOCAL.stack = []
+    return _LOCAL.stack
+
+
+@contextmanager
+def trace_span(name: str, work: float = 0.0):
+    """Time a named region. ``work`` units (e.g. audio seconds) may be given
+    upfront or attributed later via :func:`add_work`."""
+    if not _ENABLED:
+        yield
+        return
+    stack = _stack()
+    stack.append(name)
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        elapsed = time.perf_counter() - t0
+        stack.pop()
+        with _LOCK:
+            s = _STATS[name]
+            s.calls += 1
+            s.total_time += elapsed
+            s.work += work
+
+
+def add_work(units: float, name: Optional[str] = None) -> None:
+    """Attribute ``units`` of work to span ``name``, or to the innermost
+    active span of this thread when ``name`` is omitted. No-op when disabled
+    or when there is no active span and no name."""
+    if not _ENABLED:
+        return
+    if name is None:
+        stack = _stack()
+        if not stack:
+            return
+        name = stack[-1]
+    with _LOCK:
+        _STATS[name].work += units
+
+
+def tracing_report(reset: bool = False) -> Dict[str, Dict[str, Any]]:
+    """Per-span summary: calls, total seconds, mean seconds, work units, and
+    throughput (work / total seconds)."""
+    with _LOCK:
+        out = {}
+        for name, s in _STATS.items():
+            out[name] = {
+                "calls": s.calls, "total_s": s.total_time,
+                "mean_s": s.total_time / s.calls if s.calls else 0.0, "work": s.work,
+                "throughput": s.work / s.total_time if s.total_time > 0 else 0.0}
+        if reset:
+            _STATS.clear()
+    return out

@@ -157,7 +157,7 @@ def test_specaugment_draws_bit_identical(supervised):
 
 def test_resolve_fbank_layer():
     assert isinstance(ta.resolve_fbank_layer(None, SR, "cpu"), Wav2LogFilterBank)
-    layer = Wav2LogFilterBank(num_filters=40)
+    layer = Wav2LogFilterBank(num_filters=40, device="cpu")
     assert ta.resolve_fbank_layer(layer, SR, "cpu") is layer
     with pytest.raises(ValueError, match="layer"):
         ta.resolve_fbank_layer(42, SR, "cpu")

@@ -33,7 +33,21 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.dataset.device_cache, lhotse_tpu_torch.dataset.loader, "
         "lhotse_tpu_torch.features.kaldi.extractors, lhotse_tpu_torch.models, "
         "lhotse_tpu_torch.models.encoder, lhotse_tpu_torch.entry, lhotse_tpu_torch.ops.wpe, "
-        "lhotse_tpu_torch.parallel, lhotse_tpu_torch.parallel.mesh; import sys; "
+        "lhotse_tpu_torch.parallel, lhotse_tpu_torch.parallel.mesh, lhotse_tpu_torch.utils, "
+        "lhotse_tpu_torch.serialization, lhotse_tpu_torch.lazy, lhotse_tpu_torch.checkpoint, "
+        "lhotse_tpu_torch.caching, lhotse_tpu_torch.tracing, lhotse_tpu_torch.native_build, "
+        "lhotse_tpu_torch.custom, lhotse_tpu_torch.supervision, lhotse_tpu_torch.qa, "
+        "lhotse_tpu_torch.manipulation, lhotse_tpu_torch.audio, lhotse_tpu_torch.audio.utils, "
+        "lhotse_tpu_torch.audio.wavio, lhotse_tpu_torch.audio.flacio, "
+        "lhotse_tpu_torch.audio.backend, lhotse_tpu_torch.audio.source, "
+        "lhotse_tpu_torch.audio.recording, lhotse_tpu_torch.cut, lhotse_tpu_torch.cut.base, "
+        "lhotse_tpu_torch.cut.data, lhotse_tpu_torch.cut.mono, lhotse_tpu_torch.cut.set, "
+        "lhotse_tpu_torch.dataset.dataloading, lhotse_tpu_torch.dataset.sampling, "
+        "lhotse_tpu_torch.dataset.sampling.base, lhotse_tpu_torch.dataset.sampling.dynamic, "
+        "lhotse_tpu_torch.dataset.sampling.checkpoint_backends, "
+        "lhotse_tpu_torch.dataset.sampling.dynamic_bucketing, lhotse_tpu_torch.dataset.collation, "
+        "lhotse_tpu_torch.dataset.input_strategies, lhotse_tpu_torch.dataset.speech_recognition; "
+        "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
     assert proc.returncode == 0, proc.stderr
@@ -46,10 +60,72 @@ def test_cpu_route_needs_no_nvcc():
         "import torch; from lhotse_tpu_torch import _build; "
         "from lhotse_tpu_torch.ops import fbank_cuda; "
         "from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank; "
-        "out = Wav2LogFilterBank()(torch.zeros(2, 16000)); "
+        "out = Wav2LogFilterBank(device='cpu')(torch.zeros(2, 16000)); "
         "assert out.shape == (2, 100, 80); "
         "assert _build.load.cache_info().currsize == 0",
         PATH="/nonexistent", CUDA_HOME="/nonexistent", CUDA_PATH="/nonexistent")
+    assert proc.returncode == 0, proc.stderr
+
+
+HOST_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import Recording
+from lhotse_tpu_torch.audio.flacio import write_flac
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+from lhotse_tpu_torch.dataset.input_strategies import AudioSamples
+from lhotse_tpu_torch.dataset.loader import DataLoader
+from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import (
+    DynamicBucketingSampler, FixedBucketBatchSizeConstraint)
+from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.supervision import SupervisionSegment
+
+SR, BUCKETS = 16000, [(1.0, 2), (2.0, 2)]
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    rng = np.random.default_rng(0)
+    cuts = []
+    for i, sec in enumerate([0.6, 0.9, 1.4, 1.8]):
+        path = Path(tmp) / f"u{i}.flac"
+        write_flac(str(path), (0.1 * rng.standard_normal(int(SR * sec))).astype(np.float32), SR)
+        cut = Recording.from_file(path).to_cut()
+        cut.supervisions.append(SupervisionSegment(
+            id=f"s{i}", recording_id=cut.recording_id, start=0.0, duration=cut.duration))
+        cuts.append(cut)
+    CutSet.from_cuts(cuts).to_file(Path(tmp) / "cuts.jsonl.gz")
+    sampler = DynamicBucketingSampler(
+        CutSet.from_jsonl_lazy(Path(tmp) / "cuts.jsonl.gz"),
+        constraint=FixedBucketBatchSizeConstraint([1.0, 2.0], [2, 2]), num_buckets=None,
+        duration_bins=[1.0], shuffle=True, seed=0, world_size=1, rank=0)
+    aug = OnDeviceAugmenter(BUCKETS, speed_factor=1.1, specaugment=SpecAugment(seed=0), device="cpu")
+
+    def stage(batch):
+        return aug.stage(batch["inputs"], batch["supervisions"]["num_samples"], transfer=False)
+
+    loader = DataLoader(sampler, K2SpeechRecognitionDataset(input_strategy=AudioSamples()),
+                        main_apply_fn=stage, transfer_lookahead=2, checkpoint_objects=[aug],
+                        device="cpu")
+    shapes = [tuple(aug.compute(staged)[0].shape) for staged in loader]
+assert sorted(shapes) == [(2, 91, 80), (2, 182, 80)], shapes
+assert loader.state_dict()["objects"] == [{"seed": 0, "next_counter": 2}]
+assert sys.modules["jax"] is None and sys.modules["lhotse_tpu"] is None
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_host_path_runs_without_jax_and_lhotse_tpu(tmp_path):
+    """Manifest → sampler → dataset → DataLoader → OnDeviceAugmenter on the
+    CPU, in a process where importing either package fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", HOST_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
 

@@ -97,7 +97,7 @@ def test_fused_route_matches_configuration():
         if name not in ("Wav2LogFilterBank", "Wav2MFCC"):
             continue
         jax_route = getattr(jl, name)(**kwargs)._fused_matrices() is not None
-        ours = getattr(tl, name)(**kwargs)
+        ours = getattr(tl, name)(**kwargs, device="cpu")
         assert (ours._fused_matrices() is not None) == jax_route, (name, kwargs)
         if jax_route:
             assert ours._fused_matrices()[2].shape == (256, ours.num_filters)
@@ -105,19 +105,19 @@ def test_fused_route_matches_configuration():
 
 def test_one_dim_input_and_dither_needs_generator():
     x = _audio(16000, b=1)[0]
-    ours = tl.Wav2LogFilterBank()(torch.from_numpy(x))
+    ours = tl.Wav2LogFilterBank(device="cpu")(torch.from_numpy(x))
     _compare(ours, jl.Wav2LogFilterBank()(x))
     with pytest.raises(ValueError, match="Generator"):
-        tl.Wav2LogFilterBank(dither=1.0)
+        tl.Wav2LogFilterBank(dither=1.0, device="cpu")
     g = torch.Generator().manual_seed(0)
-    a = tl.Wav2LogFilterBank(dither=1e-3, generator=g)(torch.from_numpy(x))
+    a = tl.Wav2LogFilterBank(dither=1e-3, generator=g, device="cpu")(torch.from_numpy(x))
     assert a.shape == ours.shape and not torch.equal(a, ours)
 
 
 @pytest.mark.parametrize("name", ["Wav2LogFilterBank", "Wav2MFCC", "Wav2Win"])
 def test_online_inference_chunked_equals_one_shot(name):
     x = _audio(16000)
-    ours = getattr(tl, name)()
+    ours = getattr(tl, name)(device="cpu")
     theirs = getattr(jl, name)()
     chunks, context, jchunks, jcontext = [], None, [], None
     for lo, hi in [(0, 5000), (5000, 10000), (10000, 16000)]:
@@ -151,7 +151,7 @@ def _jax_arrays(layer):
     ("Wav2LogFilterBank", {}), ("Wav2MFCC", {}), ("Wav2LogFilterBank", {"use_energy": True})])
 def test_load_numpy_state_keeps_output(name, kwargs):
     x = torch.from_numpy(_audio(12345))
-    ours = getattr(tl, name)(**kwargs)
+    ours = getattr(tl, name)(**kwargs, device="cpu")
     before = ours(x)
     arrays = _jax_arrays(getattr(jl, name)(**kwargs))
     assert set(arrays) >= {"_fb"}
@@ -160,7 +160,7 @@ def test_load_numpy_state_keeps_output(name, kwargs):
 
 
 def test_load_numpy_state_carries_the_arrays():
-    ours = tl.Wav2LogFilterBank()
+    ours = tl.Wav2LogFilterBank(device="cpu")
     arrays = _jax_arrays(jl.Wav2LogFilterBank())
     arrays["_fb"] = arrays["_fb"] * np.float32(2.0)  # a different bank: log-mel shifts by log 2
     x = torch.from_numpy(_audio(16000))
@@ -170,7 +170,7 @@ def test_load_numpy_state_carries_the_arrays():
 
 
 def test_load_numpy_state_refuses_mismatch():
-    ours = tl.Wav2MFCC()
+    ours = tl.Wav2MFCC(device="cpu")
     arrays = _jax_arrays(jl.Wav2MFCC())
     before = ours._fb.clone()
     with pytest.raises(ValueError, match="shape"):
@@ -180,5 +180,5 @@ def test_load_numpy_state_refuses_mismatch():
     with pytest.raises(KeyError, match="_nope"):
         load_numpy_state(ours, {**arrays, "_nope": arrays["_fb"]})
     with pytest.raises(KeyError, match="_lifter"):
-        load_numpy_state(tl.Wav2MFCC(cepstral_lifter=0), {"_lifter": arrays["_lifter"]})
+        load_numpy_state(tl.Wav2MFCC(cepstral_lifter=0, device="cpu"), {"_lifter": arrays["_lifter"]})
     assert torch.equal(ours._fb, before)  # nothing copied
