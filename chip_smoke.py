@@ -1,20 +1,28 @@
 """
 Smoke run of the PyTorch port on one CUDA card: builds the fbank kernel
-from this checkout, holds it against its plain PyTorch version, drives the
-on-device augment→fbank path through ``OnDeviceAugmenter`` at the 15 s ×
-256 bucket with the int16 and the adpcm4 wire, through the device sample
-cache over two epochs fed by ``transfer_stream``, and through the ``Fbank``
-and ``Mfcc`` extractors on the card; then the model path (int16 audio → the
-augmenter → ``Encoder(EncoderConfig())`` in bf16: a forward at 15 s × 64,
-20 AdamW steps and one SGD step at 15 s × 32, both batches' features held
-against the chain with the kernel's plain version), the ``entry()``
-fbank→encoder entry (its fbank layer against the plain version, its output
-against the CPU port), WPE of a 2-channel 10 s signal against the CPU port,
-and the host data path into the trainer step (a 160-recording FLAC corpus
-through ``CutSet.from_jsonl_lazy``, ``DynamicBucketingSampler``,
-``K2SpeechRecognitionDataset`` and ``DataLoader`` into the augmenter and an
-AdamW step of ``Encoder(EncoderConfig())``, with a mid-epoch resume, and
-the same over the device sample cache); and checks what comes out.
+and the host C libraries (FLAC, the ``dsp`` wire encoders, the LTC1 feature
+codec) from this checkout, holds the kernel against its plain PyTorch
+version, drives the on-device augment→fbank path through
+``OnDeviceAugmenter`` at the 15 s × 256 bucket with the int16 and the
+adpcm4 wire (the C encoder's bytes against the numpy encoder's), through
+the device sample cache over two epochs fed by ``transfer_stream``, and
+through the ``Fbank`` and ``Mfcc`` extractors on the card; then the model
+path (int16 audio → the augmenter → ``Encoder(EncoderConfig())`` in bf16:
+a forward at 15 s × 64, 20 AdamW steps and one SGD step at 15 s × 32, both
+batches' features held against the chain with the kernel's plain version),
+the ``entry()`` fbank→encoder entry (its fbank layer against the plain
+version, its output against the CPU port), WPE of a 2-channel 10 s signal
+against the CPU port, the host data path into the trainer step (a
+160-recording FLAC corpus through ``CutSet.from_jsonl_lazy``,
+``DynamicBucketingSampler``, ``K2SpeechRecognitionDataset`` and
+``DataLoader`` into the augmenter and an AdamW step of
+``Encoder(EncoderConfig())``, with a mid-epoch resume, and the same over
+the device sample cache), and the precomputed-features path on the same
+corpus (``compute_and_store_features_batch`` on the kernel into a
+``lilcom_chunky`` archive, that archive through
+``K2SpeechRecognitionDataset()`` into the AdamW step, and
+``OnTheFlyFeatures`` on the kernel into the step); and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -28,15 +36,18 @@ kernel and its plain version at each shape, its bound at each shape (the
 mel product counted over each filter's nonzero bins, as the kernel runs it), the
 near-silent check against float64, and ``launches_by_path``: the kernel's
 launches on each path, ``augment_int16``, ``augment_adpcm4``, ``cached``,
-``extractor_fbank``, ``extractor_mfcc``, ``model``, ``entry``, ``e2e`` and
-``e2e_cached``); the last line is ``{"ok": true, "device": {...}}``. The
-corpus and the codec's build go under ``build/`` in the checkout.
+``extractor_fbank``, ``extractor_mfcc``, ``model``, ``entry``, ``e2e``,
+``e2e_cached``, ``precomputed_extract``, ``precomputed_train`` (0: it
+reads stored features) and ``on_the_fly``); the last line is
+``{"ok": true, "device": {...}}``. The corpus, the archive and the
+libraries' builds go under ``build/`` in the checkout.
 """
 import json
 import math
 import queue
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -193,23 +204,23 @@ def _check_chain(staged, feats, feat_lens, wire_format, rir, device, fbank_cuda,
     return err
 
 
-def _phase_adpcm4(common, batch, rir, device, fbank_cuda) -> int:
-    """4. The adpcm4 wire at the full bucket: the card's decode of a staged
-    batch against the numpy decode bit for bit, the features against the
-    plain chain. Returns the kernel's launches on the path."""
+def _phase_adpcm4(common, batch, rir, device, fbank_cuda, smi: str) -> int:
+    """4. The adpcm4 wire at the full bucket: the stage's encode (the C
+    encoder) against the numpy encoder byte for byte, the card's decode of
+    the staged batch against the numpy decode bit for bit, the features
+    against the plain chain. Returns the kernel's launches on the path."""
+    from lhotse_tpu_torch.dataset import device_augment
     from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
     from lhotse_tpu_torch.ops import wire
 
-    from lhotse_tpu_torch.dataset import device_augment
-
     aug = OnDeviceAugmenter(buckets=[BUCKET], wire_format="adpcm4", **common)
     audio, lens = batch
-    encode_s = []
+    encoded = []
 
     def timed_encode(x, wire_format):  # the stage's own encode, timed
         t = time.perf_counter()
         out = wire.encode_wire(x, wire_format)
-        encode_s.append(time.perf_counter() - t)
+        encoded.append((time.perf_counter() - t, x, out))
         return out
 
     torch.cuda.synchronize()
@@ -221,18 +232,24 @@ def _phase_adpcm4(common, batch, rir, device, fbank_cuda) -> int:
     finally:
         device_augment.encode_wire = wire.encode_wire
     stage_ms = (time.perf_counter() - t0) * 1e3
-    encode_ms = encode_s[0] * 1e3
     feats, feat_lens = aug.compute(staged)
     torch.cuda.synchronize()
     launches = fbank_cuda.LAUNCHES
     elapsed = time.perf_counter() - t0
+    encode_s, encode_in, encode_out = encoded[0]
+    t = time.perf_counter()
+    numpy_out = wire._adpcm4_encode_np(encode_in)
+    numpy_ms = (time.perf_counter() - t) * 1e3
+    if not np.array_equal(encode_out, numpy_out):
+        raise AssertionError("the C adpcm4 encoder's bytes differ from the numpy encoder's")
     decoded = wire.decode_wire(staged.audio, "adpcm4")
     if not torch.equal(decoded.cpu(), torch.from_numpy(wire.adpcm4_decode_np(staged.audio.cpu().numpy()))):
         raise AssertionError("the card's adpcm4 decode differs from adpcm4_decode_np")
     decode_ms = _device_ms(lambda: wire.decode_wire(staged.audio, "adpcm4"))
     width = tuple(staged.audio.shape)
-    print(f"adpcm4 {BUCKET[0]:g} s x {BUCKET[1]}: wire {width} uint8 ({wire.wire_bytes_per_sample('adpcm4')} B/sample); "
-          f"host encode {encode_ms!r} ms (numpy), stage {stage_ms!r} ms; decode on the card "
+    print(f"[{smi}] adpcm4 {BUCKET[0]:g} s x {BUCKET[1]}: wire {width} uint8 ({wire.wire_bytes_per_sample('adpcm4')} B/sample); "
+          f"host encode {encode_s * 1e3!r} ms (C encoder; bytes equal to the numpy encoder's, which "
+          f"took {numpy_ms!r} ms), stage {stage_ms!r} ms; decode on the card "
           f"bit-exact, device {decode_ms!r} ms per batch (torch.profiler); "
           f"{float(lens.sum()) / SR / elapsed!r} audio-s/s (stage + compute); "
           f"fbank kernel launches {launches}")
@@ -710,7 +727,7 @@ def _host_split(report: dict, n: int, wait_s: float) -> str:
             f"included) {wait_s * 1e3 / n!r}")
 
 
-def _phase_e2e(device, fbank_cuda, smi: str) -> dict:
+def _phase_e2e(cuts_path: Path, device, fbank_cuda, smi: str) -> dict:
     """10. The host data path into the trainer step, as a trainer runs it:
     a FLAC corpus read back lazily into ``DynamicBucketingSampler`` →
     ``K2SpeechRecognitionDataset`` → ``DataLoader`` (staging and the copy
@@ -723,8 +740,6 @@ def _phase_e2e(device, fbank_cuda, smi: str) -> dict:
     ``e2e_cached``: the same loader over a ``DeviceSampleCache`` with
     ``CacheAwareAudioSamples``, two epochs, the second all hits. Returns
     the kernel's launches per path."""
-    import tempfile
-
     from lhotse_tpu_torch.caching import set_caching_enabled
     from lhotse_tpu_torch.cut import CutSet
     from lhotse_tpu_torch.dataset.device_cache import DeviceSampleCache
@@ -733,141 +748,387 @@ def _phase_e2e(device, fbank_cuda, smi: str) -> dict:
 
     set_caching_enabled(True)  # the decoded-audio LRU, as bench.py's e2e legs
     set_tracing_enabled(True)
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        t0 = time.perf_counter()
-        cuts_path = _synthesize_corpus(Path(tmp), E2E_RECORDINGS)
-        all_cuts = list(CutSet.from_jsonl_lazy(cuts_path))
-        corpus_s = sum(c.duration for c in all_cuts)
-        print(f"e2e corpus: {len(all_cuts)} FLAC recordings, {corpus_s!r} audio-s, written in "
-              f"{time.perf_counter() - t0!r} s")
-        trainer = _Trainer(device)
+    all_cuts = list(CutSet.from_jsonl_lazy(cuts_path))
+    trainer = _Trainer(device)
 
-        # -- e2e: the timed epoch ----------------------------------------------
-        aug, rir = _e2e_augmenter(device)
-        loader, sampler = _e2e_loader(cuts_path, aug, device)
-        kept = {}
+    # -- e2e: the timed epoch ----------------------------------------------
+    aug, rir = _e2e_augmenter(device)
+    loader, sampler = _e2e_loader(cuts_path, aug, device)
+    kept = {}
 
-        def keep(i, item, feats, feat_lens):
-            staged = item[0]
-            if i == 0:
-                kept["first"] = (staged, feats.clone(), feat_lens.clone())
-            if i == 2:  # three batches consumed
-                kept["ckpt"] = loader.state_dict()
-            if i in (3, 4):
-                kept[i] = (item[1], staged.audio.cpu().numpy(),
-                           {k: v.cpu().numpy() for k, v in staged.kwargs.items()}, feats.clone())
+    def keep(i, item, feats, feat_lens):
+        staged = item[0]
+        if i == 0:
+            kept["first"] = (staged, feats.clone(), feat_lens.clone())
+        if i == 2:  # three batches consumed
+            kept["ckpt"] = loader.state_dict()
+        if i in (3, 4):
+            kept[i] = (item[1], staged.audio.cpu().numpy(),
+                       {k: v.cpu().numpy() for k, v in staged.kwargs.items()}, feats.clone())
 
+    reset_tracing()
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    run = _run_epoch(loader, aug, trainer, on_batch=keep)
+    launches = fbank_cuda.LAUNCHES
+    n = len(run["items"])
+    split = _host_split(tracing_report(), n, run["wait_s"])
+    ids = [i for _, batch_ids, *_ in run["items"] for i in batch_ids]
+    print(f"[{smi}] e2e epoch: {n} batches, {run['audio_s']!r} audio-s in {run['elapsed_s']!r} s "
+          f"(host clock, AdamW steps included): {run['audio_s'] / run['elapsed_s']!r} audio-s/s; "
+          f"losses {run['losses'][0]!r} -> {run['losses'][-1]!r}; fbank kernel launches {launches}")
+    print(f"[{smi}] e2e {split}")
+    if sorted(ids) != sorted(c.id for c in all_cuts):
+        raise AssertionError("the e2e epoch did not bring every cut exactly once")
+    for _, batch_ids, lens, _, _ in run["items"]:
+        ub, size = next((ub, size) for ub, size in E2E_BUCKETS if lens.max() <= ub * SR)
+        if len(batch_ids) > size:
+            raise AssertionError(f"a {ub:g} s batch of {len(batch_ids)} exceeds its size {size}")
+    if launches != n:
+        raise AssertionError(f"the e2e path launched the fbank kernel {launches} times for {n} batches")
+    losses = run["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the e2e loss did not fall or is not finite: {losses}")
+    staged0, feats0, lens0 = kept["first"]
+    _check_chain(staged0, feats0, lens0, "int16", rir, device, fbank_cuda,
+                 path="e2e first batch")
+
+    # -- e2e: a second epoch under torch.profiler ------------------------------
+    sampler.set_epoch(1)
+    wall_ms, busy_ms, by_name = _device_busy(lambda: _run_epoch(loader, aug, trainer))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[{smi}] e2e epoch 2 under torch.profiler: wall {wall_ms!r} ms, device busy "
+          f"{busy_ms!r} ms ({busy_ms / wall_ms!r} of the wall); device ms by activity: "
+          + "; ".join(f"{k[:60]} {v!r}" for k, v in top))
+
+    # -- e2e: mid-epoch resume into a fresh sampler, augmenter and loader ------
+    aug2, _ = _e2e_augmenter(device)
+    loader2, _ = _e2e_loader(cuts_path, aug2, device)
+    loader2.load_state_dict(kept["ckpt"])
+    it2 = iter(loader2)
+    for i in (3, 4):
+        staged, batch_ids, _, _ = next(it2)
+        feats, _ = aug2.compute(staged)
+        want_ids, want_audio, want_draws, want_feats = kept[i]
+        same = (batch_ids == want_ids and np.array_equal(staged.audio.cpu().numpy(), want_audio)
+                and set(staged.kwargs) == set(want_draws)
+                and all(np.array_equal(v.cpu().numpy(), want_draws[k])
+                        for k, v in staged.kwargs.items())
+                and torch.equal(feats, want_feats))
+        if not same:
+            raise AssertionError(f"batch {i + 1} after the resume differs from the first run")
+    it2.close()
+    print(f"e2e mid-epoch resume from loader.state_dict() after batch 3: batches 4 and 5 "
+          f"equal (cut ids, wire audio, draws, torch.equal features)")
+
+    # -- e2e_cached: two epochs over the device sample cache -------------------
+    cache = DeviceSampleCache(capacity_seconds=2 * 3600)
+    aug_c, _ = _e2e_augmenter(device, sample_cache=cache)
+    loader_c, sampler_c = _e2e_loader(cuts_path, aug_c, device, cached=True)
+    cached_out = []
+
+    def keep_cached(i, item, feats, feat_lens):
+        cached_out.append((item[0].aug_counter, list(item[1]), feats.clone()))
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    epochs = []
+    for epoch in range(2):
+        sampler_c.set_epoch(epoch)
+        cached_out.clear()
         reset_tracing()
-        torch.cuda.synchronize()
-        fbank_cuda.LAUNCHES = 0
-        run = _run_epoch(loader, aug, trainer, on_batch=keep)
-        launches = fbank_cuda.LAUNCHES
-        n = len(run["items"])
-        split = _host_split(tracing_report(), n, run["wait_s"])
-        ids = [i for _, batch_ids, *_ in run["items"] for i in batch_ids]
-        print(f"[{smi}] e2e epoch: {n} batches, {run['audio_s']!r} audio-s in {run['elapsed_s']!r} s "
-              f"(host clock, AdamW steps included): {run['audio_s'] / run['elapsed_s']!r} audio-s/s; "
-              f"losses {run['losses'][0]!r} -> {run['losses'][-1]!r}; fbank kernel launches {launches}")
-        print(f"[{smi}] e2e {split}")
-        if sorted(ids) != sorted(c.id for c in all_cuts):
-            raise AssertionError("the e2e epoch did not bring every cut exactly once")
-        for _, batch_ids, lens, _, _ in run["items"]:
-            ub, size = next((ub, size) for ub, size in E2E_BUCKETS if lens.max() <= ub * SR)
-            if len(batch_ids) > size:
-                raise AssertionError(f"a {ub:g} s batch of {len(batch_ids)} exceeds its size {size}")
-        if launches != n:
-            raise AssertionError(f"the e2e path launched the fbank kernel {launches} times for {n} batches")
-        losses = run["losses"]
-        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-            raise AssertionError(f"the e2e loss did not fall or is not finite: {losses}")
-        staged0, feats0, lens0 = kept["first"]
-        _check_chain(staged0, feats0, lens0, "int16", rir, device, fbank_cuda,
-                     path="e2e first batch")
-
-        # -- e2e: a second epoch under torch.profiler ------------------------------
-        sampler.set_epoch(1)
-        wall_ms, busy_ms, by_name = _device_busy(lambda: _run_epoch(loader, aug, trainer))
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        print(f"[{smi}] e2e epoch 2 under torch.profiler: wall {wall_ms!r} ms, device busy "
-              f"{busy_ms!r} ms ({busy_ms / wall_ms!r} of the wall); device ms by activity: "
-              + "; ".join(f"{k[:60]} {v!r}" for k, v in top))
-
-        # -- e2e: mid-epoch resume into a fresh sampler, augmenter and loader ------
-        aug2, _ = _e2e_augmenter(device)
-        loader2, _ = _e2e_loader(cuts_path, aug2, device)
-        loader2.load_state_dict(kept["ckpt"])
-        it2 = iter(loader2)
-        for i in (3, 4):
-            staged, batch_ids, _, _ = next(it2)
-            feats, _ = aug2.compute(staged)
-            want_ids, want_audio, want_draws, want_feats = kept[i]
-            same = (batch_ids == want_ids and np.array_equal(staged.audio.cpu().numpy(), want_audio)
-                    and set(staged.kwargs) == set(want_draws)
-                    and all(np.array_equal(v.cpu().numpy(), want_draws[k])
-                            for k, v in staged.kwargs.items())
-                    and torch.equal(feats, want_feats))
-            if not same:
-                raise AssertionError(f"batch {i + 1} after the resume differs from the first run")
-        it2.close()
-        print(f"e2e mid-epoch resume from loader.state_dict() after batch 3: batches 4 and 5 "
-              f"equal (cut ids, wire audio, draws, torch.equal features)")
-
-        # -- e2e_cached: two epochs over the device sample cache -------------------
-        cache = DeviceSampleCache(capacity_seconds=2 * 3600)
-        aug_c, _ = _e2e_augmenter(device, sample_cache=cache)
-        loader_c, sampler_c = _e2e_loader(cuts_path, aug_c, device, cached=True)
-        cached_out = []
-
-        def keep_cached(i, item, feats, feat_lens):
-            cached_out.append((item[0].aug_counter, list(item[1]), feats.clone()))
-
-        torch.cuda.synchronize()
-        fbank_cuda.LAUNCHES = 0
-        epochs = []
-        for epoch in range(2):
-            sampler_c.set_epoch(epoch)
-            cached_out.clear()
-            reset_tracing()
-            epochs.append(_run_epoch(loader_c, aug_c, trainer, on_batch=keep_cached))
-            report = tracing_report()
-            r = epochs[-1]
-            print(f"[{smi}] e2e_cached epoch {epoch + 1}: {len(r['items'])} batches, "
-                  f"{r['audio_s']!r} audio-s in {r['elapsed_s']!r} s: "
-                  f"{r['audio_s'] / r['elapsed_s']!r} audio-s/s (AdamW steps included); "
-                  f"{_host_split(report, len(r['items']), r['wait_s'])}")
-        launches_cached = fbank_cuda.LAUNCHES
-        first, second = epochs
-        if not all(kind == "StagedBatch" and inserted and not ph
-                   for kind, _, _, ph, inserted in first["items"]):
-            raise AssertionError("e2e_cached epoch 1 was not all misses with inserts")
-        if not all(kind == "CachedBatch" and ph for kind, _, _, ph, _ in second["items"]):
-            raise AssertionError("e2e_cached epoch 2 was not all hits with (B, 0) placeholders")
-        if tracing_report().get("audio.decode", {}).get("calls", 0):
-            raise AssertionError("e2e_cached epoch 2 decoded audio on the host")
-        n_cached = len(first["items"]) + len(second["items"])
-        if launches_cached != n_cached:
-            raise AssertionError(
-                f"e2e_cached launched the fbank kernel {launches_cached} times for {n_cached} batches")
-        # Epoch 2 against a cache-less augmenter on the decoded audio, at the
-        # counters epoch 2 was staged with.
-        ref, _ = _e2e_augmenter(device)
-        ref.load_state_dict({"seed": 0, "next_counter": cached_out[0][0]})
-        by_id = {c.id: c for c in all_cuts}
-        err = 0.0
-        for _, batch_ids, feats in cached_out:
-            audio, lens = AudioSamples()(CutSet.from_cuts([by_id[i] for i in batch_ids]))
-            ref_feats, ref_lens = ref(audio, lens)
-            real = ref_lens > 0
-            err = max(err, (feats[real] - ref_feats[real]).abs().max().item())
-        print(f"e2e_cached epoch 2 vs the wire path: max_abs_err {err!r} (tol {CACHE_TOL}); "
-              f"hit rate {cache.stats()['hit_rate']!r}, memory_bytes {cache.memory_bytes()}; "
-              f"fbank kernel launches {launches_cached}")
-        if not err <= CACHE_TOL:
-            raise AssertionError("e2e_cached epoch 2 disagrees with the wire path")
+        epochs.append(_run_epoch(loader_c, aug_c, trainer, on_batch=keep_cached))
+        report = tracing_report()
+        r = epochs[-1]
+        print(f"[{smi}] e2e_cached epoch {epoch + 1}: {len(r['items'])} batches, "
+              f"{r['audio_s']!r} audio-s in {r['elapsed_s']!r} s: "
+              f"{r['audio_s'] / r['elapsed_s']!r} audio-s/s (AdamW steps included); "
+              f"{_host_split(report, len(r['items']), r['wait_s'])}")
+    launches_cached = fbank_cuda.LAUNCHES
+    first, second = epochs
+    if not all(kind == "StagedBatch" and inserted and not ph
+               for kind, _, _, ph, inserted in first["items"]):
+        raise AssertionError("e2e_cached epoch 1 was not all misses with inserts")
+    if not all(kind == "CachedBatch" and ph for kind, _, _, ph, _ in second["items"]):
+        raise AssertionError("e2e_cached epoch 2 was not all hits with (B, 0) placeholders")
+    if tracing_report().get("audio.decode", {}).get("calls", 0):
+        raise AssertionError("e2e_cached epoch 2 decoded audio on the host")
+    n_cached = len(first["items"]) + len(second["items"])
+    if launches_cached != n_cached:
+        raise AssertionError(
+            f"e2e_cached launched the fbank kernel {launches_cached} times for {n_cached} batches")
+    # Epoch 2 against a cache-less augmenter on the decoded audio, at the
+    # counters epoch 2 was staged with.
+    ref, _ = _e2e_augmenter(device)
+    ref.load_state_dict({"seed": 0, "next_counter": cached_out[0][0]})
+    by_id = {c.id: c for c in all_cuts}
+    err = 0.0
+    for _, batch_ids, feats in cached_out:
+        audio, lens = AudioSamples()(CutSet.from_cuts([by_id[i] for i in batch_ids]))
+        ref_feats, ref_lens = ref(audio, lens)
+        real = ref_lens > 0
+        err = max(err, (feats[real] - ref_feats[real]).abs().max().item())
+    print(f"e2e_cached epoch 2 vs the wire path: max_abs_err {err!r} (tol {CACHE_TOL}); "
+          f"hit rate {cache.stats()['hit_rate']!r}, memory_bytes {cache.memory_bytes()}; "
+          f"fbank kernel launches {launches_cached}")
+    if not err <= CACHE_TOL:
+        raise AssertionError("e2e_cached epoch 2 disagrees with the wire path")
     set_tracing_enabled(False)
     set_caching_enabled(False)
     return {"e2e": launches, "e2e_cached": launches_cached}
+
+
+# -- 11. the precomputed-features path -------------------------------------------
+LTC1_TICK = 2.0**-5  # the chunky archive's quantum at tick_power=-5
+LOG_EPSILON = math.log(1e-10)  # the feature-domain padding of the collators
+
+
+def _plain_extract(extractor, items) -> list:
+    """``extractor.extract_batch(items)`` with the kernel's plain version on
+    the card in place of the kernel: the same prepared, zero-padded batch,
+    the same squeezed matrices, each item sliced to its frame count."""
+    from lhotse_tpu_torch.ops import fbank_cuda
+
+    device = extractor.device
+    prepared = [extractor._prepare_item(np.asarray(x, np.float32)) for x in items]
+    batch = np.zeros((len(prepared), max(len(p) for p in prepared)), np.float32)
+    for i, p in enumerate(prepared):
+        batch[i, : len(p)] = p
+    Mc, Ms, fb, _ = extractor._layer()._fused_matrices()
+    mats = fbank_cuda._squeeze_nyquist(*(fbank_cuda._as_f32(m, device) for m in (Mc, Ms, fb)))
+    out = fbank_cuda.reference_fbank(torch.from_numpy(batch).to(device), *mats).cpu().numpy()
+    return [out[i, : extractor._num_frames(len(x))] for i, x in enumerate(items)]
+
+
+class _RecordFirstBatch:
+    """Wraps ``extractor.extract_batch`` to keep the first call's items and
+    features."""
+
+    def __init__(self, extractor):
+        self.first = None
+        inner = extractor.extract_batch
+
+        def extract_batch(items, sampling_rate, **kw):
+            out = inner(items, sampling_rate, **kw)
+            if self.first is None:
+                self.first = ([np.asarray(x).copy() for x in items], [np.asarray(f).copy() for f in out])
+            return out
+
+        extractor.extract_batch = extract_batch
+
+
+def _sampler_over(cuts_path: Path):
+    """Phase 10's ``DynamicBucketingSampler`` (buckets, constraint, shuffle
+    with seed 0) over another manifest of the same cuts."""
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import (
+        DynamicBucketingSampler, FixedBucketBatchSizeConstraint)
+
+    return DynamicBucketingSampler(
+        CutSet.from_jsonl_lazy(cuts_path),
+        constraint=FixedBucketBatchSizeConstraint(
+            max_seq_len_buckets=[ub for ub, _ in E2E_BUCKETS],
+            batch_sizes=[bsz for _, bsz in E2E_BUCKETS]),
+        num_buckets=None, duration_bins=[ub for ub, _ in E2E_BUCKETS[:-1]],
+        buffer_size=max(E2E_RECORDINGS, 16), shuffle=True, seed=0, world_size=1, rank=0)
+
+
+def _train_epoch(loader, trainer, device, on_batch=None) -> dict:
+    """One epoch of ``K2SpeechRecognitionDataset`` batches of features (one
+    supervision per cut) into the trainer's AdamW step on ``device``."""
+    ids, losses, wait_s, audio_s = [], [], 0.0, 0.0
+    it = iter(loader)
+    t0 = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        wait_s += time.perf_counter() - t
+        cuts = batch["supervisions"]["cut"]
+        feats = torch.from_numpy(batch["inputs"]).to(device)
+        feat_lens = torch.from_numpy(
+            np.asarray(batch["supervisions"]["num_frames"], np.int64)).to(device)
+        if on_batch is not None:
+            on_batch(len(losses), cuts, batch)
+        losses.append(trainer.step(feats, feat_lens))
+        ids.extend(c.id for c in cuts)
+        audio_s += sum(c.duration for c in cuts)
+    torch.cuda.synchronize()
+    return {"ids": ids, "losses": losses, "wait_s": wait_s, "audio_s": audio_s,
+            "elapsed_s": time.perf_counter() - t0}
+
+
+def _check_epoch(name: str, run: dict, all_ids: list) -> None:
+    if sorted(run["ids"]) != sorted(all_ids):
+        raise AssertionError(f"the {name} epoch did not bring every cut exactly once")
+    losses = run["losses"]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the {name} loss did not fall or is not finite: {losses}")
+
+
+def _phase_precomputed(cuts_path: Path, workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """11. The precomputed-features path at full width, on phase 10's FLAC
+    corpus. ``precomputed_extract``: ``CutSet.compute_and_store_features_batch``
+    with ``Fbank(device="cuda")`` into the default ``lilcom_chunky`` archive
+    (first batch against the kernel's plain version, the archive against the
+    kernel's output, a second decode equal to the first).
+    ``precomputed_train``: the written manifest through phase 10's sampler,
+    ``K2SpeechRecognitionDataset()`` (its default ``PrecomputedFeatures``)
+    and ``DataLoader(prefetch_batches=3)`` into an AdamW step of
+    ``Encoder(EncoderConfig())`` per batch (no kernel launch), a second epoch
+    under ``torch.profiler``. ``on_the_fly``: the FLAC manifest through the
+    same sampler with ``OnTheFlyFeatures(Fbank(device="cuda"))`` into the
+    same step (one launch per batch; the first batch against the plain
+    version, the CPU route and the precomputed batch of the same cuts).
+    Returns the kernel's launches per path and the largest kernel-vs-plain
+    error."""
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures, PrecomputedFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import reset_tracing, set_tracing_enabled, tracing_report
+
+    set_caching_enabled(False)  # every read decodes its bytes anew
+    all_ids = [c.id for c in CutSet.from_jsonl_lazy(cuts_path)]
+
+    # -- precomputed_extract ------------------------------------------------------
+    extractor = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(extractor)
+    feats_cuts = workdir / "feats_cuts.jsonl"
+    set_tracing_enabled(True)
+    reset_tracing()
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    stored = CutSet.from_jsonl_lazy(cuts_path).compute_and_store_features_batch(
+        extractor, workdir / "feats", manifest_path=feats_cuts, batch_duration=600,
+        num_workers=4)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches_extract = fbank_cuda.LAUNCHES
+    report = tracing_report()
+    read_extract_s = report.get("CutSet.compute_and_store_features_batch", {}).get("total_s", 0.0)
+    decode_s = report.get("audio.decode", {}).get("total_s", 0.0)
+    stored = {c.id: c for c in stored}
+    audio_s = sum(c.duration for c in stored.values())
+    archive = workdir / "feats.lca"
+    f32_bytes = sum(4 * c.features.num_frames * c.features.num_features for c in stored.values())
+    items, kernel_out = recorder.first
+    plain = _plain_extract(extractor, items)
+    extract_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, plain))
+    first_ids = [i for i in all_ids if i in stored][: len(items)]
+    archive_err, redecode_equal = 0.0, True
+    for cid, k in zip(first_ids, kernel_out):
+        got = stored[cid].load_features()
+        archive_err = max(archive_err, float(np.abs(got - k).max()))
+        redecode_equal &= np.array_equal(got, stored[cid].load_features())
+    print(f"[{smi}] precomputed_extract: {len(stored)} cuts, {audio_s!r} audio-s extracted and "
+          f"stored in {extract_s!r} s: {audio_s / extract_s!r} audio-s/s (host clock, FLAC decode, "
+          f"kernel, LTC1 encode and the archive write included); fbank kernel launches "
+          f"{launches_extract}; archive {archive.stat().st_size} B, "
+          f"{archive.stat().st_size / f32_bytes!r} of float32 ({f32_bytes} B); of the wall, "
+          f"read + extract {read_extract_s!r} s (FLAC decode {decode_s!r} s summed over the 4 "
+          f"read threads), the rest the writer thread's LTC1 encode and write")
+    print(f"precomputed_extract first batch ({len(items)} cuts): kernel vs its plain version "
+          f"max_abs_err {extract_err!r} (tol {KERNEL_TOL}); archive vs the kernel's output "
+          f"{archive_err!r} (tol {LTC1_TICK / 2 + 1e-6!r}); a second decode equal: {redecode_equal}")
+    if sorted(stored) != sorted(all_ids):
+        raise AssertionError("precomputed_extract did not store every cut")
+    if launches_extract < 1 or not extract_err <= KERNEL_TOL:
+        raise AssertionError("precomputed_extract: the kernel did not run or disagrees with plain")
+    if not archive_err <= LTC1_TICK / 2 + 1e-6 or not redecode_equal:
+        raise AssertionError("the archive's features disagree with the kernel's output")
+
+    # -- precomputed_train ---------------------------------------------------------
+    trainer = _Trainer(device)
+    dataset = K2SpeechRecognitionDataset(return_cuts=True)
+    if not isinstance(dataset.input_strategy, PrecomputedFeatures):
+        raise AssertionError("K2SpeechRecognitionDataset() does not default to PrecomputedFeatures")
+    sampler = _sampler_over(feats_cuts)
+    loader = DataLoader(sampler, dataset, prefetch_batches=3)
+    first_pre = {}
+
+    def keep_pre(i, cuts, batch):
+        if i == 0:
+            first_pre["ids"] = [c.id for c in cuts]
+
+    reset_tracing()
+    fbank_cuda.LAUNCHES = 0
+    run = _train_epoch(loader, trainer, device, on_batch=keep_pre)
+    launches_train = fbank_cuda.LAUNCHES
+    n = len(run["losses"])
+    read_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
+    sampler.set_epoch(1)
+    wall_ms, busy_ms, by_name = _device_busy(lambda: _train_epoch(loader, trainer, device))
+    print(f"[{smi}] precomputed_train epoch: {n} batches, {run['audio_s']!r} audio-s in "
+          f"{run['elapsed_s']!r} s (host clock, AdamW steps included): "
+          f"{run['audio_s'] / run['elapsed_s']!r} audio-s/s; losses {run['losses'][0]!r} -> "
+          f"{run['losses'][-1]!r}; host ms per batch of the feature read (dataset.assemble, "
+          f"loader thread) {read_ms!r}, consumer's wait in next() {run['wait_s'] * 1e3 / n!r}; "
+          f"epoch 2 under torch.profiler: wall {wall_ms!r} ms, device busy {busy_ms!r} ms "
+          f"({busy_ms / wall_ms!r} of the wall); fbank kernel launches {launches_train}")
+    _check_epoch("precomputed_train", run, all_ids)
+    if launches_train != 0:
+        raise AssertionError(f"precomputed_train launched the fbank kernel {launches_train} times")
+
+    # -- on_the_fly -----------------------------------------------------------------
+    fly_extractor = Fbank(FbankConfig(device=device))
+    fly_recorder = _RecordFirstBatch(fly_extractor)
+    loader = DataLoader(_sampler_over(cuts_path), K2SpeechRecognitionDataset(
+        return_cuts=True, input_strategy=OnTheFlyFeatures(fly_extractor)), prefetch_batches=3)
+    first_fly = {}
+
+    def keep_fly(i, cuts, batch):
+        if i == 0:
+            first_fly["cuts"] = CutSet.from_cuts(cuts)
+            first_fly["inputs"] = batch["inputs"]
+
+    reset_tracing()
+    fbank_cuda.LAUNCHES = 0
+    run = _train_epoch(loader, trainer, device, on_batch=keep_fly)
+    launches_fly = fbank_cuda.LAUNCHES
+    n = len(run["losses"])
+    assemble_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
+    set_tracing_enabled(False)
+    items, kernel_out = fly_recorder.first
+    plain_out = _plain_extract(fly_extractor, items)
+    fly_plain_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, plain_out))
+    # The CPU route takes its DFT products in float64. Where a tone's
+    # leakage nearly cancels in the lowest mel bins, every float32 route is
+    # ~2e-4 from it; the kernel must lose no more than its plain version.
+    cpu_feats, _ = OnTheFlyFeatures(Fbank(FbankConfig(device="cpu")))(first_fly["cuts"])
+    cpu_err = float(np.abs(first_fly["inputs"] - cpu_feats).max())
+    plain_batch = np.full_like(first_fly["inputs"], LOG_EPSILON)
+    for i, f in enumerate(plain_out):
+        plain_batch[i, : len(f)] = f
+    plain_cpu_err = float(np.abs(plain_batch - cpu_feats).max())
+    pre_feats, _ = PrecomputedFeatures()(CutSet.from_cuts(
+        [stored[c.id] for c in first_fly["cuts"]]))
+    pre_err = float(np.abs(first_fly["inputs"] - pre_feats).max())
+    print(f"[{smi}] on_the_fly epoch: {n} batches, {run['audio_s']!r} audio-s in "
+          f"{run['elapsed_s']!r} s (host clock, AdamW steps included): "
+          f"{run['audio_s'] / run['elapsed_s']!r} audio-s/s; losses {run['losses'][0]!r} -> "
+          f"{run['losses'][-1]!r}; host ms per batch of decode+extract+collate "
+          f"(dataset.assemble) {assemble_ms!r}; fbank kernel launches {launches_fly}")
+    print(f"on_the_fly first batch: kernel vs its plain version {fly_plain_err!r} (tol {KERNEL_TOL}); "
+          f"vs the CPU route (float64 DFT products) {cpu_err!r}, where the plain version is "
+          f"{plain_cpu_err!r} (tol: {KERNEL_TOL} or twice the plain version's); vs the "
+          f"precomputed batch of the same "
+          f"cuts {pre_err!r} (tol {LTC1_TICK / 2 + KERNEL_TOL!r})")
+    _check_epoch("on_the_fly", run, all_ids)
+    if launches_fly != n:
+        raise AssertionError(f"on_the_fly launched the fbank kernel {launches_fly} times for {n} batches")
+    if not fly_plain_err <= KERNEL_TOL or not cpu_err <= max(KERNEL_TOL, 2 * plain_cpu_err):
+        raise AssertionError("on_the_fly features disagree with the plain version or the CPU route")
+    if not pre_err <= LTC1_TICK / 2 + KERNEL_TOL:
+        raise AssertionError("on_the_fly features disagree with the precomputed batch")
+    launches = {"precomputed_extract": launches_extract, "precomputed_train": launches_train,
+                "on_the_fly": launches_fly}
+    return launches, max(extract_err, fly_plain_err)
 
 
 class _PlainFbank:
@@ -918,6 +1179,17 @@ def main() -> None:
     fbank_cuda._lib()
     print(f"fbank kernel built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path('fbank')})")
+    # The host C libraries (byte-for-byte copies of the JAX package's
+    # sources), built here so that no phase times a build.
+    from lhotse_tpu_torch.audio import flacio
+    from lhotse_tpu_torch.codecs import lilcom_codec
+    from lhotse_tpu_torch.ops import host_dsp
+
+    for name, get_lib in (("flac", flacio._get_lib), ("dsp", host_dsp._get_lib),
+                          ("lilcom (LTC1)", lilcom_codec._native_lib)):
+        t0 = time.perf_counter()
+        get_lib()
+        print(f"{name} host library built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # -- 2. kernel vs plain version -------------------------------------------
     # The kernel gets the packed DFT operand as the layers hold it, so its
@@ -1048,7 +1320,7 @@ def main() -> None:
 
     # -- 4. adpcm4 wire, 5. sample cache, 6. extractors -------------------------
     by_path = {"augment_int16": launches}
-    by_path["augment_adpcm4"] = _phase_adpcm4(common, batches[0], rir, device, fbank_cuda)
+    by_path["augment_adpcm4"] = _phase_adpcm4(common, batches[0], rir, device, fbank_cuda, smi)
     extra = rng.integers(8 * SR, 15 * SR + 1, size=256)
     cache_batches = batches + [(rng.standard_normal((256, 15 * SR), np.float32) * 0.1, extra)]
     by_path["cached"] = _phase_cache(common, cache_batches, device, fbank_cuda)
@@ -1059,10 +1331,19 @@ def main() -> None:
     by_path["entry"] = _phase_entry(device, fbank_cuda)
     _phase_wpe(device)
 
-    # -- 10. the host data path into the trainer step --------------------------
-    by_path.update(_phase_e2e(device, fbank_cuda, smi))
+    # -- 10. the host data path into the trainer step, 11. precomputed features --
+    # One FLAC corpus for both phases.
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        cuts_path = _synthesize_corpus(Path(tmp), E2E_RECORDINGS)
+        print(f"e2e corpus: {E2E_RECORDINGS} FLAC recordings written in "
+              f"{time.perf_counter() - t0!r} s")
+        by_path.update(_phase_e2e(cuts_path, device, fbank_cuda, smi))
+        launches_pre, pre_err = _phase_precomputed(cuts_path, Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_pre)
     print(f"fbank kernel launches by path: {by_path}")
-    if not all(n > 0 for n in by_path.values()):
+    if not all(n > 0 for path, n in by_path.items() if path != "precomputed_train"):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
     record = {"kernels": [{
@@ -1071,7 +1352,7 @@ def main() -> None:
         "source": "lhotse_tpu_torch/csrc/fbank.cu",
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

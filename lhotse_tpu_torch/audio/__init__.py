@@ -5,10 +5,12 @@ from lhotse_tpu_torch.audio.recording import Recording
 from lhotse_tpu_torch.audio.source import AudioSource
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, VideoInfo, get_audio_duration_mismatch_tolerance,
-    set_audio_duration_mismatch_tolerance, suppress_audio_loading_errors)
+    null_result_on_audio_loading_error, set_audio_duration_mismatch_tolerance,
+    suppress_audio_loading_errors)
 
 __all__ = [
     "AudioLoadingError", "AudioSource", "DurationMismatchError", "Recording", "VideoInfo",
     "audio_backend", "get_audio_duration_mismatch_tolerance", "get_current_audio_backend", "info",
-    "read_audio", "save_audio", "set_audio_duration_mismatch_tolerance",
-    "set_current_audio_backend", "suppress_audio_loading_errors"]
+    "null_result_on_audio_loading_error", "read_audio", "save_audio",
+    "set_audio_duration_mismatch_tolerance", "set_current_audio_backend",
+    "suppress_audio_loading_errors"]

@@ -105,10 +105,9 @@ def read_flac(path_or_fd) -> Tuple[np.ndarray, int]:
         raise ValueError(f"FLAC decode failed (error {decoded}).")
     pcm = out[: decoded * info.num_channels].reshape(decoded, info.num_channels)
     scale = 1.0 / float(1 << (info.bits_per_sample - 1))
-    # The JAX package scales in its native host DSP library (not ported);
-    # int32 -> float32 times the float32 scale is the same IEEE product.
-    scaled = pcm.astype(np.float32) * np.float32(scale)
-    return scaled.T, info.sampling_rate
+    from lhotse_tpu_torch.ops import host_dsp
+
+    return host_dsp.scale_i32_to_f32(pcm, scale).T, info.sampling_rate
 
 
 def write_flac(dest, samples: np.ndarray, sampling_rate: int, bits_per_sample: int = 16) -> None:

@@ -4,11 +4,12 @@ suppression the loaders use (copied from ``lhotse_tpu/audio/utils.py``).
 """
 from __future__ import annotations
 
+import functools
 import logging
 import warnings
 from contextlib import contextmanager
 from dataclasses import asdict, dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 from lhotse_tpu_torch.utils import Seconds, fastcopy, suppress_and_warn
 
@@ -96,3 +97,14 @@ def suppress_audio_loading_errors(enabled: bool = True):
     """Suppress errors related to audio loading; emits a warning instead."""
     with suppress_and_warn(*_RECOVERABLE_AUDIO_ERRORS, enabled=enabled):
         yield
+
+
+def null_result_on_audio_loading_error(func: Callable) -> Callable:
+    """Decorator that makes a function return None when audio loading failed."""
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs) -> Optional:
+        with suppress_audio_loading_errors():
+            return func(*args, **kwargs)
+
+    return wrapper

@@ -1,7 +1,7 @@
 """
 CustomFieldMixin: attribute-style access to user-defined ``custom`` fields
-(copied from ``lhotse_tpu/custom.py``). Loading a custom ``Recording`` is
-ported; custom arrays and images are not and raise.
+(copied from ``lhotse_tpu/custom.py``). Loading a custom ``Recording``,
+``Array`` or ``TemporalArray`` is ported; custom images are not and raise.
 """
 from __future__ import annotations
 
@@ -71,14 +71,20 @@ class CustomFieldMixin:
 
     def load_custom(self, name: str, **kwargs) -> np.ndarray:
         """
-        Load custom data as a numpy array from a Recording manifest stored in
-        ``custom``, sliced to this object's [start, start+duration).
+        Load custom data as a numpy array from an Array / TemporalArray /
+        Recording manifest stored in ``custom`` — TemporalArray and Recording
+        values are sliced to this object's [start, start+duration).
         """
+        from lhotse_tpu_torch.array import Array, TemporalArray
         from lhotse_tpu_torch.audio import Recording
 
         value = self.custom.get(name)
         if isinstance(value, Recording):
             return self._load_custom_recording(name, value, **kwargs)
+        if isinstance(value, TemporalArray):
+            return value.load(start=self.start, duration=self.duration, **kwargs)
+        if isinstance(value, Array):
+            return value.load(**kwargs)
         raise ValueError(
             f"To load {name}, the object needs field {name} (or custom['{name}']) "
             f"holding a manifest of type Array, TemporalArray, Recording, or Image."

@@ -1,7 +1,7 @@
 from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.cut.data import DataCut
 from lhotse_tpu_torch.cut.mono import MonoCut
-from lhotse_tpu_torch.cut.set import CutSet, deserialize_cut
+from lhotse_tpu_torch.cut.set import CutSet, compute_supervisions_frame_mask, deserialize_cut
 
 # Register Cut/CutSet with the validator registry now that the classes exist
 # (deferred in qa.py to avoid an import cycle).
@@ -10,4 +10,5 @@ from lhotse_tpu_torch.qa import _register_cut_validators as _rcv
 _rcv()
 del _rcv
 
-__all__ = ["Cut", "CutSet", "DataCut", "MonoCut", "deserialize_cut"]
+__all__ = [
+    "Cut", "CutSet", "DataCut", "MonoCut", "compute_supervisions_frame_mask", "deserialize_cut"]

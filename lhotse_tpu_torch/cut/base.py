@@ -1,11 +1,14 @@
 """
 Cut: the abstract time-interval view over a Recording (copied from
-``lhotse_tpu/cut/base.py``), with the members the data path uses. The cut
-algebra (split, mix, trim, windows, masks) is not ported.
+``lhotse_tpu/cut/base.py``), with the members the data path uses and the
+supervisions' frame mask. The cut algebra (split, mix, trim, windows, the
+other masks) is not ported.
 """
 from __future__ import annotations
 
 from typing import List, Optional
+
+import numpy as np
 
 from lhotse_tpu_torch.audio.utils import VideoInfo
 from lhotse_tpu_torch.supervision import SupervisionSegment
@@ -51,6 +54,13 @@ class Cut:
 
     def copy_with(self, **kwargs) -> "Cut":
         return self.copy(**kwargs)
+
+    def supervisions_feature_mask(self, use_alignment_if_exists: Optional[str] = None) -> np.ndarray:
+        """1-D 0/1 mask over frames covered by at least one supervision."""
+        from lhotse_tpu_torch.cut.set import compute_supervisions_frame_mask
+
+        return compute_supervisions_frame_mask(
+            self, use_alignment_if_exists=use_alignment_if_exists)
 
     def with_id(self, id_: str) -> "Cut":
         """Return a copy of the Cut with a new ID."""

@@ -2,9 +2,9 @@
 DataCut: the shared part of MonoCut and MultiCut, one Recording plus
 supervisions and custom fields viewed through a [start, start+duration)
 window (copied from ``lhotse_tpu/cut/data.py``), with the members the data
-path uses. Feature manifests, custom arrays, images and the lazy
-waveform-domain builders are not ported; a cut carrying features raises
-when it is read.
+path uses: the ``Features`` manifest, ``compute_and_store_features`` and
+``drop_features``. Images and the lazy waveform-domain builders are not
+ported.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ import numpy as np
 from lhotse_tpu_torch.audio import Recording
 from lhotse_tpu_torch.custom import CustomFieldMixin
 from lhotse_tpu_torch.cut.base import Cut
+from lhotse_tpu_torch.features.base import FeatureExtractor, Features
+from lhotse_tpu_torch.features.io import FeaturesWriter
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
     Seconds, asdict_nonull, compute_num_frames, compute_num_samples, fastcopy,
@@ -35,7 +37,7 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
     duration: Seconds
     channel: Union[int, List[int]]
     supervisions: List[SupervisionSegment] = field(default_factory=list)
-    features: Optional[Any] = None  # Features manifests are not ported; None here
+    features: Optional[Features] = None
     recording: Optional[Recording] = None
     custom: Optional[Dict[str, Any]] = None
 
@@ -122,6 +124,16 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
     def load_audio(self, **kwargs) -> Optional[np.ndarray]:
         ...
 
+    # -- detachment -----------------------------------------------------------------------
+
+    def drop_features(self) -> "DataCut":
+        if not self.has_recording:
+            raise AssertionError(
+                f"Cannot detach features from a DataCut with no Recording "
+                f"(cut ID = {self.id})."
+            )
+        return fastcopy(self, features=None)
+
     # -- supervision manipulation ------------------------------------------------------------
 
     def map_supervisions(
@@ -131,5 +143,15 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
     def filter_supervisions(self, predicate: Callable[[SupervisionSegment], bool]) -> "DataCut":
         return fastcopy(self, supervisions=[s for s in self.supervisions if predicate(s)])
 
-    # -- path remapping --------------------------------------------------------------------------
+    # -- feature extraction --------------------------------------------------------------------
+
+    def compute_and_store_features(
+        self, extractor: FeatureExtractor, storage: FeaturesWriter, augment_fn=None, *args,
+        **kwargs) -> "DataCut":
+        """Extract + persist features for this window; returns the cut with
+        the Features manifest attached."""
+        manifest = extractor.extract_from_samples_and_store(
+            samples=self.load_audio(), storage=storage, sampling_rate=self.sampling_rate,
+            offset=self.start, channel=self.channel, augment_fn=augment_fn)
+        return fastcopy(self, features=manifest)
 

@@ -1,8 +1,7 @@
 """
 MonoCut: a single-channel concrete cut (copied from
-``lhotse_tpu/cut/mono.py``): audio loading, supervision handling and
-(de)serialization. A manifest cut with ``features`` raises
-``NotImplementedError``.
+``lhotse_tpu/cut/mono.py``): audio and feature loading, supervision
+handling and (de)serialization.
 """
 from __future__ import annotations
 
@@ -13,8 +12,9 @@ import numpy as np
 
 from lhotse_tpu_torch.audio import Recording
 from lhotse_tpu_torch.cut.data import DataCut
+from lhotse_tpu_torch.features.base import Features
 from lhotse_tpu_torch.supervision import SupervisionSegment
-from lhotse_tpu_torch.utils import not_ported, rich_exception_info
+from lhotse_tpu_torch.utils import rich_exception_info
 
 
 @dataclass
@@ -36,7 +36,13 @@ class MonoCut(DataCut):
         forgiving off-by-one frame count mismatches."""
         if not self.has_features:
             return None
-        raise not_ported(f"Features manifests (cut {self.id!r})")
+        feats = self.features.load(start=self.start, duration=self.duration)
+        drift = feats.shape[0] - self.num_frames
+        if drift == 1:
+            return feats[: self.num_frames]
+        if drift == -1:
+            return np.vstack([feats, feats[-1:]])
+        return feats
 
     @rich_exception_info
     def load_audio(self) -> Optional[np.ndarray]:
@@ -50,9 +56,7 @@ class MonoCut(DataCut):
         from lhotse_tpu_torch.serialization import deserialize_custom_field
 
         data.pop("type", None)
-        if "features" in data:
-            raise not_ported(f"Features manifests (cut {data.get('id')!r})")
-        features = None
+        features = Features.from_dict(data.pop("features")) if "features" in data else None
         recording = Recording.from_dict(data.pop("recording")) if "recording" in data else None
         supervision_infos = data.pop("supervisions") if "supervisions" in data else []
         if "custom" in data:

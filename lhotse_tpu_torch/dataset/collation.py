@@ -1,12 +1,14 @@
 """
 Collation of CutSet mini-batches into dense numpy host arrays (copied from
-``lhotse_tpu/dataset/collation.py``): ``collate_audio`` for mono batches,
-``read_audio_from_cuts`` and ``collate_vectors``.
+``lhotse_tpu/dataset/collation.py``): ``collate_features`` (right padding
+with ``LOG_EPSILON``), ``collate_audio`` for mono batches,
+``read_audio_from_cuts``, ``collate_vectors`` and ``collate_matrices``.
 
-Left out: feature, video, image and custom-field collation, and the
-padded-cut route of ``collate_audio`` for multi-channel batches, custom
-recording fields and fault-tolerant reads, which needs ``PaddingCut`` and
-``MixedCut``; those raise ``NotImplementedError``.
+Left out: video, image and custom-field collation, and the padded-cut
+routes (``collate_features`` with left padding; ``collate_audio`` for
+multi-channel batches, custom recording fields and fault-tolerant reads),
+which need ``PaddingCut`` and ``MixedCut``; those raise
+``NotImplementedError``.
 """
 from concurrent.futures import Executor
 from functools import partial
@@ -17,7 +19,7 @@ import numpy as np
 
 from lhotse_tpu_torch.audio import Recording, suppress_audio_loading_errors
 from lhotse_tpu_torch.cut import Cut, CutSet
-from lhotse_tpu_torch.utils import compute_num_samples, not_ported
+from lhotse_tpu_torch.utils import LOG_EPSILON, compute_num_samples, not_ported
 
 # Padding label for token targets, conventionally ignored by the loss.
 PAD_TOKEN_ID = -100
@@ -30,6 +32,42 @@ def _round_up(value: int, multiple: Optional[int]) -> int:
     if multiple is None or multiple <= 1:
         return value
     return ((value + multiple - 1) // multiple) * multiple
+
+
+def collate_features(
+    cuts: CutSet, pad_direction: str = "right", executor: Optional[Executor] = None,
+    features_dtype: Optional[np.dtype] = None, pad_to_multiple: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """
+    Load features for all cuts into a ``(batch, time, features)`` array,
+    padding with feature-domain silence where needed.
+
+    :param pad_to_multiple: round the padded frame count up to this multiple
+        so batches land on a bounded set of shapes.
+    :return: ``(features, features_lens)``.
+    """
+    assert all(cut.has_features for cut in cuts)
+    features_lens = np.array([cut.num_frames for cut in cuts], dtype=np.int32)
+    target_frames = _round_up(int(features_lens.max()), pad_to_multiple)
+    if pad_direction != "right":
+        raise not_ported(f"collate_features(pad_direction={pad_direction!r}) (PaddingCut)")
+    # Right-padding a batch is one LOG_EPSILON fill per padded row tail plus
+    # a row-block copy per cut.
+    first_cut = next(iter(cuts))
+    features = np.empty(
+        (len(cuts), target_frames, first_cut.num_features),
+        dtype=features_dtype if features_dtype is not None else np.float32)
+    loaded = (
+        (cut.load_features() for cut in cuts)
+        if executor is None
+        else executor.map(_read_features, cuts)
+    )
+    for idx, feats in enumerate(loaded):
+        n = min(feats.shape[0], target_frames)
+        features[idx, :n] = feats[:n]
+        if n < target_frames:
+            features[idx, n:] = LOG_EPSILON
+    return features, features_lens
 
 
 def collate_audio(
@@ -147,6 +185,29 @@ def collate_vectors(
     return result
 
 
+def collate_matrices(
+    tensors: Iterable[np.ndarray], padding_value: Union[int, float] = 0,
+    matching_shapes: bool = False) -> np.ndarray:
+    """
+    Stack 2-D arrays with consistent second dim into ``(B, L, F)``.
+    """
+    tensors = [np.asarray(t) for t in tensors]
+    assert all(t.ndim == 2 for t in tensors), "Expected only 2-D input tensors."
+    longest = max(tensors, key=lambda t: t.shape[0])
+    if matching_shapes:
+        assert all(t.shape == longest.shape for t in tensors), (
+            "All tensors must have the same shape when matching_shapes is set to True."
+        )
+    # np.empty + per-row tail fill (see collate_features): pad-only writes.
+    result = np.empty((len(tensors), *longest.shape), dtype=longest.dtype)
+    for i, t in enumerate(tensors):
+        n = t.shape[0]
+        result[i, :n] = t
+        if n < longest.shape[0]:
+            result[i, n:] = padding_value
+    return result
+
+
 def read_audio_from_cuts(
     cuts: Iterable[Cut], executor: Optional[Executor] = None, suppress_errors: bool = False,
     recording_field: Optional[str] = None, filter_aux_iter: Optional[Iterable] = None,
@@ -181,6 +242,10 @@ def read_audio_from_cuts(
     if aux_requested:
         ans = ans + (aux_iter_out,)
     return ans
+
+
+def _read_features(cut: Cut) -> np.ndarray:
+    return np.asarray(cut.load_features())
 
 
 def _read_audio(

@@ -196,11 +196,14 @@ class DataLoader:
     :param checkpoint_objects: additional stateful pipeline stages (e.g.
         :class:`~lhotse_tpu_torch.dataset.device_augment.OnDeviceAugmenter`) whose
         ``state_dict``/``load_state_dict`` should ride along with the
-        loader's. Captured at YIELD time, pinned to the yielded batch: if an
+        loader's. Published at YIELD time, pinned to the yielded batch: if an
         object's ``state_dict`` accepts ``after=<batch>`` (the augmenter's
         does — staged batches carry the ``aug_counter`` they were keyed by),
         the snapshot reflects exactly the batches the caller consumed, even
-        while a prefetch thread stages ahead.
+        while a prefetch thread stages ahead; when ``apply_fn`` stages and
+        computes in the producer (the yielded batch carries no counter), the
+        in-process producers snapshot the objects right after assembling
+        each batch and that snapshot is published with it.
     :param transfer_lookahead: N >= 1 runs ``main_apply_fn`` and the
         host→device copy of its result up to N batches ahead of the
         consumer (for ``main_apply_fn`` staging with
@@ -316,24 +319,38 @@ class DataLoader:
         self._last_yielded_state = None
         self._last_object_states = None
 
-    def _capture_object_states(self, batch) -> None:
-        """Snapshot every checkpoint object pinned to the just-yielded batch
-        (objects whose ``state_dict`` accepts ``after=`` use the batch's
-        embedded counter; others fall back to their live state)."""
+    def _capture_object_states(self, batch, produced: Optional[list]) -> None:
+        """Snapshot every checkpoint object pinned to the just-yielded batch.
+        Objects whose ``state_dict`` accepts ``after=`` use the batch's
+        embedded counter (a batch staged by ``main_apply_fn``). Otherwise the
+        snapshot the in-process producer took right after assembling this
+        batch (``produced``, see :meth:`_snapshot_objects`) is exact even
+        while the producer stages ahead; the live state is the fallback only
+        where no producer snapshot exists (process workers)."""
         from lhotse_tpu_torch.checkpoint import detach_state
 
         states = []
-        for obj in self.checkpoint_objects:
+        for i, obj in enumerate(self.checkpoint_objects):
             try:
-                sd = obj.state_dict(after=batch)
+                sd = detach_state(obj.state_dict(after=batch))
             except (TypeError, ValueError, AttributeError):
                 # state_dict() without an `after` parameter, or a batch the
-                # object cannot pin to (not staged by it): live state. With
-                # assembly-side staging (apply_fn) the live state is exact;
-                # only external out-of-band staging loses prefetch pinning.
-                sd = obj.state_dict()
-            states.append(detach_state(sd))
+                # object cannot pin to (not staged by it, e.g. apply_fn staged
+                # and computed in the producer).
+                sd = produced[i] if produced is not None else detach_state(obj.state_dict())
+            states.append(sd)
         self._last_object_states = states
+
+    def _snapshot_objects(self) -> Optional[list]:
+        """The checkpoint objects' states right after the producer assembled
+        a batch (``apply_fn`` included): with ``apply_fn`` staging in the
+        producer, this is the state consumed-through-that-batch. Detached,
+        because the producer goes on advancing the objects."""
+        if not self.checkpoint_objects:
+            return None
+        from lhotse_tpu_torch.checkpoint import detach_state
+
+        return [detach_state(obj.state_dict()) for obj in self.checkpoint_objects]
 
     # -- single-process (threaded prefetch) ------------------------------------
 
@@ -359,8 +376,8 @@ class DataLoader:
     def _sampler_and_assemble(self) -> Iterator:
         """Pull (sampler -> dataset -> apply_fn) with tracing spans, so a
         stage breakdown of the input pipeline is one env var away. Yields
-        ``(snapshot, batch)``; callers publish the snapshot when the batch
-        is handed to the consumer."""
+        ``((sampler snapshot, objects snapshot), batch)``; callers publish
+        the snapshots when the batch is handed to the consumer."""
         from lhotse_tpu_torch.tracing import trace_span
 
         it = iter(self.sampler)
@@ -375,7 +392,7 @@ class DataLoader:
                 batch = self.dataset[cuts]
                 if self.apply_fn is not None:
                     batch = self.apply_fn(batch)
-            yield snap, batch
+            yield (snap, self._snapshot_objects()), batch
 
     def _produce(self, q: "queue.Queue", stop: "threading.Event") -> None:
         def put(item) -> bool:
@@ -456,9 +473,13 @@ class DataLoader:
             if self.worker_dedup == "batch":
                 # Workers hold interleaved batch indices: strict round-robin
                 # reconstruction yields the single-process order exactly.
-                yield from self._drain_round_robin(queues)
+                payloads = self._drain_round_robin(queues)
             else:
-                yield from self._drain_any_order(queues)
+                payloads = self._drain_any_order(queues)
+            # The checkpoint objects live in this process, not in the
+            # workers: no producer snapshot of them.
+            for snap, batch in payloads:
+                yield (snap, None), batch
         finally:
             for p in procs:
                 if p.is_alive():
@@ -547,6 +568,7 @@ class DataLoader:
                         batch = self.dataset[cuts]
                         if self.apply_fn is not None:
                             batch = self.apply_fn(batch)
+                    obj_snap = self._snapshot_objects()
                     with cond:
                         while (
                             state["error"] is None
@@ -556,7 +578,7 @@ class DataLoader:
                             cond.wait()
                         if state["error"] is not None or state["closed"]:
                             return
-                        done[seq] = (snap, batch)
+                        done[seq] = ((snap, obj_snap), batch)
                         cond.notify_all()
             except BaseException as e:  # noqa: B036 - forwarded to consumer
                 with cond:
@@ -612,13 +634,15 @@ class DataLoader:
             it = self._iter_threaded()
         return self._finalize_stream(it)
 
-    def _publish(self, snap, batch) -> None:
+    def _publish(self, snaps, batch) -> None:
         """Make ``state_dict()`` reflect exactly this batch — called at the
-        moment the batch is handed to the consumer."""
+        moment the batch is handed to the consumer. ``snaps`` is the
+        producer's ``(sampler snapshot, objects snapshot)``."""
+        snap, produced = snaps
         if snap is not None:
             self._last_yielded_state = snap
         if self.checkpoint_objects:
-            self._capture_object_states(batch)
+            self._capture_object_states(batch, produced)
 
     def _finalize_stream(self, it: Iterator) -> Iterator:
         """Main-process tail of the pipeline: apply ``main_apply_fn``,

@@ -10,9 +10,9 @@ from typing import Callable, Dict, List, Union
 import numpy as np
 
 from lhotse_tpu_torch.cut import CutSet
-from lhotse_tpu_torch.dataset.input_strategies import BatchIO
+from lhotse_tpu_torch.dataset.input_strategies import BatchIO, PrecomputedFeatures
 from lhotse_tpu_torch.qa import validate
-from lhotse_tpu_torch.utils import compute_num_frames, ifnone, not_ported
+from lhotse_tpu_torch.utils import compute_num_frames, ifnone
 
 
 class K2SpeechRecognitionDataset:
@@ -52,9 +52,7 @@ class K2SpeechRecognitionDataset:
         self.return_cuts = return_cuts
         self.cut_transforms = ifnone(cut_transforms, [])
         self.input_transforms = ifnone(input_transforms, [])
-        if input_strategy is None:
-            raise not_ported("PrecomputedFeatures (the default input strategy)")
-        self.input_strategy = input_strategy
+        self.input_strategy = ifnone(input_strategy, PrecomputedFeatures())
 
     def __getitem__(self, cuts: CutSet) -> Dict[str, Union[np.ndarray, List[str]]]:
         validate_for_asr(cuts)

@@ -23,53 +23,39 @@ its own frame count (:meth:`_num_frames`, for either ``snip_edges``).
   then the extractor's postprocessing), as the JAX package takes its XLA
   route.
 
-The JAX package's numpy/native host route, its shape buckets (which bound
-XLA compiles), extractor registration and feature storage are not ported.
+Each extractor subclasses :class:`~lhotse_tpu_torch.features.base.FeatureExtractor`
+and is registered under the JAX package's name (``kaldi-fbank``,
+``kaldi-mfcc``, ``kaldi-spectrogram``, ``kaldi-log-spectrogram``), so a
+``Features.type`` or an extractor dict written by either package resolves
+here. A config dict the JAX package wrote carries its default
+``device: cpu``, which the port honours as the caller's request: such an
+extractor runs the plain version on the CPU.
+
+Not ported: the JAX package's numpy/native host route (its ``device="cpu"``
+path) and its shape buckets (which bound XLA compiles). In the port
+``device="cpu"`` is the plain-torch route, and ``extract_batch_collated``
+returns None, so ``OnTheFlyFeatures`` takes ``extract_batch`` and
+``collate_matrices`` as it does in JAX for a device extractor.
 """
 from __future__ import annotations
 
 import math
 import warnings
-from dataclasses import asdict, dataclass, is_dataclass
+from dataclasses import dataclass, is_dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from lhotse_tpu_torch.features.base import FeatureExtractor, register_extractor
 from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank, Wav2LogSpec, Wav2MFCC, Wav2Spec
 from lhotse_tpu_torch.ops import fbank as ops
 from lhotse_tpu_torch.ops import fbank_cuda
 from lhotse_tpu_torch.ops.fbank import EPSILON
-
-Seconds = float
-
-
-def asdict_nonull(dclass) -> Dict[str, Any]:
-    """
-    Recursively convert a dataclass into a dict, removing all fields whose
-    value is None (a copy of the JAX package's ``utils.asdict_nonull``). Keeps
-    key order = dataclass field order.
-    """
-
-    def non_null_dict_factory(collection):
-        d = dict(collection)
-        for key in [k for k, v in d.items() if v is None]:
-            del d[key]
-        return d
-
-    return asdict(dclass, dict_factory=non_null_dict_factory)
+from lhotse_tpu_torch.utils import Seconds, asdict_nonull
 
 
-def compute_num_frames_from_samples(
-    num_samples: int, frame_shift: Seconds, sampling_rate: int) -> int:
-    """A copy of the JAX package's ``utils.compute_num_frames_from_samples``:
-    the snip_edges=False frame count."""
-    window_hop = round(frame_shift * sampling_rate)
-    num_frames = int((num_samples + window_hop // 2) // window_hop)
-    return num_frames
-
-
-class _KaldiExtractorBase:
+class _KaldiExtractorBase(FeatureExtractor):
     """
     Shared batched device route. Subclasses give ``_postprocess`` (mel /
     log / DCT of the GEMM route's power spectrum), the layer ``extractor``
@@ -321,6 +307,7 @@ class FbankConfig:
         return FbankConfig(**data)
 
 
+@register_extractor
 class Fbank(_KaldiExtractorBase):
     name = "kaldi-fbank"
     config_type = FbankConfig
@@ -393,6 +380,7 @@ class MfccConfig:
         return MfccConfig(**data)
 
 
+@register_extractor
 class Mfcc(_KaldiExtractorBase):
     name = "kaldi-mfcc"
     config_type = MfccConfig
@@ -438,6 +426,7 @@ class SpectrogramConfig:
         return SpectrogramConfig(**data)
 
 
+@register_extractor
 class Spectrogram(_KaldiExtractorBase):
     name = "kaldi-spectrogram"
     config_type = SpectrogramConfig
@@ -491,6 +480,7 @@ class LogSpectrogramConfig:
         return LogSpectrogramConfig(**data)
 
 
+@register_extractor
 class LogSpectrogram(_KaldiExtractorBase):
     name = "kaldi-log-spectrogram"
     config_type = LogSpectrogramConfig

@@ -1,11 +1,11 @@
 """
 The streaming-iterator runtime the manifest Sets are built on (copied from
 ``lhotse_tpu/lazy.py``): the node protocol with checkpointing, graph-origin
-tokens, the JSONL leaves, and the chain, shuffle, filter, map and repeat
-combinators behind ``CutSet``'s lazy algebra.
+tokens, the JSONL leaves, and the chain, shuffle, filter, map, repeat and
+slice combinators behind ``CutSet``'s lazy algebra.
 
 Left out: the indexed (``.idx``) leaves and the item-level shuffle over
-them, the multiplexers, the slicer and the flattener.
+them, the multiplexers and the flattener.
 """
 from __future__ import annotations
 
@@ -772,6 +772,67 @@ class LazyRepeater(_Transform):
 
     def load_state_dict(self, state: dict) -> None:
         self._pass_no = state["current_epoch"]
+        _restore_child(self.source, state.get("source"))
+        self._resume = True
+
+
+class LazySlicer(_Transform):
+    """
+    Every n-th item starting at k — the primitive for striping one stream
+    across processes.  Checkpoints how far into the source it got.
+    """
+
+    def __init__(self, iterator: Iterable, k: int, n: int) -> None:
+        super().__init__(iterator)
+        if k >= n:
+            raise AssertionError(
+                f"When selecting k-th element every n elements, k must be less "
+                f"than n (got k={k} n={n})."
+            )
+        self.k = k
+        self.n = n
+        self._consumed = 0
+        self._resume = False
+
+    def __getitem__(self, idx: Any) -> Any:
+        token = normalize_graph_token(idx)
+        if isinstance(token, tuple) and len(token) == 2 and token[0] == "source":
+            return attach_graph_origin(self.source[token[1]], token)
+        if isinstance(token, int):
+            return attach_graph_origin(self.source[token * self.n + self.k], idx)
+        return attach_graph_origin(self.source[token], token)
+
+    def __iter__(self):
+        # Eager state init + child iter() (see LazyTxtIterator.__iter__).
+        offset = self._consumed if self._resume else 0
+        self._resume = False
+        self._consumed = offset
+        src_iter = iter(self.source)
+
+        def gen():
+            for pos, item in enumerate(src_iter, start=offset):
+                self._consumed = pos + 1
+                if pos % self.n != self.k:
+                    continue
+                inner = get_graph_origin(item)
+                item = maybe_attach_graph_origin(
+                    item, None if inner is None else ("source", inner)
+                )
+                yield item
+
+        return gen()
+
+    def __len__(self) -> int: return self._no_len()  # noqa: E704
+
+    def state_dict(self) -> dict:
+        state = {"source_offset": self._consumed}
+        inner = _snapshot_child(self.source)
+        if inner is not None:
+            state["source"] = inner
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        self._consumed = state.get("source_offset", 0)
         _restore_child(self.source, state.get("source"))
         self._resume = True
 

@@ -75,13 +75,16 @@ def pack_dft(Mc: torch.Tensor, Ms: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=2).transpose(0, 1).contiguous()
 
 
-def reference_fbank(audio: torch.Tensor, Mc, Ms, mel_fb, eps: float = FLT_EPS) -> torch.Tensor:
+def reference_fbank(audio: torch.Tensor, Mc, Ms, mel_fb, eps: float = FLT_EPS,
+                    dft_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: snip-edges frames
     as an ``unfold`` view, the two DFT products, power, the mel product and
-    the log. (B, N) -> (B, (N - 400) // 160 + 1, n_mels)."""
+    the log. (B, N) -> (B, (N - 400) // 160 + 1, n_mels). ``dft_dtype``
+    is the dtype of the DFT products and the power; the power is rounded
+    to float32 before the mel product."""
     Mc, Ms, mel_fb = (_as_f32(m, audio.device) for m in (Mc, Ms, mel_fb))
-    frames = ops.frame_signal(audio, FRAME_LEN, HOP, snip_edges=True)
-    ps = ops.power_spectrum_gemm(frames, Mc, Ms)
+    frames = ops.frame_signal(audio.to(dft_dtype), FRAME_LEN, HOP, snip_edges=True)
+    ps = ops.power_spectrum_gemm(frames, Mc.to(dft_dtype), Ms.to(dft_dtype)).to(torch.float32)
     return torch.log(torch.clamp_min(torch.matmul(ps, mel_fb), eps))
 
 
@@ -155,8 +158,13 @@ def fbank_logmel(audio: torch.Tensor, Mc, Ms, mel_fb, *, eps: float = FLT_EPS,
     if audio.device.type == "cuda":
         return fbank_cuda(audio, Mc, Ms, mel_fb, eps=eps, dft=dft)
     if audio.device.type == "cpu":
+        # The DFT products in float64: where a loud tone's leakage nearly
+        # cancels in the lowest mel bins, the CPU's float32 GEMMs lose more
+        # digits than XLA's (7.9e-5 from float64 where XLA is 3.3e-5 on tone
+        # bursts over a 0.01 noise floor); in float64 the route is 4.7e-6
+        # from float64 (tests/test_torch_host_loader.py).
         Mc, Ms, mel_fb = _squeeze_nyquist(*(_as_f32(m, audio.device) for m in (Mc, Ms, mel_fb)))
-        return reference_fbank(audio, Mc, Ms, mel_fb, eps=eps)
+        return reference_fbank(audio, Mc, Ms, mel_fb, eps=eps, dft_dtype=torch.float64)
     raise ValueError(f"No fbank route for a tensor on {audio.device}.")
 
 

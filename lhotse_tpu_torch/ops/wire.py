@@ -10,9 +10,11 @@ Wire formats for host→device audio transfer (port of ``lhotse_tpu/ops/wire.py`
   (batch x blocks) lanes, bit-exact against :func:`adpcm4_decode_np` and the
   JAX package's decode. Needs T to be a multiple of 64.
 
-Encoding runs on the host in numpy (the mu-law and adpcm4 encoders are the
-JAX package's pure-numpy reference paths); decoding is tensor math on the
-device of the wire tensor.
+Encoding runs on the host: the mu-law and adpcm4 encoders take the C
+encoders of :mod:`lhotse_tpu_torch.ops.host_dsp`, as the JAX package does
+when its native library is built; their numpy versions (``_mulaw_encode_np``,
+``_adpcm4_encode_np``) stay as the plain versions the tests hold the C
+encoders to. Decoding is tensor math on the device of the wire tensor.
 """
 from __future__ import annotations
 
@@ -36,7 +38,14 @@ _MULAW_LUT = _mulaw_formula((np.arange(65536, dtype=np.float32) - 32768.0) / 327
 
 def _mulaw_encode(x: np.ndarray) -> np.ndarray:
     """Mu-law encode via int16 pre-quantization + a 65536-entry LUT built from
-    the continuous formula."""
+    the continuous formula, in the native one-pass kernel."""
+    from lhotse_tpu_torch.ops import host_dsp
+
+    return host_dsp.mulaw_encode_lut(x, _MULAW_LUT)
+
+
+def _mulaw_encode_np(x: np.ndarray) -> np.ndarray:
+    """The numpy version of :func:`_mulaw_encode`."""
     q = np.clip(np.rint(x * 32768.0), -32768, 32767).astype(np.int32)
     return _MULAW_LUT[q + 32768]
 
@@ -75,8 +84,18 @@ def _adpcm4_geometry(num_samples: int):
 
 def _adpcm4_encode(audio: np.ndarray) -> np.ndarray:
     """float32 ``(..., T)`` in [-1, 1] -> uint8 ``(..., W)`` wire rows:
-    per row ``[nb*4 header bytes | T/2 nibble bytes]``. A copy of the JAX
-    package's numpy reference encoder (its native C encoder is not ported)."""
+    per row ``[nb*4 header bytes | T/2 nibble bytes]``, in the native C
+    encoder (bit-exact vs :func:`_adpcm4_encode_np`)."""
+    from lhotse_tpu_torch.ops import host_dsp
+
+    T = audio.shape[-1]
+    _, width = _adpcm4_geometry(T)
+    return host_dsp.adpcm4_encode(np.asarray(audio, np.float32), T, width)
+
+
+def _adpcm4_encode_np(audio: np.ndarray) -> np.ndarray:
+    """The numpy version of :func:`_adpcm4_encode` (the JAX package's numpy
+    reference encoder)."""
     lead = audio.shape[:-1]
     T = audio.shape[-1]
     nb, width = _adpcm4_geometry(T)

@@ -1,16 +1,19 @@
 """
 Manifest validation (copied from ``lhotse_tpu/qa.py``): the type-dispatched
-``validate`` for recordings, supervisions, cuts and CutSets, which
-``validate_for_asr`` calls. ``fix_manifests`` and the Set validators are
-not ported.
+``validate`` for recordings, supervisions, features, feature sets, cuts and
+CutSets, which ``validate_for_asr`` calls. ``fix_manifests``, the array
+validators and the other Set validators are not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
 
 from lhotse_tpu_torch.audio import Recording, get_audio_duration_mismatch_tolerance
+from lhotse_tpu_torch.features.base import Features, FeatureSet
 from lhotse_tpu_torch.supervision import SupervisionSegment
-from lhotse_tpu_torch.utils import is_equal_or_contains, not_ported
+from lhotse_tpu_torch.utils import compute_num_frames, is_equal_or_contains, not_ported
 
 _VALIDATORS: Dict[Any, Callable] = {}
 
@@ -87,6 +90,62 @@ def validate_supervision(s: SupervisionSegment, read_data: bool = False, **kwarg
         )
 
 
+@register_validator
+def validate_features(
+    f: Features, read_data: bool = False, feats_data: Optional[np.ndarray] = None) -> None:
+    assert f.start >= 0, f"Features: start has to be greater than 0 (is {f.start})"
+    assert f.duration > 0, f"Features: duration has to be greater than 0 (is {f.duration})"
+    assert f.num_frames > 0, f"Features: num_frames has to be greater than 0 (is {f.num_frames})"
+    assert f.num_features > 0, (
+        f"Features: num_features has to be greater than 0 (is {f.num_features})"
+    )
+    assert f.sampling_rate > 0, (
+        f"Features: sampling_rate has to be greater than 0 (is {f.sampling_rate})"
+    )
+    assert f.frame_shift > 0, (
+        f"Features: frame_shift has to be greater than 0 (is {f.frame_shift})"
+    )
+    window_hop = round(f.frame_shift * f.sampling_rate, ndigits=12)
+    assert float(int(window_hop)) == window_hop, (
+        f"Features: frame_shift of {f.frame_shift} is physically impossible with "
+        f"sampling rate {f.sampling_rate} (fractional window hop {window_hop})."
+    )
+    expected_num_frames = compute_num_frames(
+        duration=f.duration, frame_shift=f.frame_shift, sampling_rate=f.sampling_rate)
+    assert expected_num_frames == f.num_frames, (
+        f"Features: inconsistent manifest: declared num_frames is {f.num_frames} but "
+        f"duration ({f.duration}s) / frame_shift ({f.frame_shift}s) gives "
+        f"{expected_num_frames} frames."
+    )
+    if read_data or feats_data is not None:
+        if read_data:
+            feats_data = f.load()
+        n_fr, n_ft = feats_data.shape
+        assert f.num_frames == n_fr, (
+            f"Features: expected num_frames: {f.num_frames}, actual: {n_fr}"
+        )
+        assert f.num_features == n_ft, (
+            f"Features: expected num_features: {f.num_features}, actual: {n_ft}"
+        )
+
+
+@register_validator
+def validate_feature_set(features: FeatureSet, read_data: bool = False) -> None:
+    first = next(iter(features))
+    sampling_rate = first.sampling_rate
+    num_features = first.num_features
+    features_type = first.type
+    for idx, f in enumerate(features):
+        validate_features(f, read_data=read_data)
+        assert f.sampling_rate == sampling_rate, (
+            f"FeatureSet: mismatched sampling rate at index {idx}"
+        )
+        assert f.num_features == num_features, (
+            f"FeatureSet: mismatched num_features at index {idx}"
+        )
+        assert f.type == features_type, f"FeatureSet: mismatched feature type at index {idx}"
+
+
 def validate_cut(c, read_data: bool = False) -> None:
     from lhotse_tpu_torch.cut import MonoCut
 
@@ -103,7 +162,17 @@ def validate_cut(c, read_data: bool = False) -> None:
     )
 
     if c.has_features:
-        raise not_ported(f"Features manifests (cut {c.id!r})")
+        validate_features(c.features)
+        assert c.channel == c.features.channels
+        if read_data:
+            feats = c.load_features()
+            n_fr, n_ft = feats.shape
+            assert c.num_frames == n_fr, (
+                f"Cut {c.id}: expected num_frames: {c.num_frames}, actual: {n_fr}"
+            )
+            assert c.num_features == n_ft, (
+                f"Cut {c.id}: expected num_features: {c.num_features}, actual: {n_ft}"
+            )
 
     if c.has_recording:
         validate_recording(c.recording)

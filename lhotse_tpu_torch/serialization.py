@@ -1,14 +1,16 @@
 """
 Manifest (de)serialization for local JSONL files (copied from
 ``lhotse_tpu/serialization.py``): ``open_best`` over plain and gzipped
-files, ``Serializable`` and ``LazyMixin`` for the Set classes, and
-``deserialize_item`` for the manifest types the port has (``MonoCut``,
-``Recording``, ``SupervisionSegment``).
+files, ``Serializable`` and ``LazyMixin`` for the Set classes, the
+sequential writers (``SequentialJsonlWriter`` with resume by ``ignore_ids``,
+``InMemoryWriter``, ``open_writer``), and ``deserialize_item`` for the
+manifest types the port has (``MonoCut``, ``Recording``,
+``SupervisionSegment``, ``Features``, ``Array``/``TemporalArray``).
 
 Left out, and raising ``NotImplementedError`` where a manifest asks for
 them: pipes, URLs and the other remote I/O backends, JSON/YAML manifests,
 indexed (``.idx``) manifests, and the manifest types the port does not
-have yet (features, arrays, images, ``MultiCut``, ``MixedCut``).
+have yet (images, ``MultiCut``, ``MixedCut``).
 """
 from __future__ import annotations
 
@@ -181,6 +183,114 @@ def extension_contains(ext: str, path: Pathlike) -> bool:
     return any(ext == sfx for sfx in Path(path).suffixes)
 
 
+#################################################
+# Sequential writers
+#################################################
+
+
+class SequentialJsonlWriter:
+    """
+    Store manifests one by one without keeping the whole set in memory
+    (reference: serialization.py:158). Supports resume-skip: when
+    ``overwrite=False`` and the file exists, previously-written IDs are scanned
+    and silently skipped on subsequent writes (queryable via ``__contains__``).
+    """
+
+    def __init__(self, path: Pathlike, overwrite: bool = True) -> None:
+        self.path = path
+        self.file = None
+        self.mode = "w"
+        self.ignore_ids = set()
+        if Path(self.path).is_file() and not overwrite:
+            self.mode = "a"
+            with open_best(self.path, "r") as f:
+                self.ignore_ids = {
+                    data["id"]
+                    for data in (decode_json_line(line) for line in f if line.strip())
+                    if "id" in data
+                }
+
+    def __enter__(self) -> "SequentialJsonlWriter":
+        self._maybe_open()
+        return self
+
+    def __exit__(self, *args, **kwargs) -> None:
+        self.close()
+
+    def __contains__(self, item: Union[str, Any]) -> bool:
+        if isinstance(item, str):
+            return item in self.ignore_ids
+        try:
+            return item.id in self.ignore_ids
+        except AttributeError:
+            return False
+
+    def _maybe_open(self):
+        if self.file is None:
+            self.file = open_best(self.path, self.mode)
+
+    def close(self):
+        if self.file is not None:
+            self.file.close()
+            self.file = None
+
+    def contains(self, item: Union[str, Any]) -> bool:
+        return item in self
+
+    def write(self, manifest: Any, flush: bool = False) -> None:
+        try:
+            if manifest.id in self.ignore_ids:
+                return
+        except AttributeError:
+            pass
+        self._maybe_open()
+        if not isinstance(manifest, dict):
+            manifest = manifest.to_dict()
+        print(_dumps_manifest(manifest), file=self.file)
+        if flush:
+            self.file.flush()
+
+    def open_manifest(self) -> Optional[Manifest]:
+        if not Path(self.path).exists():
+            return None
+        if self.file is not None and not self.file.closed:
+            self.file.flush()
+        return load_manifest_lazy(self.path)
+
+
+class InMemoryWriter:
+    """
+    Mimics :class:`SequentialJsonlWriter` API without performing I/O
+    (reference: serialization.py:276). Used to create manifest sets in memory.
+    """
+
+    def __init__(self):
+        self.items = []
+        # for compatibility with SequentialJsonlWriter
+        self.ignore_ids = frozenset()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *args, **kwargs):
+        pass
+
+    def __contains__(self, item) -> bool:
+        return False
+
+    def contains(self, item: Union[str, Any]) -> bool:
+        return item in self
+
+    def write(self, manifest, flush: bool = False) -> None:
+        self.items.append(manifest)
+
+    def open_manifest(self) -> Optional[Manifest]:
+        if not self.items:
+            return None
+        cls = resolve_manifest_set_class(self.items[0])
+        return cls.from_items(self.items)
+
+
 class JsonlMixin:
     def to_jsonl(self, path: Pathlike) -> None:
         save_to_jsonl((item.to_dict() for item in self), path)
@@ -189,6 +299,19 @@ class JsonlMixin:
     def from_jsonl(cls, path: Pathlike) -> Manifest:
         data = load_jsonl(path)
         return cls.from_dicts(data)
+
+    @classmethod
+    def open_writer(
+        cls, path: Union[Pathlike, None], overwrite: bool = True,
+    ) -> Union[SequentialJsonlWriter, InMemoryWriter]:
+        """
+        Open a sequential writer that allows to store the manifests one by one,
+        without the necessity of storing the whole manifest set in-memory.
+        When ``path`` is None, an in-memory writer is returned instead.
+        """
+        if path is None:
+            return InMemoryWriter()
+        return SequentialJsonlWriter(path, overwrite=overwrite)
 
 
 class LazyMixin:
@@ -282,9 +405,12 @@ def resolve_manifest_set_class(item):
     """Returns the Set class corresponding to the provided manifest item type
     (reference: serialization.py:570)."""
     from lhotse_tpu_torch.cut import Cut, CutSet
+    from lhotse_tpu_torch.features import Features, FeatureSet
 
     if isinstance(item, Cut):
         return CutSet
+    if isinstance(item, Features):
+        return FeatureSet
     set_names = {"Recording": "RecordingSet", "SupervisionSegment": "SupervisionSet"}
     if type(item).__name__ in set_names:
         raise not_ported(set_names[type(item).__name__])
@@ -326,18 +452,20 @@ def deserialize_item(data: dict) -> Any:
     present keys, and return a typed manifest object (reference:
     serialization.py:656).
     """
+    from lhotse_tpu_torch.array import deserialize_array
     from lhotse_tpu_torch.audio import Recording
     from lhotse_tpu_torch.cut import MonoCut
+    from lhotse_tpu_torch.features import Features
     from lhotse_tpu_torch.supervision import SupervisionSegment
 
     if "width" in data:
         raise not_ported("Image manifests")
     if "shape" in data or "array" in data:
-        raise not_ported("Array manifests")
+        return deserialize_array(data)
     if "sources" in data:
         return Recording.from_dict(data)
     if "num_features" in data:
-        raise not_ported("Features manifests")
+        return Features.from_dict(data)
     if "type" not in data:
         return SupervisionSegment.from_dict(data)
     cut_type = data.pop("type")
@@ -357,11 +485,12 @@ def deserialize_custom_field(data: Optional[dict]) -> Optional[dict]:
     """
     Deserialize manifests inside a ``custom`` field dict in-place
     (reference: serialization.py:703). Dict values that look like Recording
-    manifests are converted; Image and Array manifests raise; everything else
+    or Array manifests are converted; Image manifests raise; everything else
     is left as-is.
     """
     if data is None:
         return None
+    from lhotse_tpu_torch.array import deserialize_array
     from lhotse_tpu_torch.audio import Recording
 
     for key, value in data.items():
@@ -371,6 +500,8 @@ def deserialize_custom_field(data: Optional[dict]) -> Optional[dict]:
                 continue
             if "width" in value:
                 raise not_ported(f"Image manifests (custom field {key!r})")
-            if "array" in value or "shape" in value:
-                raise not_ported(f"Array manifests (custom field {key!r})")
+            try:
+                data[key] = deserialize_array(value)
+            except Exception:
+                pass
     return data

@@ -144,6 +144,14 @@ def compute_num_frames(duration: Seconds, frame_shift: Seconds, sampling_rate: i
     return num_frames
 
 
+def compute_num_frames_from_samples(
+    num_samples: int, frame_shift: Seconds, sampling_rate: int) -> int:
+    """Reference: utils.py:424-434."""
+    window_hop = round(frame_shift * sampling_rate)
+    num_frames = int((num_samples + window_hop // 2) // window_hop)
+    return num_frames
+
+
 @lru_cache(maxsize=16384)
 def compute_num_samples(
     duration: Seconds, sampling_rate: Union[int, float], rounding=ROUND_HALF_UP) -> int:
@@ -240,6 +248,24 @@ def rich_exception_info(fn: Callable) -> Callable:
 def to_list(item: Union[Any, List[Any]]) -> List[Any]:
     """Convert ``item`` to a list if it is not already a list."""
     return item if isinstance(item, list) else [item]
+
+
+def supervision_to_frames(
+    supervision, frame_shift: Seconds, sampling_rate: int, max_frames: Optional[int] = None,
+) -> Tuple[int, int]:
+    """
+    Convert a supervision's time span into a (start_frame, num_frames) tuple
+    (reference: utils.py:743).
+    """
+    start_frame = compute_num_frames(
+        supervision.start, frame_shift=frame_shift, sampling_rate=sampling_rate)
+    num_frames = compute_num_frames(
+        supervision.duration, frame_shift=frame_shift, sampling_rate=sampling_rate)
+    if max_frames:
+        diff = start_frame + num_frames - max_frames
+        if diff > 0:
+            num_frames -= diff
+    return start_frame, num_frames
 
 
 def supervision_to_samples(

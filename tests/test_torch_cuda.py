@@ -1,7 +1,8 @@
 """
 The port on a CUDA card: the fbank kernel against its plain PyTorch version;
-the layers, augmenter, adpcm4 decode, sample cache, extractors, encoder,
-entry and WPE on the card against the same port on the CPU.
+the layers, augmenter, adpcm4 decode, sample cache, extractors (and their
+features through a chunky archive), ``OnTheFlyFeatures``, encoder, entry and
+WPE on the card against the same port on the CPU.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -352,3 +353,81 @@ def test_wpe_on_card_matches_cpu(cuda):
     assert np.linalg.norm(out - ref) / np.linalg.norm(ref) < 0.1
     batched = dereverb_wpe(np.stack([audio, audio])).cpu().numpy()
     np.testing.assert_allclose(batched[1], batched[0], atol=1e-6)
+
+
+def _noisy_tones(n_items: int, seed: int = 7):
+    """1-4 s of a 0.05 tone under 0.1 white noise: every mel bin carries
+    energy. On bench.py's tone bursts over a 0.01 floor the lowest mel bins
+    nearly cancel, and every float32 route is ~2.3e-4 from float64 there
+    (the kernel and its plain version alike; chip_smoke.py phase 11).
+
+    The kernel is held to its plain version on the card at the kernel's
+    bound; the CPU route, whose DFT products are float64, to the feature
+    budget: on these items the card's float32 routes are up to 5.2e-5 from
+    it (NVIDIA H100 80GB HBM3)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_items):
+        n = int(16000 * rng.uniform(1.0, 4.0))
+        wave = np.sin(2 * np.pi * rng.uniform(100, 400) * np.arange(n) / 16000) * 0.05
+        out.append((wave + rng.randn(n) * 0.1).astype(np.float32))
+    return out
+
+
+def _plain(extractor, items):
+    """``extractor.extract_batch(items)`` with the kernel's plain version on
+    the card in place of the kernel."""
+    prepared = [extractor._prepare_item(x) for x in items]
+    batch = np.zeros((len(prepared), max(len(p) for p in prepared)), np.float32)
+    for i, p in enumerate(prepared):
+        batch[i, : len(p)] = p
+    Mc, Ms, fb, _ = extractor._layer()._fused_matrices()
+    mats = fbank_cuda._squeeze_nyquist(*(fbank_cuda._as_f32(m, "cuda") for m in (Mc, Ms, fb)))
+    out = fbank_cuda.reference_fbank(torch.from_numpy(batch).cuda(), *mats).cpu().numpy()
+    return [out[i, : extractor._num_frames(len(x))] for i, x in enumerate(items)]
+
+
+def test_extract_store_read_on_card_matches_cpu(cuda, tmp_path):
+    """``extract_batch`` on the card (one kernel launch) against the CPU
+    port, then the features through a chunky archive and back: within half
+    an LTC1 tick of what was stored, and equal on a second decode."""
+    from lhotse_tpu_torch.features.io import LilcomChunkyReader, LilcomChunkyWriter
+
+    items = _noisy_tones(6)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    fbank_cuda.LAUNCHES = 0
+    feats = extractor.extract_batch(items, 16000)
+    assert fbank_cuda.LAUNCHES == 1
+    assert max(float(np.abs(a - b).max()) for a, b in zip(feats, _plain(extractor, items))) <= LOGMEL_TOL
+    cpu = extractors.Fbank(extractors.FbankConfig(device="cpu")).extract_batch(items, 16000)
+    assert max(float(np.abs(a - b).max()) for a, b in zip(feats, cpu)) <= FEATURE_TOL
+    with LilcomChunkyWriter(tmp_path / "feats") as writer:
+        keys = [writer.write(f"u{i}", f) for i, f in enumerate(feats)]
+    reader = LilcomChunkyReader(writer.storage_path)
+    for key, f in zip(keys, feats):
+        got = reader.read(key)
+        assert np.abs(got - f).max() <= 2.0**-6 + 1e-6
+        assert np.array_equal(got, LilcomChunkyReader(writer.storage_path).read(key, 0, None))
+
+
+def test_on_the_fly_features_on_card_match_cpu(cuda, tmp_path):
+    from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+
+    cuts = []
+    for i, wave in enumerate(_noisy_tones(5, seed=8)):
+        write_flac(str(tmp_path / f"u{i}.flac"), wave, 16000)
+        cuts.append(Recording.from_file(tmp_path / f"u{i}.flac").to_cut())
+    cuts = CutSet.from_cuts(cuts)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    fbank_cuda.LAUNCHES = 0
+    feats, lens = OnTheFlyFeatures(extractor)(cuts)
+    assert fbank_cuda.LAUNCHES == 1
+    audio = [c.load_audio()[0] for c in cuts]
+    for f, p in zip(feats, _plain(extractor, audio)):
+        assert np.abs(f[: len(p)] - p).max() <= LOGMEL_TOL
+    cpu_feats, cpu_lens = OnTheFlyFeatures(extractors.Fbank(extractors.FbankConfig(device="cpu")))(cuts)
+    assert np.array_equal(lens, cpu_lens)
+    assert np.abs(feats - cpu_feats).max() <= FEATURE_TOL

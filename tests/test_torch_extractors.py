@@ -12,6 +12,7 @@ from lhotse_tpu.features.kaldi import extractors as J
 from lhotse_tpu.utils import compute_num_frames_from_samples as j_num_frames_from_samples
 from lhotse_tpu_torch.features.kaldi import extractors as P
 from lhotse_tpu_torch.ops import fbank_cuda
+from lhotse_tpu_torch.utils import compute_num_frames_from_samples
 
 pytestmark = pytest.mark.filterwarnings("ignore:.*snip_edges")
 
@@ -207,7 +208,7 @@ def test_mix_energy_and_scale_equal_jax(kind):
 @pytest.mark.parametrize("n", [0, 1, 79, 80, 81, 159, 160, 12345, 16000])
 def test_num_frames_from_samples_equals_jax(n):
     for shift in (0.01, 0.0125):
-        assert P.compute_num_frames_from_samples(n, shift, SR) == j_num_frames_from_samples(
+        assert compute_num_frames_from_samples(n, shift, SR) == j_num_frames_from_samples(
             n, shift, SR)
 
 

@@ -95,5 +95,9 @@ def test_inputs_are_sorted_padded_audio(manifest):
 
 
 def test_default_input_strategy_is_not_ported():
-    with pytest.raises(NotImplementedError, match="PrecomputedFeatures"):
-        K2SpeechRecognitionDataset()
+    """The default input strategy is ported now: PrecomputedFeatures, as in JAX."""
+    from lhotse_tpu.dataset.input_strategies import PrecomputedFeatures as JPrecomputed
+    from lhotse_tpu_torch.dataset.input_strategies import PrecomputedFeatures
+
+    assert isinstance(JDataset().input_strategy, JPrecomputed)
+    assert type(K2SpeechRecognitionDataset().input_strategy) is PrecomputedFeatures

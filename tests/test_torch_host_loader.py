@@ -215,3 +215,124 @@ def test_slice_matches_jax(corpus):
         assert ours.state_dict() == theirs.state_dict()
         n += 1
     assert n >= 6
+
+
+def test_resume_with_apply_fn_staging_is_bit_exact(corpus):
+    """``apply_fn`` stages and computes in the prefetching producer, so the
+    yielded batch carries no ``aug_counter``: the loader publishes the
+    augmenter's state the producer snapshotted right after that batch, not
+    its live state, which has run ahead (the JAX loader takes the live
+    state there and shifts the augmentation stream on resume)."""
+
+    def make(aug):
+        def stage_and_compute(batch):
+            ns = np.asarray(batch["supervisions"]["num_samples"])
+            return aug.compute(aug.stage(np.asarray(batch["inputs"]), ns))
+
+        return DataLoader(_sampler(corpus), K2SpeechRecognitionDataset(input_strategy=AudioSamples()),
+                          prefetch_batches=2, apply_fn=stage_and_compute, checkpoint_objects=[aug])
+
+    full = list(make(_augmenter(device="cpu")))
+    assert len(full) >= 6
+    aug1 = _augmenter(device="cpu")
+    loader1 = make(aug1)
+    it = iter(loader1)
+    for _ in range(3):
+        time.sleep(0.3)  # the producer stages ahead of the consumer
+        next(it)
+    ckpt = loader1.state_dict()
+    it.close()
+    assert aug1._stage_counter > ckpt["objects"][0]["next_counter"] == 3
+
+    loader2 = make(_augmenter(device="cpu"))
+    loader2.load_state_dict(ckpt)
+    resumed = list(loader2)
+    assert len(resumed) == len(full) - 3
+    for (f_a, l_a), (f_b, l_b) in zip(full[3:], resumed):
+        assert torch.equal(l_a, l_b) and torch.equal(f_a, f_b)
+
+
+class _Float64Torch:
+    """``torch`` for the port's chain modules with ``float32`` read as
+    ``float64``: the same stages, in float64."""
+
+    def __getattr__(self, name):
+        return torch.float64 if name == "float32" else getattr(torch, name)
+
+
+class _Float64Fbank:
+    """The fbank kernel's function (edge pad, the folded DFT products, power,
+    mel, floored log) in float64, on the layer's float32 matrices."""
+
+    frame_shift = 0.01
+
+    def __init__(self):
+        from lhotse_tpu_torch.features.kaldi.layers import Wav2LogFilterBank
+
+        Mc, Ms, fb, _ = Wav2LogFilterBank(device="cpu")._fused_matrices()
+        self.mats = [torch.as_tensor(m).double() for m in (Mc, Ms, fb)]
+
+    def __call__(self, x):
+        from lhotse_tpu_torch.ops import fbank_cuda
+        from lhotse_tpu_torch.ops.fbank import FLT_EPS
+
+        frames = fbank_cuda.edge_pad(x.double()).unfold(-1, 400, 160)
+        Mc, Ms, fb = self.mats
+        power = (frames @ Mc) ** 2 + (frames @ Ms) ** 2
+        return torch.log(torch.clamp_min(power @ fb, FLT_EPS))
+
+
+def test_chain_on_tone_bursts_holds_to_float64():
+    """bench.py::_synthesize_corpus's tone bursts (four harmonics of an
+    80-220 Hz f0 at 0.2, over a 0.01 white-noise floor) through the e2e
+    augmenter (speed 1.1, gain, noise at 10-20 dB, a 0.5 s RIR): the port's
+    CPU chain, the JAX chain (its fbank layer's kernel route in XLA) and the
+    same stages in float64. Before the CPU route took its DFT products in
+    float64 the port was the farther one, 1.07e-4 from float64 where JAX is
+    5.7e-5, all of it in the fbank stage's float32 GEMMs (7.9e-5 vs XLA's
+    3.3e-5 on the same input; the audio stages are within 3e-7 of float64
+    in both). Measured now: 4.65e-5, the audio stages' float32 rounding
+    amplified in the lowest mel bins."""
+    from lhotse_tpu_torch.ops import augment, resample
+
+    rng = np.random.RandomState(1234)
+
+    def tone_burst(n):
+        t = np.arange(n) / SR
+        f0 = rng.uniform(80, 220)
+        wave = sum(np.sin(2 * np.pi * f0 * (h + 1) * t) / (h + 1) for h in range(4)) * 0.2
+        return (wave + rng.randn(n) * 0.01).astype(np.float32)
+
+    lens = np.array([int(SR * rng.uniform(1.5, 3.0)) for _ in range(8)])
+    lens[0] = 3 * SR
+    audio = np.zeros((8, 3 * SR), np.float32)
+    for i, n in enumerate(lens):
+        audio[i, :n] = tone_burst(n)
+    rng_init = np.random.RandomState(99)
+    L = SR // 2
+    rir = (np.exp(-np.arange(L) / (L / 6.0)) * rng_init.randn(L) * 0.5).astype(np.float32)
+    rir[L // 50] = 1.0
+    cfg = dict(sampling_rate=SR, speed_factor=1.1, gain_range=(0.8, 1.2),
+               noise_pool=(rng_init.randn(4, 10 * SR) * 0.05).astype(np.float32), snr=(10, 20),
+               mix_prob=1.0, rir=rir, wire_format="int16", seed=0)
+    buckets = [(3.0, 8)]
+
+    ours = OnDeviceAugmenter(buckets, device="cpu", **cfg)
+    staged = ours.stage(audio, lens)
+    feats, feat_lens = ours.compute(staged)
+    theirs = JAugmenter(buckets, fbank=_JaxKernelRoute(), **cfg)
+    jfeats, _ = theirs.compute(theirs.stage(audio, lens))
+
+    conv_weight = resample._conv_weight
+    saved = augment.torch, resample.torch, resample._conv_weight
+    augment.torch = resample.torch = _Float64Torch()
+    resample._conv_weight = lambda *a: conv_weight(*a).double()
+    try:
+        truth, _ = OnDeviceAugmenter(buckets, device="cpu", fbank=_Float64Fbank(), **cfg).compute(staged)
+    finally:
+        augment.torch, resample.torch, resample._conv_weight = saved
+    assert truth.dtype == torch.float64
+    real = np.arange(truth.shape[1])[None, :] < _np(feat_lens)[:, None]
+    port_err = np.abs(_np(feats) - _np(truth))[real].max()
+    jax_err = np.abs(np.asarray(jfeats) - _np(truth))[real].max()
+    assert port_err <= jax_err and port_err <= 5e-5, (port_err, jax_err)

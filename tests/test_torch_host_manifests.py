@@ -155,12 +155,8 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
     cases = {
         "transforms": dict(line, recording=dict(
             line["recording"], transforms=[{"name": "Speed", "kwargs": {"factor": 1.1}}])),
-        "features": dict(line, features={
-            "type": "kaldi-fbank", "num_frames": 100, "num_features": 80, "frame_shift": 0.01,
-            "sampling_rate": SR, "start": 0.0, "duration": 1.0, "storage_type": "numpy_files",
-            "storage_path": "x", "storage_key": "y"}),
-        "custom array": dict(line, custom={"emb": {"storage_type": "numpy_files", "storage_path": "x",
-                                                   "storage_key": "y", "shape": [4]}}),
+        "custom image": dict(line, custom={"img": {"storage_type": "pillow_files", "storage_path": "x",
+                                                   "storage_key": "y", "width": 4, "height": 4}}),
         "MixedCut": dict(line, type="MixedCut"),
     }
     for name, data in cases.items():
@@ -168,6 +164,22 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
         path.write_text(json.dumps(data) + "\n")
         with pytest.raises(NotImplementedError):
             list(CutSet.from_jsonl_lazy(path))
+    # Features and custom arrays load since the precomputed-features path was
+    # ported; a storage backend the port lacks raises when the data is read.
+    hdf5 = dict(line, features={
+        "type": "kaldi-fbank", "num_frames": 100, "num_features": 80, "frame_shift": 0.01,
+        "sampling_rate": SR, "start": 0.0, "duration": 1.0, "storage_type": "lilcom_hdf5",
+        "storage_path": "x", "storage_key": "y", "channels": 0},
+        custom={"emb": {"storage_type": "numpy_hdf5", "storage_path": "x", "storage_key": "y",
+                        "shape": [4]}})
+    path = tmp_path / "hdf5.jsonl"
+    path.write_text(json.dumps(hdf5) + "\n")
+    (cut,) = list(CutSet.from_jsonl_lazy(path))
+    assert cut.has_features and cut.emb.shape == [4]
+    with pytest.raises(NotImplementedError, match="lilcom_hdf5"):
+        cut.load_features()
+    with pytest.raises(NotImplementedError, match="numpy_hdf5"):
+        cut.load_emb()
     # A recording with a transform chain, built in the JAX package.
     cut = J.CutSet.from_file(jax_corpus / "cuts.jsonl")[0]
     J.CutSet.from_cuts([cut.perturb_speed(1.1)]).to_file(tmp_path / "speed.jsonl")

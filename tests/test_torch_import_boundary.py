@@ -46,7 +46,11 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.dataset.sampling.base, lhotse_tpu_torch.dataset.sampling.dynamic, "
         "lhotse_tpu_torch.dataset.sampling.checkpoint_backends, "
         "lhotse_tpu_torch.dataset.sampling.dynamic_bucketing, lhotse_tpu_torch.dataset.collation, "
-        "lhotse_tpu_torch.dataset.input_strategies, lhotse_tpu_torch.dataset.speech_recognition; "
+        "lhotse_tpu_torch.dataset.input_strategies, lhotse_tpu_torch.dataset.speech_recognition, "
+        "lhotse_tpu_torch.ops.host_dsp, lhotse_tpu_torch.codecs, "
+        "lhotse_tpu_torch.codecs.lilcom_codec, lhotse_tpu_torch.array, lhotse_tpu_torch.features, "
+        "lhotse_tpu_torch.features.base, lhotse_tpu_torch.features.io, "
+        "lhotse_tpu_torch.features.compression; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -125,6 +129,59 @@ def test_host_path_runs_without_jax_and_lhotse_tpu(tmp_path):
     CPU, in a process where importing either package fails."""
     proc = subprocess.run(
         [sys.executable, "-c", HOST_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+PRECOMPUTED_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import Recording
+from lhotse_tpu_torch.audio.flacio import write_flac
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.ops import wire
+from lhotse_tpu_torch.supervision import SupervisionSegment
+
+SR = 16000
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    rng = np.random.default_rng(0)
+    cuts = []
+    for i, sec in enumerate([0.6, 0.9, 1.4]):
+        path = Path(tmp) / f"u{i}.flac"
+        write_flac(str(path), (0.1 * rng.standard_normal(int(SR * sec))).astype(np.float32), SR)
+        cut = Recording.from_file(path).to_cut()
+        cut.supervisions.append(SupervisionSegment(
+            id=f"s{i}", recording_id=cut.recording_id, start=0.0, duration=cut.duration))
+        cuts.append(cut)
+    extractor = Fbank(FbankConfig(device="cpu"))
+    stored = CutSet.from_cuts(cuts).compute_and_store_features_batch(
+        extractor, Path(tmp) / "feats", manifest_path=Path(tmp) / "cuts.jsonl")
+    batch = K2SpeechRecognitionDataset()[CutSet.from_file(Path(tmp) / "cuts.jsonl").to_eager()]
+    fly = K2SpeechRecognitionDataset(input_strategy=OnTheFlyFeatures(extractor))[CutSet.from_cuts(cuts)]
+    assert batch["inputs"].shape == fly["inputs"].shape == (3, 140, 80), batch["inputs"].shape
+    assert np.abs(batch["inputs"] - fly["inputs"]).max() <= 2.0 ** -6 + 1e-6
+    x = (0.1 * rng.standard_normal((2, 640))).astype(np.float32)
+    assert np.array_equal(wire.encode_wire(x, "adpcm4"), wire._adpcm4_encode_np(x))
+assert sys.modules["jax"] is None and sys.modules["lhotse_tpu"] is None
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_precomputed_path_runs_without_jax_and_lhotse_tpu(tmp_path):
+    """FLAC cuts → compute_and_store_features_batch → the chunky archive →
+    K2SpeechRecognitionDataset() (PrecomputedFeatures), and OnTheFlyFeatures,
+    on the CPU in a process where importing either package fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PRECOMPUTED_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
