@@ -21,8 +21,12 @@ the device sample cache), and the precomputed-features path on the same
 corpus (``compute_and_store_features_batch`` on the kernel into a
 ``lilcom_chunky`` archive, that archive through
 ``K2SpeechRecognitionDataset()`` into the AdamW step, and
-``OnTheFlyFeatures`` on the kernel into the step); and checks what comes
-out.
+``OnTheFlyFeatures`` on the kernel into the step); then the augmented
+training path (the corpus speed-perturbed and mixed with a 4 x 10 s FLAC
+noise pool through ``OnTheFlyFeatures`` on the kernel into the AdamW step
+for two epochs, and ``CutMix`` on the stored features, the noise pool's
+features extracted on the kernel into the same archive); and checks what
+comes out.
 
     python3 chip_smoke.py
 
@@ -38,7 +42,9 @@ near-silent check against float64, and ``launches_by_path``: the kernel's
 launches on each path, ``augment_int16``, ``augment_adpcm4``, ``cached``,
 ``extractor_fbank``, ``extractor_mfcc``, ``model``, ``entry``, ``e2e``,
 ``e2e_cached``, ``precomputed_extract``, ``precomputed_train`` (0: it
-reads stored features) and ``on_the_fly``); the last line is
+reads stored features), ``on_the_fly``, ``augmented_on_the_fly``,
+``precomputed_mix_extract`` and ``precomputed_mix`` (0: it mixes stored
+features)); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -581,10 +587,12 @@ E2E_RECORDINGS = 160
 E2E_SECONDS = (4.0, 14.0)  # the corpus's uniform duration range
 
 
-def _synthesize_corpus(root: Path, n_recordings: int) -> Path:
+def _synthesize_corpus(root: Path, n_recordings: int, n_noise: int = 4) -> tuple:
     """``bench.py::_synthesize_corpus`` with the port: FLAC tone bursts of
-    uniform 4-14 s at 16 kHz (numpy seed 1234), one supervision each,
-    written with ``write_flac`` and ``CutSet.to_file``."""
+    uniform 4-14 s at 16 kHz (numpy seed 1234), one supervision each, then a
+    pool of ``n_noise`` 10 s bursts drawn after them from the same generator,
+    written with ``write_flac`` and ``CutSet.to_file``. Returns the paths of
+    the two manifests."""
     from lhotse_tpu_torch.audio import Recording
     from lhotse_tpu_torch.audio.flacio import write_flac
     from lhotse_tpu_torch.cut import CutSet
@@ -612,7 +620,13 @@ def _synthesize_corpus(root: Path, n_recordings: int) -> Path:
         cuts.append(cut)
     path = root / "cuts.jsonl"
     CutSet.from_cuts(cuts).to_file(path)
-    return path
+    noise = []
+    for i in range(n_noise):
+        write_flac(str(root / f"noise{i:02d}.flac"), tone_burst(10.0), SR)
+        noise.append(Recording.from_file(root / f"noise{i:02d}.flac").to_cut())
+    noise_path = root / "noise.jsonl"
+    CutSet.from_cuts(noise).to_file(noise_path)
+    return path, noise_path
 
 
 def _e2e_augmenter(device, sample_cache=None):
@@ -917,15 +931,15 @@ class _RecordFirstBatch:
         extractor.extract_batch = extract_batch
 
 
-def _sampler_over(cuts_path: Path):
+def _sampler_over(cuts):
     """Phase 10's ``DynamicBucketingSampler`` (buckets, constraint, shuffle
-    with seed 0) over another manifest of the same cuts."""
+    with seed 0) over another manifest of the same cuts, or a lazy CutSet."""
     from lhotse_tpu_torch.cut import CutSet
     from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import (
         DynamicBucketingSampler, FixedBucketBatchSizeConstraint)
 
     return DynamicBucketingSampler(
-        CutSet.from_jsonl_lazy(cuts_path),
+        cuts if isinstance(cuts, CutSet) else CutSet.from_jsonl_lazy(cuts),
         constraint=FixedBucketBatchSizeConstraint(
             max_seq_len_buckets=[ub for ub, _ in E2E_BUCKETS],
             batch_sizes=[bsz for _, bsz in E2E_BUCKETS]),
@@ -1131,6 +1145,183 @@ def _phase_precomputed(cuts_path: Path, workdir: Path, device, fbank_cuda, smi: 
     return launches, max(extract_err, fly_plain_err)
 
 
+# -- 12. the augmented training path ----------------------------------------------
+MIXED_SHARE = (0.35, 0.65)  # mix_prob 0.5 over 160 cuts
+
+
+def _span_ms(report: dict, n: int) -> str:
+    return ", ".join(
+        f"{span} {report.get(span, {}).get('total_s', 0.0) * 1e3 / n!r}"
+        for span in ("audio.decode", "audio.transforms", "dataset.assemble"))
+
+
+def _augmented_epochs(loader, sampler, trainer, device, on_batch) -> tuple:
+    """Two epochs: the first timed on the host clock with tracing, the
+    second under ``torch.profiler`` for the device's busy share."""
+    from lhotse_tpu_torch.tracing import reset_tracing, tracing_report
+
+    reset_tracing()
+    run = _train_epoch(loader, trainer, device, on_batch=lambda i, c, b: on_batch(0, i, c, b))
+    report = tracing_report()
+    sampler.set_epoch(1)
+    second = {}
+
+    def epoch2():
+        second.update(_train_epoch(loader, trainer, device,
+                                   on_batch=lambda i, c, b: on_batch(1, i, c, b)))
+
+    wall_ms, busy_ms, _ = _device_busy(epoch2)
+    return run, second, report, busy_ms / wall_ms
+
+
+def _phase_augmented(cuts_path: Path, noise_path: Path, feats_cuts: Path, workdir: Path, device,
+                     fbank_cuda, smi: str) -> tuple:
+    """12. The augmented training path at full width, on phase 10's corpus
+    and its noise pool. ``augmented_on_the_fly``: the shape of
+    ``bench.py::bench_host_pipeline`` (bench.py:309-340),
+    ``CutSet.from_jsonl_lazy(cuts).perturb_speed(1.1).mix(noise, snr=(10, 20),
+    mix_prob=0.5, seed=7)`` with the decoded-audio LRU on → phase 10's
+    sampler → ``K2SpeechRecognitionDataset`` with
+    ``OnTheFlyFeatures(Fbank(device="cuda"))`` → ``DataLoader`` → an AdamW
+    step per batch, two epochs (every perturbed cut once per epoch, a mixed
+    share near one half, one launch per batch, the first batch against the
+    kernel's plain version on the same mixed audio, a falling loss).
+    ``precomputed_mix_extract``: the noise pool's features extracted on the
+    kernel into phase 11's archive. ``precomputed_mix``: phase 11's stored
+    manifest through ``CutMix(noise with features, p=0.5, snr=(10, 20),
+    preserve_id=True, seed=7)`` and ``PrecomputedFeatures`` into the step,
+    two epochs (no launch; mixed features never below the lead track's
+    stored features by more than half a tick). Returns the kernel's launches
+    per path and the largest kernel-vs-plain error."""
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet, MixedCut
+    from lhotse_tpu_torch.dataset.cut_transforms import CutMix
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import reset_tracing, set_tracing_enabled, tracing_report
+
+    sup_ids = sorted(f"{s.id}_sp1.1" for c in CutSet.from_jsonl_lazy(cuts_path) for s in c.supervisions)
+    n_cuts = len(sup_ids)
+
+    # -- augmented_on_the_fly ------------------------------------------------------
+    set_caching_enabled(True)  # bench.py's setting: the noise pool is re-read per mixed cut
+    augmented = CutSet.from_jsonl_lazy(cuts_path).perturb_speed(1.1).mix(
+        CutSet.from_file(noise_path), snr=(10, 20), mix_prob=0.5, seed=7)
+    extractor = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(extractor)
+    sampler = _sampler_over(augmented)
+    loader = DataLoader(sampler, K2SpeechRecognitionDataset(
+        return_cuts=True, input_strategy=OnTheFlyFeatures(extractor)), prefetch_batches=3)
+    seen = ([], [])
+    mixed = [0, 0]
+
+    def count(epoch, i, cuts, batch):
+        seen[epoch].extend(s.id for c in cuts for s in c.supervisions)
+        mixed[epoch] += sum(isinstance(c, MixedCut) for c in cuts)
+
+    trainer = _Trainer(device)
+    set_tracing_enabled(True)
+    fbank_cuda.LAUNCHES = 0
+    run, run2, report, busy = _augmented_epochs(loader, sampler, trainer, device, count)
+    launches_aug = fbank_cuda.LAUNCHES
+    set_caching_enabled(False)
+    n = len(run["losses"])
+    n_batches = n + len(run2["losses"])
+    items, kernel_out = recorder.first
+    plain_out = _plain_extract(extractor, items)
+    aug_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, plain_out))
+    losses = run["losses"] + run2["losses"]
+    share = [m / n_cuts for m in mixed]
+    print(f"[{smi}] augmented_on_the_fly epoch 1: {n} batches, {run['audio_s']!r} audio-s in "
+          f"{run['elapsed_s']!r} s (host clock, AdamW steps included): "
+          f"{run['audio_s'] / run['elapsed_s']!r} audio-s/s; host ms per batch (loader thread) "
+          f"{_span_ms(report, n)}; epoch 2 under torch.profiler: {run2['audio_s'] / run2['elapsed_s']!r} "
+          f"audio-s/s, device busy {busy!r} of the wall; mixed share {share[0]!r} / {share[1]!r}; "
+          f"fbank kernel launches {launches_aug} for {n_batches} batches; losses {losses[0]!r} -> "
+          f"{losses[-1]!r}")
+    print(f"augmented_on_the_fly first batch ({len(items)} cuts of mixed audio): kernel vs its "
+          f"plain version max_abs_err {aug_err!r} (tol {KERNEL_TOL})")
+    for epoch in (0, 1):
+        if sorted(seen[epoch]) != sup_ids:
+            raise AssertionError(f"augmented epoch {epoch + 1} did not bring every perturbed cut once")
+        if not MIXED_SHARE[0] <= share[epoch] <= MIXED_SHARE[1]:
+            raise AssertionError(f"augmented epoch {epoch + 1}: mixed share {share[epoch]} off {MIXED_SHARE}")
+    if launches_aug != n_batches:
+        raise AssertionError(f"augmented_on_the_fly launched {launches_aug} times for {n_batches} batches")
+    if not aug_err <= KERNEL_TOL:
+        raise AssertionError("augmented_on_the_fly: the kernel disagrees with its plain version")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the augmented loss did not fall or is not finite: {losses}")
+
+    # -- precomputed_mix_extract ----------------------------------------------------
+    noise_feats_path = workdir / "noise_feats.jsonl"
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    noise_feats = CutSet.from_file(noise_path).compute_and_store_features_batch(
+        Fbank(FbankConfig(device=device)), workdir / "feats", manifest_path=noise_feats_path,
+        batch_duration=600, num_workers=4)
+    torch.cuda.synchronize()
+    launches_noise = fbank_cuda.LAUNCHES
+    noise_feats = noise_feats.to_eager()
+    print(f"precomputed_mix_extract: {len(noise_feats)} noise cuts stored into the archive; "
+          f"fbank kernel launches {launches_noise}")
+    if len(noise_feats) != 4 or launches_noise < 1:
+        raise AssertionError("precomputed_mix_extract did not store the noise pool on the kernel")
+
+    # -- precomputed_mix --------------------------------------------------------------
+    cut_mix = CutMix(noise_feats, p=0.5, snr=(10, 20), preserve_id=True, seed=7)
+    sampler = _sampler_over(feats_cuts)
+    loader = DataLoader(sampler, K2SpeechRecognitionDataset(
+        return_cuts=True, cut_transforms=[cut_mix]), prefetch_batches=3)
+    all_ids = sorted(c.id for c in CutSet.from_jsonl_lazy(feats_cuts))
+    # CutMix pads each mixed cut to the batch's longest: rates count the corpus's audio.
+    corpus_s = sum(c.duration for c in CutSet.from_jsonl_lazy(feats_cuts))
+    ids, pmixed, below = ([], []), [0, 0], []
+
+    def check(epoch, i, cuts, batch):
+        ids[epoch].extend(c.id for c in cuts)
+        pmixed[epoch] += sum(isinstance(c, MixedCut) for c in cuts)
+        if epoch == 0 and i == 0:
+            for row, cut in enumerate(cuts):
+                if isinstance(cut, MixedCut):
+                    lead = cut.tracks[0].cut.load_features()
+                    below.append(float(np.max(lead - batch["inputs"][row, : len(lead)])))
+
+    trainer = _Trainer(device)
+    fbank_cuda.LAUNCHES = 0
+    run, run2, report, busy = _augmented_epochs(loader, sampler, trainer, device, check)
+    launches_mix = fbank_cuda.LAUNCHES
+    set_tracing_enabled(False)
+    n = len(run["losses"])
+    losses = run["losses"] + run2["losses"]
+    share = [m / len(all_ids) for m in pmixed]
+    worst_below = max(below) if below else float("nan")
+    print(f"[{smi}] precomputed_mix epoch 1: {n} batches, {corpus_s!r} audio-s of the corpus "
+          f"({run['audio_s']!r} after CutMix's padding) in {run['elapsed_s']!r} s (host clock, AdamW "
+          f"steps included): {corpus_s / run['elapsed_s']!r} audio-s/s; host ms per batch (loader "
+          f"thread) {_span_ms(report, n)}; epoch 2 under torch.profiler: {corpus_s / run2['elapsed_s']!r} "
+          f"audio-s/s, device busy {busy!r} of the wall; mixed share {share[0]!r} / {share[1]!r}; "
+          f"fbank kernel launches {launches_mix}; losses {losses[0]!r} -> {losses[-1]!r}")
+    print(f"precomputed_mix first batch: {len(below)} mixed cuts, the lead track's stored features "
+          f"above the mix by at most {worst_below!r} (tol {LTC1_TICK / 2!r})")
+    for epoch in (0, 1):
+        if sorted(ids[epoch]) != all_ids:
+            raise AssertionError(f"precomputed_mix epoch {epoch + 1} did not bring every cut once")
+        if not MIXED_SHARE[0] <= share[epoch] <= MIXED_SHARE[1]:
+            raise AssertionError(f"precomputed_mix epoch {epoch + 1}: mixed share {share[epoch]}")
+    if not below or not worst_below <= LTC1_TICK / 2:
+        raise AssertionError("precomputed_mix: a mix fell below its lead track's features")
+    if launches_mix != 0:
+        raise AssertionError(f"precomputed_mix launched the fbank kernel {launches_mix} times")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the precomputed_mix loss did not fall or is not finite: {losses}")
+    launches = {"augmented_on_the_fly": launches_aug, "precomputed_mix_extract": launches_noise,
+                "precomputed_mix": launches_mix}
+    return launches, aug_err
+
+
 class _PlainFbank:
     """The default fbank layer's computation with the kernel's plain version
     in place of the kernel, for the chain comparison."""
@@ -1331,19 +1522,25 @@ def main() -> None:
     by_path["entry"] = _phase_entry(device, fbank_cuda)
     _phase_wpe(device)
 
-    # -- 10. the host data path into the trainer step, 11. precomputed features --
-    # One FLAC corpus for both phases.
+    # -- 10. the host data path into the trainer step, 11. precomputed features,
+    # 12. the augmented training path. One FLAC corpus for the three phases.
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.perf_counter()
-        cuts_path = _synthesize_corpus(Path(tmp), E2E_RECORDINGS)
-        print(f"e2e corpus: {E2E_RECORDINGS} FLAC recordings written in "
-              f"{time.perf_counter() - t0!r} s")
+        cuts_path, noise_path = _synthesize_corpus(Path(tmp), E2E_RECORDINGS)
+        print(f"e2e corpus: {E2E_RECORDINGS} FLAC recordings and a 4 x 10 s noise pool written "
+              f"in {time.perf_counter() - t0!r} s")
         by_path.update(_phase_e2e(cuts_path, device, fbank_cuda, smi))
         launches_pre, pre_err = _phase_precomputed(cuts_path, Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_pre)
+        t0 = time.perf_counter()
+        launches_aug, aug_err = _phase_augmented(
+            cuts_path, noise_path, Path(tmp) / "feats_cuts.jsonl", Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_aug)
+        print(f"phase 12 took {time.perf_counter() - t0!r} s")
     print(f"fbank kernel launches by path: {by_path}")
-    if not all(n > 0 for path, n in by_path.items() if path != "precomputed_train"):
+    reads_stored = ("precomputed_train", "precomputed_mix")
+    if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
     record = {"kernels": [{
@@ -1352,7 +1549,7 @@ def main() -> None:
         "source": "lhotse_tpu_torch/csrc/fbank.cu",
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
-        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err]),
+        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err, aug_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

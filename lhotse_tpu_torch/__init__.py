@@ -7,7 +7,9 @@ The module paths and public names mirror the JAX package, so
 ``lhotse_tpu_torch/ops/augment.py``. The port imports ``torch`` and numpy
 only: never ``jax`` and never ``lhotse_tpu``. The host data layer it needs
 (manifests, WAV/FLAC audio, ``CutSet``, ``DynamicBucketingSampler``,
-``K2SpeechRecognitionDataset`` with ``AudioSamples``, ``DataLoader``) is
+``K2SpeechRecognitionDataset`` with ``AudioSamples``, ``DataLoader``, the
+stored features, and the host augmentation: recording transforms,
+``PaddingCut``/``MixedCut`` and the cut transforms) is
 copied function by function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.

@@ -2,20 +2,29 @@
 The Recording manifest: where audio bytes live and how to decode them
 (copied from ``lhotse_tpu/audio/recording.py``). ``load_audio`` reads the
 requested (channels, offset, duration) window of the sources through the
-decoded-audio LRU of :mod:`lhotse_tpu_torch.caching`.
+decoded-audio LRU of :mod:`lhotse_tpu_torch.caching`, then runs the
+recording's chain of lazily applied transforms (speed, tempo, volume,
+reverb, resampling) with *reverse timestamp propagation*: the window is
+mapped back through every transform so only the needed source samples are
+read.
 
-Left out: the host transform chain (``perturb_speed``, ``reverb_rir``,
-``resample`` and the rest): on the port's path the device does the speed
-perturb and the reverb. A manifest whose recording carries ``transforms``
-raises ``NotImplementedError`` when it is read; so do video and
-``MultiCut`` (multi-channel) recordings.
+The post-transform window cache keys each window by the identity of every
+source it reads (path or bytes hash), not by ``Recording.id``: two
+recordings that share an id but not their audio get their own windows. The
+JAX package keys it by the id.
+
+Left out: the ``narrowband``, ``normalize_loudness``, ``dereverb_wpe``,
+``clip_amplitude`` and ``compress`` builders, which raise
+``NotImplementedError``; so do video and ``MultiCut`` (multi-channel)
+recordings.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from decimal import ROUND_HALF_UP
 from math import ceil, isclose
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -23,9 +32,11 @@ from lhotse_tpu_torch.audio.backend import info
 from lhotse_tpu_torch.audio.source import AudioSource
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, get_audio_duration_mismatch_tolerance)
+from lhotse_tpu_torch.augmentation import (
+    AudioTransform, Resample, ReverbWithImpulseResponse, Speed, Tempo, Volume)
 from lhotse_tpu_torch.utils import (
     Channels, Pathlike, Seconds, asdict_nonull, compute_num_samples, fastcopy, not_ported,
-    rich_exception_info)
+    perturb_num_samples, rich_exception_info)
 
 
 class SetContainingAnything:
@@ -52,7 +63,7 @@ class Recording:
     num_samples: int
     duration: Seconds
     channel_ids: Optional[List[int]] = None
-    transforms: Optional[List[Dict]] = None
+    transforms: Optional[List[Union[AudioTransform, Dict]]] = None
 
     def __post_init__(self):
         if self.channel_ids is None:
@@ -112,7 +123,7 @@ class Recording:
         raw_sources = data.pop("sources")
         transforms = data.pop("transforms", None)
         if transforms is not None:
-            raise not_ported(f"Recording transforms (recording {data.get('id')!r})")
+            transforms = [AudioTransform.from_dict(t) for t in transforms]
         return Recording(
             sources=[AudioSource.from_dict(s) for s in raw_sources], transforms=transforms, **data)
 
@@ -140,7 +151,10 @@ class Recording:
         self, channels: Optional[Channels] = None, offset: Seconds = 0.0,
         duration: Optional[Seconds] = None) -> np.ndarray:
         """
-        Decode samples for the requested (channels, offset, duration) window.
+        Decode samples for the requested (channels, offset, duration) window,
+        then apply the transform chain.  The window is first propagated
+        backwards through the chain so the source read covers exactly the
+        samples the transforms need.
 
         :return: float32 array shaped ``(num_channels, num_samples)``.
         """
@@ -156,21 +170,93 @@ class Recording:
             duration = None
 
         wanted = self._channel_selector(channels)
-        if self.transforms:
-            raise not_ported(f"Recording transforms (recording {self.id!r})")
         if self.has_video:
             raise not_ported(f"Video recordings (recording {self.id!r})")
+        chain = [
+            t if isinstance(t, AudioTransform) else AudioTransform.from_dict(t)
+            for t in self.transforms or []
+        ]
+
+        # Map the requested window back through the chain (last to first).
         src_offset, src_duration = offset, duration
+        for t in reversed(chain):
+            src_offset, src_duration = t.reverse_timestamps(
+                offset=src_offset, duration=src_duration, sampling_rate=self.sampling_rate)
 
         from lhotse_tpu_torch.tracing import add_work, trace_span
+
+        # Post-transform window memoization for deterministic chains: warm
+        # epochs skip both the decode and the DSP chain. Hits return a copy
+        # of the very array a cold call produced for the same request.
+        xkey = self._transformed_cache_key(chain, channels, wanted, offset, requested_duration)
+        if xkey is not None:
+            from lhotse_tpu_torch.caching import DecodedAudioCache
+
+            entry = DecodedAudioCache.try_cache(xkey)
+            if entry is not None:
+                return entry[0].copy()
+            if not DecodedAudioCache.worth_caching(xkey):
+                xkey = None  # first sighting: window-decode directly
 
         with trace_span("audio.decode"):
             audio = self._stack_audio_channels(
                 self._read_sources(wanted, src_offset, src_duration)
             )
             add_work(audio.shape[1] / self.sampling_rate)
-        return assert_and_maybe_fix_num_samples(
+        if chain:
+            with trace_span("audio.transforms"):
+                for t in chain:
+                    audio = t(audio, self.sampling_rate)
+                add_work(audio.shape[1] / self.sampling_rate)
+
+        audio = assert_and_maybe_fix_num_samples(
             audio, offset=offset, duration=requested_duration, recording=self)
+        if xkey is not None:
+            from lhotse_tpu_torch.caching import DecodedAudioCache
+
+            DecodedAudioCache.add_to_cache(xkey, audio, self.sampling_rate)
+        return audio
+
+    def _transformed_cache_key(self, chain, channels, wanted, offset, requested_duration):
+        """Stable LRU key for a post-transform audio window, or None when the
+        request is not memoizable (no transforms — the source-level cache in
+        :meth:`_read_sources` already covers plain decodes — nondeterministic
+        chain, a source without a stable identity, unbounded size, or caching
+        disabled). The key names every source by its identity (its path or
+        the hash of its bytes), never by ``self.id``."""
+        from lhotse_tpu_torch.caching import DecodedAudioCache
+
+        if (
+            not chain
+            or not DecodedAudioCache.enabled()
+            or self.num_samples > DecodedAudioCache.max_item_samples
+            or not all(t.is_deterministic for t in chain)
+        ):
+            return None
+        sources = tuple(
+            (tuple(src.channels), self._decoded_cache_key(src, idx))
+            for idx, src in enumerate(self.sources))
+        if any(key is None for _, key in sources):
+            return None
+        import hashlib
+
+        tlist = [
+            t if isinstance(t, dict) else t.to_dict() for t in self.transforms or []
+        ]
+        fp = hashlib.blake2b(repr(tlist).encode(), digest_size=12).digest()
+        return (
+            "xformed",
+            sources,
+            self.sampling_rate,
+            fp,
+            ("all",) if channels is None else tuple(sorted(wanted)),
+            compute_num_samples(offset, self.sampling_rate) if offset else 0,
+            (
+                -1
+                if requested_duration is None
+                else compute_num_samples(requested_duration, self.sampling_rate)
+            ),
+        )
 
     def _channel_selector(self, channels: Optional[Channels]):
         if channels is None:
@@ -283,6 +369,94 @@ class Recording:
 
     def copy_with(self, **kwargs) -> "Recording":
         return fastcopy(self, **kwargs)
+
+    # -- lazy transform builders ---------------------------------------------------
+    # Each returns a copy with one more entry on the transform chain; geometry
+    # fields (duration / num_samples / sampling_rate / channels) are updated
+    # whenever the transform changes them.
+
+    def _chain_plus(self, *new_transforms) -> list:
+        chain = list(self.transforms) if self.transforms is not None else []
+        chain.extend(new_transforms)
+        return chain
+
+    def _affixed(self, affix_id: bool, suffix: str) -> str:
+        return f"{self.id}{suffix}" if affix_id else self.id
+
+    def perturb_speed(self, factor: float, affix_id: bool = True) -> "Recording":
+        """Resample-based speed change: shifts both pitch and duration."""
+        n = perturb_num_samples(self.num_samples, factor)
+        return fastcopy(
+            self, id=self._affixed(affix_id, f"_sp{factor}"), num_samples=n,
+            duration=n / self.sampling_rate, transforms=self._chain_plus(Speed(factor=factor)))
+
+    def perturb_tempo(self, factor: float, affix_id: bool = True) -> "Recording":
+        """WSOLA tempo change: shifts duration, preserves pitch."""
+        n = perturb_num_samples(self.num_samples, factor)
+        return fastcopy(
+            self, id=self._affixed(affix_id, f"_tp{factor}"), num_samples=n,
+            duration=n / self.sampling_rate, transforms=self._chain_plus(Tempo(factor=factor)))
+
+    def perturb_volume(self, factor: float, affix_id: bool = True) -> "Recording":
+        """Scalar gain."""
+        return fastcopy(
+            self, id=self._affixed(affix_id, f"_vp{factor}"),
+            transforms=self._chain_plus(Volume(factor=factor)))
+
+    def reverb_rir(
+        self, rir_recording: Optional["Recording"] = None, normalize_output: bool = True,
+        early_only: bool = False, affix_id: bool = True,
+        rir_channels: Optional[Sequence[int]] = None, room_rng_seed: Optional[int] = None,
+        source_rng_seed: Optional[int] = None) -> "Recording":
+        """
+        Convolve with a real or synthetic (FRA-RIR) impulse response.  A mono
+        recording convolved with a multi-channel RIR becomes multi-channel.
+        """
+        if rir_recording is not None and rir_recording.sampling_rate != self.sampling_rate:
+            raise AssertionError(
+                f"Sampling rate mismatch between RIR vs recording: "
+                f"{rir_recording.sampling_rate} vs {self.sampling_rate}."
+            )
+        fans_out = (self.num_channels == 1 and rir_channels is not None and len(rir_channels) > 1)
+        out_channels = list(range(len(rir_channels))) if fans_out else self.channel_ids
+
+        synth = None
+        if rir_recording is None:
+            from lhotse_tpu_torch.augmentation.utils import FastRandomRIRGenerator
+
+            synth = FastRandomRIRGenerator(
+                sr=self.sampling_rate, room_seed=room_rng_seed, source_seed=source_rng_seed)
+        effect = ReverbWithImpulseResponse(
+            rir=rir_recording, normalize_output=normalize_output, early_only=early_only,
+            rir_channels=rir_channels if rir_channels is not None else [0], rir_generator=synth)
+        return fastcopy(
+            self, id=self._affixed(affix_id, "_rvb"), channel_ids=out_channels,
+            transforms=self._chain_plus(effect))
+
+    def resample(self, sampling_rate: int) -> "Recording":
+        """Sinc-kernel resampling to a new rate."""
+        if sampling_rate == self.sampling_rate:
+            return fastcopy(self)
+        n = compute_num_samples(self.duration, sampling_rate, rounding=ROUND_HALF_UP)
+        return fastcopy(
+            self, duration=n / sampling_rate, num_samples=n, sampling_rate=sampling_rate,
+            transforms=self._chain_plus( Resample( source_sampling_rate=self.sampling_rate, target_sampling_rate=sampling_rate, ) ),
+        )
+
+    def narrowband(self, *args, **kwargs) -> "Recording":
+        raise not_ported("Recording.narrowband")
+
+    def normalize_loudness(self, *args, **kwargs) -> "Recording":
+        raise not_ported("Recording.normalize_loudness")
+
+    def dereverb_wpe(self, *args, **kwargs) -> "Recording":
+        raise not_ported("Recording.dereverb_wpe (the host WPE transform)")
+
+    def clip_amplitude(self, *args, **kwargs) -> "Recording":
+        raise not_ported("Recording.clip_amplitude")
+
+    def compress(self, *args, **kwargs) -> "Recording":
+        raise not_ported("Recording.compress")
 
 
 def assert_and_maybe_fix_num_samples(

@@ -1,7 +1,11 @@
 from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.cut.data import DataCut
+from lhotse_tpu_torch.cut.mixed import MixedCut, MixTrack
 from lhotse_tpu_torch.cut.mono import MonoCut
-from lhotse_tpu_torch.cut.set import CutSet, compute_supervisions_frame_mask, deserialize_cut
+from lhotse_tpu_torch.cut.padding import PaddingCut
+from lhotse_tpu_torch.cut.set import (
+    CutSet, append, append_cuts, compute_supervisions_frame_mask, deserialize_cut, mix, mix_cuts,
+    pad)
 
 # Register Cut/CutSet with the validator registry now that the classes exist
 # (deferred in qa.py to avoid an import cycle).
@@ -11,4 +15,5 @@ _rcv()
 del _rcv
 
 __all__ = [
-    "Cut", "CutSet", "DataCut", "MonoCut", "compute_supervisions_frame_mask", "deserialize_cut"]
+    "Cut", "CutSet", "DataCut", "MixTrack", "MixedCut", "MonoCut", "PaddingCut", "append",
+    "append_cuts", "compute_supervisions_frame_mask", "deserialize_cut", "mix", "mix_cuts", "pad"]

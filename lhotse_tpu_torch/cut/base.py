@@ -1,8 +1,8 @@
 """
 Cut: the abstract time-interval view over a Recording (copied from
-``lhotse_tpu/cut/base.py``), with the members the data path uses and the
-supervisions' frame mask. The cut algebra (split, mix, trim, windows, the
-other masks) is not ported.
+``lhotse_tpu/cut/base.py``), with the members the data path uses: ``mix``,
+``append`` and the supervisions' frame mask. Splitting, trimming to
+supervisions, windows and the other masks are not ported.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import numpy as np
 
 from lhotse_tpu_torch.audio.utils import VideoInfo
 from lhotse_tpu_torch.supervision import SupervisionSegment
-from lhotse_tpu_torch.utils import Seconds, add_durations, asdict_nonull, fastcopy
+from lhotse_tpu_torch.utils import Decibels, Seconds, add_durations, asdict_nonull, fastcopy
 
 
 class Cut:
@@ -54,6 +54,25 @@ class Cut:
 
     def copy_with(self, **kwargs) -> "Cut":
         return self.copy(**kwargs)
+
+    def mix(
+        self, other: "Cut", offset_other_by: Seconds = 0.0, allow_padding: bool = False,
+        snr: Optional[Decibels] = None, preserve_id: Optional[str] = None,
+        tag: Optional[str] = None) -> "Cut":
+        """Mix ``other`` into this cut (lazy); see :func:`lhotse_tpu_torch.cut.set.mix`."""
+        from lhotse_tpu_torch.cut.set import mix
+
+        return mix(
+            self, other, offset=offset_other_by, allow_padding=allow_padding, snr=snr,
+            preserve_id=preserve_id, tag=tag)
+
+    def append(
+        self, other: "Cut", snr: Optional[Decibels] = None, preserve_id: Optional[str] = None,
+    ) -> "Cut":
+        """Append ``other`` after this cut (mix at offset == self.duration)."""
+        from lhotse_tpu_torch.cut.set import mix
+
+        return mix(self, other, offset=self.duration, snr=snr, preserve_id=preserve_id)
 
     def supervisions_feature_mask(self, use_alignment_if_exists: Optional[str] = None) -> np.ndarray:
         """1-D 0/1 mask over frames covered by at least one supervision."""

@@ -2,18 +2,27 @@
 DataCut: the shared part of MonoCut and MultiCut, one Recording plus
 supervisions and custom fields viewed through a [start, start+duration)
 window (copied from ``lhotse_tpu/cut/data.py``), with the members the data
-path uses: the ``Features`` manifest, ``compute_and_store_features`` and
-``drop_features``. Images and the lazy waveform-domain builders are not
-ported.
+path uses: the ``Features`` manifest, ``compute_and_store_features``, the
+``drop_*`` methods, ``fill_supervision``, the windowing builders
+(``truncate``, ``extend_by``, ``pad``) and the lazy waveform-domain builders
+``resample``, ``perturb_speed``, ``perturb_tempo`` and ``perturb_volume``
+(``reverb_rir`` is in :class:`~lhotse_tpu_torch.cut.mono.MonoCut`). Every
+builder returns a modified manifest copy; no audio is touched until
+``load_audio``/``load_features``. Images, in-memory data and the
+``narrowband``, ``normalize_loudness``, ``dereverb_wpe``, ``clip_amplitude``
+and ``compress`` builders are not ported: the last five raise.
 """
 from __future__ import annotations
 
+import logging
 from abc import ABCMeta, abstractmethod
 from dataclasses import dataclass, field
+from math import isclose
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
+from lhotse_tpu_torch.array import TemporalArray
 from lhotse_tpu_torch.audio import Recording
 from lhotse_tpu_torch.custom import CustomFieldMixin
 from lhotse_tpu_torch.cut.base import Cut
@@ -21,8 +30,9 @@ from lhotse_tpu_torch.features.base import FeatureExtractor, Features
 from lhotse_tpu_torch.features.io import FeaturesWriter
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
-    Seconds, asdict_nonull, compute_num_frames, compute_num_samples, fastcopy,
-    rich_exception_info)
+    LOG_EPSILON, Seconds, TimeSpan, add_durations, asdict_nonull, compute_num_frames,
+    compute_num_samples, fastcopy, measure_overlap, not_ported, overlaps, overspans,
+    perturb_num_samples, rich_exception_info, uuid4)
 
 
 @dataclass
@@ -134,7 +144,57 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
             )
         return fastcopy(self, features=None)
 
+    def drop_recording(self) -> "DataCut":
+        if not self.has_features:
+            raise AssertionError(
+                f"Cannot detach recording from a DataCut with no Features "
+                f"(cut ID = {self.id})."
+            )
+        return fastcopy(self, recording=None)
+
+    def drop_supervisions(self) -> "DataCut":
+        return fastcopy(self, supervisions=[])
+
+    def drop_alignments(self) -> "DataCut":
+        return fastcopy(self, supervisions=[fastcopy(s, alignment={}) for s in self.supervisions])
+
     # -- supervision manipulation ------------------------------------------------------------
+
+    def fill_supervision(self, add_empty: bool = True, shrink_ok: bool = False) -> "DataCut":
+        """
+        Stretch the (single) supervision to span the whole cut; with no
+        supervision, add an empty one when ``add_empty``.  Shrinking an
+        overhanging supervision requires ``shrink_ok=True``.
+        """
+        if not self.supervisions:
+            if not add_empty:
+                return self
+            grown = [
+                SupervisionSegment(
+                    id=self.id,
+                    recording_id=self.recording_id,
+                    start=0,
+                    duration=self.duration,
+                    channel=self.channel,
+                )
+            ]
+            return fastcopy(self, supervisions=grown)
+        if len(self.supervisions) != 1:
+            raise AssertionError(
+                f"Cannot expand more than one supervision "
+                f"(found {len(self.supervisions)})."
+            )
+        sup = self.supervisions[0]
+        if isclose(sup.start, 0) and isclose(sup.duration, self.duration):
+            return self
+        if (sup.start < 0 or sup.end > self.end) and not shrink_ok:
+            raise ValueError(
+                f"Cannot shrink supervision (start={sup.start}, end={sup.end}) "
+                f"to cut (start=0, duration={self.duration}) with shrink_ok=False. "
+                f"A supervision exceeding a cut may indicate spoken content beyond "
+                f"the cut's bounds; set shrink_ok=True to override."
+            )
+        return fastcopy(self, supervisions=[fastcopy(sup, start=0, duration=self.duration)])
 
     def map_supervisions(
         self, transform_fn: Callable[[SupervisionSegment], SupervisionSegment]) -> "DataCut":
@@ -155,3 +215,232 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
             offset=self.start, channel=self.channel, augment_fn=augment_fn)
         return fastcopy(self, features=manifest)
 
+    # -- windowing -------------------------------------------------------------------------------
+
+    def truncate(
+        self, *, offset: Seconds = 0.0, duration: Optional[Seconds] = None,
+        keep_excessive_supervisions: bool = True, preserve_id: bool = False,
+        _supervisions_index: Optional[Dict[str, Any]] = None) -> "DataCut":
+        """
+        View of ``[offset, offset+duration)`` within this cut (clamped to the
+        cut's end).  Boundary-crossing supervisions are kept or dropped per
+        ``keep_excessive_supervisions``.
+        """
+        if offset < 0:
+            raise AssertionError(f"Offset for truncate must be non-negative (provided {offset}).")
+        sr = self.sampling_rate
+        new_start = max(add_durations(self.start, offset, sampling_rate=sr), 0)
+        window = duration if duration is not None else self.duration
+        # Quantize offset and window to the sample grid SEPARATELY before
+        # differencing (reference cut/data.py:519-525): float-adding first
+        # lands sums like 0.525+0.525 @22050 on .5-sample boundaries and
+        # shifts the result by one sample vs the reference.
+        until = add_durations(offset, window, sampling_rate=sr)
+        new_duration = add_durations(until, -offset, sampling_rate=sr)
+        if new_duration <= 0.0:
+            raise AssertionError(f"new_duration={new_duration}")
+        overhang = add_durations(
+            new_start, new_duration, -self.start, -self.duration, sampling_rate=sr)
+        if overhang > 0:
+            new_duration = add_durations(new_duration, -overhang, sampling_rate=sr)
+        if new_duration < 0.0:
+            raise AssertionError(
+                f"Truncation region [offset={offset}, offset+duration) lies "
+                f"outside the cut (cut duration {self.duration}).")
+
+        sups = self._truncated_supervisions(
+            offset, new_duration, keep_excessive_supervisions, _supervisions_index)
+        return fastcopy(
+            self, id=self.id if preserve_id else str(uuid4()), start=new_start,
+            duration=new_duration, supervisions=sorted(sups, key=lambda s: s.start))
+
+    def _truncated_supervisions(
+        self, offset, new_duration, keep_excessive, index) -> List[SupervisionSegment]:
+        if index is None:
+            accept = overlaps if keep_excessive else overspans
+            span = TimeSpan(start=0, end=new_duration)
+            shifted = (s.with_offset(-offset) for s in self.supervisions)
+            return [s for s in shifted if accept(span, s)]
+        window = TimeSpan(offset, offset + new_duration)
+        out = []
+        for s in index[self.id].overlap(begin=offset, end=offset + new_duration):
+            if not keep_excessive:
+                # Fully contained only (with a little float-epsilon slack).
+                inside = (s.start >= offset - 1e-3 and s.end <= offset + new_duration + 1e-3)
+                if not inside:
+                    continue
+            # Sub-1% overlaps are float-precision artifacts, not real overlap.
+            if measure_overlap(s, window) > 0.01:
+                out.append(s.with_offset(-offset))
+        return out
+
+    def extend_by(
+        self, *, duration: Seconds, direction: str = "both", preserve_id: bool = False,
+        pad_silence: bool = True) -> Cut:
+        """
+        Grow the window by ``duration`` seconds of *real* recording content
+        per direction; where the recording runs out, optionally pad with
+        silence.  Precomputed features/temporal arrays that no longer cover
+        the window are detached with a warning.
+        """
+        if duration < 0:
+            raise AssertionError(f"Duration must be non-negative (provided {duration}).")
+        sr = self.sampling_rate
+        new_start, new_end = self.start, self.end
+        silence_left = silence_right = 0
+        if direction in ("left", "both"):
+            if pad_silence and self.start - duration < 0:
+                silence_left = duration - self.start
+            new_start = max(self.start - duration, 0)
+        if direction in ("right", "both"):
+            room = self.recording.duration - self.end
+            if pad_silence and duration > room:
+                silence_right = duration - room
+            new_end = min(self.end + duration, self.recording.duration)
+        new_duration = add_durations(new_end, -new_start, sampling_rate=sr)
+
+        shift = add_durations(self.start, -new_start, sampling_rate=sr)
+        sups = sorted((s.with_offset(shift) for s in self.supervisions), key=lambda s: s.start)
+
+        def covers(attr) -> bool:
+            lo = compute_num_frames(new_start, attr.frame_shift, sr)
+            hi = compute_num_frames(new_end, attr.frame_shift, sr)
+            attr_lo = compute_num_frames(attr.start, attr.frame_shift, sr)
+            attr_hi = attr_lo + attr.num_frames
+            return lo >= attr_lo - 1 and hi <= attr_hi + 1
+
+        updates: Dict[str, Any] = {}
+        if self.has_features and not covers(self.features):
+            logging.warning(
+                "Attempting to extend a cut beyond the range of pre-computed "
+                "features; the feature manifest will be detached."
+            )
+            updates["features"] = None
+        kept_custom = {}
+        for name, value in (self.custom or {}).items():
+            if isinstance(value, TemporalArray) and not covers(value):
+                logging.warning(
+                    f"Attempting to extend a cut beyond the range of pre-computed "
+                    f"custom data '{name}'; the data will be detached."
+                )
+                kept_custom[name] = None
+            else:
+                kept_custom[name] = value
+
+        out = fastcopy(
+            self, id=self.id if preserve_id else str(uuid4()), start=new_start,
+            duration=new_duration, supervisions=sups, custom=kept_custom, **updates)
+        if silence_left > 0:
+            out = out.pad(
+                duration=out.duration + silence_left, direction="left", preserve_id=preserve_id)
+        if silence_right > 0:
+            out = out.pad(
+                duration=out.duration + silence_right, direction="right", preserve_id=preserve_id)
+        return out
+
+    def pad(
+        self, duration: Seconds = None, num_frames: int = None, num_samples: int = None,
+        pad_feat_value: float = LOG_EPSILON, direction: str = "right", preserve_id: bool = False,
+        pad_value_dict: Optional[Dict[str, Union[int, float]]] = None) -> Cut:
+        """Pad to a target duration/frames/samples; see :func:`lhotse_tpu_torch.cut.set.pad`."""
+        from lhotse_tpu_torch.cut.set import pad
+
+        return pad(
+            self, duration=duration, num_frames=num_frames, num_samples=num_samples,
+            pad_feat_value=pad_feat_value, direction=direction, preserve_id=preserve_id,
+            pad_value_dict=pad_value_dict)
+
+    # -- waveform-domain lazy effects -------------------------------------------------------------
+    # Shared plumbing: every effect needs a Recording, invalidates any
+    # precomputed features, and renames the cut when affix_id is set.
+
+    def _require_recording(self, op: str) -> None:
+        if not self.has_recording:
+            raise AssertionError(f"Cannot {op} on a DataCut without Recording.")
+
+    def _invalidate_features(self, op: str) -> None:
+        if self.has_features:
+            logging.warning(
+                f"Applying {op} on a DataCut with pre-computed features: the "
+                f"feature manifest will be detached (waveform-domain op)."
+            )
+            self.features = None
+
+    def resample(
+        self, sampling_rate: int, affix_id: bool = False, recording_field: Optional[str] = None,
+    ) -> "DataCut":
+        """Lazy resample (of the main recording or a custom Recording field)."""
+        self._require_recording("resample")
+        recording, custom = self.recording, self.custom
+        if recording_field is None:
+            recording = recording.resample(sampling_rate)
+        else:
+            custom = dict(custom)
+            custom[recording_field] = custom[recording_field].resample(sampling_rate)
+        return fastcopy(
+            self, id=f"{self.id}_rs{sampling_rate}" if affix_id else self.id, recording=recording,
+            features=None, custom=custom)
+
+    def _time_scaled(self, factor: float, suffix: str, affix_id: bool, op: str) -> "DataCut":
+        """Common core of speed/tempo perturbation: everything on the cut's
+        timeline scales by 1/factor via exact sample-count arithmetic."""
+        self._require_recording(op)
+        self._invalidate_features(op)
+        sr = self.sampling_rate
+        scaled_start = (perturb_num_samples(compute_num_samples(self.start, sr), factor) / sr)
+        scaled_duration = perturb_num_samples(self.num_samples, factor) / sr
+        if op == "perturb speed":
+            rec = self.recording.perturb_speed(factor=factor, affix_id=affix_id)
+            sups = [
+                s.perturb_speed(factor=factor, sampling_rate=sr, affix_id=affix_id)
+                for s in self.supervisions
+            ]
+        else:
+            rec = self.recording.perturb_tempo(factor=factor, affix_id=affix_id)
+            sups = [
+                s.perturb_tempo(factor=factor, sampling_rate=sr, affix_id=affix_id)
+                for s in self.supervisions
+            ]
+        return fastcopy(
+            self, id=f"{self.id}{suffix}" if affix_id else self.id, recording=rec,
+            supervisions=sups, start=scaled_start, duration=scaled_duration)
+
+    def perturb_speed(self, factor: float, affix_id: bool = True) -> "DataCut":
+        """Resample-based speed change (pitch shifts too)."""
+        return self._time_scaled(factor, f"_sp{factor}", affix_id, "perturb speed")
+
+    def perturb_tempo(self, factor: float, affix_id: bool = True) -> "DataCut":
+        """Pitch-preserving tempo change."""
+        return self._time_scaled(factor, f"_tp{factor}", affix_id, "perturb tempo")
+
+    def perturb_volume(self, factor: float, affix_id: bool = True) -> "DataCut":
+        """Scalar gain on the waveform."""
+        self._require_recording("perturb volume")
+        self._invalidate_features("perturb volume")
+        return fastcopy(
+            self, id=f"{self.id}_vp{factor}" if affix_id else self.id,
+            recording=self.recording.perturb_volume(factor=factor, affix_id=affix_id),
+            supervisions=[ s.perturb_volume(factor=factor, affix_id=affix_id) for s in self.supervisions ],
+        )
+
+    @abstractmethod
+    def reverb_rir(
+        self, rir_recording: Optional["Recording"] = None, normalize_output: bool = True,
+        early_only: bool = False, affix_id: bool = True, rir_channels: List[int] = [0],
+        room_rng_seed: Optional[int] = None, source_rng_seed: Optional[int] = None) -> "DataCut":
+        ...
+
+    def narrowband(self, *args, **kwargs) -> "DataCut":
+        raise not_ported("Cut.narrowband")
+
+    def normalize_loudness(self, *args, **kwargs) -> "DataCut":
+        raise not_ported("Cut.normalize_loudness")
+
+    def dereverb_wpe(self, *args, **kwargs) -> "DataCut":
+        raise not_ported("Cut.dereverb_wpe (the host WPE transform)")
+
+    def clip_amplitude(self, *args, **kwargs) -> "DataCut":
+        raise not_ported("Cut.clip_amplitude")
+
+    def compress(self, *args, **kwargs) -> "DataCut":
+        raise not_ported("Cut.compress")

@@ -1,12 +1,15 @@
 """
 MonoCut: a single-channel concrete cut (copied from
-``lhotse_tpu/cut/mono.py``): audio and feature loading, supervision
-handling and (de)serialization.
+``lhotse_tpu/cut/mono.py``): audio and feature loading, channel selection,
+lazy reverberation, supervision handling and (de)serialization. Selecting
+several channels and reverberating with a multi-channel RIR return a
+``MultiCut`` in the JAX package; ``MultiCut`` is not ported, so both raise.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -14,7 +17,8 @@ from lhotse_tpu_torch.audio import Recording
 from lhotse_tpu_torch.cut.data import DataCut
 from lhotse_tpu_torch.features.base import Features
 from lhotse_tpu_torch.supervision import SupervisionSegment
-from lhotse_tpu_torch.utils import rich_exception_info
+from lhotse_tpu_torch.utils import (
+    fastcopy, hash_str_to_int, is_equal_or_contains, not_ported, rich_exception_info, uuid4)
 
 
 @dataclass
@@ -50,6 +54,64 @@ class MonoCut(DataCut):
         if not self.has_recording:
             return None
         return self.recording.load_audio(**self._span())
+
+    def with_channels(self, channels: Union[List[int], int]) -> DataCut:
+        """Select one channel available in the underlying Recording (a
+        MonoCut); several channels would make a MultiCut, which is not
+        ported."""
+        wanted = [channels] if isinstance(channels, int) else list(channels)
+        assert set(wanted).issubset(set(self.recording.channel_ids)), (
+            f"Cannot select {channels=}: not a subset of {self.recording.channel_ids=}"
+        )
+        if len(wanted) != 1:
+            raise not_ported("MultiCut (MonoCut.with_channels with several channels)")
+        (one,) = wanted
+        keep = [
+            fastcopy(s, channel=one)
+            for s in self.supervisions
+            if is_equal_or_contains(s.channel, one)
+        ]
+        return MonoCut(
+            id=f"{self.id}-{one}", channel=one, supervisions=keep, recording=self.recording,
+            start=self.start, duration=self.duration, custom=self.custom)
+
+    def reverb_rir(
+        self, rir_recording: Optional[Union[Recording, DataCut]] = None,
+        normalize_output: bool = True, early_only: bool = False, affix_id: bool = True,
+        rir_channels: Sequence[int] = (0,), room_rng_seed: Optional[int] = None,
+        source_rng_seed: Optional[int] = None) -> DataCut:
+        """
+        Lazy reverberation with a mono RIR, or a synthetic FRA-RIR when no
+        RIR is given (per-cut seeds derived from the cut id).
+        """
+        assert self.has_recording, "Cannot apply reverberation on a MonoCut without Recording."
+        if self.has_features:
+            logging.warning(
+                "Reverberating a MonoCut with pre-computed features: the feature "
+                "manifest will be detached."
+            )
+            self.features = None
+        assert rir_recording is None or all(
+            c < rir_recording.num_channels for c in rir_channels
+        ), "Invalid channel index in `rir_channels`."
+
+        if rir_recording is None:
+            # Synthetic FRA-RIR path: derive deterministic per-cut seeds.
+            rir_channels = [0]
+            if room_rng_seed is None:
+                room_rng_seed = hash_str_to_int(str(uuid4()) + self.id, max_value=2**31)
+            if source_rng_seed is None:
+                source_rng_seed = room_rng_seed
+        if len(rir_channels) != 1:
+            raise not_ported("MultiCut (reverb_rir with a multi-channel RIR selection)")
+
+        recording_rvb = self.recording.reverb_rir(
+            rir_recording=rir_recording, normalize_output=normalize_output, early_only=early_only,
+            affix_id=affix_id, rir_channels=rir_channels, room_rng_seed=room_rng_seed,
+            source_rng_seed=source_rng_seed)
+        return fastcopy(
+            self, id=f"{self.id}_rvb" if affix_id else self.id, recording=recording_rvb,
+            supervisions=[ s.reverb_rir(affix_id=affix_id) for s in self.supervisions ])
 
     @staticmethod
     def from_dict(data: dict) -> "MonoCut":

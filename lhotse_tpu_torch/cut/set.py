@@ -6,16 +6,25 @@ uses: construction from cuts, manifests and lazy JSONL, ``filter``,
 ``sort_by_duration``, ``+``, checkpointing of the lazy graph, feature
 extraction and storage (``compute_and_store_features``, single-process or
 fanned out over spawned processes, and ``compute_and_store_features_batch``),
-``drop_features`` and the supervisions' frame mask.
+the ``drop_*`` methods, the supervisions' frame mask, the lazy augmentation
+operations (``pad``, ``truncate``, ``extend_by``, ``resample``,
+``perturb_speed``, ``perturb_tempo``, ``perturb_volume``, ``reverb_rir``,
+``mix`` through :class:`LazyCutMixer`) and the module functions ``mix``,
+``pad``, ``append``, ``mix_cuts`` and ``append_cuts``.
 
-Left out: mixing, padding, windowing and trimming, Shar and the other
-constructors.
+Left out: windowing and trimming to supervisions, Shar, the other
+constructors, ``MultiCut`` and ``LazyCutMixer``'s indexed regime (constant
+time access to the mixed cuts and their checkpoint, which need indexed
+manifests); the last two raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import itertools
 import logging
+import random
 import warnings
 from concurrent.futures import Executor, ProcessPoolExecutor
+from functools import partial, reduce
 from itertools import islice
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Type, TypeVar, Union
@@ -25,23 +34,27 @@ import numpy as np
 from lhotse_tpu_torch.audio import null_result_on_audio_loading_error
 from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.cut.data import DataCut
+from lhotse_tpu_torch.cut.mixed import MixedCut, MixTrack, _ensure_explicit_snr_reference
 from lhotse_tpu_torch.cut.mono import MonoCut
+from lhotse_tpu_torch.cut.padding import PaddingCut
 from lhotse_tpu_torch.features.base import FeatureExtractor, Features
 from lhotse_tpu_torch.features.io import FeaturesWriter, default_features_storage_backend
-from lhotse_tpu_torch.lazy import AlgorithmMixin, LazyMapper, LazySlicer
+from lhotse_tpu_torch.lazy import (
+    AlgorithmMixin, IteratorNode, LazyMapper, LazySlicer, is_dill_enabled,
+    resolve_iterator_source)
 from lhotse_tpu_torch.serialization import Serializable
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
-    Pathlike, Seconds, compute_num_frames, exactly_one_not_null, fastcopy, ifnone, not_ported,
-    split_sequence)
+    LOG_EPSILON, Decibels, Pathlike, Seconds, compute_num_frames, compute_num_samples,
+    exactly_one_not_null, fastcopy, ifnone, not_ported, split_sequence, uuid4)
 
 T = TypeVar("T")
 FW = TypeVar("FW", bound=FeaturesWriter)
 
 
 def is_cut(example) -> bool:
-    # MultiCut, MixedCut and PaddingCut are not ported: MonoCut is every cut here.
-    return isinstance(example, MonoCut)
+    # MultiCut is not ported.
+    return isinstance(example, (MonoCut, MixedCut, PaddingCut))
 
 
 class CutSet(Serializable, AlgorithmMixin):
@@ -158,8 +171,114 @@ class CutSet(Serializable, AlgorithmMixin):
         """Transform every cut's ID with ``transform_fn``."""
         return self.map(_RenameCut(transform_fn))
 
+    def pad(
+        self, duration: Seconds = None, num_frames: int = None, num_samples: int = None,
+        pad_feat_value: float = LOG_EPSILON, direction: str = "right", preserve_id: bool = False,
+        pad_value_dict: Optional[Dict[str, Union[int, float]]] = None) -> "CutSet":
+        """
+        Pad every cut to duration/num_frames/num_samples (default: the longest
+        cut, in frames if features exist, else samples, else seconds).
+        """
+        if all(arg is None for arg in (duration, num_frames, num_samples)):
+            if all(c.has_features for c in self):
+                num_frames = max(c.num_frames for c in self)
+            elif all(c.has_recording for c in self):
+                num_samples = max(c.num_samples for c in self)
+            else:
+                duration = max(cut.duration for cut in self)
+        return self.map(
+            _CutOp(
+                "pad", duration=duration, num_frames=num_frames, num_samples=num_samples,
+                pad_feat_value=pad_feat_value, direction=direction, preserve_id=preserve_id,
+                pad_value_dict=pad_value_dict,
+            )
+        )
+
+    def truncate(
+        self, max_duration: Seconds, offset_type: str, keep_excessive_supervisions: bool = True,
+        preserve_id: bool = False, rng: Optional[random.Random] = None) -> "CutSet":
+        """Truncate cuts to at most ``max_duration``, from 'start'/'end'/'random'."""
+        assert offset_type in ("start", "end", "random"), (f"Unknown offset type: '{offset_type}'")
+        return self.map(
+            partial(
+                _truncate_single, max_duration=max_duration, offset_type=offset_type,
+                keep_excessive_supervisions=keep_excessive_supervisions, preserve_id=preserve_id,
+                rng=rng,
+            )
+        )
+
+    def extend_by(
+        self, duration: Seconds, direction: str = "both", preserve_id: bool = False,
+        pad_silence: bool = True) -> "CutSet":
+        """Extend cuts by ``duration`` with real recording context."""
+        return self.map(
+            _CutOp(
+                "extend_by", duration=duration, direction=direction, preserve_id=preserve_id,
+                pad_silence=pad_silence,
+            )
+        )
+
+    def resample(
+        self, sampling_rate: int, affix_id: bool = False, recording_field: Optional[str] = None,
+    ) -> "CutSet":
+        """Lazily resample all cuts (drops attached feature manifests)."""
+        return self.map(
+            _CutOp(
+                "resample", sampling_rate=sampling_rate, affix_id=affix_id,
+                recording_field=recording_field,
+            )
+        )
+
+    def perturb_speed(self, factor: float, affix_id: bool = True) -> "CutSet":
+        """Lazy speed perturbation over all cuts (supervisions follow)."""
+        return self.map(_CutOp("perturb_speed", factor=factor, affix_id=affix_id))
+
+    def perturb_tempo(self, factor: float, affix_id: bool = True) -> "CutSet":
+        """Lazy tempo (pitch-preserving) perturbation over all cuts."""
+        return self.map(_CutOp("perturb_tempo", factor=factor, affix_id=affix_id))
+
+    def perturb_volume(self, factor: float, affix_id: bool = True) -> "CutSet":
+        """Lazy volume perturbation over all cuts."""
+        return self.map(_CutOp("perturb_volume", factor=factor, affix_id=affix_id))
+
+    def reverb_rir(
+        self, rir_recordings: Optional["RecordingSet"] = None, normalize_output: bool = True,  # noqa: F821
+        early_only: bool = False, affix_id: bool = True, rir_channels: List[int] = [0]) -> "CutSet":
+        """Lazy reverberation with randomly chosen (or synthetic) RIRs."""
+        rir_recordings = list(rir_recordings) if rir_recordings else None
+        return self.map(
+            _CutOp(
+                "reverb_rir",
+                rir_recording=random.choice(rir_recordings) if rir_recordings else None,
+                normalize_output=normalize_output, early_only=early_only, affix_id=affix_id,
+                rir_channels=rir_channels,
+            )
+        )
+
+    def mix(
+        self, cuts: "CutSet", duration: Optional[Seconds] = None, allow_padding: bool = False,
+        snr: Optional[Union[Decibels, Sequence[Decibels]]] = 20, preserve_id: Optional[str] = None,
+        mix_prob: float = 1.0, seed: Union[int, str, random.Random] = 42,
+        random_mix_offset: bool = False, tag: Optional[str] = None) -> "CutSet":
+        """Lazily mix randomly-sampled cuts from ``cuts`` into this CutSet
+        (noise/music/babble augmentation)."""
+        mixer = LazyCutMixer(
+            cuts=self, mix_in_cuts=cuts, duration=duration, allow_padding=allow_padding, snr=snr,
+            preserve_id=preserve_id, mix_prob=mix_prob, seed=seed,
+            random_mix_offset=random_mix_offset, tag=tag)
+        return CutSet(mixer)
+
     def drop_features(self) -> "CutSet":
         return self.map(_CutOp("drop_features"))
+
+    def drop_recordings(self) -> "CutSet":
+        return self.map(_CutOp("drop_recording"))
+
+    def drop_supervisions(self) -> "CutSet":
+        return self.map(_CutOp("drop_supervisions"))
+
+    def drop_alignments(self) -> "CutSet":
+        return self.map(_CutOp("drop_alignments"))
 
     def compute_and_store_features(
         self, extractor: FeatureExtractor, storage_path: Pathlike, num_jobs: Optional[int] = None,
@@ -380,6 +499,234 @@ class CutSet(Serializable, AlgorithmMixin):
         yield from self.cuts
 
 
+def mix(
+    reference_cut: Cut, mixed_in_cut: Cut, offset: Seconds = 0, allow_padding: bool = False,
+    snr: Optional[Decibels] = None, preserve_id: Optional[str] = None, tag: Optional[str] = None,
+) -> MixedCut:
+    """
+    Overlay two cuts: ``mixed_in_cut`` enters at ``offset`` seconds, scaled to
+    ``snr`` dB below the reference.  The result is a MixedCut — summation only
+    happens when it is loaded.
+    """
+    snr = _sanitize_mix_snr(reference_cut, mixed_in_cut, snr)
+    _check_mixable(reference_cut, mixed_in_cut, offset, allow_padding)
+    out_id = _pick_mixed_id(reference_cut, mixed_in_cut, preserve_id)
+    if offset > reference_cut.duration:
+        reference_cut = reference_cut.pad(duration=offset)
+    tracks = _tracks_of_reference(reference_cut) + _tracks_of_mixed_in(
+        mixed_in_cut, offset, snr, tag)
+    return MixedCut(id=out_id, tracks=tracks)
+
+
+def _sanitize_mix_snr(a: Cut, b: Cut, snr) -> Optional[Decibels]:
+    if snr is not None and any(isinstance(c, PaddingCut) for c in (a, b)):
+        warnings.warn(
+            "You are mixing cuts to a padding cut with a specified SNR — "
+            "setting snr to None to retain the original signal energies."
+        )
+        return None
+    return snr
+
+
+def _check_mixable(ref: Cut, other: Cut, offset: Seconds, allow_padding: bool) -> None:
+    if (
+        ref.num_features is not None
+        and other.num_features is not None
+        and ref.num_features != other.num_features
+    ):
+        raise AssertionError("Cannot mix cuts with different feature dimensions.")
+    if offset > ref.duration and not allow_padding:
+        raise AssertionError(
+            f"Cannot mix cut '{other.id}' with offset {offset}, which is "
+            f"greater than cut {ref.id}'s duration of {ref.duration}. "
+            f"Set `allow_padding=True` to allow padding."
+        )
+    if ref.sampling_rate != other.sampling_rate:
+        raise AssertionError(
+            f"Cannot mix cuts with different sampling rates "
+            f"({ref.sampling_rate} vs. {other.sampling_rate}). "
+            f"Please resample the recordings first."
+        )
+
+
+def _pick_mixed_id(ref: Cut, other: Cut, preserve_id: Optional[str]) -> str:
+    if preserve_id is None:
+        return str(uuid4())
+    if preserve_id == "left":
+        return ref.id
+    if preserve_id == "right":
+        return other.id
+    raise ValueError(
+        "Unexpected value for 'preserve_id' argument: "
+        f"got '{preserve_id}', expected one of (None, 'left', 'right')."
+    )
+
+
+def _tracks_of_reference(ref: Cut) -> List[MixTrack]:
+    # A clean MixedCut (no transforms/mutes) contributes its tracks directly;
+    # anything else becomes a single opaque track.
+    if (
+        isinstance(ref, MixedCut)
+        and not ifnone(ref.transforms, [])
+        and not any(t.mute for t in ref.tracks)
+    ):
+        return _ensure_explicit_snr_reference(list(ref.tracks))
+    if isinstance(ref, (DataCut, PaddingCut, MixedCut)):
+        return [MixTrack(cut=ref, is_snr_reference=not isinstance(ref, PaddingCut))]
+    raise ValueError(f"Unsupported type of cut in mix(): {type(ref)}")
+
+
+def _tracks_of_mixed_in(other: Cut, offset, snr, tag) -> List[MixTrack]:
+    if isinstance(other, (DataCut, PaddingCut)):
+        return [MixTrack(cut=other, offset=offset, snr=snr, tag=tag)]
+    if not isinstance(other, MixedCut):
+        raise ValueError(f"Unsupported type of cut in mix(): {type(other)}")
+    if ifnone(other.transforms, []) or any(t.mute for t in other.tracks):
+        # Transforms/mutes must apply to the sub-mix as a whole: keep opaque.
+        return [MixTrack(cut=other, offset=offset, snr=snr, tag=tag)]
+
+    def combined_snr(track_snr):
+        # No new SNR keeps the track's own; both present add up (SNRs are
+        # relative to the first track of the mix).
+        if snr is None:
+            return track_snr
+        if track_snr is None:
+            return snr
+        return track_snr + snr
+
+    return [
+        MixTrack(
+            cut=t.cut, offset=round(t.offset + offset, ndigits=8), snr=combined_snr(t.snr),
+            tag=t.tag if t.tag is not None else tag, is_snr_reference=False, mute=t.mute,
+        )
+        for t in other.tracks
+    ]
+
+
+def pad(
+    cut: Cut, duration: Seconds = None, num_frames: int = None, num_samples: int = None,
+    pad_feat_value: float = LOG_EPSILON, direction: str = "right", preserve_id: bool = False,
+    pad_value_dict: Optional[Dict[str, Union[int, float]]] = None) -> Cut:
+    """
+    Grow a cut to a target duration / frame count / sample count (exactly one
+    may be given) by appending a PaddingCut; returns the input unchanged when
+    it already reaches the target.
+    """
+    from lhotse_tpu_torch.utils import DEFAULT_PADDING_VALUE
+
+    if not exactly_one_not_null(duration, num_frames, num_samples):
+        raise AssertionError(
+            f"Expected only one of (duration, num_frames, num_samples) to be "
+            f"set: got ({duration}, {num_frames}, {num_samples})"
+        )
+    _warn_about_unpadded_temporal_arrays(cut, pad_value_dict, DEFAULT_PADDING_VALUE)
+
+    target = _pad_geometry(cut, duration, num_frames, num_samples)
+    if target is None:
+        return cut
+    duration, total_num_frames, total_num_samples = target
+
+    pad_span = round(duration - cut.duration, ndigits=8)
+    video = None
+    if cut.has_video:
+        video = cut.video.copy_with(num_frames=compute_num_samples(pad_span, cut.video.fps))
+    filler = PaddingCut(
+        id=str(uuid4()), duration=pad_span, feat_value=pad_feat_value,
+        num_features=cut.num_features,
+        num_frames=(total_num_frames - cut.num_frames if cut.has_features else None),
+        num_samples=( total_num_samples - cut.num_samples if cut.has_recording else None ),
+        frame_shift=cut.frame_shift, sampling_rate=cut.sampling_rate, video=video,
+        custom=pad_value_dict)
+
+    if direction == "right":
+        return cut.append(filler, preserve_id="left" if preserve_id else None)
+    if direction == "left":
+        return filler.append(cut, preserve_id="right" if preserve_id else None)
+    if direction == "both":
+        half = filler.truncate(duration=filler.duration / 2)
+        return half.append(cut, preserve_id="right" if preserve_id else None).append(
+            half, preserve_id="left" if preserve_id else None)
+    raise ValueError(f"Unknown type of padding: {direction}")
+
+
+def _warn_about_unpadded_temporal_arrays(cut, pad_value_dict, default_value) -> None:
+    from lhotse_tpu_torch.array import TemporalArray
+
+    custom = getattr(cut, "custom", None)
+    if not isinstance(custom, dict):
+        return
+    arr_keys = [k for k, v in custom.items() if isinstance(v, TemporalArray)]
+    missing = pad_value_dict is None or any(k not in pad_value_dict for k in arr_keys)
+    if arr_keys and missing:
+        warnings.warn(
+            f"Cut being padded has custom TemporalArray attributes: {arr_keys}. "
+            f"Expected a 'pad_value_dict' argument with padding values for "
+            f"them; using the default (={default_value})."
+        )
+
+
+def _pad_geometry(cut, duration, num_frames, num_samples):
+    """Resolve the pad target to (duration, frames, samples); None = no-op."""
+
+    def frames_for(dur):
+        if not cut.has_features:
+            return None
+        return compute_num_frames(
+            duration=dur, frame_shift=cut.frame_shift, sampling_rate=cut.sampling_rate)
+
+    def samples_for(dur):
+        if not cut.has_recording:
+            return None
+        return compute_num_samples(duration=dur, sampling_rate=cut.sampling_rate)
+
+    if duration is not None:
+        if duration <= cut.duration:
+            return None
+        return duration, frames_for(duration), samples_for(duration)
+
+    if num_frames is not None:
+        if not cut.has_features:
+            raise AssertionError(
+                "Cannot pad a cut using num_frames when it is missing "
+                "pre-computed features (run cut.compute_and_store_features(...) "
+                "first)."
+            )
+        duration = num_frames * cut.frame_shift
+        total_samples = samples_for(duration)
+        already_there = (
+            num_frames <= cut.num_frames
+            and duration <= cut.duration
+            and (total_samples is None or total_samples <= cut.num_samples)
+        )
+        if already_there:
+            return None
+        return duration, num_frames, total_samples
+
+    if not cut.has_recording:
+        raise AssertionError("Cannot pad a cut using num_samples when it is missing a Recording.")
+    if num_samples <= cut.num_samples:
+        return None
+    duration = num_samples / cut.sampling_rate
+    return duration, frames_for(duration), num_samples
+
+
+def append(
+    left_cut: Cut, right_cut: Cut, snr: Optional[Decibels] = None,
+    preserve_id: Optional[str] = None) -> MixedCut:
+    """Functional-style append of two cuts."""
+    return left_cut.append(right_cut, snr=snr, preserve_id=preserve_id)
+
+
+def mix_cuts(cuts: Iterable[Cut]) -> MixedCut:
+    """Fold the cuts into one MixedCut by successive mixing."""
+    return reduce(mix, cuts)
+
+
+def append_cuts(cuts: Iterable[Cut]) -> Cut:
+    """Fold the cuts into one MixedCut by successive appending."""
+    return reduce(append, cuts)
+
+
 def compute_supervisions_frame_mask(
     cut: Cut, frame_shift: Optional[Seconds] = None, use_alignment_if_exists: Optional[str] = None):
     """1-D 0/1 mask over frames covered by at least one supervision
@@ -420,11 +767,15 @@ def deserialize_cut(raw_cut: dict) -> Cut:
     cut_type = raw_cut.pop("type")
     if cut_type == "MonoCut":
         return MonoCut.from_dict(raw_cut)
-    if cut_type in ("MultiCut", "PaddingCut", "MixedCut"):
+    if cut_type == "MultiCut":
         raise not_ported(cut_type)
+    if cut_type == "PaddingCut":
+        return PaddingCut.from_dict(raw_cut)
     if cut_type == "Cut":
         warnings.warn("Your manifest uses the legacy cut type name 'Cut'; interpreting as MonoCut.")
         return MonoCut.from_dict(raw_cut)
+    if cut_type == "MixedCut":
+        return MixedCut.from_dict(raw_cut)
     raise ValueError(f"Unexpected cut type during deserialization: '{cut_type}'")
 
 
@@ -448,3 +799,148 @@ class _RenameCut:
 
     def __call__(self, cut):
         return cut.with_id(self.transform_fn(cut.id))
+
+
+def _truncate_single(
+    cut: Cut, max_duration: Seconds, offset_type: str, keep_excessive_supervisions: bool = True,
+    preserve_id: bool = False, rng: Optional[random.Random] = None) -> Cut:
+    if cut.duration <= max_duration:
+        return cut
+    slack = cut.duration - max_duration
+    if offset_type == "start":
+        begin = 0.0
+    elif offset_type == "end":
+        begin = slack
+    elif offset_type == "random":
+        begin = (rng or random).uniform(0.0, slack)
+    else:
+        raise ValueError(f"Unknown 'offset_type' option: {offset_type}")
+    return cut.truncate(
+        offset=begin, duration=max_duration, preserve_id=preserve_id,
+        keep_excessive_supervisions=keep_excessive_supervisions)
+
+
+class LazyCutMixer(IteratorNode):
+    """
+    Iterate over ``cuts`` while mixing randomly-sampled ``mix_in_cuts`` into
+    them (noise/music/babble augmentation), in the JAX package's sequential
+    regime: one ``random.Random`` per iteration, seeded with
+    ``resolve_seed(seed) + num_times_iterated`` (or the given instance),
+    draws the mix probability, the SNR and the next noise cut of an endless
+    shuffled stream. The indexed regime (per-item RNGs over indexed
+    manifests, constant-time access and checkpoints) is not ported.
+    """
+
+    def __init__(
+        self, cuts: "CutSet", mix_in_cuts: "CutSet", duration: Optional[Seconds] = None,
+        allow_padding: bool = False, snr: Optional[Union[Decibels, Sequence[Decibels]]] = 20,
+        preserve_id: Optional[str] = None, mix_prob: float = 1.0,
+        seed: Union[int, str, random.Random] = 42, random_mix_offset: bool = False,
+        stateful: bool = True, tag: Optional[str] = None) -> None:
+        if not 0.0 <= mix_prob <= 1.0:
+            raise AssertionError(f"mix_prob must be in [0, 1], got {mix_prob}")
+        if duration is not None and duration <= 0:
+            raise AssertionError(f"duration must be positive, got {duration}")
+        if isinstance(snr, (tuple, list)):
+            if len(snr) != 2:
+                raise AssertionError(
+                    f"SNR range must be a list or tuple with exactly two values "
+                    f"(got: {snr})"
+                )
+        elif not isinstance(snr, (type(None), int, float)):
+            raise AssertionError(f"Unsupported snr value: {snr!r}")
+        self.source = resolve_iterator_source(cuts)
+        self._source_len_ref = cuts
+        self.mix_in_cuts = mix_in_cuts
+        self._mix_in_source = resolve_iterator_source(mix_in_cuts)
+        if getattr(self._mix_in_source, "is_indexed", False):
+            raise not_ported("LazyCutMixer's indexed regime (indexed mix_in_cuts)")
+        self.duration, self.allow_padding, self.snr = duration, allow_padding, snr
+        self.preserve_id, self.mix_prob, self.seed = preserve_id, mix_prob, seed
+        self.random_mix_offset, self.stateful, self.tag = random_mix_offset, stateful, tag
+        self.num_times_iterated = 0
+        self._rng = self._mix_in_iter = None
+
+    def __iter__(self):
+        rng = self._sequential_rng()
+        self._rng = rng
+        if self.stateful:
+            self.num_times_iterated += 1
+        self._mix_in_iter = self._endless_noise(rng)
+        for cut in self.source:
+            yield self._mix_one(cut, rng)
+
+    def _sequential_rng(self) -> random.Random:
+        from lhotse_tpu_torch.dataset.dataloading import resolve_seed
+
+        if isinstance(self.seed, random.Random):
+            return self.seed
+        return random.Random(resolve_seed(self.seed) + self.num_times_iterated)
+
+    def _endless_noise(self, rng):
+        """An infinite shuffled stream over the mix-in cuts."""
+        if self.mix_in_cuts.is_lazy:
+            # Materialize a small lazy noise manifest once (re-opening and
+            # re-parsing it on every repeat cycle would dominate); stream
+            # only genuinely large ones.
+            head = list(itertools.islice(iter(self.mix_in_cuts), 2001))
+            if len(head) <= 2000:
+                small = CutSet.from_cuts(head)
+
+                def cycle_small():
+                    while True:
+                        yield from small.shuffle(rng=rng)
+
+                return cycle_small()
+            return iter(self.mix_in_cuts.repeat().shuffle(rng=rng, buffer_size=2000))
+
+        def cycle():
+            while True:
+                yield from self.mix_in_cuts.shuffle(rng=rng)
+
+        return cycle()
+
+    def _mix_one(self, cut: Cut, rng: random.Random) -> Cut:
+        if not is_cut(cut) or rng.uniform(0.0, 1.0) > self.mix_prob:
+            return cut
+        snr = rng.uniform(*self.snr) if isinstance(self.snr, (list, tuple)) else self.snr
+        # Target 50 ms short of the cut so the last noise chunk never collapses
+        # to 0 feature frames.
+        goal = round(self.duration if self.duration is not None else cut.duration - 0.05, ndigits=8)
+        covered = 0.0
+        mixed = cut
+        while True:
+            chunk = self._maybe_truncate_cut(next(self._mix_in_iter), goal - covered, rng)
+            mixed = mixed.mix(
+                other=chunk, snr=snr, offset_other_by=covered if covered > 0 else 0,
+                allow_padding=self.allow_padding if covered > 0 else False,
+                preserve_id=self.preserve_id, tag=self.tag)
+            covered = round(covered + chunk.duration, ndigits=8)
+            if covered >= goal - 0.05:
+                break
+        return mixed.truncate(
+            duration=self.duration if self.duration is not None else cut.duration,
+            preserve_id=self.preserve_id is not None)
+
+    def _maybe_truncate_cut(self, cut: Cut, target_duration: Seconds, rng: random.Random) -> Cut:
+        if not self.random_mix_offset or cut.duration <= target_duration:
+            return cut
+        slack = cut.duration - target_duration
+        return cut.truncate(offset=rng.uniform(0, slack), duration=target_duration)
+
+    def __getitem__(self, idx):
+        raise not_ported("LazyCutMixer.__getitem__ (the indexed regime)")
+
+    def __len__(self) -> int:
+        return len(self._source_len_ref)
+
+    # The live noise stream is a generator — transient iteration state that
+    # must not (and cannot) cross process boundaries.
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_mix_in_iter"] = None
+        if is_dill_enabled():
+            import dill
+
+            return dill.dumps(state)
+        return state

@@ -1,14 +1,12 @@
 """
 Collation of CutSet mini-batches into dense numpy host arrays (copied from
-``lhotse_tpu/dataset/collation.py``): ``collate_features`` (right padding
-with ``LOG_EPSILON``), ``collate_audio`` for mono batches,
-``read_audio_from_cuts``, ``collate_vectors`` and ``collate_matrices``.
+``lhotse_tpu/dataset/collation.py``): ``collate_features`` (padding with
+``LOG_EPSILON`` on either side), ``collate_audio`` (the mono fast path, and
+the padded-cut route for multi-channel batches, ``mono_downmix``, custom
+recording fields and fault-tolerant reads), ``read_audio_from_cuts``,
+``collate_vectors`` and ``collate_matrices``.
 
-Left out: video, image and custom-field collation, and the padded-cut
-routes (``collate_features`` with left padding; ``collate_audio`` for
-multi-channel batches, custom recording fields and fault-tolerant reads),
-which need ``PaddingCut`` and ``MixedCut``; those raise
-``NotImplementedError``.
+Left out: video, image and custom-field collation.
 """
 from concurrent.futures import Executor
 from functools import partial
@@ -19,7 +17,7 @@ import numpy as np
 
 from lhotse_tpu_torch.audio import Recording, suppress_audio_loading_errors
 from lhotse_tpu_torch.cut import Cut, CutSet
-from lhotse_tpu_torch.utils import LOG_EPSILON, compute_num_samples, not_ported
+from lhotse_tpu_torch.utils import LOG_EPSILON, compute_num_samples
 
 # Padding label for token targets, conventionally ignored by the loss.
 PAD_TOKEN_ID = -100
@@ -49,24 +47,35 @@ def collate_features(
     assert all(cut.has_features for cut in cuts)
     features_lens = np.array([cut.num_frames for cut in cuts], dtype=np.int32)
     target_frames = _round_up(int(features_lens.max()), pad_to_multiple)
-    if pad_direction != "right":
-        raise not_ported(f"collate_features(pad_direction={pad_direction!r}) (PaddingCut)")
-    # Right-padding a batch is one LOG_EPSILON fill per padded row tail plus
-    # a row-block copy per cut.
+    if pad_direction == "right":
+        # Right-padding a batch is one LOG_EPSILON fill per padded row tail
+        # plus a row-block copy per cut, bit-identical to pad()+load_features().
+        first_cut = next(iter(cuts))
+        features = np.empty(
+            (len(cuts), target_frames, first_cut.num_features),
+            dtype=features_dtype if features_dtype is not None else np.float32)
+        loaded = (
+            (cut.load_features() for cut in cuts)
+            if executor is None
+            else executor.map(_read_features, cuts)
+        )
+        for idx, feats in enumerate(loaded):
+            n = min(feats.shape[0], target_frames)
+            features[idx, :n] = feats[:n]
+            if n < target_frames:
+                features[idx, n:] = LOG_EPSILON
+        return features, features_lens
+    cuts = cuts.pad(num_frames=target_frames, direction=pad_direction)
     first_cut = next(iter(cuts))
     features = np.empty(
-        (len(cuts), target_frames, first_cut.num_features),
+        (len(cuts), first_cut.num_frames, first_cut.num_features),
         dtype=features_dtype if features_dtype is not None else np.float32)
-    loaded = (
-        (cut.load_features() for cut in cuts)
-        if executor is None
-        else executor.map(_read_features, cuts)
-    )
-    for idx, feats in enumerate(loaded):
-        n = min(feats.shape[0], target_frames)
-        features[idx, :n] = feats[:n]
-        if n < target_frames:
-            features[idx, n:] = LOG_EPSILON
+    if executor is None:
+        for idx, cut in enumerate(cuts):
+            features[idx] = cut.load_features()
+    else:
+        for idx, example_features in enumerate(executor.map(_read_features, cuts)):
+            features[idx] = example_features
     return features, features_lens
 
 
@@ -152,13 +161,57 @@ def collate_audio(
         audio_lens = np.array(sample_counts, dtype=np.int32)
         if fault_tolerant:
             # Contract: the surviving cuts come back padded (as the slow
-            # path returns them), which needs PaddingCut.
-            raise not_ported("collate_audio(fault_tolerant=True) (PaddingCut)")
+            # path returns them) — a manifest-level op, no audio I/O.
+            ok_cuts = ok_cuts.pad(
+                duration=max_duration, direction=pad_direction, preserve_id=True
+            )
+            return batch, audio_lens, ok_cuts
         return batch, audio_lens
 
-    raise not_ported(
-        "collate_audio for multi-channel cuts, custom recording fields or mono_downmix "
-        "(the padded-cut route through PaddingCut and MixedCut)")
+    cuts = cuts.pad(duration=max_duration, direction=pad_direction, preserve_id=True)
+
+    audios, cuts, sample_counts = read_audio_from_cuts(
+        cuts, executor, suppress_errors=fault_tolerant, recording_field=recording_field,
+        filter_aux_iter=sample_counts)
+
+    if not audios:
+        # Every cut failed to load (fault_tolerant; otherwise read raised):
+        # hand back an empty, well-shaped batch instead of crashing.
+        empty = np.zeros((0, 0), dtype=np.float32)
+        lens = np.zeros((0,), dtype=np.int32)
+        return (empty, lens, cuts) if fault_tolerant else (empty, lens)
+
+    if mono_downmix is None:
+        # Auto-detect: multichannel collation only when every audio is 2-D.
+        mono_downmix = not all(a.ndim == 2 for a in audios)
+
+    if mono_downmix:
+        processed = []
+        for audio in audios:
+            if audio.ndim == 2:
+                audio = audio.mean(axis=0)
+            processed.append(audio)
+        audios = collate_vectors(processed, padding_value=0.0)
+    else:
+        max_channels = max(a.shape[0] if a.ndim == 2 else 1 for a in audios)
+        processed = []
+        for audio in audios:
+            if audio.ndim == 1:
+                expanded = np.zeros((max_channels, audio.shape[0]), dtype=audio.dtype)
+                expanded[0] = audio
+                audio = expanded
+            elif audio.shape[0] < max_channels:
+                expanded = np.zeros((max_channels, audio.shape[1]), dtype=audio.dtype)
+                expanded[: audio.shape[0]] = audio
+                audio = expanded
+            processed.append(audio)
+        audios = collate_matrices([a.T for a in processed], padding_value=0.0).transpose(0, 2, 1)
+    audio_lens = np.array(sample_counts, dtype=np.int32)
+
+    if fault_tolerant:
+        return audios, audio_lens, cuts
+    else:
+        return audios, audio_lens
 
 
 def collate_vectors(

@@ -6,7 +6,10 @@ the port calls are bound:
 
 - ``adpcm4_encode`` and ``mulaw_encode_lut``, the host wire encoders of
   :mod:`lhotse_tpu_torch.ops.wire` (bit-exact against its numpy encoders);
-- ``scale_i32_to_f32``, the FLAC decoder's PCM normalisation.
+- ``scale_i32_to_f32``, the FLAC decoder's PCM normalisation;
+- ``sinc_resample``, the polyphase sinc resampler of
+  :mod:`lhotse_tpu_torch.augmentation.resample` (speed perturbation and
+  resampling on the host).
 
 A failed build raises: there is no numpy fallback here, and no function
 returns ``None``.
@@ -44,6 +47,11 @@ def _get_lib():
         lib.mulaw_encode_lut_f32.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_longlong,
             ctypes.POINTER(ctypes.c_ubyte), ctypes.POINTER(ctypes.c_ubyte)]
+        lib.sinc_resample_f32.restype = None
+        lib.sinc_resample_f32.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_float)]
         _LIB = lib
         return _LIB
 
@@ -84,4 +92,23 @@ def scale_i32_to_f32(pcm: np.ndarray, scale: float) -> np.ndarray:
     lib.scale_i32_to_f32(
         pcm.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), pcm.size,
         float(scale), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
+
+
+def sinc_resample(padded: np.ndarray, num_blocks: int, kernel: np.ndarray, orig: int) -> np.ndarray:
+    """
+    Polyphase resample of one already-padded float32 waveform with a
+    (phases, K) float32 kernel; returns the raw (num_blocks * phases,)
+    output (the caller trims).
+    """
+    lib = _get_lib()
+    padded = np.ascontiguousarray(padded, dtype=np.float32)
+    kernel = np.ascontiguousarray(kernel, dtype=np.float32)
+    phases, K = kernel.shape
+    assert padded.shape[-1] >= (num_blocks - 1) * orig + K
+    out = np.empty(num_blocks * phases, dtype=np.float32)
+    lib.sinc_resample_f32(
+        padded.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), num_blocks,
+        kernel.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), phases, K, orig,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return out

@@ -1,7 +1,8 @@
 """
 Manifest validation (copied from ``lhotse_tpu/qa.py``): the type-dispatched
-``validate`` for recordings, supervisions, features, feature sets, cuts and
-CutSets, which ``validate_for_asr`` calls. ``fix_manifests``, the array
+``validate`` for recordings, supervisions, features, feature sets, cuts
+(``MonoCut``, ``PaddingCut`` and ``MixedCut``) and CutSets, which
+``validate_for_asr`` calls. ``fix_manifests``, the array
 validators and the other Set validators are not ported.
 """
 from __future__ import annotations
@@ -147,9 +148,15 @@ def validate_feature_set(features: FeatureSet, read_data: bool = False) -> None:
 
 
 def validate_cut(c, read_data: bool = False) -> None:
-    from lhotse_tpu_torch.cut import MonoCut
+    from lhotse_tpu_torch.cut import MixedCut, MonoCut, PaddingCut
 
-    if not isinstance(c, MonoCut):
+    if isinstance(c, MixedCut):
+        assert len(c.tracks) > 0, f"MixedCut {c.id}: must have at least one track."
+        for idx, track in enumerate(c.tracks):
+            validate_cut(track.cut, read_data=read_data)
+            assert track.offset >= 0, f"MixedCut {c.id}: track {idx} has a negative offset."
+        return
+    if not isinstance(c, (MonoCut, PaddingCut)):
         raise not_ported(f"Validating {type(c).__name__}")
 
     assert c.start >= 0, f"Cut {c.id}: start must be 0 or greater (got {c.start})"
@@ -160,6 +167,9 @@ def validate_cut(c, read_data: bool = False) -> None:
     assert c.has_features or c.has_recording, (
         f"Cut {c.id}: must have either Features or Recording attached."
     )
+
+    if isinstance(c, PaddingCut):
+        return
 
     if c.has_features:
         validate_features(c.features)

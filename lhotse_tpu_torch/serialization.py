@@ -10,7 +10,7 @@ manifest types the port has (``MonoCut``, ``Recording``,
 Left out, and raising ``NotImplementedError`` where a manifest asks for
 them: pipes, URLs and the other remote I/O backends, JSON/YAML manifests,
 indexed (``.idx``) manifests, and the manifest types the port does not
-have yet (images, ``MultiCut``, ``MixedCut``).
+have yet (images, ``MultiCut``).
 """
 from __future__ import annotations
 
@@ -454,7 +454,7 @@ def deserialize_item(data: dict) -> Any:
     """
     from lhotse_tpu_torch.array import deserialize_array
     from lhotse_tpu_torch.audio import Recording
-    from lhotse_tpu_torch.cut import MonoCut
+    from lhotse_tpu_torch.cut import MixedCut, MonoCut, PaddingCut
     from lhotse_tpu_torch.features import Features
     from lhotse_tpu_torch.supervision import SupervisionSegment
 
@@ -473,11 +473,13 @@ def deserialize_item(data: dict) -> Any:
         return MonoCut.from_dict(data)
     if cut_type == "MultiCut":
         raise not_ported("MultiCut")
+    if cut_type == "PaddingCut":
+        return PaddingCut.from_dict(data)
     if cut_type == "Cut":
         warnings.warn("Manifest uses legacy cut type name 'Cut'; interpreting as MonoCut.")
         return MonoCut.from_dict(data)
     if cut_type == "MixedCut":
-        raise not_ported("MixedCut")
+        return MixedCut.from_dict(data)
     raise ValueError(f"Unexpected cut type during deserialization: '{cut_type}'")
 
 

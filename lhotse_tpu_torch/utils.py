@@ -10,9 +10,10 @@ import random
 import sys
 import uuid
 from contextlib import contextmanager
-from dataclasses import fields
-from decimal import ROUND_HALF_UP, Decimal
+from dataclasses import dataclass, fields
+from decimal import ROUND_HALF_DOWN, ROUND_HALF_UP, Decimal
 from functools import lru_cache
+from math import isclose
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, TypeVar, Union
 
@@ -22,6 +23,7 @@ Pathlike = Union[Path, str]
 T = TypeVar("T")
 
 Seconds = float
+Decibels = float
 Channels = Union[int, List[int]]
 
 EPSILON = 1e-10
@@ -168,6 +170,14 @@ def compute_num_samples(
     return int(Decimal(round(duration * sampling_rate, ndigits=8)).quantize( 0, rounding=rounding ))
 
 
+@lru_cache(maxsize=16384)
+def perturb_num_samples(num_samples: int, factor: float) -> int:
+    """Mimics the behavior of speed perturbation on the number of samples
+    (reference: utils.py:649-654). Memoized (see compute_num_samples)."""
+    rounding = ROUND_HALF_UP if factor >= 1.0 else ROUND_HALF_DOWN
+    return int(Decimal(round(num_samples / factor, ndigits=8)).quantize(0, rounding=rounding))
+
+
 def add_durations(*durs: Seconds, sampling_rate: int) -> Seconds:
     """
     Adds durations in a way that avoids floating point precision issues
@@ -177,9 +187,72 @@ def add_durations(*durs: Seconds, sampling_rate: int) -> Seconds:
     return tot_num_samples / sampling_rate
 
 
+@dataclass(unsafe_hash=True)
+class TimeSpan:
+    """A simple beginning/end time span (reference: utils.py:300)."""
+
+    start: Seconds
+    end: Seconds
+
+    @property
+    def duration(self) -> Seconds:
+        return self.end - self.start
+
+
+def overlaps(lhs: Any, rhs: Any) -> bool:
+    """Indicates whether two time-spans/segments are overlapping or not
+    (reference: utils.py:309)."""
+    return (
+        lhs.start < rhs.end
+        and rhs.start < lhs.end
+        and not isclose(lhs.start, rhs.end)
+        and not isclose(rhs.start, lhs.end)
+    )
+
+
+def overspans(spanning: Any, spanned: Any, tolerance: float = 1e-3) -> bool:
+    """Indicates whether the left-hand-side time-span covers the whole
+    right-hand-side time-span, up to ``tolerance`` seconds of slack on either
+    edge (reference: utils.py:216)."""
+    return (
+        spanning.start - tolerance
+        <= spanned.start
+        <= spanned.end
+        <= spanning.end + tolerance
+    )
+
+
+def measure_overlap(lhs: Any, rhs: Any) -> float:
+    """Given two objects with start/end attributes, return the % of their
+    overlapped time relative to the shorter of the two (reference: utils.py:809)."""
+    lhs, rhs = sorted([lhs, rhs], key=lambda item: item.start)
+    overlapped_area = lhs.end - rhs.start
+    if overlapped_area <= 0:
+        return 0.0
+    dur = min(lhs.end - lhs.start, rhs.end - rhs.start)
+    return overlapped_area / dur
+
+
 def is_none_or_gt(value, threshold) -> bool:
     """True when value is None or greater than threshold."""
     return value is None or value > threshold
+
+
+def save_rng_state(rng: Optional[random.Random]) -> dict:
+    """JSON-serializable snapshot of a ``random.Random`` state."""
+    if rng is None:
+        rng = random.Random()
+    version, internal, gauss_next = rng.getstate()
+    return {"version": version, "state": list(internal), "gauss_next": gauss_next}
+
+
+def load_rng_state(state: dict, rng: Optional[random.Random] = None) -> random.Random:
+    """Restore a ``random.Random`` from :func:`save_rng_state` output
+    (into ``rng`` if given, else a fresh instance)."""
+    if rng is None:
+        rng = random.Random()
+    rng.setstate((state["version"], tuple(state["state"]), state["gauss_next"]))
+    return rng
 
 
 @lru_cache(maxsize=None)
@@ -250,6 +323,21 @@ def to_list(item: Union[Any, List[Any]]) -> List[Any]:
     return item if isinstance(item, list) else [item]
 
 
+def merge_items_with_delimiter(
+    values: Iterable[str], prefix: str = "cat", delimiter: str = "#", return_first: bool = False,
+) -> Optional[str]:
+    """Merge a sequence of strings into one with a delimiter
+    (reference: utils.py:726), used when merging supervision fields.
+    Duplicates are kept (matches the reference's wire output for
+    ``merge_supervisions``, e.g. repeated speaker names)."""
+    values = list(values)
+    if len(values) == 0:
+        return None
+    if len(values) == 1 or return_first:
+        return values[0]
+    return delimiter.join([prefix] + values)
+
+
 def supervision_to_frames(
     supervision, frame_shift: Seconds, sampling_rate: int, max_frames: Optional[int] = None,
 ) -> Tuple[int, int]:
@@ -285,6 +373,18 @@ def is_equal_or_contains(value: Union[Any, List[Any]], other: Union[Any, List[An
     value = to_list(value)
     other = to_list(other)
     return set(other).issubset(set(value))
+
+
+def hash_str_to_int(s: str, max_value: Optional[int] = None) -> int:
+    """Hash a string to a stable integer in ``[0, max_value)``, used for
+    deterministic per-item RNG seeds (reference: utils.py:837 — SHA-1 based,
+    matched exactly so seeded pipelines reproduce across implementations)."""
+    import hashlib
+    import sys as _sys
+
+    if max_value is None:
+        max_value = _sys.maxsize
+    return int(hashlib.sha1(s.encode("utf-8")).hexdigest(), 16) % max_value
 
 
 def not_ported(what: str) -> NotImplementedError:

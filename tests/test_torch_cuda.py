@@ -431,3 +431,49 @@ def test_on_the_fly_features_on_card_match_cpu(cuda, tmp_path):
     cpu_feats, cpu_lens = OnTheFlyFeatures(extractors.Fbank(extractors.FbankConfig(device="cpu")))(cuts)
     assert np.array_equal(lens, cpu_lens)
     assert np.abs(feats - cpu_feats).max() <= FEATURE_TOL
+
+
+def test_augmented_on_the_fly_features_on_card_match_cpu(cuda, tmp_path):
+    """``perturb_speed(1.1).mix(noise, snr=(10, 20), mix_prob=0.5, seed=7)``
+    into ``OnTheFlyFeatures`` on the card (chip_smoke.py phase 12 at a small
+    size): one launch, the kernel against its plain version on the same
+    mixed audio, and the batch against the CPU port's."""
+    import random
+
+    from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet, MixedCut
+    from lhotse_tpu_torch.dataset.cut_transforms import CutMix
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+
+    from lhotse_tpu_torch.supervision import SupervisionSegment
+
+    for i, wave in enumerate(_noisy_tones(7, seed=12)):
+        write_flac(str(tmp_path / f"u{i}.flac"), wave, 16000)
+    cuts = [Recording.from_file(tmp_path / f"u{i}.flac").to_cut() for i in range(7)]
+    for cut in cuts[:5]:
+        cut.supervisions.append(SupervisionSegment(
+            id=cut.id, recording_id=cut.recording_id, start=0.0, duration=cut.duration, text="x"))
+    CutSet.from_cuts(cuts[:5]).to_file(tmp_path / "cuts.jsonl")
+    noise = CutSet.from_cuts(cuts[5:])
+    cuts = CutSet.from_jsonl_lazy(tmp_path / "cuts.jsonl").perturb_speed(1.1).mix(
+        noise, snr=(10, 20), mix_prob=0.5, seed=7).to_eager()
+    assert any(isinstance(c, MixedCut) for c in cuts)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    fbank_cuda.LAUNCHES = 0
+    feats, lens = OnTheFlyFeatures(extractor)(cuts)
+    assert fbank_cuda.LAUNCHES == 1
+    audio = [c.load_audio()[0] for c in cuts]
+    for f, p in zip(feats, _plain(extractor, audio)):
+        assert np.abs(f[: len(p)] - p).max() <= LOGMEL_TOL
+    cpu_feats, cpu_lens = OnTheFlyFeatures(extractors.Fbank(extractors.FbankConfig(device="cpu")))(cuts)
+    assert np.array_equal(lens, cpu_lens)
+    assert np.abs(feats - cpu_feats).max() <= FEATURE_TOL
+    # The CutMix transform in the dataset, on the card: one launch per batch.
+    dataset = K2SpeechRecognitionDataset(
+        cut_transforms=[CutMix(noise, p=1.0, seed=random.Random(0))],
+        input_strategy=OnTheFlyFeatures(extractor))
+    fbank_cuda.LAUNCHES = 0
+    batch = dataset[CutSet.from_file(tmp_path / "cuts.jsonl").to_eager()]
+    assert fbank_cuda.LAUNCHES == 1 and np.isfinite(batch["inputs"]).all()

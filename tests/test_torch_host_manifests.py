@@ -154,10 +154,10 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
     line = _cut_line(jax_corpus)
     cases = {
         "transforms": dict(line, recording=dict(
-            line["recording"], transforms=[{"name": "Speed", "kwargs": {"factor": 1.1}}])),
+            line["recording"], transforms=[{"name": "Narrowband", "kwargs": {"codec": "mulaw"}}])),
         "custom image": dict(line, custom={"img": {"storage_type": "pillow_files", "storage_path": "x",
                                                    "storage_key": "y", "width": 4, "height": 4}}),
-        "MixedCut": dict(line, type="MixedCut"),
+        "MultiCut": dict(line, type="MultiCut"),
     }
     for name, data in cases.items():
         path = tmp_path / f"{name.replace(' ', '_')}.jsonl"
@@ -180,11 +180,11 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
         cut.load_features()
     with pytest.raises(NotImplementedError, match="numpy_hdf5"):
         cut.load_emb()
-    # A recording with a transform chain, built in the JAX package.
+    # A recording with a transform the port leaves out, built in the JAX package.
     cut = J.CutSet.from_file(jax_corpus / "cuts.jsonl")[0]
-    J.CutSet.from_cuts([cut.perturb_speed(1.1)]).to_file(tmp_path / "speed.jsonl")
-    with pytest.raises(NotImplementedError, match="transforms"):
-        list(CutSet.from_file(tmp_path / "speed.jsonl"))
+    J.CutSet.from_cuts([cut.perturb_speed(1.1).narrowband("mulaw")]).to_file(tmp_path / "nb.jsonl")
+    with pytest.raises(NotImplementedError, match="Narrowband"):
+        list(CutSet.from_file(tmp_path / "nb.jsonl"))
 
 
 def test_lazy_cutset_algebra_equals_jax(jax_corpus):

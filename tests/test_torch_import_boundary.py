@@ -50,7 +50,18 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.ops.host_dsp, lhotse_tpu_torch.codecs, "
         "lhotse_tpu_torch.codecs.lilcom_codec, lhotse_tpu_torch.array, lhotse_tpu_torch.features, "
         "lhotse_tpu_torch.features.base, lhotse_tpu_torch.features.io, "
-        "lhotse_tpu_torch.features.compression; "
+        "lhotse_tpu_torch.features.compression, lhotse_tpu_torch.augmentation, "
+        "lhotse_tpu_torch.augmentation.transform, lhotse_tpu_torch.augmentation.resample, "
+        "lhotse_tpu_torch.augmentation.transforms, lhotse_tpu_torch.augmentation.utils, "
+        "lhotse_tpu_torch.augmentation.rir, lhotse_tpu_torch.audio.mixer, "
+        "lhotse_tpu_torch.features.mixer, lhotse_tpu_torch.cut.padding, "
+        "lhotse_tpu_torch.cut.mixed, lhotse_tpu_torch.dataset.cut_transforms, "
+        "lhotse_tpu_torch.dataset.cut_transforms.perturb_speed, "
+        "lhotse_tpu_torch.dataset.cut_transforms.perturb_tempo, "
+        "lhotse_tpu_torch.dataset.cut_transforms.perturb_volume, "
+        "lhotse_tpu_torch.dataset.cut_transforms.mix, "
+        "lhotse_tpu_torch.dataset.cut_transforms.extra_padding, "
+        "lhotse_tpu_torch.dataset.cut_transforms.reverberate; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -182,6 +193,67 @@ def test_precomputed_path_runs_without_jax_and_lhotse_tpu(tmp_path):
     on the CPU in a process where importing either package fails."""
     proc = subprocess.run(
         [sys.executable, "-c", PRECOMPUTED_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+AUGMENTED_PATH = """
+import random
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import Recording
+from lhotse_tpu_torch.audio.flacio import write_flac
+from lhotse_tpu_torch.cut import CutSet, MixedCut
+from lhotse_tpu_torch.dataset.cut_transforms import CutMix, ExtraPadding, PerturbSpeed
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.supervision import SupervisionSegment
+
+SR = 16000
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    rng = np.random.default_rng(0)
+
+    def cut_of(name, sec, text=None):
+        path = Path(tmp) / f"{name}.flac"
+        write_flac(str(path), (0.1 * rng.standard_normal(int(SR * sec))).astype(np.float32), SR)
+        cut = Recording.from_file(path).to_cut()
+        if text:
+            cut.supervisions.append(SupervisionSegment(
+                id=name, recording_id=cut.recording_id, start=0.0, duration=cut.duration, text=text))
+        return cut
+
+    CutSet.from_cuts([cut_of(f"u{i}", sec, "x") for i, sec in enumerate([0.6, 0.9, 1.4])]).to_file(
+        Path(tmp) / "cuts.jsonl")
+    CutSet.from_cuts([cut_of(f"n{i}", 1.0) for i in range(2)]).to_file(Path(tmp) / "noise.jsonl")
+    noise = CutSet.from_file(Path(tmp) / "noise.jsonl")
+    cuts = CutSet.from_jsonl_lazy(Path(tmp) / "cuts.jsonl").perturb_speed(1.1).mix(
+        noise, snr=(10, 20), mix_prob=1.0, seed=7)
+    eager = cuts.to_eager()
+    assert all(isinstance(c, MixedCut) for c in eager)
+    dataset = K2SpeechRecognitionDataset(
+        cut_transforms=[PerturbSpeed(0.9, p=1.0, randgen=random.Random(0)),
+                        CutMix(noise, p=1.0, seed=1), ExtraPadding(extra_seconds=0.05)],
+        input_strategy=OnTheFlyFeatures(Fbank(FbankConfig(device="cpu"))))
+    batch = dataset[eager]
+    assert batch["inputs"].shape[0] == 3 and np.isfinite(batch["inputs"]).all()
+assert sys.modules["jax"] is None and sys.modules["lhotse_tpu"] is None
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_augmented_path_runs_without_jax_and_lhotse_tpu(tmp_path):
+    """FLAC cuts → perturb_speed → mix → K2SpeechRecognitionDataset with cut
+    transforms → OnTheFlyFeatures on the CPU, in a process where importing
+    either package fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", AUGMENTED_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
