@@ -25,8 +25,14 @@ corpus (``compute_and_store_features_batch`` on the kernel into a
 training path (the corpus speed-perturbed and mixed with a 4 x 10 s FLAC
 noise pool through ``OnTheFlyFeatures`` on the kernel into the AdamW step
 for two epochs, and ``CutMix`` on the stored features, the noise pool's
-features extracted on the kernel into the same archive); and checks what
-comes out.
+features extracted on the kernel into the same archive); then the Shar
+corpus path (phase 11's manifest exported to Shar shards with their
+``.idx`` files; the streaming reader split across the two worker processes
+of a ``torch.utils.data.DataLoader`` through ``IterableDatasetWrapper``,
+the kernel on each batch in this process, into the AdamW step for two
+epochs; the indexed reader, shuffled, through ``OnTheFlyFeatures`` on the
+kernel, with a mid-epoch resume through the seek backend; the stored
+features from the shards into the step); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -43,8 +49,9 @@ launches on each path, ``augment_int16``, ``augment_adpcm4``, ``cached``,
 ``extractor_fbank``, ``extractor_mfcc``, ``model``, ``entry``, ``e2e``,
 ``e2e_cached``, ``precomputed_extract``, ``precomputed_train`` (0: it
 reads stored features), ``on_the_fly``, ``augmented_on_the_fly``,
-``precomputed_mix_extract`` and ``precomputed_mix`` (0: it mixes stored
-features)); the last line is
+``precomputed_mix_extract``, ``precomputed_mix`` (0: it mixes stored
+features), ``shar_on_the_fly``, ``shar_indexed`` and ``shar_precomputed``
+(0: it reads stored features)); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -1322,6 +1329,261 @@ def _phase_augmented(cuts_path: Path, noise_path: Path, feats_cuts: Path, workdi
     return launches, aug_err
 
 
+# -- 13. the Shar corpus path ---------------------------------------------------------
+SHAR_SHARD_SIZE = 20  # 160 cuts -> 8 shards
+
+
+def _shar_bytes(out: Path) -> dict:
+    """Bytes on disk per Shar field (``cuts``, ``recording``, ``features``)
+    and of the ``.idx`` sidecars."""
+    sizes = {}
+    for p in out.iterdir():
+        key = "idx" if p.suffix == ".idx" else p.name.split(".")[0]
+        sizes[key] = sizes.get(key, 0) + p.stat().st_size
+    return sizes
+
+
+def _pad_feats(feats: list, device):
+    """A list of (frames, mels) arrays -> the (B, T, mels) batch padded with
+    ``LOG_EPSILON`` and the frame counts, on ``device``."""
+    lens = np.array([len(f) for f in feats], np.int64)
+    batch = np.full((len(feats), int(lens.max()), feats[0].shape[1]), LOG_EPSILON, np.float32)
+    for i, f in enumerate(feats):
+        batch[i, : len(f)] = f
+    return torch.from_numpy(batch).to(device), torch.from_numpy(lens).to(device)
+
+
+def _streaming_epoch(loader, extractor, trainer, device) -> dict:
+    """One epoch of ``torch.utils.data.DataLoader`` batches of audio from
+    the workers: the fbank kernel on each in this process, the padded
+    features into the trainer's step. Returns the cut ids, each cut's shard
+    and worker, the losses and the host-clock times."""
+    ids, shard_workers, losses, wait_s, audio_s = [], {}, [], 0.0, 0.0
+    it = iter(loader)
+    t0 = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        wait_s += time.perf_counter() - t
+        cuts = batch["supervisions"]["cut"]
+        items = [batch["inputs"][i, : c.num_samples] for i, c in enumerate(cuts)]
+        feats, feat_lens = _pad_feats(extractor.extract_batch(items, SR), device)
+        losses.append(trainer.step(feats, feat_lens))
+        for c in cuts:
+            ids.append(c.id)
+            shard_workers.setdefault(str(c.shard_origin), set()).add(c.dataloading_info["worker_id"])
+        audio_s += sum(c.duration for c in cuts)
+    torch.cuda.synchronize()
+    return {"ids": ids, "shard_workers": shard_workers, "losses": losses, "wait_s": wait_s,
+            "audio_s": audio_s, "elapsed_s": time.perf_counter() - t0}
+
+
+def _phase_shar(cuts_path: Path, feats_cuts: Path, workdir: Path, device, fbank_cuda,
+                smi: str) -> tuple:
+    """13. The Shar corpus path at full width, on phase 10's corpus and
+    phase 11's stored features. ``shar_export``: phase 11's manifest through
+    ``to_shar(fields={"recording": "flac", "features": "lilcom"},
+    shard_size=20, compress_jsonl=False)`` (8 shards with their ``.idx``
+    files; audio read back equal to the FLAC sources, features within one
+    LTC1 tick of the archive's). ``shar_on_the_fly``: the cuts and
+    recording shards through ``CutSet.from_shar(split_for_dataloading=True,
+    shuffle_shards=True, seed=0)`` → phase 10's sampler →
+    ``IterableDatasetWrapper(K2SpeechRecognitionDataset(AudioSamples()))`` →
+    ``torch.utils.data.DataLoader(batch_size=None, num_workers=2)`` (forked
+    workers, host work only), ``Fbank(device="cuda").extract_batch`` on each
+    batch in this process and an AdamW step, two epochs (each cut once per
+    epoch, each shard read by one worker, both workers used).
+    ``shar_indexed``: the indexed shards, shuffled (``LazyIndexedSharIterator``)
+    → the sampler → ``OnTheFlyFeatures`` on the card → ``DataLoader`` → the
+    step; a checkpoint after batch 3 resumed in a fresh loader through the
+    seek backend, equal batches. ``shar_precomputed``: the features shards
+    through ``K2SpeechRecognitionDataset()`` into the step, no launch.
+    Returns the kernel's launches per path and the largest kernel-vs-plain
+    error."""
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.dataloading import make_worker_init_fn
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples, OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.iterable_dataset import IterableDatasetWrapper
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.sampling import checkpoint_backends, dynamic_bucketing
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.shar.readers import LazyIndexedSharIterator
+    from lhotse_tpu_torch.tracing import reset_tracing, set_tracing_enabled, tracing_report
+
+    set_caching_enabled(False)
+    all_ids = sorted(c.id for c in CutSet.from_jsonl_lazy(cuts_path))
+    out = workdir / "shar"
+
+    # -- shar_export -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    paths = CutSet.from_jsonl_lazy(feats_cuts).to_shar(
+        out, fields={"recording": "flac", "features": "lilcom"}, shard_size=SHAR_SHARD_SIZE,
+        compress_jsonl=False)
+    export_s = time.perf_counter() - t0
+    sizes = _shar_bytes(out)
+    n_idx = len(list(out.glob("*.idx")))
+    sources = {c.id: c for c in CutSet.from_jsonl_lazy(feats_cuts)}
+    audio_equal, feat_err, feats_identical = True, 0.0, True
+    for cut in CutSet.from_shar(in_dir=out):
+        src = sources[cut.id]
+        audio_equal &= np.array_equal(cut.load_audio(), src.load_audio())
+        got, want = cut.load_features(), src.load_features()
+        feat_err = max(feat_err, float(np.abs(got - want).max()))
+        feats_identical &= np.array_equal(got, want)
+    audio_s = sum(c.duration for c in sources.values())
+    print(f"[{smi}] shar_export: {len(sources)} cuts, {audio_s!r} audio-s into "
+          f"{len(paths['cuts'])} shards in {export_s!r} s: {audio_s / export_s!r} audio-s/s (host "
+          f"clock: FLAC and LTC1 decode, FLAC and LTC1 encode, tar writes and indexing); bytes per "
+          f"field {sizes}; {n_idx} .idx files; audio read back equal to the FLAC sources: "
+          f"{audio_equal}; features vs phase 11's archive max_abs {feat_err!r} (tol {LTC1_TICK!r}), "
+          f"identical: {feats_identical}")
+    n_shards = math.ceil(len(all_ids) / SHAR_SHARD_SIZE)
+    if sorted(sources) != all_ids or len(paths["cuts"]) != n_shards or n_idx != 3 * n_shards:
+        raise AssertionError(f"shar_export wrote {len(paths['cuts'])} shards, {n_idx} indexes")
+    if not audio_equal or not feat_err <= LTC1_TICK:
+        raise AssertionError("shar_export: the shards' data disagree with their sources")
+
+    # -- shar_on_the_fly -----------------------------------------------------------------
+    streaming = CutSet.from_shar(
+        fields={"cuts": paths["cuts"], "recording": paths["recording"]}, indexed=False,
+        split_for_dataloading=True, shuffle_shards=True, seed=0)
+    wrapper = IterableDatasetWrapper(
+        K2SpeechRecognitionDataset(return_cuts=True, input_strategy=AudioSamples()),
+        _sampler_over(streaming))
+    loader = torch.utils.data.DataLoader(
+        wrapper, batch_size=None, num_workers=2, worker_init_fn=make_worker_init_fn(seed=0),
+        multiprocessing_context="fork")
+    extractor = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(extractor)
+    trainer = _Trainer(device)
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wrapper.set_epoch(0)
+    run = _streaming_epoch(loader, extractor, trainer, device)
+    wrapper.set_epoch(1)
+    run2 = {}
+    wall_ms, busy_ms, _ = _device_busy(
+        lambda: run2.update(_streaming_epoch(loader, extractor, trainer, device)))
+    launches_stream = fbank_cuda.LAUNCHES
+    n_batches = len(run["losses"]) + len(run2["losses"])
+    items, kernel_out = recorder.first
+    stream_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(extractor, items)))
+    losses = run["losses"] + run2["losses"]
+    print(f"[{smi}] shar_on_the_fly (torch DataLoader, 2 forked workers, the kernel in the main "
+          f"process) epoch 1: {len(run['losses'])} batches, {run['audio_s']!r} audio-s in "
+          f"{run['elapsed_s']!r} s: {run['audio_s'] / run['elapsed_s']!r} audio-s/s; consumer's "
+          f"wait in next() {run['wait_s'] * 1e3 / len(run['losses'])!r} ms per batch (the "
+          f"dataset.assemble and audio.decode spans run in the worker processes: not collected); "
+          f"epoch 2 under torch.profiler {run2['audio_s'] / run2['elapsed_s']!r} audio-s/s, device "
+          f"busy {busy_ms / wall_ms!r} of the wall; fbank kernel launches {launches_stream} for "
+          f"{n_batches} batches; losses {losses[0]!r} -> {losses[-1]!r}; first batch kernel vs plain "
+          f"{stream_err!r} (tol {KERNEL_TOL})")
+    for epoch, r in enumerate((run, run2)):
+        if sorted(r["ids"]) != all_ids:
+            raise AssertionError(f"shar_on_the_fly epoch {epoch + 1} did not bring every cut once")
+        workers = r["shard_workers"]
+        if len(workers) != n_shards or any(len(w) != 1 for w in workers.values()) or set().union(
+                *workers.values()) != {0, 1}:
+            raise AssertionError(f"shar_on_the_fly epoch {epoch + 1}: shards by worker {workers}")
+    if launches_stream != n_batches or not stream_err <= KERNEL_TOL:
+        raise AssertionError("shar_on_the_fly: launches or the kernel's result are off")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the shar_on_the_fly loss did not fall or is not finite: {losses}")
+
+    # -- shar_indexed --------------------------------------------------------------------
+    def indexed_loader():
+        cuts = CutSet.from_shar(in_dir=out, shuffle_shards=True, seed=0)
+        if not (isinstance(cuts.data, LazyIndexedSharIterator) and cuts.has_constant_time_access):
+            raise AssertionError(f"from_shar did not open the indexed reader: {type(cuts.data)}")
+        fly = Fbank(FbankConfig(device=device))
+        return DataLoader(_sampler_over(cuts), K2SpeechRecognitionDataset(
+            return_cuts=True, input_strategy=OnTheFlyFeatures(fly)), prefetch_batches=3), fly
+
+    loader, fly = indexed_loader()
+    fly_recorder = _RecordFirstBatch(fly)
+    batches, state, losses, ids = [], None, [], []
+    set_tracing_enabled(True)
+    reset_tracing()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for i, batch in enumerate(loader):
+        cuts = batch["supervisions"]["cut"]
+        feats = torch.from_numpy(batch["inputs"]).to(device)
+        feat_lens = torch.from_numpy(np.asarray(batch["supervisions"]["num_frames"], np.int64)).to(device)
+        losses.append(trainer.step(feats, feat_lens))
+        batches.append(([c.id for c in cuts], batch["inputs"]))
+        ids += [c.id for c in cuts]
+        if i == 2:
+            state = loader.state_dict()
+    torch.cuda.synchronize()
+    indexed_s = time.perf_counter() - t0
+    launches_indexed = fbank_cuda.LAUNCHES
+    report = tracing_report()
+    set_tracing_enabled(False)
+    n = len(batches)
+    items, kernel_out = fly_recorder.first
+    indexed_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(fly, items)))
+    chosen = []
+    real_plan = dynamic_bucketing.plan_resume
+    dynamic_bucketing.plan_resume = lambda *a, **k: chosen.append(real_plan(*a, **k)) or chosen[-1]
+    try:
+        resumed_loader, _ = indexed_loader()
+        resumed_loader.load_state_dict(state)
+        resumed = []
+        fbank_cuda.LAUNCHES = 0
+        wall_ms, resumed_busy_ms, _ = _device_busy(lambda: resumed.extend(
+            ([c.id for c in b["supervisions"]["cut"]], b["inputs"]) for b in resumed_loader))
+        launches_resumed = fbank_cuda.LAUNCHES
+    finally:
+        dynamic_bucketing.plan_resume = real_plan
+    resume_equal = len(resumed) == n - 3 and all(
+        a_ids == b_ids and torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+        for (a_ids, a), (b_ids, b) in zip(resumed, batches[3:]))
+    seek = len(chosen) == 1 and isinstance(chosen[0], checkpoint_backends.SeekResume)
+    print(f"[{smi}] shar_indexed (LazyIndexedSharIterator, shuffled; OnTheFlyFeatures on the card): "
+          f"{n} batches, {audio_s!r} audio-s in {indexed_s!r} s: {audio_s / indexed_s!r} audio-s/s; "
+          f"host ms per batch {_span_ms(report, n)}; fbank kernel launches {launches_indexed}; "
+          f"first batch kernel vs plain {indexed_err!r}; resumed after batch 3 through "
+          f"{type(chosen[0]).__name__ if chosen else None}: {len(resumed)} batches equal to the "
+          f"uninterrupted run's: {resume_equal}, launches {launches_resumed}, device busy "
+          f"{resumed_busy_ms / wall_ms!r} of the resumed run's wall (torch.profiler)")
+    if sorted(ids) != all_ids or launches_indexed != n or not indexed_err <= KERNEL_TOL:
+        raise AssertionError("shar_indexed: coverage, launches or the kernel's result are off")
+    if not seek or not resume_equal or launches_resumed != n - 3:
+        raise AssertionError(f"shar_indexed resume: seek {seek}, equal {resume_equal}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"the shar_indexed loss is not finite: {losses}")
+
+    # -- shar_precomputed ------------------------------------------------------------------
+    stored = CutSet.from_shar(fields={"cuts": paths["cuts"], "features": paths["features"]})
+    loader = DataLoader(_sampler_over(stored), K2SpeechRecognitionDataset(return_cuts=True),
+                        prefetch_batches=3)
+    set_tracing_enabled(True)
+    reset_tracing()
+    fbank_cuda.LAUNCHES = 0
+    run = _train_epoch(loader, trainer, device)
+    launches_pre = fbank_cuda.LAUNCHES
+    report = tracing_report()
+    set_tracing_enabled(False)
+    n = len(run["losses"])
+    print(f"[{smi}] shar_precomputed (features shards, memory_lilcom): {n} batches, "
+          f"{run['audio_s']!r} audio-s in {run['elapsed_s']!r} s: "
+          f"{run['audio_s'] / run['elapsed_s']!r} audio-s/s; host ms per batch "
+          f"{_span_ms(report, n)}; fbank kernel launches {launches_pre}")
+    if sorted(run["ids"]) != all_ids or launches_pre != 0:
+        raise AssertionError("shar_precomputed: coverage or launches are off")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"the shar_precomputed loss is not finite: {run['losses']}")
+    launches = {"shar_on_the_fly": launches_stream, "shar_indexed": launches_indexed,
+                "shar_precomputed": launches_pre}
+    return launches, max(stream_err, indexed_err)
+
+
 class _PlainFbank:
     """The default fbank layer's computation with the kernel's plain version
     in place of the kernel, for the chain comparison."""
@@ -1523,7 +1785,8 @@ def main() -> None:
     _phase_wpe(device)
 
     # -- 10. the host data path into the trainer step, 11. precomputed features,
-    # 12. the augmented training path. One FLAC corpus for the three phases.
+    # 12. the augmented training path, 13. the Shar corpus path. One FLAC
+    # corpus for the four phases.
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.perf_counter()
@@ -1538,8 +1801,13 @@ def main() -> None:
             cuts_path, noise_path, Path(tmp) / "feats_cuts.jsonl", Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_aug)
         print(f"phase 12 took {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        launches_shar, shar_err = _phase_shar(
+            cuts_path, Path(tmp) / "feats_cuts.jsonl", Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_shar)
+        print(f"phase 13 took {time.perf_counter() - t0!r} s")
     print(f"fbank kernel launches by path: {by_path}")
-    reads_stored = ("precomputed_train", "precomputed_mix")
+    reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed")
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
@@ -1549,7 +1817,7 @@ def main() -> None:
         "source": "lhotse_tpu_torch/csrc/fbank.cu",
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
-        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err, aug_err]),
+        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err, aug_err, shar_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

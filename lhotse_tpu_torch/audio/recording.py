@@ -84,7 +84,20 @@ class Recording:
     is_in_memory = property(
         lambda self: self._matching_source(lambda s: s.type == "memory") is not None
     )
+    is_placeholder = property(
+        lambda self: self._matching_source(lambda s: s.type == "shar") is not None
+    )
     num_channels = property(lambda self: len(self.channel_ids))
+
+    @property
+    def source_format(self) -> str:
+        formats = {s.format for s in self.sources}
+        if len(formats) != 1:
+            raise NotImplementedError(
+                "Sources have different formats; resolving to a single format "
+                "is not implemented."
+            )
+        return formats.pop()
 
     # -- construction ------------------------------------------------------------
 

@@ -1,8 +1,10 @@
 """
 AudioSource: where a recording's bytes are (copied from
-``lhotse_tpu/audio/source.py``), for the ``file`` and ``memory`` source
-types. ``command``, ``url`` and Shar sources, and video, raise
-``NotImplementedError``.
+``lhotse_tpu/audio/source.py``), for the ``file``, ``memory`` and
+``shar_ptr`` (a byte range in a Shar tar shard, read with
+:func:`lhotse_tpu_torch.shar.lazy_pointer.read_payload`) source types. A
+``shar`` placeholder that was never filled raises ``RuntimeError``;
+``command`` and ``url`` sources, and video, raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -100,7 +102,7 @@ class AudioSource:
 
         source = self.source
 
-        if self.type in ("command", "url", "shar", "shar_ptr"):
+        if self.type in ("command", "url"):
             raise not_ported(f"Reading {self.type!r} audio sources")
 
         elif self.type == "memory":
@@ -110,16 +112,30 @@ class AudioSource:
             )
             source = BytesIO(self.source)
 
+        elif self.type == "shar":
+            raise RuntimeError(
+                "Inconsistent state: found an AudioSource with a Shar placeholder "
+                "that was not filled during deserialization."
+            )
+
+        elif self.type == "shar_ptr":
+            from lhotse_tpu_torch.shar.lazy_pointer import read_payload
+
+            source = BytesIO(read_payload(self.source))
+
         return source
 
     def _get_format(self) -> str:
         """Infer the audio format from the file extension or binary data."""
         if self.type in ("file", "url"):
             return os.path.splitext(self.source)[-1][1:].lower()
-        elif self.type == "shar_ptr":
-            raise not_ported("Shar pointer audio sources")
-        elif self.type == "memory":
-            payload = self.source
+        elif self.type in ("memory", "shar_ptr"):
+            if self.type == "shar_ptr":
+                from lhotse_tpu_torch.shar.lazy_pointer import read_payload
+
+                payload = read_payload(self.source)
+            else:
+                payload = self.source
             magic = payload[:12]
             if magic[:4] in (b"RIFF", b"RF64"):
                 return "wav"

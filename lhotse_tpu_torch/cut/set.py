@@ -9,25 +9,31 @@ fanned out over spawned processes, and ``compute_and_store_features_batch``),
 the ``drop_*`` methods, the supervisions' frame mask, the lazy augmentation
 operations (``pad``, ``truncate``, ``extend_by``, ``resample``,
 ``perturb_speed``, ``perturb_tempo``, ``perturb_volume``, ``reverb_rir``,
-``mix`` through :class:`LazyCutMixer`) and the module functions ``mix``,
-``pad``, ``append``, ``mix_cuts`` and ``append_cuts``.
+``mix`` through :class:`LazyCutMixer`, sequential or, over indexed sources
+and noise, with per-item RNGs, constant-time access and checkpoints), the
+Shar format (``from_shar``, streaming or indexed, and ``to_shar``, in one
+process or over ``split_lazy`` chunks in spawned processes) and the module
+functions ``mix``, ``pad``, ``append``, ``mix_cuts`` and ``append_cuts``.
 
-Left out: windowing and trimming to supervisions, Shar, the other
-constructors, ``MultiCut`` and ``LazyCutMixer``'s indexed regime (constant
-time access to the mixed cuts and their checkpoint, which need indexed
-manifests); the last two raise ``NotImplementedError``.
+Left out: ``from_manifests``, windowing and trimming to supervisions and
+alignments, ``describe``, ``save_audios``, the other constructors
+(``from_files``, ``from_webdataset``) and ``MultiCut``, which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import hashlib
 import itertools
 import logging
+import pickle
 import random
 import warnings
-from concurrent.futures import Executor, ProcessPoolExecutor
+from collections import defaultdict
+from concurrent.futures import Executor, ProcessPoolExecutor, as_completed
 from functools import partial, reduce
 from itertools import islice
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Type, TypeVar, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Type, TypeVar, Union
 
 import numpy as np
 
@@ -40,13 +46,14 @@ from lhotse_tpu_torch.cut.padding import PaddingCut
 from lhotse_tpu_torch.features.base import FeatureExtractor, Features
 from lhotse_tpu_torch.features.io import FeaturesWriter, default_features_storage_backend
 from lhotse_tpu_torch.lazy import (
-    AlgorithmMixin, IteratorNode, LazyMapper, LazySlicer, is_dill_enabled,
-    resolve_iterator_source)
+    AlgorithmMixin, IteratorNode, LazyMapper, LazySlicer, _restore_child,
+    _snapshot_child, attach_graph_origin, get_graph_origin, is_dill_enabled,
+    normalize_graph_token, resolve_iterator_source, supports_graph_restore)
 from lhotse_tpu_torch.serialization import Serializable
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
     LOG_EPSILON, Decibels, Pathlike, Seconds, compute_num_frames, compute_num_samples,
-    exactly_one_not_null, fastcopy, ifnone, not_ported, split_sequence, uuid4)
+    exactly_one_not_null, fastcopy, ifnone, not_ported, split_manifest_lazy, split_sequence, uuid4)
 
 T = TypeVar("T")
 FW = TypeVar("FW", bound=FeaturesWriter)
@@ -82,6 +89,89 @@ class CutSet(Serializable, AlgorithmMixin):
     def from_dicts(data: Iterable[dict]) -> "CutSet":
         return CutSet.from_cuts(deserialize_cut(cut) for cut in data)
 
+    @staticmethod
+    def from_shar(
+        fields: Optional[Dict[str, Sequence[Pathlike]]] = None, in_dir: Optional[Pathlike] = None,
+        split_for_dataloading: bool = False, shuffle_shards: bool = False,
+        stateful_shuffle: bool = True, seed: Union[int, str] = 42,
+        cut_map_fns: Optional[Sequence[Callable[[Cut], Cut]]] = None,
+        slice_length: Optional[int] = None, indexed: Optional[bool] = None, index_path=None,
+        indexes_root: Optional[Pathlike] = None, lazy: bool = False) -> "CutSet":
+        """
+        Read cuts + data from Shar shards (one jsonl manifest + one tar per
+        field per shard): streaming (LazySharIterator) or O(1) random-access
+        (LazyIndexedSharIterator) when .idx files exist.
+        """
+        from lhotse_tpu_torch.shar.readers.indexed import LazyIndexedSharIterator
+        from lhotse_tpu_torch.shar.readers.lazy import LazySharIterator
+
+        use_indexed = indexed
+        if (index_path is not None or indexes_root is not None) and indexed is False:
+            raise ValueError(
+                "index_path/indexes_root is set but indexed=False — contradictory arguments.")
+        if use_indexed is None:
+            use_indexed = (indexes_root is not None) or (
+                LazyIndexedSharIterator.supports_configuration(
+                    fields=fields, in_dir=in_dir, index_path=index_path))
+        if use_indexed:
+            if cut_map_fns:
+                raise ValueError("'cut_map_fns' is not supported with indexed=True.")
+            if slice_length is not None:
+                raise ValueError("'slice_length' is not supported with indexed=True.")
+            return CutSet(
+                cuts=LazyIndexedSharIterator(
+                    fields=fields, in_dir=in_dir, shuffle=shuffle_shards, seed=seed,
+                    split_for_dataloading=split_for_dataloading, index_path=index_path,
+                    indexes_root=indexes_root, lazy=lazy,
+                )
+            )
+        return CutSet(
+            cuts=LazySharIterator(
+                fields=fields, in_dir=in_dir, split_for_dataloading=split_for_dataloading,
+                shuffle_shards=shuffle_shards, stateful_shuffle=stateful_shuffle, seed=seed,
+                cut_map_fns=cut_map_fns, slice_length=slice_length,
+            )
+        )
+
+    def to_shar(
+        self, output_dir: Pathlike, fields: Dict[str, str], shard_size: Optional[int] = 1000,
+        shard_offset: int = 0, warn_unused_fields: bool = True, include_cuts: bool = True,
+        num_jobs: int = 1, fault_tolerant: bool = False, verbose: bool = False,
+        compress_jsonl: bool = True, create_index: bool = True) -> Dict[str, List[str]]:
+        """
+        Export cuts + selected data fields into Shar shards. ``fields`` maps
+        field names to formats (e.g. {"recording": "wav", "features":
+        "lilcom"}). Returns {field: [shard paths]}. The port shows no
+        progress bar: ``verbose`` is accepted and ignored.
+        """
+        if not (isinstance(num_jobs, int) and num_jobs > 0):
+            raise AssertionError(f"num_jobs must be a positive int, got {num_jobs}")
+        shared = dict(
+            output_dir=output_dir, shard_offset=shard_offset, fields=fields,
+            warn_unused_fields=warn_unused_fields, fault_tolerant=fault_tolerant,
+            compress_jsonl=compress_jsonl, create_index=create_index)
+        if num_jobs == 1:
+            return _export_to_shar_single(
+                cuts=self, shard_size=shard_size, include_cuts=include_cuts, shard_suffix=None,
+                verbose=verbose, **shared)
+
+        # Pre-split to shard-sized jsonl chunks on disk, then one spawned
+        # worker process per shard writes the tars.
+        shards = self.split_lazy(
+            output_dir=output_dir, chunk_size=shard_size, prefix="cuts", num_digits=6,
+            start_idx=shard_offset)
+        collected = defaultdict(list)
+        import multiprocessing
+
+        with ProcessPoolExecutor(num_jobs, mp_context=multiprocessing.get_context("spawn")) as pool:
+            jobs = [
+                pool.submit( _export_to_shar_single, cuts=shard, shard_size=None, include_cuts=True, shard_suffix=f".{idx:06d}", verbose=False, preload=True, **shared, ) for idx,
+                shard in enumerate(shards)]
+            for job in as_completed(jobs):
+                for field, paths in job.result().items():
+                    collected[field].extend(paths)
+        return {field: sorted(paths) for field, paths in collected.items()}
+
     def to_dicts(self) -> Iterable[dict]:
         return (cut.to_dict() for cut in self)
 
@@ -94,6 +184,14 @@ class CutSet(Serializable, AlgorithmMixin):
                 self, num_splits=num_splits, shuffle=shuffle, drop_last=drop_last,
             )
         ]
+
+    def split_lazy(
+        self, output_dir: Pathlike, chunk_size: int, prefix: str = "", num_digits: int = 8,
+        start_idx: int = 0) -> List["CutSet"]:
+        """Split into fixed-size chunks saved to disk as the input is consumed."""
+        return split_manifest_lazy(
+            self, output_dir=output_dir, chunk_size=chunk_size, prefix=prefix,
+            num_digits=num_digits, start_idx=start_idx)
 
     def subset(
         self, *, supervision_ids: Optional[Iterable[str]] = None,
@@ -820,15 +918,36 @@ def _truncate_single(
         keep_excessive_supervisions=keep_excessive_supervisions)
 
 
+def _export_to_shar_single(
+    cuts: CutSet, output_dir: Pathlike, shard_size: Optional[int], shard_offset: int,
+    fields: Dict[str, str], warn_unused_fields: bool, include_cuts: bool,
+    shard_suffix: Optional[str], verbose: bool, fault_tolerant: bool, preload: bool = False,
+    compress_jsonl: bool = True, create_index: bool = True) -> Dict[str, List[str]]:
+    from lhotse_tpu_torch.shar import SharWriter
+
+    if preload:
+        cuts = cuts.to_eager()
+    shar = SharWriter(
+        output_dir=output_dir, fields=fields, shard_size=shard_size, shard_offset=shard_offset,
+        warn_unused_fields=warn_unused_fields, include_cuts=include_cuts, shard_suffix=shard_suffix,
+        compress_jsonl=compress_jsonl, create_index=create_index)
+    with shar as writer:
+        for cut in cuts:
+            try:
+                writer.write(cut)
+            except Exception as e:
+                if not fault_tolerant:
+                    raise
+                logging.warning(f"Skipping: failed to load cut '{cut.id}'. Error message: {e}.")
+    return writer.output_paths
+
+
 class LazyCutMixer(IteratorNode):
     """
     Iterate over ``cuts`` while mixing randomly-sampled ``mix_in_cuts`` into
-    them (noise/music/babble augmentation), in the JAX package's sequential
-    regime: one ``random.Random`` per iteration, seeded with
-    ``resolve_seed(seed) + num_times_iterated`` (or the given instance),
-    draws the mix probability, the SNR and the next noise cut of an endless
-    shuffled stream. The indexed regime (per-item RNGs over indexed
-    manifests, constant-time access and checkpoints) is not ported.
+    them (noise/music/babble augmentation). With indexed noise + indexed
+    sources, each output cut's mix is a pure function of
+    (iteration seed, source graph token), enabling O(1) checkpoint restore.
     """
 
     def __init__(
@@ -853,26 +972,77 @@ class LazyCutMixer(IteratorNode):
         self._source_len_ref = cuts
         self.mix_in_cuts = mix_in_cuts
         self._mix_in_source = resolve_iterator_source(mix_in_cuts)
-        if getattr(self._mix_in_source, "is_indexed", False):
-            raise not_ported("LazyCutMixer's indexed regime (indexed mix_in_cuts)")
         self.duration, self.allow_padding, self.snr = duration, allow_padding, snr
         self.preserve_id, self.mix_prob, self.seed = preserve_id, mix_prob, seed
         self.random_mix_offset, self.stateful, self.tag = random_mix_offset, stateful, tag
         self.num_times_iterated = 0
-        self._rng = self._mix_in_iter = None
+        self._restored = False
+        self._rng = self._rng_state = self._iteration_seed = self._mix_in_iter = None
+
+    @property
+    def is_checkpointable(self) -> bool:
+        return (
+            self.stateful
+            and isinstance(self.source, IteratorNode)
+            and self.source.is_checkpointable
+            and self._noise_is_indexed()
+        )
+
+    is_indexed = property(
+        lambda self: getattr(self.source, "is_indexed", False)
+        and getattr(self._mix_in_source, "is_indexed", False)
+    )
+
+    @property
+    def has_constant_time_access(self) -> bool:
+        if isinstance(self.seed, random.Random):
+            return False  # an opaque RNG cannot be replayed per item
+        return supports_graph_restore(self.source) and self._noise_is_indexed()
 
     def __iter__(self):
-        rng = self._sequential_rng()
-        self._rng = rng
-        if self.stateful:
-            self.num_times_iterated += 1
-        self._mix_in_iter = self._endless_noise(rng)
-        for cut in self.source:
-            yield self._mix_one(cut, rng)
+        restored, self._restored = self._restored, False
+        deterministic = self.has_constant_time_access
 
-    def _sequential_rng(self) -> random.Random:
+        iteration_seed = None
+        if deterministic:
+            # In the indexed regime the per-item RNG derives from
+            # (iteration seed, source token) — no sequential RNG state at all.
+            if restored and self._iteration_seed is not None:
+                iteration_seed = self._iteration_seed
+            else:
+                iteration_seed = self._resolve_iteration_seed(self.num_times_iterated)
+                if not restored:
+                    self._iteration_seed = iteration_seed
+            rng = None
+        else:
+            rng = self._sequential_rng(restored)
+        self._rng = rng
+
+        if self.stateful and not restored:
+            self.num_times_iterated += 1
+        if not self._noise_is_indexed():
+            self._mix_in_iter = self._endless_noise(rng)
+
+        for cut in self.source:
+            if deterministic:
+                token = get_graph_origin(cut)
+                if token is None:
+                    raise RuntimeError(
+                        "LazyCutMixer requires '_graph_origin' on indexed source "
+                        "items to support constant-time reconstruction."
+                    )
+                item_rng = self._make_item_rng(token, iteration_seed)
+                yield attach_graph_origin(self._mix_one(cut, item_rng), token)
+            else:
+                yield self._mix_one(cut, rng)
+
+    def _sequential_rng(self, restored: bool) -> random.Random:
         from lhotse_tpu_torch.dataset.dataloading import resolve_seed
 
+        if restored and self._rng_state is not None:
+            rng = random.Random()
+            rng.setstate(self._rng_state)
+            return rng
         if isinstance(self.seed, random.Random):
             return self.seed
         return random.Random(resolve_seed(self.seed) + self.num_times_iterated)
@@ -880,8 +1050,11 @@ class LazyCutMixer(IteratorNode):
     def _endless_noise(self, rng):
         """An infinite shuffled stream over the mix-in cuts."""
         if self.mix_in_cuts.is_lazy:
-            # Materialize a small lazy noise manifest once (re-opening and
-            # re-parsing it on every repeat cycle would dominate); stream
+            # A small lazy noise manifest would be re-opened and re-parsed on
+            # every repeat cycle — and the shuffle buffer's pre-pull amplifies
+            # that to hundreds of reopens before the first mixed cut is
+            # emitted (e.g. a 4-cut jsonl pulled 2000 times = 500 file opens).
+            # Materialize sources that fit the shuffle buffer once; stream
             # only genuinely large ones.
             head = list(itertools.islice(iter(self.mix_in_cuts), 2001))
             if len(head) <= 2000:
@@ -900,6 +1073,36 @@ class LazyCutMixer(IteratorNode):
 
         return cycle()
 
+    def _noise_is_indexed(self) -> bool:
+        return getattr(self._mix_in_source, "is_indexed", False) and supports_graph_restore(
+            self._mix_in_source, require_length=True)
+
+    def _next_mix_in_cut(self, rng: random.Random) -> Cut:
+        if self._noise_is_indexed():
+            idx = rng.randrange(len(self._mix_in_source))
+            return self._mix_in_source[idx]
+        return next(self._mix_in_iter)
+
+    def _resolve_iteration_seed(self, iteration_idx: int) -> int:
+        from lhotse_tpu_torch.dataset.dataloading import resolve_seed
+
+        if isinstance(self.seed, random.Random):
+            raise RuntimeError(
+                "LazyCutMixer with seed=random.Random does not support "
+                "constant-time restore."
+            )
+        return resolve_seed(self.seed) + iteration_idx
+
+    @staticmethod
+    def _combine_seed(iteration_seed: int, source_token: Any) -> int:
+        token_bytes = pickle.dumps(normalize_graph_token(source_token), protocol=4)
+        token_seed = int.from_bytes(
+            hashlib.blake2b(token_bytes, digest_size=8).digest(), byteorder="little")
+        return ((iteration_seed * 0x9E3779B97F4A7C15) + token_seed) & 0xFFFFFFFFFFFFFFFF
+
+    def _make_item_rng(self, source_token: Any, iteration_seed: int) -> random.Random:
+        return random.Random(self._combine_seed(iteration_seed, source_token))
+
     def _mix_one(self, cut: Cut, rng: random.Random) -> Cut:
         if not is_cut(cut) or rng.uniform(0.0, 1.0) > self.mix_prob:
             return cut
@@ -910,7 +1113,7 @@ class LazyCutMixer(IteratorNode):
         covered = 0.0
         mixed = cut
         while True:
-            chunk = self._maybe_truncate_cut(next(self._mix_in_iter), goal - covered, rng)
+            chunk = self._maybe_truncate_cut(self._next_mix_in_cut(rng), goal - covered, rng)
             mixed = mixed.mix(
                 other=chunk, snr=snr, offset_other_by=covered if covered > 0 else 0,
                 allow_padding=self.allow_padding if covered > 0 else False,
@@ -922,14 +1125,51 @@ class LazyCutMixer(IteratorNode):
             duration=self.duration if self.duration is not None else cut.duration,
             preserve_id=self.preserve_id is not None)
 
+    def __getitem__(self, idx: Any) -> Cut:
+        if not self.has_constant_time_access:
+            raise TypeError(
+                "LazyCutMixer only supports __getitem__ when both the source and "
+                "mix-in cuts provide constant-time indexed access."
+            )
+        token = normalize_graph_token(idx)
+        seed0 = self._iteration_seed
+        if seed0 is None:
+            seed0 = self._resolve_iteration_seed(0)
+        remixed = self._mix_one(self.source[token], self._make_item_rng(token, seed0))
+        return attach_graph_origin(remixed, token)
+
+    def state_dict(self) -> dict:
+        if not self.is_checkpointable:
+            raise NotImplementedError("LazyCutMixer checkpointing requires indexed mix_in_cuts.")
+        from lhotse_tpu_torch.checkpoint import _rng_state_to_json
+
+        rng_state = self._rng.getstate() if self._rng is not None else self._rng_state
+        snap = {
+            "num_times_iterated": self.num_times_iterated,
+            "rng_state": _rng_state_to_json(rng_state) if rng_state is not None else None,
+            "iteration_seed": self._iteration_seed}
+        source_state = _snapshot_child(self.source)
+        if source_state is not None:
+            snap["source"] = source_state
+        return snap
+
+    def load_state_dict(self, state: dict) -> None:
+        if not self.is_checkpointable:
+            raise NotImplementedError("LazyCutMixer checkpointing requires indexed mix_in_cuts.")
+        from lhotse_tpu_torch.checkpoint import _rng_state_from_json
+
+        self.num_times_iterated = state["num_times_iterated"]
+        saved_rng = state.get("rng_state")
+        self._rng_state = None if saved_rng is None else _rng_state_from_json(saved_rng)
+        self._iteration_seed = state.get("iteration_seed")
+        _restore_child(self.source, state.get("source"))
+        self._restored = True
+
     def _maybe_truncate_cut(self, cut: Cut, target_duration: Seconds, rng: random.Random) -> Cut:
         if not self.random_mix_offset or cut.duration <= target_duration:
             return cut
         slack = cut.duration - target_duration
         return cut.truncate(offset=rng.uniform(0, slack), duration=target_duration)
-
-    def __getitem__(self, idx):
-        raise not_ported("LazyCutMixer.__getitem__ (the indexed regime)")
 
     def __len__(self) -> int:
         return len(self._source_len_ref)

@@ -1,10 +1,12 @@
 """
 Dataloading glue (copied from ``lhotse_tpu/dataset/dataloading.py``):
-per-(rank, worker) seeds, special seed values and the (rank, worker)
-partition. Rank and world size come from
-:mod:`lhotse_tpu_torch.parallel.mesh` (``WORLD_SIZE``/``RANK``, then
-``torch.distributed``, then 1/0) where the JAX package asks JAX's process
-runtime. ``PartitionedIndexedIterator`` (indexed sources) is not ported.
+per-(rank, worker) seeds and the ``worker_init_fn`` that sets them,
+special seed values, the (rank, worker) partition and
+:class:`PartitionedIndexedIterator`, which drives the indexed sources'
+partitioned, optionally shuffled iteration and its resume. Rank and world
+size come from :mod:`lhotse_tpu_torch.parallel.mesh` (``WORLD_SIZE``/``RANK``,
+then ``torch.distributed``, then 1/0) where the JAX package asks JAX's
+process runtime.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import secrets
 import sys
 import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from functools import partial
+from typing import Callable, Generator, Optional, Tuple, Union
 
 from lhotse_tpu_torch.parallel.mesh import get_rank, get_world_size
 from lhotse_tpu_torch.utils import fix_random_seed
@@ -61,6 +64,16 @@ def get_worker_info() -> Optional[WorkerInfo]:
         except Exception:
             pass
     return None
+
+
+def make_worker_init_fn(
+    rank: Optional[int] = None, world_size: Optional[int] = None,
+    set_different_node_and_worker_seeds: bool = True, seed: Optional[int] = 42,
+) -> Optional[Callable[[int], None]]:
+    """Create a worker_init_fn suitable for worker subprocess initialization."""
+    return partial(
+        worker_init_fn, rank=rank, world_size=world_size,
+        set_different_node_and_worker_seeds=set_different_node_and_worker_seeds, seed=seed)
 
 
 def worker_init_fn(
@@ -139,3 +152,110 @@ def get_worker_partition() -> Tuple[int, int]:
         worker_id = wi.id
         num_workers = max(wi.num_workers, 1)
     return rank * num_workers + worker_id, world_size * num_workers
+
+
+class PartitionedIndexedIterator:
+    """
+    Partition-aware iteration driver for indexed leaf iterators: yields global
+    indices of this shard's slice of ``range(total_len)``, either strided
+    (shuffle=False) or Feistel-shuffled (shuffle=True), with position-based
+    checkpointing and topology-validated resume.
+    """
+
+    def __init__(self, shuffle: bool = False, seed: int = 0) -> None:
+        self._shuffle = shuffle
+        self._seed = seed
+        self._position = 0
+        self._shard_id: Optional[int] = None
+        self._num_shards: Optional[int] = None
+        self._restored = False
+        self._range = None
+        self._pending_range_state = None
+
+    @property
+    def position(self) -> int:
+        return self._position
+
+    def _resume_start(self, shard_id: int, num_shards: int) -> int:
+        """Resume position after topology validation (0 on a fresh pass)."""
+        if not self._restored:
+            self._position = 0
+            return 0
+        self._restored = False
+        saved = (self._shard_id, self._num_shards)
+        if self._num_shards is not None and saved != (shard_id, num_shards):
+            raise ValueError(
+                f"PartitionedIndexedIterator topology mismatch on resume: "
+                f"saved (shard_id={saved[0]}, num_shards={saved[1]}), "
+                f"current (shard_id={shard_id}, num_shards={num_shards})."
+            )
+        return self._position
+
+    def _build_order(self, total_len: int, shard_id: int, num_shards: int) -> int:
+        """Set up this pass's index order; returns the shard length."""
+        if self._shuffle:
+            from lhotse_tpu_torch.indexing import LazyShuffledRange
+
+            self._range = LazyShuffledRange(
+                total_len, seed=self._seed, shard_id=shard_id, num_shards=num_shards)
+            if self._pending_range_state is not None:
+                self._range.load_state_dict(self._pending_range_state)
+                self._pending_range_state = None
+            return len(self._range)
+        self._range = None
+        if total_len <= shard_id:
+            return 0
+        return (total_len - shard_id + num_shards - 1) // num_shards
+
+    def iterate(
+        self, total_len: int, partition: Optional[Tuple[int, int]] = None,
+    ) -> Generator[int, None, None]:
+        """``partition`` overrides the env-gated worker partition — used by
+        readers whose own API requested splitting (split_for_dataloading).
+
+        State setup (reset-or-resume, topology validation, order build) runs
+        EAGERLY at the call, not at the first ``next()``: a checkpoint taken
+        between starting a new pass and drawing its first item must already
+        reflect this pass, not the previous one.
+        """
+        shard_id, num_shards = (
+            partition if partition is not None else get_worker_partition()
+        )
+        start = self._resume_start(shard_id, num_shards)
+        self._shard_id, self._num_shards = shard_id, num_shards
+        shard_len = self._build_order(total_len, shard_id, num_shards)
+
+        def gen():
+            for i in range(start, shard_len):
+                self._position = i + 1
+                yield (
+                    self._range[i]
+                    if self._range is not None
+                    else shard_id + i * num_shards
+                )
+
+        return gen()
+
+    def state_dict(self) -> dict:
+        sd = {
+            "position": self._position, "shard_id": self._shard_id, "num_shards": self._num_shards}
+        order_state = (
+            self._range.state_dict()
+            if self._range is not None
+            else self._pending_range_state
+        )
+        if order_state is not None:
+            sd["range"] = order_state
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        self._position = sd.get("position", 0)
+        self._shard_id, self._num_shards = sd.get("shard_id"), sd.get("num_shards")
+        if self._shuffle:
+            self._pending_range_state = sd.get("range")
+            if self._pending_range_state is not None:
+                # The SAVED iteration seed governs the restored permutation —
+                # not whatever seed this instance was constructed with.
+                self._seed = self._pending_range_state.get("seed", self._seed)
+            self._range = None
+        self._restored = True

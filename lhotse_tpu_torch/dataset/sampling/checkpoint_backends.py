@@ -3,8 +3,9 @@ Resume strategies for streaming samplers (copied from
 ``lhotse_tpu/dataset/sampling/checkpoint_backends.py``): **seek** jumps
 indexed sources to their saved positions in O(1); **replay** rebuilds the
 epoch iterator and pulls the batches the checkpoint had consumed.
-``plan_resume`` picks one. The port has no indexed sources yet, so its
-samplers over JSONL manifests resume by replay.
+``plan_resume`` picks seek when every source of the sampler has constant
+time access (indexed Shar, an indexed JSONL manifest, the graphs over them)
+and replay otherwise.
 """
 from __future__ import annotations
 

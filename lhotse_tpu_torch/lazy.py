@@ -1,11 +1,12 @@
 """
 The streaming-iterator runtime the manifest Sets are built on (copied from
 ``lhotse_tpu/lazy.py``): the node protocol with checkpointing, graph-origin
-tokens, the JSONL leaves, and the chain, shuffle, filter, map, repeat and
-slice combinators behind ``CutSet``'s lazy algebra.
+tokens, the JSONL leaves (streaming, and indexed through an ``.idx``
+sidecar), and the chain (with its item-level shuffle over indexed leaves),
+shuffle, filter, map, repeat and slice combinators behind ``CutSet``'s lazy
+algebra.
 
-Left out: the indexed (``.idx``) leaves and the item-level shuffle over
-them, the multiplexers and the flattener.
+Left out: the multiplexers and the flattener.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ import types
 import warnings
 from collections import deque
 from functools import partial
+from json import JSONDecodeError
 from typing import Any, Callable, Iterable, List, Optional, TypeVar, Union
 
 from lhotse_tpu_torch.serialization import LazyMixin, decode_json_line, deserialize_item, open_best
-from lhotse_tpu_torch.utils import Pathlike, fastcopy, is_module_available, not_ported
+from lhotse_tpu_torch.utils import Pathlike, fastcopy, is_module_available
 
 T = TypeVar("T")
 
@@ -140,6 +142,12 @@ def supports_graph_restore(source: Any, *, require_length: bool = False) -> bool
         and hasattr(source, "__getitem__")
         and (not require_length or hasattr(source, "__len__"))
     )
+
+
+def resolve_iteration_seed(seed: Optional[Union[int, str]]) -> int:
+    from lhotse_tpu_torch.dataset.dataloading import resolve_seed
+
+    return random.getrandbits(31) if seed is None else resolve_seed(seed)
 
 
 class IteratorNode(Dillable, Iterable):
@@ -349,6 +357,76 @@ class LazyManifestIterator(IteratorNode):
         self.source.load_state_dict(state["source"])
 
 
+class LazyIndexedManifestIterator(IteratorNode):
+    """
+    Manifest leaf with an ``.idx`` sidecar: O(1) ``[i]``, worker-partitioned
+    and optionally Feistel-shuffled iteration, position-based checkpoints.
+    """
+
+    is_checkpointable = True
+    is_indexed = True
+    has_constant_time_access = True
+
+    def __init__(
+        self, path: Pathlike, shuffle: bool = False, seed: int = 0,
+        index_path: Optional[Pathlike] = None, decode: Optional[Callable[[dict], Any]] = None,
+        skip_decode_errors: bool = False, decode_error_callback: Optional[Callable] = None) -> None:
+        from lhotse_tpu_torch.dataset.dataloading import PartitionedIndexedIterator
+        from lhotse_tpu_torch.indexing import IndexedJsonlReader
+
+        self.path = path
+        self.shuffle = shuffle
+        self.seed = seed
+        self.index_path = index_path
+        self.skip_decode_errors = skip_decode_errors
+        self.decode_error_callback = decode_error_callback
+        self._decode = deserialize_item if decode is None else decode
+        self._reader = IndexedJsonlReader(path, index_path=index_path)
+        self._iter_state = PartitionedIndexedIterator(shuffle=shuffle, seed=seed)
+
+    def __getitem__(self, idx: int) -> Any:
+        return attach_graph_origin(self._decode(self._reader[idx]), idx)
+
+    def __iter__(self):
+        # Eager: iterate() resets/resumes partition state at this call.
+        positions = self._iter_state.iterate(len(self._reader))
+
+        def gen():
+            for pos in positions:
+                try:
+                    yield self[pos]
+                except (JSONDecodeError, UnicodeDecodeError) as ex:
+                    if not self.skip_decode_errors:
+                        raise
+                    if self.decode_error_callback is not None:
+                        self.decode_error_callback(ex, pos, self.path)
+                    else:
+                        warnings.warn(
+                            f"Skipping malformed indexed JSONL record path={self.path!r} "
+                            f"idx={pos}: {type(ex).__name__}: {ex}"
+                        )
+
+        return gen()
+
+    def __len__(self) -> int: return len(self._reader)  # noqa: E704
+
+    def state_dict(self) -> dict:
+        state = dict(self._iter_state.state_dict())
+        state.update(shuffle=self.shuffle, seed=self.seed)
+        return state
+
+    def load_state_dict(self, state: dict) -> None:
+        # A neutral checkpoint (taken before the first item) legitimately has
+        # no permutation state: the order is fully determined by the seed.
+        if self.shuffle and "range" not in state and state.get("position", 0) > 0:
+            raise ValueError(
+                "LazyIndexedManifestIterator with shuffle=True requires 'range' "
+                "in state_dict; the checkpoint may have been created without shuffling."
+            )
+        self._iter_state.load_state_dict(state)
+        self._restored = True
+
+
 class LazyIteratorChain(IteratorNode):
     """
     Back-to-back concatenation.  ``shuffle_iters=True`` permutes sub-iterator
@@ -468,8 +546,39 @@ class LazyIteratorChain(IteratorNode):
         return gen()
 
     def _iter_item_shuffled(self):
-        # Only indexed leaves reach here (see __iter__), and the port has none.
-        raise not_ported("LazyShuffledRange (item-level shuffle over indexed manifests)")
+        from lhotse_tpu_torch.dataset.dataloading import get_worker_partition
+        from lhotse_tpu_torch.indexing import LazyShuffledRange
+
+        worker, nworkers = get_worker_partition()
+        if self._resume:
+            self._resume = False
+            begin = self._flat_pos
+            seed0 = self._flat_seed
+            if seed0 is None:
+                seed0 = resolve_iteration_seed(self.seed)
+            saved = (getattr(self, "_part_worker", None), getattr(self, "_part_n", None))
+            if saved[1] is not None and saved != (worker, nworkers):
+                raise ValueError(
+                    f"LazyIteratorChain global-shuffle partition mismatch on resume: "
+                    f"saved (shard_id={saved[0]}, num_shards={saved[1]}), "
+                    f"current (shard_id={worker}, num_shards={nworkers})."
+                )
+        else:
+            begin, self._flat_pos = 0, 0
+            seed0 = resolve_iteration_seed(self.seed)
+            self._flat_seed = seed0
+        self._part_worker, self._part_n = worker, nworkers
+
+        perm = LazyShuffledRange(
+            len(self), seed=seed0 + self.num_iters, shard_id=worker, num_shards=nworkers)
+
+        def gen():
+            for i in range(begin, len(perm)):
+                self._flat_pos = i + 1
+                yield self[perm[i]]
+            self.num_iters += 1
+
+        return gen()
 
     def __len__(self) -> int: return sum(len(s) for s in self.sources)  # noqa: E704
 

@@ -7,10 +7,15 @@ sequential writers (``SequentialJsonlWriter`` with resume by ``ignore_ids``,
 manifest types the port has (``MonoCut``, ``Recording``,
 ``SupervisionSegment``, ``Features``, ``Array``/``TemporalArray``).
 
+Indexed reads: ``from_jsonl_lazy(shuffle=True)`` and
+``load_manifest_lazy(indexed=..., index_path=...)`` open an uncompressed
+JSONL through its ``.idx`` sidecar
+(:class:`~lhotse_tpu_torch.lazy.LazyIndexedManifestIterator`); with
+``indexed=None`` an existing sidecar is used.
+
 Left out, and raising ``NotImplementedError`` where a manifest asks for
 them: pipes, URLs and the other remote I/O backends, JSON/YAML manifests,
-indexed (``.idx``) manifests, and the manifest types the port does not
-have yet (images, ``MultiCut``).
+and the manifest types the port does not have yet (images, ``MultiCut``).
 """
 from __future__ import annotations
 
@@ -351,7 +356,9 @@ class LazyMixin:
         requires an uncompressed ``.jsonl``).
         """
         if shuffle:
-            raise not_ported("LazyIndexedManifestIterator (shuffled indexed manifests)")
+            from lhotse_tpu_torch.lazy import LazyIndexedManifestIterator
+
+            return cls(LazyIndexedManifestIterator(path, shuffle=True, seed=seed))
         from lhotse_tpu_torch.lazy import LazyManifestIterator
 
         return cls(LazyManifestIterator(path))
@@ -374,11 +381,21 @@ def load_manifest_lazy(
     cls = resolve_manifest_set_class(item)
 
     if shuffle or indexed:
-        raise not_ported("LazyIndexedManifestIterator (indexed manifests)")
+        from lhotse_tpu_torch.lazy import LazyIndexedManifestIterator
+
+        return cls(
+            LazyIndexedManifestIterator(
+                path, shuffle=shuffle, seed=seed, index_path=index_path
+            )
+        )
     if indexed is None:
-        idx = Path(index_path) if index_path is not None else Path(f"{path}.idx")
+        from lhotse_tpu_torch.indexing import default_index_path
+
+        idx = Path(index_path) if index_path is not None else default_index_path(path)
         if idx.is_file():
-            raise not_ported(f"LazyIndexedManifestIterator (the index {idx})")
+            from lhotse_tpu_torch.lazy import LazyIndexedManifestIterator
+
+            return cls(LazyIndexedManifestIterator(path, index_path=index_path))
     from lhotse_tpu_torch.lazy import LazyManifestIterator
 
     return cls(LazyManifestIterator(path))

@@ -387,6 +387,45 @@ def hash_str_to_int(s: str, max_value: Optional[int] = None) -> int:
     return int(hashlib.sha1(s.encode("utf-8")).hexdigest(), 16) % max_value
 
 
+def split_manifest_lazy(
+    it: Iterable[Any], output_dir: Pathlike, chunk_size: int, prefix: str = "", num_digits: int = 8,
+    start_idx: int = 0) -> List:
+    """
+    Split a manifest into chunks of ``chunk_size`` items, saving each chunk to
+    ``{output_dir}/{prefix}.{split_idx}.jsonl.gz`` as the input is consumed.
+    Returns the list of lazily re-opened chunks.
+    """
+    from lhotse_tpu_torch.serialization import SequentialJsonlWriter, load_manifest_lazy
+
+    in_progress = True
+    items = iter(it)
+    split_idx = start_idx
+    splits = []
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    while in_progress:
+        try:
+            item = next(items)
+        except StopIteration:
+            break
+        idx = f"{split_idx:0{num_digits}d}"
+        if prefix:
+            path = output_dir / f"{prefix}.{idx}.jsonl.gz"
+        else:
+            path = output_dir / f"{idx}.jsonl.gz"
+        with SequentialJsonlWriter(path) as writer:
+            writer.write(item)
+            for _ in range(chunk_size - 1):
+                try:
+                    writer.write(next(items))
+                except StopIteration:
+                    in_progress = False
+                    break
+        splits.append(load_manifest_lazy(path))
+        split_idx += 1
+    return splits
+
+
 def not_ported(what: str) -> NotImplementedError:
     """The error a copied body raises where the original reaches a part of
     ``lhotse_tpu`` that this package does not have yet."""

@@ -477,3 +477,48 @@ def test_augmented_on_the_fly_features_on_card_match_cpu(cuda, tmp_path):
     fbank_cuda.LAUNCHES = 0
     batch = dataset[CutSet.from_file(tmp_path / "cuts.jsonl").to_eager()]
     assert fbank_cuda.LAUNCHES == 1 and np.isfinite(batch["inputs"]).all()
+
+
+def test_shar_batches_on_card(cuda, tmp_path):
+    """chip_smoke.py phase 13 at a small size: FLAC cuts exported to Shar;
+    one streaming batch extracted on the kernel (one launch) against the
+    kernel's plain version; the indexed, shuffled reader reports constant
+    time access and feeds ``OnTheFlyFeatures`` on the card."""
+    import warnings
+
+    from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples, OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.shar.readers import LazyIndexedSharIterator, LazySharIterator
+    from lhotse_tpu_torch.supervision import SupervisionSegment
+
+    cuts = []
+    for i, wave in enumerate(_noisy_tones(6, seed=21)):
+        write_flac(str(tmp_path / f"u{i}.flac"), wave, 16000)
+        cut = Recording.from_file(tmp_path / f"u{i}.flac").to_cut()
+        cut.supervisions.append(SupervisionSegment(
+            id=cut.id, recording_id=cut.recording_id, start=0.0, duration=cut.duration))
+        cuts.append(cut)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        CutSet.from_cuts(cuts).to_shar(tmp_path / "shar", fields={"recording": "flac"},
+                                       shard_size=2, compress_jsonl=False)
+    streaming = CutSet.from_shar(in_dir=tmp_path / "shar", indexed=False, shuffle_shards=True, seed=0)
+    assert isinstance(streaming.data, LazySharIterator)
+    batch = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=AudioSamples())[
+        streaming.to_eager()]
+    lens = batch["supervisions"]["num_samples"]
+    audio = [batch["inputs"][i, :n] for i, n in enumerate(lens)]
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    fbank_cuda.LAUNCHES = 0
+    feats = extractor.extract_batch(audio, 16000)
+    assert fbank_cuda.LAUNCHES == 1
+    assert max(float(np.abs(a - b).max()) for a, b in zip(feats, _plain(extractor, audio))) <= LOGMEL_TOL
+    indexed = CutSet.from_shar(in_dir=tmp_path / "shar", shuffle_shards=True, seed=0)
+    assert isinstance(indexed.data, LazyIndexedSharIterator) and indexed.has_constant_time_access
+    fbank_cuda.LAUNCHES = 0
+    fly = K2SpeechRecognitionDataset(input_strategy=OnTheFlyFeatures(extractor))[indexed.to_eager()]
+    assert fbank_cuda.LAUNCHES == 1 and fly["inputs"].shape[0] == 6
+    assert np.isfinite(fly["inputs"]).all()

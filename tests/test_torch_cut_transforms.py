@@ -264,7 +264,9 @@ def test_transform_state_saved_by_jax_loads_into_port(corpus, name):
 def test_lazy_cut_mixer_sequential_seed(corpus):
     """``seed`` as an int: epoch k of the port's mixer draws what epoch k of
     JAX's draws; as a ``random.Random``: the instance's stream continues
-    across epochs in both. The indexed regime and checkpoints raise."""
+    across epochs in both. Over non-indexed noise, checkpoints and
+    constant-time access raise (tests/test_torch_shar.py holds the indexed
+    regime to JAX's)."""
     for seed in (7, "rng"):
         def mixed(pkg):
             cls = CutSet if pkg == "port" else J.CutSet
@@ -280,11 +282,9 @@ def test_lazy_cut_mixer_sequential_seed(corpus):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         ours.data.state_dict()
 
-    class Indexed(list):
-        is_indexed = True
-
-    with pytest.raises(NotImplementedError, match="indexed"):
-        CutSet.from_jsonl_lazy(corpus / "cuts.jsonl").mix(CutSet(Indexed()))
+    with pytest.raises(TypeError, match="constant-time"):
+        ours.data[0]
+    assert not ours.data.is_checkpointable and not ours.data.has_constant_time_access
 
 
 def test_post_transform_cache_keys_by_source(tmp_path):

@@ -145,11 +145,18 @@ def test_store_array_and_temporal_array_load(tmp_path):
 @pytest.mark.parametrize("name", ["lilcom_hdf5", "numpy_hdf5", "chunked_lilcom_hdf5", "kaldiio",
                                   "lilcom_url", "shar"])
 def test_backends_not_ported_raise(name):
+    if name == "shar":
+        # The Shar placeholder reader is ported: it raises when read, as the
+        # JAX package's does, and no writer has the name.
+        with pytest.raises(RuntimeError, match="Shar placeholder"):
+            io.get_reader(name)().read("key")
+        with pytest.raises(KeyError, match=name):
+            io.get_writer(name)
+        return
     with pytest.raises(NotImplementedError, match=name):
         io.get_reader(name)
-    if name != "shar":
-        with pytest.raises(NotImplementedError, match=name):
-            io.get_writer(name)
+    with pytest.raises(NotImplementedError, match=name):
+        io.get_writer(name)
 
 
 def test_default_backend_and_env(monkeypatch):

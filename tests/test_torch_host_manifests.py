@@ -180,6 +180,17 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
         cut.load_features()
     with pytest.raises(NotImplementedError, match="numpy_hdf5"):
         cut.load_emb()
+    # Shar is ported: an unfilled placeholder is an error of the data, not a
+    # part left out.
+    shar = dict(line, recording=dict(line["recording"], sources=[
+        {"type": "shar", "channels": [0], "source": ""}]))
+    path = tmp_path / "shar.jsonl"
+    path.write_text(json.dumps(shar) + "\n")
+    (cut,) = list(CutSet.from_jsonl_lazy(path))
+    assert cut.recording.is_placeholder
+    with pytest.raises(RuntimeError, match="Shar placeholder") as raised:
+        cut.load_audio()
+    assert not isinstance(raised.value, NotImplementedError)
     # A recording with a transform the port leaves out, built in the JAX package.
     cut = J.CutSet.from_file(jax_corpus / "cuts.jsonl")[0]
     J.CutSet.from_cuts([cut.perturb_speed(1.1).narrowband("mulaw")]).to_file(tmp_path / "nb.jsonl")

@@ -61,7 +61,16 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.dataset.cut_transforms.perturb_volume, "
         "lhotse_tpu_torch.dataset.cut_transforms.mix, "
         "lhotse_tpu_torch.dataset.cut_transforms.extra_padding, "
-        "lhotse_tpu_torch.dataset.cut_transforms.reverberate; "
+        "lhotse_tpu_torch.dataset.cut_transforms.reverberate, lhotse_tpu_torch.indexing, "
+        "lhotse_tpu_torch.shar, lhotse_tpu_torch.shar.lazy_pointer, lhotse_tpu_torch.shar.utils, "
+        "lhotse_tpu_torch.shar.readers, lhotse_tpu_torch.shar.readers.tar, "
+        "lhotse_tpu_torch.shar.readers.utils, lhotse_tpu_torch.shar.readers.lazy, "
+        "lhotse_tpu_torch.shar.readers.indexed, lhotse_tpu_torch.shar.writers, "
+        "lhotse_tpu_torch.shar.writers.tar, lhotse_tpu_torch.shar.writers.common, "
+        "lhotse_tpu_torch.shar.writers.cut, lhotse_tpu_torch.shar.writers.audio, "
+        "lhotse_tpu_torch.shar.writers.array, lhotse_tpu_torch.shar.writers.shar, "
+        "lhotse_tpu_torch.dataset.iterable_dataset, lhotse_tpu_torch.testing, "
+        "lhotse_tpu_torch.testing.dummies; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -254,6 +263,76 @@ def test_augmented_path_runs_without_jax_and_lhotse_tpu(tmp_path):
     either package fails."""
     proc = subprocess.run(
         [sys.executable, "-c", AUGMENTED_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+SHAR_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+import warnings
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset import dataloading
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.dataset.iterable_dataset import IdentityDataset, IterableDatasetWrapper
+from lhotse_tpu_torch.dataset.sampling import checkpoint_backends
+from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import DynamicBucketingSampler
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.testing import DummyManifest
+
+warnings.simplefilter("ignore")
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    cuts = DummyManifest(CutSet, begin_id=0, end_id=6, with_data=True)
+    for c in cuts:
+        c.custom = {}
+    extractor = Fbank(FbankConfig(device="cpu"))
+    cuts.to_shar(Path(tmp) / "shar", fields={"recording": "flac", "features": "numpy"},
+                 shard_size=2, compress_jsonl=False)
+    ids = sorted(c.id for c in cuts)
+    streaming = CutSet.from_shar(in_dir=Path(tmp) / "shar", indexed=False, shuffle_shards=True,
+                                 split_for_dataloading=True, seed=0)
+    wrapper = IterableDatasetWrapper(IdentityDataset(), DynamicBucketingSampler(
+        streaming, max_duration=2.0, num_buckets=2, shuffle=True, seed=0))
+    assert sorted(c.id for b in wrapper for c in b) == ids
+    indexed = CutSet.from_shar(in_dir=Path(tmp) / "shar", shuffle_shards=True, seed=0)
+    assert indexed.has_constant_time_access
+    sampler = DynamicBucketingSampler(indexed, max_duration=2.0, num_buckets=2, shuffle=True, seed=0)
+    dataset = K2SpeechRecognitionDataset(input_strategy=OnTheFlyFeatures(extractor))
+    it = iter(sampler)
+    first = next(it)
+    state = sampler.state_dict()
+    rest = []
+    while (b := next(it, None)) is not None:
+        rest.append([c.id for c in b])
+    resumed = DynamicBucketingSampler(CutSet.from_shar(in_dir=Path(tmp) / "shar", shuffle_shards=True,
+                                                       seed=0), max_duration=2.0, num_buckets=2,
+                                      shuffle=True, seed=0)
+    resumed.load_state_dict(state)
+    assert checkpoint_backends._sources_are_seekable(resumed)
+    assert [[c.id for c in b] for b in resumed] == rest
+    batch = dataset[first]
+    assert batch["inputs"].shape[2] == 80 and np.isfinite(batch["inputs"]).all()
+    feats = [c.load_features() for c in CutSet.from_shar(in_dir=Path(tmp) / "shar", lazy=True)]
+    assert len(feats) == 6 and all(f.shape == (100, 23) for f in feats)
+assert sys.modules["jax"] is None and sys.modules["lhotse_tpu"] is None
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_shar_path_runs_without_jax_and_lhotse_tpu(tmp_path):
+    """Dummy cuts → to_shar → streaming from_shar through
+    IterableDatasetWrapper; indexed from_shar through the sampler (its seek
+    resume) into OnTheFlyFeatures; pointer reads of stored features; on the
+    CPU, in a process where importing either package fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", SHAR_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
