@@ -32,7 +32,15 @@ of a ``torch.utils.data.DataLoader`` through ``IterableDatasetWrapper``,
 the kernel on each batch in this process, into the AdamW step for two
 epochs; the indexed reader, shuffled, through ``OnTheFlyFeatures`` on the
 kernel, with a mid-epoch resume through the seek backend; the stored
-features from the shards into the step); and checks what comes out.
+features from the shards into the step); then the recipe path (a
+LibriSpeech-layout corpus directory through ``prepare_librispeech``,
+``fix_manifests`` and the lazy ``CutSet.from_manifests`` into
+``SimpleCutSampler`` and ``OnTheFlyFeatures`` on the kernel, into the
+AdamW step, with a mid-epoch resume; long-form sessions with RTTM turns
+extracted whole on the kernel, trimmed to their supervisions and read back
+in part from the archive through ``BucketingSampler``, and cut into 10 s
+windows through ``OnTheFlyFeatures`` on the kernel); and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -50,8 +58,10 @@ launches on each path, ``augment_int16``, ``augment_adpcm4``, ``cached``,
 ``e2e_cached``, ``precomputed_extract``, ``precomputed_train`` (0: it
 reads stored features), ``on_the_fly``, ``augmented_on_the_fly``,
 ``precomputed_mix_extract``, ``precomputed_mix`` (0: it mixes stored
-features), ``shar_on_the_fly``, ``shar_indexed`` and ``shar_precomputed``
-(0: it reads stored features)); the last line is
+features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
+(0: it reads stored features), ``recipe_on_the_fly``, ``long_form_extract``,
+``long_form_trimmed`` (0: it reads stored features) and
+``long_form_windows``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -594,6 +604,17 @@ E2E_RECORDINGS = 160
 E2E_SECONDS = (4.0, 14.0)  # the corpus's uniform duration range
 
 
+def _tone_burst(rng, duration: float) -> np.ndarray:
+    """``bench.py::_synthesize_corpus``'s signal: four harmonics of an
+    80-220 Hz f0 over 0.01 white noise, ``duration`` seconds at 16 kHz."""
+    n = int(SR * duration)
+    t = np.arange(n) / SR
+    f0 = rng.uniform(80, 220)
+    wave = sum(np.sin(2 * np.pi * f0 * (h + 1) * t) / (h + 1) for h in range(4)) * 0.2
+    wave += rng.randn(n) * 0.01
+    return wave.astype(np.float32)
+
+
 def _synthesize_corpus(root: Path, n_recordings: int, n_noise: int = 4) -> tuple:
     """``bench.py::_synthesize_corpus`` with the port: FLAC tone bursts of
     uniform 4-14 s at 16 kHz (numpy seed 1234), one supervision each, then a
@@ -606,20 +627,11 @@ def _synthesize_corpus(root: Path, n_recordings: int, n_noise: int = 4) -> tuple
     from lhotse_tpu_torch.supervision import SupervisionSegment
 
     rng = np.random.RandomState(1234)
-
-    def tone_burst(duration):
-        n = int(SR * duration)
-        t = np.arange(n) / SR
-        f0 = rng.uniform(80, 220)
-        wave = sum(np.sin(2 * np.pi * f0 * (h + 1) * t) / (h + 1) for h in range(4)) * 0.2
-        wave += rng.randn(n) * 0.01
-        return wave.astype(np.float32)
-
     cuts = []
     for i in range(n_recordings):
         duration = float(rng.uniform(*E2E_SECONDS))
         path = root / f"utt{i:04d}.flac"
-        write_flac(str(path), tone_burst(duration), SR)
+        write_flac(str(path), _tone_burst(rng, duration), SR)
         cut = Recording.from_file(path).to_cut()
         cut.supervisions.append(SupervisionSegment(
             id=f"sup{i:04d}", recording_id=cut.recording_id, start=0.0, duration=cut.duration,
@@ -629,7 +641,7 @@ def _synthesize_corpus(root: Path, n_recordings: int, n_noise: int = 4) -> tuple
     CutSet.from_cuts(cuts).to_file(path)
     noise = []
     for i in range(n_noise):
-        write_flac(str(root / f"noise{i:02d}.flac"), tone_burst(10.0), SR)
+        write_flac(str(root / f"noise{i:02d}.flac"), _tone_burst(rng, 10.0), SR)
         noise.append(Recording.from_file(root / f"noise{i:02d}.flac").to_cut())
     noise_path = root / "noise.jsonl"
     CutSet.from_cuts(noise).to_file(noise_path)
@@ -1584,6 +1596,340 @@ def _phase_shar(cuts_path: Path, feats_cuts: Path, workdir: Path, device, fbank_
     return launches, max(stream_err, indexed_err)
 
 
+# -- 14. the recipe path ---------------------------------------------------------------
+# Two LibriSpeech splits of 4 speakers x 2 chapters x 10 utterances of 4-14 s
+# (160 utterances, phase 10's scale; dev-clean has 2,703), and 8 sessions of
+# 120 s with 16 segments of 3-8 s each (talk- and meeting-style long form).
+RECIPE_SPLITS = ("dev-clean", "test-clean")
+RECIPE_SPEAKERS, RECIPE_CHAPTERS, RECIPE_UTTERANCES = 4, 2, 10
+LONG_SESSIONS, LONG_SECONDS, LONG_SEGMENTS = 8, 120.0, 16
+LONG_OVERLAPS = ((3, 4), (10, 11))  # segment pairs that overlap by 1 s in each session
+WINDOW_SECONDS = 10.0
+RECIPE_WORDS = ("ALPHA", "BRAVO", "CHARLIE", "DELTA", "ECHO", "FOXTROT", "GOLF", "HOTEL")
+
+
+def _synthesize_recipe_corpora(root: Path) -> tuple:
+    """The two corpora of phase 14, as FLAC tone bursts (numpy seed 4321).
+    A LibriSpeech tree under ``root / "LibriSpeech"``: per chapter a
+    ``.trans.txt`` and, for the first chapter of each split, a
+    LibriSpeech-Alignments ``.alignment.txt``. The long form: the sessions'
+    RecordingSet and SupervisionSet as ``.jsonl.gz`` manifests (times on a
+    10 ms grid, every other segment with word alignments, speakers
+    alternating) and the same turns as an RTTM file. Returns the LibriSpeech
+    directory and the paths of the two manifests and of the RTTM file."""
+    from lhotse_tpu_torch.audio import Recording, RecordingSet
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.supervision import AlignmentItem, SupervisionSegment, SupervisionSet
+
+    rng = np.random.RandomState(4321)
+
+    def words():
+        return [RECIPE_WORDS[i] for i in rng.randint(0, len(RECIPE_WORDS), rng.randint(3, 12))]
+
+    corpus = root / "LibriSpeech"
+    for s, split in enumerate(RECIPE_SPLITS):
+        for k in range(RECIPE_SPEAKERS):
+            speaker = str(100 + 10 * s + k)
+            for c in range(RECIPE_CHAPTERS):
+                chapter = str(2000 + 100 * s + 10 * k + c)
+                where = corpus / split / speaker / chapter
+                where.mkdir(parents=True)
+                lines, alignments = [], []
+                for u in range(RECIPE_UTTERANCES):
+                    utt = f"{speaker}-{chapter}-{u:04d}"
+                    duration = float(rng.uniform(*E2E_SECONDS))
+                    write_flac(str(where / f"{utt}.flac"), _tone_burst(rng, duration), SR)
+                    text = words()
+                    lines.append(f"{utt} {' '.join(text)}")
+                    ends = np.floor(np.linspace(0, duration, len(text) + 1)[1:] * 1000) / 1000
+                    alignments.append(f'{utt} "{",".join(text)}" "{",".join(map(str, ends))}"')
+                (where / f"{speaker}-{chapter}.trans.txt").write_text("\n".join(lines) + "\n")
+                if k == 0 and c == 0:
+                    (where / f"{speaker}-{chapter}.alignment.txt").write_text(
+                        "\n".join(alignments) + "\n")
+
+    long_dir = root / "long"
+    long_dir.mkdir()
+    recordings, segments, rttm = [], [], []
+    for r in range(LONG_SESSIONS):
+        rid = f"session{r:02d}"
+        write_flac(str(long_dir / f"{rid}.flac"), _tone_burst(rng, LONG_SECONDS), SR)
+        recordings.append(Recording.from_file(long_dir / f"{rid}.flac"))
+        while True:  # the segments and their pauses (the first a lead-in) within the session
+            spans = np.round(rng.uniform(3.0, 8.0, LONG_SEGMENTS), 2)
+            pauses = np.round(rng.uniform(0.5, 3.0, LONG_SEGMENTS), 2)
+            if spans.sum() + pauses.sum() <= LONG_SECONDS - 0.5:
+                break
+        starts = np.cumsum(pauses) + np.concatenate([[0.0], np.cumsum(spans)[:-1]])
+        for first, second in LONG_OVERLAPS:
+            starts[second] = starts[first] + spans[first] - 1.0
+        for i, (start, span) in enumerate(zip(np.round(starts, 2), spans)):
+            start, span, text = float(start), float(span), words()
+            step = round(span / len(text), 4)
+            alignment = None if i % 2 else {"word": [
+                AlignmentItem(w, round(start + j * step, 4), step) for j, w in enumerate(text)]}
+            speaker = f"{rid}-{'ab'[i % 2]}"
+            segments.append(SupervisionSegment(
+                id=f"{rid}-{i:02d}", recording_id=rid, start=start, duration=span, channel=0,
+                text=" ".join(text), speaker=speaker, language="English", alignment=alignment))
+            rttm.append(f"SPEAKER {rid} 0 {start:.2f} {span:.2f} <NA> <NA> {speaker} <NA> <NA>")
+    RecordingSet.from_recordings(recordings).to_file(root / "long_recordings.jsonl.gz")
+    SupervisionSet.from_segments(segments).to_file(root / "long_supervisions.jsonl.gz")
+    (root / "long.rttm").write_text("\n".join(rttm) + "\n")
+    return (corpus, root / "long_recordings.jsonl.gz", root / "long_supervisions.jsonl.gz",
+            root / "long.rttm")
+
+
+class _WindowFeatures:
+    """The dataset of ``long_form_windows``: the input strategy's features
+    of each window with its frame count and cuts, in the layout
+    ``_train_epoch`` reads. ``K2SpeechRecognitionDataset`` refuses windows,
+    whose supervisions run past their bounds; the masked-prediction step
+    needs no transcript."""
+
+    def __init__(self, strategy):
+        self.strategy = strategy
+
+    def __getitem__(self, cuts):
+        cuts = cuts.sort_by_duration(ascending=False)
+        feats, lens = self.strategy(cuts)
+        return {"inputs": feats, "supervisions": {"cut": list(cuts), "num_frames": lens}}
+
+
+def _phase_recipe(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """14. The recipe path at full width: a corpus directory through the
+    LibriSpeech recipe into training, and long-form sessions through
+    trimming and windowing. ``recipe_on_the_fly``: ``prepare_librispeech``
+    → ``fix_manifests`` and ``validate_recordings_and_supervisions`` →
+    ``CutSet.from_manifests(lazy=True)`` (no leftover-supervision warning)
+    → ``SimpleCutSampler(max_duration=180, shuffle=True, seed=0)`` →
+    ``K2SpeechRecognitionDataset(OnTheFlyFeatures(Fbank(device="cuda")))``
+    → ``DataLoader`` → an AdamW step per batch, one epoch, then a resume
+    after batch 3 whose batches are ``torch.equal`` to the uninterrupted
+    run's. ``long_form_extract``: the sessions' manifests (the RTTM file
+    read back through ``SupervisionSet.from_rttm`` against them) →
+    ``from_manifests`` → ``compute_and_store_features_batch`` into
+    ``lilcom_chunky``, whole sessions. ``long_form_trimmed``:
+    ``trim_to_supervisions(keep_overlapping=False)`` on the featured
+    sessions (128 cuts of one supervision, each cut's features equal to the
+    frames of its session's matrix) → ``BucketingSampler(num_buckets=4,
+    max_duration=180)`` → ``K2SpeechRecognitionDataset()`` (partial reads of
+    the archive) → the step, two epochs, no launch. ``long_form_windows``:
+    ``cut_into_windows(10.0)`` on the sessions (96 windows that keep every
+    supervision and its time) → ``BucketingSampler`` → ``OnTheFlyFeatures``
+    on the card → the step, two epochs. Returns the kernel's launches per
+    path and the largest kernel-vs-plain error."""
+    import warnings
+
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import BucketingSampler, SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.qa import fix_manifests, validate_recordings_and_supervisions
+    from lhotse_tpu_torch.recipes import prepare_librispeech
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import reset_tracing, set_tracing_enabled, tracing_report
+    from lhotse_tpu_torch.utils import compute_num_frames
+
+    set_caching_enabled(False)
+    t0 = time.perf_counter()
+    corpus, long_recs, long_sups, rttm = _synthesize_recipe_corpora(workdir)
+    n_utts = len(RECIPE_SPLITS) * RECIPE_SPEAKERS * RECIPE_CHAPTERS * RECIPE_UTTERANCES
+    print(f"recipe corpora: {n_utts} LibriSpeech utterances and {LONG_SESSIONS} x "
+          f"{LONG_SECONDS:g} s sessions written in {time.perf_counter() - t0!r} s")
+    trainer = _Trainer(device)
+
+    # -- recipe_on_the_fly ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    parts = prepare_librispeech(corpus, output_dir=workdir / "manifests", num_jobs=4)
+    recordings, supervisions = [], []
+    for split in RECIPE_SPLITS:
+        recs, sups = fix_manifests(parts[split]["recordings"], parts[split]["supervisions"])
+        validate_recordings_and_supervisions(recs, sups)
+        recordings += list(recs)
+        supervisions += list(sups)
+    cuts_path = workdir / "recipe_cuts.jsonl.gz"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cuts = CutSet.from_manifests(
+            RecordingSet.from_recordings(recordings), SupervisionSet.from_segments(supervisions),
+            lazy=True, output_path=cuts_path)
+    prepare_s = time.perf_counter() - t0
+    leftovers = [str(w.message) for w in caught if "not attached" in str(w.message)]
+    all_ids = [c.id for c in cuts]
+    with_ali = sum(1 for s in supervisions if s.alignment)
+
+    def recipe_loader():
+        fly = Fbank(FbankConfig(device=device))
+        sampler = SimpleCutSampler(CutSet.from_file(cuts_path), max_duration=180, shuffle=True,
+                                   seed=0)
+        dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly))
+        return DataLoader(sampler, dataset, prefetch_batches=3), fly
+
+    loader, fly = recipe_loader()
+    recorder = _RecordFirstBatch(fly)
+    kept, state = [], {}
+
+    def keep(i, batch_cuts, batch):
+        kept.append(([c.id for c in batch_cuts], batch["inputs"]))
+        if i == 2:
+            state["ckpt"] = loader.state_dict()
+
+    set_tracing_enabled(True)
+    reset_tracing()
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    run = _train_epoch(loader, trainer, device, on_batch=keep)
+    launches_fly = fbank_cuda.LAUNCHES
+    n = len(run["losses"])
+    assemble_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
+    items, kernel_out = recorder.first
+    fly_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(fly, items)))
+    resumed_loader, _ = recipe_loader()
+    resumed_loader.load_state_dict(state["ckpt"])
+    resumed = []
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(lambda: resumed.extend(
+        ([c.id for c in b["supervisions"]["cut"]], b["inputs"]) for b in resumed_loader))
+    launches_resumed = fbank_cuda.LAUNCHES
+    resume_equal = len(resumed) == n - 3 and all(
+        a_ids == b_ids and torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+        for (a_ids, a), (b_ids, b) in zip(resumed, kept[3:]))
+    print(f"[{smi}] recipe_on_the_fly: prepare_librispeech, fix, validate and the lazy "
+          f"from_manifests of {len(all_ids)} utterances ({with_ali} with word alignments) in "
+          f"{prepare_s!r} s; leftover-supervision warnings {len(leftovers)}; epoch {n} batches, "
+          f"{run['audio_s']!r} audio-s in {run['elapsed_s']!r} s (host clock, AdamW steps "
+          f"included): {run['audio_s'] / run['elapsed_s']!r} audio-s/s; losses "
+          f"{run['losses'][0]!r} -> {run['losses'][-1]!r}; host ms per batch of decode+extract+"
+          f"collate (dataset.assemble) {assemble_ms!r}; fbank kernel launches {launches_fly}; "
+          f"first batch kernel vs plain {fly_err!r} (tol {KERNEL_TOL}); resumed after batch 3: "
+          f"{len(resumed)} batches torch.equal to the uninterrupted run's: {resume_equal}, "
+          f"launches {launches_resumed}, device busy {busy_ms / wall_ms!r} of the resumed run's "
+          f"wall (torch.profiler)")
+    if leftovers or len(all_ids) != n_utts or with_ali != len(RECIPE_SPLITS) * RECIPE_UTTERANCES:
+        raise AssertionError(f"recipe_on_the_fly: the manifest join is off: {leftovers}")
+    _check_epoch("recipe_on_the_fly", run, all_ids)
+    if launches_fly != n or not fly_err <= KERNEL_TOL:
+        raise AssertionError("recipe_on_the_fly: launches or the kernel's result are off")
+    if not resume_equal or launches_resumed != n - 3:
+        raise AssertionError("recipe_on_the_fly: the resumed batches differ from the first run's")
+
+    # -- long_form_extract ---------------------------------------------------------------
+    session_sups = SupervisionSet.from_file(long_sups).to_eager()
+    turns = sorted((s.recording_id, s.start, s.duration, s.speaker)
+                   for s in SupervisionSet.from_rttm(rttm))
+    if turns != sorted((s.recording_id, s.start, s.duration, s.speaker) for s in session_sups):
+        raise AssertionError("the RTTM turns read back differ from the sessions' supervisions")
+    sessions = CutSet.from_manifests(RecordingSet.from_file(long_recs), session_sups)
+    extractor = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(extractor)
+    stored = {}
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(lambda: stored.update(
+        (c.id, c) for c in sessions.compute_and_store_features_batch(
+            extractor, workdir / "long_feats", manifest_path=workdir / "long_feats.jsonl",
+            batch_duration=600, num_workers=4)))
+    launches_extract = fbank_cuda.LAUNCHES
+    items, kernel_out = recorder.first
+    extract_err = max(float(np.abs(a - b).max())
+                      for a, b in zip(kernel_out, _plain_extract(extractor, items)))
+    session_s = sum(c.duration for c in sessions)
+    full = {c.recording_id: c.load_features() for c in stored.values()}
+    archive_err = max(float(np.abs(full[c.recording_id] - k).max())
+                      for c, k in zip(list(sessions)[: len(kernel_out)], kernel_out))
+    print(f"[{smi}] long_form_extract: {len(stored)} sessions, {session_s!r} audio-s extracted and "
+          f"stored in {wall_ms!r} ms under torch.profiler: {session_s / wall_ms * 1e3!r} audio-s/s; "
+          f"{launches_extract} batches, fbank kernel launches {launches_extract}; device busy "
+          f"{busy_ms / wall_ms!r} of the wall; no loader (dataset.assemble: none); first batch "
+          f"kernel vs plain {extract_err!r} (tol {KERNEL_TOL}), archive vs the kernel's output "
+          f"{archive_err!r} (tol {LTC1_TICK / 2 + 1e-6!r}); RTTM turns equal to the supervisions")
+    if len(stored) != LONG_SESSIONS or launches_extract != math.ceil(session_s / 600):
+        raise AssertionError(f"long_form_extract: {len(stored)} sessions, {launches_extract} launches")
+    if not extract_err <= KERNEL_TOL or not archive_err <= LTC1_TICK / 2 + 1e-6:
+        raise AssertionError("long_form_extract: the kernel or the archive disagrees")
+
+    # -- long_form_trimmed ----------------------------------------------------------------
+    trimmed = CutSet.from_cuts(stored[c.id] for c in sessions).trim_to_supervisions(
+        keep_overlapping=False).to_eager()
+    slices_equal = True
+    for cut in trimmed:
+        left = compute_num_frames(cut.start, frame_shift=cut.frame_shift, sampling_rate=SR)
+        slices_equal &= np.array_equal(
+            cut.load_features(), full[cut.recording_id][left: left + cut.num_frames])
+    sampler = BucketingSampler(trimmed, num_buckets=4, max_duration=180, shuffle=True, seed=0)
+    loader = DataLoader(sampler, K2SpeechRecognitionDataset(return_cuts=True), prefetch_batches=3)
+    reset_tracing()
+    fbank_cuda.LAUNCHES = 0
+    run = _train_epoch(loader, trainer, device)
+    n = len(run["losses"])
+    read_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
+    sampler.set_epoch(1)
+    wall_ms, busy_ms, _ = _device_busy(
+        lambda: run.update(second=_train_epoch(loader, trainer, device)))
+    launches_trimmed = fbank_cuda.LAUNCHES
+    print(f"[{smi}] long_form_trimmed: {len(trimmed)} cuts of one supervision each, features equal "
+          f"to their sessions' matrix slices: {slices_equal}; epoch {n} batches, {run['audio_s']!r} "
+          f"audio-s in {run['elapsed_s']!r} s: {run['audio_s'] / run['elapsed_s']!r} audio-s/s; host "
+          f"ms per batch of the partial feature reads (dataset.assemble) {read_ms!r}; epoch 2 under "
+          f"torch.profiler: device busy {busy_ms / wall_ms!r} of the wall; fbank kernel launches "
+          f"{launches_trimmed}")
+    if len(trimmed) != LONG_SESSIONS * LONG_SEGMENTS or any(len(c.supervisions) != 1 for c in trimmed):
+        raise AssertionError(f"long_form_trimmed: {len(trimmed)} cuts")
+    if not slices_equal or launches_trimmed != 0:
+        raise AssertionError("long_form_trimmed: features off their sessions' or a kernel launch")
+    for r in (run, run["second"]):
+        if sorted(r["ids"]) != sorted(c.id for c in trimmed) or not all(map(math.isfinite, r["losses"])):
+            raise AssertionError("long_form_trimmed: coverage or the loss is off")
+
+    # -- long_form_windows -----------------------------------------------------------------
+    windows = sessions.cut_into_windows(duration=WINDOW_SECONDS).to_eager()
+    source_ids = {s.id for c in sessions for s in c.supervisions}
+    window_ids = {s.id for c in windows for s in c.supervisions}
+    inside = sum(s.duration for c in windows for s in c.trimmed_supervisions)
+    total = sum(s.duration for c in sessions for s in c.supervisions)
+    win = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(win)
+    sampler = BucketingSampler(windows, num_buckets=4, max_duration=180, shuffle=True, seed=0)
+    loader = DataLoader(sampler, _WindowFeatures(OnTheFlyFeatures(win)), prefetch_batches=3)
+    reset_tracing()
+    fbank_cuda.LAUNCHES = 0
+    run = _train_epoch(loader, trainer, device)
+    n = len(run["losses"])
+    assemble_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
+    sampler.set_epoch(1)
+    wall_ms, busy_ms, _ = _device_busy(
+        lambda: run.update(second=_train_epoch(loader, trainer, device)))
+    launches_windows = fbank_cuda.LAUNCHES
+    set_tracing_enabled(False)
+    n_batches = n + len(run["second"]["losses"])
+    items, kernel_out = recorder.first
+    window_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(win, items)))
+    print(f"[{smi}] long_form_windows: {len(windows)} windows of {WINDOW_SECONDS:g} s keep "
+          f"{len(window_ids)} of {len(source_ids)} supervisions, {inside!r} of {total!r} supervised "
+          f"s; epoch {n} batches, {run['audio_s']!r} audio-s in {run['elapsed_s']!r} s: "
+          f"{run['audio_s'] / run['elapsed_s']!r} audio-s/s; host ms per batch of decode+extract+"
+          f"collate (dataset.assemble) {assemble_ms!r}; epoch 2 under torch.profiler: device busy "
+          f"{busy_ms / wall_ms!r} of the wall; fbank kernel launches {launches_windows} for "
+          f"{n_batches} batches; first batch kernel vs plain {window_err!r} (tol {KERNEL_TOL})")
+    if len(windows) != LONG_SESSIONS * int(LONG_SECONDS / WINDOW_SECONDS):
+        raise AssertionError(f"long_form_windows: {len(windows)} windows")
+    if window_ids != source_ids or not abs(inside - total) <= 1e-6:
+        raise AssertionError("long_form_windows: the windows lost supervision")
+    if launches_windows != n_batches or not window_err <= KERNEL_TOL:
+        raise AssertionError("long_form_windows: launches or the kernel's result are off")
+    for r in (run, run["second"]):
+        if sorted(r["ids"]) != sorted(c.id for c in windows) or not all(map(math.isfinite, r["losses"])):
+            raise AssertionError("long_form_windows: coverage or the loss is off")
+    launches = {"recipe_on_the_fly": launches_fly, "long_form_extract": launches_extract,
+                "long_form_trimmed": launches_trimmed, "long_form_windows": launches_windows}
+    return launches, max(fly_err, extract_err, window_err)
+
+
 class _PlainFbank:
     """The default fbank layer's computation with the kernel's plain version
     in place of the kernel, for the chain comparison."""
@@ -1806,8 +2152,15 @@ def main() -> None:
             cuts_path, Path(tmp) / "feats_cuts.jsonl", Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_shar)
         print(f"phase 13 took {time.perf_counter() - t0!r} s")
+
+    # -- 14. the recipe path, on corpora of its own --------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        launches_recipe, recipe_err = _phase_recipe(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_recipe)
+        print(f"phase 14 took {time.perf_counter() - t0!r} s")
     print(f"fbank kernel launches by path: {by_path}")
-    reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed")
+    reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed")
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
@@ -1817,7 +2170,7 @@ def main() -> None:
         "source": "lhotse_tpu_torch/csrc/fbank.cu",
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
-        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err, aug_err, shar_err]),
+        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err, aug_err, shar_err, recipe_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

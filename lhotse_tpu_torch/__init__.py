@@ -8,8 +8,11 @@ The module paths and public names mirror the JAX package, so
 only: never ``jax`` and never ``lhotse_tpu``. The host data layer it needs
 (manifests, WAV/FLAC audio, ``CutSet``, ``DynamicBucketingSampler``,
 ``K2SpeechRecognitionDataset`` with ``AudioSamples``, ``DataLoader``, the
-stored features, and the host augmentation: recording transforms,
-``PaddingCut``/``MixedCut`` and the cut transforms) is
+stored features, the host augmentation: recording transforms,
+``PaddingCut``/``MixedCut`` and the cut transforms, Shar, and the recipe
+path: ``RecordingSet``/``SupervisionSet``, ``CutSet.from_manifests``, the
+trimming and windowing, ``SimpleCutSampler``/``BucketingSampler`` and the
+LibriSpeech recipe) is
 copied function by function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.

@@ -2,6 +2,7 @@ from lhotse_tpu_torch.audio.backend import (
     audio_backend, get_current_audio_backend, info, read_audio, save_audio,
     set_current_audio_backend)
 from lhotse_tpu_torch.audio.recording import Recording
+from lhotse_tpu_torch.audio.recording_set import RecordingSet
 from lhotse_tpu_torch.audio.source import AudioSource
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, VideoInfo, get_audio_duration_mismatch_tolerance,
@@ -9,7 +10,8 @@ from lhotse_tpu_torch.audio.utils import (
     suppress_audio_loading_errors)
 
 __all__ = [
-    "AudioLoadingError", "AudioSource", "DurationMismatchError", "Recording", "VideoInfo",
+    "AudioLoadingError", "AudioSource", "DurationMismatchError", "Recording", "RecordingSet",
+    "VideoInfo",
     "audio_backend", "get_audio_duration_mismatch_tolerance", "get_current_audio_backend", "info",
     "null_result_on_audio_loading_error", "read_audio", "save_audio",
     "set_audio_duration_mismatch_tolerance", "set_current_audio_backend",

@@ -21,6 +21,7 @@ recordings.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from io import BytesIO
 from decimal import ROUND_HALF_UP
 from math import ceil, isclose
 from pathlib import Path
@@ -28,15 +29,15 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from lhotse_tpu_torch.audio.backend import info
+from lhotse_tpu_torch.audio.backend import info, save_audio
 from lhotse_tpu_torch.audio.source import AudioSource
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, get_audio_duration_mismatch_tolerance)
 from lhotse_tpu_torch.augmentation import (
     AudioTransform, Resample, ReverbWithImpulseResponse, Speed, Tempo, Volume)
 from lhotse_tpu_torch.utils import (
-    Channels, Pathlike, Seconds, asdict_nonull, compute_num_samples, fastcopy, not_ported,
-    perturb_num_samples, rich_exception_info)
+    Channels, Pathlike, Seconds, asdict_nonull, compute_num_samples, fastcopy, ifnone,
+    not_ported, perturb_num_samples, rich_exception_info)
 
 
 class SetContainingAnything:
@@ -156,6 +157,38 @@ class Recording:
         return MonoCut(
             id=self.id, start=0.0, duration=self.duration,
             channel=self.channel_ids[0] if mono else self.channel_ids, recording=self)
+
+    def move_to_memory(
+        self, channels: Optional[Channels] = None, offset: Seconds = None,
+        duration: Optional[Seconds] = None, format: Optional[str] = None) -> "Recording":
+        """
+        Return a copy whose sources hold the encoded bytes in memory.  With no
+        subset requested the original encoded bytes are attached verbatim;
+        otherwise audio is decoded, windowed, and re-encoded (wav by default).
+        """
+        if all(src.type == "memory" for src in self.sources):
+            return self
+
+        want_channels = [channels] if isinstance(channels, int) else channels
+        whole_thing = (
+            (want_channels is None or want_channels == self.channel_ids)
+            and (offset is None or isclose(offset, 0.0))
+            and (duration is None or isclose(duration, self.duration))
+        )
+        if whole_thing:
+            return fastcopy(
+                self,
+                sources=[ AudioSource( type="memory", channels=src.channels, source=Path(src.source).read_bytes(), ) for src in self.sources ],
+            )
+
+        audio = self.load_audio(channels=channels, offset=ifnone(offset, 0), duration=duration)
+        buf = BytesIO()
+        save_audio(buf, audio, self.sampling_rate, format=ifnone(format, "wav"))
+        return Recording(
+            id=self.id,
+            sources=[ AudioSource( type="memory", channels=ifnone(want_channels, self.channel_ids), source=buf.getvalue(), ) ],
+            sampling_rate=self.sampling_rate, num_samples=audio.shape[1],
+            duration=ifnone(duration, self.duration))
 
     # -- loading -----------------------------------------------------------------
 
@@ -379,6 +412,9 @@ class Recording:
         return np.concatenate(padded, axis=0)
 
     # -- copies ------------------------------------------------------------------
+
+    def with_path_prefix(self, path: Pathlike) -> "Recording":
+        return fastcopy(self, sources=[s.with_path_prefix(path) for s in self.sources])
 
     def copy_with(self, **kwargs) -> "Recording":
         return fastcopy(self, **kwargs)

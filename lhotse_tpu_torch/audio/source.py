@@ -11,13 +11,14 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from io import BytesIO, FileIO
+from pathlib import Path
 from typing import List, Optional, Union
 
 import numpy as np
 
 from lhotse_tpu_torch.audio.backend import read_audio
 from lhotse_tpu_torch.audio.utils import DurationMismatchError, VideoInfo, get_audio_duration_mismatch_tolerance
-from lhotse_tpu_torch.utils import Seconds, asdict_nonull, not_ported
+from lhotse_tpu_torch.utils import Pathlike, Seconds, asdict_nonull, fastcopy, not_ported
 
 PathOrFilelike = Union[str, BytesIO, FileIO]
 
@@ -75,6 +76,11 @@ class AudioSource:
                     f"Requested more audio ({duration}s) than available ({available_duration}s)"
                 )
         return samples.astype(np.float32)
+
+    def with_path_prefix(self, path: Pathlike) -> "AudioSource":
+        if self.type != "file":
+            return self
+        return fastcopy(self, source=str(Path(path) / self.source))
 
     def to_dict(self) -> dict:
         return asdict_nonull(self)

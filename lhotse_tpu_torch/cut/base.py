@@ -1,18 +1,71 @@
 """
-Cut: the abstract time-interval view over a Recording (copied from
-``lhotse_tpu/cut/base.py``), with the members the data path uses: ``mix``,
-``append`` and the supervisions' frame mask. Splitting, trimming to
-supervisions, windows and the other masks are not ported.
+Cut: the abstract time-interval view over a Recording and/or Features
+(copied from ``lhotse_tpu/cut/base.py``), with the operations implemented
+once on the base class: ``mix``/``append``,
+``trim_to_supervisions``, ``trim_to_alignments``,
+``trim_to_supervision_groups``, ``cut_into_windows[_balanced]``,
+``index_supervisions`` (over :class:`SupervisionIntervalIndex`) and the
+supervision masks over frames and samples. All cut operations are lazy and
+non-mutating. ``MultiCut``, ``split``, ``save_audio``, the speaker masks and
+the plotting and playback helpers are not ported.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import math
+from bisect import bisect_left
+from typing import Dict, List, Optional, Set
 
 import numpy as np
 
 from lhotse_tpu_torch.audio.utils import VideoInfo
 from lhotse_tpu_torch.supervision import SupervisionSegment
-from lhotse_tpu_torch.utils import Decibels, Seconds, add_durations, asdict_nonull, fastcopy
+from lhotse_tpu_torch.utils import (
+    Decibels, Seconds, add_durations, asdict_nonull, compute_num_windows,
+    compute_start_duration_for_extended_cut, fastcopy, ifnone, to_hashable)
+
+
+class SetContainingAnything:
+    def __contains__(self, item):
+        return True
+
+    def intersection(self, iterable):
+        return True
+
+
+class SupervisionIntervalIndex:
+    """
+    A minimal interval index over supervisions: sorted by start with an
+    overlap query. Replaces the reference's intervaltree dependency; queries
+    are O(log m + k) on sorted starts with a max-end prune.
+    """
+
+    def __init__(self, supervisions):
+        items = [(s.start, s.end, s) for s in supervisions]
+        items.sort(key=lambda t: (t[0], t[1]))
+        self._starts = [t[0] for t in items]
+        self._items = items
+        # running max of ends up to each position (for pruning)
+        self._max_end = []
+        cur = -math.inf
+        for t in items:
+            cur = max(cur, t[1])
+            self._max_end.append(cur)
+
+    def overlap(self, begin: Seconds, end: Seconds):
+        """All supervisions s with s.start < end and s.end > begin."""
+        out = []
+        hi = bisect_left(self._starts, end)
+        for i in range(hi):
+            s, e, item = self._items[i]
+            if e > begin:
+                out.append(item)
+        return out
+
+    def __len__(self):
+        return len(self._items)
+
+    def __iter__(self):
+        return (item for _, _, item in self._items)
 
 
 class Cut:
@@ -55,6 +108,12 @@ class Cut:
     def copy_with(self, **kwargs) -> "Cut":
         return self.copy(**kwargs)
 
+    @property
+    def trimmed_supervisions(self) -> List[SupervisionSegment]:
+        """Supervisions clamped to the cut bounds (caution: may corrupt ASR
+        transcripts whose audio extends beyond the cut)."""
+        return [s.trim(self.duration) for s in self.supervisions]
+
     def mix(
         self, other: "Cut", offset_other_by: Seconds = 0.0, allow_padding: bool = False,
         snr: Optional[Decibels] = None, preserve_id: Optional[str] = None,
@@ -74,12 +133,269 @@ class Cut:
 
         return mix(self, other, offset=self.duration, snr=snr, preserve_id=preserve_id)
 
+    def compute_features(self, extractor, augment_fn=None) -> np.ndarray:
+        """Compute features from this cut's audio."""
+        samples = self.load_audio()
+        if augment_fn is not None:
+            samples = augment_fn(samples, self.sampling_rate)
+        return extractor.extract(samples, self.sampling_rate)
+
+    def trim_to_supervisions(
+        self, keep_overlapping: bool = True, min_duration: Optional[Seconds] = None,
+        context_direction: str = "center", keep_all_channels: bool = False,
+    ) -> "CutSet":  # noqa: F821
+        """
+        Split this cut into one cut per supervision, with the supervision's
+        time bounds (optionally extended to ``min_duration`` with acoustic
+        context). ``keep_overlapping=False`` guarantees exactly one
+        supervision per output cut.
+        """
+        from lhotse_tpu_torch.cut.mixed import MixedCut
+        from lhotse_tpu_torch.cut.set import CutSet
+
+        def span_of(segment):
+            if min_duration is None:
+                return segment.start, segment.duration
+            return compute_start_duration_for_extended_cut(
+                start=segment.start, duration=segment.duration, new_duration=min_duration,
+                direction=context_direction)
+
+        def collapse_channels(piece):
+            distinct = set(to_hashable(s.channel) for s in piece.supervisions)
+            assert len(distinct) == 1, (
+                "Trimmed cut has supervisions with different channels. Either set "
+                "`keep_all_channels=True` to keep original channels or "
+                "`keep_overlapping=False` to retain only 1 supervision per cut."
+            )
+            piece.channel = piece.supervisions[0].channel
+            return piece
+
+        cuts = []
+        supervisions_index = self.index_supervisions(index_mixed_tracks=True)
+        for segment in self.supervisions:
+            begin, span = span_of(segment)
+            trimmed = self.truncate(
+                offset=begin, duration=span, keep_excessive_supervisions=keep_overlapping,
+                _supervisions_index=supervisions_index)
+            if not keep_overlapping:
+                trimmed = trimmed.filter_supervisions(lambda s: s.id == segment.id)
+            if not keep_all_channels and not isinstance(trimmed, MixedCut):
+                trimmed = collapse_channels(trimmed)
+            if len(trimmed.supervisions) == 1:
+                trimmed.id = segment.id
+            cuts.append(trimmed)
+        return CutSet.from_cuts(cuts)
+
+    def trim_to_alignments(
+        self, type: str, max_pause: Optional[Seconds] = None,
+        max_segment_duration: Optional[Seconds] = None, delimiter: str = " ",
+        keep_all_channels: bool = False) -> "CutSet":  # noqa: F821
+        """
+        Split this cut into its alignment items of the given ``type``,
+        optionally merging items separated by pauses shorter than
+        ``max_pause`` up to ``max_segment_duration``.
+        """
+        from lhotse_tpu_torch.supervision import AlignmentItem
+
+        pause_cap = -1.0 if max_pause is None else max_pause
+        span_cap = self.duration if max_segment_duration is None else max_segment_duration
+
+        def merge_items(alignments):
+            """[(merged AlignmentItem, constituent indices)] under the caps."""
+            groups = [(alignments[0], [0])]
+            for i, item in enumerate(alignments[1:], start=1):
+                if not item.symbol.strip():
+                    continue
+                head, members = groups[-1]
+                mergeable = (
+                    item.start - head.end <= pause_cap
+                    and item.end - head.start <= span_cap
+                )
+                if not mergeable:
+                    groups.append((item, [i]))
+                    continue
+                grown = AlignmentItem(
+                    symbol=delimiter.join([head.symbol, item.symbol]), start=head.start,
+                    duration=item.end - head.start)
+                groups[-1] = (grown, members + [i])
+            return groups
+
+        new_supervisions = []
+        for segment in self.supervisions:
+            items = (segment.alignment or {}).get(type) or None
+            if not items:
+                continue
+            alignments = sorted(items, key=lambda a: a.start)
+            for i, (item, indices) in enumerate(merge_items(alignments)):
+                new_supervisions.append(
+                    SupervisionSegment(
+                        id=f"{segment.id}-{i}",
+                        recording_id=segment.recording_id,
+                        start=item.start - self.start,
+                        duration=item.duration,
+                        channel=segment.channel,
+                        text=item.symbol,
+                        language=segment.language,
+                        speaker=segment.speaker,
+                        gender=segment.gender,
+                        alignment={type: [alignments[j] for j in indices]},
+                    )
+                )
+
+        relabeled = fastcopy(self, supervisions=new_supervisions)
+        return relabeled.trim_to_supervisions(
+            keep_overlapping=False, keep_all_channels=keep_all_channels)
+
+    def trim_to_supervision_groups(self, max_pause: Seconds = 0.0) -> "CutSet":  # noqa: F821
+        """
+        Split into cuts covering "supervision groups" — maximal runs of
+        supervisions with gaps no longer than ``max_pause``
+        (cf. utterance groups, arXiv:2211.00482).
+        """
+        from lhotse_tpu_torch.cut.set import CutSet
+
+        if not self.supervisions:
+            return CutSet([self])
+        supervisions = sorted(self.supervisions, key=lambda s: s.start)
+
+        new_cuts = []
+
+        def flush(group_start: Seconds, group_end: Seconds):
+            span = add_durations(group_end, -group_start, sampling_rate=self.sampling_rate)
+            piece = self.truncate(
+                offset=group_start, duration=span, keep_excessive_supervisions=False)
+            new_cuts.append(piece.with_id(f"{self.id}-{max_pause}-{len(new_cuts)}"))
+
+        group_start = supervisions[0].start
+        group_end = supervisions[0].end
+        for sup in supervisions[1:]:
+            if sup.start - group_end <= max_pause:
+                group_end = max(group_end, sup.end)
+            else:
+                flush(group_start, group_end)
+                group_start, group_end = sup.start, sup.end
+        flush(group_start, group_end)
+
+        assert sum(len(c.supervisions) for c in new_cuts) == len(self.supervisions), (
+            "The total number of supervisions decreased after trimming to "
+            "supervision groups — this is likely a bug."
+        )
+        return CutSet.from_cuts(new_cuts)
+
+    def cut_into_windows_balanced(
+        self, min_duration: Seconds, max_duration: Seconds, overlap: Seconds = 0.0,
+        keep_excessive_supervisions: bool = True) -> "CutSet":  # noqa: F821
+        """
+        Split into overlapping windows whose size is chosen within
+        [min_duration, max_duration] to maximize the final window's length
+        (minimizing padding). Each sub-cut records ``source_cut_id`` and
+        ``source_cut_start`` in its custom dict.
+        """
+        from lhotse_tpu_torch.cut.set import CutSet
+
+        if self.duration <= max_duration:
+            return CutSet.from_cuts([self])
+
+        best_duration = min_duration
+        best_last_chunk = 0.0
+        for d in range(math.floor(min_duration), math.floor(max_duration) + 1):
+            hop = d - overlap
+            if hop <= 0 or d > self.duration:
+                continue
+            n_chunks = math.ceil(self.duration / hop)
+            last_start = hop * (n_chunks - 1)
+            last_chunk_len = self.duration - last_start
+            if last_chunk_len > best_last_chunk:
+                best_last_chunk = last_chunk_len
+                best_duration = float(d)
+
+        origin = {"source_cut_id": self.id, "source_cut_start": self.start}
+        windows = [
+            fastcopy(sub, custom={**(sub.custom or {}), **origin})
+            for sub in self._windows(
+                best_duration, best_duration - overlap, keep_excessive_supervisions
+            )
+        ]
+        return CutSet.from_cuts(windows)
+
+    def _windows(self, duration: Seconds, hop: Seconds, keep_excessive_supervisions: bool):
+        supervisions_index = self.index_supervisions(index_mixed_tracks=True)
+        for i in range(compute_num_windows(self.duration, duration, hop)):
+            yield self.truncate(
+                offset=hop * i, duration=duration,
+                keep_excessive_supervisions=keep_excessive_supervisions,
+                _supervisions_index=supervisions_index).with_id(f"{self.id}-{i}")
+
+    def cut_into_windows(
+        self, duration: Seconds, hop: Optional[Seconds] = None,
+        keep_excessive_supervisions: bool = True) -> "CutSet":  # noqa: F821
+        """Split into windows of ``duration`` every ``hop`` seconds (the last
+        window may be shorter)."""
+        from lhotse_tpu_torch.cut.set import CutSet
+
+        if not hop:
+            hop = duration
+        if self.has_video:
+            assert (duration * self.video.fps).is_integer(), (
+                f"[cut.id={self.id}] Window duration must give an integer number "
+                f"of video frames (duration={duration} * fps={self.video.fps})."
+            )
+            assert (hop * self.video.fps).is_integer(), (
+                f"[cut.id={self.id}] Window hop must give an integer number of "
+                f"video frames (hop={hop} * fps={self.video.fps})."
+            )
+        return CutSet.from_cuts(self._windows(duration, hop, keep_excessive_supervisions))
+
+    def index_supervisions(
+        self, index_mixed_tracks: bool = False, keep_ids: Optional[Set[str]] = None,
+    ) -> Dict[str, SupervisionIntervalIndex]:
+        """Two-level index {cut_id: interval index of its supervisions} to
+        speed up repeated truncations of long cuts."""
+        from lhotse_tpu_torch.cut.mixed import MixedCut
+
+        keep_ids = ifnone(keep_ids, SetContainingAnything())
+        indexed = {
+            self.id: SupervisionIntervalIndex(
+                s for s in self.supervisions if s.id in keep_ids and s.duration > 0
+            )
+        }
+        if index_mixed_tracks and isinstance(self, MixedCut):
+            for track in self.tracks:
+                indexed[track.cut.id] = SupervisionIntervalIndex(
+                    s
+                    for s in track.cut.supervisions
+                    if s.id in keep_ids and s.duration > 0
+                )
+        return indexed
+
+    def _active_spans(self, supervision, use_alignment_if_exists: Optional[str]):
+        """(start, end) second-spans of activity: the alignment items when the
+        requested alignment exists, otherwise the whole supervision."""
+        ali = (supervision.alignment or {}).get(use_alignment_if_exists or "", None)
+        if use_alignment_if_exists and ali is not None:
+            return [(item.start, item.end) for item in ali]
+        return [(supervision.start, supervision.end)]
+
     def supervisions_feature_mask(self, use_alignment_if_exists: Optional[str] = None) -> np.ndarray:
         """1-D 0/1 mask over frames covered by at least one supervision."""
         from lhotse_tpu_torch.cut.set import compute_supervisions_frame_mask
 
         return compute_supervisions_frame_mask(
             self, use_alignment_if_exists=use_alignment_if_exists)
+
+    def supervisions_audio_mask(self, use_alignment_if_exists: Optional[str] = None) -> np.ndarray:
+        """1-D 0/1 mask over samples covered by at least one supervision."""
+        assert self.has_recording, (
+            f"No recording available. Can't compute supervisions audio mask for cut {self.id}."
+        )
+        mask = np.zeros(self.num_samples, dtype=np.float32)
+        cap = round(self.duration * self.sampling_rate)
+        for supervision in self.supervisions:
+            for begin, finish in self._active_spans(supervision, use_alignment_if_exists):
+                lo = round(begin * self.sampling_rate) if begin > 0 else 0
+                hi = round(finish * self.sampling_rate) if finish < self.duration else cap
+                mask[lo:hi] = 1.0
+        return mask
 
     def with_id(self, id_: str) -> "Cut":
         """Return a copy of the Cut with a new ID."""

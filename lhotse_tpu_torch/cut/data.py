@@ -4,11 +4,13 @@ supervisions and custom fields viewed through a [start, start+duration)
 window (copied from ``lhotse_tpu/cut/data.py``), with the members the data
 path uses: the ``Features`` manifest, ``compute_and_store_features``, the
 ``drop_*`` methods, ``fill_supervision``, the windowing builders
-(``truncate``, ``extend_by``, ``pad``) and the lazy waveform-domain builders
+(``truncate``, ``extend_by``, ``pad``), the lazy waveform-domain builders
 ``resample``, ``perturb_speed``, ``perturb_tempo`` and ``perturb_volume``
-(``reverb_rir`` is in :class:`~lhotse_tpu_torch.cut.mono.MonoCut`). Every
-builder returns a modified manifest copy; no audio is touched until
-``load_audio``/``load_features``. Images, in-memory data and the
+(``reverb_rir`` is in :class:`~lhotse_tpu_torch.cut.mono.MonoCut`),
+``move_to_memory``/``drop_in_memory_data``, the path prefixes and the
+supervision merging that ``MonoCut.merge_supervisions`` uses. Every builder
+returns a modified manifest copy; no audio is touched until
+``load_audio``/``load_features``. Images, ``attach_tensor`` and the
 ``narrowband``, ``normalize_loudness``, ``dereverb_wpe``, ``clip_amplitude``
 and ``compress`` builders are not ported: the last five raise.
 """
@@ -18,11 +20,11 @@ import logging
 from abc import ABCMeta, abstractmethod
 from dataclasses import dataclass, field
 from math import isclose
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, Generator, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
-from lhotse_tpu_torch.array import TemporalArray
+from lhotse_tpu_torch.array import Array, TemporalArray
 from lhotse_tpu_torch.audio import Recording
 from lhotse_tpu_torch.custom import CustomFieldMixin
 from lhotse_tpu_torch.cut.base import Cut
@@ -30,9 +32,11 @@ from lhotse_tpu_torch.features.base import FeatureExtractor, Features
 from lhotse_tpu_torch.features.io import FeaturesWriter
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
-    LOG_EPSILON, Seconds, TimeSpan, add_durations, asdict_nonull, compute_num_frames,
+    LOG_EPSILON, Pathlike, Seconds, TimeSpan, add_durations, asdict_nonull, compute_num_frames,
     compute_num_samples, fastcopy, measure_overlap, not_ported, overlaps, overspans,
     perturb_num_samples, rich_exception_info, uuid4)
+
+_DATA_MANIFEST_TYPES = (Recording, Features, Array, TemporalArray)
 
 
 @dataclass
@@ -78,6 +82,20 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
     has_features = property(lambda self: self.features is not None)
     has_recording = property(lambda self: self.recording is not None)
     has_video = property(lambda self: self.recording is not None and self.recording.has_video)
+
+    def iter_data(
+        self,
+    ) -> Generator[Tuple[str, Union[Recording, Features, Array, TemporalArray]], None, None]:
+        """(name, manifest) pairs for every piece of data this cut references."""
+        if self.has_recording:
+            yield "recording", self.recording
+        if self.has_features:
+            yield "features", self.features
+        for k, v in (self.custom or {}).items():
+            if isinstance(v, _DATA_MANIFEST_TYPES):
+                yield k, v
+
+    is_in_memory = property(lambda self: any(v.is_in_memory for _, v in self.iter_data()))
 
     def has(self, field: str) -> bool:
         builtin = {
@@ -133,6 +151,51 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
     @abstractmethod
     def load_audio(self, **kwargs) -> Optional[np.ndarray]:
         ...
+
+    # -- data movement ------------------------------------------------------------------
+
+    def move_to_memory(
+        self, audio_format: str = "wav", load_audio: bool = True, load_features: bool = True,
+        load_custom: bool = True) -> "Cut":
+        """
+        Pull this cut's window of data into the manifest itself (encoded
+        bytes in memory).  Default audio format is wav; the reference uses
+        flac — pass ``audio_format="flac"`` for byte-compatible output.
+        """
+        recording = self.recording
+        if load_audio and self.has_recording:
+            recording = recording.move_to_memory(
+                channels=self.channel, offset=self.start, duration=self.duration,
+                format=audio_format)
+        features = self.features
+        if load_features and self.has_features:
+            features = features.move_to_memory(start=self.start, duration=self.duration)
+        custom = self.custom
+        if load_custom and custom is not None:
+            def _pull(v):
+                if isinstance(v, Array):
+                    return v.move_to_memory()
+                if isinstance(v, TemporalArray):
+                    return v.move_to_memory(start=self.start, duration=self.duration)
+                return v
+
+            custom = {k: _pull(v) for k, v in custom.items()}
+        # The in-memory payloads cover exactly this window: start resets to 0.
+        return fastcopy(self, start=0.0, recording=recording, features=features, custom=custom)
+
+    def drop_in_memory_data(self) -> "DataCut":
+        """Swap in-memory payloads for Shar placeholders (metadata kept)."""
+        from lhotse_tpu_torch.shar.utils import to_shar_placeholder
+
+        def _strip(v):
+            if isinstance(v, (Recording, Features, Array, TemporalArray)) and v.is_in_memory:
+                return to_shar_placeholder(v)
+            return v
+
+        return fastcopy(
+            self, recording=_strip(self.recording) if self.has_recording else None,
+            features=_strip(self.features) if self.has_features else None,
+            custom=None if self.custom is None else {k: _strip(v) for k, v in self.custom.items()})
 
     # -- detachment -----------------------------------------------------------------------
 
@@ -202,6 +265,13 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
 
     def filter_supervisions(self, predicate: Callable[[SupervisionSegment], bool]) -> "DataCut":
         return fastcopy(self, supervisions=[s for s in self.supervisions if predicate(s)])
+
+    @abstractmethod
+    def merge_supervisions(
+        self, merge_policy: str = "delimiter",
+        custom_merge_fn: Optional[Callable[[str, Iterable[Any]], Any]] = None, **kwargs,
+    ) -> "DataCut":
+        ...
 
     # -- feature extraction --------------------------------------------------------------------
 
@@ -444,3 +514,72 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
 
     def compress(self, *args, **kwargs) -> "DataCut":
         raise not_ported("Cut.compress")
+
+    # -- path remapping --------------------------------------------------------------------------
+
+    def with_features_path_prefix(self, path: Pathlike) -> "DataCut":
+        if not self.has_features:
+            return self
+        return fastcopy(self, features=self.features.with_path_prefix(path))
+
+    def with_recording_path_prefix(self, path: Pathlike) -> "DataCut":
+        if not self.has_recording:
+            return self
+        return fastcopy(self, recording=self.recording.with_path_prefix(path))
+
+
+# -- supervision merging (shared by MonoCut / MultiCut) ------------------------------------------
+
+
+def make_supervision_mergers(merge_policy: str, custom_merge_fn):
+    """(field-joiner, custom-field joiner) for merge_supervisions()."""
+    from functools import partial
+
+    from lhotse_tpu_torch.utils import merge_items_with_delimiter
+
+    join = partial(
+        merge_items_with_delimiter, delimiter="#", return_first=(merge_policy == "keep_first"))
+    if custom_merge_fn is not None:
+        return join, custom_merge_fn
+    return join, (lambda key, values: join(map(str, values)))
+
+
+def has_overlapping_texts(sups) -> bool:
+    """Any two start-adjacent supervisions overlap while texts exist?"""
+    from lhotse_tpu_torch.utils import overlaps
+
+    touching = any(overlaps(a, b) for a, b in zip(sups, sups[1:]))
+    return touching and any(s.text is not None for s in sups)
+
+
+def merge_segment_group(
+    sups, *, sampling_rate: int, channel, join, join_custom, group_end=None) -> SupervisionSegment:
+    """
+    Collapse a start-sorted supervision group into one spanning segment:
+    texts joined with whitespace, other string fields via ``join``,
+    alignments concatenated, customs merged per key via ``join_custom``.
+
+    Deviation from the reference: the merged end is ``max(s.end)`` over the
+    group, not the end of the last-starting segment (reference
+    cut/mono.py:309 truncates the span when a nested/earlier segment
+    outlasts the last-starting one). See docs/migrating-from-lhotse.md.
+    """
+    from functools import reduce
+    from operator import add as _add
+
+    from lhotse_tpu_torch.utils import add_durations
+
+    begin = sups[0].start
+    finish = group_end if group_end is not None else max(s.end for s in sups)
+    custom_keys = {k for s in sups if s.custom is not None for k in s.custom}
+    ali_keys = {k for s in sups if s.alignment is not None for k in s.alignment}
+    return SupervisionSegment(
+        id=join(s.id for s in sups), recording_id=sups[0].recording_id, start=begin,
+        duration=add_durations(finish, -begin, sampling_rate=sampling_rate), channel=channel,
+        text=" ".join(s.text for s in sups if s.text),
+        speaker=join(s.speaker for s in sups if s.speaker),
+        language=join(s.language for s in sups if s.language),
+        gender=join(s.gender for s in sups if s.gender),
+        custom={ k: join_custom( k, (s.custom[k] for s in sups if s.custom is not None and k in s.custom) ) for k in custom_keys },
+        alignment={ k: reduce( _add, (s.alignment[k] for s in sups if s.alignment is not None and k in s.alignment), ) for k in ali_keys },
+    )

@@ -11,7 +11,7 @@ feature domain via the extractor's ``mix``/``compute_energy``.
 
 Left out: ``to_mono``, ``load_video``, the plots, ``clip_amplitude``,
 ``normalize_loudness`` and ``compress``, which raise
-``NotImplementedError``, and in-memory data.
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import warnings
 from dataclasses import dataclass
 from functools import partial, reduce
 from operator import add
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Generator, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -35,7 +35,7 @@ from lhotse_tpu_torch.features.io import FeaturesWriter
 from lhotse_tpu_torch.features.mixer import FeatureMixer
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
-    DEFAULT_PADDING_VALUE, LOG_EPSILON, Decibels, Seconds, add_durations, compute_num_frames,
+    DEFAULT_PADDING_VALUE, LOG_EPSILON, Decibels, Pathlike, Seconds, add_durations, compute_num_frames,
     compute_num_samples, fastcopy, hash_str_to_int, merge_items_with_delimiter, not_ported,
     overlaps, perturb_num_samples, rich_exception_info, uuid4)
 
@@ -189,6 +189,7 @@ class MixedCut(Cut):
     frame_shift = property(lambda self: self._lead.frame_shift)
     sampling_rate = property(lambda self: self._lead.sampling_rate)
     num_features = property(lambda self: self._lead.num_features)
+    is_in_memory = property(lambda self: any(t.cut.is_in_memory for t in _get_audible_tracks(self)))
 
     def has(self, field: str) -> bool:
         return self._lead.has(field)
@@ -214,6 +215,9 @@ class MixedCut(Cut):
             return None
         v = self._lead.video
         return v.copy_with(num_frames=compute_num_samples(self.duration, v.fps))
+
+    def iter_data(self) -> Generator:
+        return self._lead.iter_data()
 
     # -- custom-field magic --------------------------------------------------------
 
@@ -384,6 +388,13 @@ class MixedCut(Cut):
         return fastcopy(self, id=f"{self.id}{suffix}" if affix_id else self.id, transforms=chain)
 
     # -- lazy builders --------------------------------------------------------------------
+
+    def move_to_memory(
+        self, audio_format: str = "wav", load_audio: bool = True, load_features: bool = True,
+        load_custom: bool = True) -> "MixedCut":
+        return self._rebuild_tracks(
+            lambda c: c.move_to_memory( audio_format=audio_format, load_audio=load_audio, load_features=load_features, load_custom=load_custom, ),
+            keep_transforms=True)
 
     def resample(
         self, sampling_rate: int, affix_id: bool = False, recording_field: Optional[str] = None,
@@ -716,6 +727,19 @@ class MixedCut(Cut):
 
     def drop_alignments(self) -> "MixedCut":
         return self._rebuild_tracks(lambda c: c.drop_alignments(), keep_transforms=True)
+
+    def drop_in_memory_data(self) -> "MixedCut":
+        return self._rebuild_tracks(lambda c: c.drop_in_memory_data(), keep_transforms=True)
+
+    def with_features_path_prefix(self, path: Pathlike) -> "MixedCut":
+        if not self.has_features:
+            return self
+        return self._rebuild_tracks(lambda c: c.with_features_path_prefix(path))
+
+    def with_recording_path_prefix(self, path: Pathlike) -> "MixedCut":
+        if not self.has_recording:
+            return self
+        return self._rebuild_tracks(lambda c: c.with_recording_path_prefix(path))
 
     # -- feature extraction -------------------------------------------------------------------------------
 

@@ -1,15 +1,16 @@
 """
 MonoCut: a single-channel concrete cut (copied from
 ``lhotse_tpu/cut/mono.py``): audio and feature loading, channel selection,
-lazy reverberation, supervision handling and (de)serialization. Selecting
+lazy reverberation, supervision handling and merging, and (de)serialization. Selecting
 several channels and reverberating with a multi-channel RIR return a
 ``MultiCut`` in the JAX package; ``MultiCut`` is not ported, so both raise.
 """
 from __future__ import annotations
 
 import logging
+import warnings
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Union
+from typing import Any, Callable, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -112,6 +113,45 @@ class MonoCut(DataCut):
         return fastcopy(
             self, id=f"{self.id}_rvb" if affix_id else self.id, recording=recording_rvb,
             supervisions=[ s.reverb_rir(affix_id=affix_id) for s in self.supervisions ])
+
+    @staticmethod
+    def from_dict(data: dict) -> "MonoCut":
+        from lhotse_tpu_torch.serialization import deserialize_custom_field
+
+        data.pop("type", None)
+        features = Features.from_dict(data.pop("features")) if "features" in data else None
+        recording = Recording.from_dict(data.pop("recording")) if "recording" in data else None
+        supervision_infos = data.pop("supervisions") if "supervisions" in data else []
+        if "custom" in data:
+            deserialize_custom_field(data["custom"])
+        return MonoCut(
+            **data, features=features, recording=recording,
+            supervisions=[SupervisionSegment.from_dict(s) for s in supervision_infos])
+
+    def merge_supervisions(
+        self, merge_policy: str = "delimiter",
+        custom_merge_fn: Optional[Callable[[str, Iterable[Any]], Any]] = None) -> "MonoCut":
+        """
+        Merge all supervisions into one spanning segment; texts joined with
+        whitespace, other string fields joined with "#" (or first kept, per
+        ``merge_policy``); alignments concatenated.
+        """
+        from lhotse_tpu_torch.cut.data import (
+            has_overlapping_texts, make_supervision_mergers, merge_segment_group)
+
+        sups = sorted(self.supervisions, key=lambda s: s.start)
+        if len(sups) <= 1:
+            return self
+        if has_overlapping_texts(sups):
+            warnings.warn(
+                "You are merging overlapping supervisions with text transcripts; "
+                f"the result may be unusable for ASR training (cut id: {self.id})."
+            )
+        join, join_custom = make_supervision_mergers(merge_policy, custom_merge_fn)
+        merged = merge_segment_group(
+            sups, sampling_rate=self.sampling_rate, channel=sups[0].channel, join=join,
+            join_custom=join_custom, group_end=sups[-1].end)
+        return fastcopy(self, supervisions=[merged])
 
     @staticmethod
     def from_dict(data: dict) -> "MonoCut":

@@ -1,12 +1,20 @@
 """
 CutSet: the eager or lazy collection of cuts (copied from
 ``lhotse_tpu/cut/set.py``), with the part of its algebra the data path
-uses: construction from cuts, manifests and lazy JSONL, ``filter``,
+uses: construction from cuts, lazy JSONL and the Recording, Supervision and
+Feature manifests (``from_manifests``: eager, or a single forward scan over
+inputs sorted by recording id that writes the cuts as it goes), ``filter``,
 ``map``, ``shuffle``, ``repeat``, ``subset``, ``split``, ``modify_ids``,
-``sort_by_duration``, ``+``, checkpointing of the lazy graph, feature
-extraction and storage (``compute_and_store_features``, single-process or
-fanned out over spawned processes, and ``compute_and_store_features_batch``),
-the ``drop_*`` methods, the supervisions' frame mask, the lazy augmentation
+``sort_by_duration``, ``sort_by_recording_id``, ``+``, checkpointing of the
+lazy graph, the one-to-many operations (``trim_to_supervisions``,
+``trim_to_alignments``, ``trim_to_supervision_groups``,
+``trim_to_unsupervised_segments``, ``cut_into_windows[_balanced]``, lazy or
+fanned out over spawned processes), supervision merging, filling, mapping
+and text transforms, ``index_supervisions``, ``decompose``, ``describe``,
+``compute_global_feature_stats``, the path prefixes, feature extraction and
+storage (``compute_and_store_features``, single-process or fanned out over
+spawned processes, and ``compute_and_store_features_batch``), the
+``drop_*`` methods, the supervisions' frame mask, the lazy augmentation
 operations (``pad``, ``truncate``, ``extend_by``, ``resample``,
 ``perturb_speed``, ``perturb_tempo``, ``perturb_volume``, ``reverb_rir``,
 ``mix`` through :class:`LazyCutMixer`, sequential or, over indexed sources
@@ -15,10 +23,11 @@ Shar format (``from_shar``, streaming or indexed, and ``to_shar``, in one
 process or over ``split_lazy`` chunks in spawned processes) and the module
 functions ``mix``, ``pad``, ``append``, ``mix_cuts`` and ``append_cuts``.
 
-Left out: ``from_manifests``, windowing and trimming to supervisions and
-alignments, ``describe``, ``save_audios``, the other constructors
-(``from_files``, ``from_webdataset``) and ``MultiCut``, which raises
-``NotImplementedError``.
+Left out: ``save_audios``, ``copy_data``/``copy_feats``, ``prefetch``, the
+other constructors (``from_files``, ``from_webdataset``, the HuggingFace
+bridges) and ``MultiCut``, which raises ``NotImplementedError``: a
+multi-channel recording or feature manifest in ``from_manifests`` raises
+rather than becoming a ``MonoCut``.
 """
 from __future__ import annotations
 
@@ -31,32 +40,44 @@ import warnings
 from collections import defaultdict
 from concurrent.futures import Executor, ProcessPoolExecutor, as_completed
 from functools import partial, reduce
-from itertools import islice
+from itertools import chain, islice
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Type, TypeVar, Union
+from typing import (
+    Any, Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple, Type, TypeVar,
+    Union)
 
 import numpy as np
 
-from lhotse_tpu_torch.audio import null_result_on_audio_loading_error
+from lhotse_tpu_torch.audio import RecordingSet, null_result_on_audio_loading_error
 from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.cut.data import DataCut
 from lhotse_tpu_torch.cut.mixed import MixedCut, MixTrack, _ensure_explicit_snr_reference
 from lhotse_tpu_torch.cut.mono import MonoCut
 from lhotse_tpu_torch.cut.padding import PaddingCut
-from lhotse_tpu_torch.features.base import FeatureExtractor, Features
+from lhotse_tpu_torch.features.base import (
+    FeatureExtractor, Features, FeatureSet, StatsAccumulator, compute_global_stats)
 from lhotse_tpu_torch.features.io import FeaturesWriter, default_features_storage_backend
 from lhotse_tpu_torch.lazy import (
-    AlgorithmMixin, IteratorNode, LazyMapper, LazySlicer, _restore_child,
+    AlgorithmMixin, IteratorNode, LazyFlattener, LazyMapper, LazySlicer, _restore_child,
     _snapshot_child, attach_graph_origin, get_graph_origin, is_dill_enabled,
     normalize_graph_token, resolve_iterator_source, supports_graph_restore)
 from lhotse_tpu_torch.serialization import Serializable
-from lhotse_tpu_torch.supervision import SupervisionSegment
+from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
 from lhotse_tpu_torch.utils import (
     LOG_EPSILON, Decibels, Pathlike, Seconds, compute_num_frames, compute_num_samples,
     exactly_one_not_null, fastcopy, ifnone, not_ported, split_manifest_lazy, split_sequence, uuid4)
 
 T = TypeVar("T")
 FW = TypeVar("FW", bound=FeaturesWriter)
+
+
+def _progressbar(enabled: bool, **tqdm_kwargs):
+    """A tqdm wrapper factory, or identity when progress is disabled."""
+    if not enabled:
+        return lambda x: x
+    from tqdm.auto import tqdm
+
+    return partial(tqdm, **tqdm_kwargs)
 
 
 def is_cut(example) -> bool:
@@ -84,6 +105,24 @@ class CutSet(Serializable, AlgorithmMixin):
         return CutSet(list(cuts))
 
     from_items = from_cuts
+
+    @staticmethod
+    def from_manifests(
+        recordings: Optional[RecordingSet] = None, supervisions: Optional[SupervisionSet] = None,
+        features: Optional[FeatureSet] = None, output_path: Optional[Pathlike] = None,
+        random_ids: bool = False, tolerance: Seconds = 0.001, lazy: bool = False) -> "CutSet":
+        """
+        Create a CutSet from any combination of recording/supervision/feature
+        manifests (at least one of recordings/features required). Cut
+        boundaries follow features when available, else recordings.
+        """
+        if lazy:
+            return create_cut_set_lazy(
+                recordings=recordings, supervisions=supervisions, features=features,
+                output_path=output_path, random_ids=random_ids, tolerance=tolerance)
+        return create_cut_set_eager(
+            recordings=recordings, supervisions=supervisions, features=features,
+            output_path=output_path, random_ids=random_ids, tolerance=tolerance)
 
     @staticmethod
     def from_dicts(data: Iterable[dict]) -> "CutSet":
@@ -175,6 +214,52 @@ class CutSet(Serializable, AlgorithmMixin):
     def to_dicts(self) -> Iterable[dict]:
         return (cut.to_dict() for cut in self)
 
+    def decompose(
+        self, output_dir: Optional[Pathlike] = None, verbose: bool = False,
+    ) -> Tuple[Optional[RecordingSet], Optional[SupervisionSet], Optional[FeatureSet]]:
+        """Extract the unique (recordings, supervisions, features) manifests
+        found in this CutSet (MixedCuts iterated over their tracks)."""
+        if output_dir is not None:
+            output_dir = Path(output_dir)
+            output_dir.mkdir(parents=True, exist_ok=True)
+
+        def sink(name):
+            return output_dir / name if output_dir is not None else None
+
+        seen_recordings, seen_sups = set(), set()
+        with RecordingSet.open_writer(sink("recordings.jsonl.gz")) as rw, \
+                SupervisionSet.open_writer(sink("supervisions.jsonl.gz")) as sw, \
+                FeatureSet.open_writer(sink("features.jsonl.gz")) as fw:
+
+            def harvest(cut: DataCut):
+                if cut.has_recording and cut.recording_id not in seen_recordings:
+                    seen_recordings.add(cut.recording_id)
+                    rw.write(cut.recording)
+                if cut.has_features:
+                    fw.write(cut.features)
+                for sup in cut.supervisions:
+                    if sup.id not in seen_sups:
+                        seen_sups.add(sup.id)
+                        # Cut supervisions are cut-relative; undo the offset.
+                        sw.write(sup.with_offset(cut.start))
+
+            track = _progressbar(verbose, desc="Decomposing cuts")
+            for cut in track(self):
+                if isinstance(cut, DataCut):
+                    harvest(cut)
+                elif isinstance(cut, MixedCut):
+                    for t in cut.tracks:
+                        if isinstance(t.cut, DataCut):
+                            harvest(t.cut)
+        return rw.open_manifest(), sw.open_manifest(), fw.open_manifest()
+
+    def describe(self, full: bool = False) -> None:
+        """Print cut count / duration / speech statistics."""
+        from lhotse_tpu_torch.cut.describe import CutSetStatistics
+
+        stats = CutSetStatistics(full=full)
+        stats.accumulate(self).describe()
+
     def split(
         self, num_splits: int, shuffle: bool = False, drop_last: bool = False) -> List["CutSet"]:
         """Split into ``num_splits`` pieces of (near-)equal size."""
@@ -249,6 +334,64 @@ class CutSet(Serializable, AlgorithmMixin):
         supervisions are preserved)."""
         return self.map(_CutOp("filter_supervisions", predicate))
 
+    def merge_supervisions(
+        self, merge_policy: str = "delimiter",
+        custom_merge_fn: Optional[Callable[[str, Iterable[Any]], Any]] = None) -> "CutSet":
+        """Merge each cut's supervisions into a single spanning segment."""
+        return self.map(
+            _CutOp("merge_supervisions", merge_policy=merge_policy, custom_merge_fn=custom_merge_fn)
+        )
+
+    def _one_to_many(self, op: "_SetOrCutOp", num_jobs: int) -> "CutSet":
+        """Run a cut -> many-cuts method lazily (flattened) or fanned out over
+        ``num_jobs`` worker processes."""
+        if num_jobs == 1:
+            return CutSet(LazyFlattener(LazyMapper(self.data, op)))
+        from lhotse_tpu_torch.manipulation import split_parallelize_combine
+
+        return split_parallelize_combine(num_jobs, self, op)
+
+    def trim_to_supervisions(
+        self, keep_overlapping: bool = True, min_duration: Optional[Seconds] = None,
+        context_direction: str = "center", keep_all_channels: bool = False, num_jobs: int = 1,
+    ) -> "CutSet":
+        """One cut per supervision, with identical spans (optionally extended
+        to min_duration with acoustic context)."""
+        return self._one_to_many(
+            _SetOrCutOp( "trim_to_supervisions", keep_overlapping=keep_overlapping, min_duration=min_duration, context_direction=context_direction, keep_all_channels=keep_all_channels, ),
+            num_jobs)
+
+    def trim_to_alignments(
+        self, type: str, max_pause: Seconds = 0.0, max_segment_duration: Optional[Seconds] = None,
+        delimiter: str = " ", keep_all_channels: bool = False, num_jobs: int = 1) -> "CutSet":
+        """One cut per (merged) alignment item of the given type."""
+        return self._one_to_many(
+            _SetOrCutOp( "trim_to_alignments", type=type, max_pause=max_pause, max_segment_duration=max_segment_duration, delimiter=delimiter, keep_all_channels=keep_all_channels, ),
+            num_jobs)
+
+    def trim_to_unsupervised_segments(self) -> "CutSet":
+        """Cuts made from segments with no supervisions (likely silence/noise)."""
+        from lhotse_tpu_torch.cut.describe import find_segments_with_speaker_count
+
+        cuts = []
+        for cut in self:
+            segments = find_segments_with_speaker_count(cut, min_speakers=0, max_speakers=0)
+            for span in segments:
+                cuts.append(cut.truncate(offset=span.start, duration=span.duration))
+        return CutSet(cuts)
+
+    def trim_to_supervision_groups(
+        self, max_pause: Optional[Seconds] = None, num_jobs: int = 1) -> "CutSet":
+        """One cut per supervision group (runs with gaps <= max_pause)."""
+        if max_pause is None:
+            max_pause = 0.0
+        return self._one_to_many(
+            _SetOrCutOp("trim_to_supervision_groups", max_pause=max_pause), num_jobs)
+
+    def sort_by_recording_id(self, ascending: bool = True) -> "CutSet":
+        """Sort alphabetically by recording_id (helps caching in save_audios)."""
+        return CutSet(sorted(self, key=(lambda cut: cut.recording.id), reverse=not ascending))
+
     def sort_by_duration(self, ascending: bool = False) -> "CutSet":
         """Sort by cut duration (descending by default)."""
         return CutSet(sorted(self, key=(lambda cut: cut.duration), reverse=not ascending))
@@ -264,6 +407,16 @@ class CutSet(Serializable, AlgorithmMixin):
         for cut in self:
             ans[index_map[cut.id]] = cut
         return CutSet(ans)
+
+    def index_supervisions(
+        self, index_mixed_tracks: bool = False, keep_ids: Optional[Set[str]] = None):
+        """Two-level index {cut_id: interval index of supervisions}."""
+        out = {}
+        for cut in self:
+            per_cut = cut.index_supervisions(
+                index_mixed_tracks=index_mixed_tracks, keep_ids=keep_ids)
+            out.update(per_cut)
+        return out
 
     def modify_ids(self, transform_fn: Callable[[str], str]) -> "CutSet":
         """Transform every cut's ID with ``transform_fn``."""
@@ -315,6 +468,24 @@ class CutSet(Serializable, AlgorithmMixin):
                 pad_silence=pad_silence,
             )
         )
+
+    def cut_into_windows(
+        self, duration: Seconds, hop: Optional[Seconds] = None,
+        keep_excessive_supervisions: bool = True, num_jobs: int = 1) -> "CutSet":
+        """Traverse each cut in ``duration``-second windows every ``hop`` seconds."""
+        if not hop:
+            hop = duration
+        return self._one_to_many(
+            _SetOrCutOp( "cut_into_windows", duration=duration, hop=hop, keep_excessive_supervisions=keep_excessive_supervisions, ),
+            num_jobs)
+
+    def cut_into_windows_balanced(
+        self, min_duration: Seconds, max_duration: Seconds, overlap: Seconds = 0.0,
+        keep_excessive_supervisions: bool = True, num_jobs: int = 1) -> "CutSet":
+        """Split cuts into windows sized within [min, max] to minimize padding."""
+        return self._one_to_many(
+            _SetOrCutOp( "cut_into_windows_balanced", min_duration=min_duration, max_duration=max_duration, overlap=overlap, keep_excessive_supervisions=keep_excessive_supervisions, ),
+            num_jobs)
 
     def resample(
         self, sampling_rate: int, affix_id: bool = False, recording_field: Optional[str] = None,
@@ -377,6 +548,9 @@ class CutSet(Serializable, AlgorithmMixin):
 
     def drop_alignments(self) -> "CutSet":
         return self.map(_CutOp("drop_alignments"))
+
+    def drop_in_memory_data(self) -> "CutSet":
+        return self.map(_CutOp("drop_in_memory_data"))
 
     def compute_and_store_features(
         self, extractor: FeatureExtractor, storage_path: Pathlike, num_jobs: Optional[int] = None,
@@ -536,6 +710,59 @@ class CutSet(Serializable, AlgorithmMixin):
                 future.result()
 
         return cuts_writer.open_manifest()
+
+    def compute_global_feature_stats(
+        self, storage_path: Optional[Pathlike] = None, max_cuts: Optional[int] = None,
+        extractor: Optional[FeatureExtractor] = None) -> Dict[str, np.ndarray]:
+        """Global per-bin mean/std via the streaming Chan–Golub–LeVeque update."""
+        if extractor is not None:
+            cuts = self
+            if max_cuts is not None:
+                cuts = islice(cuts, max_cuts)
+            cuts = iter(cuts)
+            first = next(cuts)
+            stats = StatsAccumulator(feature_dim=extractor.feature_dim(first.sampling_rate))
+            for cut in chain([first], cuts):
+                arr = cut.compute_features(extractor)
+                stats.update(arr)
+            mvn = stats.get()
+            if storage_path is not None:
+                with open(storage_path, "wb") as f:
+                    pickle.dump(mvn, f)
+            return mvn
+
+        have_features = [cut.has_features for cut in self]
+        if not any(have_features):
+            raise ValueError(
+                "Could not find any features in this CutSet; did you forget to "
+                "extract them?"
+            )
+        if not all(have_features):
+            logging.warning(
+                f"Computing global stats: only {sum(have_features)}/"
+                f"{len(have_features)} cuts have features."
+            )
+        return compute_global_stats(
+            feature_manifests=islice( (cut.features for cut in self if cut.has_features), max_cuts if max_cuts is not None else len(self), ),
+            storage_path=storage_path)
+
+    def with_features_path_prefix(self, path: Pathlike) -> "CutSet":
+        return self.map(_CutOp("with_features_path_prefix", path))
+
+    def with_recording_path_prefix(self, path: Pathlike) -> "CutSet":
+        return self.map(_CutOp("with_recording_path_prefix", path))
+
+    def fill_supervisions(self, add_empty: bool = True, shrink_ok: bool = False) -> "CutSet":
+        """Make each cut's single supervision span its entire duration."""
+        return self.map(_CutOp("fill_supervision", add_empty=add_empty, shrink_ok=shrink_ok))
+
+    def map_supervisions(
+        self, transform_fn: Callable[[SupervisionSegment], SupervisionSegment]) -> "CutSet":
+        return self.map(_CutOp("map_supervisions", transform_fn))
+
+    def transform_text(self, transform_fn: Callable[[str], str]) -> "CutSet":
+        """Transform every supervision's text."""
+        return self.map_supervisions(partial(_transform_text, transform_fn=transform_fn))
 
     @property
     def is_indexed(self) -> bool:
@@ -860,6 +1087,170 @@ def compute_supervisions_frame_mask(
     return mask
 
 
+def _cut_cls_and_channel_from_features(feats):
+    mono = (feats.channels is None or isinstance(feats.channels, int) or len(feats.channels) == 1)
+    if mono:
+        return MonoCut, feats.channels if feats.channels is not None else 0
+    raise not_ported(f"MultiCut (multi-channel features of recording {feats.recording_id!r})")
+
+
+def _cut_cls_and_channel_from_recording(recording):
+    if recording.num_channels == 1:
+        return MonoCut, recording.channel_ids[0]
+    raise not_ported(f"MultiCut (multi-channel recording {recording.id!r})")
+
+
+def _cut_from_features(idx, feats, recording, sup_source, random_ids, tolerance) -> Cut:
+    cls, channel = _cut_cls_and_channel_from_features(feats)
+    sups = []
+    if sup_source is not None:
+        sups = list(
+            sup_source.find(
+                recording_id=feats.recording_id, channel=channel, start_after=feats.start,
+                end_before=feats.end, adjust_offset=True, tolerance=tolerance,
+            )
+        )
+    return cls(
+        id=str(uuid4()) if random_ids else f"{feats.recording_id}-{idx}", start=feats.start,
+        duration=feats.duration, channel=channel, features=feats, recording=recording,
+        supervisions=sups)
+
+
+def _cut_from_recording(idx, recording, sup_source, random_ids) -> Cut:
+    cls, channel = _cut_cls_and_channel_from_recording(recording)
+    sups = []
+    if sup_source is not None:
+        sups = list(sup_source.find(recording_id=recording.id))
+    return cls(
+        id=str(uuid4()) if random_ids else f"{recording.id}-{idx}", start=0,
+        duration=recording.duration, channel=channel, recording=recording, supervisions=sups)
+
+
+def create_cut_set_eager(
+    recordings: Optional[RecordingSet] = None, supervisions: Optional[SupervisionSet] = None,
+    features: Optional[FeatureSet] = None, output_path: Optional[Pathlike] = None,
+    random_ids: bool = False, tolerance: Seconds = 0.001) -> CutSet:
+    """
+    Materialize cuts from manifests: when features are given they set the cut
+    boundaries (recordings optionally attached); otherwise each recording
+    becomes one whole-recording cut.  Matching supervisions are attached with
+    offsets made cut-relative.
+    """
+    if features is None and recordings is None:
+        raise AssertionError("At least one of 'features' or 'recordings' has to be provided.")
+    if supervisions is not None:
+        supervisions = supervisions.to_eager()  # .find() needs random access
+    if features is not None:
+        if recordings is not None:
+            recordings = recordings.to_eager()
+        cuts = CutSet(
+            [
+                _cut_from_features(
+                    idx, feats, recordings[feats.recording_id] if recordings is not None else None,
+                    supervisions, random_ids, tolerance,
+                )
+                for idx, feats in enumerate(features)
+            ]
+        )
+    else:
+        cuts = CutSet(
+            [
+                _cut_from_recording(ridx, recording, supervisions, random_ids)
+                for ridx, recording in enumerate(recordings)
+            ]
+        )
+    if output_path is not None:
+        cuts.to_file(output_path)
+    return cuts
+
+
+def create_cut_set_lazy(
+    output_path: Pathlike, recordings: Optional[RecordingSet] = None,
+    supervisions: Optional[SupervisionSet] = None, features: Optional[FeatureSet] = None,
+    random_ids: bool = False, tolerance: Seconds = 0.001) -> CutSet:
+    """
+    Streaming variant of :func:`create_cut_set_eager`: writes cuts to
+    ``output_path`` while consuming the inputs once.  Inputs must be sorted
+    by recording id (supervisions are matched with a single forward scan).
+    """
+    if output_path is None:
+        raise AssertionError(
+            "You must provide the 'output_path' argument to create a CutSet lazily."
+        )
+    if features is None and recordings is None:
+        raise AssertionError("At least one of 'features' or 'recordings' has to be provided.")
+    for name, m in (
+        ("recordings", recordings), ("supervisions", supervisions), ("features", features)):
+        if m is not None and not m.is_lazy:
+            logging.info(
+                f"Manifest passed in argument '{name}' is not opened lazily; "
+                f"open it with {type(m).__name__}.from_jsonl_lazy() to reduce "
+                f"memory usage."
+            )
+
+    sup_stream = iter(supervisions) if supervisions is not None else None
+
+    def sups_for(recording_id):
+        nonlocal sup_stream
+        if sup_stream is None:
+            return None
+        matched, sup_stream = _takewhile(sup_stream, lambda s: s.recording_id == recording_id)
+        return SupervisionSet.from_segments(matched)
+
+    with CutSet.open_writer(output_path) as writer:
+        if features is not None:
+            rec_stream = (iter(recordings) if recordings is not None else itertools.repeat(None))
+            for idx, feats in enumerate(features):
+                rec = next(rec_stream)
+                if rec is not None and rec.id != feats.recording_id:
+                    raise AssertionError(
+                        f"Mismatched recording_id: Features.recording_id == "
+                        f"{feats.recording_id} but Recording.id == '{rec.id}'"
+                    )
+                writer.write(
+                    _cut_from_features(
+                        idx, feats, rec, sups_for(feats.recording_id), random_ids, tolerance,
+                    )
+                )
+        else:
+            for ridx, recording in enumerate(recordings):
+                writer.write(
+                    _cut_from_recording(ridx, recording, sups_for(recording.id), random_ids)
+                )
+    if sup_stream is not None:
+        # With correctly sorted inputs every supervision is consumed by the
+        # forward scan; leftovers mean the sort contract was violated and
+        # those supervisions were silently dropped from the cuts.
+        leftovers = sum(1 for _ in sup_stream)
+        if leftovers:
+            warnings.warn(
+                f"{leftovers} supervisions were not attached to any cut. The "
+                "streaming manifest join requires all inputs sorted by "
+                "recording id; sort the inputs first, or materialize them "
+                "eagerly (CLI: pass --force-eager to 'cut simple').",
+                stacklevel=2,
+            )
+    return CutSet.from_jsonl_lazy(output_path)
+
+
+def _takewhile(
+    iterable: Iterable[T], predicate: Callable[[T], bool]) -> Tuple[List[T], Iterable[T]]:
+    """Like itertools.takewhile, but returns the remaining iterable including
+    the first non-matching item."""
+    collected = []
+    try:
+        while True:
+            item = next(iterable)
+            if predicate(item):
+                collected.append(item)
+            else:
+                iterable = chain([item], iterable)
+                break
+    except StopIteration:
+        pass
+    return collected, iterable
+
+
 def deserialize_cut(raw_cut: dict) -> Cut:
     """Dispatch on the 'type' field (reference: cut/set.py:3705)."""
     cut_type = raw_cut.pop("type")
@@ -897,6 +1288,21 @@ class _RenameCut:
 
     def __call__(self, cut):
         return cut.with_id(self.transform_fn(cut.id))
+
+
+class _SetOrCutOp(_CutOp):
+    """Like _CutOp, but when handed a whole CutSet (the parallel fan-out path)
+    it applies the method to the set and materializes the result."""
+
+    def __call__(self, cuts_or_cut):
+        result = getattr(cuts_or_cut, self.method)(*self.args, **self.kwargs)
+        if isinstance(cuts_or_cut, CutSet):
+            return result.to_eager()
+        return result
+
+
+def _transform_text(sup, transform_fn):
+    return sup.transform_text(transform_fn)
 
 
 def _truncate_single(

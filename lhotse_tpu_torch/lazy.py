@@ -3,10 +3,10 @@ The streaming-iterator runtime the manifest Sets are built on (copied from
 ``lhotse_tpu/lazy.py``): the node protocol with checkpointing, graph-origin
 tokens, the JSONL leaves (streaming, and indexed through an ``.idx``
 sidecar), and the chain (with its item-level shuffle over indexed leaves),
-shuffle, filter, map, repeat and slice combinators behind ``CutSet``'s lazy
-algebra.
+shuffle, filter, map, flatten (the one-to-many cut operations), repeat and
+slice combinators behind ``CutSet``'s lazy algebra.
 
-Left out: the multiplexers and the flattener.
+Left out: the multiplexers.
 """
 from __future__ import annotations
 
@@ -798,6 +798,113 @@ class LazyMapper(_Transform):
                 yield maybe_attach_graph_origin(self._transform(item), token)
 
         return gen()
+
+
+class LazyFlattener(_Transform):
+    """
+    Un-nests an iterable of collections.  Checkpoints as (outer token, inner
+    offset) when the outer source is graph-restorable.
+    """
+
+    def __init__(self, iterator: Iterable) -> None:
+        super().__init__(iterator)
+        self._outer_token = None
+        self._inner_pos = 0
+        self._resume = False
+
+    @property
+    def is_checkpointable(self) -> bool:
+        return supports_graph_restore(self.source)
+
+    def __getitem__(self, idx: Any) -> Any:
+        token = normalize_graph_token(idx)
+        if not isinstance(token, tuple) or len(token) != 2:
+            raise TypeError("LazyFlattener expects graph tokens shaped like (outer, inner).")
+        outer, inner = token
+        item = self._fetch_inner(self.source[outer], inner)
+        return attach_graph_origin(item, token)
+
+    @staticmethod
+    def _fetch_inner(collection: Any, inner: Any) -> Any:
+        collection = resolve_iterator_source(collection)
+        inner = normalize_graph_token(inner)
+        if isinstance(inner, int):
+            if hasattr(collection, "__getitem__"):
+                return collection[inner]
+            for k, item in enumerate(collection):
+                if k == inner:
+                    return item
+            raise IndexError(
+                f"LazyFlattener inner index {inner} out of range for "
+                f"{type(collection).__name__}."
+            )
+        if supports_graph_restore(collection):
+            return collection[inner]
+        raise RuntimeError(
+            "LazyFlattener received a non-integer inner graph token for a "
+            "collection that does not support graph restoration."
+        )
+
+    def _walk(self, collection, outer_token, skip: int = 0):
+        collection = resolve_iterator_source(collection)
+        for k, item in enumerate(collection):
+            if k < skip:
+                continue
+            self._outer_token = outer_token
+            self._inner_pos = k + 1
+            if outer_token is not None:
+                inner = get_graph_origin(item)
+                item = attach_graph_origin(
+                    item, (outer_token, k if inner is None else inner)
+                )
+            yield item
+        self._outer_token = None
+        self._inner_pos = 0
+
+    def __iter__(self):
+        # Eager: resume bookkeeping + child iter() happen at this call.
+        resume_token = self._outer_token if self._resume else None
+        resume_skip = self._inner_pos
+        self._resume = False
+        outer_iter = iter(self.source)
+        trackable = self.is_checkpointable
+
+        def gen():
+            if resume_token is not None:
+                yield from self._walk(
+                    self.source[resume_token], resume_token, skip=resume_skip)
+            for group in outer_iter:
+                outer = (
+                    require_graph_origin(group, "LazyFlattener", "outer collections")
+                    if trackable
+                    else None
+                )
+                yield from self._walk(group, outer)
+
+        return gen()
+
+    def __len__(self) -> int: return self._no_len()  # noqa: E704
+
+    def state_dict(self) -> dict:
+        if not self.is_checkpointable:
+            raise NotImplementedError(
+                "LazyFlattener supports checkpointing only with graph-restorable "
+                "outer sources."
+            )
+        return {
+            "active_outer_token": self._outer_token, "inner_position": self._inner_pos,
+            "source": _snapshot_child(self.source)}
+
+    def load_state_dict(self, state: dict) -> None:
+        if not self.is_checkpointable:
+            raise NotImplementedError(
+                "LazyFlattener supports checkpointing only with graph-restorable "
+                "outer sources."
+            )
+        self._outer_token = normalize_graph_token(state.get("active_outer_token"))
+        self._inner_pos = state.get("inner_position", 0)
+        _restore_child(self.source, state.get("source"))
+        self._resume = True
 
 
 class LazyRepeater(_Transform):

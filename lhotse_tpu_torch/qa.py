@@ -1,20 +1,28 @@
 """
-Manifest validation (copied from ``lhotse_tpu/qa.py``): the type-dispatched
-``validate`` for recordings, supervisions, features, feature sets, cuts
-(``MonoCut``, ``PaddingCut`` and ``MixedCut``) and CutSets, which
-``validate_for_asr`` calls. ``fix_manifests``, the array
-validators and the other Set validators are not ported.
+Manifest validation and fixing, conceptually Kaldi's ``utils/fix_data_dir.sh``
+(copied from ``lhotse_tpu/qa.py``): the type-dispatched ``validate`` for
+recordings, supervisions, features, arrays, cuts (``MonoCut``, ``PaddingCut``
+and ``MixedCut``) and their Sets, the pairwise
+``validate_recordings_and_supervisions``, and ``fix_manifests`` (drop
+recordings and supervisions without a counterpart, drop supervisions that
+start past their recording's end and trim those that run past it).
+``validate_shar`` and ``MultiCut`` are not ported: a cut of another type
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import logging
+from collections import Counter, defaultdict
+from math import isclose
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 
-from lhotse_tpu_torch.audio import Recording, get_audio_duration_mismatch_tolerance
+from lhotse_tpu_torch.array import Array, TemporalArray
+from lhotse_tpu_torch.audio import (Recording, RecordingSet, get_audio_duration_mismatch_tolerance)
 from lhotse_tpu_torch.features.base import Features, FeatureSet
-from lhotse_tpu_torch.supervision import SupervisionSegment
-from lhotse_tpu_torch.utils import compute_num_frames, is_equal_or_contains, not_ported
+from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
+from lhotse_tpu_torch.utils import compute_num_frames, is_equal_or_contains, not_ported, overlaps
 
 _VALIDATORS: Dict[Any, Callable] = {}
 
@@ -44,6 +52,118 @@ def validate(obj: Any, read_data: bool = False) -> None:
             f"(T = {type(obj)}, known types = {list(_VALIDATORS)})"
         )
     validator(obj, read_data=read_data)
+
+
+def fix_manifests(
+    recordings: RecordingSet, supervisions: SupervisionSet) -> Tuple[RecordingSet, SupervisionSet]:
+    """
+    Remove supervisions/recordings without counterparts, drop supervisions
+    starting past the recording end, and trim those exceeding it.
+    """
+    recordings, supervisions = remove_missing_recordings_and_supervisions(recordings, supervisions)
+    assert (
+        len(frozenset(r.id for r in recordings)) > 0
+    ), "No recordings left after fixing the manifests."
+    supervisions = trim_supervisions_to_recordings(recordings, supervisions)
+    assert (
+        len(frozenset(s.id for s in supervisions)) > 0
+    ), "No supervisions left after fixing the manifests."
+    return recordings, supervisions
+
+
+def validate_recordings_and_supervisions(
+    recordings: Union[RecordingSet, Recording],
+    supervisions: Union[SupervisionSet, SupervisionSegment], read_data: bool = False) -> None:
+    """
+    Validate both manifests and their mutual consistency; missing
+    counterparts produce warnings (they get discarded when creating CutSets).
+    """
+    if isinstance(recordings, Recording):
+        recordings = RecordingSet([recordings])
+    if isinstance(supervisions, SupervisionSegment):
+        supervisions = SupervisionSet([supervisions])
+    recordings = recordings.to_eager()
+    supervisions = supervisions.to_eager()
+    validate(recordings, read_data=read_data)
+    validate(supervisions)
+    id2rec = {r.id: r for r in recordings}
+    for s in supervisions:
+        r = id2rec.get(s.recording_id)
+        assert r is not None, (
+            f"Supervision {s.id} references non-existent recording {s.recording_id}"
+        )
+        assert -1e-3 <= s.start <= s.end <= r.duration + 1e-3, (
+            f"Supervision {s.id}: exceeded the bounds of its corresponding recording "
+            f"(supervision spans [{s.start}, {s.end}]; recording spans [0, {r.duration}])"
+        )
+        assert is_equal_or_contains(r.channel_ids, s.channel), (
+            f"Supervision {s.id}: channel {s.channel} does not exist in its "
+            f"corresponding Recording (recording channels: {r.channel_ids})"
+        )
+    recording_ids = id2rec.keys()
+    recording_ids_in_sups = frozenset(s.recording_id for s in supervisions)
+    only_in_recordings = recording_ids - recording_ids_in_sups
+    if only_in_recordings:
+        logging.warning(
+            f"There are {len(only_in_recordings)} recordings without any "
+            f"corresponding supervisions in the SupervisionSet."
+        )
+    only_in_supervisions = recording_ids_in_sups - recording_ids
+    if only_in_supervisions:
+        logging.warning(
+            f"There are {len(only_in_supervisions)} supervisions missing their "
+            f"corresponding recordings in the RecordingSet."
+        )
+
+
+def remove_missing_recordings_and_supervisions(
+    recordings: RecordingSet, supervisions: SupervisionSet) -> Tuple[RecordingSet, SupervisionSet]:
+    """Drop entries that miss their counterparts (returns new manifests)."""
+    recording_ids = frozenset(r.id for r in recordings)
+    recording_ids_in_sups = frozenset(s.recording_id for s in supervisions)
+    only_in_recordings = recording_ids - recording_ids_in_sups
+    if only_in_recordings:
+        recordings = recordings.filter(lambda r: r.id not in only_in_recordings)
+        logging.warning(
+            f"Removed {len(only_in_recordings)} recordings with no corresponding supervisions."
+        )
+    only_in_supervisions = recording_ids_in_sups - recording_ids
+    if only_in_supervisions:
+        supervision_ids = frozenset(s.id for s in supervisions)
+        supervisions = supervisions.filter(lambda s: s.recording_id not in only_in_supervisions)
+        supervision_ids_after = frozenset(s.id for s in supervisions)
+        n_removed = len(supervision_ids) - len(supervision_ids_after)
+        logging.warning(
+            f"Removed {n_removed} supervisions with no corresponding recordings "
+            f"(for a total of {len(only_in_supervisions)} recording IDs)."
+        )
+    return recordings, supervisions
+
+
+def trim_supervisions_to_recordings(
+    recordings: Union[Recording, RecordingSet], supervisions: Iterable[SupervisionSegment],
+    verbose: bool = True) -> SupervisionSet:
+    """Keep supervisions within their recording's duration, trimming overruns."""
+    if isinstance(recordings, Recording):
+        recordings = RecordingSet([recordings])
+    id2rec = {r.id: r for r in recordings}
+    sups = []
+    removed = 0
+    trimmed = 0
+    for s in supervisions:
+        end = id2rec[s.recording_id].duration
+        if s.start > end:
+            removed += 1
+            continue
+        if s.end > end:
+            trimmed += 1
+            s = s.trim(end=end)
+        sups.append(s)
+    if verbose and removed:
+        logging.warning(f"Removed {removed} supervisions starting after the end of the recording.")
+    if verbose and trimmed:
+        logging.warning(f"Trimmed {trimmed} supervisions exceeding the end of the recording.")
+    return SupervisionSet.from_segments(sups)
 
 
 def register_validator(fn):
@@ -89,6 +209,17 @@ def validate_supervision(s: SupervisionSegment, read_data: bool = False, **kwarg
         assert isinstance(s.custom, dict), (
             f"SupervisionSegment {s.id}: custom field has to be a dict or None."
         )
+        for key, value in s.custom.items():
+            if isinstance(value, Array):
+                validate_array(value, read_data=read_data)
+            elif isinstance(value, TemporalArray):
+                validate_temporal_array(value, read_data=read_data)
+                if not isclose(s.duration, value.duration):
+                    logging.warning(
+                        f"SupervisionSegment {s.id}: possibly mismatched duration "
+                        f"between supervision ({s.duration}s) and temporal array in "
+                        f"custom field '{key}' (duration={value.duration})."
+                    )
 
 
 @register_validator
@@ -131,20 +262,23 @@ def validate_features(
 
 
 @register_validator
-def validate_feature_set(features: FeatureSet, read_data: bool = False) -> None:
-    first = next(iter(features))
-    sampling_rate = first.sampling_rate
-    num_features = first.num_features
-    features_type = first.type
-    for idx, f in enumerate(features):
-        validate_features(f, read_data=read_data)
-        assert f.sampling_rate == sampling_rate, (
-            f"FeatureSet: mismatched sampling rate at index {idx}"
-        )
-        assert f.num_features == num_features, (
-            f"FeatureSet: mismatched num_features at index {idx}"
-        )
-        assert f.type == features_type, f"FeatureSet: mismatched feature type at index {idx}"
+def validate_array(arr: Array, read_data: bool = False) -> None:
+    if read_data:
+        data = arr.load()
+        assert list(data.shape) == list(arr.shape)
+
+
+@register_validator
+def validate_temporal_array(arr: TemporalArray, read_data: bool = False) -> None:
+    assert arr.temporal_dim >= 0, "TemporalArray: temporal_dim cannot be negative."
+    assert arr.temporal_dim < arr.ndim, (
+        f"TemporalArray: temporal_dim {arr.temporal_dim} cannot exceed ndim {arr.ndim}."
+    )
+    assert arr.frame_shift > 0, "TemporalArray: frame_shift must be positive."
+    assert arr.start >= 0, "TemporalArray: start must be non-negative."
+    if read_data:
+        data = arr.load()
+        assert list(data.shape) == list(arr.shape)
 
 
 def validate_cut(c, read_data: bool = False) -> None:
@@ -208,6 +342,79 @@ def validate_cut(c, read_data: bool = False) -> None:
 
     if c.custom is not None:
         assert isinstance(c.custom, dict), (f"Cut {c.id}: custom field has to be a dict or None.")
+        for key, value in c.custom.items():
+            if isinstance(value, Array):
+                validate_array(value, read_data=read_data)
+            elif isinstance(value, TemporalArray):
+                validate_temporal_array(value, read_data=read_data)
+                if not isclose(c.duration, value.duration):
+                    logging.warning(
+                        f"Cut {c.id}: possibly mismatched duration between cut "
+                        f"({c.duration}s) and temporal array in custom field '{key}' "
+                        f"(duration={value.duration})."
+                    )
+                assert overlaps(c, value), (
+                    f"Cut {c.id}: TemporalArray at custom field '{key}' does not "
+                    f"overlap with the cut's time span."
+                )
+
+
+@register_validator
+def validate_recording_set(recordings: RecordingSet, read_data: bool = False) -> None:
+    rates = set()
+    ids = Counter()
+    for r in recordings:
+        validate_recording(r, read_data=read_data)
+        rates.add(r.sampling_rate)
+        ids[r.id] += 1
+    if len(rates) > 1:
+        logging.warning(
+            f"RecordingSet contains recordings with different sampling rates ({rates})."
+        )
+    assert not ids or ids.most_common(1)[0][1] <= 1, (
+        "RecordingSet has recordings with duplicated IDs."
+    )
+
+
+@register_validator
+def validate_supervision_set(supervisions: SupervisionSet, **kwargs) -> None:
+    ids = Counter()
+    for s in supervisions:
+        validate_supervision(s)
+        ids[s.id] += 1
+    assert not ids or ids.most_common(1)[0][1] <= 1, (
+        "SupervisionSet has supervisions with duplicated IDs."
+    )
+    supervisions._index_by_recording_id_and_cache()
+    for rid, sups in supervisions._segments_by_recording_id.items():
+        cntr_per_channel = defaultdict(int)
+        for s in sups:
+            c = s.channel if isinstance(s.channel, int) else tuple(s.channel)
+            cntr_per_channel[c] += int(s.start == 0)
+        for channel, count in cntr_per_channel.items():
+            if count > 1:
+                logging.warning(
+                    f"SupervisionSet contains {count} supervisions starting at 0 for "
+                    f"recording {rid} (channel {channel}). Did you forget to set "
+                    f"supervision start times?"
+                )
+
+
+@register_validator
+def validate_feature_set(features: FeatureSet, read_data: bool = False) -> None:
+    first = next(iter(features))
+    sampling_rate = first.sampling_rate
+    num_features = first.num_features
+    features_type = first.type
+    for idx, f in enumerate(features):
+        validate_features(f, read_data=read_data)
+        assert f.sampling_rate == sampling_rate, (
+            f"FeatureSet: mismatched sampling rate at index {idx}"
+        )
+        assert f.num_features == num_features, (
+            f"FeatureSet: mismatched num_features at index {idx}"
+        )
+        assert f.type == features_type, f"FeatureSet: mismatched feature type at index {idx}"
 
 
 def _register_cut_validators():
@@ -223,3 +430,9 @@ def _register_cut_validators():
 
     _VALIDATORS[Cut] = _validate_cut
     _VALIDATORS[CutSet] = _validate_cut_set
+
+
+def validate_cut_set(cuts, read_data: bool = False) -> None:
+    """Validate every cut in ``cuts`` (parity: reference ``qa.py:507``)."""
+    for c in cuts:
+        validate_cut(c, read_data=read_data)

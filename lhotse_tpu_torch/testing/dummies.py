@@ -22,11 +22,11 @@ from typing import Dict, List, Optional, Type, Union
 import numpy as np
 
 from lhotse_tpu_torch.array import Array, TemporalArray
-from lhotse_tpu_torch.audio import AudioSource, Recording
+from lhotse_tpu_torch.audio import AudioSource, Recording, RecordingSet
 from lhotse_tpu_torch.cut import CutSet, MonoCut
 from lhotse_tpu_torch.features import Features, FeatureSet
 from lhotse_tpu_torch.features.io import MemoryRawWriter
-from lhotse_tpu_torch.supervision import AlignmentItem, SupervisionSegment
+from lhotse_tpu_torch.supervision import AlignmentItem, SupervisionSegment, SupervisionSet
 from lhotse_tpu_torch.utils import compute_num_frames, compute_num_samples, fastcopy, not_ported
 
 _SINE_HZ = 1000
@@ -209,13 +209,15 @@ def dummy_multi_cut(*args, **kwargs):
     raise not_ported("MultiCut (dummy_multi_cut)")
 
 
-# The port has no RecordingSet or SupervisionSet: DummyManifest makes the
-# two Set types it has.
 _BULK_BUILDERS = {
-    FeatureSet: lambda i, with_data: dummy_features(i, with_data=with_data), CutSet: lambda i,
+    RecordingSet: lambda i, with_data: dummy_recording(i, with_data=with_data),
+    SupervisionSet: lambda i, with_data: dummy_supervision(i), FeatureSet: lambda i,
+    with_data: dummy_features(i, with_data=with_data), CutSet: lambda i,
     with_data: dummy_cut( i, supervisions=[dummy_supervision(i)], with_data=with_data )}
 
-_BULK_WRAPPERS = {FeatureSet: FeatureSet.from_features, CutSet: CutSet.from_cuts}
+_BULK_WRAPPERS = {
+    RecordingSet: RecordingSet.from_recordings, SupervisionSet: SupervisionSet.from_segments,
+    FeatureSet: FeatureSet.from_features, CutSet: CutSet.from_cuts}
 
 
 # noinspection PyPep8Naming

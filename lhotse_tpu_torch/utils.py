@@ -1,11 +1,14 @@
 """
 Host helpers of the data path (copied from ``lhotse_tpu/utils/core.py``):
-time/sample/frame arithmetic, dataclass helpers and seeding. Only the
-helpers the ported host modules call are here; each body is the original's.
+time/sample/frame arithmetic, windowing and context extension, dataclass
+helpers, seeding, and the recipes' safe tar extraction and resumable
+download. Only the helpers the ported host modules call are here; each body
+is the original's.
 """
 from __future__ import annotations
 
 import math
+import os
 import random
 import sys
 import uuid
@@ -13,7 +16,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass, fields
 from decimal import ROUND_HALF_DOWN, ROUND_HALF_UP, Decimal
 from functools import lru_cache
-from math import isclose
+from math import ceil, isclose
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, TypeVar, Union
 
@@ -185,6 +188,42 @@ def add_durations(*durs: Seconds, sampling_rate: int) -> Seconds:
     """
     tot_num_samples = sum(compute_num_samples(d, sampling_rate=sampling_rate) for d in durs)
     return tot_num_samples / sampling_rate
+
+
+def compute_num_windows(sig_len: Seconds, win_len: Seconds, hop: Seconds) -> int:
+    """
+    Return the number of windows obtained from a signal of length ``sig_len``
+    with windows of ``win_len`` and shift ``hop`` (reference: utils.py:437-466).
+    """
+    n = ceil(max(sig_len - win_len, 0) / hop)
+    b = (sig_len - n * hop) > 0
+    return (sig_len > 0) * (n + int(b))
+
+
+def compute_start_duration_for_extended_cut(
+    start: Seconds, duration: Seconds, new_duration: Seconds, direction: str = "center",
+) -> Tuple[Seconds, Seconds]:
+    """
+    Compute new "start" for an interval extended to ``new_duration`` towards
+    ``direction`` in ("center", "left", "right", "random");
+    reference: utils.py:684-723.
+    """
+    if new_duration <= duration:
+        return start, duration
+    if direction == "center":
+        new_start = start - (new_duration - duration) / 2
+    elif direction == "left":
+        new_start = start - (new_duration - duration)
+    elif direction == "right":
+        new_start = start
+    elif direction == "random":
+        new_start = random.uniform(start - (new_duration - duration), start)
+    else:
+        raise ValueError(f"Unexpected direction: {direction}")
+    if new_start < 0:
+        new_duration = round(new_duration + new_start, ndigits=15)
+        new_start = 0
+    return round(new_start, ndigits=15), new_duration
 
 
 @dataclass(unsafe_hash=True)
@@ -424,6 +463,69 @@ def split_manifest_lazy(
         splits.append(load_manifest_lazy(path))
         split_idx += 1
     return splits
+
+
+def to_hashable(item: Any) -> Any:
+    """Convert a list to a tuple for hashability; pass through other types."""
+    return tuple(item) if isinstance(item, list) else item
+
+
+def safe_extract(tar, path: Pathlike = ".", members=None, *, numeric_owner=False):
+    """tar extraction guarding against path traversal (reference: utils.py:585)."""
+
+    def _is_within_directory(directory, target):
+        abs_directory = os.path.abspath(directory)
+        abs_target = os.path.abspath(target)
+        prefix = os.path.commonprefix([abs_directory, abs_target])
+        return prefix == abs_directory
+
+    for member in tar.getmembers():
+        member_path = os.path.join(path, member.name)
+        if not _is_within_directory(path, member_path):
+            raise Exception("Attempted Path Traversal in Tar File")
+    tar.extractall(path, members, numeric_owner=numeric_owner)
+
+
+def resumable_download(
+    url: str, filename: Pathlike, force_download: bool = False,
+    completed_file_size: Optional[int] = None, missing_ok: bool = False,
+    ssl_context=None, additional_headers: Optional[Dict[str, str]] = None,
+    request_ssl_context=None) -> None:
+    """
+    Download a file with support for resuming partial downloads via HTTP Range
+    requests (reference: utils.py:471). Uses urllib; no external dependencies.
+    ``request_ssl_context`` is a deprecated alias of ``ssl_context``.
+    """
+    import urllib.request
+
+    if ssl_context is None:
+        ssl_context = request_ssl_context
+    filename = Path(filename)
+    if filename.exists():
+        if completed_file_size is not None and filename.stat().st_size == completed_file_size:
+            return
+        if not force_download and completed_file_size is None:
+            return
+    filename.parent.mkdir(parents=True, exist_ok=True)
+    partial = filename.stat().st_size if filename.exists() and not force_download else 0
+    req = urllib.request.Request(url)
+    for hname, hval in (additional_headers or {}).items():
+        req.add_header(hname, hval)
+    if partial:
+        req.add_header("Range", f"bytes={partial}-")
+    mode = "ab" if partial else "wb"
+    try:
+        with urllib.request.urlopen(req, context=ssl_context) as resp, \
+                open(filename, mode) as f:
+            while True:
+                chunk = resp.read(1 << 20)
+                if not chunk:
+                    break
+                f.write(chunk)
+    except Exception:
+        if missing_ok:
+            return
+        raise
 
 
 def not_ported(what: str) -> NotImplementedError:

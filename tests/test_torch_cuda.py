@@ -522,3 +522,48 @@ def test_shar_batches_on_card(cuda, tmp_path):
     fly = K2SpeechRecognitionDataset(input_strategy=OnTheFlyFeatures(extractor))[indexed.to_eager()]
     assert fbank_cuda.LAUNCHES == 1 and fly["inputs"].shape[0] == 6
     assert np.isfinite(fly["inputs"]).all()
+
+
+def test_recipe_batch_on_card_matches_plain_version(cuda, tmp_path):
+    """A LibriSpeech-layout corpus through ``prepare_librispeech`` →
+    ``CutSet.from_manifests(lazy=True)`` → ``SimpleCutSampler`` →
+    ``OnTheFlyFeatures`` on the card (chip_smoke.py phase 14 at a small
+    size): one launch per batch, the kernel against its plain version on the
+    batch's audio, and the batch against the CPU port's."""
+    import warnings
+
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.recipes import prepare_librispeech
+
+    chapter = tmp_path / "LibriSpeech" / "dev-clean" / "19" / "198"
+    chapter.mkdir(parents=True)
+    lines = []
+    for i, wave in enumerate(_noisy_tones(5, seed=30)):
+        write_flac(str(chapter / f"19-198-{i:04d}.flac"), wave, 16000)
+        lines.append(f"19-198-{i:04d} WORD NUMBER {i}")
+    (chapter / "19-198.trans.txt").write_text("\n".join(lines) + "\n")
+    manifests = prepare_librispeech(tmp_path / "LibriSpeech", output_dir=tmp_path / "manifests")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cuts = CutSet.from_manifests(
+            **manifests["dev-clean"], lazy=True, output_path=tmp_path / "cuts.jsonl.gz")
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))
+    batches = list(SimpleCutSampler(cuts, max_duration=8.0, shuffle=True, seed=0))
+    fbank_cuda.LAUNCHES = 0
+    out = [dataset[b] for b in batches]
+    assert fbank_cuda.LAUNCHES == len(batches) >= 2
+    cpu = OnTheFlyFeatures(extractors.Fbank(extractors.FbankConfig(device="cpu")))
+    for batch in out:
+        cut_batch = CutSet.from_cuts(batch["supervisions"]["cut"])
+        audio = [c.load_audio()[0] for c in cut_batch]
+        for f, p in zip(batch["inputs"], _plain(extractor, audio)):
+            assert np.abs(f[: len(p)] - p).max() <= LOGMEL_TOL
+        cpu_feats, _ = cpu(cut_batch)
+        assert np.abs(batch["inputs"] - cpu_feats).max() <= FEATURE_TOL
+    assert sorted(t for b in out for t in b["supervisions"]["text"]) == sorted(
+        line.split(maxsplit=1)[1] for line in lines)

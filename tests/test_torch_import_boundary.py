@@ -70,7 +70,12 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.shar.writers.cut, lhotse_tpu_torch.shar.writers.audio, "
         "lhotse_tpu_torch.shar.writers.array, lhotse_tpu_torch.shar.writers.shar, "
         "lhotse_tpu_torch.dataset.iterable_dataset, lhotse_tpu_torch.testing, "
-        "lhotse_tpu_torch.testing.dummies; "
+        "lhotse_tpu_torch.testing.dummies, lhotse_tpu_torch.audio.recording_set, "
+        "lhotse_tpu_torch.cut.describe, lhotse_tpu_torch.dataset.sampling.data_source, "
+        "lhotse_tpu_torch.dataset.sampling.simple, lhotse_tpu_torch.dataset.sampling.bucketing, "
+        "lhotse_tpu_torch.dataset.sampling.utils, lhotse_tpu_torch.dataset, "
+        "lhotse_tpu_torch.recipes, lhotse_tpu_torch.recipes.utils, "
+        "lhotse_tpu_torch.recipes.librispeech; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -333,6 +338,88 @@ def test_shar_path_runs_without_jax_and_lhotse_tpu(tmp_path):
     CPU, in a process where importing either package fails."""
     proc = subprocess.run(
         [sys.executable, "-c", SHAR_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+RECIPE_PATH = """
+import io
+import sys
+import warnings
+from contextlib import redirect_stdout
+
+# Neither package, and none of the optional modules the recipe path can use.
+for name in ("jax", "lhotse_tpu", "yaml", "tabulate", "tqdm"):
+    sys.modules[name] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio.flacio import write_flac
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset import BucketingSampler, SimpleCutSampler
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.qa import fix_manifests, validate_recordings_and_supervisions
+from lhotse_tpu_torch.recipes import prepare_librispeech
+from lhotse_tpu_torch.serialization import load_manifest
+
+SR = 16000
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    rng = np.random.default_rng(0)
+    chapter = Path(tmp) / "LibriSpeech" / "dev-clean" / "7" / "70"
+    chapter.mkdir(parents=True)
+    lines = []
+    for i in range(4):
+        write_flac(str(chapter / f"7-70-{i:04d}.flac"),
+                   (0.1 * rng.standard_normal(int(SR * (1 + 0.3 * i)))).astype(np.float32), SR)
+        lines.append(f"7-70-{i:04d} TEXT {i}")
+    (chapter / "7-70.trans.txt").write_text("\\n".join(lines) + "\\n")
+    parts = prepare_librispeech(Path(tmp) / "LibriSpeech", output_dir=Path(tmp) / "m")
+    recs, sups = fix_manifests(**parts["dev-clean"])
+    validate_recordings_and_supervisions(recs, sups)
+    assert len(load_manifest(Path(tmp) / "m" / "librispeech_recordings_dev-clean.jsonl.gz")) == 4
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cuts = CutSet.from_manifests(recs, sups, lazy=True, output_path=Path(tmp) / "c.jsonl.gz")
+    windows = cuts.cut_into_windows(0.5).to_eager()
+    trimmed = cuts.trim_to_supervisions(keep_overlapping=False).to_eager()
+    fbank = Fbank(FbankConfig(device="cpu"))
+    dataset = K2SpeechRecognitionDataset(input_strategy=OnTheFlyFeatures(fbank))
+    for batch in SimpleCutSampler(cuts, max_duration=3.0):
+        assert np.isfinite(dataset[batch]["inputs"]).all()
+    # Windows cut through supervisions, which the ASR dataset refuses: their
+    # features go straight through the input strategy.
+    for batch in BucketingSampler(windows, num_buckets=2, max_duration=1.5):
+        feats, lens = OnTheFlyFeatures(fbank)(batch)
+        assert np.isfinite(feats).all() and len(lens) == len(batch)
+    stored = trimmed.compute_and_store_features(fbank, Path(tmp) / "f", progress_bar=False)
+    assert len(K2SpeechRecognitionDataset()[stored]["inputs"]) == 4
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        stored.describe(full=True)
+    assert "Cuts count:" in buf.getvalue()
+    try:
+        stored.to_file(Path(tmp) / "c.yaml")
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("a YAML manifest was written without PyYAML")
+for name in ("jax", "lhotse_tpu", "yaml", "tabulate", "tqdm"):
+    assert sys.modules[name] is None, name
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_recipe_path_runs_without_jax_and_optional_modules(tmp_path):
+    """A LibriSpeech-layout corpus → prepare_librispeech → fix and validate
+    → lazy from_manifests → windows and trimmed cuts → the eager samplers →
+    OnTheFlyFeatures, stored features and describe, on the CPU, in a process
+    where importing jax, lhotse_tpu, PyYAML, tabulate or tqdm fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", RECIPE_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
