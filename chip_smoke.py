@@ -39,8 +39,15 @@ LibriSpeech-layout corpus directory through ``prepare_librispeech``,
 AdamW step, with a mid-epoch resume; long-form sessions with RTTM turns
 extracted whole on the kernel, trimmed to their supervisions and read back
 in part from the archive through ``BucketingSampler``, and cut into 10 s
-windows through ``OnTheFlyFeatures`` on the kernel); and checks what comes
-out.
+windows through ``OnTheFlyFeatures`` on the kernel); then the
+multi-channel meeting path (an AMI-layout corpus of four 300 s meetings
+with an 8-channel array and 4 headsets through ``prepare_ami``: whole
+8-channel sessions extracted on the kernel into a ``lilcom_chunky``
+archive, the array segments trimmed with ``keep_all_channels=True`` and
+split by ``to_mono()`` into ``OnTheFlyFeatures`` on the kernel and the
+AdamW step, the headsets trimmed to each speaker's channel likewise, the
+host WPE over 8-channel segments and a multi-channel RIR fan-out through
+the kernel); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -60,8 +67,10 @@ reads stored features), ``on_the_fly``, ``augmented_on_the_fly``,
 ``precomputed_mix_extract``, ``precomputed_mix`` (0: it mixes stored
 features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
 (0: it reads stored features), ``recipe_on_the_fly``, ``long_form_extract``,
-``long_form_trimmed`` (0: it reads stored features) and
-``long_form_windows``); the last line is
+``long_form_trimmed`` (0: it reads stored features),
+``long_form_windows``, ``ami_mdm_extract``, ``ami_mdm_on_the_fly``,
+``ami_ihm_on_the_fly``, ``ami_mdm_wpe`` and ``ami_rir_fanout``); the last
+line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -108,15 +117,18 @@ def _device_ms(fn, kernel: str = "") -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(TIMING_RUNS):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name)
-    if not us > 0:
-        raise AssertionError(f"torch.profiler recorded no device time for {kernel or 'the call'}")
-    return us / 1000.0 / TIMING_RUNS
+    # The card's CUPTI tracing now and then hands back a window without its
+    # device activities; such a window is traced again, up to three times.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMING_RUNS):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name)
+        if us > 0:
+            return us / 1000.0 / TIMING_RUNS
+    raise AssertionError(f"torch.profiler recorded no device time for {kernel or 'the call'}")
 
 
 def _device_busy(fn):
@@ -1680,6 +1692,77 @@ def _synthesize_recipe_corpora(root: Path) -> tuple:
             root / "long.rttm")
 
 
+FLY_MAX_DURATION = 180.0  # the on-the-fly legs' batches, in seconds of audio
+
+
+def _fly_with_resume(name, cuts_path, trainer, device, fbank_cuda, smi) -> tuple:
+    """``SimpleCutSampler(max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)`` over the
+    cuts at ``cuts_path`` → ``K2SpeechRecognitionDataset`` with
+    ``OnTheFlyFeatures`` on the card → ``DataLoader`` → an AdamW step per
+    batch, one epoch; then a resume after batch 3 whose batches must be
+    ``torch.equal`` to the first run's, under ``torch.profiler`` for the
+    device's busy share. Returns the launches of the epoch and the first
+    batch's kernel-vs-plain error."""
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import reset_tracing, tracing_report
+
+    def loader_and_extractor():
+        fly = Fbank(FbankConfig(device=device))
+        sampler = SimpleCutSampler(CutSet.from_file(cuts_path), max_duration=FLY_MAX_DURATION,
+                                   shuffle=True, seed=0)
+        dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly))
+        return DataLoader(sampler, dataset, prefetch_batches=3), fly
+
+    all_ids = [c.id for c in CutSet.from_file(cuts_path)]
+    loader, fly = loader_and_extractor()
+    recorder = _RecordFirstBatch(fly)
+    kept, state = [], {}
+
+    def keep(i, batch_cuts, batch):
+        kept.append(([c.id for c in batch_cuts], batch["inputs"]))
+        if i == 2:
+            state["ckpt"] = loader.state_dict()
+
+    reset_tracing()
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    run = _train_epoch(loader, trainer, device, on_batch=keep)
+    launches = fbank_cuda.LAUNCHES
+    n = len(run["losses"])
+    assemble_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
+    items, kernel_out = recorder.first
+    err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(fly, items)))
+    resumed_loader, _ = loader_and_extractor()
+    resumed_loader.load_state_dict(state["ckpt"])
+    resumed = []
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(lambda: resumed.extend(
+        ([c.id for c in b["supervisions"]["cut"]], b["inputs"]) for b in resumed_loader))
+    launches_resumed = fbank_cuda.LAUNCHES
+    resume_equal = len(resumed) == n - 3 and all(
+        a_ids == b_ids and torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+        for (a_ids, a), (b_ids, b) in zip(resumed, kept[3:]))
+    print(f"[{smi}] {name}: {len(all_ids)} cuts, epoch {n} batches, {run['audio_s']!r} "
+          f"audio-s (one channel per cut) in {run['elapsed_s']!r} s (host clock, AdamW steps "
+          f"included): {run['audio_s'] / run['elapsed_s']!r} audio-s/s; losses {run['losses'][0]!r} -> "
+          f"{run['losses'][-1]!r}; host ms per batch of decode+extract+collate (dataset.assemble) "
+          f"{assemble_ms!r}; fbank kernel launches {launches}; first batch kernel vs plain {err!r} "
+          f"(tol {KERNEL_TOL}); resumed after batch 3: {len(resumed)} batches torch.equal to the "
+          f"uninterrupted run's: {resume_equal}, launches {launches_resumed}, device busy "
+          f"{busy_ms / wall_ms!r} of the resumed run's wall (torch.profiler)")
+    _check_epoch(name, run, all_ids)
+    if launches != n or not err <= KERNEL_TOL:
+        raise AssertionError(f"{name}: launches or the kernel's result are off")
+    if not resume_equal or launches_resumed != n - 3:
+        raise AssertionError(f"{name}: the resumed batches differ from the first run's")
+    return launches, err
+
+
 class _WindowFeatures:
     """The dataset of ``long_form_windows``: the input strategy's features
     of each window with its frame count and cuts, in the layout
@@ -1724,7 +1807,7 @@ def _phase_recipe(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     from lhotse_tpu_torch.audio import RecordingSet
     from lhotse_tpu_torch.caching import set_caching_enabled
     from lhotse_tpu_torch.cut import CutSet
-    from lhotse_tpu_torch.dataset import BucketingSampler, SimpleCutSampler
+    from lhotse_tpu_torch.dataset import BucketingSampler
     from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
     from lhotse_tpu_torch.dataset.loader import DataLoader
     from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
@@ -1760,63 +1843,16 @@ def _phase_recipe(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
             lazy=True, output_path=cuts_path)
     prepare_s = time.perf_counter() - t0
     leftovers = [str(w.message) for w in caught if "not attached" in str(w.message)]
-    all_ids = [c.id for c in cuts]
+    n_cuts = sum(1 for _ in cuts)
     with_ali = sum(1 for s in supervisions if s.alignment)
-
-    def recipe_loader():
-        fly = Fbank(FbankConfig(device=device))
-        sampler = SimpleCutSampler(CutSet.from_file(cuts_path), max_duration=180, shuffle=True,
-                                   seed=0)
-        dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly))
-        return DataLoader(sampler, dataset, prefetch_batches=3), fly
-
-    loader, fly = recipe_loader()
-    recorder = _RecordFirstBatch(fly)
-    kept, state = [], {}
-
-    def keep(i, batch_cuts, batch):
-        kept.append(([c.id for c in batch_cuts], batch["inputs"]))
-        if i == 2:
-            state["ckpt"] = loader.state_dict()
-
-    set_tracing_enabled(True)
-    reset_tracing()
-    torch.cuda.synchronize()
-    fbank_cuda.LAUNCHES = 0
-    run = _train_epoch(loader, trainer, device, on_batch=keep)
-    launches_fly = fbank_cuda.LAUNCHES
-    n = len(run["losses"])
-    assemble_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
-    items, kernel_out = recorder.first
-    fly_err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(fly, items)))
-    resumed_loader, _ = recipe_loader()
-    resumed_loader.load_state_dict(state["ckpt"])
-    resumed = []
-    fbank_cuda.LAUNCHES = 0
-    wall_ms, busy_ms, _ = _device_busy(lambda: resumed.extend(
-        ([c.id for c in b["supervisions"]["cut"]], b["inputs"]) for b in resumed_loader))
-    launches_resumed = fbank_cuda.LAUNCHES
-    resume_equal = len(resumed) == n - 3 and all(
-        a_ids == b_ids and torch.equal(torch.from_numpy(a), torch.from_numpy(b))
-        for (a_ids, a), (b_ids, b) in zip(resumed, kept[3:]))
     print(f"[{smi}] recipe_on_the_fly: prepare_librispeech, fix, validate and the lazy "
-          f"from_manifests of {len(all_ids)} utterances ({with_ali} with word alignments) in "
-          f"{prepare_s!r} s; leftover-supervision warnings {len(leftovers)}; epoch {n} batches, "
-          f"{run['audio_s']!r} audio-s in {run['elapsed_s']!r} s (host clock, AdamW steps "
-          f"included): {run['audio_s'] / run['elapsed_s']!r} audio-s/s; losses "
-          f"{run['losses'][0]!r} -> {run['losses'][-1]!r}; host ms per batch of decode+extract+"
-          f"collate (dataset.assemble) {assemble_ms!r}; fbank kernel launches {launches_fly}; "
-          f"first batch kernel vs plain {fly_err!r} (tol {KERNEL_TOL}); resumed after batch 3: "
-          f"{len(resumed)} batches torch.equal to the uninterrupted run's: {resume_equal}, "
-          f"launches {launches_resumed}, device busy {busy_ms / wall_ms!r} of the resumed run's "
-          f"wall (torch.profiler)")
-    if leftovers or len(all_ids) != n_utts or with_ali != len(RECIPE_SPLITS) * RECIPE_UTTERANCES:
+          f"from_manifests of {n_cuts} utterances ({with_ali} with word alignments) in "
+          f"{prepare_s!r} s; leftover-supervision warnings {len(leftovers)}")
+    if leftovers or n_cuts != n_utts or with_ali != len(RECIPE_SPLITS) * RECIPE_UTTERANCES:
         raise AssertionError(f"recipe_on_the_fly: the manifest join is off: {leftovers}")
-    _check_epoch("recipe_on_the_fly", run, all_ids)
-    if launches_fly != n or not fly_err <= KERNEL_TOL:
-        raise AssertionError("recipe_on_the_fly: launches or the kernel's result are off")
-    if not resume_equal or launches_resumed != n - 3:
-        raise AssertionError("recipe_on_the_fly: the resumed batches differ from the first run's")
+    set_tracing_enabled(True)
+    launches_fly, fly_err = _fly_with_resume(
+        "recipe_on_the_fly", cuts_path, trainer, device, fbank_cuda, smi)
 
     # -- long_form_extract ---------------------------------------------------------------
     session_sups = SupervisionSet.from_file(long_sups).to_eager()
@@ -1930,6 +1966,325 @@ def _phase_recipe(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(fly_err, extract_err, window_err)
 
 
+# -- 15. the multi-channel meeting path ------------------------------------------
+# An AMI-layout corpus: four meetings of 300 s (two full-corpus train
+# meetings, dev ES2011a, test ES2004a), each with the 8 channels of Array1
+# and 4 headsets as 16 kHz int16 WAV files, four speakers taking turns of
+# 3-8 s that overlap by up to 1 s. AMI's sessions run about 30 minutes and
+# the corpus about 100 h; 4 x 8 x 300 s = 9,600 array channel-seconds.
+AMI_MEETINGS = ("ES2002a", "ES2002b", "ES2011a", "ES2004a")
+AMI_SECONDS = 300.0
+AMI_ARRAY, AMI_HEADSETS = 8, 4
+AMI_TURN_SECONDS = (3.0, 8.0)
+AMI_GAP_SECONDS = (-1.0, 1.5)  # a negative gap overlaps the next speaker's turn
+AMI_SIDE_SEGMENTS = 8  # the segments of the WPE and RIR fan-out legs
+# The host numpy WPE against the device WPE (ops/wpe.py) on the same
+# audio, at tests/test_torch_wpe.py::test_matches_host_wpe's bounds: the
+# two differ in their power floor (1e-10 against 1e-6) and precision.
+WPE_HOST_CORR, WPE_HOST_REL = 0.95, 0.4
+
+
+def _synthesize_ami_corpus(root: Path) -> Path:
+    """Phase 15's corpus (numpy seed 5678) in the AMI layout:
+    ``<meeting>/audio/<meeting>.Array1-0<k>.wav`` and ``.Headset-<k>.wav``,
+    and the NXT annotations ``ami_public_manual_1.6.2`` (``meetings.xml``,
+    per-speaker ``segments`` and ``words`` XML as in
+    tests/test_recipes_tranche16.py). Each speaker's turns are tone bursts
+    (four harmonics of an 80-220 Hz f0); a headset hears its speaker and,
+    at 0.05, the others; each array channel hears every speaker with its own
+    gain and a delay of up to 1 ms; every channel has its own 0.01 noise
+    floor. Returns the corpus directory."""
+    rng = np.random.default_rng(5678)
+    n = int(AMI_SECONDS * SR)
+    ann = root / "ami_public_manual_1.6.2"
+    for sub in ("corpusResources", "segments", "words"):
+        (ann / sub).mkdir(parents=True)
+    meetings_xml = ['<?xml version="1.0"?>', "<meetings>"]
+    from lhotse_tpu_torch.audio.wavio import write_wav
+
+    for mi, meet in enumerate(AMI_MEETINGS):
+        turns, t, spk = [], 0.5, 0
+        while True:
+            span = round(float(rng.uniform(*AMI_TURN_SECONDS)), 2)
+            if t + span > AMI_SECONDS - 0.5:
+                break
+            turns.append((spk, round(t, 2), round(t + span, 2)))
+            t = max(t + span + float(rng.uniform(*AMI_GAP_SECONDS)), turns[-1][1] + 0.5)
+            spk = (spk + int(rng.integers(1, AMI_HEADSETS))) % AMI_HEADSETS
+        f0 = rng.uniform(80, 220, AMI_HEADSETS)
+        dry = np.zeros((AMI_HEADSETS, n), np.float32)
+        for s, start, end in turns:
+            lo, hi = int(start * SR), int(end * SR)
+            tt = np.arange(hi - lo) / SR
+            dry[s, lo:hi] += 0.2 * sum(
+                np.sin(2 * np.pi * f0[s] * (h + 1) * tt) / (h + 1) for h in range(4))
+        audio_dir = root / meet / "audio"
+        audio_dir.mkdir(parents=True)
+        total = dry.sum(axis=0)
+        for k in range(AMI_HEADSETS):
+            x = dry[k] + 0.05 * (total - dry[k]) + 0.01 * rng.standard_normal(n, np.float32)
+            write_wav(str(audio_dir / f"{meet}.Headset-{k}.wav"), x, SR)
+        for m in range(AMI_ARRAY):
+            x = 0.01 * rng.standard_normal(n, np.float32)
+            for k, (gain, delay) in enumerate(zip(rng.uniform(0.5, 1.0, AMI_HEADSETS),
+                                                  rng.integers(0, 17, AMI_HEADSETS))):
+                x[delay:] += gain * dry[k, : n - delay]
+            write_wav(str(audio_dir / f"{meet}.Array1-0{m + 1}.wav"), x, SR)
+        meetings_xml.append(f'  <meeting observation="{meet}">')
+        for k in range(AMI_HEADSETS):
+            agent = "ABCD"[k]
+            meetings_xml.append(
+                f'    <speaker nxt_agent="{agent}" global_name="{"MF"[k % 2]}EE{mi}{k}" '
+                f'channel="{k}"/>')
+            segments, words = [], []
+            for s, start, end in turns:
+                if s != k:
+                    continue
+                segments.append(f'  <segment transcriber_start="{start}" transcriber_end="{end}"/>')
+                text = [RECIPE_WORDS[i] for i in rng.integers(0, len(RECIPE_WORDS),
+                                                              int(rng.integers(3, 12)))]
+                step = (end - start) / len(text)
+                for j, w in enumerate(text):
+                    ws, we = round(start + j * step, 3), round(start + (j + 1) * step - 0.05, 3)
+                    words.append(f'  <w starttime="{ws}" endtime="{we}">{w.lower()}</w>')
+            (ann / "segments" / f"{meet}.{agent}.segments.xml").write_text(
+                '<?xml version="1.0"?>\n<segmentation>\n' + "\n".join(segments)
+                + "\n</segmentation>")
+            (ann / "words" / f"{meet}.{agent}.words.xml").write_text(
+                '<?xml version="1.0"?>\n<words>\n' + "\n".join(words) + "\n</words>")
+        meetings_xml.append("  </meeting>")
+    meetings_xml.append("</meetings>")
+    (ann / "corpusResources" / "meetings.xml").write_text("\n".join(meetings_xml))
+    return root
+
+
+class _RecordExtract:
+    """Wraps ``extractor.extract`` to keep every call's input and output."""
+
+    def __init__(self, extractor):
+        self.calls = []
+        inner = extractor.extract
+
+        def extract(samples, sampling_rate):
+            out = inner(samples, sampling_rate)
+            self.calls.append((np.asarray(samples).copy(), np.asarray(out).copy()))
+            return out
+
+        extractor.extract = extract
+
+
+def _extract_errors(extractor, calls) -> float:
+    """The largest distance of the recorded kernel outputs from the kernel's
+    plain version on the card, per channel row."""
+    return max(
+        float(np.abs(out - np.stack(_plain_extract(extractor, list(samples)))).max())
+        for samples, out in calls)
+
+
+def _phase_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """15. The multi-channel meeting path on an AMI-layout corpus.
+    ``ami_mdm_extract``: ``prepare_ami(mic="mdm")`` → ``from_manifests``
+    (one 8-channel ``MultiCut`` per meeting) → ``compute_and_store_features``
+    into ``lilcom_chunky``: one ``Fbank.extract`` of the (8, N) session per
+    launch, one (8, T, 80) matrix per session, held to the kernel's plain
+    version and read back within half an LTC1 tick. ``ami_mdm_on_the_fly``:
+    the train sessions' features → ``trim_to_supervisions(
+    keep_overlapping=False, keep_all_channels=True)`` (each MultiCut's
+    ``load_features`` equal to its slice of the session matrix; a JSONL round
+    trip; ``to_mono`` and ``combine_same_recording_channels`` back) →
+    ``to_mono()``, 8 MonoCuts per segment → ``_fly_with_resume``.
+    ``ami_ihm_on_the_fly``: ``prepare_ami(mic="ihm")`` → 4-channel headset
+    MultiCuts → ``trim_to_supervisions(keep_overlapping=False)`` → MonoCuts
+    on each supervision's headset → ``_fly_with_resume``. ``ami_mdm_wpe``:
+    ``dereverb_wpe()`` on 8 MultiCut segments, the host numpy transform
+    over all 8 channels, then the kernel; the transform's output against
+    the device WPE on the same audio. ``ami_rir_fanout``: ``prepare_ami(
+    mic="sdm")`` → 8 single-channel windows → ``reverb_rir`` with an
+    8-channel RIR → 8-channel MultiCuts → the kernel. Returns the kernel's
+    launches per path and the largest kernel-vs-plain error."""
+    from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet, MonoCut, MultiCut
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+    from lhotse_tpu_torch.ops.wpe import dereverb_wpe
+    from lhotse_tpu_torch.recipes import prepare_ami
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+    from lhotse_tpu_torch.utils import compute_num_frames
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    t0 = time.perf_counter()
+    corpus = _synthesize_ami_corpus(workdir / "amicorpus")
+    print(f"AMI corpus: {len(AMI_MEETINGS)} meetings x {AMI_SECONDS:g} s, {AMI_ARRAY} array "
+          f"channels and {AMI_HEADSETS} headsets, written in {time.perf_counter() - t0!r} s")
+    trainer = _Trainer(device)
+    launches = {}
+
+    # -- ami_mdm_extract -------------------------------------------------------------
+    t0 = time.perf_counter()
+    mdm = prepare_ami(corpus, output_dir=workdir / "ami_manifests", mic="mdm")
+    sessions = CutSet.from_cuts(
+        c for part in ("train", "dev", "test")
+        for c in CutSet.from_manifests(**mdm[part]))
+    prepare_s = time.perf_counter() - t0
+    if [type(c) for c in sessions] != [MultiCut] * len(AMI_MEETINGS) or any(
+            c.channel != list(range(AMI_ARRAY)) for c in sessions):
+        raise AssertionError("ami_mdm_extract: the sessions are not 8-channel MultiCuts")
+    extractor = Fbank(FbankConfig(device=device))
+    recorder = _RecordExtract(extractor)
+    featured = {}
+
+    def extract():
+        with LilcomChunkyWriter(workdir / "ami_feats") as storage:
+            featured.update((c.recording_id, c.compute_and_store_features(extractor, storage))
+                            for c in sessions)
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(extract)
+    launches["ami_mdm_extract"] = fbank_cuda.LAUNCHES
+    channel_s = sum(c.duration * c.num_channels for c in sessions)
+    extract_err = _extract_errors(extractor, recorder.calls)
+    matrices = {rid: c.load_features() for rid, c in featured.items()}
+    archive_err = max(float(np.abs(matrices[c.recording_id] - out).max())
+                      for c, (_, out) in zip(sessions, recorder.calls))
+    shapes = {tuple(m.shape) for m in matrices.values()}
+    print(f"[{smi}] ami_mdm_extract: prepare_ami(mic='mdm') and from_manifests of "
+          f"{len(sessions)} sessions in {prepare_s!r} s; {channel_s!r} channel-s extracted and "
+          f"stored in {wall_ms!r} ms under torch.profiler: {channel_s / wall_ms * 1e3!r} "
+          f"channel-s/s; stored matrices {sorted(shapes)}; fbank kernel launches "
+          f"{launches['ami_mdm_extract']}; device busy {busy_ms / wall_ms!r} of the wall; kernel "
+          f"vs plain {extract_err!r} (tol {KERNEL_TOL}), archive vs the kernel's output "
+          f"{archive_err!r} (tol {LTC1_TICK / 2 + 1e-6!r})")
+    frames = compute_num_frames(AMI_SECONDS, 0.01, SR)
+    if launches["ami_mdm_extract"] != len(AMI_MEETINGS) or shapes != {(AMI_ARRAY, frames, 80)}:
+        raise AssertionError("ami_mdm_extract: launches or the stored shapes are off")
+    if not extract_err <= KERNEL_TOL or not archive_err <= LTC1_TICK / 2 + 1e-6:
+        raise AssertionError("ami_mdm_extract: the kernel or the archive disagrees")
+
+    # -- ami_mdm_on_the_fly ---------------------------------------------------------
+    train_ids = {r.id for r in mdm["train"]["recordings"]}
+    trimmed = CutSet.from_cuts(featured[rid] for rid in sorted(train_ids)).trim_to_supervisions(
+        keep_overlapping=False, keep_all_channels=True).to_eager()
+    slices_equal = all(
+        np.array_equal(c.load_features(), matrices[c.recording_id][
+            :, compute_num_frames(c.start, 0.01, SR):][:, : c.num_frames]) for c in trimmed)
+    trimmed.to_file(workdir / "ami_mdm_segments.jsonl.gz")
+    round_trip = [c.to_dict() for c in CutSet.from_file(workdir / "ami_mdm_segments.jsonl.gz")] == [
+        c.to_dict() for c in trimmed]
+    monos = CutSet.from_cuts(m for c in trimmed for m in c.to_mono())
+    combined = monos.combine_same_recording_channels()
+    recombined = [(c.recording_id, c.start, c.duration, c.channel) for c in combined] == [
+        (c.recording_id, c.start, c.duration, c.channel) for c in trimmed]
+    monos.to_file(workdir / "ami_mdm_monos.jsonl.gz")
+    print(f"[{smi}] ami_mdm_on_the_fly: {len(trimmed)} 8-channel segments, features equal to "
+          f"their sessions' slices: {slices_equal}; JSONL round trip equal: {round_trip}; "
+          f"to_mono -> {len(monos)} MonoCuts, combine_same_recording_channels gives the segments "
+          f"back: {recombined}")
+    if {type(c) for c in trimmed} != {MultiCut} or {type(c) for c in monos} != {MonoCut}:
+        raise AssertionError("ami_mdm_on_the_fly: the cut types are off")
+    if len(monos) != AMI_ARRAY * len(trimmed) or not (slices_equal and round_trip and recombined):
+        raise AssertionError("ami_mdm_on_the_fly: the trimmed segments are off")
+    launches["ami_mdm_on_the_fly"], mdm_err = _fly_with_resume(
+        "ami_mdm_on_the_fly", workdir / "ami_mdm_monos.jsonl.gz", trainer, device, fbank_cuda, smi)
+
+    # -- ami_ihm_on_the_fly --------------------------------------------------------
+    ihm = prepare_ami(corpus, output_dir=workdir / "ami_manifests", mic="ihm")["train"]
+    headsets = CutSet.from_manifests(**ihm)
+    if any(not isinstance(c, MultiCut) or c.num_channels != AMI_HEADSETS for c in headsets):
+        raise AssertionError("ami_ihm_on_the_fly: the headsets are not grouped into MultiCuts")
+    ihm_cuts = headsets.trim_to_supervisions(keep_overlapping=False).to_eager()
+    on_own_headset = all(
+        isinstance(c, MonoCut) and c.channel == c.supervisions[0].channel for c in ihm_cuts)
+    if not on_own_headset or len(ihm_cuts) != len(ihm["supervisions"]):
+        raise AssertionError("ami_ihm_on_the_fly: the cuts are not on their speakers' headsets")
+    ihm_cuts.to_file(workdir / "ami_ihm_cuts.jsonl.gz")
+    # A fresh model: its loss must fall within this shorter epoch.
+    launches["ami_ihm_on_the_fly"], ihm_err = _fly_with_resume(
+        "ami_ihm_on_the_fly", workdir / "ami_ihm_cuts.jsonl.gz", _Trainer(device), device,
+        fbank_cuda, smi)
+
+    # -- ami_mdm_wpe -------------------------------------------------------------------
+    segments = [c.drop_features() for c in list(trimmed)[:AMI_SIDE_SEGMENTS]]
+    wpe_cuts = [c.dereverb_wpe() for c in segments]
+    wpe_ext = Fbank(FbankConfig(device=device))
+    recorder = _RecordExtract(wpe_ext)
+    outputs = []
+
+    def wpe_leg():
+        for c in wpe_cuts:
+            audio = c.load_audio()
+            outputs.append(audio)
+            wpe_ext.extract(audio, SR)
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(wpe_leg)
+    launches["ami_mdm_wpe"] = fbank_cuda.LAUNCHES
+    wpe_err = _extract_errors(wpe_ext, recorder.calls)
+    wpe_s = sum(c.duration * c.num_channels for c in wpe_cuts)
+    raw = segments[0].load_audio()
+    on_card = dereverb_wpe(torch.from_numpy(raw).to(device)).cpu().numpy()
+    corr = float(np.corrcoef(outputs[0].ravel(), on_card.ravel())[0, 1])
+    rel = float(np.linalg.norm(outputs[0] - on_card) / np.linalg.norm(on_card))
+    subset_equal = np.array_equal(wpe_cuts[0].to_mono()[3].load_audio(), outputs[0][3:4])
+    print(f"[{smi}] ami_mdm_wpe: dereverb_wpe() of {len(wpe_cuts)} 8-channel segments, "
+          f"{wpe_s!r} channel-s through the host WPE and the kernel in {wall_ms!r} ms under "
+          f"torch.profiler: {wpe_s / wall_ms * 1e3!r} channel-s/s; fbank kernel launches "
+          f"{launches['ami_mdm_wpe']}; device busy {busy_ms / wall_ms!r} of the wall; kernel vs "
+          f"plain {wpe_err!r} (tol {KERNEL_TOL}); host WPE vs the device WPE on the first "
+          f"segment: correlation {corr!r} (> {WPE_HOST_CORR}), relative error {rel!r} "
+          f"(< {WPE_HOST_REL}); to_mono() after dereverb_wpe() gives the 8-channel result's row: "
+          f"{subset_equal}")
+    if launches["ami_mdm_wpe"] != len(wpe_cuts) or not wpe_err <= KERNEL_TOL:
+        raise AssertionError("ami_mdm_wpe: launches or the kernel's result are off")
+    if not all(np.isfinite(o).all() and o.shape[0] == AMI_ARRAY for o in outputs):
+        raise AssertionError("ami_mdm_wpe: the host WPE output is off")
+    if not corr > WPE_HOST_CORR or not rel < WPE_HOST_REL or not subset_equal:
+        raise AssertionError("ami_mdm_wpe: the host WPE disagrees with the device WPE")
+
+    # -- ami_rir_fanout ----------------------------------------------------------------
+    sdm = prepare_ami(corpus, output_dir=workdir / "ami_manifests", mic="sdm")["train"]
+    # Windows of the single-microphone sessions at their supervisions (a
+    # trimmed cut would take the supervisions' channel list, [0]).
+    singles = [c.truncate(offset=s.start, duration=s.duration, keep_excessive_supervisions=False)
+               for c in CutSet.from_manifests(**sdm) for s in c.supervisions]
+    rng = np.random.default_rng(5679)
+    taps = np.arange(SR // 2)
+    rir = np.stack([np.exp(-taps / 1600.0) * rng.standard_normal(SR // 2) * 0.05
+                    for _ in range(AMI_ARRAY)])
+    rir[np.arange(AMI_ARRAY), rng.integers(0, 17, AMI_ARRAY)] = 1.0
+    write_wav(str(workdir / "rir8.wav"), rir.astype(np.float32), SR, subtype="float32")
+    rir_rec = Recording.from_file(workdir / "rir8.wav")
+    fanned = [c.reverb_rir(rir_recording=rir_rec, rir_channels=list(range(AMI_ARRAY)))
+              for c in singles[:AMI_SIDE_SEGMENTS]]
+    if not all(isinstance(c, MultiCut) and c.channel == list(range(AMI_ARRAY)) for c in fanned):
+        raise AssertionError("ami_rir_fanout: the fan-out did not give 8-channel MultiCuts")
+    rir_ext = Fbank(FbankConfig(device=device))
+    recorder = _RecordExtract(rir_ext)
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(
+        lambda: [rir_ext.extract(c.load_audio(), SR) for c in fanned])
+    launches["ami_rir_fanout"] = fbank_cuda.LAUNCHES
+    rir_err = _extract_errors(rir_ext, recorder.calls)
+    rir_s = sum(c.duration * c.num_channels for c in fanned)
+    one = singles[0].reverb_rir(rir_recording=rir_rec, rir_channels=[5]).load_audio()
+    row_equal = np.array_equal(one, recorder.calls[0][0][5:6])
+    print(f"[{smi}] ami_rir_fanout: {len(fanned)} single-channel segments through an "
+          f"{AMI_ARRAY}-channel RIR, {rir_s!r} channel-s reverberated and extracted in "
+          f"{wall_ms!r} ms under torch.profiler: {rir_s / wall_ms * 1e3!r} channel-s/s; fbank "
+          f"kernel launches {launches['ami_rir_fanout']}; device busy {busy_ms / wall_ms!r} of "
+          f"the wall; kernel vs plain {rir_err!r} (tol {KERNEL_TOL}); channel 5 equal to the "
+          f"RIR's channel 5 alone: {row_equal}")
+    if launches["ami_rir_fanout"] != len(fanned) or not rir_err <= KERNEL_TOL or not row_equal:
+        raise AssertionError("ami_rir_fanout: launches, the kernel or the fan-out are off")
+    set_tracing_enabled(False)
+    return launches, max(extract_err, mdm_err, ihm_err, wpe_err, rir_err)
+
+
 class _PlainFbank:
     """The default fbank layer's computation with the kernel's plain version
     in place of the kernel, for the chain comparison."""
@@ -1995,8 +2350,10 @@ def main() -> None:
     # times are of the launch alone.
     Mc, Ms = ops.dft_analysis_matrices(400, 512)
     cases = []
-    # 200 filters run in two of the kernel's 128-filter chunks.
-    for B, T, n_mels in [(1, 100, 23), (3, 1001, 80), (3, 1001, 200), (256, 1364, 80)]:
+    # 200 filters run in two of the kernel's 128-filter chunks; 8 x 30,000
+    # frames is a 300 s, 8-channel meeting session (phase 15).
+    for B, T, n_mels in [(1, 100, 23), (3, 1001, 80), (3, 1001, 200), (8, 30000, 80),
+                         (256, 1364, 80)]:
         Mc_d, Ms_d, fb_d = (
             torch.from_numpy(np.ascontiguousarray(m)).to(device)
             for m in fbank_cuda._squeeze_nyquist(Mc, Ms, _mel_bank(n_mels, ops)))
@@ -2159,6 +2516,13 @@ def main() -> None:
         launches_recipe, recipe_err = _phase_recipe(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_recipe)
         print(f"phase 14 took {time.perf_counter() - t0!r} s")
+
+    # -- 15. the multi-channel meeting path, on a corpus of its own ------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        launches_meetings, meetings_err = _phase_meetings(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_meetings)
+        print(f"phase 15 took {time.perf_counter() - t0!r} s")
     print(f"fbank kernel launches by path: {by_path}")
     reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed")
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
@@ -2170,7 +2534,8 @@ def main() -> None:
         "source": "lhotse_tpu_torch/csrc/fbank.cu",
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
-        "max_abs_err": max([c["max_abs_err"] for c in cases] + [pre_err, aug_err, shar_err, recipe_err]),
+        "max_abs_err": max([c["max_abs_err"] for c in cases]
+                           + [pre_err, aug_err, shar_err, recipe_err, meetings_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

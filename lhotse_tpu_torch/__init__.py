@@ -12,7 +12,8 @@ stored features, the host augmentation: recording transforms,
 ``PaddingCut``/``MixedCut`` and the cut transforms, Shar, and the recipe
 path: ``RecordingSet``/``SupervisionSet``, ``CutSet.from_manifests``, the
 trimming and windowing, ``SimpleCutSampler``/``BucketingSampler`` and the
-LibriSpeech recipe) is
+LibriSpeech recipe, and the multi-channel meeting path: ``MultiCut``, the
+host ``DereverbWPE`` transform and the AMI recipe) is
 copied function by function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.

@@ -4,19 +4,24 @@ The Recording manifest: where audio bytes live and how to decode them
 requested (channels, offset, duration) window of the sources through the
 decoded-audio LRU of :mod:`lhotse_tpu_torch.caching`, then runs the
 recording's chain of lazily applied transforms (speed, tempo, volume,
-reverb, resampling) with *reverse timestamp propagation*: the window is
+reverb, resampling, WPE) with *reverse timestamp propagation*: the window is
 mapped back through every transform so only the needed source samples are
-read.
+read. A recording of several sources (one per channel, as a microphone
+array's files) reads each source's window and stacks them.
 
 The post-transform window cache keys each window by the identity of every
 source it reads (path or bytes hash), not by ``Recording.id``: two
 recordings that share an id but not their audio get their own windows. The
 JAX package keys it by the id.
 
-Left out: the ``narrowband``, ``normalize_loudness``, ``dereverb_wpe``,
-``clip_amplitude`` and ``compress`` builders, which raise
-``NotImplementedError``; so do video and ``MultiCut`` (multi-channel)
-recordings.
+A channel subset of a recording whose chain mixes or fans out channels
+(``DereverbWPE``, a multi-channel RIR) is read as the whole recording, run
+through the chain, and then picked: the transform sees every channel. The
+JAX package runs the chain on the subset alone.
+
+Left out: the ``narrowband``, ``normalize_loudness``, ``clip_amplitude``
+and ``compress`` builders, which raise ``NotImplementedError``; so does
+video.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from lhotse_tpu_torch.audio.source import AudioSource
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, get_audio_duration_mismatch_tolerance)
 from lhotse_tpu_torch.augmentation import (
-    AudioTransform, Resample, ReverbWithImpulseResponse, Speed, Tempo, Volume)
+    AudioTransform, DereverbWPE, Resample, ReverbWithImpulseResponse, Speed, Tempo, Volume)
 from lhotse_tpu_torch.utils import (
     Channels, Pathlike, Seconds, asdict_nonull, compute_num_samples, fastcopy, ifnone,
     not_ported, perturb_num_samples, rich_exception_info)
@@ -133,6 +138,15 @@ class Recording:
             id=rid, sampling_rate=meta.samplerate, num_samples=n, duration=duration, sources=[src])
 
     @staticmethod
+    def from_bytes(data: bytes, recording_id: str) -> "Recording":
+        """Like :meth:`from_file` for encoded bytes, attached to the manifest."""
+        meta = info(BytesIO(data))
+        return Recording(
+            id=recording_id, sampling_rate=meta.samplerate, num_samples=meta.frames,
+            duration=meta.duration,
+            sources=[AudioSource(type="memory", channels=list(range(meta.channels)), source=data)])
+
+    @staticmethod
     def from_dict(data: dict) -> "Recording":
         raw_sources = data.pop("sources")
         transforms = data.pop("transforms", None)
@@ -149,12 +163,10 @@ class Recording:
 
     def to_cut(self):
         """A MonoCut/MultiCut covering this entire recording."""
-        from lhotse_tpu_torch.cut import MonoCut
+        from lhotse_tpu_torch.cut import MonoCut, MultiCut
 
         mono = self.num_channels == 1
-        if not mono:
-            raise not_ported("MultiCut (multi-channel recordings)")
-        return MonoCut(
+        return (MonoCut if mono else MultiCut)(
             id=self.id, start=0.0, duration=self.duration,
             channel=self.channel_ids[0] if mono else self.channel_ids, recording=self)
 
@@ -222,6 +234,13 @@ class Recording:
             t if isinstance(t, AudioTransform) else AudioTransform.from_dict(t)
             for t in self.transforms or []
         ]
+        if (
+            channels is not None
+            and wanted != frozenset(self.channel_ids)
+            and not all(t.channel_wise for t in chain)
+        ):
+            whole = self.load_audio(offset=offset, duration=requested_duration)
+            return whole[[row for row, cid in enumerate(self._rows(whole)) if cid in wanted]]
 
         # Map the requested window back through the chain (last to first).
         src_offset, src_duration = offset, duration
@@ -262,6 +281,13 @@ class Recording:
 
             DecodedAudioCache.add_to_cache(xkey, audio, self.sampling_rate)
         return audio
+
+    def _rows(self, audio: np.ndarray) -> List[int]:
+        """The channel id of each row of ``audio``, all of this recording's
+        channels after its chain: the sources' channels in source order, or,
+        where the chain fanned them out, ``channel_ids``."""
+        rows = [cid for src in self.sources for cid in src.channels]
+        return rows if len(rows) == audio.shape[0] else list(self.channel_ids)
 
     def _transformed_cache_key(self, chain, channels, wanted, offset, requested_duration):
         """Stable LRU key for a post-transform audio window, or None when the
@@ -498,8 +524,10 @@ class Recording:
     def normalize_loudness(self, *args, **kwargs) -> "Recording":
         raise not_ported("Recording.normalize_loudness")
 
-    def dereverb_wpe(self, *args, **kwargs) -> "Recording":
-        raise not_ported("Recording.dereverb_wpe (the host WPE transform)")
+    def dereverb_wpe(self, affix_id: bool = True) -> "Recording":
+        """Weighted prediction error dereverberation."""
+        return fastcopy(
+            self, id=self._affixed(affix_id, "_wpe"), transforms=self._chain_plus(DereverbWPE()))
 
     def clip_amplitude(self, *args, **kwargs) -> "Recording":
         raise not_ported("Recording.clip_amplitude")

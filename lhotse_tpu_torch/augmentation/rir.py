@@ -63,6 +63,12 @@ class ReverbWithImpulseResponse(AudioTransform):
         # fixed RIR makes this transform memoizable.
         return self.rir is not None
 
+    @property
+    def channel_wise(self) -> bool:
+        # Several RIR channels fan a mono input out, or pair RIR channel d
+        # with input row d.
+        return len(self.rir_channels) == 1
+
     def to_dict(self) -> dict:
         from lhotse_tpu_torch.audio import Recording
         from lhotse_tpu_torch.cut import Cut

@@ -7,9 +7,9 @@ auto-registered by class name, serialized into ``Recording.transforms`` as
 post-transform timestamps back to the source audio so only the needed
 samples are read from disk).
 
-The JAX package's ``Clipping``, ``Compress``, ``Narrowband``,
-``LoudnessNormalization`` and ``DereverbWPE`` are not ported: a manifest
-naming one of them raises ``NotImplementedError`` when it is read.
+The JAX package's ``Clipping``, ``Compress``, ``Narrowband`` and
+``LoudnessNormalization`` are not ported: a manifest naming one of them
+raises ``NotImplementedError`` when it is read.
 """
 from __future__ import annotations
 
@@ -20,8 +20,7 @@ import numpy as np
 
 from lhotse_tpu_torch.utils import Seconds, not_ported
 
-NOT_PORTED_TRANSFORMS = frozenset(
-    ["Clipping", "Compress", "Narrowband", "LoudnessNormalization", "DereverbWPE"])
+NOT_PORTED_TRANSFORMS = frozenset(["Clipping", "Compress", "Narrowband", "LoudnessNormalization"])
 
 
 class AudioTransform:
@@ -50,6 +49,17 @@ class AudioTransform:
         repeated application yields bit-identical output. The decoded-audio
         LRU only memoizes post-transform waveforms for fully deterministic
         chains. Transforms that draw from stateful RNGs must override this.
+        """
+        return True
+
+    @property
+    def channel_wise(self) -> bool:
+        """
+        True when each output channel depends only on the same input
+        channel, so a channel subset can be read before the transform runs.
+        A transform that mixes or fans out channels (WPE, a multi-channel
+        RIR) makes the recording read every channel first and pick the
+        subset afterwards.
         """
         return True
 

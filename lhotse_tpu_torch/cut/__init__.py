@@ -2,6 +2,7 @@ from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.cut.data import DataCut
 from lhotse_tpu_torch.cut.mixed import MixedCut, MixTrack
 from lhotse_tpu_torch.cut.mono import MonoCut
+from lhotse_tpu_torch.cut.multi import MultiCut
 from lhotse_tpu_torch.cut.padding import PaddingCut
 from lhotse_tpu_torch.cut.set import (
     CutSet, append, append_cuts, compute_supervisions_frame_mask, deserialize_cut, mix, mix_cuts,
@@ -15,5 +16,6 @@ _rcv()
 del _rcv
 
 __all__ = [
-    "Cut", "CutSet", "DataCut", "MixTrack", "MixedCut", "MonoCut", "PaddingCut", "append",
-    "append_cuts", "compute_supervisions_frame_mask", "deserialize_cut", "mix", "mix_cuts", "pad"]
+    "Cut", "CutSet", "DataCut", "MixTrack", "MixedCut", "MonoCut", "MultiCut", "PaddingCut",
+    "append", "append_cuts", "compute_supervisions_frame_mask", "deserialize_cut", "mix",
+    "mix_cuts", "pad"]

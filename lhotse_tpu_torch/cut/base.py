@@ -6,8 +6,8 @@ once on the base class: ``mix``/``append``,
 ``trim_to_supervision_groups``, ``cut_into_windows[_balanced]``,
 ``index_supervisions`` (over :class:`SupervisionIntervalIndex`) and the
 supervision masks over frames and samples. All cut operations are lazy and
-non-mutating. ``MultiCut``, ``split``, ``save_audio``, the speaker masks and
-the plotting and playback helpers are not ported.
+non-mutating. ``split``, ``save_audio``, the speaker masks and the plotting
+and playback helpers are not ported.
 """
 from __future__ import annotations
 
@@ -151,6 +151,7 @@ class Cut:
         supervision per output cut.
         """
         from lhotse_tpu_torch.cut.mixed import MixedCut
+        from lhotse_tpu_torch.cut.multi import MultiCut
         from lhotse_tpu_torch.cut.set import CutSet
 
         def span_of(segment):
@@ -168,6 +169,8 @@ class Cut:
                 "`keep_overlapping=False` to retain only 1 supervision per cut."
             )
             piece.channel = piece.supervisions[0].channel
+            if isinstance(piece, MultiCut) and piece.num_channels == 1:
+                piece = piece.to_mono()[0]
             return piece
 
         cuts = []

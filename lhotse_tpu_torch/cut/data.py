@@ -7,12 +7,13 @@ path uses: the ``Features`` manifest, ``compute_and_store_features``, the
 (``truncate``, ``extend_by``, ``pad``), the lazy waveform-domain builders
 ``resample``, ``perturb_speed``, ``perturb_tempo`` and ``perturb_volume``
 (``reverb_rir`` is in :class:`~lhotse_tpu_torch.cut.mono.MonoCut`),
-``move_to_memory``/``drop_in_memory_data``, the path prefixes and the
-supervision merging that ``MonoCut.merge_supervisions`` uses. Every builder
-returns a modified manifest copy; no audio is touched until
+``dereverb_wpe`` (the host WPE transform), ``move_to_memory``/
+``drop_in_memory_data``, the path prefixes and the supervision merging that
+``MonoCut.merge_supervisions`` and ``MultiCut.merge_supervisions`` use.
+Every builder returns a modified manifest copy; no audio is touched until
 ``load_audio``/``load_features``. Images, ``attach_tensor`` and the
-``narrowband``, ``normalize_loudness``, ``dereverb_wpe``, ``clip_amplitude``
-and ``compress`` builders are not ported: the last five raise.
+``narrowband``, ``normalize_loudness``, ``clip_amplitude`` and
+``compress`` builders are not ported: the last four raise.
 """
 from __future__ import annotations
 
@@ -506,8 +507,19 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
     def normalize_loudness(self, *args, **kwargs) -> "DataCut":
         raise not_ported("Cut.normalize_loudness")
 
-    def dereverb_wpe(self, *args, **kwargs) -> "DataCut":
-        raise not_ported("Cut.dereverb_wpe (the host WPE transform)")
+    def dereverb_wpe(self, affix_id: bool = True) -> "DataCut":
+        """Weighted-prediction-error dereverberation."""
+        self._require_recording("apply WPE")
+        self._invalidate_features("WPE dereverberation")
+        if affix_id:
+            supervisions = [
+                fastcopy(s, id=f"{s.id}_wpe", recording_id=f"{s.recording_id}_wpe")
+                for s in self.supervisions]
+        else:
+            supervisions = list(self.supervisions)
+        return fastcopy(
+            self, id=f"{self.id}_wpe" if affix_id else self.id,
+            recording=self.recording.dereverb_wpe(affix_id=affix_id), supervisions=supervisions)
 
     def clip_amplitude(self, *args, **kwargs) -> "DataCut":
         raise not_ported("Cut.clip_amplitude")

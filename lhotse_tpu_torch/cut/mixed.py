@@ -9,7 +9,7 @@ summed until ``load_audio``/``load_features``: the same MixedCut mixes in
 the waveform domain or, for precomputed log-mel features, directly in the
 feature domain via the extractor's ``mix``/``compute_energy``.
 
-Left out: ``to_mono``, ``load_video``, the plots, ``clip_amplitude``,
+Left out: ``load_video``, the plots, ``clip_amplitude``,
 ``normalize_loudness`` and ``compress``, which raise
 ``NotImplementedError``.
 """
@@ -19,12 +19,14 @@ import logging
 import warnings
 from dataclasses import dataclass
 from functools import partial, reduce
+from io import BytesIO
 from operator import add
 from typing import Any, Callable, Dict, Generator, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 
 from lhotse_tpu_torch.audio import Recording, VideoInfo, get_audio_duration_mismatch_tolerance
+from lhotse_tpu_torch.audio.backend import save_audio
 from lhotse_tpu_torch.audio.mixer import AudioMixer, audio_energy
 from lhotse_tpu_torch.augmentation import AudioTransform, ReverbWithImpulseResponse
 from lhotse_tpu_torch.cut.base import Cut
@@ -589,8 +591,15 @@ class MixedCut(Cut):
             _to_unmixed_cut(self, [t for t in real if t.tag != tag]),
             _to_unmixed_cut(self, [t for t in real if t.tag == tag])]
 
-    def to_mono(self, *args, **kwargs) -> "Cut":
-        raise not_ported("MixedCut.to_mono")
+    def to_mono(self, encoding: str = "wav", **kwargs) -> "Cut":
+        """Render the whole mix to a single-channel in-memory MonoCut."""
+        wave = self.load_audio(mono_downmix=True)
+        buf = BytesIO()
+        save_audio(buf, wave, self.sampling_rate, format=encoding)
+        rec = Recording.from_bytes(buf.getvalue(), recording_id=self.id)
+        return fastcopy(
+            rec.to_cut(), supervisions=[fastcopy(s, channel=0) for s in self.supervisions],
+            custom=_get_first_non_padding_track(self).cut.custom)
 
     # -- loading ---------------------------------------------------------------------------------
 

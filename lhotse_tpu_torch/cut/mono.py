@@ -3,7 +3,7 @@ MonoCut: a single-channel concrete cut (copied from
 ``lhotse_tpu/cut/mono.py``): audio and feature loading, channel selection,
 lazy reverberation, supervision handling and merging, and (de)serialization. Selecting
 several channels and reverberating with a multi-channel RIR return a
-``MultiCut`` in the JAX package; ``MultiCut`` is not ported, so both raise.
+``MultiCut``.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from lhotse_tpu_torch.cut.data import DataCut
 from lhotse_tpu_torch.features.base import Features
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
-    fastcopy, hash_str_to_int, is_equal_or_contains, not_ported, rich_exception_info, uuid4)
+    fastcopy, hash_str_to_int, is_equal_or_contains, rich_exception_info, uuid4)
 
 
 @dataclass
@@ -57,24 +57,27 @@ class MonoCut(DataCut):
         return self.recording.load_audio(**self._span())
 
     def with_channels(self, channels: Union[List[int], int]) -> DataCut:
-        """Select one channel available in the underlying Recording (a
-        MonoCut); several channels would make a MultiCut, which is not
-        ported."""
+        """Select channels available in the underlying Recording; returns
+        MonoCut for one channel, MultiCut otherwise."""
         wanted = [channels] if isinstance(channels, int) else list(channels)
         assert set(wanted).issubset(set(self.recording.channel_ids)), (
             f"Cannot select {channels=}: not a subset of {self.recording.channel_ids=}"
         )
-        if len(wanted) != 1:
-            raise not_ported("MultiCut (MonoCut.with_channels with several channels)")
-        (one,) = wanted
-        keep = [
-            fastcopy(s, channel=one)
-            for s in self.supervisions
-            if is_equal_or_contains(s.channel, one)
-        ]
-        return MonoCut(
-            id=f"{self.id}-{one}", channel=one, supervisions=keep, recording=self.recording,
-            start=self.start, duration=self.duration, custom=self.custom)
+        span = dict(
+            recording=self.recording, start=self.start, duration=self.duration, custom=self.custom)
+        if len(wanted) == 1:
+            (one,) = wanted
+            keep = [
+                fastcopy(s, channel=one)
+                for s in self.supervisions
+                if is_equal_or_contains(s.channel, one)
+            ]
+            return MonoCut(id=f"{self.id}-{one}", channel=one, supervisions=keep, **span)
+        from lhotse_tpu_torch.cut.multi import MultiCut
+
+        keep = [s for s in self.supervisions if is_equal_or_contains(wanted, s.channel)]
+        return MultiCut(
+            id=f"{self.id}-{len(wanted)}chan", channel=wanted, supervisions=keep, **span)
 
     def reverb_rir(
         self, rir_recording: Optional[Union[Recording, DataCut]] = None,
@@ -82,8 +85,8 @@ class MonoCut(DataCut):
         rir_channels: Sequence[int] = (0,), room_rng_seed: Optional[int] = None,
         source_rng_seed: Optional[int] = None) -> DataCut:
         """
-        Lazy reverberation with a mono RIR, or a synthetic FRA-RIR when no
-        RIR is given (per-cut seeds derived from the cut id).
+        Lazy reverberation: mono RIR (or a synthetic FRA-RIR) keeps a MonoCut;
+        multi-channel RIR selections return a MultiCut with fanned-out channels.
         """
         assert self.has_recording, "Cannot apply reverberation on a MonoCut without Recording."
         if self.has_features:
@@ -103,16 +106,32 @@ class MonoCut(DataCut):
                 room_rng_seed = hash_str_to_int(str(uuid4()) + self.id, max_value=2**31)
             if source_rng_seed is None:
                 source_rng_seed = room_rng_seed
-        if len(rir_channels) != 1:
-            raise not_ported("MultiCut (reverb_rir with a multi-channel RIR selection)")
 
         recording_rvb = self.recording.reverb_rir(
             rir_recording=rir_recording, normalize_output=normalize_output, early_only=early_only,
             affix_id=affix_id, rir_channels=rir_channels, room_rng_seed=room_rng_seed,
             source_rng_seed=source_rng_seed)
+
+        if len(rir_channels) == 1:
+            return fastcopy(
+                self, id=f"{self.id}_rvb" if affix_id else self.id, recording=recording_rvb,
+                supervisions=[s.reverb_rir(affix_id=affix_id) for s in self.supervisions])
+        # Multi-channel RIR: the result fans out into a MultiCut.
+        if self.recording.num_channels > 1:
+            # The JAX package builds the MultiCut all the same: its recording
+            # reverberates every one of its channels, pairing channel d with
+            # RIR channel d, or fails to load when the counts differ.
+            raise ValueError(
+                f"Cut {self.id}: a multi-channel RIR fans out a single-channel recording; "
+                f"recording {self.recording.id} has {self.recording.num_channels} channels.")
+        from lhotse_tpu_torch.cut.multi import MultiCut
+
+        fanout = list(range(len(rir_channels)))
         return fastcopy(
-            self, id=f"{self.id}_rvb" if affix_id else self.id, recording=recording_rvb,
-            supervisions=[ s.reverb_rir(affix_id=affix_id) for s in self.supervisions ])
+            MultiCut.from_mono(self), recording=recording_rvb,
+            supervisions=[
+                s.reverb_rir(affix_id=affix_id, channel=fanout) for s in self.supervisions],
+            channel=fanout)
 
     @staticmethod
     def from_dict(data: dict) -> "MonoCut":

@@ -23,11 +23,17 @@ Shar format (``from_shar``, streaming or indexed, and ``to_shar``, in one
 process or over ``split_lazy`` chunks in spawned processes) and the module
 functions ``mix``, ``pad``, ``append``, ``mix_cuts`` and ``append_cuts``.
 
-Left out: ``save_audios``, ``copy_data``/``copy_feats``, ``prefetch``, the
-other constructors (``from_files``, ``from_webdataset``, the HuggingFace
-bridges) and ``MultiCut``, which raises ``NotImplementedError``: a
-multi-channel recording or feature manifest in ``from_manifests`` raises
-rather than becoming a ``MonoCut``.
+Multi-channel recordings and feature manifests become ``MultiCut``s in
+``from_manifests``; ``combine_same_recording_channels`` joins per-channel
+cuts of one span into them, and ``dereverb_wpe`` applies the host WPE
+transform lazily. ``compute_and_store_features_batch`` takes one channel per
+cut: a multi-channel cut raises there, where the JAX package joins its
+channels in time (use ``compute_and_store_features``, which stores one
+``(C, T, F)`` matrix per cut).
+
+Left out: ``save_audios``, ``copy_data``/``copy_feats``, ``prefetch`` and
+the other constructors (``from_files``, ``from_webdataset``, the HuggingFace
+bridges).
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.cut.data import DataCut
 from lhotse_tpu_torch.cut.mixed import MixedCut, MixTrack, _ensure_explicit_snr_reference
 from lhotse_tpu_torch.cut.mono import MonoCut
+from lhotse_tpu_torch.cut.multi import MultiCut
 from lhotse_tpu_torch.cut.padding import PaddingCut
 from lhotse_tpu_torch.features.base import (
     FeatureExtractor, Features, FeatureSet, StatsAccumulator, compute_global_stats)
@@ -81,8 +88,7 @@ def _progressbar(enabled: bool, **tqdm_kwargs):
 
 
 def is_cut(example) -> bool:
-    # MultiCut is not ported.
-    return isinstance(example, (MonoCut, MixedCut, PaddingCut))
+    return isinstance(example, (MonoCut, MultiCut, MixedCut, PaddingCut))
 
 
 class CutSet(Serializable, AlgorithmMixin):
@@ -98,6 +104,12 @@ class CutSet(Serializable, AlgorithmMixin):
         return self.cuts == other.cuts
 
     data = property(lambda self: self.cuts)
+
+    def _only(self, cut_type) -> "CutSet":
+        return CutSet([c for c in self.cuts if isinstance(c, cut_type)])
+
+    mixed_cuts = property(lambda self: self._only(MixedCut))
+    multi_cuts = property(lambda self: self._only(MultiCut))
     ids = property(lambda self: (c.id for c in self.cuts))
 
     @staticmethod
@@ -418,6 +430,18 @@ class CutSet(Serializable, AlgorithmMixin):
             out.update(per_cut)
         return out
 
+    def combine_same_recording_channels(self) -> "CutSet":
+        """Combine per-channel cuts of the same recording span into MultiCuts."""
+        if self.mixed_cuts or self.multi_cuts:
+            raise ValueError(
+                "This operation is not applicable to CutSets containing "
+                "MixedCuts or MultiCuts."
+            )
+        groups = defaultdict(list)
+        for cut in self:
+            groups[(cut.recording.id, cut.start, cut.end)].append(cut)
+        return CutSet.from_cuts(MultiCut.from_mono(*cuts) for cuts in groups.values())
+
     def modify_ids(self, transform_fn: Callable[[str], str]) -> "CutSet":
         """Transform every cut's ID with ``transform_fn``."""
         return self.map(_RenameCut(transform_fn))
@@ -509,6 +533,10 @@ class CutSet(Serializable, AlgorithmMixin):
     def perturb_volume(self, factor: float, affix_id: bool = True) -> "CutSet":
         """Lazy volume perturbation over all cuts."""
         return self.map(_CutOp("perturb_volume", factor=factor, affix_id=affix_id))
+
+    def dereverb_wpe(self, affix_id: bool = True) -> "CutSet":
+        """Lazy WPE dereverberation over all cuts."""
+        return self.map(_CutOp("dereverb_wpe", affix_id=affix_id))
 
     def reverb_rir(
         self, rir_recordings: Optional["RecordingSet"] = None, normalize_output: bool = True,  # noqa: F821
@@ -872,6 +900,20 @@ def _check_mixable(ref: Cut, other: Cut, offset: Seconds, allow_padding: bool) -
             f"({ref.sampling_rate} vs. {other.sampling_rate}). "
             f"Please resample the recordings first."
         )
+    # Channel layouts must line up when MultiCuts are involved.
+    if isinstance(ref, MultiCut) and isinstance(other, MultiCut):
+        if ref.channel != other.channel:
+            raise AssertionError("Cannot mix MultiCuts with different channel ids.")
+    if isinstance(ref, MultiCut) or isinstance(other, MultiCut):
+        mixed, multi = (ref, other) if isinstance(ref, MixedCut) else (other, ref)
+        if isinstance(mixed, MixedCut) and not all(
+            t.type != "MultiCut" or t.cut.channel == multi.channel
+            for t in mixed.tracks
+        ):
+            raise AssertionError(
+                "Cannot mix a MultiCut with a MixedCut containing MultiCuts "
+                "with different channel ids."
+            )
 
 
 def _pick_mixed_id(ref: Cut, other: Cut, preserve_id: Optional[str]) -> str:
@@ -1091,13 +1133,13 @@ def _cut_cls_and_channel_from_features(feats):
     mono = (feats.channels is None or isinstance(feats.channels, int) or len(feats.channels) == 1)
     if mono:
         return MonoCut, feats.channels if feats.channels is not None else 0
-    raise not_ported(f"MultiCut (multi-channel features of recording {feats.recording_id!r})")
+    return MultiCut, list(feats.channels)
 
 
 def _cut_cls_and_channel_from_recording(recording):
     if recording.num_channels == 1:
         return MonoCut, recording.channel_ids[0]
-    raise not_ported(f"MultiCut (multi-channel recording {recording.id!r})")
+    return MultiCut, recording.channel_ids
 
 
 def _cut_from_features(idx, feats, recording, sup_source, random_ids, tolerance) -> Cut:
@@ -1257,7 +1299,7 @@ def deserialize_cut(raw_cut: dict) -> Cut:
     if cut_type == "MonoCut":
         return MonoCut.from_dict(raw_cut)
     if cut_type == "MultiCut":
-        raise not_ported(cut_type)
+        return MultiCut.from_dict(raw_cut)
     if cut_type == "PaddingCut":
         return PaddingCut.from_dict(raw_cut)
     if cut_type == "Cut":

@@ -3,8 +3,8 @@ Collation of CutSet mini-batches into dense numpy host arrays (copied from
 ``lhotse_tpu/dataset/collation.py``): ``collate_features`` (padding with
 ``LOG_EPSILON`` on either side), ``collate_audio`` (the mono fast path, and
 the padded-cut route for multi-channel batches, ``mono_downmix``, custom
-recording fields and fault-tolerant reads), ``read_audio_from_cuts``,
-``collate_vectors`` and ``collate_matrices``.
+recording fields and fault-tolerant reads), ``collate_multi_channel_features``,
+``read_audio_from_cuts``, ``collate_vectors`` and ``collate_matrices``.
 
 Left out: video, image and custom-field collation.
 """
@@ -16,7 +16,7 @@ from typing import Iterable, List, Optional, Tuple, Union
 import numpy as np
 
 from lhotse_tpu_torch.audio import Recording, suppress_audio_loading_errors
-from lhotse_tpu_torch.cut import Cut, CutSet
+from lhotse_tpu_torch.cut import Cut, CutSet, MixedCut
 from lhotse_tpu_torch.utils import LOG_EPSILON, compute_num_samples
 
 # Padding label for token targets, conventionally ignored by the loss.
@@ -212,6 +212,23 @@ def collate_audio(
         return audios, audio_lens, cuts
     else:
         return audios, audio_lens
+
+
+def collate_multi_channel_features(cuts: CutSet) -> np.ndarray:
+    """
+    Load features of MixedCuts whose tracks are interpreted as channels into
+    a ``(batch, channel, time, features)`` array.
+    """
+    assert all(cut.has_features for cut in cuts)
+    assert all(isinstance(cut, MixedCut) for cut in cuts)
+    cuts = cuts.pad()
+    first_cut = next(iter(cuts))
+    features = np.empty(
+        (len(cuts), len(first_cut.tracks), first_cut.num_frames, first_cut.num_features),
+        dtype=np.float32)
+    for idx, cut in enumerate(cuts):
+        features[idx] = cut.load_features(mixed=False)
+    return features
 
 
 def collate_vectors(

@@ -9,6 +9,13 @@ extractor registry, the ``Features`` manifest with partial
 ``load(start, duration)``, ``FeatureSet`` and ``FeatureSetBuilder``,
 ``store_feature_array`` and the streaming global statistics.
 
+Multi-channel features (one ``(C, T, F)`` matrix from a ``(C, N)``
+signal) are stored time-major, as ``(T, C, F)``, so that a chunked archive
+reads a time window of every channel in one range, and ``Features.load``
+gives them back as ``(C, t, F)``; their manifest counts ``T`` frames and
+``F`` features. The JAX package describes such a matrix by its first two
+axes, ``num_frames=C``, and its validation then refuses it.
+
 The port keeps no progress bars, no YAML (de)serialisation and no
 ``FeatureSet.split_lazy``.
 """
@@ -34,7 +41,7 @@ from lhotse_tpu_torch.lazy import AlgorithmMixin
 from lhotse_tpu_torch.serialization import LazyMixin, Serializable
 from lhotse_tpu_torch.utils import (
     Pathlike, Seconds, asdict_nonull, compute_num_frames, compute_num_frames_from_samples,
-    exactly_one_not_null, fastcopy, ifnone, split_sequence, uuid4)
+    exactly_one_not_null, fastcopy, ifnone, split_sequence, to_list, uuid4)
 
 AugmentFn = Callable[[np.ndarray, int], np.ndarray]
 
@@ -168,9 +175,10 @@ class FeatureExtractor(metaclass=ABCMeta):
         """Persist a feature matrix and build + validate its manifest."""
         from lhotse_tpu_torch.qa import validate_features
 
-        key = store_feature_array(feats, storage=storage)
+        stored = np.ascontiguousarray(feats.transpose(1, 0, 2)) if feats.ndim == 3 else feats
+        key = store_feature_array(stored, storage=storage)
         manifest = Features(
-            type=self.name, num_frames=feats.shape[0], num_features=feats.shape[1],
+            type=self.name, num_frames=feats.shape[-2], num_features=feats.shape[-1],
             frame_shift=self.frame_shift, storage_type=storage.name,
             storage_path=str(storage.storage_path), storage_key=key, **manifest_fields)
         validate_features(manifest, feats_data=feats)
@@ -259,12 +267,21 @@ class Features:
 
     def load(
         self, start: Optional[Seconds] = None, duration: Optional[Seconds] = None,
-        channel_id: Union[int, List[int]] = 0) -> np.ndarray:
+        channel_id: Optional[Union[int, List[int]]] = None) -> np.ndarray:
         """Load the matrix, translating second offsets to frame offsets for a
-        partial read (reference: features/base.py:488)."""
+        partial read (reference: features/base.py:488). A multi-channel
+        matrix comes back as ``(C, t, F)``, cut to ``channel_id`` when it is
+        given; a single-channel one ignores ``channel_id``."""
         left, right = self._frame_window(start, duration)
         storage = get_reader(self.storage_type)(self.storage_path)
-        return storage.read(self.storage_key, left_offset_frames=left, right_offset_frames=right)
+        arr = storage.read(self.storage_key, left_offset_frames=left, right_offset_frames=right)
+        if arr.ndim != 3:
+            return arr
+        arr = arr.transpose(1, 0, 2)
+        if channel_id is None:
+            return arr
+        stored = to_list(self.channels)
+        return arr[[stored.index(c) for c in to_list(channel_id)]]
 
     def move_to_memory(
         self, start: Seconds = 0, duration: Optional[Seconds] = None, lilcom: bool = False,
@@ -274,6 +291,8 @@ class Features:
         if self.storage_type in ("memory_lilcom", "memory_writer"):
             return self
         arr = self.load(start=start, duration=duration)
+        if arr.ndim == 3:
+            arr = np.ascontiguousarray(arr.transpose(1, 0, 2))
         compress = lilcom and issubclass(arr.dtype.type, np.floating)
         writer = get_memory_writer("memory_lilcom" if compress else "memory_raw")()
         return fastcopy(

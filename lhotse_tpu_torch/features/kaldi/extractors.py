@@ -241,7 +241,14 @@ class _KaldiExtractorBase(FeatureExtractor):
         if lengths is not None:
             items = [np.asarray(s, dtype=np.float32)[: int(l)] for s, l in zip(samples, lengths)]
         elif input_is_list or getattr(samples, "ndim", 1) > 1:
-            items = [np.asarray(s, dtype=np.float32).reshape(-1) for s in samples]
+            items = [np.asarray(s, dtype=np.float32) for s in samples]
+            if any(s.ndim > 1 and s.shape[0] > 1 for s in items):
+                # The JAX package flattens a (C, T) item into one row, which
+                # joins the channels in time.
+                raise ValueError(
+                    "extract_batch takes one channel per item; extract a multi-channel "
+                    "(C, T) signal with extract(), which gives (C, frames, features).")
+            items = [s.reshape(-1) for s in items]
         else:
             items = [np.asarray(samples, dtype=np.float32).reshape(-1)]
         items = [self._apply_dither(s) for s in items]

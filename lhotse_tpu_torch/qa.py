@@ -1,13 +1,11 @@
 """
 Manifest validation and fixing, conceptually Kaldi's ``utils/fix_data_dir.sh``
 (copied from ``lhotse_tpu/qa.py``): the type-dispatched ``validate`` for
-recordings, supervisions, features, arrays, cuts (``MonoCut``, ``PaddingCut``
-and ``MixedCut``) and their Sets, the pairwise
+recordings, supervisions, features, arrays, cuts and their Sets, the pairwise
 ``validate_recordings_and_supervisions``, and ``fix_manifests`` (drop
 recordings and supervisions without a counterpart, drop supervisions that
 start past their recording's end and trim those that run past it).
-``validate_shar`` and ``MultiCut`` are not ported: a cut of another type
-raises ``NotImplementedError``.
+``validate_shar`` is not ported.
 """
 from __future__ import annotations
 
@@ -22,7 +20,7 @@ from lhotse_tpu_torch.array import Array, TemporalArray
 from lhotse_tpu_torch.audio import (Recording, RecordingSet, get_audio_duration_mismatch_tolerance)
 from lhotse_tpu_torch.features.base import Features, FeatureSet
 from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
-from lhotse_tpu_torch.utils import compute_num_frames, is_equal_or_contains, not_ported, overlaps
+from lhotse_tpu_torch.utils import compute_num_frames, is_equal_or_contains, overlaps
 
 _VALIDATORS: Dict[Any, Callable] = {}
 
@@ -252,7 +250,7 @@ def validate_features(
     if read_data or feats_data is not None:
         if read_data:
             feats_data = f.load()
-        n_fr, n_ft = feats_data.shape
+        n_fr, n_ft = feats_data.shape[-2:]
         assert f.num_frames == n_fr, (
             f"Features: expected num_frames: {f.num_frames}, actual: {n_fr}"
         )
@@ -290,8 +288,6 @@ def validate_cut(c, read_data: bool = False) -> None:
             validate_cut(track.cut, read_data=read_data)
             assert track.offset >= 0, f"MixedCut {c.id}: track {idx} has a negative offset."
         return
-    if not isinstance(c, (MonoCut, PaddingCut)):
-        raise not_ported(f"Validating {type(c).__name__}")
 
     assert c.start >= 0, f"Cut {c.id}: start must be 0 or greater (got {c.start})"
     assert c.duration > 0, f"Cut {c.id}: duration must be greater than 0 (got {c.duration})"
@@ -310,7 +306,7 @@ def validate_cut(c, read_data: bool = False) -> None:
         assert c.channel == c.features.channels
         if read_data:
             feats = c.load_features()
-            n_fr, n_ft = feats.shape
+            n_fr, n_ft = feats.shape[-2:]
             assert c.num_frames == n_fr, (
                 f"Cut {c.id}: expected num_frames: {c.num_frames}, actual: {n_fr}"
             )

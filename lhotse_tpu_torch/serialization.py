@@ -18,8 +18,7 @@ JSONL through its ``.idx`` sidecar
 ``indexed=None`` an existing sidecar is used.
 
 Left out, and raising ``NotImplementedError`` where a manifest asks for
-them: pipes, URLs and the other remote I/O backends, and the manifest types
-the port does not have yet (images, ``MultiCut``).
+them: pipes, URLs and the other remote I/O backends, and images.
 """
 from __future__ import annotations
 
@@ -568,7 +567,7 @@ def deserialize_item(data: dict) -> Any:
     """
     from lhotse_tpu_torch.array import deserialize_array
     from lhotse_tpu_torch.audio import Recording
-    from lhotse_tpu_torch.cut import MixedCut, MonoCut, PaddingCut
+    from lhotse_tpu_torch.cut import MixedCut, MonoCut, MultiCut, PaddingCut
     from lhotse_tpu_torch.features import Features
     from lhotse_tpu_torch.supervision import SupervisionSegment
 
@@ -586,7 +585,7 @@ def deserialize_item(data: dict) -> Any:
     if cut_type == "MonoCut":
         return MonoCut.from_dict(data)
     if cut_type == "MultiCut":
-        raise not_ported("MultiCut")
+        return MultiCut.from_dict(data)
     if cut_type == "PaddingCut":
         return PaddingCut.from_dict(data)
     if cut_type == "Cut":

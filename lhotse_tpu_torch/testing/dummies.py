@@ -23,11 +23,11 @@ import numpy as np
 
 from lhotse_tpu_torch.array import Array, TemporalArray
 from lhotse_tpu_torch.audio import AudioSource, Recording, RecordingSet
-from lhotse_tpu_torch.cut import CutSet, MonoCut
+from lhotse_tpu_torch.cut import CutSet, MonoCut, MultiCut
 from lhotse_tpu_torch.features import Features, FeatureSet
 from lhotse_tpu_torch.features.io import MemoryRawWriter
 from lhotse_tpu_torch.supervision import AlignmentItem, SupervisionSegment, SupervisionSet
-from lhotse_tpu_torch.utils import compute_num_frames, compute_num_samples, fastcopy, not_ported
+from lhotse_tpu_torch.utils import compute_num_frames, compute_num_samples, fastcopy
 
 _SINE_HZ = 1000
 _FAKE_NPY_KEY = "dbf9a0ec-f79d-4eb8-ae83-143a6d5de64d.npy"
@@ -204,9 +204,20 @@ def dummy_cut(
         supervisions=[] if supervisions is None else supervisions, custom=custom)
 
 
-def dummy_multi_cut(*args, **kwargs):
-    """The JAX factory builds a ``MultiCut``, which the port does not have."""
-    raise not_ported("MultiCut (dummy_multi_cut)")
+def dummy_multi_cut(
+    unique_id: int, start: float = 0.0, duration: float = 1.0, recording_duration: float = 1.0,
+    recording: Recording = None, features: Features = None, supervisions=None,
+    channel: Optional[List[int]] = None, source_per_channel: bool = False, with_data: bool = False):
+    channel = [0, 1] if channel is None else channel
+    if recording is None:
+        recording = dummy_multi_channel_recording(
+            unique_id, duration=max(recording_duration, duration), channel_ids=channel,
+            with_data=with_data, source_per_channel=source_per_channel)
+    return MultiCut(
+        id=f"dummy-multi-cut-{unique_id:04d}", start=start, duration=duration, channel=channel,
+        recording=recording,
+        features=features or dummy_multi_channel_features(unique_id, channels=channel),
+        supervisions=[] if supervisions is None else supervisions)
 
 
 _BULK_BUILDERS = {

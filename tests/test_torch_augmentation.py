@@ -145,9 +145,16 @@ def test_transform_dicts_cross_packages(files):
 @pytest.mark.parametrize("name", ["Narrowband", "Compress", "Clipping", "LoudnessNormalization",
                                   "DereverbWPE"])
 def test_left_out_transforms_raise(files, name):
+    rec = files["utt"][0]
+    if name == "DereverbWPE":
+        # The host WPE transform is ported: a manifest naming it reads, and
+        # the builder appends it as the JAX package's does.
+        assert PA.AudioTransform.from_dict({"name": name, "kwargs": {}}) == PA.DereverbWPE()
+        jrec = J.Recording.from_dict(rec.to_dict())
+        assert rec.dereverb_wpe().to_dict() == jrec.dereverb_wpe().to_dict()
+        return
     with pytest.raises(NotImplementedError, match=name):
         PA.AudioTransform.from_dict({"name": name, "kwargs": {}})
-    rec = files["utt"][0]
     with pytest.raises(NotImplementedError):
         {"Narrowband": lambda: rec.narrowband("mulaw"), "Compress": rec.compress,
          "Clipping": rec.clip_amplitude, "LoudnessNormalization": lambda: rec.normalize_loudness(-20),

@@ -1,8 +1,9 @@
 """
 The port on a CUDA card: the fbank kernel against its plain PyTorch version;
 the layers, augmenter, adpcm4 decode, sample cache, extractors (and their
-features through a chunky archive), ``OnTheFlyFeatures``, encoder, entry and
-WPE on the card against the same port on the CPU.
+features through a chunky archive, and an 8-channel 300 s session),
+``OnTheFlyFeatures``, encoder, entry and WPE on the card against the same
+port on the CPU.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -408,6 +409,24 @@ def test_extract_store_read_on_card_matches_cpu(cuda, tmp_path):
         got = reader.read(key)
         assert np.abs(got - f).max() <= 2.0**-6 + 1e-6
         assert np.array_equal(got, LilcomChunkyReader(writer.storage_path).read(key, 0, None))
+
+
+def test_session_extract_on_card_matches_plain_version(cuda):
+    """A 300 s, 8-channel array session (the shape of an AMI MDM meeting)
+    through ``Fbank.extract``: one launch of 8 rows of 30,000 frames, held
+    to the kernel's plain version on the card."""
+    rng = np.random.default_rng(5678)
+    n = 300 * 16000
+    t = np.arange(n) / 16000
+    tone = 0.2 * np.sin(2 * np.pi * 220 * t) * (np.sin(2 * np.pi * t / 7) > 0)
+    session = (tone + 0.01 * rng.standard_normal((8, n))).astype(np.float32)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    fbank_cuda.LAUNCHES = 0
+    feats = extractor.extract(session, 16000)
+    assert fbank_cuda.LAUNCHES == 1
+    assert feats.shape == (8, 30000, 80) and np.isfinite(feats).all()
+    plain = _plain(extractor, list(session))
+    assert max(float(np.abs(a - b).max()) for a, b in zip(feats, plain)) <= LOGMEL_TOL
 
 
 def test_on_the_fly_features_on_card_match_cpu(cuda, tmp_path):

@@ -153,13 +153,25 @@ def test_from_manifests_warns_on_unsorted_lazy_inputs(corpus, tmp_path):
 
 
 def test_multi_channel_input_is_not_ported(corpus):
-    stereo = Recording.from_dict(dummy_multi_channel_recording(0).to_dict())
-    with pytest.raises(NotImplementedError, match="MultiCut"):
-        CutSet.from_manifests(recordings=RecordingSet([stereo]))
+    """Multi-channel recordings and feature manifests become MultiCuts, as
+    in the JAX package (MultiCut is ported)."""
+    jstereo = dummy_multi_channel_recording(0)
+    stereo = Recording.from_dict(jstereo.to_dict())
+    ours = CutSet.from_manifests(recordings=RecordingSet([stereo]))
+    theirs = J.CutSet.from_manifests(recordings=J.RecordingSet([jstereo]))
+    assert [type(c).__name__ for c in ours] == ["MultiCut"]
+    assert [c.to_dict() for c in ours] == [c.to_dict() for c in theirs]
     feats = FeatureSet.from_file(corpus / "features.jsonl.gz").to_eager()
     two = FeatureSet.from_features([f.copy_with(channels=[0, 1]) for f in feats])
-    with pytest.raises(NotImplementedError, match="MultiCut"):
-        CutSet.from_manifests(features=two)
+    jtwo = J.FeatureSet.from_features([
+        f.copy_with(channels=[0, 1])
+        for f in J.FeatureSet.from_file(corpus / "features.jsonl.gz").to_eager()])
+    fix_random_seed(0)
+    ours = CutSet.from_manifests(features=two)
+    jfix(0)
+    theirs = J.CutSet.from_manifests(features=jtwo)
+    assert {type(c).__name__ for c in ours} == {"MultiCut"}
+    assert [c.to_dict() for c in ours] == [c.to_dict() for c in theirs]
 
 
 def _source(ns, corpus, kind):

@@ -157,13 +157,18 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
             line["recording"], transforms=[{"name": "Narrowband", "kwargs": {"codec": "mulaw"}}])),
         "custom image": dict(line, custom={"img": {"storage_type": "pillow_files", "storage_path": "x",
                                                    "storage_key": "y", "width": 4, "height": 4}}),
-        "MultiCut": dict(line, type="MultiCut"),
     }
     for name, data in cases.items():
         path = tmp_path / f"{name.replace(' ', '_')}.jsonl"
         path.write_text(json.dumps(data) + "\n")
         with pytest.raises(NotImplementedError):
             list(CutSet.from_jsonl_lazy(path))
+    # MultiCut is ported: its manifest reads as the JAX package reads it.
+    path = tmp_path / "MultiCut.jsonl"
+    path.write_text(json.dumps(dict(line, type="MultiCut")) + "\n")
+    (multi,) = list(CutSet.from_jsonl_lazy(path))
+    (jmulti,) = list(J.CutSet.from_jsonl_lazy(path))
+    assert type(multi).__name__ == "MultiCut" and multi.to_dict() == jmulti.to_dict()
     # Features and custom arrays load since the precomputed-features path was
     # ported; a storage backend the port lacks raises when the data is read.
     hdf5 = dict(line, features={

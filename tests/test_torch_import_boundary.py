@@ -75,7 +75,8 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.dataset.sampling.simple, lhotse_tpu_torch.dataset.sampling.bucketing, "
         "lhotse_tpu_torch.dataset.sampling.utils, lhotse_tpu_torch.dataset, "
         "lhotse_tpu_torch.recipes, lhotse_tpu_torch.recipes.utils, "
-        "lhotse_tpu_torch.recipes.librispeech; "
+        "lhotse_tpu_torch.recipes.librispeech, lhotse_tpu_torch.cut.multi, "
+        "lhotse_tpu_torch.augmentation.wpe, lhotse_tpu_torch.recipes.ami; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -420,6 +421,76 @@ def test_recipe_path_runs_without_jax_and_optional_modules(tmp_path):
     where importing jax, lhotse_tpu, PyYAML, tabulate or tqdm fails."""
     proc = subprocess.run(
         [sys.executable, "-c", RECIPE_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+MEETING_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import Recording
+from lhotse_tpu_torch.audio.wavio import write_wav
+from lhotse_tpu_torch.cut import CutSet, MonoCut, MultiCut
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+from lhotse_tpu_torch.recipes import prepare_ami
+
+SR = 16000
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    root = Path(tmp)
+    rng = np.random.default_rng(0)
+    ann = root / "ami_public_manual_1.6.2"
+    for sub in ("corpusResources", "segments", "words"):
+        (ann / sub).mkdir(parents=True)
+    xml = ["<meetings>"]
+    for meet in ("ES2002a", "ES2011a", "ES2004a"):
+        audio = root / meet / "audio"
+        audio.mkdir(parents=True)
+        for k in range(1, 4):
+            write_wav(str(audio / f"{meet}.Array1-0{k}.wav"),
+                      (0.1 * rng.standard_normal(3 * SR)).astype(np.float32), SR)
+        xml.append(f'<meeting observation="{meet}">'
+                   '<speaker nxt_agent="A" global_name="MEE001" channel="0"/></meeting>')
+        (ann / "segments" / f"{meet}.A.segments.xml").write_text(
+            '<segments><segment transcriber_start="0.5" transcriber_end="2.0"/></segments>')
+        (ann / "words" / f"{meet}.A.words.xml").write_text(
+            '<words><w starttime="0.5" endtime="1.0">HELLO</w>'
+            '<w starttime="1.1" endtime="1.9">WORLD</w></words>')
+    (ann / "corpusResources" / "meetings.xml").write_text("".join(xml) + "</meetings>")
+    train = prepare_ami(root, mic="mdm")["train"]
+    sessions = CutSet.from_manifests(**train)
+    assert [type(c) for c in sessions] == [MultiCut]
+    fbank = Fbank(FbankConfig(device="cpu"))
+    featured = sessions.compute_and_store_features(
+        fbank, root / "feats", storage_type=LilcomChunkyWriter)
+    trimmed = featured.trim_to_supervisions(keep_all_channels=True).to_eager()
+    (seg,) = list(trimmed)
+    assert seg.load_features().shape == (3, seg.num_frames, 80)
+    monos = seg.to_mono()
+    assert [type(m) for m in monos] == [MonoCut] * 3
+    assert seg.dereverb_wpe().load_audio().shape == (3, seg.num_samples)
+    rir = root / "rir.wav"
+    write_wav(str(rir), (0.05 * rng.standard_normal((4, SR // 4))).astype(np.float32), SR)
+    mic = Recording.from_file(root / "ES2002a" / "audio" / "ES2002a.Array1-01.wav").to_cut()
+    fanned = mic.reverb_rir(Recording.from_file(rir), rir_channels=[0, 1, 2, 3])
+    assert isinstance(fanned, MultiCut) and fanned.load_audio().shape == (4, 3 * SR)
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_meeting_path_runs_without_jax(tmp_path):
+    """An AMI-layout corpus → prepare_ami(mic="mdm") → MultiCuts → stored
+    (C, T, F) features → trimmed MultiCuts → to_mono, host WPE and a
+    multi-channel RIR fan-out, on the CPU, in a process where importing jax
+    or lhotse_tpu fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", MEETING_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 

@@ -356,7 +356,9 @@ def test_dummy_manifests_equal_jax(tmp_path):
     assert sup.text == "abc"
     with PD.as_lazy(PD.DummyManifest(CutSet, begin_id=0, end_id=4)) as lazy:
         assert lazy.is_lazy and [c.id for c in lazy] == [f"dummy-mono-cut-{i:04d}" for i in range(4)]
-    with pytest.raises(NotImplementedError, match="MultiCut"):
-        PD.dummy_multi_cut(0)
+    multi, jmulti = PD.dummy_multi_cut(0).to_dict(), JD.dummy_multi_cut(0).to_dict()
+    for d in (multi, jmulti):
+        d["features"].pop("storage_key")  # a fresh uuid4 on each call
+    assert multi == jmulti
     with pytest.raises(ValueError, match="cannot fabricate"):
         PD.DummyManifest(dict, begin_id=0, end_id=1)
