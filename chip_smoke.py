@@ -47,7 +47,14 @@ archive, the array segments trimmed with ``keep_all_channels=True`` and
 split by ``to_mono()`` into ``OnTheFlyFeatures`` on the kernel and the
 AdamW step, the headsets trimmed to each speaker's channel likewise, the
 host WPE over 8-channel segments and a multi-channel RIR fan-out through
-the kernel); and checks what comes out.
+the kernel); then the data-parallel path (two ranks in processes of their
+own on the one card, joined by gloo, each over its partition of the e2e
+corpus's sampler through ``OnTheFlyFeatures`` on the kernel into the AdamW
+step, the gradients averaged by ``all_reduce`` and the parameters held
+``torch.equal`` across the ranks after every step; and
+``dryrun_multichip(4)``, the tensor-parallel dry-run over 4 CPU ranks);
+the extractors under the reference's names on the card beside the Kaldi
+ones; and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -69,8 +76,10 @@ features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
 (0: it reads stored features), ``recipe_on_the_fly``, ``long_form_extract``,
 ``long_form_trimmed`` (0: it reads stored features),
 ``long_form_windows``, ``ami_mdm_extract``, ``ami_mdm_on_the_fly``,
-``ami_ihm_on_the_fly``, ``ami_mdm_wpe`` and ``ami_rir_fanout``); the last
-line is
+``ami_ihm_on_the_fly``, ``ami_mdm_wpe``, ``ami_rir_fanout``,
+``extractor_named_fbank``, ``extractor_named_mfcc``,
+``extractor_named_kaldifeat-fbank``, ``extractor_named_kaldifeat-mfcc`` and
+``dp_on_the_fly``, both ranks' launches); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -135,7 +144,10 @@ def _device_busy(fn):
     """Run ``fn`` once under ``torch.profiler``. Returns its host-clock wall
     ms, the ms in which the device was busy (the union of the intervals of
     its device activities: kernels, copies, sets) and the device ms by
-    activity name."""
+    activity name. ``fn`` runs once, so a window that the card's CUPTI
+    tracing hands back without its device activities (as it now and then
+    does, see ``_device_ms``) cannot be traced again: its busy ms are NaN,
+    "not measured", and the phase's own checks still decide."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,7 +167,9 @@ def _device_busy(fn):
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     if not busy_us > 0:
-        raise AssertionError("torch.profiler recorded no device time")
+        print("torch.profiler handed back this window without device activities: its device "
+              "busy share is not measured (nan)")
+        return wall_ms, math.nan, by_name
     return wall_ms, busy_us / 1e3, by_name
 
 
@@ -444,6 +458,43 @@ def _phase_extractors(device, fbank_cuda, ops) -> dict:
             raise AssertionError(f"{kind} frame counts differ from _num_frames")
         if not err <= CHAIN_TOL or not all(np.isfinite(f).all() for f in feats):
             raise AssertionError(f"{kind} on the card disagrees with the CPU route")
+    launches.update(_phase_named_extractors(items, fbank_cuda))
+    return launches
+
+
+def _phase_named_extractors(items, fbank_cuda) -> dict:
+    """6b. The extractors under the reference's names at their defaults (on
+    the card) against the same extractors on the CPU: ``fbank``, ``mfcc``
+    (compliance) and ``kaldifeat-fbank``/``kaldifeat-mfcc`` on the fbank
+    kernel, ``whisper-fbank`` and ``librosa-fbank`` on fp32 GEMMs (no
+    kernel). Returns the kernel's launches of the first four."""
+    from lhotse_tpu_torch.features.base import get_extractor_type
+
+    launches = {}
+    for name in ("fbank", "mfcc", "kaldifeat-fbank", "kaldifeat-mfcc", "whisper-fbank",
+                 "librosa-fbank"):
+        cls = get_extractor_type(name)
+        on_card, on_cpu = cls(), cls()
+        on_cpu.to("cpu")
+        sr = 22050 if name == "librosa-fbank" else SR
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        feats = [on_card.extract(x, sr) for x in items]
+        elapsed = time.perf_counter() - t0
+        n = fbank_cuda.LAUNCHES
+        err = max(float(np.abs(a - on_cpu.extract(x, sr)).max()) for a, x in zip(feats, items))
+        audio_s = sum(len(x) for x in items) / sr
+        print(f"{name} ({cls.__name__}) on {on_card.device}: {len(items)} items, max_abs_err vs "
+              f"the CPU port {err!r} (tol {CHAIN_TOL}); {audio_s / elapsed!r} audio-s/s (first "
+              f"call of each item included); fbank kernel launches {n}")
+        uses_kernel = name not in ("whisper-fbank", "librosa-fbank")
+        if on_card.device.type != "cuda" or n != (len(items) if uses_kernel else 0):
+            raise AssertionError(f"{name}: not on the card, or kernel launches {n} are off")
+        if not err <= CHAIN_TOL or not all(np.isfinite(f).all() for f in feats):
+            raise AssertionError(f"{name} on the card disagrees with the CPU port")
+        if uses_kernel:
+            launches[f"extractor_named_{name}"] = n
     return launches
 
 
@@ -962,9 +1013,10 @@ class _RecordFirstBatch:
         extractor.extract_batch = extract_batch
 
 
-def _sampler_over(cuts):
+def _sampler_over(cuts, world_size: int = 1, rank: int = 0):
     """Phase 10's ``DynamicBucketingSampler`` (buckets, constraint, shuffle
-    with seed 0) over another manifest of the same cuts, or a lazy CutSet."""
+    with seed 0) over another manifest of the same cuts, or a lazy CutSet;
+    rank ``rank``'s partition of ``world_size``."""
     from lhotse_tpu_torch.cut import CutSet
     from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import (
         DynamicBucketingSampler, FixedBucketBatchSizeConstraint)
@@ -975,7 +1027,8 @@ def _sampler_over(cuts):
             max_seq_len_buckets=[ub for ub, _ in E2E_BUCKETS],
             batch_sizes=[bsz for _, bsz in E2E_BUCKETS]),
         num_buckets=None, duration_bins=[ub for ub, _ in E2E_BUCKETS[:-1]],
-        buffer_size=max(E2E_RECORDINGS, 16), shuffle=True, seed=0, world_size=1, rank=0)
+        buffer_size=max(E2E_RECORDINGS, 16), shuffle=True, seed=0, world_size=world_size,
+        rank=rank)
 
 
 def _train_epoch(loader, trainer, device, on_batch=None) -> dict:
@@ -2247,10 +2300,11 @@ def _phase_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
 
     # -- ami_rir_fanout ----------------------------------------------------------------
     sdm = prepare_ami(corpus, output_dir=workdir / "ami_manifests", mic="sdm")["train"]
-    # Windows of the single-microphone sessions at their supervisions (a
-    # trimmed cut would take the supervisions' channel list, [0]).
-    singles = [c.truncate(offset=s.start, duration=s.duration, keep_excessive_supervisions=False)
-               for c in CutSet.from_manifests(**sdm) for s in c.supervisions]
+    # The single-microphone sessions trimmed to their supervisions: MonoCuts
+    # on channel 0 (the supervisions name it as a list, [0]).
+    singles = list(CutSet.from_manifests(**sdm).trim_to_supervisions(keep_overlapping=False))
+    if not all(isinstance(c, MonoCut) and c.channel == 0 for c in singles):
+        raise AssertionError("ami_rir_fanout: the trimmed sdm cuts are not MonoCuts on channel 0")
     rng = np.random.default_rng(5679)
     taps = np.arange(SR // 2)
     rir = np.stack([np.exp(-taps / 1600.0) * rng.standard_normal(SR // 2) * 0.05
@@ -2283,6 +2337,153 @@ def _phase_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
         raise AssertionError("ami_rir_fanout: launches, the kernel or the fan-out are off")
     set_tracing_enabled(False)
     return launches, max(extract_err, mdm_err, ihm_err, wpe_err, rir_err)
+
+
+DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
+
+
+def _dp_rank(rank: int, n_ranks: int, cuts_path: Path) -> list:
+    """Phase 16's rank ``rank`` of ``n_ranks`` in its own spawned process,
+    joined to the others by gloo (``lhotse_tpu_torch.entry.run_gloo_ranks``):
+    its partition of phase 10's sampler → ``K2SpeechRecognitionDataset``
+    with ``OnTheFlyFeatures`` on the card (the fbank kernel) →
+    ``DataLoader`` → one AdamW step of ``Encoder(EncoderConfig())`` per
+    batch, the gradients averaged over the ranks by one ``all_reduce`` of
+    the card's tensors through gloo, and after every step this rank's
+    parameters ``torch.equal`` to every other rank's. A rank out of batches
+    takes the step with zero gradients until every rank is done. Every
+    rank's report goes to rank 0, which returns the list."""
+    import torch.distributed as dist
+
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.models import encoder as enc
+    from lhotse_tpu_torch.ops import fbank_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    fbank_cuda._lib()  # built by the parent before it spawned the ranks
+    fly = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(fly)
+    sampler = _sampler_over(cuts_path, world_size=n_ranks, rank=rank)
+    dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly))
+    loader = DataLoader(sampler, dataset, prefetch_batches=3)
+    cfg = enc.EncoderConfig()
+    model = enc.Encoder(cfg, device=device)  # the same seeded weights on every rank
+    params = list(model.parameters())
+    init, _ = enc.make_adamw_train_step(lr=1e-3)
+    opt = init(model)
+    gen = torch.Generator(device=device).manual_seed(10 + rank)  # rank-keyed masks
+    n_batches = torch.tensor([sum(1 for _ in sampler)])
+    dist.all_reduce(n_batches, op=dist.ReduceOp.MAX)
+    ids, losses, reduce_ms, audio_s, equal_after = [], [], [], 0.0, []
+    torch.cuda.synchronize()
+    dist.barrier()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    it = iter(loader)
+    for _ in range(int(n_batches)):
+        batch = next(it, None)
+        opt.zero_grad(set_to_none=False)
+        if batch is not None:
+            cuts = batch["supervisions"]["cut"]
+            feats = torch.from_numpy(batch["inputs"]).to(device)
+            feat_lens = torch.from_numpy(
+                np.asarray(batch["supervisions"]["num_frames"], np.int64)).to(device)
+            mask = enc.draw_mask(feat_lens, feats.shape[1], cfg.mask_prob, gen)
+            loss = enc.masked_prediction_loss(model, feats, feat_lens, mask)
+            loss.backward()
+            losses.append(float(loss.detach()))
+            ids.append([c.id for c in cuts])
+            audio_s += sum(c.duration for c in cuts)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        dist.all_reduce(flat)
+        flat /= n_ranks
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p))
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+        opt.step()
+        mine = torch.cat([p.detach().reshape(-1) for p in params]).cpu()
+        everyone = [torch.empty_like(mine) for _ in range(n_ranks)]
+        dist.all_gather(everyone, mine)
+        equal_after.append(all(torch.equal(mine, other) for other in everyone))
+    torch.cuda.synchronize()
+    elapsed_s = time.perf_counter() - t0
+    launches = fbank_cuda.LAUNCHES
+    items, kernel_out = recorder.first
+    err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(fly, items)))
+    report = {"rank": rank, "ids": ids, "losses": losses, "reduce_ms": reduce_ms,
+              "audio_s": audio_s, "elapsed_s": elapsed_s, "launches": launches,
+              "equal_after": equal_after, "kernel_err": err, "steps": int(n_batches)}
+    reports = [None] * n_ranks
+    dist.all_gather_object(reports, report)
+    return reports
+
+
+def _phase_data_parallel(cuts_path: Path, smi: str) -> tuple:
+    """16. Two data-parallel ranks on the one card, on phase 10's corpus and
+    bucket table (``_dp_rank``, one epoch). Checks that the ranks' cuts are
+    disjoint and together are what the two samplers give in this process
+    without a process group, that the parameters are ``torch.equal`` across
+    the ranks after every step, that each rank launched the kernel once per
+    batch, and the first batch of each rank against the kernel's plain
+    version. Then ``dryrun_multichip(4)`` on the CPU, timed. Returns the
+    launches and the kernel's worst error."""
+    from lhotse_tpu_torch.entry import dryrun_multichip, run_gloo_ranks
+
+    t0 = time.perf_counter()
+    reports = run_gloo_ranks(_dp_rank, DP_RANKS, cuts_path)
+    wall_s = time.perf_counter() - t0
+    in_process = [{c.id for batch in _sampler_over(cuts_path, DP_RANKS, r) for c in batch}
+                  for r in range(DP_RANKS)]
+    per_rank = [{i for batch in rep["ids"] for i in batch} for rep in reports]
+    disjoint = all(not (per_rank[a] & per_rank[b])
+                   for a in range(DP_RANKS) for b in range(a + 1, DP_RANKS))
+    union_equal = set().union(*per_rank) == set().union(*in_process)
+    audio_s = sum(rep["audio_s"] for rep in reports)
+    elapsed_s = max(rep["elapsed_s"] for rep in reports)
+    launches = sum(rep["launches"] for rep in reports)
+    err = max(rep["kernel_err"] for rep in reports)
+    for rep in reports:
+        n = len(rep["ids"])
+        print(f"[{smi}] dp_on_the_fly rank {rep['rank']}/{DP_RANKS}: {n} batches "
+              f"({rep['steps']} steps), {rep['audio_s']!r} audio-s in {rep['elapsed_s']!r} s; "
+              f"losses {rep['losses']}; host ms per step in the gradient all_reduce (gloo, "
+              f"through the host) {rep['reduce_ms']}; fbank kernel launches {rep['launches']}; "
+              f"parameters torch.equal across the ranks after every step: "
+              f"{all(rep['equal_after'])}; first batch kernel vs plain {rep['kernel_err']!r} "
+              f"(tol {KERNEL_TOL})")
+    print(f"[{smi}] dp_on_the_fly: {DP_RANKS} ranks on one card, {audio_s!r} audio-s in "
+          f"{elapsed_s!r} s (the slower rank's epoch, steps included): {audio_s / elapsed_s!r} "
+          f"audio-s/s of both ranks together; batches per rank {[len(r['ids']) for r in reports]}; "
+          f"host ms per step in the gradient reduction, mean "
+          f"{float(np.mean([m for r in reports for m in r['reduce_ms']]))!r}; ranks' cuts "
+          f"disjoint: {disjoint}, union equal to the two samplers' in one process: "
+          f"{union_equal}; spawn to join {wall_s!r} s")
+    if not disjoint or not union_equal:
+        raise AssertionError("dp_on_the_fly: the ranks' partitions are off")
+    for rep in reports:
+        if not all(rep["equal_after"]) or len(rep["equal_after"]) != rep["steps"]:
+            raise AssertionError(f"dp_on_the_fly: rank {rep['rank']}'s parameters differ")
+        if rep["launches"] != len(rep["ids"]) or not rep["kernel_err"] <= KERNEL_TOL:
+            raise AssertionError(f"dp_on_the_fly: rank {rep['rank']}'s launches or kernel are off")
+        if not rep["ids"] or not all(math.isfinite(x) for x in rep["losses"]):
+            raise AssertionError(f"dp_on_the_fly: rank {rep['rank']} ran no batch or lost finiteness")
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    print(f"dryrun_multichip(4): 4 gloo ranks on the CPU, (2 data x 2 model), passed in "
+          f"{time.perf_counter() - t0!r} s")
+    return launches, err
 
 
 class _PlainFbank:
@@ -2509,6 +2710,10 @@ def main() -> None:
             cuts_path, Path(tmp) / "feats_cuts.jsonl", Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_shar)
         print(f"phase 13 took {time.perf_counter() - t0!r} s")
+        # -- 16. two data-parallel ranks on the card, on the same corpus ----------
+        t0 = time.perf_counter()
+        by_path["dp_on_the_fly"], dp_err = _phase_data_parallel(cuts_path, smi)
+        print(f"phase 16 took {time.perf_counter() - t0!r} s")
 
     # -- 14. the recipe path, on corpora of its own --------------------------------
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -2535,7 +2740,7 @@ def main() -> None:
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
         "max_abs_err": max([c["max_abs_err"] for c in cases]
-                           + [pre_err, aug_err, shar_err, recipe_err, meetings_err]),
+                           + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -12,8 +12,10 @@ stored features, the host augmentation: recording transforms,
 ``PaddingCut``/``MixedCut`` and the cut transforms, Shar, and the recipe
 path: ``RecordingSet``/``SupervisionSet``, ``CutSet.from_manifests``, the
 trimming and windowing, ``SimpleCutSampler``/``BucketingSampler`` and the
-LibriSpeech recipe, and the multi-channel meeting path: ``MultiCut``, the
-host ``DereverbWPE`` transform and the AMI recipe) is
+LibriSpeech recipe, the multi-channel meeting path: ``MultiCut``, the
+host ``DereverbWPE`` transform and the AMI recipe, and the extractors under
+the reference's names: ``fbank``, ``mfcc``, ``spectrogram``, the kaldifeat,
+Whisper and librosa fbanks) is
 copied function by function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.
@@ -22,4 +24,10 @@ The one hand-written kernel is the fused log-mel fbank
 (:mod:`lhotse_tpu_torch.ops.fbank_cuda`, CUDA C++ in ``csrc/fbank.cu``),
 built with ``nvcc`` at first use. A CPU tensor takes the kernel's plain
 PyTorch version; a CUDA tensor launches the kernel or raises.
+
+Data-parallel training runs one process per rank joined by
+``torch.distributed``; the encoder's tensor-parallel placement is
+``models.encoder.param_shardings`` over a ("data", "model")
+``DeviceMesh``, and ``entry.dryrun_multichip(n)`` checks the whole
+multi-rank step over ``n`` spawned gloo ranks on the CPU.
 """

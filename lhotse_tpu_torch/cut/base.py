@@ -151,6 +151,7 @@ class Cut:
         supervision per output cut.
         """
         from lhotse_tpu_torch.cut.mixed import MixedCut
+        from lhotse_tpu_torch.cut.mono import MonoCut
         from lhotse_tpu_torch.cut.multi import MultiCut
         from lhotse_tpu_torch.cut.set import CutSet
 
@@ -168,7 +169,12 @@ class Cut:
                 "`keep_all_channels=True` to keep original channels or "
                 "`keep_overlapping=False` to retain only 1 supervision per cut."
             )
-            piece.channel = piece.supervisions[0].channel
+            channel = piece.supervisions[0].channel
+            if isinstance(piece, MonoCut) and isinstance(channel, list) and len(channel) == 1:
+                # A MonoCut names its one channel as an int; AMI's single-microphone
+                # supervisions carry a list, [0].
+                channel = channel[0]
+            piece.channel = channel
             if isinstance(piece, MultiCut) and piece.num_channels == 1:
                 piece = piece.to_mono()[0]
             return piece

@@ -578,7 +578,9 @@ class StatsAccumulator:
         self.m2 = np.zeros((feature_dim,), dtype=np.float64)
 
     def update(self, arr: np.ndarray) -> None:
-        arr = arr.astype(np.float64)
+        """Fold in a (T, F) matrix, or a multi-channel (C, T, F) one, whose
+        every channel-frame counts as a frame."""
+        arr = arr.astype(np.float64).reshape(-1, arr.shape[-1])
         n = arr.shape[0]
         if n == 0:
             return

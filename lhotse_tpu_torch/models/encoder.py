@@ -20,19 +20,27 @@ Two defaults differ from PyTorch's and follow the JAX package's:
 ``jax.nn.gelu`` is the tanh approximation, and ``optax.adamw`` decays every
 parameter by 1e-4 (PyTorch's ``AdamW`` default is 1e-2).
 
-The JAX package's ``param_shardings`` (tensor-parallel placement over a
-("data", "model") mesh) has no single-card counterpart and is not ported.
+Tensor parallelism follows the JAX package's ``param_shardings``: over a
+``DeviceMesh`` with dims ("data", "model"), attention heads and the
+feed-forward's hidden units shard over "model" and the batch over "data".
+Parameters placed as ``DTensor``s by :func:`param_shardings` run the same
+forward through DTensor's sharding propagation; the attention core of each
+block runs on each rank's own batch rows and heads (``local_map``), and
+:func:`sgd_train_step` sums a gradient that comes back partial over a mesh
+dim before the update. Plain tensors take the single-card path.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default; torch.optim.AdamW's is 1e-2
 
@@ -87,6 +95,28 @@ def _dense(shape, fan_in: int, generator: torch.Generator) -> nn.Parameter:
     return nn.Parameter(torch.randn(shape, generator=generator) / np.sqrt(fan_in))
 
 
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pad_mask: torch.Tensor,
+               head_dim: int) -> torch.Tensor:
+    """Scores → pad mask → float32 softmax → context, over (b, t, h·K)
+    queries, keys and values of ``h`` heads; gives (b, t, h·K)."""
+    b, t, hk = q.shape
+    q, k, v = (z.reshape(b, t, hk // head_dim, head_dim).transpose(1, 2) for z in (q, k, v))
+    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
+    scores = scores.masked_fill(~pad_mask[:, None, None, :], -1e9)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.matmul(probs, v).transpose(1, 2).reshape(b, t, hk)
+
+
+def _attention_placements(mesh) -> Tuple[Tuple[Placement, ...], Tuple[Placement, ...]]:
+    """The placements :func:`_attention` runs under on a ("data", "model")
+    mesh: q, k, v and the context sharded by batch rows over "data" and by
+    heads over "model"; the pad mask by rows. Each rank then attends over
+    its own rows and heads, and DTensor need not plan the products."""
+    heads = tuple(Shard(0) if n == "data" else Shard(2) for n in mesh.mesh_dim_names)
+    rows = tuple(Shard(0) if n == "data" else Replicate() for n in mesh.mesh_dim_names)
+    return heads, rows
+
+
 class Block(nn.Module):
     """Pre-norm self-attention and feed-forward, with residuals."""
 
@@ -105,16 +135,19 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         cfg, dt = self.cfg, self.cfg.dtype
-        b, t, d = x.shape
+        d = x.shape[-1]
         H, K = cfg.num_heads, cfg.head_dim
-        # Self-attention: (b, t, d) @ (d, 3·H·K) -> q, k, v as (b, H, t, K).
+        # Self-attention: q, k and v as (b, t, d) @ (d, H·K), one product each,
+        # so that heads sharded over "model" stay one contiguous range.
         h = self.ln1(x)
-        qkv = torch.matmul(h, self.wqkv.to(dt).reshape(d, 3 * H * K)).view(b, t, 3, H, K)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(K)
-        scores = scores.masked_fill(~pad_mask[:, None, None, :], -1e9)
-        probs = torch.softmax(scores.float(), dim=-1).to(dt)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, H * K)
+        q, k, v = (torch.matmul(h, self.wqkv[:, i].to(dt).reshape(d, H * K)) for i in range(3))
+        attend = _attention
+        if isinstance(q, DTensor):
+            heads, rows = _attention_placements(q.device_mesh)
+            attend = local_map(_attention, out_placements=(heads,),
+                               in_placements=(heads, heads, heads, rows, None),
+                               redistribute_inputs=True)
+        ctx = attend(q, k, v, pad_mask, K)
         x = x + torch.matmul(ctx, self.wo.to(dt).reshape(H * K, d))
         # Feed-forward.
         h = self.ln2(x)
@@ -217,12 +250,19 @@ def masked_prediction_loss(encoder: Encoder, feats: torch.Tensor, feat_lens: tor
 def sgd_train_step(encoder: Encoder, feats: torch.Tensor, feat_lens: torch.Tensor,
                    mask: torch.Tensor, lr: float = 1e-3) -> torch.Tensor:
     """One SGD step of the masked-prediction objective, ``p -= lr * g`` in
-    place. Returns the loss before the step."""
+    place. Returns the loss before the step. With parameters placed by
+    :func:`param_shardings`, pass the batch as ``DTensor``s sharded by rows
+    over "data" (:func:`lhotse_tpu_torch.parallel.mesh.local_rows`) and run
+    the step under DTensor's ``implicit_replication``."""
     params = list(encoder.parameters())
     loss = masked_prediction_loss(encoder, feats, feat_lens, mask)
     grads = torch.autograd.grad(loss, params)
     with torch.no_grad():
         for p, g in zip(params, grads):
+            if isinstance(g, DTensor):
+                # Sums the rows' partial gradients over "data" (and, for a
+                # replicated parameter, the heads' over "model").
+                g = g.redistribute(g.device_mesh, p.placements)
             p.sub_(lr * g)
     return loss.detach()
 
@@ -248,3 +288,27 @@ def make_adamw_train_step(lr: float = 1e-3) -> Tuple[Callable, Callable]:
         return loss.detach()
 
     return init, step
+
+
+# The tensor-parallel placement of each block parameter over "model" (JAX
+# models/encoder.py:param_shardings): heads of wqkv (d, 3, H, K) and wo
+# (H, K, d), the hidden units of w1 (d, ffn), b1 (ffn,) and w2 (ffn, d).
+_MODEL_SHARDED_DIM = {"wqkv": 2, "wo": 0, "w1": 1, "b1": 0, "w2": 0}
+
+
+def param_shardings(encoder: Encoder, mesh) -> Dict[str, Tuple[Placement, ...]]:
+    """
+    The placements of every parameter of ``encoder`` (by name, as
+    ``layers.0.wqkv``) over a ``DeviceMesh`` with dims ("data", "model"):
+    attention heads and the feed-forward's hidden units shard over "model",
+    everything else is replicated, and every parameter is replicated over
+    "data" (the batch shards there). Place a parameter with
+    ``distribute_tensor(p, mesh, placements)``.
+    """
+    out = {}
+    for name, _ in encoder.named_parameters():
+        dim = _MODEL_SHARDED_DIM.get(name.rsplit(".", 1)[-1]) if name.startswith("layers.") else None
+        out[name] = tuple(
+            Shard(dim) if axis == "model" and dim is not None else Replicate()
+            for axis in mesh.mesh_dim_names)
+    return out

@@ -10,7 +10,9 @@ Both resolve in the order ``WORLD_SIZE``/``RANK`` in the environment, then
 JAX package asks ``jax.process_count``/``process_index`` in the middle).
 
 A rank's batch goes to its own card (``cuda:LOCAL_RANK``) through pinned
-memory without blocking the host. The JAX package's mesh objects
+memory without blocking the host. Under an initialised process group with a
+("data", "model") ``DeviceMesh``, :func:`local_rows` gives a rank its rows
+of a global batch as a ``DTensor``. The JAX package's mesh objects
 (``data_parallel_mesh``, ``batch_sharding``, ``replicated_sharding``) name
 JAX shardings and have no counterpart here.
 """
@@ -21,6 +23,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from lhotse_tpu_torch.dataset.device_augment import _to_device
 from lhotse_tpu_torch.dataset.loader import _tree_device_put
@@ -77,3 +80,18 @@ def host_local_to_global(batch: Any, device: Optional[torch.device] = None
     JAX function returns the mesh)."""
     device = torch.device(device) if device is not None else _local_device()
     return shard_batch(batch, device), device
+
+
+def local_rows(batch: torch.Tensor, mesh) -> DTensor:
+    """
+    This rank's rows of ``batch``, a global batch that every rank holds,
+    as a ``DTensor`` sharded by rows over the mesh's "data" dim and
+    replicated over its other dims: data rank ``r`` of ``n`` feeds rows
+    ``[r·B/n, (r+1)·B/n)``. ``B`` must divide by ``n``.
+    """
+    n, r = mesh.size(mesh.mesh_dim_names.index("data")), mesh.get_local_rank("data")
+    if batch.shape[0] % n:
+        raise ValueError(f"a batch of {batch.shape[0]} rows does not split over {n} data ranks")
+    rows = batch.shape[0] // n
+    placements = [Shard(0) if name == "data" else Replicate() for name in mesh.mesh_dim_names]
+    return DTensor.from_local(batch[r * rows:(r + 1) * rows], mesh, placements)

@@ -10,6 +10,8 @@ import warnings
 from functools import partial
 from typing import Dict, Literal, Optional, Tuple, Type, Union
 
+import numpy as np
+
 from lhotse_tpu_torch.array import Array, TemporalArray
 from lhotse_tpu_torch.audio import Recording
 from lhotse_tpu_torch.cut import Cut
@@ -162,7 +164,12 @@ class SharWriter:
             self.writers["features"].write_placeholder(cut.id)
             return cut
         placeholder = to_shar_placeholder(cut.features, cut)
-        self.writers["features"].write(cut.id, cut.load_features(), manifest=placeholder)
+        feats = cut.load_features()
+        if feats.ndim == 3:
+            # Multi-channel features are stored time-major, (T, C, F), as
+            # Features.load reads them (features/base.py).
+            feats = np.ascontiguousarray(feats.transpose(1, 0, 2))
+        self.writers["features"].write(cut.id, feats, manifest=placeholder)
         return fastcopy(cut, features=placeholder)
 
     def _store_custom(self, cut: Cut, key: str) -> Cut:

@@ -586,3 +586,42 @@ def test_recipe_batch_on_card_matches_plain_version(cuda, tmp_path):
         assert np.abs(batch["inputs"] - cpu_feats).max() <= FEATURE_TOL
     assert sorted(t for b in out for t in b["supervisions"]["text"]) == sorted(
         line.split(maxsplit=1)[1] for line in lines)
+
+
+@pytest.mark.parametrize("name", ["fbank", "kaldifeat-fbank"])
+def test_reference_named_fbank_on_card_matches_plain_version(cuda, name):
+    """The ``fbank`` (compliance) and ``kaldifeat-fbank`` extractors run the
+    kernel on the card, held to its plain version on the card."""
+    from lhotse_tpu_torch.features.base import get_extractor_type
+
+    ext = get_extractor_type(name)()
+    assert ext.device == torch.device("cuda")
+    items = [_audio((n,), seed=n) for n in (16000, 12345, 3000)]
+    fbank_cuda.LAUNCHES = 0
+    feats = ext.extract_batch(items, 16000)
+    assert fbank_cuda.LAUNCHES == (1 if name == "fbank" else len(items))
+    delegate = ext._delegate(16000) if name == "fbank" else ext._impl
+    plain = _plain(delegate, items)
+    assert [f.shape for f in feats] == [p.shape for p in plain]
+    assert max(float(np.abs(a - b).max()) for a, b in zip(feats, plain)) <= LOGMEL_TOL
+
+
+@pytest.mark.parametrize("name", ["whisper-fbank", "librosa-fbank"])
+def test_gemm_extractors_on_card_match_cpu(cuda, name):
+    """Whisper's and librosa's STFT and mel GEMMs on the card (IEEE fp32)
+    against the same port on the CPU, within tests/test_whisper_fbank.py's
+    1e-4; no fbank kernel runs."""
+    from lhotse_tpu_torch.features.base import get_extractor_type
+
+    cls = get_extractor_type(name)
+    sr = 16000 if name == "whisper-fbank" else 22050
+    on_card, on_cpu = cls(), cls()
+    on_cpu.to("cpu")
+    assert on_card.device == torch.device("cuda")
+    fbank_cuda.LAUNCHES = 0
+    for n in (sr, int(1.7 * sr), 5000):
+        x = _audio((n,), seed=n)
+        a, b = on_card.extract(x, sr), on_cpu.extract(x, sr)
+        assert a.shape == b.shape and np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    assert fbank_cuda.LAUNCHES == 0

@@ -76,7 +76,9 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.dataset.sampling.utils, lhotse_tpu_torch.dataset, "
         "lhotse_tpu_torch.recipes, lhotse_tpu_torch.recipes.utils, "
         "lhotse_tpu_torch.recipes.librispeech, lhotse_tpu_torch.cut.multi, "
-        "lhotse_tpu_torch.augmentation.wpe, lhotse_tpu_torch.recipes.ami; "
+        "lhotse_tpu_torch.augmentation.wpe, lhotse_tpu_torch.recipes.ami, "
+        "lhotse_tpu_torch.features.compliance, lhotse_tpu_torch.features.kaldifeat, "
+        "lhotse_tpu_torch.features.whisper, lhotse_tpu_torch.features.librosa_fbank; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")

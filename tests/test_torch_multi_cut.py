@@ -525,3 +525,59 @@ def test_extract_batch_refuses_multi_channel_items(stereo, tmp_path):
         cuts.compute_and_store_features_batch(ext, tmp_path / "batch")
     # One channel per item gives each channel's features.
     np.testing.assert_array_equal(ext.extract_batch(list(audio), SR), ext.extract(audio, SR))
+
+
+# -- global feature statistics over multi-channel features ---------------------------------
+
+
+@pytest.mark.parametrize("route", ["stored", "extractor"])
+def test_global_stats_over_multi_channel_features(tmp_path, route):
+    """Per-bin statistics of (C, T, F) features count every channel-frame
+    as a frame: two 2-channel cuts of different lengths give (80,) means and
+    stds equal to numpy's over all channel-frames, from the stored features
+    and from the ``extractor=`` route."""
+    ext = Fbank(FbankConfig(device="cpu"))
+    cuts = PCut.CutSet.from_cuts(
+        PD.dummy_multi_cut(i, with_data=True, duration=d, recording_duration=d).drop_features()
+        for i, d in enumerate((1.0, 1.5)))
+    if route == "stored":
+        cuts = cuts.compute_and_store_features(ext, tmp_path / "feats").to_eager()
+        mats = [c.load_features() for c in cuts]
+        stats = cuts.compute_global_feature_stats()
+    else:
+        mats = [c.compute_features(ext) for c in cuts]
+        stats = cuts.compute_global_feature_stats(extractor=ext)
+    assert [m.shape for m in mats] == [(2, 100, 80), (2, 150, 80)]
+    frames = np.concatenate([m.reshape(-1, 80) for m in mats]).astype(np.float64)
+    assert stats["norm_means"].shape == stats["norm_stds"].shape == (80,)
+    np.testing.assert_allclose(stats["norm_means"], frames.mean(axis=0), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(stats["norm_stds"], frames.std(axis=0), rtol=0, atol=1e-10)
+
+
+# -- trimming single-microphone meeting cuts ------------------------------------------------
+
+
+def test_trimmed_sdm_cuts_name_their_channel_as_an_int(tmp_path):
+    """AMI's ``sdm`` supervisions carry ``channel=[0]`` on a one-channel
+    recording. Trimmed to them, the JAX package's MonoCuts take the list;
+    the port's take its element, as a MonoCut names its channel, and so go
+    on through ``MultiCut.from_mono``."""
+    from lhotse_tpu.recipes import ami as jami
+    from lhotse_tpu_torch.recipes import ami as pami
+    from test_torch_ami import _ami_corpus
+
+    corpus = _ami_corpus(tmp_path / "ami", ["ES2002a", "ES2011a", "ES2004a"])
+    trimmed = {}
+    for name, prepare, CS in (("port", pami.prepare_ami, PCut.CutSet),
+                              ("jax", jami.prepare_ami, J.CutSet)):
+        train = prepare(corpus, output_dir=tmp_path / name, mic="sdm")["train"]
+        assert {s.channel == [0] for s in train["supervisions"]} == {True}
+        trimmed[name] = CS.from_manifests(**train).trim_to_supervisions(
+            keep_overlapping=False).to_eager()
+    n = len(trimmed["jax"])
+    assert n > 0 and len(trimmed["port"]) == n
+    assert {type(c) for c in trimmed["port"]} == {PCut.MonoCut}
+    assert [c.channel for c in trimmed["jax"]] == [[0]] * n
+    assert [c.channel for c in trimmed["port"]] == [0] * n
+    merged = PCut.MultiCut.from_mono(trimmed["port"][0])
+    assert merged.channel == [0]

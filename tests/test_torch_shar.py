@@ -362,3 +362,36 @@ def test_dummy_manifests_equal_jax(tmp_path):
     assert multi == jmulti
     with pytest.raises(ValueError, match="cannot fabricate"):
         PD.DummyManifest(dict, begin_id=0, end_id=1)
+
+
+@pytest.mark.parametrize("reader", ["streaming", "indexed", "pointer"])
+def test_multi_channel_features_round_trip(tmp_path, reader):
+    """Shar keeps a MultiCut's (C, T, F) features: the writer stores them
+    time-major, as the feature archives do, and every reader gives back the
+    shape they had before export, within one LTC1 tick (2**-5)."""
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+
+    cuts = CutSet.from_cuts(
+        PD.dummy_multi_cut(i, with_data=True, duration=2.0).drop_features() for i in range(3))
+    cuts = cuts.compute_and_store_features(
+        Fbank(FbankConfig(device="cpu")), tmp_path / "feats",
+        storage_type=LilcomChunkyWriter).to_eager()
+    before = {c.id: c.load_features() for c in cuts}
+    assert {f.shape for f in before.values()} == {(2, 200, 80)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cuts.to_shar(tmp_path / "shar", fields={"recording": "flac", "features": "lilcom"},
+                     shard_size=2, compress_jsonl=False)
+    kw = {"streaming": dict(indexed=False), "indexed": dict(indexed=True),
+          "pointer": dict(indexed=True, lazy=True)}[reader]
+    back = CutSet.from_shar(in_dir=tmp_path / "shar", **kw)
+    seen = 0
+    for cut in back:
+        if reader == "pointer":
+            assert cut.features.storage_type == "shar_ptr_array"
+        feats = cut.load_features()
+        assert feats.shape == before[cut.id].shape
+        np.testing.assert_allclose(feats, before[cut.id], rtol=0, atol=2.0 ** -5)
+        seen += 1
+    assert seen == 3
