@@ -54,7 +54,16 @@ step, the gradients averaged by ``all_reduce`` and the parameters held
 ``torch.equal`` across the ranks after every step; and
 ``dryrun_multichip(4)``, the tensor-parallel dry-run over 4 CPU ranks);
 the extractors under the reference's names on the card beside the Kaldi
-ones; and checks what comes out.
+ones; then the signal-effects and multi-source, multi-talker training path
+on the meeting corpus (its supervision groups through ``K2SurtDataset``,
+its 15 s windows through ``VadDataset`` and, their features extracted on
+the kernel into an archive, through ``DiarizationDataset``; the headset
+cuts loudness-normalised and the single-microphone cuts narrowbanded
+through ``ZipSampler``, ``RoundRobinSampler`` with
+``WeightedSimpleCutSampler`` and ``StatelessSampler``, then
+``CutConcatenate``, ``ClippingTransform`` and ``LowpassUsingResampling``
+into ``OnTheFlyFeatures`` on the kernel, with a resume; each batch into
+the AdamW step); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -78,8 +87,11 @@ features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
 ``long_form_windows``, ``ami_mdm_extract``, ``ami_mdm_on_the_fly``,
 ``ami_ihm_on_the_fly``, ``ami_mdm_wpe``, ``ami_rir_fanout``,
 ``extractor_named_fbank``, ``extractor_named_mfcc``,
-``extractor_named_kaldifeat-fbank``, ``extractor_named_kaldifeat-mfcc`` and
-``dp_on_the_fly``, both ranks' launches); the last line is
+``extractor_named_kaldifeat-fbank``, ``extractor_named_kaldifeat-mfcc``,
+``dp_on_the_fly`` (both ranks' launches), ``ami_surt_on_the_fly``,
+``ami_vad_on_the_fly``, ``ami_diarization_extract``, ``ami_diarization``
+(0: it reads stored features), ``multi_source_zip``,
+``multi_source_round_robin`` and ``multi_source_stateless``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -2154,7 +2166,9 @@ def _phase_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     the device WPE on the same audio. ``ami_rir_fanout``: ``prepare_ami(
     mic="sdm")`` → 8 single-channel windows → ``reverb_rir`` with an
     8-channel RIR → 8-channel MultiCuts → the kernel. Returns the kernel's
-    launches per path and the largest kernel-vs-plain error."""
+    launches per path, the largest kernel-vs-plain error and the paths of
+    the manifests ``prepare_ami`` wrote, by microphone setting and
+    partition."""
     from lhotse_tpu_torch.audio import Recording
     from lhotse_tpu_torch.audio.wavio import write_wav
     from lhotse_tpu_torch.caching import set_caching_enabled
@@ -2336,7 +2350,458 @@ def _phase_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     if launches["ami_rir_fanout"] != len(fanned) or not rir_err <= KERNEL_TOL or not row_equal:
         raise AssertionError("ami_rir_fanout: launches, the kernel or the fan-out are off")
     set_tracing_enabled(False)
-    return launches, max(extract_err, mdm_err, ihm_err, wpe_err, rir_err)
+    manifests = {
+        mic: {part: {kind: workdir / "ami_manifests" / f"ami-{mic}_{kind}_{part}.jsonl.gz"
+                     for kind in ("recordings", "supervisions")}
+              for part in ("train", "dev", "test")}
+        for mic in ("mdm", "ihm", "sdm")}
+    return launches, max(extract_err, mdm_err, ihm_err, wpe_err, rir_err), manifests
+
+
+# -- 17. the signal-effects and multi-source, multi-talker training path ---------------------
+
+SURT_MAX_PAUSE = 0.0  # s between supervisions that still join one group
+SURT_MAX_GROUP = 20.0  # s: the B·8·T² attention scores of a 300 s group need ≈29 GB per layer
+TASK_MAX_DURATION = 180.0  # the task legs' batches, in seconds of audio
+VAD_WINDOW = 15.0
+MS_MAX_DURATION = 90.0  # each source's share of a multi-source batch
+MS_ZIP_SECONDS = 300.0  # of each source in multi_source_zip: an epoch of three batches and a bit
+MS_RESUME_AFTER = 2
+STATELESS_BATCHES = 3
+
+
+class _KeepCuts:
+    """Wraps a dataset to keep the cuts of every batch it assembles."""
+
+    def __init__(self, dataset):
+        self.dataset, self.cuts = dataset, []
+
+    def __getitem__(self, cuts):
+        self.cuts.append(list(cuts))
+        return self.dataset[cuts]
+
+
+def _task_epoch(batches, trainer, device, unpack, on_batch=None) -> dict:
+    """One pass over ``batches`` (a loader, or any iterable of dataset
+    batches): ``unpack(batch)`` gives the features (B, T, F), their frame
+    counts and the batch's seconds of audio; then the trainer's AdamW step.
+    ``on_batch(i, batch)`` sees each batch after its step."""
+    kept, losses, wait_s, audio_s = [], [], 0.0, 0.0
+    it = iter(batches)
+    t0 = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        wait_s += time.perf_counter() - t
+        feats, lens, seconds = unpack(batch)
+        losses.append(trainer.step(
+            torch.from_numpy(np.ascontiguousarray(feats, np.float32)).to(device),
+            torch.from_numpy(np.asarray(lens, np.int64)).to(device)))
+        kept.append(batch)
+        audio_s += seconds
+        if on_batch is not None:
+            on_batch(len(kept) - 1, batch)
+    torch.cuda.synchronize()
+    return {"batches": kept, "losses": losses, "wait_s": wait_s, "audio_s": audio_s,
+            "elapsed_s": time.perf_counter() - t0}
+
+
+def _leg(name, batches, trainer, device, fbank_cuda, unpack, smi, unit="audio",
+         on_batch=None) -> dict:
+    """``_task_epoch`` once under ``torch.profiler`` with the host spans on:
+    prints the rate, the device's busy share, the host ms per batch by span
+    and the kernel's launches."""
+    from lhotse_tpu_torch.tracing import reset_tracing, tracing_report
+
+    run = {}
+    reset_tracing()
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(
+        lambda: run.update(_task_epoch(batches, trainer, device, unpack, on_batch)))
+    run.update(launches=fbank_cuda.LAUNCHES, report=tracing_report(), wall_ms=wall_ms,
+               busy=busy_ms / wall_ms)
+    n = len(run["losses"])
+    if not n or not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"{name}: no batch, or a loss that is not finite: {run['losses']}")
+    print(f"[{smi}] {name}: {n} batches, {run['audio_s']!r} {unit}-s in {wall_ms!r} ms under "
+          f"torch.profiler (AdamW steps included): {run['audio_s'] / wall_ms * 1e3!r} {unit}-s/s; "
+          f"device busy {run['busy']!r} of the wall; host ms per batch: "
+          f"{_span_ms(run['report'], n)}; consumer's wait per batch "
+          f"{run['wait_s'] * 1e3 / n!r} ms; losses {run['losses'][0]!r} -> {run['losses'][-1]!r}; "
+          f"fbank kernel launches {run['launches']}")
+    return run
+
+
+def _first_batch_err(recorder, extractor) -> float:
+    items, kernel_out = recorder.first
+    return max(float(np.abs(a - b).max())
+               for a, b in zip(kernel_out, _plain_extract(extractor, items)))
+
+
+def _activity_reference(cuts, speakers: dict) -> np.ndarray:
+    """(B, S, T) speaker activity written out from the supervisions: 1 from
+    each supervision's first frame (its start over the frame shift, rounded)
+    to its last (its end, likewise), clipped to the cut; at least 4 rows."""
+    out = np.zeros((len(cuts), max(len(speakers), 4), max(c.num_frames for c in cuts)))
+    for i, c in enumerate(cuts):
+        for s in c.supervisions:
+            lo = round(s.start / c.frame_shift) if s.start > 0 else 0
+            hi = round(s.end / c.frame_shift) if s.end < c.duration else c.num_frames
+            out[i, speakers[s.speaker], lo:hi] = 1
+    return out
+
+
+def _ami_cuts(manifests: dict, mic: str, parts=("train",)):
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.supervision import SupervisionSet
+
+    return CutSet.from_cuts(
+        c for part in parts for c in CutSet.from_manifests(
+            recordings=RecordingSet.from_file(manifests[mic][part]["recordings"]),
+            supervisions=SupervisionSet.from_file(manifests[mic][part]["supervisions"])))
+
+
+def _head(cuts, seconds: float) -> list:
+    """The first cuts of ``cuts`` whose durations add up to ``seconds``."""
+    out, total = [], 0.0
+    for c in cuts:
+        if total >= seconds:
+            break
+        out.append(c)
+        total += c.duration
+    return out
+
+
+def _rows_of(batch) -> tuple:
+    """A ``K2SpeechRecognitionDataset`` batch's features, the frame count of
+    each row's cut (a concatenated cut holds several supervisions) and its
+    seconds of audio."""
+    from lhotse_tpu_torch.utils import compute_num_frames
+
+    sups = batch["supervisions"]
+    rows = {int(i): c for i, c in zip(sups["sequence_idx"], sups["cut"])}
+    cuts = [rows[i] for i in range(batch["inputs"].shape[0])]
+    lens = [min(compute_num_frames(c.duration, 0.01, SR), batch["inputs"].shape[1]) for c in cuts]
+    return batch["inputs"], lens, sum(c.duration for c in cuts)
+
+
+def _phase_multi_source(workdir: Path, manifests: dict, device, fbank_cuda, smi: str) -> tuple:
+    """17. The signal-effects and multi-source, multi-talker training path,
+    on phase 15's AMI corpus and manifests, each batch into an AdamW step of
+    ``Encoder(EncoderConfig())``. ``ami_surt_on_the_fly``: the ``sdm``
+    sessions → ``trim_to_supervision_groups`` → the groups of at most 20 s →
+    ``SimpleCutSampler(max_duration=180)`` → ``K2SurtDataset(num_channels=2)``
+    with ``OnTheFlyFeatures`` on the card; the supervisions and text of each
+    batch against the CPU port's dataset on the same cuts.
+    ``ami_vad_on_the_fly``: the sessions in 15 s windows → ``VadDataset``
+    with ``OnTheFlyFeatures``; ``is_voice`` against the CPU port's masks.
+    ``ami_diarization_extract``: the windows →
+    ``compute_and_store_features_batch`` on the card into ``lilcom_chunky``;
+    ``ami_diarization``: the stored features → ``DiarizationDataset(
+    global_speaker_ids=True, min_speaker_dim=4)``; ``speaker_activity``
+    against a raster written out from the supervisions.
+    ``multi_source_zip``: the ``ihm`` supervision cuts ``normalize_loudness(
+    -23.0)`` and the ``sdm`` ones ``narrowband("mulaw")`` →
+    ``ZipSampler`` of two ``SimpleCutSampler(max_duration=90)`` →
+    ``CutConcatenate``, ``ClippingTransform`` and ``LowpassUsingResampling``
+    → ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures``, with a resume
+    after batch 2 through a fresh loader that must give the uninterrupted
+    run's batch 3 (``torch.equal``); the lowpass's resampling-kernel builds
+    and the resampler caches' size. ``multi_source_round_robin``:
+    ``RoundRobinSampler(WeightedSimpleCutSampler(ihm), SimpleCutSampler(sdm))``
+    → ``CutConcatenate`` and ``ClippingTransform`` → the same dataset.
+    ``multi_source_stateless``: ``StatelessSampler`` over both sources as
+    uncompressed JSONL (scales 1 and 2), 3 batches into the same dataset;
+    two samplers of one seed agree, ranks 0 and 1 of two differ. Returns the
+    kernel's launches per path and the largest kernel-vs-plain error."""
+    import itertools
+    import os
+
+    from lhotse_tpu_torch.augmentation import resample
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet, MixedCut
+    from lhotse_tpu_torch.dataset import (
+        DiarizationDataset, K2SurtDataset, RoundRobinSampler, SimpleCutSampler, StatelessSampler,
+        VadDataset, WeightedSimpleCutSampler, ZipSampler)
+    from lhotse_tpu_torch.dataset.cut_transforms import (
+        ClippingTransform, CutConcatenate, LowpassUsingResampling)
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples, OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+    from lhotse_tpu_torch.tracing import set_tracing_enabled, trace_span
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    launches, errs = {}, []
+
+    def fly():
+        extractor = Fbank(FbankConfig(device=device))
+        return extractor, _RecordFirstBatch(extractor)
+
+    # -- ami_surt_on_the_fly ---------------------------------------------------------
+    sessions = _ami_cuts(manifests, "sdm", ("train", "dev", "test")).to_eager()
+    groups = sessions.trim_to_supervision_groups(max_pause=SURT_MAX_PAUSE).to_eager()
+    kept = CutSet.from_cuts(c for c in groups if c.duration <= SURT_MAX_GROUP)
+    extractor, recorder = fly()
+    loader = DataLoader(
+        SimpleCutSampler(kept, max_duration=TASK_MAX_DURATION, shuffle=True, seed=0),
+        K2SurtDataset(num_channels=2, return_cuts=True, input_strategy=OnTheFlyFeatures(extractor)),
+        prefetch_batches=3)
+    print(f"[{smi}] ami_surt_on_the_fly: {len(sessions)} sdm sessions, "
+          f"trim_to_supervision_groups(max_pause={SURT_MAX_PAUSE}) -> {len(groups)} groups, "
+          f"{len(kept)} kept (<= {SURT_MAX_GROUP} s, {sum(c.duration for c in kept)!r} s), "
+          f"{len(groups) - len(kept)} dropped")
+    run = _leg("ami_surt_on_the_fly", loader, _Trainer(device), device, fbank_cuda,
+               lambda b: (b["inputs"], b["input_lens"], sum(c.duration for c in b["cuts"])), smi)
+    launches["ami_surt_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    cpu = K2SurtDataset(num_channels=2, return_cuts=True, input_strategy=AudioSamples())
+
+    def sups(batch):
+        return [[[s.to_dict() for s in ch] for ch in cut] for cut in batch["supervisions"]]
+
+    same = all(b["text"] == want["text"] and sups(b) == sups(want)
+               for b, want in ((b, cpu[b["cuts"]]) for b in run["batches"]))
+    overlapped = sum(1 for b in run["batches"] for cut in b["supervisions"] if cut[1])
+    n_cuts = sum(len(b["cuts"]) for b in run["batches"])
+    print(f"[{smi}] ami_surt_on_the_fly: {n_cuts} groups in the epoch, {overlapped} with a "
+          f"supervision on channel 1; supervisions and text equal to the CPU port's dataset on "
+          f"the same cuts: {same}; first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != len(run["batches"]) or n_cuts != len(kept):
+        raise AssertionError("ami_surt_on_the_fly: launches or the epoch's cuts are off")
+    if not same or not overlapped or not err <= CHAIN_TOL:
+        raise AssertionError("ami_surt_on_the_fly: the supervisions, text or features are off")
+    errs.append(err)
+
+    # -- ami_vad_on_the_fly ----------------------------------------------------------
+    windows = sessions.cut_into_windows(VAD_WINDOW).to_eager()
+    extractor, recorder = fly()
+    loader = DataLoader(
+        SimpleCutSampler(windows, max_duration=TASK_MAX_DURATION, shuffle=True, seed=0),
+        VadDataset(input_strategy=OnTheFlyFeatures(extractor)), prefetch_batches=3)
+    run = _leg("ami_vad_on_the_fly", loader, _Trainer(device), device, fbank_cuda,
+               lambda b: (b["inputs"], b["input_lens"], sum(c.duration for c in b["cut"])), smi)
+    launches["ami_vad_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    cpu = OnTheFlyFeatures(Fbank(FbankConfig(device="cpu")))
+    masks_equal = all(np.array_equal(b["is_voice"], cpu.supervision_masks(b["cut"]))
+                      for b in run["batches"])
+    voiced = float(np.mean([b["is_voice"].mean() for b in run["batches"]]))
+    print(f"[{smi}] ami_vad_on_the_fly: {len(windows)} windows of {VAD_WINDOW:g} s; is_voice equal "
+          f"to the CPU port's masks: {masks_equal}, voiced share {voiced!r}; first batch kernel "
+          f"vs plain {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != len(run["batches"]) or not masks_equal or not 0 < voiced < 1:
+        raise AssertionError("ami_vad_on_the_fly: launches or the masks are off")
+    if not err <= CHAIN_TOL:
+        raise AssertionError("ami_vad_on_the_fly: the kernel disagrees with its plain version")
+    errs.append(err)
+
+    # -- ami_diarization_extract and ami_diarization ----------------------------------
+    extractor, recorder = fly()
+    stored = {}
+
+    def extract():
+        stored["cuts"] = windows.compute_and_store_features_batch(
+            extractor, workdir / "diarization_feats", storage_type=LilcomChunkyWriter).to_eager()
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(extract)
+    launches["ami_diarization_extract"] = fbank_cuda.LAUNCHES
+    err = _first_batch_err(recorder, extractor)
+    featured = stored["cuts"]
+    seconds = sum(c.duration for c in featured)
+    shapes = {c.load_features().shape for c in list(featured)[:4]}
+    print(f"[{smi}] ami_diarization_extract: {len(featured)} windows, {seconds!r} audio-s "
+          f"extracted and stored in {wall_ms!r} ms under torch.profiler: "
+          f"{seconds / wall_ms * 1e3!r} audio-s/s; device busy {busy_ms / wall_ms!r} of the wall; "
+          f"fbank kernel launches {launches['ami_diarization_extract']}; stored shapes "
+          f"{sorted(shapes)}; first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if not launches["ami_diarization_extract"] >= 1 or not err <= CHAIN_TOL:
+        raise AssertionError("ami_diarization_extract: launches or the kernel's result are off")
+    errs.append(err)
+    dataset = _KeepCuts(DiarizationDataset(featured, global_speaker_ids=True, min_speaker_dim=4))
+    loader = DataLoader(
+        SimpleCutSampler(featured, max_duration=TASK_MAX_DURATION, shuffle=True, seed=0), dataset,
+        prefetch_batches=3)
+    run = _leg("ami_diarization", loader, _Trainer(device), device, fbank_cuda,
+               lambda b: (b["features"], b["features_lens"],
+                          float(np.sum(b["features_lens"])) * 0.01), smi)
+    launches["ami_diarization"] = run["launches"]
+    speakers = dataset.dataset.speakers
+    activity_equal = all(
+        np.array_equal(b["speaker_activity"], _activity_reference(cuts, speakers))
+        for cuts, b in zip(dataset.cuts, run["batches"]))
+    shapes = {b["speaker_activity"].shape[1:] for b in run["batches"]}
+    print(f"[{smi}] ami_diarization: {len(speakers)} speakers; speaker_activity (B, S, T) shapes "
+          f"{sorted(shapes)}, equal to the raster of the supervisions: {activity_equal}, -100 "
+          f"entries {sum(int((b['speaker_activity'] == -100).sum()) for b in run['batches'])}")
+    if run["launches"] != 0 or not activity_equal or len(dataset.cuts) != len(run["batches"]):
+        raise AssertionError("ami_diarization: launches or the speaker activity are off")
+
+    # -- multi_source_zip ------------------------------------------------------------
+    ihm = _ami_cuts(manifests, "ihm").trim_to_supervisions(keep_overlapping=False).to_eager()
+    sdm = _ami_cuts(manifests, "sdm").trim_to_supervisions(keep_overlapping=False).to_eager()
+    ihm_all = ihm.normalize_loudness(-23.0).to_eager()
+    sdm_all = sdm.narrowband("mulaw").to_eager()
+    ihm_src = CutSet.from_cuts(_head(ihm_all, MS_ZIP_SECONDS))
+    sdm_src = CutSet.from_cuts(_head(sdm_all, MS_ZIP_SECONDS))
+
+    def zip_loader():
+        extractor = Fbank(FbankConfig(device=device))
+        transforms = [CutConcatenate(gap=1.0), ClippingTransform(gain_db=(0.0, 12.0), p=0.5, seed=12),
+                      LowpassUsingResampling(p=0.2, seed=13)]
+        sampler = ZipSampler(
+            SimpleCutSampler(ihm_src, max_duration=MS_MAX_DURATION, shuffle=True, seed=0),
+            SimpleCutSampler(sdm_src, max_duration=MS_MAX_DURATION, shuffle=True, seed=1))
+        dataset = K2SpeechRecognitionDataset(
+            cut_transforms=transforms, return_cuts=True,
+            input_strategy=OnTheFlyFeatures(extractor))
+        return DataLoader(sampler, dataset, prefetch_batches=1,
+                          checkpoint_objects=transforms[1:]), extractor
+
+    builds = {"n": 0, "s": 0.0}
+    build_kernel = resample._sinc_resample_kernel
+
+    def timed_build(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return build_kernel(*args, **kwargs)
+        finally:
+            builds["n"] += 1
+            builds["s"] += time.perf_counter() - t
+
+    resample._sinc_resample_kernel = timed_build
+    try:
+        loader, extractor = zip_loader()
+        recorder = _RecordFirstBatch(extractor)
+        state = {}
+
+        def checkpoint(i, batch):
+            if i == MS_RESUME_AFTER - 1:
+                state["ckpt"] = loader.state_dict()
+
+
+        run = _leg("multi_source_zip", loader, _Trainer(device), device, fbank_cuda, _rows_of, smi,
+                   on_batch=checkpoint)
+        launches["multi_source_zip"] = run["launches"]
+        err = _first_batch_err(recorder, extractor)
+        first_builds = dict(builds)
+        resumed_loader, _ = zip_loader()
+        resumed_loader.load_state_dict(state["ckpt"])
+        it = iter(resumed_loader)
+        t = time.perf_counter()
+        resumed = next(it)
+        resume_s = time.perf_counter() - t
+        it.close()
+    finally:
+        resample._sinc_resample_kernel = build_kernel
+    want = run["batches"][MS_RESUME_AFTER]
+    resume_equal = torch.equal(torch.from_numpy(resumed["inputs"]), torch.from_numpy(want["inputs"])) \
+        and resumed["supervisions"]["text"] == want["supervisions"]["text"]
+    cut_ids = {c.id: c for b in run["batches"] for c in b["supervisions"]["cut"]}
+    lowpassed = sum("_lowpassed" in i for i in cut_ids)
+    clipped = sum("_cl" in i for i in cut_ids)
+    concatenated = sum(isinstance(c, MixedCut) for c in cut_ids.values())
+    cache_bytes = sum(k.nbytes for k, _ in resample._KERNEL_CACHE.values())
+    transforms_s = run["report"].get("audio.transforms", {}).get("total_s", 0.0)
+    print(f"[{smi}] multi_source_zip: sources {len(ihm_src)} ihm cuts normalize_loudness(-23.0) "
+          f"and {len(sdm_src)} sdm cuts narrowband('mulaw'); {len(cut_ids)} cuts in the epoch, "
+          f"{concatenated} concatenated, {clipped} clipped, {lowpassed} lowpassed; host s in the "
+          f"audio.transforms span {transforms_s!r}; resampling-kernel builds {first_builds['n']} "
+          f"in {first_builds['s']!r} s (with the resume: {builds['n']} in {builds['s']!r} s); "
+          f"resampler caches after the leg: {len(resample._KERNEL_CACHE)} kernels of "
+          f"{cache_bytes} bytes, {len(resample._RESAMPLERS)} resamplers (bound "
+          f"{resample.CACHE_SIZE}); resumed after batch {MS_RESUME_AFTER} through a fresh loader "
+          f"in {resume_s!r} s: its batch torch.equal to the uninterrupted run's: {resume_equal}; "
+          f"first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != len(run["batches"]) or len(run["batches"]) <= MS_RESUME_AFTER:
+        raise AssertionError("multi_source_zip: launches or the batch count are off")
+    if not resume_equal or not err <= CHAIN_TOL or not lowpassed or not concatenated:
+        raise AssertionError("multi_source_zip: the resume, the kernel or the transforms are off")
+    if len(resample._KERNEL_CACHE) > resample.CACHE_SIZE:
+        raise AssertionError("multi_source_zip: the resampler cache outgrew its bound")
+    errs.append(err)
+
+    # -- multi_source_round_robin ----------------------------------------------------
+    def dataset_with(extractor):
+        return K2SpeechRecognitionDataset(
+            cut_transforms=[CutConcatenate(gap=1.0),
+                            ClippingTransform(gain_db=(0.0, 12.0), p=0.5, seed=14)],
+            return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))
+
+    extractor, recorder = fly()
+    sampler = RoundRobinSampler(
+        WeightedSimpleCutSampler(ihm_all, [c.duration for c in ihm_all], num_samples=len(ihm_all) // 2,
+                                 max_duration=MS_MAX_DURATION, seed=0),
+        SimpleCutSampler(sdm_all, max_duration=MS_MAX_DURATION, shuffle=True, seed=1))
+    run = _leg("multi_source_round_robin", DataLoader(sampler, dataset_with(extractor), prefetch_batches=3),
+               _Trainer(device), device, fbank_cuda, _rows_of, smi)
+    launches["multi_source_round_robin"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    origins = ["ihm" if "_ln" in b["supervisions"]["cut"][0].id else "sdm" for b in run["batches"]]
+    print(f"[{smi}] multi_source_round_robin: batch sources {''.join(o[0] for o in origins)} "
+          f"(i = ihm, s = sdm); first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != len(run["batches"]) or origins[:4] != ["ihm", "sdm"] * 2:
+        raise AssertionError("multi_source_round_robin: launches or the alternation are off")
+    if not err <= CHAIN_TOL:
+        raise AssertionError("multi_source_round_robin: the kernel disagrees with its plain version")
+    errs.append(err)
+
+    # -- multi_source_stateless ------------------------------------------------------
+    ihm_all.to_file(workdir / "ms_ihm.jsonl")
+    sdm_all.to_file(workdir / "ms_sdm.jsonl")
+
+    def stateless(rank=None):
+        saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE")}
+        if rank is not None:
+            os.environ.update(RANK=str(rank), WORLD_SIZE="2")
+        try:
+            return StatelessSampler(
+                [(workdir / "ms_ihm.jsonl", 1.0), (workdir / "ms_sdm.jsonl", 2.0)],
+                index_path=workdir / "ms.idx", base_seed=0, max_duration=MS_MAX_DURATION)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def first_ids(sampler):
+        return [[c.id for c in b] for b in itertools.islice(iter(sampler), STATELESS_BATCHES)]
+
+    same_seed = first_ids(stateless()) == first_ids(stateless())
+    ranks_differ = first_ids(stateless(0)) != first_ids(stateless(1))
+    extractor, recorder = fly()
+    dataset = dataset_with(extractor)
+
+    def assembled():
+        for cuts in itertools.islice(iter(stateless()), STATELESS_BATCHES):
+            with trace_span("dataset.assemble"):
+                batch = dataset[cuts]
+            yield batch
+
+    run = _leg("multi_source_stateless", assembled(), _Trainer(device), device, fbank_cuda,
+               _rows_of, smi)
+    launches["multi_source_stateless"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    print(f"[{smi}] multi_source_stateless: two samplers of base_seed 0 give the same first "
+          f"{STATELESS_BATCHES} batches: {same_seed}; ranks 0 and 1 of world_size 2 differ: "
+          f"{ranks_differ}; first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != STATELESS_BATCHES or not same_seed or not ranks_differ:
+        raise AssertionError("multi_source_stateless: launches or the seeding are off")
+    if not err <= CHAIN_TOL:
+        raise AssertionError("multi_source_stateless: the kernel disagrees with its plain version")
+    errs.append(err)
+    set_tracing_enabled(False)
+    return launches, max(errs)
 
 
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
@@ -2722,14 +3187,20 @@ def main() -> None:
         by_path.update(launches_recipe)
         print(f"phase 14 took {time.perf_counter() - t0!r} s")
 
-    # -- 15. the multi-channel meeting path, on a corpus of its own ------------------
+    # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
+    # signal-effects and multi-source, multi-talker training path on the same corpus
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.perf_counter()
-        launches_meetings, meetings_err = _phase_meetings(Path(tmp), device, fbank_cuda, smi)
+        launches_meetings, meetings_err, ami = _phase_meetings(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_meetings)
         print(f"phase 15 took {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        launches_ms, ms_err = _phase_multi_source(Path(tmp), ami, device, fbank_cuda, smi)
+        by_path.update(launches_ms)
+        print(f"phase 17 took {time.perf_counter() - t0!r} s")
     print(f"fbank kernel launches by path: {by_path}")
-    reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed")
+    reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed",
+                    "ami_diarization")
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
@@ -2740,7 +3211,8 @@ def main() -> None:
         "replaces": "lhotse_tpu/ops/fbank_pallas.py:64",
         "launches": launches,
         "max_abs_err": max([c["max_abs_err"] for c in cases]
-                           + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err]),
+                           + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
+                              ms_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -19,9 +19,8 @@ A channel subset of a recording whose chain mixes or fans out channels
 through the chain, and then picked: the transform sees every channel. The
 JAX package runs the chain on the subset alone.
 
-Left out: the ``narrowband``, ``normalize_loudness``, ``clip_amplitude``
-and ``compress`` builders, which raise ``NotImplementedError``; so does
-video.
+Left out: the ``compress`` builder, which raises ``NotImplementedError``
+(it waits for the system codecs); so does video.
 """
 from __future__ import annotations
 
@@ -39,7 +38,8 @@ from lhotse_tpu_torch.audio.source import AudioSource
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, get_audio_duration_mismatch_tolerance)
 from lhotse_tpu_torch.augmentation import (
-    AudioTransform, DereverbWPE, Resample, ReverbWithImpulseResponse, Speed, Tempo, Volume)
+    AudioTransform, Clipping, DereverbWPE, LoudnessNormalization, Narrowband, Resample,
+    ReverbWithImpulseResponse, Speed, Tempo, Volume)
 from lhotse_tpu_torch.utils import (
     Channels, Pathlike, Seconds, asdict_nonull, compute_num_samples, fastcopy, ifnone,
     not_ported, perturb_num_samples, rich_exception_info)
@@ -518,19 +518,44 @@ class Recording:
             transforms=self._chain_plus( Resample( source_sampling_rate=self.sampling_rate, target_sampling_rate=sampling_rate, ) ),
         )
 
-    def narrowband(self, *args, **kwargs) -> "Recording":
-        raise not_ported("Recording.narrowband")
+    def narrowband(
+        self, codec: str, restore_orig_sr: bool = True, affix_id: bool = True) -> "Recording":
+        """Telephone-codec bandwidth reduction (optionally staying at 8 kHz)."""
+        out_sr = self.sampling_rate if restore_orig_sr else 8000
+        return fastcopy(
+            self, id=self._affixed(affix_id, f"_nb_{codec}"),
+            num_samples=compute_num_samples( self.duration, out_sr, rounding=ROUND_HALF_UP ),
+            sampling_rate=out_sr,
+            transforms=self._chain_plus( Narrowband( codec=codec, source_sampling_rate=self.sampling_rate, restore_orig_sr=restore_orig_sr, ).to_dict() ),
+        )
 
-    def normalize_loudness(self, *args, **kwargs) -> "Recording":
-        raise not_ported("Recording.normalize_loudness")
+    def normalize_loudness(self, target: float, affix_id: bool = False) -> "Recording":
+        """EBU R128 loudness normalization to ``target`` dB LUFS."""
+        return fastcopy(
+            self, id=self._affixed(affix_id, f"_ln{target}"),
+            transforms=self._chain_plus(LoudnessNormalization(target=target)))
 
     def dereverb_wpe(self, affix_id: bool = True) -> "Recording":
         """Weighted prediction error dereverberation."""
         return fastcopy(
             self, id=self._affixed(affix_id, "_wpe"), transforms=self._chain_plus(DereverbWPE()))
 
-    def clip_amplitude(self, *args, **kwargs) -> "Recording":
-        raise not_ported("Recording.clip_amplitude")
+    def clip_amplitude(
+        self, hard: bool = False, gain_db: float = 0.0, normalize: bool = True,
+        oversampling: Optional[int] = 4, affix_id: bool = False) -> "Recording":
+        """Hard/soft clipping, optionally sandwiched between up/down-resamples."""
+        clip = Clipping(hard, gain_db, normalize)
+        if oversampling is None:
+            added = (clip,)
+        else:
+            hi_sr = self.sampling_rate * oversampling
+            added = (
+                Resample( source_sampling_rate=self.sampling_rate, target_sampling_rate=hi_sr ),
+                clip,
+                Resample( source_sampling_rate=hi_sr, target_sampling_rate=self.sampling_rate ))
+        return fastcopy(
+            self, id=self._affixed(affix_id, f"_cl{gain_db:.1f}"),
+            transforms=self._chain_plus(*added))
 
     def compress(self, *args, **kwargs) -> "Recording":
         raise not_ported("Recording.compress")

@@ -1,11 +1,15 @@
 """
 Host audio augmentation of the PyTorch port (copied from
 ``lhotse_tpu/augmentation``): the lazily applied ``Recording`` transforms
-``Speed``, ``Resample``, ``Tempo``, ``Volume`` and
-``ReverbWithImpulseResponse`` and ``DereverbWPE`` (host numpy WPE), the
-sinc resampler and the FRA-RIR generator. Clipping, codecs, narrowband and
-loudness transforms are not ported.
+``Speed``, ``Resample``, ``Tempo``, ``Volume``,
+``ReverbWithImpulseResponse``, ``DereverbWPE`` (host numpy WPE),
+``Clipping``, ``LoudnessNormalization`` and ``Narrowband``, the sinc
+resampler and the FRA-RIR generator. The ``Compress`` codec transform is
+not ported.
 """
+from lhotse_tpu_torch.augmentation.clipping import Clipping
+from lhotse_tpu_torch.augmentation.loudness import LoudnessNormalization, normalize_loudness
+from lhotse_tpu_torch.augmentation.narrowband import Narrowband
 from lhotse_tpu_torch.augmentation.resample import (
     SincResampler, get_or_create_resampler, resample_array)
 from lhotse_tpu_torch.augmentation.rir import ReverbWithImpulseResponse
@@ -16,7 +20,8 @@ from lhotse_tpu_torch.augmentation.utils import (
 from lhotse_tpu_torch.augmentation.wpe import DereverbWPE, dereverb_wpe_numpy
 
 __all__ = [
-    "AudioTransform", "AugmentFn", "DereverbWPE", "FastRandomRIRGenerator", "Resample",
-    "ReverbWithImpulseResponse", "SincResampler", "Speed", "Tempo", "Volume", "convolve1d",
-    "dereverb_wpe_numpy", "get_or_create_resampler", "next_fast_len", "resample_array",
+    "AudioTransform", "AugmentFn", "Clipping", "DereverbWPE", "FastRandomRIRGenerator",
+    "LoudnessNormalization", "Narrowband", "Resample", "ReverbWithImpulseResponse",
+    "SincResampler", "Speed", "Tempo", "Volume", "convolve1d", "dereverb_wpe_numpy",
+    "get_or_create_resampler", "next_fast_len", "normalize_loudness", "resample_array",
     "wsola_time_stretch"]

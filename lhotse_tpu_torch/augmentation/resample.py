@@ -8,12 +8,19 @@ library's ``sinc_resample_f32`` (:mod:`lhotse_tpu_torch.ops.host_dsp`), the
 same C source the JAX package runs. There is no numpy fallback: a failed
 build of the library raises. Only the ``sinc_interp_hann`` method is kept.
 
+Both caches (kernels and resamplers) hold the ``CACHE_SIZE`` most recently
+used entries. The JAX package's caches never evict, and a lowpass by
+resampling (``LowpassUsingResampling``) draws a new ratio per cut, whose
+gcd-reduced kernel can take over 100 MB.
+
 The batched on-device variant lives in :mod:`lhotse_tpu_torch.ops.resample`.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+import threading
+from collections import OrderedDict
+from typing import Tuple
 
 import numpy as np
 
@@ -45,17 +52,37 @@ def _sinc_resample_kernel(
     return kernels.astype(np.float32), width
 
 
-_KERNEL_CACHE: Dict[Tuple[int, int, int, float], Tuple[np.ndarray, int]] = {}
+# Speed, resample, clipping and narrowband use a few fixed ratios.
+CACHE_SIZE = 8
+
+
+_CACHE_LOCK = threading.Lock()
+
+
+def _lru_get(cache: OrderedDict, key, build):
+    """``cache[key]``, built on a miss (outside the lock: a kernel takes
+    seconds); keeps the ``CACHE_SIZE`` most recently used entries."""
+    with _CACHE_LOCK:
+        if key in cache:
+            cache.move_to_end(key)
+            return cache[key]
+    value = build()
+    with _CACHE_LOCK:
+        cache[key] = value
+        while len(cache) > CACHE_SIZE:
+            cache.popitem(last=False)
+    return value
+
+
+_KERNEL_CACHE: "OrderedDict[Tuple[int, int, int, float], Tuple[np.ndarray, int]]" = OrderedDict()
 
 
 def get_sinc_resample_kernel(
     orig_freq: int, new_freq: int, lowpass_filter_width: int = 6, rolloff: float = 0.99,
 ) -> Tuple[np.ndarray, int]:
     key = (int(orig_freq), int(new_freq), lowpass_filter_width, rolloff)
-    if key not in _KERNEL_CACHE:
-        _KERNEL_CACHE[key] = _sinc_resample_kernel(
-            orig_freq, new_freq, lowpass_filter_width, rolloff)
-    return _KERNEL_CACHE[key]
+    return _lru_get(_KERNEL_CACHE, key, lambda: _sinc_resample_kernel(
+        orig_freq, new_freq, lowpass_filter_width, rolloff))
 
 
 def resample_array(
@@ -102,13 +129,11 @@ class SincResampler:
         return resample_array(waveform, self.orig_freq, self.new_freq)
 
 
-_RESAMPLERS: Dict[Tuple[int, int], SincResampler] = {}
+_RESAMPLERS: "OrderedDict[Tuple[int, int], SincResampler]" = OrderedDict()
 
 
 def get_or_create_resampler(
     source_sampling_rate: int, target_sampling_rate: int) -> SincResampler:
     """Cached resampler lookup (reference: augmentation/torchaudio.py:74)."""
     key = (int(source_sampling_rate), int(target_sampling_rate))
-    if key not in _RESAMPLERS:
-        _RESAMPLERS[key] = SincResampler(*key)
-    return _RESAMPLERS[key]
+    return _lru_get(_RESAMPLERS, key, lambda: SincResampler(*key))

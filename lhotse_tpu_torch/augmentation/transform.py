@@ -7,9 +7,8 @@ auto-registered by class name, serialized into ``Recording.transforms`` as
 post-transform timestamps back to the source audio so only the needed
 samples are read from disk).
 
-The JAX package's ``Clipping``, ``Compress``, ``Narrowband`` and
-``LoudnessNormalization`` are not ported: a manifest naming one of them
-raises ``NotImplementedError`` when it is read.
+The JAX package's ``Compress`` is not ported: a manifest naming it raises
+``NotImplementedError`` when it is read.
 """
 from __future__ import annotations
 
@@ -20,7 +19,7 @@ import numpy as np
 
 from lhotse_tpu_torch.utils import Seconds, not_ported
 
-NOT_PORTED_TRANSFORMS = frozenset(["Clipping", "Compress", "Narrowband", "LoudnessNormalization"])
+NOT_PORTED_TRANSFORMS = frozenset(["Compress"])
 
 
 class AudioTransform:

@@ -5,9 +5,9 @@ once on the base class: ``mix``/``append``,
 ``trim_to_supervisions``, ``trim_to_alignments``,
 ``trim_to_supervision_groups``, ``cut_into_windows[_balanced]``,
 ``index_supervisions`` (over :class:`SupervisionIntervalIndex`) and the
-supervision masks over frames and samples. All cut operations are lazy and
-non-mutating. ``split``, ``save_audio``, the speaker masks and the plotting
-and playback helpers are not ported.
+supervision and per-speaker activity masks over frames and samples. All
+cut operations are lazy and non-mutating. ``split``, ``save_audio`` and the
+plotting and playback helpers are not ported.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import numpy as np
 from lhotse_tpu_torch.audio.utils import VideoInfo
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
-    Decibels, Seconds, add_durations, asdict_nonull, compute_num_windows,
+    Decibels, Seconds, add_durations, asdict_nonull, compute_num_samples, compute_num_windows,
     compute_start_duration_for_extended_cut, fastcopy, ifnone, to_hashable)
 
 
@@ -384,6 +384,58 @@ class Cut:
         if use_alignment_if_exists and ali is not None:
             return [(item.start, item.end) for item in ali]
         return [(supervision.start, supervision.end)]
+
+    def _speaker_rows(self, speaker_to_idx_map, min_speaker_dim):
+        if speaker_to_idx_map is None:
+            speakers = sorted(set(s.speaker for s in self.supervisions))
+            speaker_to_idx_map = {spk: idx for idx, spk in enumerate(speakers)}
+        rows = len(speaker_to_idx_map)
+        if min_speaker_dim is not None:
+            # At least ``min_speaker_dim`` rows, as documented (CHiME-6 always
+            # wants 4), as in the JAX package.
+            rows = max(min_speaker_dim, rows)
+        return speaker_to_idx_map, rows
+
+    def _speakers_activity_mask(
+        self, num_units: int, to_unit, speaker_to_idx_map, min_speaker_dim, use_alignment_if_exists,
+    ) -> np.ndarray:
+        """Shared (num_speakers, num_units) activity rasterizer; ``to_unit``
+        converts seconds to the frame/sample grid."""
+        speaker_to_idx_map, rows = self._speaker_rows(speaker_to_idx_map, min_speaker_dim)
+        mask = np.zeros((rows, num_units))
+        for supervision in self.supervisions:
+            row = speaker_to_idx_map[supervision.speaker]
+            for begin, finish in self._active_spans(supervision, use_alignment_if_exists):
+                lo = to_unit(begin) if begin > 0 else 0
+                hi = to_unit(finish) if finish < self.duration else num_units
+                mask[row, lo:hi] = 1
+        return mask
+
+    def speakers_feature_mask(
+        self, min_speaker_dim: Optional[int] = None,
+        speaker_to_idx_map: Optional[Dict[str, int]] = None,
+        use_alignment_if_exists: Optional[str] = None) -> np.ndarray:
+        """(num_speakers, num_frames) 0/1 per-speaker activity matrix
+        (TS-VAD-style; arXiv:2005.07272)."""
+        assert self.has_features, (
+            f"No features available. Can't compute speakers feature mask for cut {self.id}."
+        )
+        return self._speakers_activity_mask(
+            self.num_frames, lambda secs: round(secs / self.frame_shift), speaker_to_idx_map,
+            min_speaker_dim, use_alignment_if_exists)
+
+    def speakers_audio_mask(
+        self, min_speaker_dim: Optional[int] = None,
+        speaker_to_idx_map: Optional[Dict[str, int]] = None,
+        use_alignment_if_exists: Optional[str] = None) -> np.ndarray:
+        """(num_speakers, num_samples) 0/1 per-speaker activity matrix."""
+        assert self.has_recording, (
+            f"No recording available. Can't compute speakers audio mask for cut {self.id}."
+        )
+        return self._speakers_activity_mask(
+            compute_num_samples(self.duration, self.sampling_rate),
+            lambda secs: compute_num_samples(secs, self.sampling_rate), speaker_to_idx_map,
+            min_speaker_dim, use_alignment_if_exists)
 
     def supervisions_feature_mask(self, use_alignment_if_exists: Optional[str] = None) -> np.ndarray:
         """1-D 0/1 mask over frames covered by at least one supervision."""

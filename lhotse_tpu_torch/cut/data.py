@@ -5,15 +5,15 @@ window (copied from ``lhotse_tpu/cut/data.py``), with the members the data
 path uses: the ``Features`` manifest, ``compute_and_store_features``, the
 ``drop_*`` methods, ``fill_supervision``, the windowing builders
 (``truncate``, ``extend_by``, ``pad``), the lazy waveform-domain builders
-``resample``, ``perturb_speed``, ``perturb_tempo`` and ``perturb_volume``
+``resample``, ``perturb_speed``, ``perturb_tempo``, ``perturb_volume``,
+``narrowband``, ``normalize_loudness`` and ``clip_amplitude``
 (``reverb_rir`` is in :class:`~lhotse_tpu_torch.cut.mono.MonoCut`),
 ``dereverb_wpe`` (the host WPE transform), ``move_to_memory``/
 ``drop_in_memory_data``, the path prefixes and the supervision merging that
 ``MonoCut.merge_supervisions`` and ``MultiCut.merge_supervisions`` use.
 Every builder returns a modified manifest copy; no audio is touched until
 ``load_audio``/``load_features``. Images, ``attach_tensor`` and the
-``narrowband``, ``normalize_loudness``, ``clip_amplitude`` and
-``compress`` builders are not ported: the last four raise.
+``compress`` builder are not ported: ``compress`` raises.
 """
 from __future__ import annotations
 
@@ -501,28 +501,58 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
         room_rng_seed: Optional[int] = None, source_rng_seed: Optional[int] = None) -> "DataCut":
         ...
 
-    def narrowband(self, *args, **kwargs) -> "DataCut":
-        raise not_ported("Cut.narrowband")
+    def narrowband(
+        self, codec: str, restore_orig_sr: bool = True, affix_id: bool = True) -> "DataCut":
+        """Telephone-codec bandwidth reduction."""
+        self._require_recording("apply narrowband")
+        self._invalidate_features("narrowband")
+        return fastcopy(
+            self, id=f"{self.id}_nb_{codec}" if affix_id else self.id,
+            recording=self.recording.narrowband( codec=codec, restore_orig_sr=restore_orig_sr, affix_id=affix_id ),
+            supervisions=[ s.narrowband(codec=codec, affix_id=affix_id) for s in self.supervisions ],
+        )
 
-    def normalize_loudness(self, *args, **kwargs) -> "DataCut":
-        raise not_ported("Cut.normalize_loudness")
+    def _renamed_supervisions(self, suffix: str, affix_id: bool) -> list:
+        if not affix_id:
+            return list(self.supervisions)
+        return [
+            fastcopy(s, id=f"{s.id}{suffix}", recording_id=f"{s.recording_id}{suffix}")
+            for s in self.supervisions
+        ]
+
+    def normalize_loudness(self, target: float, affix_id: bool = False, **kwargs) -> "DataCut":
+        """EBU R128 loudness normalization to ``target`` LUFS."""
+        self._require_recording("normalize loudness")
+        self._invalidate_features("loudness normalization")
+        tag = f"_ln{target}"
+        return fastcopy(
+            self, id=f"{self.id}{tag}" if affix_id else self.id,
+            recording=self.recording.normalize_loudness(target=target, affix_id=affix_id),
+            supervisions=self._renamed_supervisions(tag, affix_id))
 
     def dereverb_wpe(self, affix_id: bool = True) -> "DataCut":
         """Weighted-prediction-error dereverberation."""
         self._require_recording("apply WPE")
         self._invalidate_features("WPE dereverberation")
-        if affix_id:
-            supervisions = [
-                fastcopy(s, id=f"{s.id}_wpe", recording_id=f"{s.recording_id}_wpe")
-                for s in self.supervisions]
-        else:
-            supervisions = list(self.supervisions)
         return fastcopy(
             self, id=f"{self.id}_wpe" if affix_id else self.id,
-            recording=self.recording.dereverb_wpe(affix_id=affix_id), supervisions=supervisions)
+            recording=self.recording.dereverb_wpe(affix_id=affix_id),
+            supervisions=self._renamed_supervisions("_wpe", affix_id))
 
-    def clip_amplitude(self, *args, **kwargs) -> "DataCut":
-        raise not_ported("Cut.clip_amplitude")
+    def clip_amplitude(
+        self, hard: bool = False, gain_db: float = 0.0, normalize: bool = True,
+        oversampling: Optional[int] = 2, affix_id: bool = True) -> "DataCut":
+        """Hard/soft amplitude clipping (audio path only)."""
+        self._require_recording("apply clipping")
+        if self.has_features:
+            logging.warning(
+                "Applying clipping on a DataCut with pre-computed features: the "
+                "clipping affects only the audio path."
+            )
+        return fastcopy(
+            self, id=f"{self.id}_cl{gain_db}" if affix_id else self.id,
+            recording=self.recording.clip_amplitude( hard=hard, gain_db=gain_db, normalize=normalize, oversampling=oversampling, affix_id=affix_id, ),
+        )
 
     def compress(self, *args, **kwargs) -> "DataCut":
         raise not_ported("Cut.compress")

@@ -9,8 +9,7 @@ summed until ``load_audio``/``load_features``: the same MixedCut mixes in
 the waveform domain or, for precomputed log-mel features, directly in the
 feature domain via the extractor's ``mix``/``compute_energy``.
 
-Left out: ``load_video``, the plots, ``clip_amplitude``,
-``normalize_loudness`` and ``compress``, which raise
+Left out: ``load_video``, the plots and ``compress``, which raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -28,7 +27,8 @@ import numpy as np
 from lhotse_tpu_torch.audio import Recording, VideoInfo, get_audio_duration_mismatch_tolerance
 from lhotse_tpu_torch.audio.backend import save_audio
 from lhotse_tpu_torch.audio.mixer import AudioMixer, audio_energy
-from lhotse_tpu_torch.augmentation import AudioTransform, ReverbWithImpulseResponse
+from lhotse_tpu_torch.augmentation import (
+    AudioTransform, LoudnessNormalization, ReverbWithImpulseResponse)
 from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.cut.data import DataCut
 from lhotse_tpu_torch.cut.padding import PaddingCut
@@ -426,11 +426,30 @@ class MixedCut(Cut):
             affix_id=affix_id, warn_features="volume perturbation",
             require_recording="perturb volume")
 
-    def clip_amplitude(self, *args, **kwargs) -> "MixedCut":
-        raise not_ported("MixedCut.clip_amplitude")
+    def clip_amplitude(
+        self, hard: bool = False, gain_db: float = 0.0, normalize: bool = True,
+        oversampling: Optional[int] = 2, affix_id: bool = True) -> "MixedCut":
+        return self._rebuild_tracks(
+            lambda c: c.clip_amplitude( hard=hard, gain_db=gain_db, normalize=normalize, oversampling=oversampling, affix_id=affix_id, ),
+            suffix=f"_cl{gain_db}", affix_id=affix_id, warn_features="clipping",
+            require_recording="apply clipping")
 
-    def normalize_loudness(self, *args, **kwargs) -> "MixedCut":
-        raise not_ported("MixedCut.normalize_loudness")
+    def normalize_loudness(
+        self, target: float, mix_first: bool = True, affix_id: bool = False) -> Cut:
+        """Loudness normalization applied to the mix or per source track."""
+        if not self.has_recording:
+            raise AssertionError("Cannot normalize loudness on a MixedCut without Recording.")
+        if self.has_features:
+            logging.warning(
+                "Normalizing loudness on a MixedCut with pre-computed features: "
+                "the feature manifests will be detached."
+            )
+        if mix_first:
+            return self._added_mix_transform(
+                LoudnessNormalization(target=target), f"_ln{target}", affix_id)
+        return self._rebuild_tracks(
+            lambda c: c.normalize_loudness(target=target, affix_id=affix_id), suffix=f"_ln{target}",
+            affix_id=affix_id)
 
     def compress(self, *args, **kwargs) -> "MixedCut":
         raise not_ported("MixedCut.compress")

@@ -2,7 +2,9 @@
 PaddingCut: synthetic silence used to even out cut lengths (copied from
 ``lhotse_tpu/cut/padding.py``). It materializes zeros (audio) or a
 constant ``feat_value`` (features, typically LOG_EPSILON) on load; every
-transformation is metadata-only. Video is not ported.
+transformation is metadata-only. ``clip_amplitude`` is the port's own: the
+JAX package lacks it, so its ``ClippingTransform`` fails on the
+concatenated cuts of ``CutConcatenate``. Video is not ported.
 """
 from __future__ import annotations
 
@@ -168,6 +170,13 @@ class PaddingCut(Cut):
 
     def normalize_loudness(self, target: float, affix_id: bool = False, **kwargs) -> "PaddingCut":
         return fastcopy(self, id=f"{self.id}_ln{target}" if affix_id else self.id)
+
+    def clip_amplitude(self, gain_db: float = 0.0, affix_id: bool = True, **kwargs) -> "PaddingCut":
+        """Clipping has no effect on silence — only the ID changes. The JAX
+        package's PaddingCut has no ``clip_amplitude``, so clipping a
+        ``MixedCut`` with a padding track (as ``CutConcatenate`` builds)
+        raises ``AttributeError`` there."""
+        return fastcopy(self, id=f"{self.id}_cl{gain_db}" if affix_id else self.id)
 
     def drop_features(self) -> "PaddingCut":
         assert self.has_recording, (

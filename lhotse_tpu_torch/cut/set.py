@@ -49,8 +49,8 @@ from functools import partial, reduce
 from itertools import chain, islice
 from pathlib import Path
 from typing import (
-    Any, Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple, Type, TypeVar,
-    Union)
+    Any, Callable, Dict, FrozenSet, Iterable, List, Optional, Sequence, Set, Tuple, Type,
+    TypeVar, Union)
 
 import numpy as np
 
@@ -534,6 +534,20 @@ class CutSet(Serializable, AlgorithmMixin):
         """Lazy volume perturbation over all cuts."""
         return self.map(_CutOp("perturb_volume", factor=factor, affix_id=affix_id))
 
+    def narrowband(
+        self, codec: str, restore_orig_sr: bool = True, affix_id: bool = True) -> "CutSet":
+        """Lazy narrowband effect over all cuts."""
+        return self.map(
+            _CutOp("narrowband", codec=codec, restore_orig_sr=restore_orig_sr, affix_id=affix_id)
+        )
+
+    def normalize_loudness(
+        self, target: float, mix_first: bool = True, affix_id: bool = True) -> "CutSet":
+        """Lazy loudness normalization to ``target`` LUFS over all cuts."""
+        return self.map(
+            _CutOp("normalize_loudness", target=target, mix_first=mix_first, affix_id=affix_id)
+        )
+
     def dereverb_wpe(self, affix_id: bool = True) -> "CutSet":
         """Lazy WPE dereverberation over all cuts."""
         return self.map(_CutOp("dereverb_wpe", affix_id=affix_id))
@@ -791,6 +805,10 @@ class CutSet(Serializable, AlgorithmMixin):
     def transform_text(self, transform_fn: Callable[[str], str]) -> "CutSet":
         """Transform every supervision's text."""
         return self.map_supervisions(partial(_transform_text, transform_fn=transform_fn))
+
+    @property
+    def speakers(self) -> FrozenSet[str]:
+        return frozenset(s.speaker for cut in self for s in cut.supervisions)
 
     @property
     def is_indexed(self) -> bool:

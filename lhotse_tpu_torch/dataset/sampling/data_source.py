@@ -1,10 +1,14 @@
 """
 DataSource: re-shufflable iterator over a CutSet with a "take back" queue
 (copied from ``lhotse_tpu/dataset/sampling/data_source.py``), which the
-eager samplers draw from. ``WeightedDataSource`` is not ported.
+eager samplers draw from, and ``WeightedDataSource``, which draws
+``num_samples`` cuts per epoch by weight, without replacement, from a
+generator seeded with ``seed + epoch``.
 """
 from collections import deque
-from typing import Optional
+from typing import List, Optional
+
+import numpy as np
 
 from lhotse_tpu_torch.cut import Cut, CutSet
 
@@ -92,3 +96,58 @@ class DataSource:
 
     def __len__(self) -> int:
         return len(self._shuffled_items)
+
+
+class WeightedDataSource(DataSource):
+    """
+    DataSource that draws ``num_samples`` cuts per epoch from a multinomial
+    distribution without replacement, with per-cut weights.
+    """
+
+    def __init__(self, items: CutSet, weights: List, num_samples: int, seed: int = 0):
+        super().__init__(items=items)
+        assert len(items) == len(weights), (
+            f"Expected one weight per cut ({len(items)} cuts, {len(weights)} weights)."
+        )
+        assert num_samples < len(weights), (
+            "The number of samples to be drawn must not exceed the dataset size."
+        )
+        weights = np.asarray(weights, dtype=np.float64)
+        assert (weights > 0).all(), "All sampling weights must be positive."
+        self.weights = weights / weights.sum()
+        self.num_samples = num_samples
+        self.seed = seed
+        self.epoch = 0
+        self.sampled_indexes = None
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def reset(self) -> None:
+        super().reset()
+        self.sampled_indexes = None
+
+    def fast_forward(self, steps: int) -> None:
+        assert steps >= 0
+        iter(self)
+        for _ in range(steps):
+            next(self.sampled_indexes)
+
+    def __iter__(self) -> "WeightedDataSource":
+        self.reset()
+        self._iter = iter(self._shuffled_items)
+        # Seeded per-epoch draw: reproducible and identical across ranks.
+        rng = np.random.default_rng(self.seed + self.epoch)
+        drawn = rng.choice(len(self.weights), self.num_samples, p=self.weights, replace=False)
+        self.sampled_indexes = iter(drawn)
+        return self
+
+    def __next__(self) -> Cut:
+        if self._reusable:
+            next_cut = self._reusable.popleft()
+        else:
+            next_cut = self._orig_items[int(next(self.sampled_indexes))]
+        if not self.is_lazy:
+            self._remaining_duration -= next_cut.duration
+            self.remaining_cuts -= 1
+        return next_cut

@@ -153,12 +153,27 @@ def test_left_out_transforms_raise(files, name):
         jrec = J.Recording.from_dict(rec.to_dict())
         assert rec.dereverb_wpe().to_dict() == jrec.dereverb_wpe().to_dict()
         return
-    with pytest.raises(NotImplementedError, match=name):
-        PA.AudioTransform.from_dict({"name": name, "kwargs": {}})
-    with pytest.raises(NotImplementedError):
-        {"Narrowband": lambda: rec.narrowband("mulaw"), "Compress": rec.compress,
-         "Clipping": rec.clip_amplitude, "LoudnessNormalization": lambda: rec.normalize_loudness(-20),
-         "DereverbWPE": rec.dereverb_wpe}[name]()
+    if name == "Compress":
+        # Left out until the system codecs are ported.
+        with pytest.raises(NotImplementedError, match=name):
+            PA.AudioTransform.from_dict({"name": name, "kwargs": {}})
+        with pytest.raises(NotImplementedError):
+            rec.compress()
+        return
+    # Ported: a JAX-written transform dict reads as the same transform, and
+    # the builder appends it as the JAX package's does.
+    build = {"Narrowband": lambda r: r.narrowband("mulaw"),
+             "Clipping": lambda r: r.clip_amplitude(hard=True, gain_db=3.0),
+             "LoudnessNormalization": lambda r: r.normalize_loudness(-20)}[name]
+    jrec = build(J.Recording.from_dict(rec.to_dict()))
+    written = [t if isinstance(t, dict) else t.to_dict() for t in jrec.transforms]
+    ours = [PA.AudioTransform.from_dict(d) for d in written]
+    assert [t.to_dict() for t in ours] == written
+    assert any(type(t).__name__ == name for t in ours)
+    assert build(rec).to_dict() == jrec.to_dict()
+    x = _wave(3)
+    for t, d in zip(ours, written):
+        assert np.array_equal(t(x, SR), JA.AudioTransform.from_dict(d)(x, SR))
 
 
 def test_resampler_has_no_numpy_fallback(monkeypatch):

@@ -2,8 +2,9 @@
 The port on a CUDA card: the fbank kernel against its plain PyTorch version;
 the layers, augmenter, adpcm4 decode, sample cache, extractors (and their
 features through a chunky archive, and an 8-channel 300 s session),
-``OnTheFlyFeatures``, encoder, entry and WPE on the card against the same
-port on the CPU.
+``OnTheFlyFeatures``, encoder, entry, WPE, and the SURT and diarization
+datasets over the zipped samplers and stored features on the card against
+the same port on the CPU.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -625,3 +626,86 @@ def test_gemm_extractors_on_card_match_cpu(cuda, name):
         assert a.shape == b.shape and np.isfinite(a).all()
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
     assert fbank_cuda.LAUNCHES == 0
+
+
+def _two_talker_cuts(tmp_path, prefix, n, seed):
+    """``n`` FLAC cuts of 2-4 s of noisy tones, each with two overlapping
+    supervisions of two speakers (the shape of a supervision group of a
+    meeting)."""
+    from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.supervision import SupervisionSegment
+
+    cuts = []
+    for i, wave in enumerate(_noisy_tones(n, seed=seed)):
+        write_flac(str(tmp_path / f"{prefix}{i}.flac"), wave, 16000)
+        cut = Recording.from_file(tmp_path / f"{prefix}{i}.flac").to_cut()
+        half = round(cut.duration / 2, 2)
+        cut.supervisions = [
+            SupervisionSegment(id=f"{prefix}{i}-a", recording_id=cut.recording_id, start=0.0,
+                               duration=half + 0.3, text=f"FIRST {i}", speaker=f"{prefix}A"),
+            SupervisionSegment(id=f"{prefix}{i}-b", recording_id=cut.recording_id, start=half,
+                               duration=round(cut.duration - half, 2), text=f"SECOND {i}",
+                               speaker=f"{prefix}B{i % 2}")]
+        cuts.append(cut)
+    return CutSet.from_cuts(cuts)
+
+
+def test_zip_surt_batches_on_card_match_cpu(cuda, tmp_path):
+    """``ZipSampler`` over two sources → ``K2SurtDataset`` with
+    ``OnTheFlyFeatures`` on the card (chip_smoke.py phase 17 at a small
+    size): one launch per batch, the kernel against its plain version on the
+    batch's audio, the batch against the CPU port's, and the supervisions
+    and per-channel text equal to the CPU dataset's on the same cuts."""
+    from lhotse_tpu_torch.dataset import K2SurtDataset, SimpleCutSampler, ZipSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+
+    a, b = _two_talker_cuts(tmp_path, "a", 4, 41), _two_talker_cuts(tmp_path, "b", 4, 42)
+    sampler = ZipSampler(SimpleCutSampler(a, max_duration=6.0), SimpleCutSampler(b, max_duration=6.0))
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    card = K2SurtDataset(num_channels=2, return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))
+    cpu = K2SurtDataset(num_channels=2, return_cuts=True, input_strategy=OnTheFlyFeatures(
+        extractors.Fbank(extractors.FbankConfig(device="cpu"))))
+    batches = list(sampler)
+    fbank_cuda.LAUNCHES = 0
+    out = [card[cuts] for cuts in batches]
+    assert fbank_cuda.LAUNCHES == len(batches) >= 2
+    for cuts, batch in zip(batches, out):
+        audio = [c.load_audio()[0] for c in batch["cuts"]]
+        for f, p in zip(batch["inputs"], _plain(extractor, audio)):
+            assert np.abs(f[: len(p)] - p).max() <= LOGMEL_TOL
+        want = cpu[cuts]
+        assert np.abs(batch["inputs"] - want["inputs"]).max() <= FEATURE_TOL
+        assert batch["text"] == want["text"]
+        assert [[[s.id for s in ch] for ch in c] for c in batch["supervisions"]] == [
+            [[s.id for s in ch] for ch in c] for c in want["supervisions"]]
+        assert all(len(ch[1]) == 1 for ch in batch["supervisions"])  # the overlap's channel
+
+
+def test_diarization_batch_on_card_matches_cpu(cuda, tmp_path):
+    """Features extracted on the card into a chunky archive
+    (``compute_and_store_features_batch``, the kernel) → a
+    ``DiarizationDataset`` batch: ``speaker_activity`` (B, S, T) equal to
+    the one over the CPU port's archive, and the features within the
+    feature budget (and one LTC1 tick) of the CPU's."""
+    from lhotse_tpu_torch.dataset import DiarizationDataset
+    from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+
+    # One length for all: the dataset stacks the activity matrices.
+    cuts = _two_talker_cuts(tmp_path, "d", 4, 43).truncate(max_duration=1.0, offset_type="start").to_eager()
+    fbank_cuda.LAUNCHES = 0
+    card = cuts.compute_and_store_features_batch(
+        extractors.Fbank(extractors.FbankConfig(device="cuda")), tmp_path / "card",
+        storage_type=LilcomChunkyWriter, num_workers=1).to_eager()
+    assert fbank_cuda.LAUNCHES >= 1
+    cpu = cuts.compute_and_store_features_batch(
+        extractors.Fbank(extractors.FbankConfig(device="cpu")), tmp_path / "cpu",
+        storage_type=LilcomChunkyWriter, num_workers=1).to_eager()
+    got = DiarizationDataset(card, global_speaker_ids=True, min_speaker_dim=4)[card]
+    want = DiarizationDataset(cpu, global_speaker_ids=True, min_speaker_dim=4)[cpu]
+    assert np.array_equal(got["speaker_activity"], want["speaker_activity"])
+    assert np.array_equal(got["features_lens"], want["features_lens"])
+    assert got["speaker_activity"].shape == (4, 4, got["features"].shape[1])
+    assert set(np.unique(got["speaker_activity"])) == {0.0, 1.0}
+    assert np.abs(got["features"] - want["features"]).max() <= FEATURE_TOL + 2.0**-5

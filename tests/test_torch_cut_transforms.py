@@ -311,9 +311,34 @@ def test_post_transform_cache_keys_by_source(tmp_path):
         set_caching_enabled(False)
 
 
+_PORTED_LATER = {
+    "ClippingTransform": lambda m: m.ClippingTransform(gain_db=(0.0, 12.0), p=0.5, seed=3),
+    "CutConcatenate": lambda m: m.CutConcatenate(gap=0.5, duration_factor=3.0),
+    # A 1 Hz wide interval fixes the cutoff at 4 kHz: 16 kHz -> 8 kHz -> 16 kHz
+    # keeps the resampling kernels small on the CPU.
+    "LowpassUsingResampling": lambda m: m.LowpassUsingResampling(
+        p=0.6, frequencies_interval=(4000, 4001), seed=2),
+}
+
+
 @pytest.mark.parametrize("name", ["ClippingTransform", "Compress", "CutConcatenate",
                                   "LowpassUsingResampling"])
-def test_left_out_cut_transforms_raise(name):
+def test_left_out_cut_transforms_raise(corpus, name):
+    """``Compress`` is still left out (it waits for the system codecs) and
+    raises; the other three are ported and give the JAX package's cuts and
+    audio on the corpus."""
     assert hasattr(JT, name)
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(PT, name)()
+    if name == "Compress":
+        with pytest.raises(NotImplementedError, match=name):
+            getattr(PT, name)()
+        return
+    fix_random_seed(0)
+    ours = list(_PORTED_LATER[name](PT)(_load(corpus, "port", "cuts")))
+    jfix(0)
+    theirs = list(_PORTED_LATER[name](JT)(_load(corpus, "jax", "cuts")))
+    assert [c.to_dict() for c in ours] == [c.to_dict() for c in theirs]
+    before = {c.id: c.to_dict() for c in _load(corpus, "port", "cuts")}
+    changed = [i for i, c in enumerate(ours) if c.to_dict() != before.get(c.id)]
+    assert changed and len(ours) <= len(before)
+    for i in changed[:2]:
+        assert np.array_equal(ours[i].load_audio(), theirs[i].load_audio())

@@ -78,7 +78,16 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.recipes.librispeech, lhotse_tpu_torch.cut.multi, "
         "lhotse_tpu_torch.augmentation.wpe, lhotse_tpu_torch.recipes.ami, "
         "lhotse_tpu_torch.features.compliance, lhotse_tpu_torch.features.kaldifeat, "
-        "lhotse_tpu_torch.features.whisper, lhotse_tpu_torch.features.librosa_fbank; "
+        "lhotse_tpu_torch.features.whisper, lhotse_tpu_torch.features.librosa_fbank, "
+        "lhotse_tpu_torch.augmentation.clipping, lhotse_tpu_torch.augmentation.loudness, "
+        "lhotse_tpu_torch.augmentation.narrowband, "
+        "lhotse_tpu_torch.dataset.cut_transforms.clipping, "
+        "lhotse_tpu_torch.dataset.cut_transforms.lowpass, "
+        "lhotse_tpu_torch.dataset.cut_transforms.concatenate, "
+        "lhotse_tpu_torch.dataset.sampling.weighted_simple, "
+        "lhotse_tpu_torch.dataset.sampling.zip, lhotse_tpu_torch.dataset.sampling.round_robin, "
+        "lhotse_tpu_torch.dataset.sampling.stateless, lhotse_tpu_torch.dataset.vad, "
+        "lhotse_tpu_torch.dataset.diarization, lhotse_tpu_torch.dataset.surt; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
