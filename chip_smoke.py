@@ -63,7 +63,15 @@ through ``ZipSampler``, ``RoundRobinSampler`` with
 ``WeightedSimpleCutSampler`` and ``StatelessSampler``, then
 ``CutConcatenate``, ``ClippingTransform`` and ``LowpassUsingResampling``
 into ``OnTheFlyFeatures`` on the kernel, with a resume; each batch into
-the AdamW step); and checks what comes out.
+the AdamW step); then the paired-cut, SPHERE/AIFF and remaining
+task-dataset path on the recipe corpora (the utterances rewritten as
+SPHERE pcm16, SPHERE ulaw and AIFF into ``OnTheFlyFeatures``; noisy/clean
+pairs through ``CutPairsSampler`` with a resume; the translation, TTS,
+tagging and unsupervised datasets on the kernel; two-speaker mixtures and
+their sources extracted on the kernel and read back by the pre-mixed and
+dynamically mixed separation datasets; chunks of the sessions, rewritten
+as SPHERE, from two forked workers of a ``torch.utils.data.DataLoader``;
+each batch into the AdamW step); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -91,7 +99,12 @@ features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
 ``dp_on_the_fly`` (both ranks' launches), ``ami_surt_on_the_fly``,
 ``ami_vad_on_the_fly``, ``ami_diarization_extract``, ``ami_diarization``
 (0: it reads stored features), ``multi_source_zip``,
-``multi_source_round_robin`` and ``multi_source_stateless``); the last line is
+``multi_source_round_robin``, ``multi_source_stateless``,
+``sphere_aiff_on_the_fly``, ``paired_enhancement`` (both sides' launches),
+``speech_translation_on_the_fly``, ``tts_on_the_fly``,
+``separation_extract``, ``separation_premixed`` and ``separation_dynamic``
+(0: they read stored features), ``unsupervised_on_the_fly`` (one launch
+per cut), ``tagging_on_the_fly`` and ``recording_chunks``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -1432,14 +1445,20 @@ def _shar_bytes(out: Path) -> dict:
     return sizes
 
 
-def _pad_feats(feats: list, device):
-    """A list of (frames, mels) arrays -> the (B, T, mels) batch padded with
-    ``LOG_EPSILON`` and the frame counts, on ``device``."""
-    lens = np.array([len(f) for f in feats], np.int64)
-    batch = np.full((len(feats), int(lens.max()), feats[0].shape[1]), LOG_EPSILON, np.float32)
+def _padded(feats: list) -> tuple:
+    """A list of (frames, mels) arrays -> the (B, T, mels) numpy batch padded
+    with ``LOG_EPSILON`` and the frame counts."""
+    lens = [len(f) for f in feats]
+    batch = np.full((len(feats), max(lens), feats[0].shape[1]), LOG_EPSILON, np.float32)
     for i, f in enumerate(feats):
         batch[i, : len(f)] = f
-    return torch.from_numpy(batch).to(device), torch.from_numpy(lens).to(device)
+    return batch, lens
+
+
+def _pad_feats(feats: list, device):
+    """``_padded`` on ``device``."""
+    batch, lens = _padded(feats)
+    return torch.from_numpy(batch).to(device), torch.tensor(lens, dtype=torch.int64, device=device)
 
 
 def _streaming_epoch(loader, extractor, trainer, device) -> dict:
@@ -2477,17 +2496,21 @@ def _head(cuts, seconds: float) -> list:
     return out
 
 
+def _frames_of(cuts, width: int) -> list:
+    """Each cut's frame count at the 10 ms shift, at most ``width``."""
+    from lhotse_tpu_torch.utils import compute_num_frames
+
+    return [min(compute_num_frames(c.duration, 0.01, SR), width) for c in cuts]
+
+
 def _rows_of(batch) -> tuple:
     """A ``K2SpeechRecognitionDataset`` batch's features, the frame count of
     each row's cut (a concatenated cut holds several supervisions) and its
     seconds of audio."""
-    from lhotse_tpu_torch.utils import compute_num_frames
-
     sups = batch["supervisions"]
     rows = {int(i): c for i, c in zip(sups["sequence_idx"], sups["cut"])}
     cuts = [rows[i] for i in range(batch["inputs"].shape[0])]
-    lens = [min(compute_num_frames(c.duration, 0.01, SR), batch["inputs"].shape[1]) for c in cuts]
-    return batch["inputs"], lens, sum(c.duration for c in cuts)
+    return batch["inputs"], _frames_of(cuts, batch["inputs"].shape[1]), sum(c.duration for c in cuts)
 
 
 def _phase_multi_source(workdir: Path, manifests: dict, device, fbank_cuda, smi: str) -> tuple:
@@ -2802,6 +2825,497 @@ def _phase_multi_source(workdir: Path, manifests: dict, device, fbank_cuda, smi:
     errs.append(err)
     set_tracing_enabled(False)
     return launches, max(errs)
+# -- 18. the paired-cut, SPHERE/AIFF and remaining task-dataset path -------------------
+PAIRED_SNR = 10.0  # dB of the session noise under each utterance of paired_enhancement
+PAIRED_RESUME_AFTER = 2
+SEP_PAIRS = 40  # 2-speaker mixtures of utterance pairs
+SEP_BATCH = 8  # mixtures per separation step
+CHUNK_SECONDS, CHUNK_SHIFT, CHUNK_BATCH = 10.0, 5.0, 16
+TAG_EVENTS = ("Speech", "Music", "Speech;Music", "Noise")
+# A fixed word map over RECIPE_WORDS: the made-up "translation" only carries text.
+TRANSLATION = {w: w[::-1].lower() for w in RECIPE_WORDS}
+
+
+def _translate(text: str) -> str:
+    """The word map applied in reversed word order."""
+    return " ".join(TRANSLATION[w] for w in reversed(text.split()))
+
+
+class _WithCuts:
+    """Wraps a dataset whose batch holds no cuts (``DynamicUnsupervisedDataset``
+    returns the collated matrix alone) to hand the step its cuts."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __getitem__(self, cuts):
+        return {"features": self.dataset[cuts], "cuts": list(cuts)}
+
+
+class _RecordFirstExtract:
+    """Wraps ``extractor.extract`` to keep the first ``n`` calls' items and
+    features in the layout of ``_RecordFirstBatch.first``. They are held to
+    the plain version as one batch: the kernel's rows do not depend on the
+    batch, but the plain version's GEMMs pick their algorithm by shape, and
+    in the near-cancelling lowest mel bins of a tone burst two float32
+    orders part by up to 2.3e-4 (one item alone: 1.43e-4 from a batch's)."""
+
+    def __init__(self, extractor, n: int = 8):
+        self.first = ([], [])
+        inner = extractor.extract
+
+        def extract(samples, sampling_rate):
+            out = inner(samples, sampling_rate)
+            if len(self.first[0]) < n:
+                self.first[0].append(np.asarray(samples).reshape(-1).copy())
+                self.first[1].append(np.asarray(out).copy())
+            return out
+
+        extractor.extract = extract
+
+
+def _cpu_port_err(kernel_feats, extractor, items, cpu_feats) -> tuple:
+    """Max-abs of the card's features from the CPU port's (whose DFT
+    products are float64) and of the kernel's plain version's from them;
+    a tonal bin may part the float32 routes from float64 by more than
+    ``CHAIN_TOL``, so the card is held to twice the plain version's."""
+    plain = _plain_extract(extractor, items)
+    err = max(float(np.abs(k - c).max()) for k, c in zip(kernel_feats, cpu_feats))
+    plain_err = max(float(np.abs(p - c).max()) for p, c in zip(plain, cpu_feats))
+    return err, plain_err
+
+
+def _phase_paired(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """18. The paired-cut, SPHERE/AIFF and remaining task-dataset path, on
+    phase 14's corpora (its 160 LibriSpeech utterances and 8 sessions of
+    120 s), each batch into an AdamW step of ``Encoder(EncoderConfig())``.
+    ``sphere_aiff_on_the_fly``: the utterances rewritten by the port's
+    writers, a third each as SPHERE pcm16, SPHERE ulaw and AIFF →
+    ``RecordingSet.from_dir`` → the recipe's supervisions →
+    ``CutSet.from_manifests`` → ``SimpleCutSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the card; the
+    pcm16 SPHERE and AIFF audio ``np.array_equal`` to the FLAC source, their
+    features ``torch.equal`` to the FLAC twins' in the same batches; the
+    sessions written as SPHERE pcm16 and cut into 10 s windows, whose
+    partial reads equal the FLAC windows'. ``paired_enhancement``: each
+    utterance mixed at 10 dB with a span of a session (the source side)
+    against the clean utterance (the target side) through
+    ``CutPairsSampler``, ``OnTheFlyFeatures`` on the card on each side, the
+    step on the source; a fresh sampler loads the state after batch 2 and
+    gives the next two pairs of batches ``torch.equal``.
+    ``speech_translation_on_the_fly``: ``K2Speech2TextTranslationDataset``
+    over the utterances with a ``translated_text`` each. ``tts_on_the_fly``:
+    ``SpeechSynthesisDataset`` with ``TokenCollater`` tokens.
+    ``separation_extract``: 40 two-speaker mixtures and their sources through
+    ``compute_and_store_features_batch`` on the card into ``lilcom_chunky``;
+    ``separation_premixed`` and ``separation_dynamic`` read them back through
+    ``PreMixedSourceSeparationDataset`` and
+    ``DynamicallyMixedSourceSeparationDataset`` into a step on the mixtures.
+    ``unsupervised_on_the_fly``: ``DynamicUnsupervisedDataset`` with the card
+    ``Fbank``; ``tagging_on_the_fly``: ``AudioTaggingDataset`` with an
+    ``audio_event`` per supervision; ``recording_chunks``:
+    ``RecordingChunkIterableDataset`` over the SPHERE sessions (10 s chunks
+    every 5 s) through a ``torch.utils.data.DataLoader`` with two forked
+    workers sharded by ``audio_chunk_worker_init_fn``, the kernel in this
+    process. Returns the kernel's launches per path and the largest
+    kernel-vs-plain error."""
+    import copy
+    import warnings
+
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.audio.aiffio import write_aiff
+    from lhotse_tpu_torch.audio.sphio import write_sph
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import (
+        AudioTaggingDataset, CutPairsSampler, DynamicallyMixedSourceSeparationDataset,
+        DynamicUnsupervisedDataset, K2Speech2TextTranslationDataset,
+        PreMixedSourceSeparationDataset, RecordingChunkIterableDataset, SimpleCutSampler,
+        SpeechSynthesisDataset, TokenCollater, audio_chunk_collate, audio_chunk_worker_init_fn)
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled, trace_span
+    from lhotse_tpu_torch.utils import fastcopy
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    launches, errs = {}, []
+
+    def fly():
+        extractor = Fbank(FbankConfig(device=device))
+        return extractor, _RecordFirstBatch(extractor)
+
+    def loader_over(cuts, dataset):
+        return DataLoader(SimpleCutSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0),
+                          dataset, prefetch_batches=3)
+
+    def batch_cuts(batch):
+        return batch["supervisions"]["cut"]
+
+    # -- sphere_aiff_on_the_fly ------------------------------------------------------
+    t0 = time.perf_counter()
+    flac = sorted(CutSet.from_file(workdir / "recipe_cuts.jsonl.gz"), key=lambda c: c.recording_id)
+    flac_by_rec = {c.recording_id: c for c in flac}
+    audio_dir = workdir / "sphere_aiff"
+    audio_dir.mkdir()
+    kinds = {}
+    for i, cut in enumerate(flac):
+        samples, kind = cut.recording.load_audio(), ("pcm16", "ulaw", "aiff")[i % 3]
+        if kind == "aiff":
+            write_aiff(audio_dir / f"{cut.recording_id}.aiff", samples, SR)
+        else:
+            write_sph(audio_dir / f"{cut.recording_id}.sph", samples, SR, coding=kind)
+        kinds[cut.recording_id] = kind
+    recordings = RecordingSet.from_recordings(
+        list(RecordingSet.from_dir(audio_dir, "*.sph")) + list(RecordingSet.from_dir(audio_dir, "*.aiff")))
+    cuts = CutSet.from_manifests(
+        recordings, SupervisionSet.from_segments(s for c in flac for s in c.supervisions)).to_eager()
+    lossless_equal = all(
+        np.array_equal(r.load_audio(), flac_by_rec[r.id].recording.load_audio())
+        for r in recordings if kinds[r.id] != "ulaw")
+    long = RecordingSet.from_file(workdir / "long_recordings.jsonl.gz").to_eager()
+    sessions_dir = workdir / "sessions_sph"
+    sessions_dir.mkdir()
+    for rec in long:
+        write_sph(sessions_dir / f"{rec.id}.sph", rec.load_audio(), SR)
+    sph_sessions = RecordingSet.from_dir(sessions_dir, "*.sph").to_eager()
+    session_sups = SupervisionSet.from_file(workdir / "long_supervisions.jsonl.gz").to_eager()
+
+    def windows_of(recs):
+        return sorted(CutSet.from_manifests(recs, session_sups).cut_into_windows(WINDOW_SECONDS),
+                      key=lambda c: (c.recording_id, c.start))
+
+    windows, flac_windows = windows_of(sph_sessions), windows_of(long)
+    windows_equal = len(windows) == len(flac_windows) == LONG_SESSIONS * int(
+        LONG_SECONDS / WINDOW_SECONDS) and all(
+        np.array_equal(a.load_audio(), b.load_audio()) for a, b in zip(windows, flac_windows))
+    print(f"[{smi}] sphere_aiff_on_the_fly: {len(cuts)} utterances rewritten ({sum(k == 'pcm16' for k in kinds.values())} "
+          f"SPHERE pcm16, {sum(k == 'ulaw' for k in kinds.values())} SPHERE ulaw, "
+          f"{sum(k == 'aiff' for k in kinds.values())} AIFF) and {len(sph_sessions)} sessions as SPHERE "
+          f"pcm16 in {time.perf_counter() - t0!r} s; pcm16 SPHERE and AIFF audio equal to the FLAC "
+          f"source: {lossless_equal}; {len(windows)} session windows of {WINDOW_SECONDS:g} s read at "
+          f"their offsets equal to the FLAC windows: {windows_equal}")
+    if len(cuts) != len(flac) or not lossless_equal or not windows_equal:
+        raise AssertionError("sphere_aiff_on_the_fly: the rewritten audio is off")
+    extractor, recorder = fly()
+    run = _leg("sphere_aiff_on_the_fly", loader_over(cuts, K2SpeechRecognitionDataset(
+        return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))), _Trainer(device), device,
+        fbank_cuda, _rows_of, smi)
+    launches["sphere_aiff_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    twin = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))
+    twins_equal, compared = True, 0
+    for batch in run["batches"][:2]:
+        flac_batch = twin[CutSet.from_cuts(flac_by_rec[c.recording_id] for c in batch_cuts(batch))]
+        rows = {c.recording_id: int(i) for i, c in zip(batch["supervisions"]["sequence_idx"], batch_cuts(batch))}
+        flac_rows = {c.recording_id: int(i) for i, c in zip(
+            flac_batch["supervisions"]["sequence_idx"], batch_cuts(flac_batch))}
+        for rid, row in rows.items():
+            if kinds[rid] != "ulaw":
+                compared += 1
+                twins_equal &= torch.equal(torch.from_numpy(batch["inputs"][row]),
+                                           torch.from_numpy(flac_batch["inputs"][flac_rows[rid]]))
+    seen = sorted(c.recording_id for b in run["batches"] for c in batch_cuts(b))
+    print(f"[{smi}] sphere_aiff_on_the_fly: features of {compared} pcm16 SPHERE and AIFF cuts in the "
+          f"first two batches torch.equal to their FLAC twins' (the same batches through the "
+          f"kernel): {twins_equal}; first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != len(run["batches"]) or seen != sorted(kinds):
+        raise AssertionError("sphere_aiff_on_the_fly: launches or the epoch's cuts are off")
+    if not twins_equal or not compared or not err <= CHAIN_TOL:
+        raise AssertionError("sphere_aiff_on_the_fly: the features are off")
+    errs.append(err)
+
+    # -- paired_enhancement ---------------------------------------------------------------
+    rng = np.random.RandomState(18)
+    noise = [r.to_cut() for r in sph_sessions]  # SPHERE: each span is a partial read
+    noisy = []
+    for i, c in enumerate(flac):
+        session = noise[i % len(noise)]
+        offset = round(float(rng.uniform(0.0, session.duration - c.duration - 0.01)), 2)
+        span = session.truncate(offset=offset, duration=c.duration)
+        noisy.append(c.mix(span, snr=PAIRED_SNR, preserve_id="left"))
+    src, tgt = CutSet.from_cuts(noisy), CutSet.from_cuts(flac)
+
+    def pairs():
+        return CutPairsSampler(src, tgt, max_source_duration=FLY_MAX_DURATION,
+                               max_target_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
+
+    src_ext, src_rec = fly()
+    tgt_ext, tgt_rec = fly()
+    src_ds = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(src_ext))
+    tgt_ds = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(tgt_ext))
+
+    def paired(sampler):
+        for s, t in sampler:
+            with trace_span("dataset.assemble"):
+                batch = {"source": src_ds[s], "target": tgt_ds[t]}
+            yield batch
+
+    sampler, state = pairs(), {}
+
+    def keep_state(i, batch):
+        if i == PAIRED_RESUME_AFTER - 1:
+            state["sampler"] = copy.deepcopy(sampler.state_dict())
+
+    run = _leg("paired_enhancement", paired(sampler), _Trainer(device), device, fbank_cuda,
+               lambda b: _rows_of(b["source"]), smi, on_batch=keep_state)
+    launches["paired_enhancement"] = run["launches"]
+    src_err, tgt_err = _first_batch_err(src_rec, src_ext), _first_batch_err(tgt_rec, tgt_ext)
+    aligned = all([c.id for c in batch_cuts(b["source"])] == [c.id for c in batch_cuts(b["target"])]
+                  for b in run["batches"])
+    mixed = all(type(c).__name__ == "MixedCut" for b in run["batches"] for c in batch_cuts(b["source"]))
+    resumed_sampler = pairs()
+    resumed_sampler.load_state_dict(copy.deepcopy(state["sampler"]))
+    resumed = [b for _, b in zip(range(2), paired(resumed_sampler))]
+    want = run["batches"][PAIRED_RESUME_AFTER: PAIRED_RESUME_AFTER + 2]
+    resume_equal = len(resumed) == len(want) == 2 and all(
+        [c.id for c in batch_cuts(a[side])] == [c.id for c in batch_cuts(b[side])]
+        and torch.equal(torch.from_numpy(a[side]["inputs"]), torch.from_numpy(b[side]["inputs"]))
+        for a, b in zip(resumed, want) for side in ("source", "target"))
+    seen = sorted(c.id for b in run["batches"] for c in batch_cuts(b["source"]))
+    print(f"[{smi}] paired_enhancement: {len(run['batches'])} pairs of batches, source and target ids "
+          f"aligned: {aligned}, every source a MixedCut: {mixed}; a fresh sampler loaded after batch "
+          f"{PAIRED_RESUME_AFTER} gives the next two pairs of batches torch.equal to the "
+          f"uninterrupted run's: {resume_equal}; first batch kernel vs plain: source {src_err!r}, "
+          f"target {tgt_err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != 2 * len(run["batches"]) or seen != sorted(c.id for c in flac):
+        raise AssertionError("paired_enhancement: launches or the epoch's cuts are off")
+    if not (aligned and mixed and resume_equal) or not max(src_err, tgt_err) <= CHAIN_TOL:
+        raise AssertionError("paired_enhancement: the pairs, the resume or the features are off")
+    errs += [src_err, tgt_err]
+
+    # -- speech_translation_on_the_fly ---------------------------------------------------------
+    translated = CutSet.from_cuts(fastcopy(c, supervisions=[
+        fastcopy(s, custom=dict(s.custom or {}, translated_text=_translate(s.text)))
+        for s in c.supervisions]) for c in flac)
+    extractor, recorder = fly()
+    run = _leg("speech_translation_on_the_fly", loader_over(translated, K2Speech2TextTranslationDataset(
+        return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))), _Trainer(device), device,
+        fbank_cuda, _rows_of, smi)
+    launches["speech_translation_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    texts_ok = all(
+        b["supervisions"]["text"] == [s.text for c in batch_cuts(b) for s in c.supervisions]
+        and b["supervisions"]["tgt_text"] == [_translate(t) for t in b["supervisions"]["text"]]
+        for b in run["batches"])
+    first = run["batches"][0]
+    cpu = K2Speech2TextTranslationDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(
+        Fbank(FbankConfig(device="cpu"))))[CutSet.from_cuts(batch_cuts(first))]
+    same_text = all(cpu["supervisions"][k] == first["supervisions"][k] for k in ("text", "tgt_text"))
+    rows = _frames_of(batch_cuts(first), first["inputs"].shape[1])
+    items, kernel_out = recorder.first
+    cpu_err, plain_cpu_err = _cpu_port_err(
+        kernel_out, extractor, items, [cpu["inputs"][i, :n] for i, n in enumerate(rows)])
+    print(f"[{smi}] speech_translation_on_the_fly: text and tgt_text of every batch those of its "
+          f"supervisions: {texts_ok}; first batch's text and tgt_text equal to the CPU port's: "
+          f"{same_text}; first batch kernel vs plain {err!r} (tol {CHAIN_TOL}), vs the CPU port "
+          f"{cpu_err!r} where the plain version is {plain_cpu_err!r}")
+    if run["launches"] != len(run["batches"]) or not (texts_ok and same_text):
+        raise AssertionError("speech_translation_on_the_fly: launches or the text are off")
+    if not err <= CHAIN_TOL or not cpu_err <= max(CHAIN_TOL, 2 * plain_cpu_err):
+        raise AssertionError("speech_translation_on_the_fly: the features are off")
+    errs.append(err)
+
+    # -- tts_on_the_fly --------------------------------------------------------------------------
+    collater = TokenCollater(tgt)
+    extractor, recorder = fly()
+    run = _leg("tts_on_the_fly", loader_over(tgt, SpeechSynthesisDataset(
+        feature_input_strategy=OnTheFlyFeatures(extractor), return_cuts=True)), _Trainer(device),
+        device, fbank_cuda, lambda b: (b["features"], b["features_lens"],
+                                       float(np.sum(b["audio_lens"])) / SR), smi)
+    launches["tts_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    inverse_ok = all(
+        collater.inverse(*collater(CutSet.from_cuts(b["cut"]))) == [c.supervisions[0].text for c in b["cut"]]
+        and b["text"] == [c.supervisions[0].text for c in b["cut"]] for b in run["batches"])
+    first = run["batches"][0]
+    cpu_cuts = CutSet.from_cuts(first["cut"])
+    cpu = SpeechSynthesisDataset(feature_input_strategy=OnTheFlyFeatures(
+        Fbank(FbankConfig(device="cpu"))), return_cuts=True)[cpu_cuts]
+    tokens, jlens = collater(cpu_cuts)
+    cpu_tokens = TokenCollater(tgt)(cpu_cuts)
+    same = (np.array_equal(cpu["audio"], first["audio"]) and np.array_equal(tokens, cpu_tokens[0])
+            and np.array_equal(jlens, cpu_tokens[1]) and cpu["text"] == first["text"])
+    items, kernel_out = recorder.first
+    cpu_err, plain_cpu_err = _cpu_port_err(
+        kernel_out, extractor, items, [cpu["features"][i, :n] for i, n in enumerate(first["features_lens"])])
+    print(f"[{smi}] tts_on_the_fly: vocabulary of {len(collater.idx2token)} tokens; inverse() gives "
+          f"back every supervision's text: {inverse_ok}; first batch's audio, tokens and text equal "
+          f"to the CPU port's: {same}; first batch kernel vs plain {err!r} (tol {CHAIN_TOL}), vs the "
+          f"CPU port {cpu_err!r} where the plain version is {plain_cpu_err!r}")
+    if run["launches"] != len(run["batches"]) or not (inverse_ok and same):
+        raise AssertionError("tts_on_the_fly: launches, tokens or audio are off")
+    if not err <= CHAIN_TOL or not cpu_err <= max(CHAIN_TOL, 2 * plain_cpu_err):
+        raise AssertionError("tts_on_the_fly: the features are off")
+    errs.append(err)
+
+    # -- separation_extract, separation_premixed, separation_dynamic --------------------------
+    sources, mixtures = [], []
+    for k in range(SEP_PAIRS):
+        a, b = flac[2 * k], flac[2 * k + 1]
+        length = min(a.duration, b.duration)
+        a, b = a.truncate(duration=length, preserve_id=True), b.truncate(duration=length, preserve_id=True)
+        sources += [a, b]
+        mixtures.append(fastcopy(a.mix(b), id=f"mix-{k:03d}"))
+    extractor, recorder = fly()
+    stored = {}
+
+    def extract():
+        stored["cuts"] = CutSet.from_cuts(sources + mixtures).compute_and_store_features_batch(
+            extractor, workdir / "separation_feats", manifest_path=workdir / "separation.jsonl",
+            storage_type=LilcomChunkyWriter).to_eager()
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(extract)
+    launches["separation_extract"] = fbank_cuda.LAUNCHES
+    err = _first_batch_err(recorder, extractor)
+    seconds = sum(c.duration for c in sources + mixtures)
+    print(f"[{smi}] separation_extract: {len(sources)} sources and {len(mixtures)} mixtures, "
+          f"{seconds!r} audio-s extracted and stored in {wall_ms!r} ms under torch.profiler: "
+          f"{seconds / wall_ms * 1e3!r} audio-s/s; device busy {busy_ms / wall_ms!r} of the wall; "
+          f"fbank kernel launches {launches['separation_extract']}; no loader (dataset.assemble: "
+          f"none); first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if not launches["separation_extract"] >= 1 or not err <= CHAIN_TOL:
+        raise AssertionError("separation_extract: launches or the kernel's result are off")
+    errs.append(err)
+
+    def split(featured):
+        by_id = {c.id: c for c in featured}
+        src_feats = [by_id[c.id] for c in sources]
+        return src_feats, [by_id[m.id] for m in mixtures]
+
+    def premixed(featured):
+        src_feats, mix_feats = split(featured)
+        relabelled = [fastcopy(c, id=f"{mixtures[i // 2].id}-src{i % 2}", recording=None,
+                               features=fastcopy(c.features, recording_id=mixtures[i // 2].id))
+                      for i, c in enumerate(src_feats)]
+        return PreMixedSourceSeparationDataset(CutSet.from_cuts(relabelled), CutSet.from_cuts(mix_feats))
+
+    def dynamic(featured):
+        src_feats, _ = split(featured)
+        mixed_feats = [fastcopy(src_feats[2 * k].mix(src_feats[2 * k + 1]), id=f"dmix-{k:03d}")
+                       for k in range(SEP_PAIRS)]
+        return DynamicallyMixedSourceSeparationDataset(CutSet.from_cuts(src_feats), CutSet.from_cuts(mixed_feats))
+
+    def sep_batches(dataset):
+        for lo in range(0, len(dataset), SEP_BATCH):
+            with trace_span("dataset.assemble"):
+                items = [dataset[i] for i in range(lo, min(lo + SEP_BATCH, len(dataset)))]
+            yield items
+
+    def sep_rows(items):
+        feats, lens = _padded([it["mixture"] for it in items])
+        return feats, lens, sum(lens) * 0.01
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "not yet updated to use the new sampling mechanism"
+        datasets = {"separation_premixed": premixed(stored["cuts"]),
+                    "separation_dynamic": dynamic(stored["cuts"])}
+        reread = CutSet.from_file(workdir / "separation.jsonl").to_eager()
+        cpu_sets = {"separation_premixed": premixed(reread), "separation_dynamic": dynamic(reread)}
+    for name, dataset in datasets.items():
+        run = _leg(name, sep_batches(dataset), _Trainer(device), device, fbank_cuda, sep_rows, smi,
+                   unit="mixture")
+        launches[name] = run["launches"]
+        items = [it for b in run["batches"] for it in b]
+        # The masks are powers over their sum plus EPSILON (1e-10): where the
+        # sources' power is small (the pre-emphasised lowest mel bins) they
+        # sum to P / (P + EPSILON), short of 1.
+        short = max(float(np.abs(it["real_mask"].sum(0) - 1.0).max()) for it in items)
+        mask_err = 0.0
+        for it in items:
+            power = np.exp(it["sources"]).sum(0)
+            mask_err = max(mask_err, float(np.abs(it["real_mask"].sum(0) - power / (power + 1e-10)).max()))
+        cpu = cpu_sets[name]
+        masks_equal = len(items) == len(cpu) == SEP_PAIRS and all(
+            np.array_equal(it["real_mask"], cpu[i]["real_mask"])
+            and np.array_equal(it["binary_mask"], cpu[i]["binary_mask"]) for i, it in enumerate(items))
+        print(f"[{smi}] {name}: {len(items)} mixtures of {items[0]['sources'].shape[0]} sources; "
+              f"real_mask sums over the sources to P / (P + EPSILON) within {mask_err!r} (tol 1e-6), "
+              f"to 1 within {short!r}; masks equal to the CPU port's dataset on the manifest read "
+              f"back: {masks_equal}")
+        if run["launches"] != 0 or not mask_err <= 1e-6 or not masks_equal:
+            raise AssertionError(f"{name}: a launch, or the masks are off")
+
+    # -- unsupervised_on_the_fly ------------------------------------------------------------------
+    extractor = Fbank(FbankConfig(device=device))
+    first_extract = _RecordFirstExtract(extractor)
+    run = _leg("unsupervised_on_the_fly", loader_over(tgt, _WithCuts(DynamicUnsupervisedDataset(
+        feature_extractor=extractor))), _Trainer(device), device, fbank_cuda,
+        lambda b: (b["features"], _frames_of(b["cuts"], b["features"].shape[1]),
+                   sum(c.duration for c in b["cuts"])), smi)
+    launches["unsupervised_on_the_fly"] = run["launches"]
+    err = _first_batch_err(first_extract, extractor)
+    n_cuts = sum(len(b["cuts"]) for b in run["batches"])
+    print(f"[{smi}] unsupervised_on_the_fly: {n_cuts} cuts, one launch per cut "
+          f"({run['launches']}); the first {len(first_extract.first[0])} cuts' kernel features vs "
+          f"the plain version over them as one batch {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != n_cuts or n_cuts != len(flac) or not err <= CHAIN_TOL:
+        raise AssertionError("unsupervised_on_the_fly: launches or the kernel's result are off")
+    errs.append(err)
+
+    # -- tagging_on_the_fly -------------------------------------------------------------------------
+    tagged = CutSet.from_cuts(fastcopy(c, supervisions=[
+        fastcopy(s, custom=dict(s.custom or {}, audio_event=TAG_EVENTS[i % len(TAG_EVENTS)]))
+        for s in c.supervisions]) for i, c in enumerate(flac))
+    extractor, recorder = fly()
+    run = _leg("tagging_on_the_fly", loader_over(tagged, AudioTaggingDataset(
+        return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))), _Trainer(device), device,
+        fbank_cuda, _rows_of, smi)
+    launches["tagging_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    events_ok = all(b["supervisions"]["audio_event"] == [s.audio_event for c in batch_cuts(b)
+                                                         for s in c.supervisions] for b in run["batches"])
+    counts = {e: sum(b["supervisions"]["audio_event"].count(e) for b in run["batches"]) for e in TAG_EVENTS}
+    print(f"[{smi}] tagging_on_the_fly: audio_event of every batch that of its supervisions: "
+          f"{events_ok}, counts {counts}; first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if run["launches"] != len(run["batches"]) or not events_ok or sum(counts.values()) != len(flac):
+        raise AssertionError("tagging_on_the_fly: launches or the labels are off")
+    if not err <= CHAIN_TOL:
+        raise AssertionError("tagging_on_the_fly: the kernel disagrees with its plain version")
+    errs.append(err)
+
+    # -- recording_chunks -------------------------------------------------------------------------
+    chunks = RecordingChunkIterableDataset(sph_sessions, chunk_size=CHUNK_SECONDS, chunk_shift=CHUNK_SHIFT)
+    loader = torch.utils.data.DataLoader(
+        chunks, batch_size=CHUNK_BATCH, num_workers=2, worker_init_fn=audio_chunk_worker_init_fn,
+        collate_fn=audio_chunk_collate, multiprocessing_context="fork")
+    total = {r.id: r.num_samples for r in sph_sessions}
+    extractor, recorder = fly()
+
+    def chunk_batches():
+        for b in loader:
+            lens = [min(int(CHUNK_SECONDS * SR), total[rid] - int(round(float(t) * SR)))
+                    for rid, t in zip(b["recording_id"], b["begin_time"])]
+            feats = extractor.extract_batch(list(b["audio"]), SR, lengths=np.array(lens))
+            feats, frames = _padded(list(feats))
+            yield {"keys": list(zip(b["recording_id"], b["begin_time"].tolist())), "feats": feats,
+                   "frames": frames, "seconds": sum(lens) / SR}
+
+    run = _leg("recording_chunks", chunk_batches(), _Trainer(device), device, fbank_cuda,
+               lambda b: (b["feats"], b["frames"], b["seconds"]), smi)
+    launches["recording_chunks"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    keys = [k for b in run["batches"] for k in b["keys"]]
+    expected = sorted((r.id, float(s)) for r in sph_sessions
+                      for s in np.arange(0.0, r.duration, CHUNK_SHIFT))
+    print(f"[{smi}] recording_chunks: torch DataLoader, 2 workers, multiprocessing context "
+          f"{loader.multiprocessing_context.get_start_method()!r}; {len(keys)} chunks of "
+          f"{CHUNK_SECONDS:g} s every {CHUNK_SHIFT:g} s over {len(sph_sessions)} SPHERE sessions, each "
+          f"exactly once: {sorted(keys) == expected}; the decode spans run in the worker processes "
+          f"(not collected); first batch kernel vs plain {err!r} (tol {CHAIN_TOL})")
+    if sorted(keys) != expected or run["launches"] != len(run["batches"]) or not err <= CHAIN_TOL:
+        raise AssertionError("recording_chunks: the chunks, launches or the kernel's result are off")
+    errs.append(err)
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 
 
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
@@ -3186,6 +3700,12 @@ def main() -> None:
         launches_recipe, recipe_err = _phase_recipe(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_recipe)
         print(f"phase 14 took {time.perf_counter() - t0!r} s")
+        # -- 18. the paired-cut, SPHERE/AIFF and remaining task-dataset path, on the
+        # same corpora
+        t0 = time.perf_counter()
+        launches_paired, paired_err = _phase_paired(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_paired)
+        print(f"phase 18 took {time.perf_counter() - t0!r} s")
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
     # signal-effects and multi-source, multi-talker training path on the same corpus
@@ -3200,7 +3720,7 @@ def main() -> None:
         print(f"phase 17 took {time.perf_counter() - t0!r} s")
     print(f"fbank kernel launches by path: {by_path}")
     reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed",
-                    "ami_diarization")
+                    "ami_diarization", "separation_premixed", "separation_dynamic")
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
@@ -3212,7 +3732,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
-                              ms_err]),
+                              ms_err, paired_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

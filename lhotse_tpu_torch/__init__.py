@@ -6,7 +6,7 @@ The module paths and public names mirror the JAX package, so
 ``lhotse_tpu/ops/augment.py`` has its counterpart in
 ``lhotse_tpu_torch/ops/augment.py``. The port imports ``torch`` and numpy
 only: never ``jax`` and never ``lhotse_tpu``. The host data layer it needs
-(manifests, WAV/FLAC audio, ``CutSet``, ``DynamicBucketingSampler``,
+(manifests, NIST SPHERE/WAV/FLAC/AIFF audio, ``CutSet``, ``DynamicBucketingSampler``,
 ``K2SpeechRecognitionDataset`` with ``AudioSamples``, ``DataLoader``, the
 stored features, the host augmentation: recording transforms,
 ``PaddingCut``/``MixedCut`` and the cut transforms, Shar, and the recipe
@@ -15,7 +15,9 @@ trimming and windowing, ``SimpleCutSampler``/``BucketingSampler`` and the
 LibriSpeech recipe, the multi-channel meeting path: ``MultiCut``, the
 host ``DereverbWPE`` transform and the AMI recipe, and the extractors under
 the reference's names: ``fbank``, ``mfcc``, ``spectrogram``, the kaldifeat,
-Whisper and librosa fbanks) is
+Whisper and librosa fbanks, and the paired and remaining task datasets:
+``CutPairsSampler``, speech translation, source separation, TTS with
+``TokenCollater``, audio tagging and the unsupervised datasets) is
 copied function by function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.

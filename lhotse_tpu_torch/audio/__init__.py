@@ -1,5 +1,5 @@
 from lhotse_tpu_torch.audio.backend import (
-    audio_backend, get_current_audio_backend, info, read_audio, save_audio,
+    audio_backend, get_current_audio_backend, info, read_audio, read_sph, save_audio,
     set_current_audio_backend)
 from lhotse_tpu_torch.audio.recording import Recording
 from lhotse_tpu_torch.audio.recording_set import RecordingSet
@@ -13,6 +13,6 @@ __all__ = [
     "AudioLoadingError", "AudioSource", "DurationMismatchError", "Recording", "RecordingSet",
     "VideoInfo",
     "audio_backend", "get_audio_duration_mismatch_tolerance", "get_current_audio_backend", "info",
-    "null_result_on_audio_loading_error", "read_audio", "save_audio",
+    "null_result_on_audio_loading_error", "read_audio", "read_sph", "save_audio",
     "set_audio_duration_mismatch_tolerance", "set_current_audio_backend",
     "suppress_audio_loading_errors"]

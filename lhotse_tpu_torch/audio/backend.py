@@ -1,16 +1,24 @@
 """
 Audio decode/encode backends (copied from ``lhotse_tpu/audio/backend.py``):
-the in-package WAV codec (:mod:`lhotse_tpu_torch.audio.wavio`) and FLAC
-codec (:mod:`lhotse_tpu_torch.audio.flacio`) behind the composite that
-``read_audio``/``info``/``save_audio`` use.
+the in-package NIST SPHERE (:mod:`lhotse_tpu_torch.audio.sphio`), WAV
+(:mod:`lhotse_tpu_torch.audio.wavio`), FLAC
+(:mod:`lhotse_tpu_torch.audio.flacio`) and AIFF
+(:mod:`lhotse_tpu_torch.audio.aiffio`) codecs behind the composite that
+``read_audio``/``info``/``save_audio`` use, in the JAX package's order.
+Shorten-compressed SPHERE goes to the ``sph2pipe`` binary where one is on
+the ``PATH``, and raises ``SphereShortenError`` where none is.
 
-Left out: the SPHERE, AIFF, MP3, Ogg/Vorbis, Opus, soundfile, audioread,
-torchcodec and ffmpeg backends. A file none of the two backends reads
-raises ``AudioLoadingError``; saving another format raises
-``NotImplementedError``.
+Left out: the MP3, Ogg/Vorbis, Opus, soundfile, audioread, torchcodec and
+ffmpeg backends. A file none of the four backends reads raises
+``AudioLoadingError``; saving another format raises
+``NotImplementedError``. Saving as AIFF writes AIFF (the JAX composite
+hands every format but WAV, FLAC and its lossy codecs to its first saving
+backend, SPHERE).
 """
 from __future__ import annotations
 
+import shutil
+import subprocess
 from io import BytesIO
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Type, Union
@@ -216,6 +224,165 @@ class FlacBackend(AudioBackend):
         write_flac(dest, np.asarray(src), sampling_rate)
 
 
+class AiffBackend(AudioBackend):
+    """AIFF / AIFF-C via the in-package numpy codec
+    (:mod:`lhotse_tpu_torch.audio.aiffio`): BE/LE PCM 8/16/24/32, fl32/fl64,
+    ulaw/alaw compression types; saves standard AIFF PCM16."""
+
+    def read_audio(
+        self, path_or_fd, offset: Seconds = 0.0, duration: Optional[Seconds] = None,
+        force_opus_sampling_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
+        from lhotse_tpu_torch.audio.aiffio import read_aiff
+
+        samples, sr = read_aiff(path_or_fd)
+        if offset or duration is not None:
+            lo = compute_num_samples(offset, sr) if offset else 0
+            hi = lo + compute_num_samples(duration, sr) if duration is not None else None
+            samples = samples[:, lo:hi]
+        return samples, sr
+
+    def info(self, path_or_fd, force_opus_sampling_rate=None) -> LibsndfileCompatibleAudioInfo:
+        from lhotse_tpu_torch.audio.aiffio import info_aiff
+
+        hdr = info_aiff(path_or_fd)
+        return LibsndfileCompatibleAudioInfo(
+            channels=hdr.num_channels, frames=hdr.num_frames, samplerate=hdr.sampling_rate,
+            duration=hdr.num_frames / hdr.sampling_rate)
+
+    def is_applicable(self, path_or_fd) -> bool:
+        sfx = _suffix_of(path_or_fd)
+        if sfx in (".aiff", ".aif", ".aifc"):
+            return True
+        try:
+            if isinstance(path_or_fd, (str, Path)):
+                with open(path_or_fd, "rb") as f:
+                    magic = f.read(12)
+            else:
+                magic = _peek_bytes(path_or_fd, 12)
+            return magic[:4] == b"FORM" and magic[8:12] in (b"AIFF", b"AIFC")
+        except Exception:
+            return False
+
+    def supports_info(self) -> bool:
+        return True
+
+    def supports_save(self) -> bool:
+        return True
+
+    def save_audio(self, dest, src, sampling_rate: int, format=None, encoding=None) -> None:
+        from lhotse_tpu_torch.audio.aiffio import write_aiff
+
+        write_aiff(dest, np.asarray(src), sampling_rate)
+
+
+class SphereBackend(AudioBackend):
+    """Native NIST SPHERE decode via :mod:`lhotse_tpu_torch.audio.sphio`
+    (pure numpy: PCM/ulaw/alaw, partial reads); shorten-compressed files
+    are delegated to :class:`Sph2pipeSubprocessBackend` when that binary
+    exists."""
+
+    def handles_special_case(self, path_or_fd) -> bool:
+        sfx = _suffix_of(path_or_fd)
+        if sfx is not None:
+            # ".wav" is a candidate too: TIMIT and other LDC corpora ship
+            # NIST SPHERE data behind a ".WAV" name. The magic check below is
+            # authoritative, so genuine RIFF files fall through to the WAV
+            # backend either way.
+            if sfx not in (".sph", ".wv1", ".wv2", ".wav"):
+                return False
+            # Verify the magic: mislabeled files (e.g. RIFF behind a .sph
+            # name) must fall through to the other backends.
+            try:
+                with open(path_or_fd, "rb") as f:
+                    return f.read(7) == b"NIST_1A"
+            except Exception:
+                return False
+        try:
+            return _peek_bytes(path_or_fd, 7) == b"NIST_1A"
+        except Exception:
+            return False
+
+    is_applicable = handles_special_case
+
+    def read_audio(
+        self, path_or_fd, offset: Seconds = 0.0, duration: Optional[Seconds] = None,
+        force_opus_sampling_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
+        from lhotse_tpu_torch.audio.sphio import SphereShortenError, info_sph, read_sph
+
+        try:
+            hdr = info_sph(path_or_fd)
+            frame_offset = compute_num_samples(offset, hdr.sampling_rate) if offset else 0
+            num_frames = (
+                compute_num_samples(duration, hdr.sampling_rate)
+                if duration is not None else None)
+            return read_sph(path_or_fd, frame_offset=frame_offset, num_frames=num_frames)
+        except SphereShortenError:
+            if Sph2pipeSubprocessBackend.is_available():
+                return Sph2pipeSubprocessBackend().read_audio(
+                    path_or_fd, offset=offset, duration=duration)
+            raise
+
+    def info(self, path_or_fd, force_opus_sampling_rate=None) -> LibsndfileCompatibleAudioInfo:
+        from lhotse_tpu_torch.audio.sphio import info_sph
+
+        hdr = info_sph(path_or_fd)
+        return LibsndfileCompatibleAudioInfo(
+            channels=hdr.num_channels, frames=hdr.sample_count,
+            samplerate=hdr.sampling_rate, duration=hdr.duration)
+
+    def supports_info(self) -> bool:
+        return True
+
+    def supports_save(self) -> bool:
+        return True
+
+    def save_audio(self, dest, src, sampling_rate: int, format=None, encoding=None) -> None:
+        from lhotse_tpu_torch.audio.sphio import write_sph
+
+        coding = {None: "pcm16", "PCM_16": "pcm16", "ULAW": "ulaw", "ALAW": "alaw"}.get(
+            encoding, encoding or "pcm16")
+        write_sph(dest, np.asarray(src), sampling_rate, coding=coding)
+
+
+class Sph2pipeSubprocessBackend(AudioBackend):
+    """SPHERE (incl. shorten-compressed) decode via the ``sph2pipe`` binary."""
+
+    @classmethod
+    def is_available(cls) -> bool:
+        return shutil.which("sph2pipe") is not None
+
+    def handles_special_case(self, path_or_fd) -> bool:
+        sfx = _suffix_of(path_or_fd)
+        if sfx is not None:
+            return sfx in (".sph", ".wv1", ".wv2")
+        try:
+            return _peek_bytes(path_or_fd, 7) == b"NIST_1A"
+        except Exception:
+            return False
+
+    is_applicable = handles_special_case
+
+    def read_audio(
+        self, path_or_fd, offset=0.0, duration=None, force_opus_sampling_rate=None,
+    ) -> Tuple[np.ndarray, int]:
+        assert isinstance(path_or_fd, (str, Path)), "sph2pipe backend supports only file paths"
+        cmd = ["sph2pipe", "-f", "wav", "-p", str(path_or_fd)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        if proc.returncode != 0:
+            raise AudioLoadingError(f"sph2pipe failed: {proc.stderr.decode(errors='replace')}")
+        return InternalWavBackend().read_audio(
+            BytesIO(proc.stdout), offset=offset, duration=duration)
+
+    def info(self, path_or_fd, force_opus_sampling_rate=None) -> LibsndfileCompatibleAudioInfo:
+        samples, sr = self.read_audio(path_or_fd)
+        return LibsndfileCompatibleAudioInfo(
+            channels=samples.shape[0], frames=samples.shape[1], samplerate=sr,
+            duration=samples.shape[1] / sr)
+
+    def supports_info(self) -> bool:
+        return True
+
+
 class CompositeAudioBackend(AudioBackend):
     """
     Composite trying each child backend: first those claiming a special case,
@@ -273,7 +440,12 @@ class CompositeAudioBackend(AudioBackend):
                 dest, src, sampling_rate, format=fmt, encoding=encoding)
         if fmt == "flac":
             return FlacBackend().save_audio(dest, src, sampling_rate)
-        raise not_ported(f"Saving audio as {fmt!r} (the package writes wav and flac)")
+        if fmt in ("sph", "wv1", "wv2"):
+            return SphereBackend().save_audio(
+                dest, src, sampling_rate, format=fmt, encoding=encoding)
+        if fmt in ("aiff", "aif", "aifc"):
+            return AiffBackend().save_audio(dest, src, sampling_rate)
+        raise not_ported(f"Saving audio as {fmt!r} (the package writes wav, flac, sph and aiff)")
 
 
 def set_current_audio_backend(backend: Union[str, AudioBackend]) -> AudioBackend:
@@ -297,8 +469,11 @@ def get_current_audio_backend() -> AudioBackend:
 
 
 def get_default_audio_backend() -> AudioBackend:
-    """Composite over the package's two codecs."""
-    backends: List[AudioBackend] = [InternalWavBackend(), FlacBackend()]
+    """Composite over the package's four codecs, in the JAX package's order."""
+    # SphereBackend subsumes the sph2pipe subprocess backend: it decodes
+    # pcm/ulaw/alaw natively and delegates shorten files to sph2pipe itself.
+    backends: List[AudioBackend] = [
+        SphereBackend(), InternalWavBackend(), FlacBackend(), AiffBackend()]
     return CompositeAudioBackend(backends)
 
 
@@ -343,6 +518,30 @@ def info(
             channels=samples.shape[0], frames=samples.shape[1], samplerate=sr,
             duration=samples.shape[1] / sr)
     return backend.info(path, force_opus_sampling_rate=force_opus_sampling_rate)
+
+
+def read_sph(
+    sph_path: Pathlike, offset: Seconds = 0.0, duration: Optional[Seconds] = None,
+) -> Tuple[np.ndarray, int]:
+    """
+    Read a SPHERE file with seconds-based offset/duration (reference
+    contract: audio/backend.py:1603, a sph2pipe subprocess there; decoded
+    natively here).
+
+    :return: ``(samples(channels, frames) float32, sampling_rate)``.
+    """
+    from lhotse_tpu_torch.audio.sphio import info_sph
+    from lhotse_tpu_torch.audio.sphio import read_sph as read_sph_frames
+
+    frame_offset = 0
+    num_frames = None
+    if offset > 0 or duration is not None:
+        rate = info_sph(sph_path).sampling_rate
+        if offset > 0:
+            frame_offset = compute_num_samples(offset, rate)
+        if duration is not None:
+            num_frames = compute_num_samples(duration, rate)
+    return read_sph_frames(sph_path, frame_offset=frame_offset, num_frames=num_frames)
 
 
 def save_audio(

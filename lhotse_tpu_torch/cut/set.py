@@ -72,7 +72,7 @@ from lhotse_tpu_torch.serialization import Serializable
 from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
 from lhotse_tpu_torch.utils import (
     LOG_EPSILON, Decibels, Pathlike, Seconds, compute_num_frames, compute_num_samples,
-    exactly_one_not_null, fastcopy, ifnone, not_ported, split_manifest_lazy, split_sequence, uuid4)
+    exactly_one_not_null, fastcopy, ifnone, split_manifest_lazy, split_sequence, uuid4)
 
 T = TypeVar("T")
 FW = TypeVar("FW", bound=FeaturesWriter)
@@ -708,10 +708,14 @@ class CutSet(Serializable, AlgorithmMixin):
 
         def _save_worker(cuts: List[Cut], features: List[np.ndarray]) -> None:
             for cut, feat_mat in zip(cuts, features):
-                if not isinstance(cut, DataCut):
-                    raise not_ported(
-                        f"compute_and_store_features_batch for {type(cut).__name__} "
-                        "(PaddingCut, MixedCut)")
+                if isinstance(cut, PaddingCut):
+                    cuts_writer.write(
+                        fastcopy(
+                            cut, num_frames=feat_mat.shape[0], num_features=feat_mat.shape[1],
+                            frame_shift=frame_shift,
+                        )
+                    )
+                    continue
                 storage_key = feats_writer.write(cut.id, np.asarray(feat_mat))
                 feat_manifest = Features(
                     start=cut.start, duration=cut.duration, type=extractor.name,
@@ -720,8 +724,18 @@ class CutSet(Serializable, AlgorithmMixin):
                     storage_type=feats_writer.name, storage_path=str(feats_writer.storage_path),
                     storage_key=storage_key)
                 validate_features(feat_manifest, feats_data=np.asarray(feat_mat))
-                feat_manifest.recording_id = cut.recording_id
-                cuts_writer.write(fastcopy(cut, features=feat_manifest), flush=True)
+                if isinstance(cut, DataCut):
+                    feat_manifest.recording_id = cut.recording_id
+                    cut = fastcopy(cut, features=feat_manifest)
+                elif isinstance(cut, MixedCut):
+                    # A mixed cut flattens into a mono feature-only cut.
+                    feat_manifest.recording_id = cut.id
+                    cut = MonoCut(
+                        id=cut.id, start=0, duration=cut.duration, channel=0,
+                        supervisions=[
+                            fastcopy(s, recording_id=cut.id, channel=0) for s in cut.supervisions],
+                        features=feat_manifest, recording=None)
+                cuts_writer.write(cut, flush=True)
 
         futures = []
         with cuts_writer, storage_type(

@@ -1,20 +1,34 @@
 """
 The dataset side of the PyTorch port: samplers, datasets, the loader and
-the device stages. The samplers of :mod:`lhotse_tpu_torch.dataset.sampling`
-and the task datasets (``VadDataset``, ``DiarizationDataset``,
-``K2SurtDataset``) are exported here, resolved at first use:
+the device stages. The samplers of :mod:`lhotse_tpu_torch.dataset.sampling`,
+the task datasets (``VadDataset``, ``DiarizationDataset``, ``K2SurtDataset``,
+``K2Speech2TextTranslationDataset``, the source separation datasets,
+``SpeechSynthesisDataset``, ``AudioTaggingDataset`` and the unsupervised
+datasets with their chunk collation and worker sharding) and
+``TokenCollater``/``collate_custom_field`` are exported here, resolved at
+first use:
 ``dataset.dataloading`` reads the rank through
 :mod:`lhotse_tpu_torch.parallel.mesh`, which imports this package's stages,
 so importing them here eagerly would be circular.
 """
 _SAMPLING_NAMES = frozenset((
-    "BucketingSampler", "CutSampler", "DataSource", "DynamicBucketingSampler",
+    "BucketingSampler", "CutPairsSampler", "CutSampler", "DataSource", "DynamicBucketingSampler",
     "DynamicCutSampler", "FixedBucketBatchSizeConstraint", "RoundRobinSampler",
     "SamplingConstraint", "SamplingDiagnostics", "SimpleCutSampler", "StatelessSampler",
     "TimeConstraint", "WeightedDataSource", "WeightedSimpleCutSampler", "ZipSampler",
     "estimate_duration_buckets", "find_pessimistic_batches", "report_padding_ratio_estimate"))
 _DATASET_MODULES = {
-    "DiarizationDataset": "diarization", "K2SurtDataset": "surt", "VadDataset": "vad"}
+    "AudioTaggingDataset": "audio_tagging", "DiarizationDataset": "diarization",
+    "DynamicUnsupervisedDataset": "unsupervised",
+    "DynamicallyMixedSourceSeparationDataset": "source_separation",
+    "K2Speech2TextTranslationDataset": "speech_translation", "K2SurtDataset": "surt",
+    "PreMixedSourceSeparationDataset": "source_separation",
+    "RecordingChunkIterableDataset": "unsupervised", "SourceSeparationDataset": "source_separation",
+    "SpeechSynthesisDataset": "speech_synthesis", "TokenCollater": "collation",
+    "UnsupervisedDataset": "unsupervised", "UnsupervisedWaveformDataset": "unsupervised",
+    "VadDataset": "vad", "audio_chunk_collate": "unsupervised",
+    "audio_chunk_worker_init_fn": "unsupervised", "collate_custom_field": "collation",
+    "validate_for_tts": "speech_synthesis"}
 
 __all__ = sorted(_SAMPLING_NAMES | set(_DATASET_MODULES))
 

@@ -1,13 +1,16 @@
 """
 Collation of CutSet mini-batches into dense numpy host arrays (copied from
-``lhotse_tpu/dataset/collation.py``): ``collate_features`` (padding with
-``LOG_EPSILON`` on either side), ``collate_audio`` (the mono fast path, and
-the padded-cut route for multi-channel batches, ``mono_downmix``, custom
-recording fields and fault-tolerant reads), ``collate_multi_channel_features``,
-``read_audio_from_cuts``, ``collate_vectors`` and ``collate_matrices``.
+``lhotse_tpu/dataset/collation.py``): ``TokenCollater``,
+``collate_features`` (padding with ``LOG_EPSILON`` on either side),
+``collate_audio`` (the mono fast path, and the padded-cut route for
+multi-channel batches, ``mono_downmix``, custom recording fields and
+fault-tolerant reads), ``collate_custom_field``,
+``collate_multi_channel_features``, ``read_audio_from_cuts``,
+``collate_vectors`` and ``collate_matrices``.
 
-Left out: video, image and custom-field collation.
+Left out: video and image collation.
 """
+import warnings
 from concurrent.futures import Executor
 from functools import partial
 from itertools import repeat
@@ -17,7 +20,7 @@ import numpy as np
 
 from lhotse_tpu_torch.audio import Recording, suppress_audio_loading_errors
 from lhotse_tpu_torch.cut import Cut, CutSet, MixedCut
-from lhotse_tpu_torch.utils import LOG_EPSILON, compute_num_samples
+from lhotse_tpu_torch.utils import DEFAULT_PADDING_VALUE, LOG_EPSILON, compute_num_samples
 
 # Padding label for token targets, conventionally ignored by the loss.
 PAD_TOKEN_ID = -100
@@ -30,6 +33,69 @@ def _round_up(value: int, multiple: Optional[int]) -> int:
     if multiple is None or multiple <= 1:
         return value
     return ((value + multiple - 1) // multiple) * multiple
+
+
+class TokenCollater:
+    """
+    Map sentences to integer token sequences padded to equal length, with
+    optional <bos>/<eos>. ``inverse()`` reconstructs the strings.
+
+    Example::
+
+        >>> token_collater = TokenCollater(cuts)
+        >>> tokens_batch, tokens_lens = token_collater(cuts.subset(first=32))
+        >>> original_sentences = token_collater.inverse(tokens_batch, tokens_lens)
+
+    Returns ``(tokens_batch int64 (B, L), tokens_lens int32 (B,))`` where the
+    lens include <bos>/<eos> but not padding.
+    """
+
+    def __init__(
+        self, cuts: CutSet, add_eos: bool = True, add_bos: bool = True, pad_symbol: str = "<pad>",
+        bos_symbol: str = "<bos>", eos_symbol: str = "<eos>", unk_symbol: str = "<unk>"):
+        self.pad_symbol, self.unk_symbol = pad_symbol, unk_symbol
+        self.bos_symbol, self.eos_symbol = bos_symbol, eos_symbol
+        self.add_bos, self.add_eos = add_bos, add_eos
+
+        specials = [pad_symbol, unk_symbol]
+        if add_bos:
+            specials.append(bos_symbol)
+        if add_eos:
+            specials.append(eos_symbol)
+        alphabet = sorted({ch for cut in cuts for ch in cut.supervisions[0].text})
+        vocabulary = specials + alphabet
+        self.token2idx = {token: idx for idx, token in enumerate(vocabulary)}
+        self.idx2token = vocabulary
+
+    def __call__(self, cuts: CutSet) -> Tuple[np.ndarray, np.ndarray]:
+        token_sequences = [
+            " ".join(supervision.text for supervision in cut.supervisions)
+            for cut in cuts
+        ]
+        max_len = len(max(token_sequences, key=len))
+
+        unk = self.token2idx[self.unk_symbol]
+        seqs = [
+            ([self.bos_symbol] if self.add_bos else [])
+            + list(seq)
+            + ([self.eos_symbol] if self.add_eos else [])
+            + [self.pad_symbol] * (max_len - len(seq))
+            for seq in token_sequences
+        ]
+
+        tokens_batch = np.array(
+            [[self.token2idx.get(token, unk) for token in seq] for seq in seqs], dtype=np.int64)
+        tokens_lens = np.array(
+            [ len(seq) + int(self.add_eos) + int(self.add_bos) for seq in token_sequences ],
+            dtype=np.int32)
+        return tokens_batch, tokens_lens
+
+    def inverse(self, tokens_batch: np.ndarray, tokens_lens: np.ndarray) -> List[str]:
+        start = 1 if self.add_bos else 0
+        sentences = [
+            "".join( self.idx2token[idx] for idx in np.asarray(tokens_list)[start : int(end) - int(self.add_eos)] ) for tokens_list,
+            end in zip(tokens_batch, tokens_lens)]
+        return sentences
 
 
 def collate_features(
@@ -212,6 +278,77 @@ def collate_audio(
         return audios, audio_lens, cuts
     else:
         return audios, audio_lens
+
+
+def collate_custom_field(
+    cuts: CutSet, field: str, pad_value: Union[None, int, float] = None,
+    pad_direction: str = "right") -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
+    """
+    Collate a custom field across cuts:
+
+    - :class:`~lhotse_tpu_torch.array.Array` → stacked ``(batch, d0, d1, ...)``
+      (all shapes must match — fixed-size embeddings).
+    - :class:`~lhotse_tpu_torch.array.TemporalArray` → padded along the temporal
+      dim and stacked; returns ``(collated, lens)``. Integer dtypes below
+      int64 are promoted to int64 (token/label targets).
+    - :class:`~lhotse_tpu_torch.audio.Recording` → delegates to
+      :func:`collate_audio` with ``recording_field``.
+    - anything else (int/float/...) → 1-D array of the raw values.
+    """
+    from lhotse_tpu_torch.array import Array, TemporalArray
+
+    cuts_list = list(cuts)
+    first_manifest = getattr(cuts_list[0], field)
+    if isinstance(first_manifest, Array):
+        assert all(getattr(c, field).shape == first_manifest.shape for c in cuts_list), (
+            "Cannot collate manifests of type Array with different shapes, "
+            "because we don't know which dimension must be padded. "
+            "Use TemporalArray manifests and try again."
+        )
+        return np.stack([c.load_custom(field) for c in cuts_list])
+    elif isinstance(first_manifest, TemporalArray):
+        if pad_value is None:
+            warnings.warn(
+                f"Argument 'pad_value' not passed -- we will pad field '{field}' "
+                f"with {DEFAULT_PADDING_VALUE}."
+            )
+            pad_value = DEFAULT_PADDING_VALUE
+        temporal_dim = first_manifest.temporal_dim
+
+        # Load everything and pad to the longest sequence (ignoring
+        # frame_shift metadata, which users may define inconsistently).
+        arrs = [np.asarray(c.load_custom(field)) for c in cuts_list]
+        arr_lens = np.array([a.shape[temporal_dim] for a in arrs], dtype=np.int32)
+        largest_arr = max(arrs, key=lambda a: a.size)
+        maxlen = largest_arr.shape[temporal_dim]
+        collated_shape = (len(arrs), *largest_arr.shape)
+        dtype = largest_arr.dtype
+        if dtype in (np.uint8, np.int8, np.int16, np.int32) or np.issubdtype(dtype, np.integer):
+            dtype = np.int64
+        tensors = np.full(collated_shape, pad_value, dtype=dtype)
+        for aidx, a in enumerate(arrs):
+            alen = a.shape[temporal_dim]
+            if pad_direction == "right":
+                temporal_slice = slice(0, alen)
+            elif pad_direction == "left":
+                temporal_slice = slice(maxlen - alen, maxlen)
+            elif pad_direction == "both":
+                half = (maxlen - alen) // 2
+                temporal_slice = slice(half, half + alen)
+            else:
+                raise ValueError(f"Unexpected pad_direction argument: '{pad_direction}'")
+            indices = (aidx,) + tuple(
+                temporal_slice if i == temporal_dim else slice(None)
+                for i in range(len(a.shape))
+            )
+            tensors[indices] = a
+
+        return tensors, arr_lens
+    elif isinstance(first_manifest, Recording):
+        return collate_audio(
+            CutSet.from_cuts(cuts_list), recording_field=field, pad_direction=pad_direction)
+    else:
+        return np.array([getattr(c, field) for c in cuts_list])
 
 
 def collate_multi_channel_features(cuts: CutSet) -> np.ndarray:

@@ -1,6 +1,7 @@
 from lhotse_tpu_torch.dataset.sampling.base import (
     CutSampler, SamplingConstraint, SamplingDiagnostics, TimeConstraint)
 from lhotse_tpu_torch.dataset.sampling.bucketing import BucketingSampler
+from lhotse_tpu_torch.dataset.sampling.cut_pairs import CutPairsSampler
 from lhotse_tpu_torch.dataset.sampling.data_source import DataSource, WeightedDataSource
 from lhotse_tpu_torch.dataset.sampling.dynamic import DynamicCutSampler
 from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import (
@@ -14,7 +15,7 @@ from lhotse_tpu_torch.dataset.sampling.weighted_simple import WeightedSimpleCutS
 from lhotse_tpu_torch.dataset.sampling.zip import ZipSampler
 
 __all__ = [
-    "BucketingSampler", "CutSampler", "DataSource", "DynamicBucketingSampler",
+    "BucketingSampler", "CutPairsSampler", "CutSampler", "DataSource", "DynamicBucketingSampler",
     "DynamicCutSampler", "FixedBucketBatchSizeConstraint", "RoundRobinSampler",
     "SamplingConstraint", "SamplingDiagnostics", "SimpleCutSampler", "StatelessSampler",
     "TimeConstraint", "WeightedDataSource", "WeightedSimpleCutSampler", "ZipSampler",

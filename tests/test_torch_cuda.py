@@ -709,3 +709,114 @@ def test_diarization_batch_on_card_matches_cpu(cuda, tmp_path):
     assert got["speaker_activity"].shape == (4, 4, got["features"].shape[1])
     assert set(np.unique(got["speaker_activity"])) == {0.0, 1.0}
     assert np.abs(got["features"] - want["features"]).max() <= FEATURE_TOL + 2.0**-5
+
+
+def _sphere_pairs(tmp_path, n, seed):
+    """``n`` noisy tones written as SPHERE (pcm16 and ulaw in turn) with a
+    supervision each carrying a ``translated_text``; the source side, and
+    the same audio as AIFF for the target side, under the same stems."""
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.audio.aiffio import write_aiff
+    from lhotse_tpu_torch.audio.sphio import write_sph
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
+
+    (tmp_path / "src").mkdir()
+    (tmp_path / "tgt").mkdir()
+    for i, wave in enumerate(_noisy_tones(n, seed=seed)):
+        write_sph(tmp_path / "src" / f"u{i}.sph", wave, 16000, coding=("pcm16", "ulaw")[i % 2])
+        write_aiff(tmp_path / "tgt" / f"u{i}.aiff", wave, 16000)
+
+    def cuts(side, pattern):
+        recs = RecordingSet.from_dir(tmp_path / side, pattern)
+        return CutSet.from_manifests(recs, SupervisionSet.from_segments(
+            SupervisionSegment(id=f"{r.id}-s", recording_id=r.id, start=0.0, duration=r.duration,
+                               text=f"WORDS OF {r.id.upper()}",
+                               custom={"translated_text": f"mots de {r.id}"}) for r in recs)).to_eager()
+
+    return cuts("src", "*.sph"), cuts("tgt", "*.aiff")
+
+
+def test_paired_translation_over_sphere_on_card_matches_plain(cuda, tmp_path):
+    """SPHERE sources and AIFF targets → ``CutPairsSampler`` →
+    ``K2Speech2TextTranslationDataset`` with ``OnTheFlyFeatures`` on the card
+    (chip_smoke.py phase 18 at a small size): one launch per side and batch,
+    every row within the feature budget of the kernel's plain version, and
+    the batch's text, ``tgt_text`` and features against the CPU port's."""
+    from lhotse_tpu_torch.dataset import CutPairsSampler, K2Speech2TextTranslationDataset
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+
+    src, tgt = _sphere_pairs(tmp_path, 6, seed=31)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    card = K2Speech2TextTranslationDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))
+    cpu = K2Speech2TextTranslationDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(
+        extractors.Fbank(extractors.FbankConfig(device="cpu"))))
+    sampler = CutPairsSampler(src, tgt, max_source_duration=6.0, max_target_duration=6.0,
+                              shuffle=True, seed=0)
+    fbank_cuda.LAUNCHES = 0
+    pairs = [(s, t, card[s], card[t]) for s, t in sampler]
+    assert fbank_cuda.LAUNCHES == 2 * len(pairs) >= 4
+    for s, t, got_s, got_t in pairs:
+        assert [c.id for c in s] == [c.id for c in t]
+        for cuts, got in ((s, got_s), (t, got_t)):
+            sups = got["supervisions"]
+            rows = [c for c in sups["cut"]]
+            audio = [c.load_audio()[0] for c in rows]
+            for i, p in zip(sups["sequence_idx"], _plain(extractor, audio)):
+                assert np.abs(got["inputs"][int(i), : len(p)] - p).max() <= FEATURE_TOL
+            want = cpu[cuts]
+            assert sups["text"] == want["supervisions"]["text"]
+            assert sups["tgt_text"] == want["supervisions"]["tgt_text"] == [
+                f"mots de {c.recording_id}" for c in rows]
+            assert np.abs(got["inputs"] - want["inputs"]).max() <= FEATURE_TOL
+
+
+def test_premixed_separation_on_card_matches_cpu(cuda, tmp_path):
+    """Two-speaker mixtures and their sources extracted on the card
+    (``compute_and_store_features_batch``, the kernel) → a
+    ``PreMixedSourceSeparationDataset`` batch: on the same stored features
+    the CPU port's dataset gives masks equal to the card's; over the CPU
+    port's own lossless archive the ideal ratio masks are within 1e-3 and
+    the binary masks equal wherever the sources' masks part by more."""
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import PreMixedSourceSeparationDataset
+    from lhotse_tpu_torch.features.io import NumpyFilesWriter
+    from lhotse_tpu_torch.utils import fastcopy
+
+    talkers = _two_talker_cuts(tmp_path, "p", 4, 47)
+    sources, mixtures = [], []
+    for k in range(2):
+        a, b = talkers[2 * k], talkers[2 * k + 1]
+        length = min(a.duration, b.duration)
+        a, b = a.truncate(duration=length, preserve_id=True), b.truncate(duration=length, preserve_id=True)
+        sources += [a, b]
+        mixtures.append(fastcopy(a.mix(b), id=f"mix-{k}"))
+
+    def dataset(featured):
+        by_id = {c.id: c for c in featured}
+        relabelled = [fastcopy(by_id[c.id], id=f"mix-{i // 2}-src{i % 2}", recording=None,
+                               features=fastcopy(by_id[c.id].features, recording_id=f"mix-{i // 2}"))
+                      for i, c in enumerate(sources)]
+        with pytest.warns(UserWarning, match="not yet updated"):
+            return PreMixedSourceSeparationDataset(
+                CutSet.from_cuts(relabelled), CutSet.from_cuts(by_id[m.id] for m in mixtures))
+
+    fbank_cuda.LAUNCHES = 0
+    card = CutSet.from_cuts(sources + mixtures).compute_and_store_features_batch(
+        extractors.Fbank(extractors.FbankConfig(device="cuda")), tmp_path / "card",
+        manifest_path=tmp_path / "card.jsonl", storage_type=NumpyFilesWriter, num_workers=1).to_eager()
+    assert fbank_cuda.LAUNCHES >= 1
+    cpu = CutSet.from_cuts(sources + mixtures).compute_and_store_features_batch(
+        extractors.Fbank(extractors.FbankConfig(device="cpu")), tmp_path / "cpu",
+        storage_type=NumpyFilesWriter, num_workers=1).to_eager()
+    got, reread, want = dataset(card), dataset(CutSet.from_file(tmp_path / "card.jsonl")), dataset(cpu)
+    for i in range(len(got)):
+        item, same, other = got[i], reread[i], want[i]
+        assert item["sources"].shape[0] == 2
+        np.testing.assert_allclose(item["real_mask"].sum(0), 1.0, rtol=0, atol=1e-6)
+        for key in ("real_mask", "binary_mask", "mixture", "sources"):
+            assert np.array_equal(item[key], same[key])
+        assert np.abs(item["mixture"] - other["mixture"]).max() <= FEATURE_TOL
+        assert np.abs(item["real_mask"] - other["real_mask"]).max() <= 1e-3
+        clear = np.abs(other["real_mask"][0] - other["real_mask"][1]) > 1e-3
+        assert np.array_equal(item["binary_mask"][clear], other["binary_mask"][clear])

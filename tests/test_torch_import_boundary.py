@@ -87,7 +87,11 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.dataset.sampling.weighted_simple, "
         "lhotse_tpu_torch.dataset.sampling.zip, lhotse_tpu_torch.dataset.sampling.round_robin, "
         "lhotse_tpu_torch.dataset.sampling.stateless, lhotse_tpu_torch.dataset.vad, "
-        "lhotse_tpu_torch.dataset.diarization, lhotse_tpu_torch.dataset.surt; "
+        "lhotse_tpu_torch.dataset.diarization, lhotse_tpu_torch.dataset.surt, "
+        "lhotse_tpu_torch.audio.sphio, lhotse_tpu_torch.audio.aiffio, "
+        "lhotse_tpu_torch.dataset.sampling.cut_pairs, lhotse_tpu_torch.dataset.speech_translation, "
+        "lhotse_tpu_torch.dataset.source_separation, lhotse_tpu_torch.dataset.speech_synthesis, "
+        "lhotse_tpu_torch.dataset.audio_tagging, lhotse_tpu_torch.dataset.unsupervised; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -502,6 +506,99 @@ def test_meeting_path_runs_without_jax(tmp_path):
     or lhotse_tpu fails."""
     proc = subprocess.run(
         [sys.executable, "-c", MEETING_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_task_datasets_load_lazily():
+    """``import lhotse_tpu_torch`` and its ``dataset`` package load none of
+    the task datasets; naming one through ``lhotse_tpu_torch.dataset``
+    loads its module alone."""
+    lazy = ["vad", "diarization", "surt", "speech_translation", "source_separation",
+            "speech_synthesis", "audio_tagging", "unsupervised"]
+    proc = _python(
+        "import sys, lhotse_tpu_torch, lhotse_tpu_torch.dataset as D; "
+        f"lazy = ['lhotse_tpu_torch.dataset.' + m for m in {lazy!r}]; "
+        "assert not [m for m in lazy if m in sys.modules], [m for m in lazy if m in sys.modules]; "
+        "D.CutPairsSampler, D.K2Speech2TextTranslationDataset; "
+        "assert 'lhotse_tpu_torch.dataset.speech_translation' in sys.modules; "
+        "assert 'lhotse_tpu_torch.dataset.unsupervised' not in sys.modules")
+    assert proc.returncode == 0, proc.stderr
+
+
+PAIRED_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import RecordingSet
+from lhotse_tpu_torch.audio.aiffio import write_aiff
+from lhotse_tpu_torch.audio.sphio import write_sph
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset import (
+    CutPairsSampler, K2Speech2TextTranslationDataset, PreMixedSourceSeparationDataset,
+    RecordingChunkIterableDataset, SpeechSynthesisDataset, TokenCollater, audio_chunk_collate)
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
+from lhotse_tpu_torch.utils import fastcopy
+
+SR = 16000
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    root = Path(tmp)
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        x = (0.1 * rng.standard_normal(int(SR * (0.6 + 0.2 * i)))).astype(np.float32)
+        write_sph(root / f"u{i}.sph", x, SR, coding=("pcm16", "ulaw")[i % 2])
+        write_aiff(root / f"u{i}.aiff", x, SR)
+
+    def cuts(pattern):
+        recs = RecordingSet.from_dir(root, pattern)
+        sups = SupervisionSet.from_segments(
+            SupervisionSegment(id=f"{r.id}-s", recording_id=r.id, start=0.0, duration=r.duration,
+                               text="HELLO WORLD", custom={"translated_text": "HALLO WELT"})
+            for r in recs)
+        return CutSet.from_manifests(recs, sups).to_eager()
+
+    src, tgt = cuts("*.sph"), cuts("*.aiff")
+    fbank = Fbank(FbankConfig(device="cpu"))
+    dataset = K2Speech2TextTranslationDataset(input_strategy=OnTheFlyFeatures(fbank))
+    batches = [(dataset[s], dataset[t]) for s, t in CutPairsSampler(src, tgt, max_source_duration=1.5)]
+    assert sum(len(b["supervisions"]["tgt_text"]) for b, _ in batches) == 4
+    assert all(b["inputs"].shape[2] == 80 for pair in batches for b in pair)
+    tts = SpeechSynthesisDataset(feature_input_strategy=OnTheFlyFeatures(fbank))[src]
+    collater = TokenCollater(src)
+    assert collater.inverse(*collater(src)) == ["HELLO WORLD"] * 4 and tts["audio"].shape[0] == 4
+    pair = CutSet.from_cuts(c.truncate(duration=0.6) for c in src.subset(first=2))
+    mixed = CutSet.from_cuts([fastcopy(pair[0].mix(pair[1]), id="mix")])
+    (mix,) = list(mixed.compute_and_store_features_batch(
+        fbank, root / "feats", storage_type=LilcomChunkyWriter))
+    featured = pair.compute_and_store_features_batch(
+        fbank, root / "src_feats", storage_type=LilcomChunkyWriter)
+    sources = CutSet.from_cuts(
+        fastcopy(c, id=f"mix-{k}", recording=None, features=fastcopy(c.features, recording_id="mix"))
+        for k, c in enumerate(featured))
+    item = PreMixedSourceSeparationDataset(sources, CutSet.from_cuts([mix]))[0]
+    assert item["sources"].shape[0] == 2 and item["mixture"].ndim == 2
+    chunks = list(RecordingChunkIterableDataset(RecordingSet.from_dir(root, "*.sph"), 0.5, 0.5))
+    assert audio_chunk_collate(chunks)["audio"].shape[1] == SR // 2
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_paired_path_runs_without_jax(tmp_path):
+    """SPHERE and AIFF corpora → ``CutPairsSampler`` →
+    ``K2Speech2TextTranslationDataset`` with ``OnTheFlyFeatures``, TTS with
+    ``TokenCollater``, a batch-extracted mixture into
+    ``PreMixedSourceSeparationDataset`` and chunked recordings, on the CPU,
+    in a process where importing jax or lhotse_tpu fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", PAIRED_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
