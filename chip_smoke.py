@@ -71,7 +71,17 @@ tagging and unsupervised datasets on the kernel; two-speaker mixtures and
 their sources extracted on the kernel and read back by the pre-mixed and
 dynamically mixed separation datasets; chunks of the sessions, rewritten
 as SPHERE, from two forked workers of a ``torch.utils.data.DataLoader``;
-each batch into the AdamW step); and checks what comes out.
+each batch into the AdamW step); then the lossy-codec corpus path on the
+same utterances, after a line naming the system codec libraries this
+machine loads (the utterances written as a CommonVoice release of 48 kHz
+MP3 clips through ``prepare_commonvoice``, ``resample(16000)`` and
+``OnTheFlyFeatures`` on the kernel, with a resume; the same cuts through
+the ``Compress`` cut transform over opus, mp3 and vorbis; the utterances
+as Opus Shar shards through ``LazySharIterator``, every member equal to
+the codec's round trip of its source; Vorbis, Opus and MP3 files through
+``Recording.from_file``, ``info`` and ``save_audio``; each batch into the
+AdamW step; a leg whose library does not load is left out and named); and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -104,7 +114,9 @@ features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
 ``speech_translation_on_the_fly``, ``tts_on_the_fly``,
 ``separation_extract``, ``separation_premixed`` and ``separation_dynamic``
 (0: they read stored features), ``unsupervised_on_the_fly`` (one launch
-per cut), ``tagging_on_the_fly`` and ``recording_chunks``); the last line is
+per cut), ``tagging_on_the_fly``, ``recording_chunks``,
+``commonvoice_on_the_fly``, ``commonvoice_compress`` and
+``shar_opus_on_the_fly``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -3316,6 +3328,328 @@ def _phase_paired(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+# -- 19. the lossy-codec corpus path -------------------------------------------
+CV_RELEASE = "cv-corpus-13.0-2023-03-09"
+CV_SR = 48000  # CommonVoice ships 48 kHz mono MP3 clips
+CV_SPLITS = ("train", "dev", "test")
+CV_RESUME_AFTER = 3
+CV_AGES, CV_GENDERS, CV_ACCENTS = ("twenties", "fifties", ""), ("male", "female", ""), ("us", "", "india")
+COMPRESS_CODECS = ("opus", "mp3", "vorbis")
+COMPRESS_SEED = 19
+COMPRESSED_SHARE = (0.35, 0.65)  # p=0.5 over 160 cuts
+MP3_CORR = 0.95  # a 192 kbps MP3 round trip of a tone burst against its source
+CODEC_CHECK_FILES = 3
+# The libraries each leg needs (syscodecs' availability probes).
+LOSSY_LEG_NEEDS = {
+    "commonvoice_on_the_fly": ("mp3", "mp3_encode"),
+    "commonvoice_compress": ("mp3", "mp3_encode", "opus", "vorbis", "vorbis_encode"),
+    "shar_opus_on_the_fly": ("opus",),
+    "codec_check": ("mp3", "mp3_encode", "opus", "vorbis", "vorbis_encode"),
+}
+
+
+def _corr(a: np.ndarray, b: np.ndarray) -> float:
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-12))
+
+
+def _codec_of(cut):
+    """The codec of the ``Compress`` transform a cut's recording ends with,
+    or None."""
+    chain = cut.recording.transforms or []
+    last = chain[-1] if chain else None
+    if isinstance(last, dict):
+        return last["kwargs"]["codec"] if last["name"] == "Compress" else None
+    return last.codec if type(last).__name__ == "Compress" else None
+
+
+def _write_commonvoice(flac, lang: Path) -> dict:
+    """Phase 14's utterances as a CommonVoice release's language directory:
+    each one resampled to 48 kHz and encoded as a mono MP3 clip under
+    ``clips/`` (on a thread pool: the codec and resampler calls release the
+    interpreter's lock), every tenth in ``dev.tsv``, the next in
+    ``test.tsv``, the rest in ``train.tsv``, with the release's columns; the
+    first train sentence opens a quote it never closes. Returns each
+    utterance's sentence by recording id."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lhotse_tpu_torch.audio import syscodecs
+    from lhotse_tpu_torch.augmentation import resample_array
+
+    (lang / "clips").mkdir(parents=True)
+
+    def encode(cut):
+        clip = resample_array(cut.recording.load_audio(), SR, CV_SR)
+        (lang / "clips" / f"{cut.recording_id}.mp3").write_bytes(syscodecs.mp3_encode(clip, CV_SR))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(encode, flac))
+    rows = {split: ["client_id\tpath\tsentence\tup_votes\tdown_votes\tage\tgender\taccents"]
+            for split in CV_SPLITS}
+    sentences, opened = {}, False
+    for i, cut in enumerate(flac):
+        split = CV_SPLITS[1 + i % 10] if i % 10 < 2 else "train"
+        text = cut.supervisions[0].text
+        if split == "train" and not opened:
+            text, opened = f'"{text}', True
+        sentences[cut.recording_id] = text
+        k = i % 3
+        rows[split].append(f"{cut.recording_id.split('-')[0]}\t{cut.recording_id}.mp3\t{text}\t2\t0\t"
+                           f"{CV_AGES[k]}\t{CV_GENDERS[k]}\t{CV_ACCENTS[k]}")
+    for split, lines in rows.items():
+        (lang / f"{split}.tsv").write_text("\n".join(lines) + "\n")
+    return sentences
+
+
+def _phase_lossy(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """19. The lossy-codec corpus path, on phase 14's corpora (its 160
+    LibriSpeech utterances), each batch into an AdamW step of
+    ``Encoder(EncoderConfig())``. First a line of which system codec
+    libraries load on this machine; a leg whose library does not load is
+    left out and named, and no other format runs under its name.
+    ``commonvoice_on_the_fly``: the utterances written as a CommonVoice
+    release (48 kHz mono MP3 clips, ``{train,dev,test}.tsv``, one quote
+    left open) → ``prepare_commonvoice`` → ``CutSet.from_manifests`` →
+    ``resample(16000)`` → ``SimpleCutSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the card,
+    with a resume after batch 3 whose batches are ``torch.equal`` to the
+    uninterrupted run's. ``commonvoice_compress``: the same cuts through the
+    ``Compress`` cut transform (opus, mp3 and vorbis, levels in (0.1, 0.9),
+    p=0.5, a fixed seed); a compressed cut of each codec reads as the
+    ``Compress`` round trip of its uncompressed cut's audio.
+    ``shar_opus_on_the_fly``: the utterances exported to Shar with the
+    recording in opus, read by ``LazySharIterator`` into
+    ``OnTheFlyFeatures`` on the card; every member decodes to
+    ``opus_decode(opus_encode(source))``. ``codec_check``: Vorbis ``.ogg``
+    and ``.opus`` files through ``Recording.from_file`` and ``info`` with and
+    without ``force_opus_sampling_rate=16000``, and ``save_audio`` to
+    ``.mp3``, ``.ogg`` and ``.opus`` read back, with no step. Returns the
+    kernel's launches per path and the largest kernel-vs-plain error."""
+    from collections import Counter
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lhotse_tpu_torch.audio import Recording, RecordingSet, info, save_audio, syscodecs
+    from lhotse_tpu_torch.augmentation import Compress as CompressTransform
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.cut_transforms import Compress
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.recipes import prepare_commonvoice
+    from lhotse_tpu_torch.shar.readers import LazySharIterator
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    available = {"mp3": syscodecs.mp3_available(), "mp3_encode": syscodecs.mp3_encode_available(),
+                 "vorbis": syscodecs.vorbis_available(),
+                 "vorbis_encode": syscodecs.vorbis_encode_available(),
+                 "opus": syscodecs.opus_available()}
+    missing = {leg: [lib for lib in needs if not available[lib]]
+               for leg, needs in LOSSY_LEG_NEEDS.items()}
+    for leg, libs in missing.items():
+        if libs:
+            print(f"[{smi}] {leg}: left out, as this machine does not load the library behind "
+                  f"{', '.join(f'{lib}_available()' for lib in libs)}")
+    print(f"[{smi}] system codecs: mp3_available() {available['mp3']}, mp3_encode_available() "
+          f"{available['mp3_encode']}, vorbis_available() {available['vorbis']}, "
+          f"vorbis_encode_available() {available['vorbis_encode']}, opus_available() "
+          f"{available['opus']}; sonames loaded {syscodecs.loaded_sonames()}")
+    runs = [leg for leg, libs in missing.items() if not libs]
+    launches, errs = {}, []
+    flac = sorted(CutSet.from_file(workdir / "recipe_cuts.jsonl.gz"), key=lambda c: c.recording_id)
+    flac_by_rec = {c.recording_id: c for c in flac}
+
+    def fly(cuts, cut_transforms=None, shuffle=True):
+        extractor = Fbank(FbankConfig(device=device))
+        dataset = K2SpeechRecognitionDataset(
+            return_cuts=True, cut_transforms=cut_transforms,
+            input_strategy=OnTheFlyFeatures(extractor))
+        sampler = SimpleCutSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=shuffle, seed=0)
+        return DataLoader(sampler, dataset, prefetch_batches=3), extractor, _RecordFirstBatch(extractor)
+
+    def batch_cuts(batch):
+        return batch["supervisions"]["cut"]
+
+    def check_leg(name, run, err, want_ids, ids_of=lambda c: c.id):
+        seen = sorted(ids_of(c) for b in run["batches"] for c in batch_cuts(b))
+        if run["launches"] != len(run["batches"]) or seen != sorted(want_ids):
+            raise AssertionError(f"{name}: launches or the epoch's cuts are off")
+        if not err <= KERNEL_TOL or not all(np.isfinite(b["inputs"]).all() for b in run["batches"]):
+            raise AssertionError(f"{name}: the kernel's result or the features are off")
+        launches[name] = run["launches"]
+        errs.append(err)
+
+    cv_path = workdir / "cv_cuts.jsonl.gz"
+    if "commonvoice_on_the_fly" in runs:
+        # -- commonvoice_on_the_fly ---------------------------------------------------
+        t0 = time.perf_counter()
+        lang = workdir / "commonvoice" / CV_RELEASE / "en"
+        sentences = _write_commonvoice(flac, lang)
+        clip_bytes = sum(p.stat().st_size for p in (lang / "clips").iterdir())
+        print(f"[{smi}] commonvoice_on_the_fly: {len(flac)} utterances rewritten as 48 kHz mono MP3 "
+              f"clips ({clip_bytes} bytes) and three TSVs in {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        parts = prepare_commonvoice(lang.parent, workdir / "cv_manifests", languages="en",
+                                    num_jobs=8)["en"]
+        recordings = RecordingSet.from_recordings(
+            r for split in CV_SPLITS for r in parts[split]["recordings"])
+        supervisions = SupervisionSet.from_segments(
+            s for split in CV_SPLITS for s in parts[split]["supervisions"])
+        CutSet.from_manifests(recordings, supervisions).resample(SR).to_file(cv_path)
+        prepare_s = time.perf_counter() - t0
+        cv_cuts = CutSet.from_file(cv_path).to_eager()
+        texts_equal = {s.recording_id: s.text for s in supervisions} == sentences
+        shapes_equal = all(
+            (r.sampling_rate, r.num_channels, r.num_samples)
+            == (CV_SR, 1, flac_by_rec[r.id].recording.num_samples * CV_SR // SR) for r in recordings)
+        corrs = [_corr(c.load_audio(), flac_by_rec[c.recording_id].load_audio()) for c in cv_cuts[:8]]
+        per_split = ", ".join(f"{split} {len(parts[split]['recordings'])}" for split in CV_SPLITS)
+        print(f"[{smi}] commonvoice_on_the_fly: prepare_commonvoice of {len(recordings)} clips "
+              f"({per_split}) and the 16 kHz cuts in {prepare_s!r} s; 48 kHz mono clips of 3x the source's "
+              f"samples: {shapes_equal}; sentences as written (one open quote): {texts_equal}; "
+              f"decoded and resampled audio of 8 cuts against the FLAC source: correlation "
+              f"min {min(corrs)!r} (at least {MP3_CORR})")
+        if len(recordings) != len(flac) or not shapes_equal or not texts_equal:
+            raise AssertionError("commonvoice_on_the_fly: the prepared manifests are off")
+        if not min(corrs) >= MP3_CORR:
+            raise AssertionError("commonvoice_on_the_fly: the decoded audio is off its source")
+        loader, extractor, recorder = fly(CutSet.from_file(cv_path))
+        state = {}
+
+        def keep_state(i, batch):
+            if i == CV_RESUME_AFTER - 1:
+                state["ckpt"] = loader.state_dict()
+
+        run = _leg("commonvoice_on_the_fly", loader, _Trainer(device), device, fbank_cuda,
+                   _rows_of, smi, on_batch=keep_state)
+        err = _first_batch_err(recorder, extractor)
+        resumed_loader, _, _ = fly(CutSet.from_file(cv_path))
+        resumed_loader.load_state_dict(state["ckpt"])
+        resumed = list(resumed_loader)
+        want = run["batches"][CV_RESUME_AFTER:]
+        resume_equal = len(resumed) == len(want) > 0 and all(
+            [c.id for c in batch_cuts(a)] == [c.id for c in batch_cuts(b)]
+            and torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
+            for a, b in zip(resumed, want))
+        print(f"[{smi}] commonvoice_on_the_fly: first batch kernel vs plain {err!r} (tol "
+              f"{KERNEL_TOL}); resumed after batch {CV_RESUME_AFTER}: {len(resumed)} batches "
+              f"torch.equal to the uninterrupted run's: {resume_equal}; losses "
+              f"{run['losses'][0]!r} -> {run['losses'][-1]!r}")
+        check_leg("commonvoice_on_the_fly", run, err, [c.id for c in cv_cuts])
+        if not resume_equal:
+            raise AssertionError("commonvoice_on_the_fly: the resumed batches differ")
+
+    if "commonvoice_compress" in runs:
+        # -- commonvoice_compress -----------------------------------------------------
+        compress = Compress(codecs=list(COMPRESS_CODECS), compression_level=(0.1, 0.9), p=0.5,
+                            seed=COMPRESS_SEED)
+        loader, extractor, recorder = fly(CutSet.from_file(cv_path), cut_transforms=[compress])
+        run = _leg("commonvoice_compress", loader, _Trainer(device), device, fbank_cuda, _rows_of,
+                   smi)
+        err = _first_batch_err(recorder, extractor)
+        cuts = [c for b in run["batches"] for c in batch_cuts(b)]
+        drawn = Counter(_codec_of(c) for c in cuts)
+        share = 1.0 - drawn[None] / len(cuts)
+        source = {c.id: c for c in CutSet.from_file(cv_path)}
+        firsts = {}
+        for c in cuts:
+            firsts.setdefault(_codec_of(c), c)
+        rounds_equal = True
+        for codec, c in firsts.items():
+            if codec is None:
+                continue
+            last = c.recording.transforms[-1]
+            transform = CompressTransform(**last["kwargs"]) if isinstance(last, dict) else last
+            want = transform(source[c.id.rsplit("_", 2)[0]].load_audio(), SR)
+            rounds_equal &= np.array_equal(c.load_audio(), want)
+        counts = {codec or "none": n for codec, n in drawn.items()}
+        n = len(run["batches"])
+        transforms_ms = run["report"].get("audio.transforms", {}).get("total_s", 0.0) * 1e3 / n
+        assemble_ms = run["report"].get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
+        print(f"[{smi}] commonvoice_compress: codecs drawn {counts}, "
+              f"compressed share {share!r} (p=0.5); a compressed cut of each codec equal to the "
+              f"Compress round trip of its source cut's audio: {rounds_equal}; first batch kernel "
+              f"vs plain {err!r} (tol {KERNEL_TOL}); host ms per batch in audio.transforms "
+              f"{transforms_ms!r} and dataset.assemble {assemble_ms!r}")
+        check_leg("commonvoice_compress", run, err, list(source),
+                  ids_of=lambda c: c.id.rsplit("_", 2)[0] if _codec_of(c) else c.id)
+        if set(drawn) != {None, *COMPRESS_CODECS} or not COMPRESSED_SHARE[0] <= share <= COMPRESSED_SHARE[1]:
+            raise AssertionError(f"commonvoice_compress: the draws are off: {drawn}")
+        if not rounds_equal:
+            raise AssertionError("commonvoice_compress: a compressed cut is not its round trip")
+
+    if "shar_opus_on_the_fly" in runs:
+        # -- shar_opus_on_the_fly -----------------------------------------------------
+        shar_dir = workdir / "shar_opus"
+        t0 = time.perf_counter()
+        paths = CutSet.from_cuts(flac).to_shar(
+            shar_dir, fields={"recording": "opus"}, shard_size=40, compress_jsonl=False)
+        export_s = time.perf_counter() - t0
+        opus_bytes = sum(Path(p).stat().st_size for p in paths["recording"])
+        members = list(LazySharIterator(in_dir=shar_dir))
+
+        def member_equal(cut):
+            want, _ = syscodecs.opus_decode(
+                syscodecs.opus_encode(flac_by_rec[cut.recording_id].load_audio(), SR),
+                force_sampling_rate=SR)
+            return np.array_equal(cut.load_audio(), want)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            equal = list(pool.map(member_equal, members))
+        print(f"[{smi}] shar_opus_on_the_fly: {len(flac)} utterances exported to "
+              f"{len(paths['recording'])} Shar shards with the recording in opus ({opus_bytes} "
+              f"bytes) in {export_s!r} s; every member decoded from memory equal to "
+              f"opus_decode(opus_encode(source)): {all(equal)} ({len(equal)} members, checked in "
+              f"{time.perf_counter() - t0!r} s)")
+        if len(members) != len(flac) or not all(equal):
+            raise AssertionError("shar_opus_on_the_fly: the shards' audio is off its sources")
+        loader, extractor, recorder = fly(CutSet(cuts=LazySharIterator(in_dir=shar_dir)),
+                                          shuffle=False)
+        run = _leg("shar_opus_on_the_fly", loader, _Trainer(device), device, fbank_cuda, _rows_of,
+                   smi)
+        err = _first_batch_err(recorder, extractor)
+        print(f"[{smi}] shar_opus_on_the_fly: first batch kernel vs plain {err!r} (tol {KERNEL_TOL})")
+        check_leg("shar_opus_on_the_fly", run, err, [c.id for c in flac])
+
+    if "codec_check" in runs:
+        # -- codec_check ---------------------------------------------------------------
+        check_dir = workdir / "codec_check"
+        check_dir.mkdir()
+        rows = []
+        for cut in flac[:CODEC_CHECK_FILES]:
+            x, n = cut.load_audio(), cut.recording.num_samples
+            for suffix, native in ((".mp3", SR), (".ogg", SR), (".opus", 48000)):
+                path = check_dir / f"{cut.recording_id}{suffix}"
+                save_audio(path, x, SR)
+                for force in (None, SR):
+                    rec = Recording.from_file(path, force_opus_sampling_rate=force)
+                    meta = info(path, force_opus_sampling_rate=force)
+                    rate = force if suffix == ".opus" and force else native
+                    audio = rec.load_audio()
+                    back = audio if rate == SR else Recording.from_file(
+                        path, force_opus_sampling_rate=SR).load_audio()
+                    rows.append((path.name, force, rec.sampling_rate == meta.samplerate == rate,
+                                 rec.num_samples == meta.frames == n * rate // SR,
+                                 audio.shape == (1, rec.num_samples), _corr(back, x)))
+        worst = min(r[5] for r in rows)
+        ok = all(r[2] and r[3] and r[4] for r in rows)
+        print(f"[{smi}] codec_check: save_audio to .mp3, .ogg (Vorbis) and .opus of "
+              f"{CODEC_CHECK_FILES} utterances, each read back through Recording.from_file and info "
+              f"with and without force_opus_sampling_rate={SR}: {len(rows)} reads with the rate, "
+              f"length and shape expected: {ok}; correlation with the source min {worst!r} (at "
+              f"least {MP3_CORR})")
+        if not ok or not worst >= MP3_CORR:
+            raise AssertionError(f"codec_check: a read is off: {rows}")
+    set_tracing_enabled(False)
+    return launches, max(errs, default=0.0)
+
+
 
 
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
@@ -3706,6 +4040,11 @@ def main() -> None:
         launches_paired, paired_err = _phase_paired(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_paired)
         print(f"phase 18 took {time.perf_counter() - t0!r} s")
+        # -- 19. the lossy-codec corpus path, on the same corpora
+        t0 = time.perf_counter()
+        launches_lossy, lossy_err = _phase_lossy(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_lossy)
+        print(f"phase 19 took {time.perf_counter() - t0!r} s")
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
     # signal-effects and multi-source, multi-talker training path on the same corpus
@@ -3732,7 +4071,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
-                              ms_err, paired_err]),
+                              ms_err, paired_err, lossy_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -3,17 +3,20 @@ Audio decode/encode backends (copied from ``lhotse_tpu/audio/backend.py``):
 the in-package NIST SPHERE (:mod:`lhotse_tpu_torch.audio.sphio`), WAV
 (:mod:`lhotse_tpu_torch.audio.wavio`), FLAC
 (:mod:`lhotse_tpu_torch.audio.flacio`) and AIFF
-(:mod:`lhotse_tpu_torch.audio.aiffio`) codecs behind the composite that
-``read_audio``/``info``/``save_audio`` use, in the JAX package's order.
+(:mod:`lhotse_tpu_torch.audio.aiffio`) codecs, then MP3, Ogg/Opus and
+Ogg/Vorbis through the system codec libraries
+(:mod:`lhotse_tpu_torch.audio.syscodecs`), behind the composite that
+``read_audio``/``info``/``save_audio`` use, in the JAX package's order. A
+lossy backend joins the composite only when its library loads. A member
+without a suffix (a Shar payload, a ``memory`` source) is sniffed.
 Shorten-compressed SPHERE goes to the ``sph2pipe`` binary where one is on
 the ``PATH``, and raises ``SphereShortenError`` where none is.
 
-Left out: the MP3, Ogg/Vorbis, Opus, soundfile, audioread, torchcodec and
-ffmpeg backends. A file none of the four backends reads raises
-``AudioLoadingError``; saving another format raises
-``NotImplementedError``. Saving as AIFF writes AIFF (the JAX composite
-hands every format but WAV, FLAC and its lossy codecs to its first saving
-backend, SPHERE).
+Left out: the soundfile, audioread, torchcodec and ffmpeg backends. A file
+none of the backends reads raises ``AudioLoadingError``; saving another
+format raises ``NotImplementedError``. Saving as AIFF writes AIFF (the JAX
+composite hands every format but WAV, FLAC and its lossy codecs to its
+first saving backend, SPHERE).
 """
 from __future__ import annotations
 
@@ -275,6 +278,215 @@ class AiffBackend(AudioBackend):
         write_aiff(dest, np.asarray(src), sampling_rate)
 
 
+def _read_all(path_or_fd) -> Union[str, bytes]:
+    """Pass paths through; drain file-like objects to bytes."""
+    if isinstance(path_or_fd, (str, Path)):
+        return path_or_fd
+    pos = path_or_fd.tell() if hasattr(path_or_fd, "tell") else None
+    data = path_or_fd.read()
+    if pos is not None and hasattr(path_or_fd, "seek"):
+        path_or_fd.seek(pos)
+    return data
+
+
+def _slice_seconds(audio: np.ndarray, sr: int, offset: Seconds, duration):
+    if offset or duration is not None:
+        lo = compute_num_samples(offset, sr) if offset else 0
+        hi = lo + compute_num_samples(duration, sr) if duration is not None else None
+        audio = audio[:, lo:hi]
+    return audio
+
+
+class Mpg123Backend(AudioBackend):
+    """MP3 decode via the system libmpg123 (encode via libmp3lame), bound
+    with ctypes (:mod:`lhotse_tpu_torch.audio.syscodecs`); in-memory
+    sources decode without temp files."""
+
+    @classmethod
+    def is_available(cls) -> bool:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        return syscodecs.mp3_available()
+
+    def read_audio(
+        self, path_or_fd, offset: Seconds = 0.0, duration: Optional[Seconds] = None,
+        force_opus_sampling_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        audio, sr = syscodecs.mp3_decode(_read_all(path_or_fd))
+        return _slice_seconds(audio, sr, offset, duration), sr
+
+    def info(self, path_or_fd, force_opus_sampling_rate=None) -> LibsndfileCompatibleAudioInfo:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        sr, ch, n = syscodecs.mp3_info(_read_all(path_or_fd))
+        return LibsndfileCompatibleAudioInfo(
+            channels=ch, frames=n, samplerate=sr, duration=n / sr)
+
+    def is_applicable(self, path_or_fd) -> bool:
+        if not self.is_available():
+            return False
+        sfx = _suffix_of(path_or_fd)
+        if sfx == ".mp3":
+            return True
+        if sfx is not None and sfx != "":
+            return False
+        from lhotse_tpu_torch.audio import syscodecs
+
+        try:
+            if isinstance(path_or_fd, (str, Path)):
+                with open(path_or_fd, "rb") as f:
+                    head = f.read(4)
+            else:
+                head = _peek_bytes(path_or_fd, 4)
+            return syscodecs.looks_like_mp3(head)
+        except Exception:
+            return False
+
+    def supports_info(self) -> bool:
+        return True
+
+    def supports_save(self) -> bool:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        return syscodecs.mp3_encode_available()
+
+    def save_audio(self, dest, src, sampling_rate: int, format=None, encoding=None) -> None:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        data = syscodecs.mp3_encode(np.asarray(src), sampling_rate)
+        if isinstance(dest, (str, Path)):
+            Path(dest).write_bytes(data)
+        else:
+            dest.write(data)
+
+
+def _sniff_ogg(path_or_fd) -> Optional[str]:
+    from lhotse_tpu_torch.audio import syscodecs
+
+    try:
+        if isinstance(path_or_fd, (str, Path)):
+            with open(path_or_fd, "rb") as f:
+                head = f.read(320)
+        else:
+            head = _peek_bytes(path_or_fd, 320)
+        return syscodecs.sniff_ogg_codec(head)
+    except Exception:
+        return None
+
+
+class OggVorbisBackend(AudioBackend):
+    """Ogg/Vorbis decode via the system libvorbisfile (encode via
+    libvorbisenc+libogg); in-memory sources decode without temp files."""
+
+    @classmethod
+    def is_available(cls) -> bool:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        return syscodecs.vorbis_available()
+
+    def read_audio(
+        self, path_or_fd, offset: Seconds = 0.0, duration: Optional[Seconds] = None,
+        force_opus_sampling_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        src = _read_all(path_or_fd)
+        sr, _, _ = syscodecs.vorbis_info(src)
+        lo = compute_num_samples(offset, sr) if offset else 0
+        n = compute_num_samples(duration, sr) if duration is not None else None
+        audio, sr = syscodecs.vorbis_decode(src, offset_samples=lo, num_samples=n)
+        return audio, sr
+
+    def info(self, path_or_fd, force_opus_sampling_rate=None) -> LibsndfileCompatibleAudioInfo:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        sr, ch, n = syscodecs.vorbis_info(_read_all(path_or_fd))
+        return LibsndfileCompatibleAudioInfo(
+            channels=ch, frames=n, samplerate=sr, duration=n / sr)
+
+    def is_applicable(self, path_or_fd) -> bool:
+        if not self.is_available():
+            return False
+        sfx = _suffix_of(path_or_fd)
+        if sfx in (".ogg", ".oga", None, ""):
+            return _sniff_ogg(path_or_fd) == "vorbis"
+        return False
+
+    def supports_info(self) -> bool:
+        return True
+
+    def supports_save(self) -> bool:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        return syscodecs.vorbis_encode_available()
+
+    def save_audio(self, dest, src, sampling_rate: int, format=None, encoding=None) -> None:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        data = syscodecs.vorbis_encode(np.asarray(src), sampling_rate)
+        if isinstance(dest, (str, Path)):
+            Path(dest).write_bytes(data)
+        else:
+            dest.write(data)
+
+
+class OggOpusBackend(AudioBackend):
+    """Ogg/Opus decode via the system libogg+libopus. Decodes at 48 kHz
+    like the reference (OPUS always reports 48k) unless
+    ``force_opus_sampling_rate`` is given — native decoder rates
+    (8/12/16/24/48 kHz) decode directly, others decode at 48 kHz and
+    polyphase-resample (reference: read_opus_ffmpeg,
+    lhotse/audio/backend.py:1494)."""
+
+    @classmethod
+    def is_available(cls) -> bool:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        return syscodecs.opus_available()
+
+    def read_audio(
+        self, path_or_fd, offset: Seconds = 0.0, duration: Optional[Seconds] = None,
+        force_opus_sampling_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        audio, sr = syscodecs.opus_decode(
+            _read_all(path_or_fd), force_sampling_rate=force_opus_sampling_rate)
+        return _slice_seconds(audio, sr, offset, duration), sr
+
+    def info(self, path_or_fd, force_opus_sampling_rate=None) -> LibsndfileCompatibleAudioInfo:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        sr, ch, n = syscodecs.opus_info(
+            _read_all(path_or_fd), force_sampling_rate=force_opus_sampling_rate)
+        return LibsndfileCompatibleAudioInfo(
+            channels=ch, frames=n, samplerate=sr, duration=n / sr)
+
+    def is_applicable(self, path_or_fd) -> bool:
+        if not self.is_available():
+            return False
+        sfx = _suffix_of(path_or_fd)
+        if sfx == ".opus":
+            return True
+        if sfx in (".ogg", ".oga", None, ""):
+            return _sniff_ogg(path_or_fd) == "opus"
+        return False
+
+    def supports_info(self) -> bool:
+        return True
+
+    def supports_save(self) -> bool:
+        return self.is_available()
+
+    def save_audio(self, dest, src, sampling_rate: int, format=None, encoding=None) -> None:
+        from lhotse_tpu_torch.audio import syscodecs
+
+        data = syscodecs.opus_encode(np.asarray(src), sampling_rate)
+        if isinstance(dest, (str, Path)):
+            Path(dest).write_bytes(data)
+        else:
+            dest.write(data)
+
+
 class SphereBackend(AudioBackend):
     """Native NIST SPHERE decode via :mod:`lhotse_tpu_torch.audio.sphio`
     (pure numpy: PCM/ulaw/alaw, partial reads); shorten-compressed files
@@ -445,7 +657,15 @@ class CompositeAudioBackend(AudioBackend):
                 dest, src, sampling_rate, format=fmt, encoding=encoding)
         if fmt in ("aiff", "aif", "aifc"):
             return AiffBackend().save_audio(dest, src, sampling_rate)
-        raise not_ported(f"Saving audio as {fmt!r} (the package writes wav, flac, sph and aiff)")
+        if fmt == "mp3" and Mpg123Backend().supports_save():
+            return Mpg123Backend().save_audio(dest, src, sampling_rate)
+        if fmt in ("ogg", "vorbis", "oga") and OggVorbisBackend().supports_save():
+            return OggVorbisBackend().save_audio(dest, src, sampling_rate)
+        if fmt == "opus" and OggOpusBackend().supports_save():
+            return OggOpusBackend().save_audio(dest, src, sampling_rate)
+        raise not_ported(
+            f"Saving audio as {fmt!r} (the package writes wav, flac, sph and aiff, and mp3, "
+            "ogg and opus where the system codec libraries load)")
 
 
 def set_current_audio_backend(backend: Union[str, AudioBackend]) -> AudioBackend:
@@ -469,11 +689,19 @@ def get_current_audio_backend() -> AudioBackend:
 
 
 def get_default_audio_backend() -> AudioBackend:
-    """Composite over the package's four codecs, in the JAX package's order."""
+    """Composite over the package's codecs, in the JAX package's order."""
     # SphereBackend subsumes the sph2pipe subprocess backend: it decodes
     # pcm/ulaw/alaw natively and delegates shorten files to sph2pipe itself.
     backends: List[AudioBackend] = [
         SphereBackend(), InternalWavBackend(), FlacBackend(), AiffBackend()]
+    # Lossy codecs through the system libraries (ctypes): each registers only
+    # when its library loads.
+    if Mpg123Backend.is_available():
+        backends.append(Mpg123Backend())
+    if OggOpusBackend.is_available():
+        backends.append(OggOpusBackend())
+    if OggVorbisBackend.is_available():
+        backends.append(OggVorbisBackend())
     return CompositeAudioBackend(backends)
 
 

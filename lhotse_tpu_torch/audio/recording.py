@@ -19,8 +19,7 @@ A channel subset of a recording whose chain mixes or fans out channels
 through the chain, and then picked: the transform sees every channel. The
 JAX package runs the chain on the subset alone.
 
-Left out: the ``compress`` builder, which raises ``NotImplementedError``
-(it waits for the system codecs); so does video.
+Left out: video, which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,8 +37,8 @@ from lhotse_tpu_torch.audio.source import AudioSource
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, get_audio_duration_mismatch_tolerance)
 from lhotse_tpu_torch.augmentation import (
-    AudioTransform, Clipping, DereverbWPE, LoudnessNormalization, Narrowband, Resample,
-    ReverbWithImpulseResponse, Speed, Tempo, Volume)
+    AudioTransform, Clipping, Compress, DereverbWPE, LoudnessNormalization, Narrowband,
+    Resample, ReverbWithImpulseResponse, Speed, Tempo, Volume)
 from lhotse_tpu_torch.utils import (
     Channels, Pathlike, Seconds, asdict_nonull, compute_num_samples, fastcopy, ifnone,
     not_ported, perturb_num_samples, rich_exception_info)
@@ -557,8 +556,27 @@ class Recording:
             self, id=self._affixed(affix_id, f"_cl{gain_db:.1f}"),
             transforms=self._chain_plus(*added))
 
-    def compress(self, *args, **kwargs) -> "Recording":
-        raise not_ported("Recording.compress")
+    def compress(self, codec: str = "opus", compression_level: float = 0.99) -> "Recording":
+        """Round-trip through a lossy codec (artifact simulation)."""
+        if codec not in Compress.supported_codecs:
+            raise ValueError(
+                f"Invalid codec: {codec}. Must be one of: "
+                f"{', '.join(Compress.supported_codecs)}"
+            )
+        if not 0.0 <= compression_level <= 1.0:
+            raise ValueError(
+                f"Compression level must be between 0.0 and 1.0, got {compression_level}"
+            )
+        squeeze = Compress(codec=codec, compression_level=compression_level)
+        if codec == "gsm" and self.sampling_rate != 8000:
+            # GSM is defined at 8 kHz only; bracket it with resamples.
+            added = (
+                Resample( source_sampling_rate=self.sampling_rate, target_sampling_rate=8000 ),
+                squeeze,
+                Resample( source_sampling_rate=8000, target_sampling_rate=self.sampling_rate ))
+        else:
+            added = (squeeze,)
+        return fastcopy(self, transforms=self._chain_plus(*added))
 
 
 def assert_and_maybe_fix_num_samples(

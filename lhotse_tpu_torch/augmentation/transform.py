@@ -6,9 +6,6 @@ auto-registered by class name, serialized into ``Recording.transforms`` as
 ``__call__(samples, sampling_rate)`` and ``reverse_timestamps`` (maps
 post-transform timestamps back to the source audio so only the needed
 samples are read from disk).
-
-The JAX package's ``Compress`` is not ported: a manifest naming it raises
-``NotImplementedError`` when it is read.
 """
 from __future__ import annotations
 
@@ -17,9 +14,7 @@ from typing import Dict, Optional, Tuple, Type
 
 import numpy as np
 
-from lhotse_tpu_torch.utils import Seconds, not_ported
-
-NOT_PORTED_TRANSFORMS = frozenset(["Compress"])
+from lhotse_tpu_torch.utils import Seconds
 
 
 class AudioTransform:
@@ -68,8 +63,6 @@ class AudioTransform:
 
     @staticmethod
     def from_dict(data: dict) -> "AudioTransform":
-        if data["name"] in NOT_PORTED_TRANSFORMS:
-            raise not_ported(f"The {data['name']} audio transform")
         assert (
             data["name"] in AudioTransform.KNOWN_TRANSFORMS
         ), f"Unknown transform type: {data['name']}"

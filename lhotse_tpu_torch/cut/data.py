@@ -8,12 +8,13 @@ path uses: the ``Features`` manifest, ``compute_and_store_features``, the
 ``resample``, ``perturb_speed``, ``perturb_tempo``, ``perturb_volume``,
 ``narrowband``, ``normalize_loudness`` and ``clip_amplitude``
 (``reverb_rir`` is in :class:`~lhotse_tpu_torch.cut.mono.MonoCut`),
-``dereverb_wpe`` (the host WPE transform), ``move_to_memory``/
+``dereverb_wpe`` (the host WPE transform), ``compress`` (the lossy-codec
+round trip, optionally of custom ``Recording`` fields), ``move_to_memory``/
 ``drop_in_memory_data``, the path prefixes and the supervision merging that
 ``MonoCut.merge_supervisions`` and ``MultiCut.merge_supervisions`` use.
 Every builder returns a modified manifest copy; no audio is touched until
-``load_audio``/``load_features``. Images, ``attach_tensor`` and the
-``compress`` builder are not ported: ``compress`` raises.
+``load_audio``/``load_features``. Images and ``attach_tensor`` are not
+ported.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from lhotse_tpu_torch.features.io import FeaturesWriter
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
     LOG_EPSILON, Pathlike, Seconds, TimeSpan, add_durations, asdict_nonull, compute_num_frames,
-    compute_num_samples, fastcopy, measure_overlap, not_ported, overlaps, overspans,
+    compute_num_samples, fastcopy, measure_overlap, overlaps, overspans,
     perturb_num_samples, rich_exception_info, uuid4)
 
 _DATA_MANIFEST_TYPES = (Recording, Features, Array, TemporalArray)
@@ -554,8 +555,19 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
             recording=self.recording.clip_amplitude( hard=hard, gain_db=gain_db, normalize=normalize, oversampling=oversampling, affix_id=affix_id, ),
         )
 
-    def compress(self, *args, **kwargs) -> "DataCut":
-        raise not_ported("Cut.compress")
+    def compress(
+        self, codec: str = "opus", compression_level: float = 0.99,
+        compress_custom_fields: bool = False) -> "DataCut":
+        """Lossy-codec round-trip on the recording (optionally also on custom
+        Recording fields)."""
+        self._require_recording("compress")
+        custom = self.custom
+        if compress_custom_fields and isinstance(custom, dict):
+            custom = {
+                k: v.compress(codec, compression_level) if isinstance(v, Recording) else v for k,
+                v in custom.items()}
+        return fastcopy(
+            self, recording=self.recording.compress(codec, compression_level), custom=custom)
 
     # -- path remapping --------------------------------------------------------------------------
 

@@ -9,7 +9,7 @@ summed until ``load_audio``/``load_features``: the same MixedCut mixes in
 the waveform domain or, for precomputed log-mel features, directly in the
 feature domain via the extractor's ``mix``/``compute_energy``.
 
-Left out: ``load_video``, the plots and ``compress``, which raise
+Left out: ``load_video`` and the plots, which raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -451,8 +451,12 @@ class MixedCut(Cut):
             lambda c: c.normalize_loudness(target=target, affix_id=affix_id), suffix=f"_ln{target}",
             affix_id=affix_id)
 
-    def compress(self, *args, **kwargs) -> "MixedCut":
-        raise not_ported("MixedCut.compress")
+    def compress(
+        self, codec: str = "opus", compression_level: float = 0.99,
+        compress_custom_fields: bool = False) -> "MixedCut":
+        return self._rebuild_tracks(
+            lambda c: c.compress(codec, compression_level, compress_custom_fields),
+            require_recording="compress")
 
     def reverb_rir(
         self, rir_recording: Optional["Recording"] = None, normalize_output: bool = True,

@@ -2,9 +2,10 @@
 PaddingCut: synthetic silence used to even out cut lengths (copied from
 ``lhotse_tpu/cut/padding.py``). It materializes zeros (audio) or a
 constant ``feat_value`` (features, typically LOG_EPSILON) on load; every
-transformation is metadata-only. ``clip_amplitude`` is the port's own: the
-JAX package lacks it, so its ``ClippingTransform`` fails on the
-concatenated cuts of ``CutConcatenate``. Video is not ported.
+transformation is metadata-only. ``clip_amplitude`` and ``compress`` are
+the port's own: the JAX package lacks them, so its ``ClippingTransform``
+and ``Compress`` cut transforms fail on the concatenated cuts of
+``CutConcatenate``. Video is not ported.
 """
 from __future__ import annotations
 
@@ -212,6 +213,10 @@ class PaddingCut(Cut):
     filter_supervisions = _pass_through
     with_features_path_prefix = _pass_through
     with_recording_path_prefix = _pass_through
+    # Padding stays synthetic silence. The JAX package's PaddingCut
+    # has no ``compress``, so compressing a MixedCut with a padding track
+    # raises ``AttributeError`` there.
+    compress = _pass_through
 
     @staticmethod
     def from_dict(data: dict) -> "PaddingCut":

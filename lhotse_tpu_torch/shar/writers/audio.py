@@ -1,8 +1,7 @@
 """
 Audio tar writer (copied from ``lhotse_tpu/shar/writers/audio.py``):
-``flac``, ``wav`` and ``original`` through the port's ``save_audio``.
-``opus`` and ``mp3`` need the system codec libraries, which the port does
-not have: they raise ``NotImplementedError``.
+``flac``, ``wav``, ``original``, and ``mp3`` and ``opus`` through the
+system codec libraries, all through the port's ``save_audio``.
 """
 from io import BytesIO
 from typing import Callable, Optional
@@ -12,7 +11,6 @@ import numpy as np
 from lhotse_tpu_torch.audio import Recording
 from lhotse_tpu_torch.audio.backend import save_audio
 from lhotse_tpu_torch.shar.writers.common import TarBackedWriter
-from lhotse_tpu_torch.utils import not_ported
 
 
 class AudioTarWriter(TarBackedWriter):
@@ -29,8 +27,6 @@ class AudioTarWriter(TarBackedWriter):
     def __init__(
         self, pattern: str, shard_size: Optional[int] = 1000, format: str = "flac",
         shard_offset: int = 0, on_shard_complete: Optional[Callable[[str], None]] = None):
-        if format in ("opus", "mp3"):
-            raise not_ported(f"Shar audio in {format!r} (the system codec libraries)")
         super().__init__(
             pattern, shard_size, shard_offset=shard_offset, on_shard_complete=on_shard_complete)
         self.format = format

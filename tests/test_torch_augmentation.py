@@ -153,16 +153,10 @@ def test_left_out_transforms_raise(files, name):
         jrec = J.Recording.from_dict(rec.to_dict())
         assert rec.dereverb_wpe().to_dict() == jrec.dereverb_wpe().to_dict()
         return
-    if name == "Compress":
-        # Left out until the system codecs are ported.
-        with pytest.raises(NotImplementedError, match=name):
-            PA.AudioTransform.from_dict({"name": name, "kwargs": {}})
-        with pytest.raises(NotImplementedError):
-            rec.compress()
-        return
     # Ported: a JAX-written transform dict reads as the same transform, and
     # the builder appends it as the JAX package's does.
     build = {"Narrowband": lambda r: r.narrowband("mulaw"),
+             "Compress": lambda r: r.compress("opus", 0.5),
              "Clipping": lambda r: r.clip_amplitude(hard=True, gain_db=3.0),
              "LoudnessNormalization": lambda r: r.normalize_loudness(-20)}[name]
     jrec = build(J.Recording.from_dict(rec.to_dict()))

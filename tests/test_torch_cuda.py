@@ -820,3 +820,37 @@ def test_premixed_separation_on_card_matches_cpu(cuda, tmp_path):
         assert np.abs(item["real_mask"] - other["real_mask"]).max() <= 1e-3
         clear = np.abs(other["real_mask"][0] - other["real_mask"][1]) > 1e-3
         assert np.array_equal(item["binary_mask"][clear], other["binary_mask"][clear])
+
+
+def test_mp3_cut_on_the_fly_features_on_card(cuda, tmp_path):
+    """A 48 kHz MP3 clip (a CommonVoice clip's shape, encoded by the port's
+    LAME binding), resampled to 16 kHz and compressed with opus, through
+    ``OnTheFlyFeatures`` on the card: one launch, the kernel against its
+    plain version on the same decoded audio, and the batch against the CPU
+    port's."""
+    from lhotse_tpu_torch.audio import Recording, syscodecs
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+
+    if not (syscodecs.mp3_available() and syscodecs.mp3_encode_available()
+            and syscodecs.opus_available()):
+        pytest.skip("needs the system codec libraries (mpg123, mp3lame, opus)")
+    rng = np.random.RandomState(21)
+    cuts = []
+    for i, seconds in enumerate((1.3, 2.1)):
+        n = int(48000 * seconds)
+        wave = (0.1 * rng.randn(n) + 0.05 * np.sin(2 * np.pi * 300 * np.arange(n) / 48000))
+        (tmp_path / f"c{i}.mp3").write_bytes(syscodecs.mp3_encode(wave.astype(np.float32), 48000))
+        cut = Recording.from_file(tmp_path / f"c{i}.mp3").to_cut().resample(16000)
+        cuts.append(cut.compress("opus", 0.5) if i else cut)
+    cuts = CutSet.from_cuts(cuts)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    fbank_cuda.LAUNCHES = 0
+    feats, lens = OnTheFlyFeatures(extractor)(cuts)
+    assert fbank_cuda.LAUNCHES == 1
+    audio = [c.load_audio()[0] for c in cuts]
+    for f, p in zip(feats, _plain(extractor, audio)):
+        assert np.isfinite(f).all() and np.abs(f[: len(p)] - p).max() <= LOGMEL_TOL
+    cpu_feats, cpu_lens = OnTheFlyFeatures(extractors.Fbank(extractors.FbankConfig(device="cpu")))(cuts)
+    assert np.array_equal(lens, cpu_lens)
+    assert np.abs(feats - cpu_feats).max() <= FEATURE_TOL

@@ -313,6 +313,8 @@ def test_post_transform_cache_keys_by_source(tmp_path):
 
 _PORTED_LATER = {
     "ClippingTransform": lambda m: m.ClippingTransform(gain_db=(0.0, 12.0), p=0.5, seed=3),
+    "Compress": lambda m: m.Compress(codecs=["opus", "mp3", "vorbis"], compression_level=(0.1, 0.9),
+                                     p=0.5, seed=3),
     "CutConcatenate": lambda m: m.CutConcatenate(gap=0.5, duration_factor=3.0),
     # A 1 Hz wide interval fixes the cutoff at 4 kHz: 16 kHz -> 8 kHz -> 16 kHz
     # keeps the resampling kernels small on the CPU.
@@ -324,14 +326,9 @@ _PORTED_LATER = {
 @pytest.mark.parametrize("name", ["ClippingTransform", "Compress", "CutConcatenate",
                                   "LowpassUsingResampling"])
 def test_left_out_cut_transforms_raise(corpus, name):
-    """``Compress`` is still left out (it waits for the system codecs) and
-    raises; the other three are ported and give the JAX package's cuts and
-    audio on the corpus."""
+    """All four are ported and give the JAX package's cuts and audio on the
+    corpus."""
     assert hasattr(JT, name)
-    if name == "Compress":
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(PT, name)()
-        return
     fix_random_seed(0)
     ours = list(_PORTED_LATER[name](PT)(_load(corpus, "port", "cuts")))
     jfix(0)

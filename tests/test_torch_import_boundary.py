@@ -91,7 +91,9 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.audio.sphio, lhotse_tpu_torch.audio.aiffio, "
         "lhotse_tpu_torch.dataset.sampling.cut_pairs, lhotse_tpu_torch.dataset.speech_translation, "
         "lhotse_tpu_torch.dataset.source_separation, lhotse_tpu_torch.dataset.speech_synthesis, "
-        "lhotse_tpu_torch.dataset.audio_tagging, lhotse_tpu_torch.dataset.unsupervised; "
+        "lhotse_tpu_torch.dataset.audio_tagging, lhotse_tpu_torch.dataset.unsupervised, "
+        "lhotse_tpu_torch.audio.syscodecs, lhotse_tpu_torch.augmentation.compress, "
+        "lhotse_tpu_torch.dataset.cut_transforms.compress, lhotse_tpu_torch.recipes.commonvoice; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -606,3 +608,59 @@ def test_paired_path_runs_without_jax(tmp_path):
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_source_has_no_jax_import(path):
     assert not FORBIDDEN.search((ROOT / path).read_text()), path
+
+
+LOSSY_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import syscodecs as sc
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset import SimpleCutSampler
+from lhotse_tpu_torch.dataset.cut_transforms import Compress
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.recipes import prepare_commonvoice
+from lhotse_tpu_torch.shar.readers import LazySharIterator
+
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    lang = Path(tmp) / "cv" / "en"
+    (lang / "clips").mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    rows = ["client_id\\tpath\\tsentence\\tage\\tgender\\taccents"]
+    for i in range(4):
+        x = (0.1 * rng.standard_normal(int(48000 * (0.5 + 0.2 * i)))).astype(np.float32)
+        (lang / "clips" / f"c{i}.mp3").write_bytes(sc.mp3_encode(x, 48000))
+        rows.append(f"spk{i}\\tc{i}.mp3\\tsay \\"{i}\\tthirties\\tfemale\\tus")
+    for split in ("train", "dev", "test"):
+        (lang / f"{split}.tsv").write_text("\\n".join(rows) + "\\n")
+    train = prepare_commonvoice(lang.parent, Path(tmp) / "manifests", num_jobs=2)["en"]["train"]
+    cuts = CutSet.from_manifests(**train).resample(16000)
+    dataset = K2SpeechRecognitionDataset(
+        cut_transforms=[Compress(codecs=["opus", "mp3", "vorbis"], p=1.0, seed=1)],
+        input_strategy=OnTheFlyFeatures(Fbank(FbankConfig(device="cpu"))))
+    batches = [dataset[b] for b in SimpleCutSampler(cuts, max_duration=2.0)]
+    assert sum(len(b["supervisions"]["text"]) for b in batches) == 4
+    assert all(b["inputs"].shape[2] == 80 and np.isfinite(b["inputs"]).all() for b in batches)
+    cuts.to_shar(Path(tmp) / "shar", fields={"recording": "opus"}, shard_size=2)
+    restored = list(LazySharIterator(in_dir=Path(tmp) / "shar"))
+    assert [c.load_audio().shape[1] for c in restored] == [c.num_samples for c in cuts]
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_lossy_codec_path_runs_without_jax(tmp_path):
+    """A CommonVoice MP3 layout → ``prepare_commonvoice`` → 16 kHz cuts →
+    the ``Compress`` cut transform → ``OnTheFlyFeatures``, and the cuts as
+    Opus Shar shards read back, on the CPU, in a process where importing
+    jax or lhotse_tpu fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", LOSSY_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -280,9 +280,13 @@ def test_validate_mixed_and_padding_cuts(corpus):
 def test_left_out_methods_raise(corpus):
     cuts, noise = _cuts(corpus, "port"), _cuts(corpus, "port", "noise")
     mixed = cuts[0].mix(noise[0], snr=10)
-    for call in [mixed.load_video, mixed.plot_tracks_audio, mixed.compress]:
+    for call in [mixed.load_video, mixed.plot_tracks_audio]:
         with pytest.raises(NotImplementedError):
             call()
+    # Compress is ported: the same manifest as the JAX package's builder.
+    jmixed = _cuts(corpus, "jax")[0].mix(_cuts(corpus, "jax", "noise")[0], snr=10)
+    assert [t.cut.to_dict() for t in mixed.compress("mp3", 0.5).tracks] == [
+        t.cut.to_dict() for t in jmixed.compress("mp3", 0.5).tracks]
     # Narrowband is ported: the same manifest as the JAX package's builder.
     assert cuts[0].narrowband("mulaw").to_dict() == _cuts(corpus, "jax")[0].narrowband(
         "mulaw").to_dict()

@@ -426,8 +426,9 @@ def test_aiff_rejects_non_aiff():
 def test_composite_order_is_jax():
     names = [type(b).__name__ for b in backend.get_default_audio_backend().backends]
     jnames = [type(b).__name__ for b in jbackend.get_default_audio_backend().backends]
-    assert names == ["SphereBackend", "InternalWavBackend", "FlacBackend", "AiffBackend"]
-    assert jnames[:4] == names
+    assert names[:4] == ["SphereBackend", "InternalWavBackend", "FlacBackend", "AiffBackend"]
+    # The lossy backends follow where their system libraries load, in JAX's order.
+    assert jnames[:len(names)] == names
 
 
 def _corpus(tmp_path):
@@ -568,7 +569,7 @@ def test_save_aiff_writes_aiff(tmp_path, fmt):
 
 def test_pinned_raises_stay(tmp_path):
     x = _noise(8, 1, 1000)
-    for fmt in ("opus", "mp3", "ogg"):
+    for fmt in ("m4a", "wma"):
         with pytest.raises(NotImplementedError, match=fmt):
             save_audio(tmp_path / f"x.{fmt}", x, SR)
         with pytest.raises(NotImplementedError):
@@ -576,9 +577,11 @@ def test_pinned_raises_stay(tmp_path):
     for kind in ("command", "url"):
         with pytest.raises(NotImplementedError, match=kind):
             AudioSource(type=kind, channels=[0], source="cat x.wav").load_audio()
+    # The lossy codecs and ``compress`` are ported: a SPHERE recording
+    # compresses as the JAX package's does.
     write_sph(tmp_path / "a.sph", x, SR)
-    with pytest.raises(NotImplementedError, match="compress"):
-        Recording.from_file(tmp_path / "a.sph").compress()
+    assert Recording.from_file(tmp_path / "a.sph").compress().to_dict() == J.Recording.from_file(
+        tmp_path / "a.sph").compress().to_dict()
 
 
 def test_unreadable_input_raises_audio_loading_error(tmp_path):
