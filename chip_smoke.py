@@ -80,8 +80,18 @@ the ``Compress`` cut transform over opus, mp3 and vorbis; the utterances
 as Opus Shar shards through ``LazySharIterator``, every member equal to
 the codec's round trip of its source; Vorbis, Opus and MP3 files through
 ``Recording.from_file``, ``info`` and ``save_audio``; each batch into the
-AdamW step; a leg whose library does not load is left out and named); and
-checks what comes out.
+AdamW step; a leg whose library does not load is left out and named); then
+Kaldi interop on the same corpora, after a line saying whether click
+imports and which of ``cat`` and ``gzip`` are found (the utterances and the
+sessions written as Kaldi data dirs whose ``wav.scp`` pipes FLAC through
+``cat`` and a gzipped WAV through ``gzip -dc``, through the
+``lhotse-tpu-torch`` commands run in this process: ``kaldi import``,
+``validate-pair``, ``fix``, ``cut simple``, ``cut trim-to-supervisions``,
+``feat extract-cuts-batch`` on the kernel, ``shar export`` and ``shar
+compute-features`` on the kernel, ``kaldi export``; the stored features and
+``OnTheFlyFeatures`` over the piped cuts, with ``AudioCache`` off and on
+and a resume; each batch into the AdamW step; the run stops if click,
+which the CLI needs, does not import); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -115,8 +125,10 @@ features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
 ``separation_extract``, ``separation_premixed`` and ``separation_dynamic``
 (0: they read stored features), ``unsupervised_on_the_fly`` (one launch
 per cut), ``tagging_on_the_fly``, ``recording_chunks``,
-``commonvoice_on_the_fly``, ``commonvoice_compress`` and
-``shar_opus_on_the_fly``); the last line is
+``commonvoice_on_the_fly``, ``commonvoice_compress``,
+``shar_opus_on_the_fly``, ``kaldi_extract``, ``kaldi_precomputed`` (0: it
+reads stored features), ``kaldi_on_the_fly``, ``kaldi_on_the_fly_cached``
+and ``kaldi_shar``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -1791,14 +1803,15 @@ def _synthesize_recipe_corpora(root: Path) -> tuple:
 FLY_MAX_DURATION = 180.0  # the on-the-fly legs' batches, in seconds of audio
 
 
-def _fly_with_resume(name, cuts_path, trainer, device, fbank_cuda, smi) -> tuple:
+def _fly_with_resume(name, cuts_path, trainer, device, fbank_cuda, smi, spans=None) -> tuple:
     """``SimpleCutSampler(max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)`` over the
     cuts at ``cuts_path`` → ``K2SpeechRecognitionDataset`` with
     ``OnTheFlyFeatures`` on the card → ``DataLoader`` → an AdamW step per
     batch, one epoch; then a resume after batch 3 whose batches must be
     ``torch.equal`` to the first run's, under ``torch.profiler`` for the
-    device's busy share. Returns the launches of the epoch and the first
-    batch's kernel-vs-plain error."""
+    device's busy share. ``spans``, where given, receives the tracing report
+    of the first epoch and its batch count. Returns the launches of the epoch
+    and the first batch's kernel-vs-plain error."""
     from lhotse_tpu_torch.cut import CutSet
     from lhotse_tpu_torch.dataset import SimpleCutSampler
     from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
@@ -1830,6 +1843,8 @@ def _fly_with_resume(name, cuts_path, trainer, device, fbank_cuda, smi) -> tuple
     run = _train_epoch(loader, trainer, device, on_batch=keep)
     launches = fbank_cuda.LAUNCHES
     n = len(run["losses"])
+    if spans is not None:
+        spans.update(report=tracing_report(), batches=n)
     assemble_ms = tracing_report().get("dataset.assemble", {}).get("total_s", 0.0) * 1e3 / n
     items, kernel_out = recorder.first
     err = max(float(np.abs(a - b).max()) for a, b in zip(kernel_out, _plain_extract(fly, items)))
@@ -3650,6 +3665,410 @@ def _phase_lossy(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs, default=0.0)
 
 
+# -- 20. Kaldi data-dir interop, piped audio sources and the CLI ----------------------
+KALDI_SHAR_SHARD_SIZE = 40  # 160 utterances -> 4 shards
+KALDI_SPANS = ("sampler.next", "dataset.assemble", "collation.read_audio", "audio.decode",
+               "audio.pipe", "CutSet.compute_and_store_features_batch")
+
+
+def _span_line(report: dict, n: int, unit: str = "batch") -> str:
+    """Host ms per ``unit`` of each span that ran, and the pipe's share of
+    ``audio.decode`` (``audio.pipe`` runs inside it)."""
+    parts = [f"{name} {report[name]['total_s'] * 1e3 / n!r}" for name in KALDI_SPANS
+             if name in report]
+    decode = report.get("audio.decode", {}).get("total_s", 0.0)
+    pipe = report.get("audio.pipe", {}).get("total_s", 0.0)
+    pipes = report.get("audio.pipe", {}).get("calls", 0)
+    return (f"host ms per {unit} by span: {', '.join(parts)}; {pipes} pipe runs, the pipe's share "
+            f"of audio.decode {pipe / decode if decode else math.nan!r}")
+
+
+class _RecordFirstCall:
+    """Patches ``cls.extract_batch`` for the ``with`` block to keep the first
+    call's extractor, items and features: the CLI builds its extractor
+    itself."""
+
+    def __init__(self, cls):
+        self.cls, self.first = cls, None
+
+    def __enter__(self):
+        self.own = self.cls.__dict__.get("extract_batch")
+        inner = self.cls.extract_batch
+
+        def extract_batch(extractor, items, sampling_rate, **kw):
+            out = inner(extractor, items, sampling_rate, **kw)
+            if self.first is None:
+                self.first = (extractor, [np.asarray(x).copy() for x in items],
+                              [np.asarray(f).copy() for f in out])
+            return out
+
+        self.cls.extract_batch = extract_batch
+        return self
+
+    def __exit__(self, *exc):
+        if self.own is None:
+            del self.cls.extract_batch
+        else:
+            self.cls.extract_batch = self.own
+
+
+def _write_kaldi_dirs(workdir: Path, gzip_found: bool) -> tuple:
+    """Phase 14's corpora as two Kaldi data dirs. ``kaldi_utts``: the 160
+    LibriSpeech utterances, one recording each; even lines of ``wav.scp``
+    name int16 WAV copies of the FLAC files, odd lines pipe the FLAC file
+    through ``cat``, and, where gzip is found, the first line pipes a
+    gzipped WAV copy through ``gzip -dc``; with ``text``, ``utt2spk``,
+    ``spk2gender`` and ``reco2dur`` and no ``segments``. ``kaldi_sessions``:
+    the 8 sessions of 120 s piped through ``cat``, ``segments`` from their
+    turns (the RTTM file's), the last running to the end of its recording
+    (an end of -1), with ``text``, ``utt2spk`` and ``reco2dur``. Returns
+    the two directories and each recording's source file for the audio
+    checks."""
+    import gzip
+    import shutil
+
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.supervision import SupervisionSet
+
+    utts_dir, sess_dir, wavs = workdir / "kaldi_utts", workdir / "kaldi_sessions", workdir / "kaldi_wav"
+    for d in (utts_dir, sess_dir, wavs):
+        d.mkdir()
+    source_of = {}
+    scp, reco2dur, text, utt2spk, spk2gender = [], [], [], [], {}
+    cuts = sorted(CutSet.from_file(workdir / "recipe_cuts.jsonl.gz"), key=lambda c: c.recording_id)
+    for i, cut in enumerate(cuts):
+        rid, flac = cut.recording_id, cut.recording.sources[0].source
+        (sup,) = cut.supervisions
+        source_of[rid] = flac
+        if i % 2:
+            scp.append(f"{rid} cat {flac} |")
+        else:
+            wav = wavs / f"{rid}.wav"
+            write_wav(str(wav), cut.recording.load_audio(), SR)
+            if i == 0 and gzip_found:
+                with open(wav, "rb") as src, gzip.open(f"{wav}.gz", "wb") as dst:
+                    shutil.copyfileobj(src, dst)
+                scp.append(f"{rid} gzip -dc {wav}.gz |")
+            else:
+                scp.append(f"{rid} {wav}")
+        reco2dur.append(f"{rid} {cut.recording.duration}")
+        text.append(f"{rid} {sup.text}")
+        utt2spk.append(f"{rid} {sup.speaker}")
+        spk2gender[sup.speaker] = "mf"[int(sup.speaker) % 2]
+    files = {"wav.scp": scp, "reco2dur": reco2dur, "text": text, "utt2spk": utt2spk,
+             "spk2gender": [f"{s} {g}" for s, g in sorted(spk2gender.items())]}
+    for name, lines in files.items():
+        (utts_dir / name).write_text("\n".join(lines) + "\n")
+
+    recordings = sorted(RecordingSet.from_file(workdir / "long_recordings.jsonl.gz"),
+                        key=lambda r: r.id)
+    turns = sorted(SupervisionSet.from_file(workdir / "long_supervisions.jsonl.gz"),
+                   key=lambda s: s.id)
+    for r in recordings:
+        source_of[r.id] = r.sources[0].source
+    segments = [f"{s.id} {s.recording_id} {s.start:.2f} {s.end:.2f}" for s in turns]
+    segments[-1] = f"{turns[-1].id} {turns[-1].recording_id} {turns[-1].start:.2f} -1"
+    files = {"wav.scp": [f"{r.id} cat {r.sources[0].source} |" for r in recordings],
+             "reco2dur": [f"{r.id} {r.duration}" for r in recordings], "segments": segments,
+             "text": [f"{s.id} {s.text}" for s in turns],
+             "utt2spk": [f"{s.id} {s.speaker}" for s in turns]}
+    for name, lines in files.items():
+        (sess_dir / name).write_text("\n".join(lines) + "\n")
+    return utts_dir, sess_dir, source_of
+
+
+def _phase_kaldi(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """20. Kaldi data-dir interop, piped ``command`` audio sources and the
+    ``lhotse-tpu-torch`` CLI, on phase 14's corpora written as two Kaldi
+    data dirs (see ``_write_kaldi_dirs``), each batch into an AdamW step of
+    ``Encoder(EncoderConfig())``. First a line of whether click imports and
+    which of ``cat`` and ``gzip`` are found; the phase fails if click does
+    not import. Each step is the CLI command run in this process
+    (``cli.main([...], standalone_mode=False)``, so that the kernel's
+    launches count here), and ``validate-pair`` also runs as ``python3 -m
+    lhotse_tpu_torch.bin.lhotse_tpu_torch`` in a subprocess.
+    ``kaldi_import``: ``kaldi import`` of both
+    dirs, ``validate-pair``, ``fix``, ``cut simple`` and ``cut
+    trim-to-supervisions`` (sessions); the manifests equal the library
+    calls', and every recording's audio, piped or not, is
+    ``np.array_equal`` to its source file's. ``kaldi_extract``: ``feat
+    extract-cuts-batch`` (``Fbank()`` on the card, ``lilcom_chunky``) of the
+    trimmed sessions and the whole utterances, the first batch against the
+    kernel's plain version. ``kaldi_precomputed``: the stored features →
+    ``K2SpeechRecognitionDataset()`` → the step, no launch.
+    ``kaldi_on_the_fly`` and ``kaldi_on_the_fly_cached``: the utterances and
+    the trimmed sessions, unfeatured, → ``SimpleCutSampler(max_duration=180)``
+    → ``OnTheFlyFeatures`` on the card → the step, with a resume after
+    batch 3 that must be ``torch.equal``, with ``AudioCache`` off and on.
+    ``kaldi_shar``: ``shar export`` of the piped utterances, ``shar
+    compute-features`` (the kernel, one launch per cut, numpy), the features
+    within half an LTC1 tick of ``kaldi_extract``'s archive and the first
+    cuts' against the plain version, then the shards' features into the
+    step. ``kaldi_roundtrip``: ``kaldi export`` → ``kaldi import``, ids,
+    durations, texts and speakers equal, ``cat`` pipes still ``command``
+    sources. Returns the kernel's launches per path and the largest
+    kernel-vs-plain error."""
+    import shutil
+
+    from lhotse_tpu_torch.audio import Recording, RecordingSet
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.kaldi import load_kaldi_data_dir
+    from lhotse_tpu_torch.qa import fix_manifests
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import reset_tracing, set_tracing_enabled, tracing_report
+    from lhotse_tpu_torch.utils import fix_random_seed
+
+    try:
+        import click  # noqa: F401
+        click_error = None
+    except ImportError as e:
+        click_error = f"{type(e).__name__}: {e}"
+    found = {tool: shutil.which(tool) for tool in ("cat", "gzip")}
+    print(f"[{smi}] phase 20: import click works: {click_error is None}"
+          f"{'' if click_error is None else f' ({click_error})'}; shutil.which finds cat "
+          f"{found['cat']!r}, gzip {found['gzip']!r}")
+    if click_error is not None:
+        raise AssertionError("phase 20 runs the lhotse-tpu-torch CLI, and click, a dependency "
+                             "of the package (pyproject.toml), does not import")
+    if found["cat"] is None:
+        raise AssertionError("phase 20 writes its pipes with cat, which this machine lacks")
+    from lhotse_tpu_torch.bin.modes import cli
+
+    def run(*argv):
+        """The CLI command ``argv`` in this process."""
+        return cli.main([str(a) for a in argv], standalone_mode=False)
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    trainer = _Trainer(device)
+    launches, errs = {}, []
+    k = workdir / "kaldi"
+
+    # -- kaldi_import ----------------------------------------------------------------------
+    t_leg = time.perf_counter()
+    utts_dir, sess_dir, source_of = _write_kaldi_dirs(workdir, found["gzip"] is not None)
+    write_s = time.perf_counter() - t_leg
+    library = {}
+    for name, d in (("utts", utts_dir), ("sessions", sess_dir)):
+        recs, sups, feats = load_kaldi_data_dir(d, sampling_rate=SR)
+        library[name] = fix_manifests(recs, sups)
+        pair = (k / name / "recordings.jsonl.gz", k / name / "supervisions.jsonl.gz")
+        run("kaldi", "import", d, SR, k / name)
+        run("validate-pair", *pair)
+        run("fix", *pair, k / name / "fixed")
+        run("cut", "simple", "-r", k / name / "fixed" / "recordings.jsonl.gz", "-s",
+            k / name / "fixed" / "supervisions.jsonl.gz", k / name / "cuts.jsonl.gz")
+    # K2SpeechRecognitionDataset refuses the parts of overlapping turns that
+    # start before a trimmed cut: they are discarded, as in phase 14. Such
+    # cuts take uuid4 ids, so both sides are seeded.
+    run("-s", 0, "cut", "trim-to-supervisions", "--discard-overlapping",
+        k / "sessions" / "cuts.jsonl.gz", k / "sessions" / "trimmed.jsonl.gz")
+    proc = subprocess.run(
+        [sys.executable, "-m", "lhotse_tpu_torch.bin.lhotse_tpu_torch", "validate-pair",
+         k / "utts" / "recordings.jsonl.gz", k / "utts" / "supervisions.jsonl.gz"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0 or proc.stdout.strip():
+        raise AssertionError(f"kaldi_import: the console entry failed: {proc.stdout} {proc.stderr}")
+    equal = {}  # manifest: equal to the library calls'
+    for name, (recs, sups) in library.items():
+        fixed = k / name / "fixed"
+        equal[f"{name}.recordings"] = [r.to_dict() for r in recs] == [
+            r.to_dict() for r in RecordingSet.from_file(fixed / "recordings.jsonl.gz")]
+        equal[f"{name}.supervisions"] = [s.to_dict() for s in sups] == [
+            s.to_dict() for s in SupervisionSet.from_file(fixed / "supervisions.jsonl.gz")]
+    fix_random_seed(0)
+    lib_cuts = [c.to_dict() for c in CutSet.from_manifests(*library["sessions"]).trim_to_supervisions(
+        keep_overlapping=False)]
+    equal["sessions.trimmed"] = lib_cuts == [
+        c.to_dict() for c in CutSet.from_file(k / "sessions" / "trimmed.jsonl.gz")]
+    manifests_equal = all(equal.values())
+    reset_tracing()
+    t0 = time.perf_counter()
+    kinds, audio_equal, audio_s = {}, True, 0.0
+    for name, (recs, _) in library.items():
+        for rec in recs:
+            kind = rec.sources[0].source.split()[0] if rec.sources[0].type == "command" else "file"
+            kinds[kind] = kinds.get(kind, 0) + 1
+            audio = rec.load_audio()
+            audio_s += audio.shape[1] / SR
+            audio_equal &= np.array_equal(audio, Recording.from_file(source_of[rec.id]).load_audio())
+    read_s = time.perf_counter() - t0
+    report = tracing_report()
+    trimmed_n = sum(1 for _ in CutSet.from_file(k / "sessions" / "trimmed.jsonl.gz"))
+    print(f"[{smi}] kaldi_import: Kaldi dirs written in {write_s!r} s; CLI "
+          f"kaldi import, validate-pair, fix, cut simple and trim-to-supervisions: "
+          f"{len(library['utts'][0])} utterance recordings, {len(library['sessions'][0])} sessions, "
+          f"{trimmed_n} trimmed cuts; manifests equal to the library calls': {equal}; "
+          f"python3 -m lhotse_tpu_torch.bin.lhotse_tpu_torch validate-pair: exit 0, no complaint; sources by kind "
+          f"{kinds}; every recording's audio np.array_equal to its source file's: {audio_equal} "
+          f"({audio_s!r} audio-s read in {read_s!r} s: {audio_s / read_s!r} audio-s/s; audio.decode "
+          f"{report.get('audio.decode', {}).get('total_s', 0.0)!r} s, of it audio.pipe "
+          f"{report.get('audio.pipe', {}).get('total_s', 0.0)!r} s in "
+          f"{report.get('audio.pipe', {}).get('calls', 0)} runs); leg took "
+          f"{time.perf_counter() - t_leg!r} s")
+    want = {"cat": 80 + len(library["sessions"][0]), "file": 80 - (found["gzip"] is not None)}
+    if found["gzip"] is not None:
+        want["gzip"] = 1
+    if not manifests_equal or not audio_equal or kinds != want:
+        raise AssertionError(f"kaldi_import: manifests or audio are off: {kinds}")
+    if trimmed_n != LONG_SESSIONS * LONG_SEGMENTS:
+        raise AssertionError(f"kaldi_import: {trimmed_n} trimmed cuts")
+
+    # -- kaldi_extract -----------------------------------------------------------------------
+    t_leg = time.perf_counter()
+    sources = {"sessions": k / "sessions" / "trimmed.jsonl.gz", "utts": k / "utts" / "cuts.jsonl.gz"}
+    extract_s = sum(c.duration for p in sources.values() for c in CutSet.from_file(p))
+
+    def extract_all():
+        for name, path in sources.items():
+            out = (k / name / "feats_cuts.jsonl.gz", k / name / "feats")
+            run("feat", "extract-cuts-batch", "-j", 4, "-b", 600, path, *out)
+
+    reset_tracing()
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    with _RecordFirstCall(Fbank) as recorder:
+        wall_ms, busy_ms, _ = _device_busy(extract_all)
+    launches["kaldi_extract"] = fbank_cuda.LAUNCHES
+    report = tracing_report()
+    extractor, items, kernel_out = recorder.first
+    extract_err = max(float(np.abs(a - b).max())
+                      for a, b in zip(kernel_out, _plain_extract(extractor, items)))
+    errs.append(extract_err)
+    stored = {c.id: c for name in sources for c in CutSet.from_file(k / name / "feats_cuts.jsonl.gz")}
+    n_batches = launches["kaldi_extract"]
+    print(f"[{smi}] kaldi_extract: feat extract-cuts-batch of {trimmed_n} trimmed session cuts and "
+          f"{len(library['utts'][0])} utterances, {extract_s!r} audio-s in {wall_ms!r} ms under "
+          f"torch.profiler: {extract_s / wall_ms * 1e3!r} audio-s/s; fbank kernel launches "
+          f"{launches['kaldi_extract']} ({extractor.config.device} extractor built by the command); "
+          f"device busy {busy_ms / wall_ms!r} of the wall; {_span_line(report, n_batches)}; first "
+          f"batch kernel vs plain {extract_err!r} (tol {KERNEL_TOL}); leg took "
+          f"{time.perf_counter() - t_leg!r} s")
+    if not launches["kaldi_extract"] > 0 or not extract_err <= KERNEL_TOL:
+        raise AssertionError("kaldi_extract: no launch, or the kernel disagrees")
+    if len(stored) != trimmed_n + len(library["utts"][0]) or not all(c.has_features for c in stored.values()):
+        raise AssertionError(f"kaldi_extract: {len(stored)} featured cuts")
+
+    # -- kaldi_precomputed -----------------------------------------------------------------
+    t_leg = time.perf_counter()
+    featured = CutSet.from_cuts(stored.values())
+    loader = DataLoader(SimpleCutSampler(featured, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0),
+                        K2SpeechRecognitionDataset(return_cuts=True), prefetch_batches=3)
+    reset_tracing()
+    fbank_cuda.LAUNCHES = 0
+    runs = {}
+    wall_ms, busy_ms, _ = _device_busy(lambda: runs.update(run=_train_epoch(loader, trainer, device)))
+    launches["kaldi_precomputed"] = fbank_cuda.LAUNCHES
+    pre = runs["run"]
+    n = len(pre["losses"])
+    print(f"[{smi}] kaldi_precomputed: {len(stored)} cuts of stored features, {n} batches, "
+          f"{pre['audio_s']!r} audio-s in {pre['elapsed_s']!r} s: {pre['audio_s'] / pre['elapsed_s']!r} "
+          f"audio-s/s; fbank kernel launches {launches['kaldi_precomputed']}; device busy "
+          f"{busy_ms / wall_ms!r} of the wall; {_span_line(tracing_report(), n)}; losses "
+          f"{pre['losses'][0]!r} -> {pre['losses'][-1]!r}; leg took {time.perf_counter() - t_leg!r} s")
+    if sorted(pre["ids"]) != sorted(stored) or not all(map(math.isfinite, pre["losses"])):
+        raise AssertionError("kaldi_precomputed: coverage or the loss is off")
+    if launches["kaldi_precomputed"] != 0:
+        raise AssertionError("kaldi_precomputed: stored features launched the kernel")
+
+    # -- kaldi_on_the_fly, with AudioCache off and on ------------------------------------------
+    fly_path = k / "fly_cuts.jsonl.gz"
+    CutSet.from_cuts(list(CutSet.from_file(sources["utts"])) + list(
+        CutSet.from_file(sources["sessions"]))).to_file(fly_path)
+    for name, caching in (("kaldi_on_the_fly", False), ("kaldi_on_the_fly_cached", True)):
+        t_leg = time.perf_counter()
+        set_caching_enabled(caching)
+        spans = {}
+        launches[name], fly_err = _fly_with_resume(
+            name, fly_path, trainer, device, fbank_cuda, smi, spans=spans)
+        set_caching_enabled(False)
+        errs.append(fly_err)
+        print(f"[{smi}] {name} (AudioCache {'on' if caching else 'off'}): first epoch "
+              f"{_span_line(spans['report'], spans['batches'])}; leg took "
+              f"{time.perf_counter() - t_leg!r} s")
+
+    # -- kaldi_shar ----------------------------------------------------------------------------
+    t_leg = time.perf_counter()
+    shar_dir = k / "shar"
+
+    run("shar", "export", "-a", "flac", "-s", KALDI_SHAR_SHARD_SIZE, sources["utts"], shar_dir)
+    reset_tracing()
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(lambda: run("shar", "compute-features", shar_dir))
+    launches["kaldi_shar"] = fbank_cuda.LAUNCHES
+    report = tracing_report()
+    shards = sorted(shar_dir.glob("cuts.*.jsonl.gz"))
+    fields = {"cuts": shards, "recording": [p.with_name(p.name.replace("cuts", "recording").replace(
+        ".jsonl.gz", ".tar")) for p in shards],
+        "features": [p.with_name(p.name.replace("cuts", "features").replace(".jsonl.gz", ".tar"))
+                     for p in shards]}
+    shar_cuts = list(CutSet.from_shar(fields=fields))
+    shar_feats = {c.id: c.load_features() for c in shar_cuts}
+    archive_err = max(float(np.abs(shar_feats[c.id] - stored[c.id].load_features()).max())
+                      for c in shar_cuts)
+    fly = Fbank(FbankConfig(device=device))
+    head = shar_cuts[:8]
+    shar_err = max(float(np.abs(shar_feats[c.id] - p).max())
+                   for c, p in zip(head, _plain_extract(fly, [c.load_audio()[0] for c in head])))
+    errs.append(shar_err)
+    audio_equal = all(np.array_equal(c.load_audio(), Recording.from_file(
+        source_of[c.recording_id]).load_audio()) for c in head)
+    shar_epoch = _train_epoch(DataLoader(
+        SimpleCutSampler(CutSet.from_cuts(shar_cuts), max_duration=FLY_MAX_DURATION),
+        K2SpeechRecognitionDataset(return_cuts=True), prefetch_batches=3), trainer, device)
+    shar_s = sum(c.duration for c in shar_cuts)
+    print(f"[{smi}] kaldi_shar: shar export -a flac of the {len(shar_cuts)} utterances into "
+          f"{len(shards)} shards, shar compute-features: {shar_s!r} audio-s in {wall_ms!r} ms under "
+          f"torch.profiler: {shar_s / wall_ms * 1e3!r} audio-s/s; fbank kernel launches "
+          f"{launches['kaldi_shar']} (one per cut); device busy {busy_ms / wall_ms!r} of the wall; "
+          f"{_span_line(report, len(shar_cuts), 'cut')}; "
+          f"features vs kaldi_extract's archive max_abs {archive_err!r} (tol "
+          f"{LTC1_TICK / 2 + KERNEL_TOL!r}); first {len(head)} cuts kernel vs plain {shar_err!r} "
+          f"(tol {KERNEL_TOL}), audio equal to the sources: {audio_equal}; the shards' features "
+          f"through {len(shar_epoch['losses'])} AdamW steps, losses finite: "
+          f"{all(map(math.isfinite, shar_epoch['losses']))}; leg took {time.perf_counter() - t_leg!r} s")
+    if launches["kaldi_shar"] != len(shar_cuts) or len(shar_cuts) != len(library["utts"][0]):
+        raise AssertionError(f"kaldi_shar: {len(shar_cuts)} cuts, {launches['kaldi_shar']} launches")
+    if not archive_err <= LTC1_TICK / 2 + KERNEL_TOL or not shar_err <= KERNEL_TOL or not audio_equal:
+        raise AssertionError("kaldi_shar: the features or the audio are off")
+    if sorted(shar_epoch["ids"]) != sorted(shar_feats) or not all(map(math.isfinite, shar_epoch["losses"])):
+        raise AssertionError("kaldi_shar: the shards' epoch is off")
+
+    # -- kaldi_roundtrip ---------------------------------------------------------------------
+    t_leg = time.perf_counter()
+    same, commands = True, {}  # name: (command sources before, command sources after)
+    for name, (recs, sups) in library.items():
+        fixed, out, back = k / name / "fixed", k / name / "exported", k / name / "reimported"
+        run("kaldi", "export", fixed / "recordings.jsonl.gz", fixed / "supervisions.jsonl.gz", out)
+        run("kaldi", "import", out, SR, back)
+        recs2 = {r.id: r for r in RecordingSet.from_file(back / "recordings.jsonl.gz")}
+        sups2 = {s.id: s for s in SupervisionSet.from_file(back / "supervisions.jsonl.gz")}
+        same &= sorted(recs2) == sorted(r.id for r in recs)
+        same &= all(recs2[r.id].duration == r.duration for r in recs)
+        same &= sorted(sups2) == sorted(s.id for s in sups)
+        same &= all((sups2[s.id].text, sups2[s.id].speaker, sups2[s.id].recording_id)
+                    == (s.text, s.speaker, s.recording_id)
+                    and abs(sups2[s.id].duration - s.duration) <= 1e-6 for s in sups)
+        piped_ids = [r.id for r in recs if r.sources[0].type == "command"]
+        commands[name] = (len(piped_ids), sum(recs2[i].sources[0].type == "command" for i in piped_ids))
+        piped = next(r for r in recs2.values() if r.sources[0].type == "command")
+        same &= np.array_equal(piped.load_audio(), Recording.from_file(source_of[piped.id]).load_audio())
+    print(f"[{smi}] kaldi_roundtrip: kaldi export then kaldi import of both dirs: ids, durations, "
+          f"texts and speakers equal: {same}; pipes still command sources {commands}; leg took "
+          f"{time.perf_counter() - t_leg!r} s")
+    want = {"utts": (80 + (found["gzip"] is not None),) * 2, "sessions": (LONG_SESSIONS,) * 2}
+    if not same or commands != want:
+        raise AssertionError(f"kaldi_roundtrip: the round trip is off: {commands}")
+    set_tracing_enabled(False)
+    return launches, max(errs)
 
 
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
@@ -4045,6 +4464,11 @@ def main() -> None:
         launches_lossy, lossy_err = _phase_lossy(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_lossy)
         print(f"phase 19 took {time.perf_counter() - t0!r} s")
+        # -- 20. Kaldi data dirs with piped audio through the CLI, on the same corpora
+        t0 = time.perf_counter()
+        launches_kaldi, kaldi_err = _phase_kaldi(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_kaldi)
+        print(f"phase 20 took {time.perf_counter() - t0!r} s")
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
     # signal-effects and multi-source, multi-talker training path on the same corpus
@@ -4059,7 +4483,8 @@ def main() -> None:
         print(f"phase 17 took {time.perf_counter() - t0!r} s")
     print(f"fbank kernel launches by path: {by_path}")
     reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed",
-                    "ami_diarization", "separation_premixed", "separation_dynamic")
+                    "ami_diarization", "separation_premixed", "separation_dynamic",
+                    "kaldi_precomputed")
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
@@ -4071,7 +4496,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
-                              ms_err, paired_err, lossy_err]),
+                              ms_err, paired_err, lossy_err, kaldi_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

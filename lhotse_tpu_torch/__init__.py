@@ -17,10 +17,15 @@ host ``DereverbWPE`` transform and the AMI recipe, and the extractors under
 the reference's names: ``fbank``, ``mfcc``, ``spectrogram``, the kaldifeat,
 Whisper and librosa fbanks, and the paired and remaining task datasets:
 ``CutPairsSampler``, speech translation, source separation, TTS with
-``TokenCollater``, audio tagging and the unsupervised datasets) is
-copied function by function from the JAX package's modules of the same
+``TokenCollater``, audio tagging and the unsupervised datasets, and Kaldi
+data dirs with piped ``command`` audio sources) is copied function by
+function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.
+
+The command line, ``lhotse-tpu-torch`` (``python -m
+lhotse_tpu_torch.bin.lhotse_tpu_torch``), mirrors the JAX package's over
+the ported paths; it alone needs click.
 
 The one hand-written kernel is the fused log-mel fbank
 (:mod:`lhotse_tpu_torch.ops.fbank_cuda`, CUDA C++ in ``csrc/fbank.cu``),

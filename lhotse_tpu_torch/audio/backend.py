@@ -668,6 +668,11 @@ class CompositeAudioBackend(AudioBackend):
             "ogg and opus where the system codec libraries load)")
 
 
+def available_audio_backends() -> List[str]:
+    """List the names of all available audio backends."""
+    return sorted(name for name, b in AudioBackend.KNOWN_BACKENDS.items() if b.is_available())
+
+
 def set_current_audio_backend(backend: Union[str, AudioBackend]) -> AudioBackend:
     """Force a specific audio backend for all read/info/save operations."""
     global CURRENT_AUDIO_BACKEND

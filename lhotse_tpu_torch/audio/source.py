@@ -1,23 +1,31 @@
 """
 AudioSource: where a recording's bytes are (copied from
-``lhotse_tpu/audio/source.py``), for the ``file``, ``memory`` and
-``shar_ptr`` (a byte range in a Shar tar shard, read with
+``lhotse_tpu/audio/source.py``), for the ``file``, ``command`` (a shell
+pipe whose standard output is the encoded audio, as a Kaldi ``wav.scp``
+line ending in ``|`` gives), ``memory`` and ``shar_ptr`` (a byte range in a
+Shar tar shard, read with
 :func:`lhotse_tpu_torch.shar.lazy_pointer.read_payload`) source types. A
-``shar`` placeholder that was never filled raises ``RuntimeError``;
-``command`` and ``url`` sources, and video, raise ``NotImplementedError``.
+``command`` source runs its pipe on every read unless
+:class:`~lhotse_tpu_torch.caching.AudioCache` is on, and raises with the
+pipe's stderr when the pipe exits non-zero. A ``shar`` placeholder that was
+never filled raises ``RuntimeError``; ``url`` sources, and video, raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass
 from io import BytesIO, FileIO
 from pathlib import Path
+from subprocess import PIPE, run
 from typing import List, Optional, Union
 
 import numpy as np
 
 from lhotse_tpu_torch.audio.backend import read_audio
 from lhotse_tpu_torch.audio.utils import DurationMismatchError, VideoInfo, get_audio_duration_mismatch_tolerance
+from lhotse_tpu_torch.caching import AudioCache
 from lhotse_tpu_torch.utils import Pathlike, Seconds, asdict_nonull, fastcopy, not_ported
 
 PathOrFilelike = Union[str, BytesIO, FileIO]
@@ -108,8 +116,21 @@ class AudioSource:
 
         source = self.source
 
-        if self.type in ("command", "url"):
-            raise not_ported(f"Reading {self.type!r} audio sources")
+        if self.type == "command":
+            if (offset != 0.0 or duration is not None) and not AudioCache.enabled():
+                warnings.warn(
+                    "You requested a subset of a recording that is read via a bash command. "
+                    "Expect large I/O overhead for many such reads; "
+                    "lhotse_tpu_torch.caching.set_caching_enabled(True) mitigates the overhead."
+                )
+            audio_bytes = AudioCache.try_cache(self.source)
+            if not audio_bytes:
+                audio_bytes = _run_pipe(self.source)
+                AudioCache.add_to_cache(self.source, audio_bytes)
+            source = BytesIO(audio_bytes)
+
+        elif self.type == "url":
+            raise not_ported("Reading 'url' audio sources")
 
         elif self.type == "memory":
             assert isinstance(self.source, bytes), (
@@ -156,3 +177,19 @@ class AudioSource:
             return "unknown"
         else:
             raise NotImplementedError(f"Getting format not implemented for source type {self.type}")
+
+
+def _run_pipe(command: str) -> bytes:
+    """The standard output of a shell pipe, timed as the ``audio.pipe`` span
+    (inside the caller's ``audio.decode``). A non-zero exit raises with the
+    pipe's stderr."""
+    from lhotse_tpu_torch.tracing import trace_span
+
+    with trace_span("audio.pipe"):
+        proc = run(command, shell=True, stdout=PIPE, stderr=PIPE)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"The audio pipe '{command}' exited with code {proc.returncode}: "
+            f"{proc.stderr.decode(errors='replace').strip()}"
+        )
+    return proc.stdout

@@ -434,6 +434,22 @@ class MixedCut(Cut):
             suffix=f"_cl{gain_db}", affix_id=affix_id, warn_features="clipping",
             require_recording="apply clipping")
 
+    def narrowband(
+        self, codec: str, restore_orig_sr: bool = True, affix_id: bool = True) -> "MixedCut":
+        """Telephone-codec bandwidth reduction of every track (the JAX
+        package's MixedCut has no ``narrowband``)."""
+        return self._rebuild_tracks(
+            lambda c: c.narrowband(codec=codec, restore_orig_sr=restore_orig_sr, affix_id=affix_id),
+            suffix=f"_nb_{codec}", affix_id=affix_id, warn_features="narrowband",
+            require_recording="apply narrowband")
+
+    def dereverb_wpe(self, affix_id: bool = True) -> "MixedCut":
+        """WPE dereverberation of every track (the JAX package's MixedCut has
+        no ``dereverb_wpe``)."""
+        return self._rebuild_tracks(
+            lambda c: c.dereverb_wpe(affix_id=affix_id), suffix="_wpe", affix_id=affix_id,
+            warn_features="WPE dereverberation", require_recording="apply WPE")
+
     def normalize_loudness(
         self, target: float, mix_first: bool = True, affix_id: bool = False) -> Cut:
         """Loudness normalization applied to the mix or per source track."""

@@ -179,6 +179,17 @@ class PaddingCut(Cut):
         raises ``AttributeError`` there."""
         return fastcopy(self, id=f"{self.id}_cl{gain_db}" if affix_id else self.id)
 
+    def narrowband(
+        self, codec: str, restore_orig_sr: bool = True, affix_id: bool = True) -> "PaddingCut":
+        """A codec has no effect on silence — only the ID changes. The JAX
+        package's PaddingCut has no ``narrowband``."""
+        return fastcopy(self, id=f"{self.id}_nb_{codec}" if affix_id else self.id)
+
+    def dereverb_wpe(self, affix_id: bool = True) -> "PaddingCut":
+        """Dereverberation has no effect on silence — only the ID changes.
+        The JAX package's PaddingCut has no ``dereverb_wpe``."""
+        return fastcopy(self, id=f"{self.id}_wpe" if affix_id else self.id)
+
     def drop_features(self) -> "PaddingCut":
         assert self.has_recording, (
             f"Cannot detach features from a PaddingCut with no Recording (cut ID = {self.id})."

@@ -38,7 +38,7 @@ import numpy as np
 from lhotse_tpu_torch.audio.recording import Recording
 from lhotse_tpu_torch.features.io import FeaturesReader, FeaturesWriter, get_reader, is_in_memory
 from lhotse_tpu_torch.lazy import AlgorithmMixin
-from lhotse_tpu_torch.serialization import LazyMixin, Serializable
+from lhotse_tpu_torch.serialization import LazyMixin, Serializable, load_yaml, save_to_yaml
 from lhotse_tpu_torch.utils import (
     Pathlike, Seconds, asdict_nonull, compute_num_frames, compute_num_frames_from_samples,
     exactly_one_not_null, fastcopy, ifnone, split_sequence, to_list, uuid4)
@@ -196,6 +196,14 @@ class FeatureExtractor(metaclass=ABCMeta):
         d = self.config.to_dict()
         d["feature_type"] = self.name
         return d
+
+    @classmethod
+    def from_yaml(cls, path: Pathlike) -> "FeatureExtractor":
+        return cls.from_dict(load_yaml(path))
+
+    def to_yaml(self, path: Pathlike):
+        data = self.to_dict()
+        save_to_yaml(data, path=path)
 
 
 def _undefined_op(name: str, capability: str):

@@ -5,7 +5,8 @@ recordings, supervisions, features, arrays, cuts and their Sets, the pairwise
 ``validate_recordings_and_supervisions``, and ``fix_manifests`` (drop
 recordings and supervisions without a counterpart, drop supervisions that
 start past their recording's end and trim those that run past it).
-``validate_shar`` is not ported.
+``validate_shar`` checks a Shar directory's shard counts, cut/tar id
+alignment and index sidecars.
 """
 from __future__ import annotations
 
@@ -432,3 +433,102 @@ def validate_cut_set(cuts, read_data: bool = False) -> None:
     """Validate every cut in ``cuts`` (parity: reference ``qa.py:507``)."""
     for c in cuts:
         validate_cut(c, read_data=read_data)
+
+
+def validate_shar(in_dir, read_data: bool = False) -> None:
+    """
+    Integrity check of a Shar directory (a capability beyond the reference):
+
+    - every data field has exactly as many shards as the cuts manifest;
+    - per shard, each field tar holds one (data, meta) member pair per cut,
+      with member ids aligned to the cut ids in order;
+    - ``.idx`` sidecars (when present) have strictly increasing offsets and
+      a sentinel equal to the file size;
+    - with ``read_data=True``, every cut's declared fields load.
+
+    Raises AssertionError on the first violation.
+    """
+    import tarfile
+    from pathlib import Path
+
+    from lhotse_tpu_torch.serialization import extension_contains, load_jsonl, open_best
+    from lhotse_tpu_torch.shar.readers.lazy import _discover_fields
+
+    in_dir = Path(in_dir)
+    _, streams = _discover_fields(in_dir)
+    data_fields = sorted(set(streams) - {"cuts"})
+    num_shards = len(streams["cuts"])
+    for field in data_fields:
+        assert len(streams[field]) == num_shards, (
+            f"Shar field '{field}' has {len(streams[field])} shards, but the "
+            f"cuts manifest has {num_shards}."
+        )
+
+    def _index_ok(data_path: Path) -> None:
+        from lhotse_tpu_torch.indexing import index_file_path, read_index
+
+        idx = index_file_path(data_path)
+        if not idx.is_file():
+            return
+        offsets = read_index(idx)
+        assert (np.diff(offsets.astype(np.int64)) > 0).all(), (
+            f"Index offsets not strictly increasing: {idx}"
+        )
+        size = data_path.stat().st_size
+        if data_path.suffix == ".tar":
+            # Tar archives carry trailing zero-block padding past the last
+            # member: the sentinel marks the end of data, not of the file.
+            assert int(offsets[-1]) <= size, (
+                f"Index sentinel {int(offsets[-1])} exceeds file size {size}: {idx}"
+            )
+        else:
+            assert int(offsets[-1]) == size, (
+                f"Index sentinel {int(offsets[-1])} != file size {size}: {idx}"
+            )
+
+    for shard in range(num_shards):
+        cuts_path = Path(streams["cuts"][shard])
+        cut_ids = [d["id"] for d in load_jsonl(cuts_path)]
+        if not extension_contains(".gz", cuts_path):
+            _index_ok(cuts_path)
+        for field in data_fields:
+            tar_path = Path(streams[field][shard])
+            with open_best(tar_path, "rb") as f:
+                with tarfile.open(fileobj=f, mode="r|") as tf:
+                    member_ids = [
+                        m.name.rsplit(".", 1)[0]
+                        for k, m in enumerate(tf)
+                        if k % 2 == 0  # data member of each (data, meta) pair
+                    ]
+            assert len(member_ids) == len(cut_ids), (
+                f"Shard {shard} field '{field}': {len(member_ids)} tar samples "
+                f"vs {len(cut_ids)} cuts."
+            )
+            for pos, (mid, cid) in enumerate(zip(member_ids, cut_ids)):
+                assert mid == cid, (
+                    f"Shard {shard} field '{field}' position {pos}: tar member "
+                    f"'{mid}' does not match cut id '{cid}'."
+                )
+            _index_ok(tar_path)
+
+    if read_data:
+        from lhotse_tpu_torch.cut import CutSet
+
+        for cut in CutSet.from_shar(in_dir=in_dir):
+            for field in data_fields:
+                if field == "recording":
+                    loader = cut.load_audio if cut.has_recording else None
+                elif field == "features":
+                    loader = cut.load_features if cut.has_features else None
+                elif cut.has_custom(field):
+                    loader = getattr(cut, f"load_{field}")
+                else:
+                    loader = None
+                assert loader is not None, (
+                    f"Cut '{cut.id}' is missing the '{field}' field its shar "
+                    f"directory declares."
+                )
+                arr = loader()
+                assert arr is not None, (
+                    f"Cut '{cut.id}' field '{field}' failed to load."
+                )

@@ -134,6 +134,11 @@ class CompositeIOBackend(IOBackend):
 CURRENT_IO_BACKEND: Optional[IOBackend] = None
 
 
+def available_io_backends() -> List[str]:
+    """List the names of all available IO backends."""
+    return sorted(name for name, b in IOBackend.KNOWN_BACKENDS.items() if b.is_available())
+
+
 def get_current_io_backend() -> IOBackend:
     if CURRENT_IO_BACKEND is not None:
         return CURRENT_IO_BACKEND

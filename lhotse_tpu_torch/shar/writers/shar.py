@@ -154,9 +154,13 @@ class SharWriter:
             # The cut may reference a channel subset of the recording.
             placeholder.sources[0].channels = span_channels
             placeholder.channel_ids = span_channels
-        self.writers["recording"].write(
+        # The source's format matters only to the 'original' format, and a
+        # 'command' source has none to tell (the JAX package asks it anyway,
+        # so it cannot export piped cuts).
+        writer = self.writers["recording"]
+        writer.write(
             cut.id, data, cut.sampling_rate, manifest=placeholder,
-            original_format=cut.recording.source_format)
+            original_format=cut.recording.source_format if writer.format == "original" else None)
         return fastcopy(cut, recording=placeholder)
 
     def _store_features(self, cut: Cut) -> Cut:

@@ -7,7 +7,8 @@ one boolean check; turn it on with :func:`set_tracing_enabled`.
 
 Spans the ported path records: ``sampler.next`` and ``dataset.assemble``
 (the loader), ``collation.read_audio`` and ``audio.decode`` (decode and
-collate).
+collate), and inside ``audio.decode`` the shell pipe of a ``command`` audio
+source, ``audio.pipe``.
 """
 from __future__ import annotations
 

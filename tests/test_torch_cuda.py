@@ -4,7 +4,8 @@ the layers, augmenter, adpcm4 decode, sample cache, extractors (and their
 features through a chunky archive, and an 8-channel 300 s session),
 ``OnTheFlyFeatures``, encoder, entry, WPE, and the SURT and diarization
 datasets over the zipped samplers and stored features on the card against
-the same port on the CPU.
+the same port on the CPU; and a piped Kaldi data dir through the CLI's
+``feat extract-cuts-batch`` against the kernel's plain version.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -854,3 +855,43 @@ def test_mp3_cut_on_the_fly_features_on_card(cuda, tmp_path):
     cpu_feats, cpu_lens = OnTheFlyFeatures(extractors.Fbank(extractors.FbankConfig(device="cpu")))(cuts)
     assert np.array_equal(lens, cpu_lens)
     assert np.abs(feats - cpu_feats).max() <= FEATURE_TOL
+
+
+def test_piped_kaldi_dir_extract_cuts_batch_on_card(cuda, tmp_path):
+    """A Kaldi data dir whose ``wav.scp`` pipes FLAC through ``cat`` →
+    ``kaldi import`` → ``cut simple`` → ``feat extract-cuts-batch`` (no
+    config: ``Fbank()`` on the card) into ``numpy_files``: one launch per
+    batch, and the stored features against the kernel's plain version on
+    the piped audio."""
+    click = pytest.importorskip("click", reason="the CLI needs click")  # noqa: F841
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.bin.modes import cli
+    from lhotse_tpu_torch.cut import CutSet
+
+    kdir = tmp_path / "kdir"
+    kdir.mkdir()
+    scp, dur, spk = [], [], []
+    for i, seconds in enumerate((1.3, 2.6, 0.7)):
+        n = int(16000 * seconds)
+        write_flac(str(tmp_path / f"u{i}.flac"), _audio(n, seed=i), 16000)
+        scp.append(f"u{i} cat {tmp_path / f'u{i}.flac'} |")
+        dur.append(f"u{i} {n / 16000}")
+        spk.append(f"u{i} s{i}")
+    for name, lines in (("wav.scp", scp), ("reco2dur", dur), ("utt2spk", spk)):
+        (kdir / name).write_text("\n".join(lines) + "\n")
+    m = tmp_path / "m"
+    fbank_cuda.LAUNCHES = 0
+    for argv in (["kaldi", "import", kdir, 16000, m],
+                 ["cut", "simple", "-r", m / "recordings.jsonl.gz", "-s",
+                  m / "supervisions.jsonl.gz", tmp_path / "cuts.jsonl.gz"],
+                 ["feat", "extract-cuts-batch", "-j", 1, "--storage-type", "numpy_files",
+                  tmp_path / "cuts.jsonl.gz", tmp_path / "feats.jsonl.gz", tmp_path / "storage"]):
+        cli.main([str(a) for a in argv], standalone_mode=False)
+    assert fbank_cuda.LAUNCHES == 1
+    cuts = list(CutSet.from_file(tmp_path / "feats.jsonl.gz"))
+    assert all(c.recording.sources[0].type == "command" for c in cuts)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    audio = [c.load_audio()[0] for c in cuts]
+    for cut, p in zip(cuts, _plain(extractor, audio)):
+        f = cut.load_features()
+        assert f.shape == p.shape and np.abs(f - p).max() <= LOGMEL_TOL

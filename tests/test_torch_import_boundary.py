@@ -93,7 +93,9 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.dataset.source_separation, lhotse_tpu_torch.dataset.speech_synthesis, "
         "lhotse_tpu_torch.dataset.audio_tagging, lhotse_tpu_torch.dataset.unsupervised, "
         "lhotse_tpu_torch.audio.syscodecs, lhotse_tpu_torch.augmentation.compress, "
-        "lhotse_tpu_torch.dataset.cut_transforms.compress, lhotse_tpu_torch.recipes.commonvoice; "
+        "lhotse_tpu_torch.dataset.cut_transforms.compress, lhotse_tpu_torch.recipes.commonvoice, "
+        "lhotse_tpu_torch.kaldi, lhotse_tpu_torch.audio.resampling_backend, lhotse_tpu_torch.bin, "
+        "lhotse_tpu_torch.bin.modes, lhotse_tpu_torch.bin.lhotse_tpu_torch; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -662,5 +664,112 @@ def test_lossy_codec_path_runs_without_jax(tmp_path):
     jax or lhotse_tpu fails."""
     proc = subprocess.run(
         [sys.executable, "-c", LOSSY_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+KALDI_WITHOUT_CLICK = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+sys.modules["click"] = None
+from pathlib import Path
+
+import numpy as np
+
+import lhotse_tpu_torch.audio.source
+from lhotse_tpu_torch.audio import Recording
+from lhotse_tpu_torch.audio.flacio import write_flac
+from lhotse_tpu_torch.kaldi import export_to_kaldi, load_kaldi_data_dir
+
+root = Path(sys.argv[1])
+write_flac(str(root / "a.flac"), (0.1 * np.random.default_rng(0).standard_normal(8000)).astype(np.float32), 16000)
+kdir = root / "kdir"
+kdir.mkdir()
+(kdir / "wav.scp").write_text(f"a cat {root / 'a.flac'} |\\n")
+(kdir / "reco2dur").write_text("a 0.5\\n")
+(kdir / "utt2spk").write_text("a spk\\n")
+recs, sups, _ = load_kaldi_data_dir(kdir, sampling_rate=16000)
+assert np.array_equal(recs["a"].load_audio(), Recording.from_file(root / "a.flac").load_audio())
+export_to_kaldi(recs, sups, root / "out")
+assert (root / "out" / "wav.scp").read_text().endswith(" |\\n")
+try:
+    import lhotse_tpu_torch.bin.modes
+except ImportError:
+    pass
+else:
+    raise AssertionError("the CLI imported without click")
+assert not any(m.startswith(("jax.", "lhotse_tpu.", "click.")) for m in sys.modules)
+"""
+
+
+def test_kaldi_path_runs_without_click(tmp_path):
+    """``lhotse_tpu_torch.kaldi`` and ``audio.source`` import, and a piped
+    Kaldi data dir is read and written, in a process where importing click,
+    jax or lhotse_tpu fails; only the CLI needs click."""
+    proc = subprocess.run(
+        [sys.executable, "-c", KALDI_WITHOUT_CLICK, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+KALDI_CLI_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio.wavio import write_wav
+from lhotse_tpu_torch.bin.modes import cli
+from lhotse_tpu_torch.cut import CutSet
+
+root = Path(sys.argv[1])
+rng = np.random.default_rng(0)
+kdir = root / "kdir"
+kdir.mkdir()
+scp, dur = [], []
+for i in range(3):
+    write_wav(str(root / f"u{i}.wav"), (0.1 * rng.standard_normal(16000)).astype(np.float32), 16000)
+    scp.append(f"u{i} cat {root / f'u{i}.wav'} |")
+    dur.append(f"u{i} 1.0")
+(kdir / "wav.scp").write_text("\\n".join(scp) + "\\n")
+(kdir / "reco2dur").write_text("\\n".join(dur) + "\\n")
+(kdir / "segments").write_text("u0-a u0 0.1 0.6\\nu1-a u1 0.0 -1\\nu2-a u2 0.2 0.9\\n")
+(kdir / "utt2spk").write_text("u0-a s0\\nu1-a s1\\nu2-a s0\\n")
+(kdir / "text").write_text("u0-a one\\nu1-a two\\nu2-a three\\n")
+(root / "cpu.yaml").write_text("feature_type: kaldi-fbank\\ndevice: cpu\\n")
+m, out = str(root / "m"), str(root / "o")
+(root / "o").mkdir()
+for argv in (["kaldi", "import", str(kdir), "16000", m],
+             ["fix", m + "/recordings.jsonl.gz", m + "/supervisions.jsonl.gz", m + "/fixed"],
+             ["cut", "simple", "-r", m + "/fixed/recordings.jsonl.gz",
+              "-s", m + "/fixed/supervisions.jsonl.gz", out + "/cuts.jsonl.gz"],
+             ["cut", "trim-to-supervisions", out + "/cuts.jsonl.gz", out + "/trimmed.jsonl.gz"],
+             ["feat", "extract-cuts-batch", "-f", str(root / "cpu.yaml"), "-j", "1",
+              out + "/trimmed.jsonl.gz", out + "/feats.jsonl.gz", out + "/storage"],
+             ["shar", "export", "-a", "flac", out + "/trimmed.jsonl.gz", out + "/shar"],
+             ["shar", "compute-features", "-f", str(root / "cpu.yaml"), out + "/shar"],
+             ["kaldi", "export", m + "/fixed/recordings.jsonl.gz",
+              m + "/fixed/supervisions.jsonl.gz", out + "/kaldi"]):
+    cli.main(argv, standalone_mode=False)
+cuts = sorted(CutSet.from_file(out + "/feats.jsonl.gz"), key=lambda c: c.supervisions[0].id)
+feats = [c.load_features() for c in cuts]
+assert [f.shape for f in feats] == [(50, 80), (100, 80), (70, 80)]
+assert all(np.isfinite(f).all() for f in feats)
+assert len(list((root / "o" / "shar").glob("features.*.tar"))) == 1
+assert (root / "o" / "kaldi" / "wav.scp").read_text().count("|") == 3
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_kaldi_cli_path_runs_without_jax(tmp_path):
+    """A piped Kaldi data dir through the port's CLI in one process: import,
+    fix, cut simple, trim, ``feat extract-cuts-batch`` on the CPU, Shar
+    export with ``compute-features``, and Kaldi export, where importing jax
+    or lhotse_tpu fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", KALDI_CLI_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -39,7 +39,7 @@ from lhotse_tpu_torch.augmentation import resample as pres
 from lhotse_tpu_torch.cut import CutSet, MixedCut, MonoCut, PaddingCut
 from lhotse_tpu_torch.dataset import cut_transforms as PT
 from lhotse_tpu_torch.supervision import SupervisionSegment
-from lhotse_tpu_torch.utils import fix_random_seed
+from lhotse_tpu_torch.utils import fastcopy, fix_random_seed
 
 SR = 16000
 
@@ -455,3 +455,70 @@ def test_resampler_caches_are_bounded_and_exact():
     assert (SR, rates[0]) not in pres._RESAMPLERS  # evicted, least recently used
     assert np.array_equal(pres.get_or_create_resampler(SR, rates[0])(x), first[rates[0]])
     assert list(pres._RESAMPLERS)[-1] == (SR, rates[0])
+
+
+_C1_OPS = {
+    "narrowband": lambda c: c.narrowband("mulaw"),
+    "dereverb_wpe": lambda c: c.dereverb_wpe(),
+}
+_C1_CUTS = {
+    "padded": lambda pkg, wavs: _cut(pkg, wavs, "mono", 0.0).pad(duration=1.5),
+    "mixed": _mixed,
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_C1_CUTS))
+@pytest.mark.parametrize("op", sorted(_C1_OPS))
+def test_effects_on_padded_and_mixed_cuts(wavs, op, kind):
+    """``narrowband`` and ``dereverb_wpe`` on a padded cut and on a cut
+    mixed with noise (ROADMAP C1). The JAX package's ``MixedCut`` and
+    ``PaddingCut`` have neither, so a set holding such a cut raises
+    ``AttributeError`` there when it is iterated. The port applies the
+    effect to every track of speech, passes the padding through with its
+    id affixed, and its audio equals the mix of the tracks with the effect
+    applied one by one."""
+    apply = _C1_OPS[op]
+    ours, theirs = _both(lambda pkg: _C1_CUTS[kind](pkg, wavs))
+    with pytest.raises(AttributeError, match=op):
+        list(apply(J.CutSet.from_cuts([theirs])))
+    (changed,) = list(apply(CutSet.from_cuts([ours])))
+    suffix = "_nb_mulaw" if op == "narrowband" else "_wpe"
+    assert isinstance(changed, MixedCut) and changed.id == ours.id + suffix
+    assert [type(t.cut) for t in changed.tracks] == [type(t.cut) for t in ours.tracks]
+    assert all(t.cut.id == o.cut.id + suffix for t, o in zip(changed.tracks, ours.tracks))
+    by_hand = MixedCut(id=ours.id, tracks=[
+        t if isinstance(t.cut, PaddingCut) else fastcopy(t, cut=apply(t.cut)) for t in ours.tracks])
+    audio = changed.load_audio()
+    assert audio.shape == (1, ours.num_samples) and np.isfinite(audio).all()
+    assert np.array_equal(audio, by_hand.load_audio())
+    assert not np.array_equal(audio, ours.load_audio())
+    if op == "narrowband":
+        # The codec is the same numpy code in both packages: the JAX package's
+        # tracks, changed one by one, mix to the same audio.
+        jax_by_hand = J.MixedCut(id=theirs.id, tracks=[
+            t if isinstance(t.cut, JPaddingCut) else jfastcopy(t, cut=apply(t.cut))
+            for t in theirs.tracks])
+        assert np.array_equal(audio, jax_by_hand.load_audio())
+
+
+def test_padding_cut_effects_are_passthroughs():
+    pad = PaddingCut(id="pad", duration=1.0, sampling_rate=SR, feat_value=-23.0, num_samples=SR)
+    assert pad.narrowband("lpc10").id == "pad_nb_lpc10"
+    assert pad.narrowband("mulaw", affix_id=False).id == "pad"
+    assert pad.dereverb_wpe().id == "pad_wpe"
+    assert pad.dereverb_wpe(affix_id=False).id == "pad"
+    assert np.array_equal(pad.narrowband("mulaw").load_audio(), pad.load_audio())
+    jpad = JPaddingCut(id="pad", duration=1.0, sampling_rate=SR, feat_value=-23.0, num_samples=SR)
+    for op in ("narrowband", "dereverb_wpe"):
+        assert not hasattr(jpad, op)
+
+
+def test_mixed_cut_effects_need_a_recording():
+    from lhotse_tpu_torch.testing.dummies import dummy_cut
+
+    cut = dummy_cut(0, with_data=True)
+    mixed = cut.drop_recording().mix(cut.drop_recording(), offset_other_by=0.5)
+    with pytest.raises(AssertionError, match="narrowband"):
+        mixed.narrowband("mulaw")
+    with pytest.raises(AssertionError, match="WPE"):
+        mixed.dereverb_wpe()
