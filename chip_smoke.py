@@ -1805,7 +1805,8 @@ FLY_MAX_DURATION = 180.0  # the on-the-fly legs' batches, in seconds of audio
 
 def _fly_with_resume(name, cuts_path, trainer, device, fbank_cuda, smi, spans=None) -> tuple:
     """``SimpleCutSampler(max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)`` over the
-    cuts at ``cuts_path`` → ``K2SpeechRecognitionDataset`` with
+    cuts at ``cuts_path`` (or over a fresh ``CutSet`` from ``cuts_path()``
+    where it is callable) → ``K2SpeechRecognitionDataset`` with
     ``OnTheFlyFeatures`` on the card → ``DataLoader`` → an AdamW step per
     batch, one epoch; then a resume after batch 3 whose batches must be
     ``torch.equal`` to the first run's, under ``torch.profiler`` for the
@@ -1820,14 +1821,15 @@ def _fly_with_resume(name, cuts_path, trainer, device, fbank_cuda, smi, spans=No
     from lhotse_tpu_torch.features import Fbank, FbankConfig
     from lhotse_tpu_torch.tracing import reset_tracing, tracing_report
 
+    make_cuts = cuts_path if callable(cuts_path) else (lambda: CutSet.from_file(cuts_path))
+
     def loader_and_extractor():
         fly = Fbank(FbankConfig(device=device))
-        sampler = SimpleCutSampler(CutSet.from_file(cuts_path), max_duration=FLY_MAX_DURATION,
-                                   shuffle=True, seed=0)
+        sampler = SimpleCutSampler(make_cuts(), max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
         dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly))
         return DataLoader(sampler, dataset, prefetch_batches=3), fly
 
-    all_ids = [c.id for c in CutSet.from_file(cuts_path)]
+    all_ids = [c.id for c in make_cuts()]
     loader, fly = loader_and_extractor()
     recorder = _RecordFirstBatch(fly)
     kept, state = [], {}
@@ -4071,6 +4073,365 @@ def _phase_kaldi(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+SIM_SEED = 17  # the simulations' seed (the MeetingSampler's, and numpy's for the conversational draws)
+SIM_SPEAKERS = [2, 3, 4]  # speakers per simulated meeting, drawn uniformly
+SIM_RESUME_AFTER = 3
+SHARDS = 8  # the 160 utterances in 8 JSONL shards of 20
+WDS_SHARD_SIZE = 40  # cuts per WebDataset tar: 160 utterances -> 4 tars
+SHARD_SPANS = ("sampler.next", "dataset.assemble", "collation.read_audio", "audio.decode",
+               "audio.transforms")
+
+
+def _host_spans(report: dict, n: int, unit: str = "batch") -> str:
+    """Host ms per ``unit`` of each of ``SHARD_SPANS`` that ran."""
+    parts = [f"{name} {report[name]['total_s'] * 1e3 / n!r}" for name in SHARD_SPANS
+             if name in report]
+    return f"host ms per {unit} by span: {', '.join(parts)}"
+
+
+def _write_rir_groups(workdir: Path) -> list:
+    """One group of mono RIRs per speaker count of ``SIM_SPEAKERS`` (2 + 3 +
+    4 WAVs), each numpy-seeded decaying noise with a unit tap in its first
+    millisecond, as phase 15 writes its RIR. Returns the groups as
+    ``RecordingSet``s."""
+    from lhotse_tpu_torch.audio import Recording, RecordingSet
+    from lhotse_tpu_torch.audio.wavio import write_wav
+
+    rng = np.random.default_rng(5680)
+    taps = np.arange(SR // 2)
+    (workdir / "rirs").mkdir()
+    groups = []
+    for n in SIM_SPEAKERS:
+        recordings = []
+        for k in range(n):
+            rir = np.exp(-taps / 1600.0) * rng.standard_normal(SR // 2) * 0.05
+            rir[rng.integers(0, 17)] = 1.0
+            path = workdir / "rirs" / f"rir{n}-{k}.wav"
+            write_wav(str(path), rir.astype(np.float32), SR, subtype="float32")
+            recordings.append(Recording.from_file(path))
+        groups.append(RecordingSet.from_recordings(recordings))
+    return groups
+
+
+def _rir_ids(node) -> set:
+    """The ids of the RIR recordings a cut's dict reverberates with."""
+    if isinstance(node, dict):
+        found = ({node["kwargs"]["rir"]["id"]}
+                 if node.get("name") == "ReverbWithImpulseResponse" and node["kwargs"].get("rir")
+                 else set())
+        return found.union(*(_rir_ids(v) for v in node.values()))
+    if isinstance(node, list):
+        return set().union(*(_rir_ids(v) for v in node))
+    return set()
+
+
+def _simulation_invariants(one, two) -> dict:
+    """What ``simulate(num_jobs=2)`` must keep of the one-job run, whose
+    meetings its spawned workers build in no fixed order: as many meetings,
+    the same utterances in each, one speaker per track, no NaN offset."""
+    def utterances(meetings):
+        return sorted(sorted(s.id for s in m.supervisions) for m in meetings)
+
+    tracks = [t for m in two for t in m.tracks]
+    return {"meetings": len(two) == len(one), "utterances": utterances(two) == utterances(one),
+            "one_speaker_per_track": all(len({s.speaker for s in t.cut.supervisions}) == 1
+                                         for t in tracks),
+            "finite_offsets": all(math.isfinite(t.offset) for t in tracks)}
+
+
+def _phase_simulated_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """21. Meeting simulation into SURT training, on phase 14's corpora (the
+    160 LibriSpeech-layout utterances of 8 speakers, and the sessions' RTTM
+    turns), each batch into an AdamW step of ``Encoder(EncoderConfig())``.
+    ``meeting_simulate``: ``ConversationalMeetingSimulator`` fitted to the
+    sessions' supervisions simulates meetings of 2, 3 or 4 speakers from the
+    utterances (``num_repeats=1``, seed ``SIM_SEED``, one job), and
+    ``workflows simulate-meetings`` (run in this process) writes the same
+    manifest; the same with ``SpeakerIndependentMeetingSimulator`` at its
+    defaults; each once more with ``num_jobs=2`` (spawned workers), held to
+    the invariants of ``_simulation_invariants``; then half the
+    conversational meetings are reverberated with RIR groups (one per
+    speaker count, see ``_write_rir_groups``) and half with the fast random
+    RIRs. ``meeting_sim_surt``: the reverberated meetings →
+    ``cut_into_windows(SURT_MAX_GROUP, keep_excessive_supervisions=False)``
+    (``K2SurtDataset`` refuses supervisions that run past a window; windows
+    left with none are dropped) → ``SimpleCutSampler(max_duration=180)`` →
+    ``K2SurtDataset(OnTheFlyFeatures(Fbank()))`` on the card → the step, one
+    launch per batch, the first batch against the kernel's plain version,
+    and a resume after batch 3 whose batches must be ``torch.equal`` to the
+    first run's. Returns the kernel's launches per path and the largest
+    kernel-vs-plain error."""
+    from lhotse_tpu_torch.bin.modes import cli
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import K2SurtDataset, SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+    from lhotse_tpu_torch.utils import fix_random_seed
+    from lhotse_tpu_torch.workflows import (
+        ConversationalMeetingSimulator, SpeakerIndependentMeetingSimulator)
+
+    set_tracing_enabled(True)
+    launches, errs = {}, []
+    utts_path = workdir / "recipe_cuts.jsonl.gz"
+    turns_path = workdir / "long_supervisions.jsonl.gz"
+    out = workdir / "simulated"
+    out.mkdir()
+
+    # -- meeting_simulate --------------------------------------------------------------------
+    t_leg = time.perf_counter()
+    utterances = CutSet.from_file(utts_path).to_eager()
+    kw = dict(num_repeats=1, num_speakers_per_meeting=SIM_SPEAKERS, seed=SIM_SEED)
+    simulated, lines = {}, []
+    for method, make in (("conversational", ConversationalMeetingSimulator),
+                         ("independent", SpeakerIndependentMeetingSimulator)):
+        simulator = make()
+        fit = ["-f", turns_path] if method == "conversational" else []
+        if fit:
+            simulator.fit(SupervisionSet.from_file(turns_path))
+        fix_random_seed(SIM_SEED)
+        t0 = time.perf_counter()
+        meetings = simulator.simulate(utterances, num_jobs=1, **kw)
+        sim_s = time.perf_counter() - t0
+        meetings.to_file(out / f"{method}.jsonl.gz")
+        cli.main([str(a) for a in (
+            "-s", SIM_SEED, "workflows", "simulate-meetings", "-m", method, *fit, "-r", 1, "-s",
+            ",".join(map(str, SIM_SPEAKERS)), "--seed", SIM_SEED, utts_path,
+            out / f"{method}_cli.jsonl.gz")], standalone_mode=False)
+        cli_equal = [m.to_dict() for m in CutSet.from_file(out / f"{method}_cli.jsonl.gz")] == [
+            m.to_dict() for m in CutSet.from_file(out / f"{method}.jsonl.gz")]
+        t0 = time.perf_counter()
+        two = simulator.simulate(utterances, num_jobs=2, **kw)
+        two_s = time.perf_counter() - t0
+        invariants = _simulation_invariants(meetings, two)
+        audio_s = float(sum(m.duration for m in meetings))
+        tracks = [len(m.tracks) for m in meetings]
+        by_tracks = {k: tracks.count(k) for k in sorted(set(tracks))}
+        fitted = f" (fitted to the sessions: {simulator!r})" if fit else ""
+        lines.append(
+            f"{method}{fitted}: {len(meetings)} meetings (by track count {by_tracks}), "
+            f"{audio_s!r} simulated audio-s in {sim_s!r} s: {len(meetings) / sim_s!r} "
+            f"meetings/s, {audio_s / sim_s!r} simulated audio-s/s (one job); the CLI's manifest "
+            f"equal to the library call's: {cli_equal}; num_jobs=2 (spawned) in {two_s!r} s, "
+            f"invariants {invariants}")
+        if not cli_equal or not all(invariants.values()) or len(meetings) < 10:
+            raise AssertionError(f"meeting_simulate: {lines[-1]}")
+        simulated[method] = meetings
+    conversational = list(simulated["conversational"])
+    half = len(conversational) // 2
+    groups = _write_rir_groups(workdir)
+    simulator = ConversationalMeetingSimulator()
+    fix_random_seed(SIM_SEED)
+    reverberated = list(simulator.reverberate(CutSet.from_cuts(conversational[:half]), *groups))
+    reverberated += list(simulator.reverberate(CutSet.from_cuts(conversational[half:])))
+    group_ids = {len(g): sorted(r.id for r in g) for g in groups}
+    with_groups = [m for m in reverberated[:half] if len(m.tracks) in group_ids]
+    rirs_right = all(
+        sorted(_rir_ids(t.cut.to_dict()).pop() for t in m.tracks) == group_ids[len(m.tracks)]
+        and all(len(_rir_ids(t.cut.to_dict())) == 1 for t in m.tracks) for m in with_groups)
+    fast = all(not _rir_ids(m.to_dict()) for m in reverberated[half:])
+    print(f"[{smi}] meeting_simulate: {len(utterances)} utterances of "
+          f"{len(utterances.speakers)} speakers; " + "; ".join(lines) + f"; reverberated "
+          f"{half} conversational meetings with the RIR groups ({len(with_groups)} with a group "
+          f"of their track count, one RIR of it per track: {rirs_right}) and "
+          f"{len(reverberated) - half} with the fast random RIRs ({fast}); leg took "
+          f"{time.perf_counter() - t_leg!r} s")
+    if not rirs_right or not fast or not with_groups:
+        raise AssertionError("meeting_simulate: the reverberation is off")
+
+    # -- meeting_sim_surt --------------------------------------------------------------------
+    t_leg = time.perf_counter()
+    windows = CutSet.from_cuts(
+        w for w in CutSet.from_cuts(reverberated).cut_into_windows(
+            SURT_MAX_GROUP, keep_excessive_supervisions=False) if w.supervisions)
+
+    def surt_loader():
+        extractor = Fbank(FbankConfig(device=device))
+        return DataLoader(
+            SimpleCutSampler(windows, max_duration=TASK_MAX_DURATION, shuffle=True, seed=0),
+            K2SurtDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(extractor)),
+            prefetch_batches=3), extractor
+
+    loader, extractor = surt_loader()
+    recorder = _RecordFirstBatch(extractor)
+    state = {}
+
+    def keep(i, batch):
+        if i == SIM_RESUME_AFTER - 1:
+            state["ckpt"] = loader.state_dict()
+
+    def unpack(b):
+        return b["inputs"], b["input_lens"], sum(c.duration for c in b["cuts"])
+
+    trainer = _Trainer(device)
+    run = _leg("meeting_sim_surt", loader, trainer, device, fbank_cuda, unpack, smi,
+               on_batch=keep)
+    launches["meeting_sim_surt"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    errs.append(err)
+    n = len(run["batches"])
+    ids = [c.id for b in run["batches"] for c in b["cuts"]]
+    resumed_loader, _ = surt_loader()
+    resumed_loader.load_state_dict(state["ckpt"])
+    fbank_cuda.LAUNCHES = 0
+    resumed = [([c.id for c in b["cuts"]], b["inputs"]) for b in resumed_loader]
+    launches_resumed = fbank_cuda.LAUNCHES
+    resume_equal = len(resumed) == n - SIM_RESUME_AFTER and all(
+        a_ids == [c.id for c in b["cuts"]]
+        and torch.equal(torch.from_numpy(a), torch.from_numpy(b["inputs"]))
+        for (a_ids, a), b in zip(resumed, run["batches"][SIM_RESUME_AFTER:]))
+    overlapped = sum(1 for b in run["batches"] for cut in b["supervisions"] if cut[1])
+    kept_sups = sum(len(w.supervisions) for w in windows)
+    print(f"[{smi}] meeting_sim_surt: {len(reverberated)} meetings -> {len(windows)} windows of "
+          f"<= {SURT_MAX_GROUP} s with supervisions ({sum(w.duration for w in windows)!r} s), "
+          f"keeping {kept_sups} of the meetings' {sum(len(m.supervisions) for m in reverberated)} "
+          f"supervisions (those inside a window), "
+          f"{n} batches, {len(ids)} windows in the epoch, {overlapped} with a supervision on "
+          f"channel 1; fbank kernel launches {run['launches']}; first batch kernel vs plain "
+          f"{err!r} (tol {KERNEL_TOL}); resumed after batch {SIM_RESUME_AFTER}: {len(resumed)} "
+          f"batches torch.equal to the uninterrupted run's: {resume_equal}, launches "
+          f"{launches_resumed}; leg took {time.perf_counter() - t_leg!r} s")
+    if sorted(ids) != sorted(w.id for w in windows) or run["launches"] != n:
+        raise AssertionError("meeting_sim_surt: the epoch's windows or launches are off")
+    if not err <= KERNEL_TOL or not resume_equal or launches_resumed != n - SIM_RESUME_AFTER:
+        raise AssertionError("meeting_sim_surt: the features or the resume are off")
+    if not overlapped:
+        raise AssertionError("meeting_sim_surt: no window holds overlapping speech")
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
+def _phase_sharded(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """22. Sharded manifests into training, on phase 14's 160 utterances
+    split into ``SHARDS`` uncompressed JSONL shards whose ``.idx`` files
+    ``index jsonl`` writes (the CLI in this process). Each leg:
+    ``SimpleCutSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset(OnTheFlyFeatures(Fbank()))`` on the card →
+    an AdamW step of ``Encoder(EncoderConfig())`` per batch, with a resume
+    after batch 3 that must be ``torch.equal`` (``_fly_with_resume``).
+    ``from_files_on_the_fly``: ``CutSet.from_files(shards,
+    shuffle_iters=True, seed=0)``, whose item-level Feistel order visits
+    every cut once. ``idxpack_on_the_fly``: ``write_index_pack`` over the
+    sidecars, ``index verify-pack``, then ``LazyPackedManifestIterator(pack,
+    key, shuffle_shards=True, seed=0)``. ``webdataset_on_the_fly``: ``cut
+    export-to-webdataset --shard-size 40`` (FLAC), then
+    ``CutSet.from_webdataset`` over ``pipe:cat <tar>`` identifiers with
+    ``shuffle_shards=True``; the audio ``np.array_equal`` to the source
+    utterances'. Returns the kernel's launches per path and the largest
+    kernel-vs-plain error."""
+    import contextlib
+    import io
+
+    from lhotse_tpu_torch.bin.modes import cli
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.index_pack import IndexPackCollectionSpec, write_index_pack
+    from lhotse_tpu_torch.lazy import LazyIndexedManifestIterator
+    from lhotse_tpu_torch.packed_lazy import LazyPackedManifestIterator
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    def run(*argv) -> str:
+        """The CLI command ``argv`` in this process; returns what it printed."""
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            cli.main([str(a) for a in argv], standalone_mode=False)
+        return printed.getvalue()
+
+    set_tracing_enabled(True)
+    trainer = _Trainer(device)
+    launches, errs = {}, []
+    utts_path = workdir / "recipe_cuts.jsonl.gz"
+    source = {c.id: c for c in CutSet.from_file(utts_path)}
+    all_ids = sorted(source)
+    root = workdir / "sharded"
+    root.mkdir()
+    t0 = time.perf_counter()
+    cuts = list(source.values())
+    per = len(cuts) // SHARDS
+    shards = []
+    for k in range(SHARDS):
+        shards.append(root / f"cuts-{k:03d}.jsonl")
+        CutSet.from_cuts(cuts[k * per:(k + 1) * per]).to_file(shards[-1])
+        run("index", "jsonl", shards[-1])
+    print(f"[{smi}] phase 22: {len(cuts)} utterances in {SHARDS} JSONL shards with index jsonl "
+          f"sidecars in {time.perf_counter() - t0!r} s")
+
+    def fly(name, make_cuts):
+        spans = {}
+        launches[name], err = _fly_with_resume(name, make_cuts, trainer, device, fbank_cuda, smi,
+                                               spans=spans)
+        errs.append(err)
+        return _host_spans(spans["report"], spans["batches"])
+
+    # -- from_files_on_the_fly -------------------------------------------------------------
+    t_leg = time.perf_counter()
+
+    def from_files():
+        return CutSet.from_files(shards, shuffle_iters=True, seed=0)
+
+    chained = from_files()
+    order = [c.id for c in chained]
+    indexed = all(isinstance(leaf, LazyIndexedManifestIterator) for leaf in chained.data.sources)
+    shard_of = {c.id: k // per for k, c in enumerate(cuts)}
+    once = sorted(order) == all_ids and len(set(order)) == len(order)
+    interleaved = len({shard_of[i] for i in order[:per]}) > 1
+    spans = fly("from_files_on_the_fly", from_files)
+    print(f"[{smi}] from_files_on_the_fly: {SHARDS} shards, every leaf indexed: {indexed}; the "
+          f"Feistel order visits every cut once: {once}, interleaves the shards: {interleaved}; "
+          f"first epoch {spans}; leg took {time.perf_counter() - t_leg!r} s")
+    if not indexed or not once or not interleaved:
+        raise AssertionError("from_files_on_the_fly: the order is off")
+
+    # -- idxpack_on_the_fly ----------------------------------------------------------------
+    t_leg = time.perf_counter()
+    spec = IndexPackCollectionSpec(role="records", kind="json-lines",
+                                   source_spec=f"cuts-{{000..{SHARDS - 1:03d}}}.jsonl",
+                                   paths=tuple(shards))
+    t0 = time.perf_counter()
+    pack = write_index_pack(root / "cuts.idxpack", [spec])
+    pack_s = time.perf_counter() - t0
+    verified = run("index", "verify-pack", pack).strip()
+
+    def packed():
+        return CutSet(LazyPackedManifestIterator(pack, spec.key, shuffle_shards=True, seed=0))
+
+    packed_order = [c.id for c in packed()]
+    spans = fly("idxpack_on_the_fly", packed)
+    print(f"[{smi}] idxpack_on_the_fly: write_index_pack of {SHARDS} sidecars into "
+          f"{pack.stat().st_size} bytes in {pack_s!r} s; index verify-pack: {verified!r}; the "
+          f"shuffled pack visits every cut once: {sorted(packed_order) == all_ids}; first epoch "
+          f"{spans}; leg took {time.perf_counter() - t_leg!r} s")
+    if verified != f"OK ({SHARDS} segments)" or sorted(packed_order) != all_ids:
+        raise AssertionError("idxpack_on_the_fly: the pack is off")
+
+    # -- webdataset_on_the_fly -------------------------------------------------------------
+    t_leg = time.perf_counter()
+    t0 = time.perf_counter()
+    run("cut", "export-to-webdataset", "--shard-size", WDS_SHARD_SIZE, utts_path,
+        root / "wds-%06d.tar")
+    export_s = time.perf_counter() - t0
+    tars = sorted(root.glob("wds-*.tar"))
+    urls = [f"pipe:cat {t}" for t in tars]
+
+    def webdataset():
+        return CutSet.from_webdataset(urls, shuffle_shards=True)
+
+    back = list(webdataset())
+    audio_equal = sorted(c.id for c in back) == all_ids and all(
+        np.array_equal(c.load_audio(), source[c.id].load_audio()) for c in back)
+    origins = sorted({c.shard_origin for c in back}) == sorted(urls)
+    spans = fly("webdataset_on_the_fly", webdataset)
+    print(f"[{smi}] webdataset_on_the_fly: cut export-to-webdataset --shard-size {WDS_SHARD_SIZE} "
+          f"(FLAC) into {len(tars)} tars of {sum(t.stat().st_size for t in tars)} bytes in "
+          f"{export_s!r} s; read back through pipe:cat: every cut's audio np.array_equal to its "
+          f"source's: {audio_equal}, shard_origin the pipe: {origins}; first epoch {spans}; leg "
+          f"took {time.perf_counter() - t_leg!r} s")
+    if len(tars) != len(cuts) // WDS_SHARD_SIZE or not audio_equal or not origins:
+        raise AssertionError("webdataset_on_the_fly: the tars or their audio are off")
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -4469,6 +4830,16 @@ def main() -> None:
         launches_kaldi, kaldi_err = _phase_kaldi(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_kaldi)
         print(f"phase 20 took {time.perf_counter() - t0!r} s")
+        # -- 21. simulated meetings into SURT training, on the same corpora
+        t0 = time.perf_counter()
+        launches_sim, sim_err = _phase_simulated_meetings(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_sim)
+        print(f"phase 21 took {time.perf_counter() - t0!r} s")
+        # -- 22. sharded manifests: from_files, an index pack and WebDataset tars
+        t0 = time.perf_counter()
+        launches_sharded, sharded_err = _phase_sharded(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_sharded)
+        print(f"phase 22 took {time.perf_counter() - t0!r} s")
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
     # signal-effects and multi-source, multi-talker training path on the same corpus
@@ -4496,7 +4867,7 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
-                              ms_err, paired_err, lossy_err, kaldi_err]),
+                              ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -1,10 +1,10 @@
 """
 The port's command line, mirroring ``lhotse_tpu/bin/modes``: every command of
 the JAX package's CLI whose library path the port has. Not registered (see
-ROADMAP.md): ``cut export-to-webdataset``, ``feat upload``, ``index
-verify-pack``, ``copy-feats``, ``install-sph2pipe``, the ``workflows``
-group, and the recipes other than LibriSpeech, AMI and CommonVoice, whose
-``download`` commands are left out too.
+ROADMAP.md): ``feat upload``, ``copy-feats``, ``install-sph2pipe``, the
+``workflows`` commands other than ``simulate-meetings``, and the recipes
+other than LibriSpeech, AMI and CommonVoice, whose ``download`` commands are
+left out too.
 
 Only this package imports click; the library modules it calls do not.
 """
@@ -19,3 +19,4 @@ from lhotse_tpu_torch.bin.modes.shar import *  # noqa: F401,F403
 from lhotse_tpu_torch.bin.modes.supervision import *  # noqa: F401,F403
 from lhotse_tpu_torch.bin.modes.utils import *  # noqa: F401,F403
 from lhotse_tpu_torch.bin.modes.validate import *  # noqa: F401,F403
+from lhotse_tpu_torch.bin.modes.workflows import *  # noqa: F401,F403

@@ -1,7 +1,6 @@
 """
 CutSet creation and manipulation commands (copied from
-``lhotse_tpu/bin/modes/cut.py``; ``export-to-webdataset`` waits for the port
-of the WebDataset path).
+``lhotse_tpu/bin/modes/cut.py``).
 """
 from collections import defaultdict
 from pathlib import Path
@@ -213,6 +212,43 @@ def pad(cut_manifest: Pathlike, output_cut_manifest: Pathlike, duration: Optiona
     Right-pad the cuts in CUT_MANIFEST.
     """
     CutSet.from_file(cut_manifest).pad(duration=duration).to_file(output_cut_manifest)
+
+
+@cut.command(context_settings=dict(show_default=True))
+@click.argument("cutset", type=click.Path(exists=True, dir_okay=False, allow_dash=True))
+@click.argument("wspecifier", type=str)
+@click.option(
+    "-s", "--shard-size", type=int,
+    help="Number of cuts per shard (sharding disabled if not defined).")
+@click.option(
+    "-f", "--audio-format", type=str, default="flac",
+    help="Format in which the audio is encoded.")
+@click.option("--audio/--no-audio", default=True, help="Load and add audio data.")
+@click.option("--features/--no-features", default=True, help="Load and add feature data.")
+@click.option("--custom/--no-custom", default=True, help="Load and add custom data.")
+@click.option(
+    "--fault-tolerant/--stop-on-fail", default=True,
+    help="Omit cuts whose data failed to load, or stop the execution.")
+def export_to_webdataset(
+    cutset: Pathlike, wspecifier: str, shard_size: Optional[int], audio_format: str,
+    audio: bool, features: bool, custom: bool, fault_tolerant: bool):
+    """
+    Export CUTSET into a WebDataset tarfile (or shards) at WSPECIFIER.
+
+    \\b
+    WSPECIFIER can be:
+    - a regular path (e.g., "data/cuts.tar"),
+    - a path template for sharding (e.g., "data/shard-%06d.tar"), or
+    - a "pipe:" expression (e.g., "pipe:gzip -c > data/shard-%06d.tar.gz").
+
+    Read back with 'CutSet.from_webdataset'.
+    """
+    from lhotse_tpu_torch.dataset.webdataset import export_to_webdataset as export_
+
+    export_(
+        cuts=CutSet.from_file(cutset), output_path=wspecifier, shard_size=shard_size,
+        audio_format=audio_format, load_audio=audio, load_features=features,
+        load_custom=custom, fault_tolerant=fault_tolerant)
 
 
 @cut.command()

@@ -1,6 +1,6 @@
 """
-Binary index creation commands (copied from ``lhotse_tpu/bin/modes/index.py``;
-``verify-pack`` waits for the port of ``index_pack.py``).
+Binary index creation commands and the index-pack check (copied from
+``lhotse_tpu/bin/modes/index.py``).
 """
 from pathlib import Path
 
@@ -69,3 +69,16 @@ def shar(shar_dir: str, output_dir: str):
     create_shar_index(shar_dir, output_dir=output_dir)
     click.echo(f"Created indexes for Shar directory: {shar_dir}")
 
+
+@index.command(name="verify-pack")
+@click.argument("pack_path", type=click.Path(exists=True, dir_okay=False))
+def verify_pack(pack_path: str):
+    """CRC32-verify every segment of an .idxpack file."""
+    from lhotse_tpu_torch.index_pack import IndexPack
+
+    try:
+        n = IndexPack(pack_path).verify()
+    except ValueError as e:
+        click.echo(f"Verification failed: {e}")
+        return 1
+    click.echo(f"OK ({n} segments)")

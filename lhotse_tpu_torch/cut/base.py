@@ -358,8 +358,12 @@ class Cut:
     def index_supervisions(
         self, index_mixed_tracks: bool = False, keep_ids: Optional[Set[str]] = None,
     ) -> Dict[str, SupervisionIntervalIndex]:
-        """Two-level index {cut_id: interval index of its supervisions} to
-        speed up repeated truncations of long cuts."""
+        """Index {cut_id: interval index of its supervisions} to speed up
+        repeated truncations of long cuts. With ``index_mixed_tracks`` the
+        tracks of a ``MixedCut`` are indexed too, and the tracks of a track
+        that is itself a ``MixedCut`` (a simulated meeting's speaker track),
+        which its truncation looks up; the JAX package indexes one level and
+        raises ``KeyError`` when windowing such a meeting."""
         from lhotse_tpu_torch.cut.mixed import MixedCut
 
         keep_ids = ifnone(keep_ids, SetContainingAnything())
@@ -370,11 +374,8 @@ class Cut:
         }
         if index_mixed_tracks and isinstance(self, MixedCut):
             for track in self.tracks:
-                indexed[track.cut.id] = SupervisionIntervalIndex(
-                    s
-                    for s in track.cut.supervisions
-                    if s.id in keep_ids and s.duration > 0
-                )
+                indexed.update(track.cut.index_supervisions(
+                    index_mixed_tracks=True, keep_ids=keep_ids))
         return indexed
 
     def _active_spans(self, supervision, use_alignment_if_exists: Optional[str]):

@@ -31,9 +31,12 @@ cut: a multi-channel cut raises there, where the JAX package joins its
 channels in time (use ``compute_and_store_features``, which stores one
 ``(C, T, F)`` matrix per cut).
 
+Many manifest files read as one lazy set through ``from_files`` (with
+item-level Feistel shuffling when every file has an ``.idx`` sidecar), and
+WebDataset tarballs through ``from_webdataset``.
+
 Left out: ``save_audios``, ``copy_data``/``copy_feats``, ``prefetch`` and
-the other constructors (``from_files``, ``from_webdataset``, the HuggingFace
-bridges).
+the HuggingFace bridges.
 """
 from __future__ import annotations
 
@@ -113,6 +116,44 @@ class CutSet(Serializable, AlgorithmMixin):
     ids = property(lambda self: (c.id for c in self.cuts))
 
     @staticmethod
+    def from_files(
+        paths: List[Pathlike], shuffle_iters: bool = True, seed: Optional[int] = None,
+        indexed: Optional[bool] = None, index_path: Optional[List[Pathlike]] = None) -> "CutSet":
+        """
+        One lazy CutSet over many manifest files. With ``shuffle_iters`` the
+        file order is re-randomized every iteration; when every file is
+        indexed, shuffling upgrades to item-level via the Feistel permutation.
+        """
+        from lhotse_tpu_torch.indexing import index_exists
+        from lhotse_tpu_torch.lazy import (
+            LazyIndexedManifestIterator, LazyIteratorChain, LazyManifestIterator)
+        from lhotse_tpu_torch.serialization import extension_contains
+
+        if index_path is not None and len(index_path) != len(paths):
+            raise ValueError(
+                f"index_path has {len(index_path)} entries but paths has "
+                f"{len(paths)} entries — they must match."
+            )
+        sidecars = index_path if index_path is not None else [None] * len(paths)
+
+        def leaf_for(path, sidecar):
+            want_indexed = indexed is True or (indexed is None and sidecar is not None)
+            if not want_indexed and indexed is None:
+                # Auto-detect: uncompressed jsonl with an existing .idx.
+                want_indexed = not extension_contains(".gz", path) and index_exists(path)
+                sidecar = None
+            if want_indexed:
+                return LazyIndexedManifestIterator(path, index_path=sidecar)
+            return LazyManifestIterator(path)
+
+        return CutSet(
+            LazyIteratorChain(
+                *(leaf_for(p, sc) for p, sc in zip(paths, sidecars)), shuffle_iters=shuffle_iters,
+                seed=seed,
+            )
+        )
+
+    @staticmethod
     def from_cuts(cuts: Iterable[Cut]) -> "CutSet":
         return CutSet(list(cuts))
 
@@ -139,6 +180,13 @@ class CutSet(Serializable, AlgorithmMixin):
     @staticmethod
     def from_dicts(data: Iterable[dict]) -> "CutSet":
         return CutSet.from_cuts(deserialize_cut(cut) for cut in data)
+
+    @staticmethod
+    def from_webdataset(path, **wds_kwargs) -> "CutSet":
+        """Lazy CutSet over WebDataset tarball(s)."""
+        from lhotse_tpu_torch.dataset.webdataset import LazyWebdatasetIterator
+
+        return CutSet(cuts=LazyWebdatasetIterator(path, **wds_kwargs))
 
     @staticmethod
     def from_shar(

@@ -4,8 +4,9 @@ the device stages. The samplers of :mod:`lhotse_tpu_torch.dataset.sampling`,
 the task datasets (``VadDataset``, ``DiarizationDataset``, ``K2SurtDataset``,
 ``K2Speech2TextTranslationDataset``, the source separation datasets,
 ``SpeechSynthesisDataset``, ``AudioTaggingDataset`` and the unsupervised
-datasets with their chunk collation and worker sharding) and
-``TokenCollater``/``collate_custom_field`` are exported here, resolved at
+datasets with their chunk collation and worker sharding),
+``TokenCollater``/``collate_custom_field`` and the WebDataset writer and
+reader are exported here, resolved at
 first use:
 ``dataset.dataloading`` reads the rank through
 :mod:`lhotse_tpu_torch.parallel.mesh`, which imports this package's stages,
@@ -22,13 +23,14 @@ _DATASET_MODULES = {
     "DynamicUnsupervisedDataset": "unsupervised",
     "DynamicallyMixedSourceSeparationDataset": "source_separation",
     "K2Speech2TextTranslationDataset": "speech_translation", "K2SurtDataset": "surt",
+    "LazyWebdatasetIterator": "webdataset",
     "PreMixedSourceSeparationDataset": "source_separation",
     "RecordingChunkIterableDataset": "unsupervised", "SourceSeparationDataset": "source_separation",
     "SpeechSynthesisDataset": "speech_synthesis", "TokenCollater": "collation",
     "UnsupervisedDataset": "unsupervised", "UnsupervisedWaveformDataset": "unsupervised",
-    "VadDataset": "vad", "audio_chunk_collate": "unsupervised",
+    "VadDataset": "vad", "WebdatasetWriter": "webdataset", "audio_chunk_collate": "unsupervised",
     "audio_chunk_worker_init_fn": "unsupervised", "collate_custom_field": "collation",
-    "validate_for_tts": "speech_synthesis"}
+    "export_to_webdataset": "webdataset", "validate_for_tts": "speech_synthesis"}
 
 __all__ = sorted(_SAMPLING_NAMES | set(_DATASET_MODULES))
 

@@ -10,14 +10,18 @@ in O(1) memory (a Feistel network with cycle-walking), sliceable into
 ``(shard_id, num_shards)`` partitions; :class:`IndexedJsonlReader` and
 :class:`IndexedTarReader` fetch one record with ``os.pread``.
 
-Left out: index files behind URLs or pipes, which the JAX package caches
-in a temporary directory; they raise ``NotImplementedError``.
+An index file behind a pipe (``pipe:<command>``) is read through
+``open_best`` and materialised into a temporary cache, as in the JAX
+package. Left out: index files behind URLs, which raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import hashlib
 import io
 import os
 import tarfile
+import tempfile
 import threading
 import time
 from json import JSONDecodeError
@@ -102,9 +106,20 @@ def index_exists(data_path: Pathlike, index_path: Optional[Pathlike] = None) -> 
     """True when an ``.idx`` exists and is usable (nonzero, uint64-aligned)."""
     idx_path = index_path if index_path is not None else index_file_path(data_path)
     local_path = _as_local_path(idx_path)
-    if local_path is None:
-        raise not_ported(f"Index files behind URLs or pipes ({idx_path})")
-    return _is_valid_index_file(local_path)
+    if local_path is not None:
+        return _is_valid_index_file(local_path)
+    _refuse_url(idx_path)
+    try:
+        with open_best(idx_path, "rb") as f:
+            f.read(1)
+        return True
+    except Exception:
+        return False
+
+
+def _refuse_url(path: Pathlike) -> None:
+    if is_valid_url(_path_str(path)):
+        raise not_ported(f"Index files behind URLs ({path})")
 
 
 def _is_valid_index_file(path: Path) -> bool:
@@ -121,7 +136,10 @@ def _write_index(offsets: list, path: Pathlike) -> None:
     payload = np.array(offsets, dtype=_OFFSET_DTYPE).tobytes()
     local_path = _as_local_path(path)
     if local_path is None:
-        raise not_ported(f"Index files behind URLs or pipes ({path})")
+        _refuse_url(path)
+        with open_best(path, "wb") as f:
+            f.write(payload)
+        return
     local_path.parent.mkdir(parents=True, exist_ok=True)
     stage_name = f"{local_path.name}.tmp.{os.getpid()}.{time.monotonic_ns()}"
     stage = local_path.with_name(stage_name)
@@ -132,14 +150,50 @@ def _write_index(offsets: list, path: Pathlike) -> None:
         stage.unlink(missing_ok=True)
 
 
+def _remote_index_cache_dir() -> Path:
+    return Path(tempfile.gettempdir()) / "lhotse-tpu-torch-index-cache"
+
+
+def _remote_index_cache_path(idx_path: Pathlike) -> Path:
+    digest = hashlib.sha256(_path_str(idx_path).encode("utf-8")).hexdigest()
+    return _remote_index_cache_dir() / f"{digest}.idx"
+
+
+def _materialize_remote_index(idx_path: Pathlike) -> Path:
+    cache_path = _remote_index_cache_path(idx_path)
+    if _is_valid_index_file(cache_path):
+        return cache_path
+    cache_path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp_name = tempfile.mkstemp(
+        prefix=f"{cache_path.name}.", suffix=".tmp", dir=str(cache_path.parent))
+    tmp_path = Path(tmp_name)
+    try:
+        with open_best(idx_path, "rb") as src, os.fdopen(fd, "wb") as dst:
+            while True:
+                chunk = src.read(1 << 20)
+                if not chunk:
+                    break
+                dst.write(chunk)
+            dst.flush()
+            os.fsync(dst.fileno())
+        if not _is_valid_index_file(tmp_path):
+            raise FileNotFoundError(f"Index file not found, empty, or invalid: {idx_path}")
+        os.replace(tmp_path, cache_path)
+    finally:
+        if tmp_path.exists():
+            tmp_path.unlink()
+    return cache_path
+
+
 def read_index(idx_path: Pathlike) -> np.ndarray:
     """Read a ``.idx`` file into a uint64 offsets array (last = sentinel)."""
     local_path = _as_local_path(idx_path)
-    if local_path is None:
-        raise not_ported(f"Index files behind URLs or pipes ({idx_path})")
-    if not local_path.is_file():
-        raise FileNotFoundError(f"Index file not found: {local_path}")
-    return np.fromfile(local_path, dtype=_OFFSET_DTYPE)
+    if local_path is not None:
+        if not local_path.is_file():
+            raise FileNotFoundError(f"Index file not found: {local_path}")
+        return np.fromfile(local_path, dtype=_OFFSET_DTYPE)
+    _refuse_url(idx_path)
+    return np.fromfile(_materialize_remote_index(idx_path), dtype=_OFFSET_DTYPE)
 
 
 def _assert_uncompressed(path: Pathlike, kind: str) -> None:

@@ -15,6 +15,7 @@ import random
 import types
 import warnings
 from collections import deque
+from contextlib import contextmanager
 from functools import partial
 from json import JSONDecodeError
 from typing import Any, Callable, Iterable, List, Optional, TypeVar, Union
@@ -32,6 +33,20 @@ def is_dill_enabled() -> bool:
         is_module_available("dill")
         and os.environ.get("LHOTSE_DILL_ENABLED", "0") in _TRUE_STRINGS
     )
+
+
+def set_dill_enabled(value: bool) -> None:
+    if not is_module_available("dill"):
+        raise AssertionError("Cannot enable dill because dill is not installed.")
+    os.environ["LHOTSE_DILL_ENABLED"] = "1" if value else "0"
+
+
+@contextmanager
+def dill_enabled(value: bool):
+    saved = is_dill_enabled()
+    set_dill_enabled(value)
+    yield
+    set_dill_enabled(saved)
 
 
 class Dillable:

@@ -1,6 +1,7 @@
 """
 Manifest (de)serialization for local files (copied from
-``lhotse_tpu/serialization.py``): ``open_best`` over plain and gzipped
+``lhotse_tpu/serialization.py``): ``open_best`` over ``-`` (stdin or
+stdout), ``pipe:<command>`` (a shell subprocess), and plain and gzipped
 files, JSON, JSONL and YAML manifests (``load_manifest``,
 ``store_manifest``, the ``Json``/``Jsonl``/``Yaml`` mixins of
 ``Serializable``, and ``LazyMixin`` for the Set classes), the sequential
@@ -18,17 +19,19 @@ JSONL through its ``.idx`` sidecar
 ``indexed=None`` an existing sidecar is used.
 
 Left out, and raising ``NotImplementedError`` where a manifest asks for
-them: pipes, URLs and the other remote I/O backends, and images.
+them: URLs (the smart_open, AIStore and MSC backends), the tar-as-directory
+backend, and images.
 """
 from __future__ import annotations
 
 import gzip
 import json
+import sys
 import warnings
 from pathlib import Path
 from typing import Any, Dict, Generator, Iterable, List, Optional, Type, Union
 
-from lhotse_tpu_torch.utils import Pathlike, is_valid_url, not_ported
+from lhotse_tpu_torch.utils import Pathlike, Pipe, is_valid_url, not_ported
 
 # Manifest is a union of all Set types; kept as Any to avoid import cycles.
 Manifest = Any
@@ -72,6 +75,36 @@ class IOBackend:
     @classmethod
     def new(cls, name: str) -> "IOBackend":
         return cls.KNOWN_BACKENDS[name]()
+
+
+class RedirectIOBackend(IOBackend):
+    """Maps path '-' to stdin/stdout."""
+
+    def open(self, identifier: str, mode: str):
+        if mode.startswith("r"):
+            stream = sys.stdin if "b" not in mode else sys.stdin.buffer
+        else:
+            stream = sys.stdout if "b" not in mode else sys.stdout.buffer
+        return StdStreamWrapper(stream)
+
+    def is_applicable(self, identifier: str) -> bool:
+        return str(identifier) == "-"
+
+    def handles_special_case(self, identifier: str) -> bool:
+        return str(identifier) == "-"
+
+
+class PipeIOBackend(IOBackend):
+    """Open 'pipe:<cmd>' identifiers as subprocess pipes."""
+
+    def open(self, identifier: str, mode: str):
+        return Pipe(str(identifier)[5:], mode=mode, shell=True)
+
+    def is_applicable(self, identifier: str) -> bool:
+        return str(identifier).startswith("pipe:")
+
+    def handles_special_case(self, identifier: str) -> bool:
+        return str(identifier).startswith("pipe:")
 
 
 class GzipIOBackend(IOBackend):
@@ -146,18 +179,38 @@ def get_current_io_backend() -> IOBackend:
 
 
 def get_default_io_backend() -> IOBackend:
-    """Composite fallback chain (reference: serialization.py:1157), of the
-    two local-file backends the port has."""
-    backends = [GzipIOBackend(), BuiltinIOBackend()]
+    """Composite fallback chain (reference: serialization.py:1157), in the
+    JAX package's order, of the local backends the port has."""
+    backends = [RedirectIOBackend(), PipeIOBackend(), GzipIOBackend(), BuiltinIOBackend()]
     return CompositeIOBackend(backends)
 
 
 def open_best(path: Pathlike, mode: str = "r"):
     """
     Open a path/identifier with the most appropriate strategy
-    (reference: serialization.py:31): gzip and plain files.
+    (reference: serialization.py:31): stdin/stdout redirects, subprocess
+    pipes, gzip, and plain files.
     """
     return get_current_io_backend().open(str(path), mode)
+
+
+class StdStreamWrapper:
+    def __init__(self, stream):
+        self.stream = stream
+
+    def close(self):
+        pass
+
+    def __enter__(self):
+        return self.stream
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        pass
+
+    def __getattr__(self, item: str):
+        if item == "close":
+            return self.close
+        return getattr(self.stream, item)
 
 
 def _dumps_manifest(item: Dict[str, Any]) -> str:

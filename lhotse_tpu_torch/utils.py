@@ -324,6 +324,94 @@ def is_valid_url(value: str) -> bool:
         return False
 
 
+class Pipe:
+    """
+    A wrapper class for subprocess.Pipe used by the ``pipe:`` I/O backend
+    (copied from ``lhotse_tpu/utils/core.py``). Starts a subprocess for the given command and
+    exposes a file-like API over its stdout (read) or stdin (write), raising
+    on nonzero exit status from the wrapped command.
+
+    Unlike the JAX package's, a text mode (no ``b``) reads and writes UTF-8
+    text and the pipe iterates over its lines, so JSONL manifests stream
+    through ``pipe:`` identifiers (the JAX package's pipe yields bytes and
+    is not iterable, so its ``load_jsonl`` and ``to_file`` fail on one).
+    """
+
+    def __init__(
+        self, cmd: str, mode: str = "rb", shell: bool = True, timeout: Optional[float] = None,
+        ignore_status: Optional[List[int]] = None, ignore_errors: bool = False):
+        import subprocess
+
+        self.cmd = cmd
+        self.mode = mode
+        self.timeout = timeout
+        self.ignore_status = [0] + (ignore_status or [])
+        self.ignore_errors = ignore_errors
+        text = {} if "b" in mode else {"encoding": "utf-8"}
+        if mode[0] == "r":
+            self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, shell=shell, **text)
+            self.stream = self.proc.stdout
+        elif mode[0] == "w":
+            self.proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, shell=shell, **text)
+            self.stream = self.proc.stdin
+        else:
+            raise ValueError(f"Invalid mode for Pipe: {mode}")
+        if self.stream is None:
+            raise RuntimeError(f"Subprocess pipe stream is unavailable for: {cmd}")
+        self.status: Optional[int] = None
+
+    def check_status(self):
+        self.wait_for_child()
+
+    def is_running(self) -> bool:
+        """True while the wrapped subprocess has not yet exited."""
+        return self.proc.poll() is None
+
+    def wait_for_child(self):
+        if self.status is not None:
+            return
+        self.status = self.proc.wait(timeout=self.timeout)
+        if self.status not in self.ignore_status and not self.ignore_errors:
+            raise RuntimeError(f"Command '{self.cmd}' exited with status {self.status}")
+
+    def read(self, *args, **kwargs):
+        result = self.stream.read(*args, **kwargs)
+        if not result:
+            self.wait_for_child()
+        return result
+
+    def readline(self, *args, **kwargs):
+        result = self.stream.readline(*args, **kwargs)
+        if not result:
+            self.wait_for_child()
+        return result
+
+    def __iter__(self):
+        yield from self.stream
+        self.wait_for_child()
+
+    def write(self, *args, **kwargs):
+        return self.stream.write(*args, **kwargs)
+
+    def flush(self):
+        return self.stream.flush()
+
+    def close(self):
+        try:
+            self.stream.close()
+        finally:
+            self.wait_for_child()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __getattr__(self, item):
+        return getattr(self.stream, item)
+
+
 @contextmanager
 def suppress_and_warn(*exceptions, enabled: bool = True):
     """Context manager that suppresses the given exception types and emits a warning."""

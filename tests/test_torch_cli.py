@@ -275,9 +275,8 @@ def test_list_backends():
     does not have."""
     left_out = {
         "list-audio-backends": set(),
-        "list-io-backends": {"PipeIOBackend", "RedirectIOBackend", "TarAsDirBackend",
-                             "SmartOpenIOBackend", "AIStoreIOBackend", "MSCIOBackend",
-                             "HFDatasetsIOBackend"},
+        "list-io-backends": {"TarAsDirBackend", "SmartOpenIOBackend", "AIStoreIOBackend",
+                             "MSCIOBackend", "HFDatasetsIOBackend"},
         "list-storage-backends": {"lilcom_url", "lilcom_hdf5", "chunked_lilcom_hdf5",
                                   "numpy_hdf5", "kaldiio"},
         "list-resampling-backends": {"sox"},
@@ -463,3 +462,60 @@ def test_prepare_librispeech(tmp_path):
     for name in ("librispeech_recordings_dev-clean.jsonl.gz",
                  "librispeech_supervisions_dev-clean.jsonl.gz"):
         assert len(_same_manifest(runs, f"manifests/{name}")) == 3
+
+
+# -- the commands of the meeting-simulation and sharded-format slice ---------------------
+
+
+@pytest.mark.parametrize("method,extra", [
+    ("independent", []),
+    ("conversational", ["--allow-3fold-overlap"]),
+    ("conversational", ["-f", "{corpus}/supervisions.jsonl.gz", "--reverberate"]),
+])
+def test_workflows_simulate_meetings(corpus, tmp_path, method, extra):
+    extra = [str(a).replace("{corpus}", str(corpus)) for a in extra]
+    runs = _both(tmp_path, "workflows", "simulate-meetings", "-m", method, "-n", 3, "-s", "2",
+                 *extra, corpus / "trimmed.jsonl", "{out}/meetings.jsonl", seed=0)
+    meetings = _same_manifest(runs, "meetings.jsonl")
+    assert len(meetings) == 3 and all(m["type"] == "MixedCut" for m in meetings)
+    from lhotse_tpu.cut import CutSet as JCutSet
+    from lhotse_tpu_torch.cut import CutSet
+
+    ours = CutSet.from_file(runs["port"][0] / "meetings.jsonl")
+    theirs = JCutSet.from_file(runs["jax"][0] / "meetings.jsonl")
+    for a, b in zip(ours, theirs):
+        assert np.array_equal(a.load_audio(), b.load_audio())
+
+
+def test_cut_export_to_webdataset(corpus, tmp_path):
+    runs = _both(tmp_path, "cut", "export-to-webdataset", "--shard-size", 4,
+                 corpus / "trimmed.jsonl", "{out}/shard-%06d.tar")
+    names = sorted(p.name for p in runs["port"][0].iterdir())
+    assert names == sorted(p.name for p in runs["jax"][0].iterdir()) == [
+        "shard-000000.tar", "shard-000001.tar"]
+    for name in names:
+        assert (runs["port"][0] / name).read_bytes() == (runs["jax"][0] / name).read_bytes()
+
+
+def test_index_verify_pack(corpus, tmp_path):
+    from lhotse_tpu_torch.index_pack import IndexPackCollectionSpec, write_index_pack
+    from lhotse_tpu_torch.indexing import create_jsonl_index
+
+    (tmp_path / "src").mkdir()
+    paths = []
+    for k in range(2):
+        path = tmp_path / "src" / f"trimmed-{k}.jsonl"
+        lines = (corpus / "trimmed.jsonl").read_text().splitlines(keepends=True)
+        path.write_text("".join(lines[k::2]))
+        create_jsonl_index(path)
+        paths.append(path)
+    pack = write_index_pack(tmp_path / "src" / "cuts.idxpack", [IndexPackCollectionSpec(
+        role="records", kind="json-lines", source_spec="trimmed-{0..1}.jsonl", paths=paths)])
+    runs = _both(tmp_path, "index", "verify-pack", pack)
+    assert runs["port"][1].output == runs["jax"][1].output == "OK (2 segments)\n"
+    raw = bytearray(pack.read_bytes())
+    raw[-5] ^= 0xFF
+    pack.write_bytes(bytes(raw))
+    runs = _both(tmp_path, "index", "verify-pack", pack)
+    assert runs["port"][1].output == runs["jax"][1].output
+    assert runs["port"][1].output.startswith("Verification failed: Index-pack CRC mismatch")

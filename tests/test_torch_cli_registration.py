@@ -13,12 +13,9 @@ from lhotse_tpu_torch.bin.modes import cli
 
 # Each left-out command with the ROADMAP.md item it waits for.
 LEFT_OUT = {
-    "cut.export-to-webdataset": "A5 (WebDataset export)",
-    "index.verify-pack": "A5 (index_pack.py)",
     "copy-feats": "A7 (Cut.copy_feats)",
     "feat.upload": "A7 (the lilcom_url storage backend)",
     "workflows.activity-detection": "A7 (the energy VAD workflow)",
-    "workflows.simulate-meetings": "A4 (meeting simulation)",
     "workflows.annotate-with-whisper": "weights (Whisper)",
     "workflows.annotate-dnsmos": "weights (DNSMOS)",
     "workflows.align-with-torchaudio": "weights (torchaudio alignment)",
@@ -49,14 +46,14 @@ def test_command_tree_equals_jax_minus_the_left_out():
     theirs, ours = _tree(jax_cli), _tree(cli)
     expected = {
         name: group for name, group in theirs.items()
-        if name not in LEFT_OUT and name != "workflows"
+        if name not in LEFT_OUT
         and not name.startswith("download.")
         and not (name.startswith("prepare.") and name.split(".")[1] not in PORTED_RECIPES)
     }
     assert ours == expected
     assert set(LEFT_OUT) <= set(theirs)
     leaves = [n for n, group in ours.items() if not group]
-    assert len([n for n in leaves if not n.startswith("prepare.")]) == 38
+    assert len([n for n in leaves if not n.startswith("prepare.")]) == 41
     assert sorted(n for n in leaves if n.startswith("prepare.")) == [
         f"prepare.{r}" for r in sorted(PORTED_RECIPES)]
 

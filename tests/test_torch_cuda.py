@@ -4,8 +4,9 @@ the layers, augmenter, adpcm4 decode, sample cache, extractors (and their
 features through a chunky archive, and an 8-channel 300 s session),
 ``OnTheFlyFeatures``, encoder, entry, WPE, and the SURT and diarization
 datasets over the zipped samplers and stored features on the card against
-the same port on the CPU; and a piped Kaldi data dir through the CLI's
-``feat extract-cuts-batch`` against the kernel's plain version.
+the same port on the CPU; a piped Kaldi data dir through the CLI's
+``feat extract-cuts-batch`` against the kernel's plain version; and
+windows of simulated meetings through the SURT dataset on the card.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -895,3 +896,50 @@ def test_piped_kaldi_dir_extract_cuts_batch_on_card(cuda, tmp_path):
     for cut, p in zip(cuts, _plain(extractor, audio)):
         f = cut.load_features()
         assert f.shape == p.shape and np.abs(f - p).max() <= LOGMEL_TOL
+
+
+def test_simulated_meeting_windows_through_surt_on_card(cuda, tmp_path):
+    """Conversational meetings simulated from FLAC utterances, reverberated
+    with the fast random RIRs and cut into 4 s windows → ``K2SurtDataset``
+    with ``OnTheFlyFeatures`` on the card (chip_smoke.py phase 21 at a small
+    size): one launch per batch, the kernel against its plain version on
+    each window's mixed audio, and the batch against the CPU port's."""
+    from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import K2SurtDataset, SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.supervision import SupervisionSegment
+    from lhotse_tpu_torch.utils import fix_random_seed
+    from lhotse_tpu_torch.workflows import ConversationalMeetingSimulator
+
+    cuts = []
+    for i in range(8):
+        write_flac(str(tmp_path / f"u{i}.flac"), _audio(16000 + 3000 * i, seed=i), 16000)
+        c = Recording.from_file(tmp_path / f"u{i}.flac").to_cut()
+        c.supervisions = [SupervisionSegment(id=f"s{i}", recording_id=c.recording_id, start=0.0,
+                                             duration=c.duration, text=f"w{i}",
+                                             speaker=f"spk{i % 4}")]
+        cuts.append(c)
+    fix_random_seed(0)
+    sim = ConversationalMeetingSimulator()
+    meetings = sim.reverberate(sim.simulate(CutSet.from_cuts(cuts), num_repeats=1,
+                                            num_speakers_per_meeting=[2, 3],
+                                            max_utterances_per_speaker=1))
+    windows = CutSet.from_cuts(w for w in meetings.cut_into_windows(
+        4.0, keep_excessive_supervisions=False) if w.supervisions)
+    extractor = extractors.Fbank(extractors.FbankConfig(device="cuda"))
+    card = K2SurtDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))
+    cpu = K2SurtDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(
+        extractors.Fbank(extractors.FbankConfig(device="cpu"))))
+    batches = list(SimpleCutSampler(windows, max_duration=6.0))
+    fbank_cuda.LAUNCHES = 0
+    out = [card[b] for b in batches]
+    assert fbank_cuda.LAUNCHES == len(batches) >= 2
+    for b, batch in zip(batches, out):
+        audio = [c.load_audio()[0] for c in batch["cuts"]]
+        for f, p in zip(batch["inputs"], _plain(extractor, audio)):
+            assert np.isfinite(f).all() and np.abs(f[: len(p)] - p).max() <= LOGMEL_TOL
+        want = cpu[b]
+        assert np.abs(batch["inputs"] - want["inputs"]).max() <= FEATURE_TOL
+        assert batch["text"] == want["text"]

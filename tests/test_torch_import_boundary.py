@@ -95,7 +95,14 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.audio.syscodecs, lhotse_tpu_torch.augmentation.compress, "
         "lhotse_tpu_torch.dataset.cut_transforms.compress, lhotse_tpu_torch.recipes.commonvoice, "
         "lhotse_tpu_torch.kaldi, lhotse_tpu_torch.audio.resampling_backend, lhotse_tpu_torch.bin, "
-        "lhotse_tpu_torch.bin.modes, lhotse_tpu_torch.bin.lhotse_tpu_torch; "
+        "lhotse_tpu_torch.bin.modes, lhotse_tpu_torch.bin.lhotse_tpu_torch, "
+        "lhotse_tpu_torch.parallel.pool, lhotse_tpu_torch.workflows, "
+        "lhotse_tpu_torch.workflows.meeting_simulation, "
+        "lhotse_tpu_torch.workflows.meeting_simulation.base, "
+        "lhotse_tpu_torch.workflows.meeting_simulation.conversational, "
+        "lhotse_tpu_torch.workflows.meeting_simulation.speaker_independent, "
+        "lhotse_tpu_torch.index_pack, lhotse_tpu_torch.packed_lazy, "
+        "lhotse_tpu_torch.dataset.webdataset, lhotse_tpu_torch.bin.modes.workflows; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -771,5 +778,89 @@ def test_kaldi_cli_path_runs_without_jax(tmp_path):
     or lhotse_tpu fails."""
     proc = subprocess.run(
         [sys.executable, "-c", KALDI_CLI_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+SIM_SHARDED_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio import Recording, RecordingSet
+from lhotse_tpu_torch.audio.flacio import write_flac
+from lhotse_tpu_torch.bin.modes import cli
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset import K2SurtDataset, SimpleCutSampler
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.index_pack import (
+    IndexPackCollectionSpec, index_pack_collection_key, write_index_pack)
+from lhotse_tpu_torch.indexing import create_jsonl_index
+from lhotse_tpu_torch.packed_lazy import LazyPackedManifestIterator
+from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
+from lhotse_tpu_torch.utils import fix_random_seed
+from lhotse_tpu_torch.workflows import ConversationalMeetingSimulator
+
+with tempfile.TemporaryDirectory(dir=sys.argv[1]) as tmp:
+    tmp = Path(tmp)
+    rng = np.random.default_rng(0)
+    cuts = []
+    for i in range(8):
+        write_flac(str(tmp / f"u{i}.flac"), (0.1 * rng.standard_normal(16000 + 2000 * i)).astype(
+            np.float32), 16000)
+        c = Recording.from_file(tmp / f"u{i}.flac").to_cut()
+        c.supervisions = [SupervisionSegment(id=f"s{i}", recording_id=c.recording_id, start=0,
+                                             duration=c.duration, text=f"w{i}",
+                                             speaker=f"spk{i % 4}")]
+        cuts.append(c)
+    cuts = CutSet.from_cuts(cuts)
+    fbank = Fbank(FbankConfig(device="cpu"))
+    fix_random_seed(0)
+    sim = ConversationalMeetingSimulator()
+    sim.fit(SupervisionSet.from_segments([SupervisionSegment(
+        id=f"m{k}", recording_id="m", start=1.1 * k - 0.3 * (k % 3 == 0), duration=1.0,
+        speaker=f"x{k % 2}") for k in range(1, 12)]))
+    meetings = sim.reverberate(sim.simulate(cuts, num_repeats=1, num_speakers_per_meeting=[2, 3]))
+    windows = meetings.cut_into_windows(4.0, keep_excessive_supervisions=False).filter(
+        lambda c: len(c.supervisions) > 0).to_eager()
+    surt = K2SurtDataset(input_strategy=OnTheFlyFeatures(fbank))
+    batches = [surt[b] for b in SimpleCutSampler(windows, max_duration=8.0)]
+    assert batches and all(np.isfinite(b["inputs"]).all() for b in batches)
+    shards = []
+    for k in range(2):
+        shards.append(tmp / f"cuts-{k}.jsonl")
+        CutSet.from_cuts(list(cuts)[k::2]).to_file(shards[-1])
+        create_jsonl_index(shards[-1])
+    key = index_pack_collection_key("records", "json-lines", "cuts-{0..1}.jsonl")
+    write_index_pack(tmp / "cuts.idxpack", [IndexPackCollectionSpec(
+        role="records", kind="json-lines", source_spec="cuts-{0..1}.jsonl", paths=shards)])
+    cli.main(["index", "verify-pack", str(tmp / "cuts.idxpack")], standalone_mode=False)
+    cli.main(["cut", "export-to-webdataset", "-s", "4", str(shards[0]),
+              str(tmp / "wds-%03d.tar")], standalone_mode=False)
+    asr = K2SpeechRecognitionDataset(input_strategy=OnTheFlyFeatures(fbank))
+    for leg in (CutSet.from_files(shards, seed=0),
+                CutSet(LazyPackedManifestIterator(tmp / "cuts.idxpack", key, shuffle_shards=True)),
+                CutSet.from_webdataset([f"pipe:cat {tmp}/wds-000.tar"])):
+        batches = [asr[b] for b in SimpleCutSampler(leg, max_duration=6.0)]
+        assert sum(len(b["supervisions"]["text"]) for b in batches) in (4, 8)
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_simulated_and_sharded_paths_run_without_jax(tmp_path):
+    """Simulated, reverberated meetings in windows through ``K2SurtDataset``
+    with ``OnTheFlyFeatures``, and sharded manifests (``from_files``, an
+    index pack checked by ``index verify-pack``, WebDataset shards written by
+    ``cut export-to-webdataset`` and read through ``pipe:cat``) through
+    ``K2SpeechRecognitionDataset``, on the CPU, in a process where importing
+    jax or lhotse_tpu fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", SIM_SHARDED_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
