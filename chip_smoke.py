@@ -91,7 +91,21 @@ sessions written as Kaldi data dirs whose ``wav.scp`` pipes FLAC through
 compute-features`` on the kernel, ``kaldi export``; the stored features and
 ``OnTheFlyFeatures`` over the piped cuts, with ``AudioCache`` off and on
 and a resume; each batch into the AdamW step; the run stops if click,
-which the CLI needs, does not import); and checks what comes out.
+which the CLI needs, does not import); then the meeting simulation and
+sharded-manifest paths; then the noise, RIR and far-field meeting recipes,
+after a line saying whether ``sox`` is found (MUSAN and RIRS_NOISES
+layouts through ``prepare_musan`` and ``prepare_rir_noise``, as functions
+and through the CLI, into the augmenter's noise pool and RIR at the
+15 s × 256 bucket with the int16 wire; the utterances through ``CutMix``
+over the MUSAN noise and ``ReverbWithImpulseResponse`` over the real and
+BUT Reverb DB RIRs into ``OnTheFlyFeatures`` on the kernel and the AdamW
+step, with a resume, and one batch under WHAM! noise; a session of about
+60 s of each of AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1, LibriCSS, CHiME-6
+and DiPCo at its published channel count through its recipe, as function
+and CLI, ``trim_to_supervisions(keep_all_channels=True)``, ``to_mono()``
+and ``OnTheFlyFeatures`` on the kernel into the step, and the AISHELL-4
+session extracted whole into ``lilcom_chunky``); and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -127,8 +141,13 @@ features), ``shar_on_the_fly``, ``shar_indexed``, ``shar_precomputed``
 per cut), ``tagging_on_the_fly``, ``recording_chunks``,
 ``commonvoice_on_the_fly``, ``commonvoice_compress``,
 ``shar_opus_on_the_fly``, ``kaldi_extract``, ``kaldi_precomputed`` (0: it
-reads stored features), ``kaldi_on_the_fly``, ``kaldi_on_the_fly_cached``
-and ``kaldi_shar``); the last line is
+reads stored features), ``kaldi_on_the_fly``, ``kaldi_on_the_fly_cached``,
+``kaldi_shar``, ``meeting_sim_surt``, ``from_files_on_the_fly``,
+``idxpack_on_the_fly``, ``webdataset_on_the_fly``,
+``musan_rir_device_chain``, ``musan_rir_on_the_fly``, ``meeting_aishell4``,
+``meeting_ali_meeting``, ``meeting_icsi``, ``meeting_notsofar1``,
+``meeting_libricss``, ``meeting_chime6``, ``meeting_dipco`` and
+``meeting_aishell4_extract``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -4432,6 +4451,759 @@ def _phase_sharded(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+# -- 23. the noise, RIR and far-field meeting recipes -------------------------------------
+# MUSAN (openslr/17) and "RIRs and Noises" (openslr/28) in their published
+# layout and format, 16 kHz mono WAV, with fewer files: 32 noise files of
+# 5-30 s (MUSAN has 930), 8 music and 8 speech files; 8 point-source noises,
+# 16 real RIRs of 0.3-1.0 s and 4 isotropic noises, 4 simulated RIRs per room
+# size. The meeting corpora: one session of each of about 60 s, at the
+# corpus's own channel count and file names (with the short sessions a
+# recipe needs to fill its other splits).
+NOISE_SEED = 2323  # numpy seed of phase 23's corpora
+MUSAN_NOISE = (("free-sound", 16), ("sound-bible", 16))
+MUSAN_NOISE_SECONDS = (5.0, 30.0)
+POOL_SECONDS = 16.0  # each MUSAN noise recording tiled or cut to this length in the pool
+RIR_SECONDS = (0.3, 1.0)
+RIR_SEED = 23  # the seeded choice of the device chain's real RIR
+MIX_SEED, REVERB_SEED, WHAM_SEED = 29, 31, 37
+NOISE_RESUME_AFTER = 3
+MEETING_SECONDS = 60.0
+MEETING_SHORT_SECONDS = 6.0  # the sessions that only fill a recipe's other splits
+MEETING_TURN_SECONDS = (2.0, 5.0)
+MEETING_GAP_SECONDS = (0.5, 3.0)
+MEETING_SPEAKERS = 4
+
+
+def _wav_file(path: Path, x: np.ndarray) -> None:
+    from lhotse_tpu_torch.audio.wavio import write_wav
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_wav(str(path), np.atleast_2d(x).astype(np.float32), SR)
+
+
+def _decaying_rir(rng, seconds: float) -> np.ndarray:
+    """Exponentially decaying noise with its direct path at 1 after 2 ms."""
+    n = int(seconds * SR)
+    rir = rng.standard_normal(n) * np.exp(-np.arange(n) / (n / 6.0)) * 0.3
+    rir[int(0.002 * SR)] = 1.0
+    return rir.astype(np.float32)
+
+
+def _white(rng, seconds: float, level: float = 0.1) -> np.ndarray:
+    return (level * rng.standard_normal(int(seconds * SR))).astype(np.float32)
+
+
+def _write_noise_corpora(root: Path, rng) -> dict:
+    """MUSAN, RIRS_NOISES, the BUT Reverb DB and WHAM! layouts; MUSAN's music
+    and speech as tone bursts (numpy seed ``NOISE_SEED``), the rest noise."""
+    bursts = np.random.RandomState(NOISE_SEED)
+    musan = root / "musan"
+    for sub, count in MUSAN_NOISE:
+        for i in range(count):
+            _wav_file(musan / "noise" / sub / f"noise-{sub}-{i:04d}.wav",
+                      _white(rng, float(rng.uniform(*MUSAN_NOISE_SECONDS)), 0.05))
+    annotations = []
+    for i in range(8):
+        name = f"music-fma-{i:04d}"
+        _wav_file(musan / "music" / "fma" / f"{name}.wav", _tone_burst(bursts, 5.0 + i))
+        annotations.append(f"{name} {'rock,pop' if i % 2 else 'classical'} {'YN'[i % 2]} "
+                           f"artist{i}")
+    (musan / "music" / "fma" / "ANNOTATIONS").write_text("\n".join(annotations) + "\n")
+    for i in range(8):
+        _wav_file(musan / "speech" / "librivox" / f"speech-librivox-{i:04d}.wav",
+                  _tone_burst(bursts, 3.0 + 0.5 * i))
+    rirs = root / "RIRS_NOISES"
+    for i in range(8):
+        _wav_file(rirs / "pointsource_noises" / f"noise-free-sound-{i:04d}.wav",
+                  _white(rng, float(rng.uniform(1.0, 3.0)), 0.05))
+    real = rirs / "real_rirs_isotropic_noises"
+    for i in range(16):
+        prefix = ("RWCP_type1_rir_circle_ane_imp", "RWCP_type2_rir_cirline_e1a_imp",
+                  "RVB2014_type1_rir_largeroom1_near_angla", "RVB2014_type2_rir_mediumroom1")[i % 4]
+        _wav_file(real / f"{prefix}_{i:02d}.wav",
+                  _decaying_rir(rng, float(rng.uniform(*RIR_SECONDS))))
+    for i in range(4):
+        _wav_file(real / f"RVB2014_type1_noise_largeroom1_{i + 1}.wav", _white(rng, 2.0 + i, 0.05))
+    for room in ("small", "medium", "large"):
+        for i in range(4):
+            _wav_file(rirs / "simulated_rirs" / f"{room}room" / "Room001" / f"Room001-{i + 1:05d}.wav",
+                      _decaying_rir(rng, float(rng.uniform(*RIR_SECONDS))))
+    but = root / "BUT_ReverbDB"
+    for room in ("Q301", "L207"):
+        for mic in ("MicID01", "MicID02"):
+            base = but / room / mic / "SpkID01" / "01"
+            _wav_file(base / "RIR" / "IR_sweep.v00.wav",
+                      _decaying_rir(rng, float(rng.uniform(*RIR_SECONDS))))
+            _wav_file(base / "silence" / "sil.v00.wav", _white(rng, 2.0, 0.01))
+    wham = root / "wham_noise"
+    for split, count in (("tr", 4), ("cv", 2), ("tt", 2)):
+        for i in range(count):
+            _wav_file(wham / split / f"{split}_noise_{i:02d}.wav",
+                      _white(rng, float(rng.uniform(5.0, 10.0)), 0.05))
+    return {"musan": musan, "rir_noise": rirs, "but_reverb_db": but, "wham": wham}
+
+
+def _same_written(a: Path, b: Path, name: str) -> list:
+    """The ``.jsonl.gz`` manifests two runs wrote, equal once decompressed
+    (a gzip header carries its write time). Returns their names."""
+    import gzip
+
+    names = sorted(p.name for p in a.glob("*.jsonl.gz"))
+    if not names or names != sorted(p.name for p in b.glob("*.jsonl.gz")) or any(
+            gzip.decompress((a / n).read_bytes()) != gzip.decompress((b / n).read_bytes())
+            for n in names):
+        raise AssertionError(f"{name}: the CLI's manifests differ from the function's")
+    return names
+
+
+def _meeting_turns(rng, seconds: float, speakers: int = MEETING_SPEAKERS) -> list:
+    """(speaker, start, end, words) turns of 2-5 s with 0.5-3 s gaps."""
+    turns, t, spk = [], 0.5, 0
+    while True:
+        span = round(float(rng.uniform(*MEETING_TURN_SECONDS)), 2)
+        if t + span > seconds - 0.3:
+            return turns
+        words = [RECIPE_WORDS[i] for i in rng.integers(0, len(RECIPE_WORDS), int(rng.integers(3, 9)))]
+        turns.append((spk, round(t, 2), round(t + span, 2), words))
+        t = round(t + span + float(rng.uniform(*MEETING_GAP_SECONDS)), 2)
+        spk = (spk + int(rng.integers(1, speakers))) % speakers
+
+
+def _meeting_audio(rng, seconds: float, turns: list, channels: int,
+                   speakers: int = MEETING_SPEAKERS, headsets: bool = False) -> np.ndarray:
+    """(channels, n) audio of the turns as tone bursts (four harmonics of an
+    80-220 Hz f0 per speaker): a far-field channel hears every speaker with
+    its own gain and a delay of up to 1 ms; headset ``k`` hears speaker ``k``
+    and, at 0.05, the others. Every channel has its own 0.01 noise floor."""
+    n = int(seconds * SR)
+    f0 = rng.uniform(80, 220, speakers)
+    dry = np.zeros((speakers, n), np.float32)
+    for s, start, end, _ in turns:
+        lo, hi = int(start * SR), int(end * SR)
+        tt = np.arange(hi - lo) / SR
+        dry[s, lo:hi] += 0.2 * sum(np.sin(2 * np.pi * f0[s] * (h + 1) * tt) / (h + 1)
+                                   for h in range(4))
+    out = (0.01 * rng.standard_normal((channels, n))).astype(np.float32)
+    total = dry.sum(axis=0)
+    for c in range(channels):
+        if headsets:
+            out[c] += dry[c % speakers] + 0.05 * (total - dry[c % speakers])
+            continue
+        for k, (gain, delay) in enumerate(zip(rng.uniform(0.3, 0.8, speakers),
+                                              rng.integers(0, 17, speakers))):
+            out[c, delay:] += gain * dry[k, : n - delay]
+    return out
+
+
+def _textgrid(tiers: dict, xmax: float) -> str:
+    """A long-format Praat TextGrid of interval tiers {name: [(start, end, text)]}."""
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0",
+             f"xmax = {xmax}", "tiers? <exists>", f"size = {len(tiers)}", "item []:"]
+    for k, (name, intervals) in enumerate(tiers.items(), 1):
+        lines += [f"    item [{k}]:", '        class = "IntervalTier"', f'        name = "{name}"',
+                  "        xmin = 0", f"        xmax = {xmax}",
+                  f"        intervals: size = {len(intervals)}"]
+        for j, (start, end, text) in enumerate(intervals, 1):
+            lines += [f"        intervals [{j}]:", f"            xmin = {start}",
+                      f"            xmax = {end}", f'            text = "{text}"']
+    return "\n".join(lines) + "\n"
+
+
+def _hms(seconds: float, digits: int = 3) -> str:
+    h, rem = divmod(seconds, 3600)
+    m, s = divmod(rem, 60)
+    return f"{int(h):02d}:{int(m):02d}:{s:0{3 + digits}.{digits}f}"
+
+
+def _write_aishell4(root: Path, rng) -> Path:
+    """train_L/wav/<session>.flac (8 channels) and its TextGrid, a tier per speaker."""
+    from lhotse_tpu_torch.audio.flacio import write_flac
+
+    session = "L_R003S01C02"
+    turns = _meeting_turns(rng, MEETING_SECONDS)
+    (root / "train_L" / "wav").mkdir(parents=True)
+    write_flac(str(root / "train_L" / "wav" / f"{session}.flac"),
+               _meeting_audio(rng, MEETING_SECONDS, turns, 8), SR)
+    (root / "train_L" / "TextGrid").mkdir()
+    (root / "train_L" / "TextGrid" / f"{session}.TextGrid").write_text(_textgrid(
+        {str(k + 1): [(s, e, "".join(w).lower()) for spk, s, e, w in turns if spk == k]
+         for k in range(MEETING_SPEAKERS)}, MEETING_SECONDS))
+    return root
+
+
+def _write_ali_meeting(root: Path, rng) -> Path:
+    """Train_Ali_far (the 8-channel array, a TextGrid with a tier per
+    speaker) and Train_Ali_near (a headset file and TextGrid per speaker)."""
+    turns = _meeting_turns(rng, MEETING_SECONDS)
+    genders = "FMFM"
+    far = root / "Train_Ali_far"
+    _wav_file(far / "audio_dir" / "R0001_M0001_MS001.wav",
+              _meeting_audio(rng, MEETING_SECONDS, turns, 8))
+    (far / "textgrid_dir").mkdir(parents=True)
+    (far / "textgrid_dir" / "R0001_M0001.TextGrid").write_text(_textgrid(
+        {f"R0001_M0001_{genders[k]}_SPK{k + 1:04d}": [
+            (s, e, " ".join(w)) for spk, s, e, w in turns if spk == k]
+         for k in range(MEETING_SPEAKERS)}, MEETING_SECONDS))
+    near = root / "Train_Ali_near"
+    headsets = _meeting_audio(rng, MEETING_SECONDS, turns, MEETING_SPEAKERS, headsets=True)
+    (near / "textgrid_dir").mkdir(parents=True)
+    for k in range(MEETING_SPEAKERS):
+        stem = f"R0001_M0001_{genders[k]}_SPK{k + 1:04d}"
+        _wav_file(near / "audio_dir" / f"{stem}.wav", headsets[k])
+        (near / "textgrid_dir" / f"{stem}.TextGrid").write_text(_textgrid(
+            {f"SPK{k + 1:04d}": [(s, e, " ".join(w)) for spk, s, e, w in turns if spk == k]},
+            MEETING_SECONDS))
+    return root
+
+
+ICSI_SESSIONS = (("Bdb001", MEETING_SECONDS), ("Bmr021", MEETING_SHORT_SECONDS),
+                 ("Bmr013", MEETING_SHORT_SECONDS))  # one meeting per partition
+ICSI_CHANNELS = ("chan0", "chan1", "chan2", "chan3", "chanE", "chanF", "chan6", "chan7")
+
+
+def _write_icsi(root: Path, rng) -> Path:
+    """speech/<meeting>/chan<X>.sph (headsets chan0-3, distant chanE/F/6/7,
+    SPHERE pcm16) and transcripts/ (preambles.mrt, the per-speaker Segments
+    and Words XML)."""
+    from lhotse_tpu_torch.audio.sphio import write_sph
+
+    trans = root / "transcripts"
+    (trans / "Segments").mkdir(parents=True)
+    (trans / "Words").mkdir()
+    preambles = ['<?xml version="1.0"?>', "<Meetings>"]
+    for mi, (meet, seconds) in enumerate(ICSI_SESSIONS):
+        turns = _meeting_turns(rng, seconds)
+        near = _meeting_audio(rng, seconds, turns, MEETING_SPEAKERS, headsets=True)
+        far = _meeting_audio(rng, seconds, turns, 4)
+        (root / "speech" / meet).mkdir(parents=True)
+        for ch, x in zip(ICSI_CHANNELS, list(near) + list(far)):
+            write_sph(root / "speech" / meet / f"{ch}.sph", x[None], SR)
+        names = [f"{'mf'[k % 2]}e0{mi}{k}" for k in range(MEETING_SPEAKERS)]
+        preambles += [f'  <Meeting Session="{meet}">', "    <Preamble>", "      <Channels>"]
+        preambles += [f'        <Channel Name="{c}"/>' for c in ICSI_CHANNELS]
+        preambles += ["      </Channels>", "      <Participants>"]
+        preambles += [f'        <Participant Name="{names[k]}" Channel="chan{k}"/>'
+                      for k in range(MEETING_SPEAKERS)]
+        preambles += ["      </Participants>", "    </Preamble>", "  </Meeting>"]
+        for k in range(MEETING_SPEAKERS):
+            segs, words = [], []
+            for spk, start, end, text in turns:
+                if spk != k:
+                    continue
+                segs.append(f'  <segment participant="{names[k]}" starttime="{start}" '
+                            f'endtime="{end}"/>')
+                step = (end - start) / len(text)
+                words += [f'  <w starttime="{round(start + j * step, 3)}" '
+                          f'endtime="{round(start + (j + 1) * step - 0.05, 3)}">{w.lower()}</w>'
+                          for j, w in enumerate(text)]
+            agent = "ABCD"[k]
+            (trans / "Segments" / f"{meet}.{agent}.segs.xml").write_text(
+                '<?xml version="1.0"?>\n<segments>\n' + "\n".join(segs) + "\n</segments>")
+            (trans / "Words" / f"{meet}.{agent}.words.xml").write_text(
+                '<?xml version="1.0"?>\n<words>\n' + "\n".join(words) + "\n</words>")
+    preambles.append("</Meetings>")
+    (trans / "preambles.mrt").write_text("\n".join(preambles))
+    return root
+
+
+NOTSOFAR_MEETING = "MTG_30830"
+NOTSOFAR_PART, NOTSOFAR_VERSION = "train_set", "240825.1_train"
+
+
+def _write_notsofar1(root: Path, rng) -> Path:
+    """benchmark-datasets/<part>/<version>/MTG/<meeting>/: a single-channel
+    device, a 7-channel device (ch0-ch6.wav), a close-talk file per speaker,
+    gt_transcription.json with word timings and gt_meeting_metadata.json."""
+    turns = _meeting_turns(rng, MEETING_SECONDS)
+    mtg = (root / "benchmark-datasets" / NOTSOFAR_PART / NOTSOFAR_VERSION / "MTG"
+           / NOTSOFAR_MEETING)
+    _wav_file(mtg / "sc_plaza_0" / "ch0.wav", _meeting_audio(rng, MEETING_SECONDS, turns, 1)[0])
+    for ch, x in enumerate(_meeting_audio(rng, MEETING_SECONDS, turns, 7)):
+        _wav_file(mtg / "mc_plaza_0" / f"ch{ch}.wav", x)
+    speakers = ["Alice", "Bob", "Carol", "Dave"]
+    for k, x in enumerate(_meeting_audio(rng, MEETING_SECONDS, turns, MEETING_SPEAKERS,
+                                         headsets=True)):
+        _wav_file(mtg / "close_talk" / f"CT_{21 + k}.wav", x)
+    transcript = []
+    for spk, start, end, words in turns:
+        step = (end - start) / len(words)
+        timing = [[w.lower(), round(start + j * step, 2), round(start + (j + 1) * step, 2)]
+                  for j, w in enumerate(words)]
+        transcript.append({"speaker_id": speakers[spk], "start_time": start, "end_time": end,
+                           "text": " ".join(w.lower() for w in words),
+                           "word_timing": timing[:1] + [["<ah>", timing[0][2], timing[0][2]]]
+                           + timing[1:]})
+    (mtg / "gt_transcription.json").write_text(json.dumps(transcript))
+    (mtg / "gt_meeting_metadata.json").write_text(json.dumps(
+        {"ParticipantAliasToCtDevice": {s: f"CT_{21 + k}" for k, s in enumerate(speakers)}}))
+    return root
+
+
+LIBRICSS_OVERLAPS = ("0L", "0S", "OV10", "OV20", "OV30", "OV40")
+LIBRICSS_SESSION = "overlap_ratio_20.0_sil0.1_1.0_session0_actual20.8"
+
+
+def _write_libricss(root: Path, rng) -> Path:
+    """for_release/OV20/<session>/: record/raw_recording.wav (7 channels),
+    clean/mix.wav, clean/each_spk.wav (8 channels) and
+    transcription/meeting_info.txt; the other overlap directories empty."""
+    corpus = root / "for_release"
+    for ov in LIBRICSS_OVERLAPS:
+        (corpus / ov).mkdir(parents=True)
+    turns = _meeting_turns(rng, MEETING_SECONDS)
+    session = corpus / "OV20" / LIBRICSS_SESSION
+    _wav_file(session / "record" / "raw_recording.wav",
+              _meeting_audio(rng, MEETING_SECONDS, turns, 7))
+    _wav_file(session / "clean" / "mix.wav", _meeting_audio(rng, MEETING_SECONDS, turns, 1)[0])
+    _wav_file(session / "clean" / "each_spk.wav",
+              _meeting_audio(rng, MEETING_SECONDS, turns, 8, headsets=True))
+    speakers = ["1089", "121", "1284", "4507"]
+    rows = ["start_time\tend_time\tspeaker\tutterance_id\ttranscription"] + [
+        f"{start}\t{end}\t{speakers[spk]}\t{speakers[spk]}-{i:04d}\t{' '.join(w)}"
+        for i, (spk, start, end, w) in enumerate(turns)]
+    (session / "transcription").mkdir()
+    (session / "transcription" / "meeting_info.txt").write_text("\n".join(rows) + "\n")
+    return root
+
+
+CHIME6_SESSIONS = (("S02", MEETING_SECONDS), ("S09", MEETING_SHORT_SECONDS))  # the dev split
+
+
+def _write_chime6(root: Path, rng) -> Path:
+    """audio/dev/<session>_U0<k>.CH<c>.wav (six 4-channel arrays, one file per
+    channel), <session>_P<nn>.wav (binaural headsets) and
+    transcriptions/dev/<session>.json, already synchronised."""
+    for si, (session, seconds) in enumerate(CHIME6_SESSIONS):
+        turns = _meeting_turns(rng, seconds)
+        arrays = _meeting_audio(rng, seconds, turns, 24)
+        for u in range(6):
+            for c in range(4):
+                _wav_file(root / "audio" / "dev" / f"{session}_U0{u + 1}.CH{c + 1}.wav",
+                          arrays[4 * u + c])
+        speakers = [f"P{5 + 4 * si + k:02d}" for k in range(MEETING_SPEAKERS)]
+        heads = _meeting_audio(rng, seconds, turns, MEETING_SPEAKERS, headsets=True)
+        for k, spk in enumerate(speakers):
+            _wav_file(root / "audio" / "dev" / f"{session}_{spk}.wav",
+                      np.stack([heads[k], heads[k]]))
+        (root / "transcriptions" / "dev").mkdir(parents=True, exist_ok=True)
+        (root / "transcriptions" / "dev" / f"{session}.json").write_text(json.dumps([
+            {"end_time": _hms(end), "start_time": _hms(start), "words": " ".join(w).lower(),
+             "speaker": speakers[spk], "ref": f"U0{1 + spk % 6}", "location": "kitchen",
+             "session_id": session} for spk, start, end, w in turns]))
+    return root
+
+
+def _write_dipco(root: Path, rng) -> Path:
+    """audio/<part>/<session>_U0<k>.CH<c>.wav (five 7-channel arrays) and
+    <session>_P<nn>.wav (close-talk) for S02, the dev session of about 60 s,
+    and the arrays of the other nine sessions at a few seconds each;
+    transcriptions/<part>/<session>.json with HH:MM:SS.ff times per device."""
+    from lhotse_tpu_torch.recipes.dipco import SESSIONS
+
+    for part, sessions in SESSIONS.items():
+        for session in sessions:
+            seconds = MEETING_SECONDS if session == "S02" else MEETING_SHORT_SECONDS
+            turns = _meeting_turns(rng, seconds)
+            arrays = _meeting_audio(rng, seconds, turns, 35)
+            for u in range(5):
+                for c in range(7):
+                    _wav_file(root / "audio" / part / f"{session}_U0{u + 1}.CH{c + 1}.wav",
+                              arrays[7 * u + c])
+            if session == "S02":
+                for k, x in enumerate(_meeting_audio(rng, seconds, turns, MEETING_SPEAKERS,
+                                                     headsets=True)):
+                    _wav_file(root / "audio" / part / f"{session}_P0{k + 1}.wav", x)
+            (root / "transcriptions" / part).mkdir(parents=True, exist_ok=True)
+            (root / "transcriptions" / part / f"{session}.json").write_text(json.dumps([
+                {"speaker_id": f"P0{spk + 1}", "session_id": session,
+                 "start_time": {"close-talk": _hms(start, 2), "U01": _hms(start, 2)},
+                 "end_time": {"close-talk": _hms(end, 2), "U01": _hms(end, 2)},
+                 "ref": "U01", "gender": "female" if spk % 2 else "male",
+                 "nativeness": "native", "mother_tongue": "English",
+                 "words": " ".join(w).lower()} for spk, start, end, w in turns]))
+    return root
+
+
+def _meeting_specs(root: Path, rng) -> dict:
+    """Per corpus, in the order the legs run: its layout written under
+    ``root``, the recipe's call and the CLI's command for an output
+    directory, and the pick of the array recordings and supervisions the
+    recipe made (its main split's). Also returns the AliMeeting layout, for
+    the ``save_mono`` leg."""
+    from lhotse_tpu_torch import recipes as R
+
+    aishell4 = _write_aishell4(root / "aishell4", rng)
+    ali = _write_ali_meeting(root / "AliMeeting", rng)
+    icsi = _write_icsi(root / "icsi", rng)
+    notsofar = _write_notsofar1(root / "notsofar1", rng)
+    libricss = _write_libricss(root / "libricss", rng)
+    chime6 = _write_chime6(root / "CHiME6", rng)
+    dipco = _write_dipco(root / "DiPCo", rng)
+    return {
+        "aishell4": (lambda o: R.prepare_aishell4(aishell4, output_dir=o),
+                     ["aishell4", aishell4], lambda m: m["train_L"]),
+        "ali_meeting": (lambda o: R.prepare_ali_meeting(ali, output_dir=o, mic="far"),
+                        ["ali-meeting", "--mic", "far", ali], lambda m: m["train"]),
+        "icsi": (lambda o: R.prepare_icsi(icsi / "speech", transcripts_dir=icsi / "transcripts",
+                                          output_dir=o, mic="mdm"),
+                 ["icsi", "--transcripts-dir", icsi / "transcripts", "--mic", "mdm",
+                  icsi / "speech"], lambda m: m["train"]),
+        "notsofar1": (lambda o: R.prepare_notsofar1(notsofar, output_dir=o),
+                      ["notsofar1", notsofar],
+                      lambda m: m[NOTSOFAR_PART][NOTSOFAR_VERSION]["multi_channel"]),
+        "libricss": (lambda o: R.prepare_libricss(libricss, output_dir=o, type="mdm"),
+                     ["libricss", "--type", "mdm", libricss], lambda m: m),
+        "chime6": (lambda o: R.prepare_chime6(chime6, output_dir=o, dataset_parts=["dev"],
+                                              mic="mdm"),
+                   ["chime6", "-p", "dev", "--mic", "mdm", chime6], lambda m: m["dev"]),
+        "dipco": (lambda o: R.prepare_dipco(dipco, output_dir=o, mic="mdm"),
+                  ["dipco", "--mic", "mdm", dipco], lambda m: m["dev"]),
+    }, ali
+
+
+def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """23. The noise, RIR and far-field meeting recipes, in phase 14's
+    directory. ``musan_rir_device_chain``: MUSAN and RIRS_NOISES layouts
+    through ``prepare_musan`` and ``prepare_rir_noise`` (as functions and
+    through the CLI's ``prepare musan`` and ``prepare rir-noise``, which
+    must write the same manifests), the MUSAN noise recordings tiled or cut
+    to 16 s as ``OnDeviceAugmenter``'s noise pool and a seeded choice of the
+    ``real_rir`` recordings as its RIR, at the 15 s x 256 bucket with the
+    int16 wire, speed 1.1, SNR (10, 20) and SpecAugment (phase 3's chain):
+    the kernel against its plain version on the batch it got, the features
+    against the same chain with the plain version. ``musan_rir_on_the_fly``:
+    phase 14's 160 LibriSpeech utterances through ``CutMix`` over the MUSAN
+    noise cuts (p=0.5) and ``ReverbWithImpulseResponse`` over the
+    ``real_rir`` and BUT Reverb DB ``rir`` recordings (p=0.5, a seeded
+    ``random.Random``) → ``K2SpeechRecognitionDataset`` with
+    ``OnTheFlyFeatures`` on the kernel → ``DataLoader`` with both transforms
+    as checkpoint objects → an AdamW step per batch, then a resume after
+    batch 3 that must be ``torch.equal``; and one batch mixed with the WHAM!
+    noise ``prepare_wham`` made. ``meeting_<corpus>``: per corpus, its
+    layout → ``prepare_*`` (function and CLI, equal manifests) →
+    ``CutSet.from_manifests`` on the array recordings →
+    ``trim_to_supervisions(keep_overlapping=False, keep_all_channels=True)``
+    → ``to_mono()`` → ``OnTheFlyFeatures`` on the kernel → an AdamW step
+    per batch; ``meeting_aishell4_extract``: the whole 8-channel AISHELL-4
+    session on the kernel into ``lilcom_chunky``, each segment's features
+    equal to their slice of the session's. Before the legs, a line saying
+    whether ``sox`` is found: AliMeeting's ``save_mono`` runs it, and where
+    it is missing that leg alone is left out and named. Returns the kernel's
+    launches per path and the largest kernel-vs-plain error."""
+    import random
+    import shutil
+
+    from lhotse_tpu_torch.bin.modes import cli
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet, MixedCut, MonoCut, MultiCut
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.cut_transforms import CutMix, ReverbWithImpulseResponse
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+    from lhotse_tpu_torch.recipes import (
+        prepare_ali_meeting, prepare_but_reverb_db, prepare_musan, prepare_rir_noise, prepare_wham)
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+    from lhotse_tpu_torch.utils import compute_num_frames
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    sox = shutil.which("sox")
+    print(f"[{smi}] phase 23: sox found: {sox is not None}"
+          + ("" if sox else " (AliMeeting's save_mono leg runs sox: it is left out)"))
+    rng = np.random.default_rng(NOISE_SEED)
+    root = workdir / "noise_meetings"
+    t0 = time.perf_counter()
+    noise_dirs = _write_noise_corpora(root, rng)
+    print(f"noise corpora (MUSAN, RIRS_NOISES, BUT Reverb DB, WHAM!) written in "
+          f"{time.perf_counter() - t0!r} s")
+    launches, errs = {}, []
+
+    def prepare_both(name, function, argv):
+        """The recipe as a function and through the CLI, into directories of
+        their own; the manifests they write must be equal."""
+        out = root / "manifests" / name
+        t = time.perf_counter()
+        made = function(out / "function")
+        function_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cli.main(["prepare"] + [str(a) for a in argv] + [str(out / "cli")],
+                 standalone_mode=False)
+        cli_s = time.perf_counter() - t
+        names = _same_written(out / "function", out / "cli", name)
+        return made, names, function_s, cli_s
+
+    # -- musan_rir_device_chain ------------------------------------------------------
+    musan, musan_files, musan_s, musan_cli_s = prepare_both(
+        "musan", lambda o: prepare_musan(noise_dirs["musan"], output_dir=o),
+        ["musan", noise_dirs["musan"]])
+    rirs, rir_files, rir_s, rir_cli_s = prepare_both(
+        "rir_noise", lambda o: prepare_rir_noise(noise_dirs["rir_noise"], output_dir=o),
+        ["rir-noise", noise_dirs["rir_noise"]])
+    noise_recs = musan["noise"]["recordings"]
+    real_rirs = sorted(rirs["real_rir"]["recordings"], key=lambda r: r.id)
+    counts = {part: len(m["recordings"]) for part, m in rirs.items()}
+    if len(noise_recs) != sum(n for _, n in MUSAN_NOISE) or counts != {
+            "point_noise": 8, "iso_noise": 4, "real_rir": 16, "sim_rir": 12}:
+        raise AssertionError(f"musan_rir_device_chain: the prepared parts are off: {counts}")
+    if len(musan["music"]["supervisions"]) != 8 or len(musan["speech"]["recordings"]) != 8:
+        raise AssertionError("musan_rir_device_chain: MUSAN's music or speech part is off")
+    pool_n = int(POOL_SECONDS * SR)
+    pool = np.stack([np.resize(r.load_audio()[0], pool_n) for r in noise_recs]).astype(np.float32)
+    rir_rec = random.Random(RIR_SEED).choice(real_rirs)
+    rir = rir_rec.load_audio()[0].astype(np.float32)
+    print(f"[{smi}] musan_rir_device_chain: prepare_musan {musan_s!r} s (CLI {musan_cli_s!r} s), "
+          f"prepare_rir_noise {rir_s!r} s (CLI {rir_cli_s!r} s), the CLI's {len(musan_files)} + "
+          f"{len(rir_files)} manifests equal to the functions'; parts {counts}; noise pool "
+          f"{pool.shape} from {len(noise_recs)} MUSAN noise recordings of "
+          f"{sum(r.duration for r in noise_recs)!r} s; RIR {rir_rec.id} ({rir.shape[0]} taps)")
+    aug = OnDeviceAugmenter(
+        buckets=[BUCKET], wire_format="int16", speed_factor=SPEED, gain_range=(0.9, 1.1),
+        noise_pool=pool, snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
+        device=device)
+    aug.precompile()
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    frames = (math.ceil(n * 10 / 11) + 80) // 160
+    batches = []
+    for _ in range(2):  # phase 3's batches: 8-15 s at the full bucket
+        lens = rng.integers(n * 8 // 15, n + 1, size=bsz)
+        lens[0] = n
+        batches.append(((rng.standard_normal((bsz, n), np.float32) * 0.1), lens))
+    # The first launch's input and output, to hold the kernel against its
+    # plain version on the very batch the path gave it.
+    captured = []
+    launch = fbank_cuda.fbank_logmel
+
+    def capture(audio, Mc, Ms, mel_fb, **kw):
+        out = launch(audio, Mc, Ms, mel_fb, **kw)
+        if not captured:
+            captured.append((audio.clone(), Mc, Ms, mel_fb, out.clone()))
+        return out
+
+    staged, outs, stage_ms, compute_ms = [], [], [], []
+    fbank_cuda.fbank_logmel = capture
+    try:
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        for audio, lens in batches:
+            t = time.perf_counter()
+            staged.append(aug.stage(audio, lens))
+            torch.cuda.synchronize()
+            stage_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            outs.append(aug.compute(staged[-1]))
+            torch.cuda.synchronize()
+            compute_ms.append((time.perf_counter() - t) * 1e3)
+        launches["musan_rir_device_chain"] = fbank_cuda.LAUNCHES
+    finally:
+        fbank_cuda.fbank_logmel = launch
+    audio_k, Mc, Ms, mel_fb, out_k = captured[0]
+    plain = fbank_cuda.reference_fbank(audio_k, *fbank_cuda._squeeze_nyquist(
+        *(fbank_cuda._as_f32(m, audio_k.device) for m in (Mc, Ms, mel_fb))))
+    kernel_err = (out_k - plain).abs().max().item()
+    for (feats, feat_lens), (_, lens) in zip(outs, batches):
+        if tuple(feats.shape) != (bsz, frames, 80) or not torch.isfinite(feats).all():
+            raise AssertionError(f"musan_rir_device_chain: features {tuple(feats.shape)} wrong "
+                                 "or not finite")
+        if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
+            raise AssertionError("musan_rir_device_chain: feat_lens differ from the hop rule")
+    chain_err = _check_chain(staged[0], *outs[0], "int16", rir, device, fbank_cuda,
+                             path="musan_rir_device_chain")
+    mixed_rows = [int(torch.as_tensor(s.kwargs["mix_mask"]).sum()) for s in staged]
+    audio_s = sum(int(lens.sum()) for _, lens in batches) / SR
+    print(f"[{smi}] musan_rir_device_chain: {len(batches)} batches of {bsz} x {sec:g} s, "
+          f"{audio_s!r} audio-s in {sum(stage_ms) + sum(compute_ms)!r} ms (stage + compute): "
+          f"{audio_s / (sum(stage_ms) + sum(compute_ms)) * 1e3!r} audio-s/s; stage ms {stage_ms}, "
+          f"compute ms {compute_ms}; rows mixed with MUSAN noise {mixed_rows}; fbank kernel "
+          f"launches {launches['musan_rir_device_chain']}; kernel vs plain on its first batch "
+          f"{kernel_err!r} (tol {KERNEL_TOL}); features vs the plain chain {chain_err!r} "
+          f"(tol {CHAIN_TOL})")
+    if launches["musan_rir_device_chain"] != len(batches) or not kernel_err <= KERNEL_TOL:
+        raise AssertionError("musan_rir_device_chain: launches or the kernel's result are off")
+    if not all(0 < m < bsz for m in mixed_rows):
+        raise AssertionError(f"musan_rir_device_chain: the mix mask is off: {mixed_rows}")
+    errs += [kernel_err, chain_err]
+
+    # -- musan_rir_on_the_fly ----------------------------------------------------------
+    but, but_files, _, _ = prepare_both(
+        "but_reverb_db", lambda o: prepare_but_reverb_db(noise_dirs["but_reverb_db"], output_dir=o),
+        ["but-reverb-db", noise_dirs["but_reverb_db"]])
+    wham, wham_files, _, _ = prepare_both(
+        "wham", lambda o: prepare_wham(noise_dirs["wham"], output_dir=o),
+        ["wham", noise_dirs["wham"]])
+    noise_cuts = CutSet.from_manifests(recordings=noise_recs).to_eager()
+    rir_pool = real_rirs + sorted(but["rir"]["recordings"], key=lambda r: r.id)
+    utterances = CutSet.from_file(workdir / "recipe_cuts.jsonl.gz").to_eager()
+    sup_ids = sorted(s.id for c in utterances for s in c.supervisions)
+
+    def fly_loader():
+        extractor = Fbank(FbankConfig(device=device))
+        transforms = [CutMix(noise_cuts, snr=(10, 20), p=0.5, seed=MIX_SEED),
+                      ReverbWithImpulseResponse(rir_pool, p=0.5,
+                                                randgen=random.Random(REVERB_SEED))]
+        sampler = SimpleCutSampler(utterances, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
+        dataset = K2SpeechRecognitionDataset(
+            return_cuts=True, cut_transforms=transforms, input_strategy=OnTheFlyFeatures(extractor))
+        return DataLoader(sampler, dataset, prefetch_batches=3,
+                          checkpoint_objects=transforms), extractor
+
+    loader, extractor = fly_loader()
+    recorder = _RecordFirstBatch(extractor)
+    state = {}
+
+    def checkpoint(i, batch):
+        if i == NOISE_RESUME_AFTER - 1:
+            state["ckpt"] = loader.state_dict()
+
+    run = _leg("musan_rir_on_the_fly", loader, _Trainer(device), device, fbank_cuda, _rows_of, smi,
+               on_batch=checkpoint)
+    err = _first_batch_err(recorder, extractor)
+    resumed_loader, _ = fly_loader()
+    resumed_loader.load_state_dict(state["ckpt"])
+    resumed = list(resumed_loader)
+    want = run["batches"][NOISE_RESUME_AFTER:]
+    resume_equal = len(resumed) == len(want) and all(
+        torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
+        and a["supervisions"]["text"] == b["supervisions"]["text"]
+        for a, b in zip(resumed, want))
+    cuts = [c for b in run["batches"] for c in b["supervisions"]["cut"]]
+    covered = sorted(s.id.removesuffix("_rvb") for c in cuts for s in c.supervisions)
+    mixed = sum(isinstance(c, MixedCut) for c in cuts)
+    reverberated = sum(c.id.endswith("_rvb") for c in cuts)
+    # One batch of the same utterances under WHAM! noise.
+    wham_cuts = CutSet.from_manifests(recordings=[
+        r for split in ("tr", "cv", "tt") for r in wham[split]["recordings"]]).to_eager()
+    wham_extractor = Fbank(FbankConfig(device=device))
+    wham_recorder = _RecordFirstBatch(wham_extractor)
+    wham_set = K2SpeechRecognitionDataset(
+        return_cuts=True, cut_transforms=[CutMix(wham_cuts, snr=(10, 20), p=1.0, seed=WHAM_SEED)],
+        input_strategy=OnTheFlyFeatures(wham_extractor))
+    first = CutSet.from_cuts(next(iter(SimpleCutSampler(
+        utterances, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0))))
+    fbank_cuda.LAUNCHES = 0
+    wham_batch = wham_set[first]
+    wham_launches = fbank_cuda.LAUNCHES
+    wham_err = _first_batch_err(wham_recorder, wham_extractor)
+    wham_mixed = all(isinstance(c, MixedCut) and any(
+        "noise" in getattr(t.cut, "recording_id", "") for t in c.tracks[1:])
+        for c in wham_batch["supervisions"]["cut"])
+    launches["musan_rir_on_the_fly"] = run["launches"] + wham_launches
+    print(f"[{smi}] musan_rir_on_the_fly: BUT Reverb DB and WHAM! prepared (the CLI's "
+          f"{len(but_files)} + {len(wham_files)} manifests equal to the functions'); "
+          f"{len(utterances)} utterances, {mixed} mixed with MUSAN noise and {reverberated} "
+          f"reverberated by one of {len(rir_pool)} RIRs; every supervision once: "
+          f"{covered == sup_ids}; first batch kernel vs plain {err!r} (tol {KERNEL_TOL}); resumed "
+          f"after batch {NOISE_RESUME_AFTER} through a fresh loader: {len(resumed)} batches "
+          f"torch.equal to the uninterrupted run's: {resume_equal}; a batch of {len(first)} "
+          f"utterances mixed with WHAM! noise ({len(wham_cuts)} recordings): all mixed "
+          f"{wham_mixed}, {wham_launches} launch, kernel vs plain {wham_err!r}")
+    if run["launches"] != len(run["batches"]) or len(run["batches"]) <= NOISE_RESUME_AFTER:
+        raise AssertionError("musan_rir_on_the_fly: launches or the batch count are off")
+    if covered != sup_ids or not mixed or not reverberated or not resume_equal:
+        raise AssertionError("musan_rir_on_the_fly: coverage, the transforms or the resume are off")
+    if not err <= KERNEL_TOL or not wham_err <= KERNEL_TOL or wham_launches != 1 or not wham_mixed:
+        raise AssertionError("musan_rir_on_the_fly: the kernel or the WHAM! batch is off")
+    errs += [err, wham_err]
+
+    # -- meeting_<corpus> ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    specs, ali_dir = _meeting_specs(root / "meetings", rng)
+    print(f"meeting corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s")
+    trainer = _Trainer(device)
+    summary = {}
+    for name, (function, argv, pick) in specs.items():
+        made, files, prepare_s, cli_s = prepare_both(name, function, argv)
+        recordings, supervisions = pick(made)["recordings"], pick(made)["supervisions"]
+        sessions = CutSet.from_manifests(recordings=recordings, supervisions=supervisions).to_eager()
+        trimmed = sessions.trim_to_supervisions(
+            keep_overlapping=False, keep_all_channels=True).to_eager()
+        monos = CutSet.from_cuts(m for c in trimmed for m in c.to_mono())
+        channels = sorted({c.num_channels for c in sessions})
+        fly = Fbank(FbankConfig(device=device))
+        recorder = _RecordFirstBatch(fly)
+        loader = DataLoader(
+            SimpleCutSampler(monos, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0),
+            K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly)),
+            prefetch_batches=3)
+        run = _leg(f"meeting_{name}", loader, trainer, device, fbank_cuda, _rows_of, smi,
+                   unit="channel")
+        launches[f"meeting_{name}"] = run["launches"]
+        err = _first_batch_err(recorder, fly)
+        rows = sum(b["inputs"].shape[0] for b in run["batches"])
+        summary[name] = {"supervisions made": len(supervisions), "kept": len(trimmed),
+                         "channels": channels,
+                         "channel-s/s": run["audio_s"] / run["wall_ms"] * 1e3}
+        print(f"[{smi}] meeting_{name}: prepare {prepare_s!r} s, CLI {cli_s!r} s, its "
+              f"{len(files)} manifests equal; {len(sessions)} sessions of {channels} channels; "
+              f"supervisions made {len(supervisions)}, kept {len(trimmed)} -> {len(monos)} "
+              f"MonoCuts ({rows} rows); first batch kernel vs plain {err!r} (tol {KERNEL_TOL})")
+        if not all(isinstance(c, MultiCut) for c in sessions) or {
+                type(c) for c in monos} != {MonoCut}:
+            raise AssertionError(f"meeting_{name}: the sessions are not multi-channel MultiCuts")
+        if len(trimmed) != len(supervisions) or len(monos) != sum(c.num_channels for c in trimmed):
+            raise AssertionError(f"meeting_{name}: trimming lost or split supervisions")
+        if run["launches"] != len(run["batches"]) or rows != len(monos) or not err <= KERNEL_TOL:
+            raise AssertionError(f"meeting_{name}: launches, coverage or the kernel are off")
+        errs.append(err)
+        if name == "aishell4":
+            aishell4_sessions = sessions
+
+    # -- meeting_aishell4_extract ----------------------------------------------------------
+    (session,) = aishell4_sessions
+    extractor = Fbank(FbankConfig(device=device))
+    calls = _RecordExtract(extractor)
+    featured = {}
+
+    def extract():
+        with LilcomChunkyWriter(root / "aishell4_feats") as storage:
+            featured["cut"] = session.compute_and_store_features(extractor, storage)
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(extract)
+    launches["meeting_aishell4_extract"] = fbank_cuda.LAUNCHES
+    matrix = featured["cut"].load_features()
+    extract_err = _extract_errors(extractor, calls.calls)
+    archive_err = float(np.abs(matrix - calls.calls[0][1]).max())
+    segments = featured["cut"].trim_to_supervisions(
+        keep_overlapping=False, keep_all_channels=True).to_eager()
+    slices_equal = all(np.array_equal(c.load_features(), matrix[
+        :, compute_num_frames(c.start, 0.01, SR):][:, : c.num_frames]) for c in segments)
+    channel_s = session.duration * session.num_channels
+    print(f"[{smi}] meeting_aishell4_extract: the {session.num_channels}-channel session, "
+          f"{channel_s!r} channel-s, extracted and stored in {wall_ms!r} ms: "
+          f"{channel_s / wall_ms * 1e3!r} channel-s/s, device busy {busy_ms / wall_ms!r}; stored "
+          f"{matrix.shape}; fbank kernel launches {launches['meeting_aishell4_extract']}; kernel "
+          f"vs plain {extract_err!r} (tol {KERNEL_TOL}), archive vs the kernel's output "
+          f"{archive_err!r} (tol {LTC1_TICK / 2 + 1e-6!r}); {len(segments)} segments' features "
+          f"equal to their session slices: {slices_equal}")
+    if launches["meeting_aishell4_extract"] != 1 or not slices_equal:
+        raise AssertionError("meeting_aishell4_extract: launches or the segment slices are off")
+    if not extract_err <= KERNEL_TOL or not archive_err <= LTC1_TICK / 2 + 1e-6:
+        raise AssertionError("meeting_aishell4_extract: the kernel or the archive disagrees")
+    errs.append(extract_err)
+
+    # -- AliMeeting's save_mono (sox) ------------------------------------------------------
+    if sox is None:
+        print(f"[{smi}] ali_meeting_save_mono: left out, sox is not found")
+    else:
+        mono = prepare_ali_meeting(ali_dir, output_dir=root / "ali_sdm", mic="sdm",
+                                   save_mono=True)["train"]["recordings"]
+        far = {r.id: r for r in specs["ali_meeting"][2](
+            prepare_ali_meeting(ali_dir, mic="far"))["recordings"]}
+        ok = all(r.num_channels == 1 and r.num_samples == far[r.id].num_samples for r in mono)
+        print(f"[{smi}] ali_meeting_save_mono: {len(mono)} sessions written mono by sox: {ok}")
+        if not ok:
+            raise AssertionError("ali_meeting_save_mono: the mono recordings are off")
+    print(f"[{smi}] phase 23 meetings: {summary}")
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -4840,6 +5612,12 @@ def main() -> None:
         launches_sharded, sharded_err = _phase_sharded(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_sharded)
         print(f"phase 22 took {time.perf_counter() - t0!r} s")
+        # -- 23. MUSAN and RIRS_NOISES into the main path and the augmented path, and the
+        # far-field meeting recipes, on the same corpora
+        t0 = time.perf_counter()
+        launches_noise, noise_err = _phase_noise_meetings(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_noise)
+        print(f"phase 23 took {time.perf_counter() - t0!r} s")
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
     # signal-effects and multi-source, multi-talker training path on the same corpus
@@ -4867,7 +5645,8 @@ def main() -> None:
         "launches": launches,
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
-                              ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err]),
+                              ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
+                              noise_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -519,3 +519,110 @@ def test_index_verify_pack(corpus, tmp_path):
     runs = _both(tmp_path, "index", "verify-pack", pack)
     assert runs["port"][1].output == runs["jax"][1].output
     assert runs["port"][1].output.startswith("Verification failed: Index-pack CRC mismatch")
+
+
+# -- the prepare commands of the noise, RIR and meeting recipes ---------------------------
+
+def _recipe_cases():
+    """(id, the function that writes the corpus layout, the command's
+    arguments, the port's function call) for each new ``prepare`` command;
+    ``{c}`` in an argument is the corpus, whose layouts are the CPU recipe
+    tests'."""
+    from lhotse_tpu_torch.recipes import (
+        prepare_aishell4, prepare_ali_meeting, prepare_but_reverb_db, prepare_chime6,
+        prepare_dipco, prepare_icsi, prepare_libricss, prepare_musan, prepare_notsofar1,
+        prepare_rir_noise, prepare_wham)
+    from test_torch_recipes_meetings import (
+        aishell4_tree, ali_meeting_tree, chime6_tree, dipco_tree, icsi_tree, libricss_tree,
+        notsofar1_tree)
+    from test_torch_recipes_noise import but_reverb_tree, musan_tree, rir_noise_tree, wham_tree
+
+    return [
+        ("musan", lambda r: musan_tree(r, "pool"), ["musan", "{c}"],
+         lambda c, o: prepare_musan(c, output_dir=o)),
+        ("musan-noise-music-no-vocals", lambda r: musan_tree(r, "tranche6"),
+         ["musan", "-p", "noise", "-p", "music", "--no-vocals", "{c}"],
+         lambda c, o: prepare_musan(c, output_dir=o, parts=("noise", "music"), use_vocals=False)),
+        ("rir-noise", lambda r: rir_noise_tree(r, n_rirs=2), ["rir-noise", "{c}"],
+         lambda c, o: prepare_rir_noise(c, output_dir=o)),
+        ("rir-noise-real-rir", lambda r: rir_noise_tree(r, n_rirs=2),
+         ["rir-noise", "-p", "real_rir", "{c}"],
+         lambda c, o: prepare_rir_noise(c, output_dir=o, parts=["real_rir"])),
+        ("wham", wham_tree, ["wham", "{c}"], lambda c, o: prepare_wham(c, output_dir=o)),
+        ("but-reverb-db", but_reverb_tree, ["but-reverb-db", "{c}"],
+         lambda c, o: prepare_but_reverb_db(c, output_dir=o)),
+        ("but-reverb-db-rir", but_reverb_tree, ["but-reverb-db", "-p", "rir", "{c}"],
+         lambda c, o: prepare_but_reverb_db(c, output_dir=o, parts=["rir"])),
+        ("aishell4", lambda r: aishell4_tree(r, "array"), ["aishell4", "--normalize-text", "{c}"],
+         lambda c, o: prepare_aishell4(c, output_dir=o, normalize_text=True)),
+        ("ali-meeting", ali_meeting_tree, ["ali-meeting", "{c}"],
+         lambda c, o: prepare_ali_meeting(c, output_dir=o)),
+        ("ali-meeting-near-m2met", ali_meeting_tree,
+         ["ali-meeting", "--mic", "near", "--normalize-text", "m2met", "{c}"],
+         lambda c, o: prepare_ali_meeting(c, output_dir=o, mic="near", normalize_text="m2met")),
+        ("icsi-mdm-save-to-wav", lambda r: icsi_tree(r, "sphere")[0].parent,
+         ["icsi", "--transcripts-dir", "{c}/transcripts", "--mic", "mdm", "--save-to-wav",
+          "{c}/speech"],
+         lambda c, o: prepare_icsi(c / "speech", transcripts_dir=c / "transcripts", output_dir=o,
+                                   mic="mdm", save_to_wav=True)),
+        ("icsi-ihm", lambda r: icsi_tree(r, "ihm")[0].parent,
+         ["icsi", "--transcripts-dir", "{c}/transcripts", "{c}/speech"],
+         lambda c, o: prepare_icsi(c / "speech", transcripts_dir=c / "transcripts", output_dir=o)),
+        ("notsofar1", lambda r: notsofar1_tree(r, "wide"), ["notsofar1", "{c}"],
+         lambda c, o: prepare_notsofar1(c, output_dir=o)),
+        ("libricss-ihm-segmented", libricss_tree,
+         ["libricss", "--type", "ihm", "--segmented", "{c}"],
+         lambda c, o: prepare_libricss(c, output_dir=o, type="ihm", segmented_cuts=True)),
+        ("libricss", libricss_tree, ["libricss", "{c}"],
+         lambda c, o: prepare_libricss(c, output_dir=o)),
+        ("chime6-ihm", chime6_tree, ["chime6", "-p", "dev", "--mic", "ihm", "{c}"],
+         lambda c, o: prepare_chime6(c, output_dir=o, dataset_parts=["dev"], mic="ihm")),
+        ("chime6-mdm-reference-array", chime6_tree,
+         ["chime6", "-p", "dev", "--use-reference-array", "{c}"],
+         lambda c, o: prepare_chime6(c, output_dir=o, dataset_parts=["dev"],
+                                     use_reference_array=True)),
+        ("dipco-ihm-chime7", dipco_tree,
+         ["dipco", "--mic", "ihm", "--use-chime7-offset", "{c}"],
+         lambda c, o: prepare_dipco(c, output_dir=o, mic="ihm", use_chime7_offset=True)),
+    ]
+
+
+RECIPE_CASES = {case[0]: case for case in _recipe_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(RECIPE_CASES))
+def test_prepare_recipe_command_writes_what_its_function_writes(tmp_path, name):
+    """Each new ``prepare`` command writes the manifests its function writes,
+    and the JAX CLI's, compared as dicts with the output directory replaced.
+    The one exception is LibriCSS's segments, which the JAX package leaves
+    empty (tests/test_torch_recipes_meetings.py::test_libricss_segments_where_jax_finds_none)."""
+    import gzip
+
+    from lhotse_tpu_torch.utils import fix_random_seed
+
+    _, build, args, function = RECIPE_CASES[name]
+    corpus = build(tmp_path / "corpus")
+    runs = _both(tmp_path, "prepare", *[a.replace("{c}", str(corpus)) for a in args], "{out}",
+                 seed=0)
+    fix_random_seed(0)  # the CLI's -s 0: LibriCSS segments take uuid4 ids
+    function(corpus, tmp_path / "function")
+    (pout, _), (jout, _) = runs["port"], runs["jax"]
+    names = sorted(p.name for p in pout.glob("*.jsonl.gz"))
+    assert names and names == sorted(p.name for p in (tmp_path / "function").glob("*.jsonl.gz"))
+    for name_ in names:
+        ours = _normalized(pout / name_, pout)
+        assert ours and _normalized(tmp_path / "function" / name_, tmp_path / "function") == ours
+        if name_.endswith("_segments_all.jsonl.gz"):
+            assert gzip.decompress((jout / name_).read_bytes()) == b""
+        else:
+            assert _normalized(jout / name_, jout) == ours
+
+
+def test_prepare_chime6_array_sync_stops_as_not_ported(tmp_path):
+    from test_torch_recipes_meetings import chime6_tree
+
+    corpus = chime6_tree(tmp_path / "corpus")
+    for flag in ("--perform-array-sync", "--verify-md5-checksums"):
+        res = CliRunner().invoke(_cli("port"), ["prepare", "chime6", "-p", "dev", flag,
+                                                str(corpus), str(tmp_path / "out")])
+        assert res.exit_code != 0 and isinstance(res.exception, NotImplementedError)

@@ -23,7 +23,9 @@ LEFT_OUT = {
 }
 # The recipes whose prepare command the port registers; their downloads
 # are left out with every other download.
-PORTED_RECIPES = {"ami", "commonvoice", "librispeech"}
+PORTED_RECIPES = {
+    "aishell4", "ali-meeting", "ami", "but-reverb-db", "chime6", "commonvoice", "dipco", "icsi",
+    "libricss", "librispeech", "musan", "notsofar1", "rir-noise", "wham"}
 
 
 def _walk(cmd, prefix=()):

@@ -943,3 +943,36 @@ def test_simulated_meeting_windows_through_surt_on_card(cuda, tmp_path):
         want = cpu[b]
         assert np.abs(batch["inputs"] - want["inputs"]).max() <= FEATURE_TOL
         assert batch["text"] == want["text"]
+
+
+def test_musan_rir_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
+    """A MUSAN layout's noise recordings (tiled or cut to 3 s) as the noise
+    pool and a RIRS_NOISES ``real_rir`` response as the RIR, through
+    ``prepare_musan`` and ``prepare_rir_noise``, into the augmenter on the
+    card against the same augmenter on the CPU port."""
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.recipes import prepare_musan, prepare_rir_noise
+
+    for i, seconds in enumerate((0.5, 2.5, 1.2, 3.4)):
+        path = tmp_path / "musan" / "noise" / "free-sound" / f"noise-free-sound-{i:04d}.wav"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        write_wav(path, _audio((1, int(seconds * 16000)), seed=20 + i), 16000)
+    n = 4800
+    rir = _audio((1, n), seed=9) * np.exp(-np.arange(n) / (n / 6.0)).astype(np.float32)
+    rir[0, 32] = 1.0
+    path = tmp_path / "RIRS_NOISES" / "real_rirs_isotropic_noises" / "RWCP_type4_rir_cirline.wav"
+    path.parent.mkdir(parents=True)
+    write_wav(path, rir, 16000)
+    noise = prepare_musan(tmp_path / "musan", parts="noise")["noise"]["recordings"]
+    (rec,) = prepare_rir_noise(tmp_path / "RIRS_NOISES", parts="real_rir")["real_rir"]["recordings"]
+    pool = np.stack([np.resize(r.load_audio()[0], 48000) for r in noise])
+    cfg = dict(buckets=[(2.0, 4)], speed_factor=1.1, noise_pool=pool, rir=rec.load_audio()[0],
+               snr=(10, 20), mix_prob=0.5, seed=3, wire_format="int16",
+               specaugment=SpecAugment(seed=7))
+    x, lens = _audio((4, 32000), seed=5), [32000, 24000, 30000, 17000]
+    cpu_feats, cpu_lens = OnDeviceAugmenter(**cfg, device="cpu")(x, lens)
+    fbank_cuda.LAUNCHES = 0
+    feats, feat_lens = OnDeviceAugmenter(**cfg, device=cuda)(x, lens)
+    assert fbank_cuda.LAUNCHES == 1
+    assert torch.equal(feat_lens.cpu(), cpu_lens)
+    torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)

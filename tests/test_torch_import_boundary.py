@@ -102,7 +102,20 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.workflows.meeting_simulation.conversational, "
         "lhotse_tpu_torch.workflows.meeting_simulation.speaker_independent, "
         "lhotse_tpu_torch.index_pack, lhotse_tpu_torch.packed_lazy, "
-        "lhotse_tpu_torch.dataset.webdataset, lhotse_tpu_torch.bin.modes.workflows; "
+        "lhotse_tpu_torch.dataset.webdataset, lhotse_tpu_torch.bin.modes.workflows, "
+        "lhotse_tpu_torch.recipes.musan, lhotse_tpu_torch.recipes.rir_noise, "
+        "lhotse_tpu_torch.recipes.but_reverb_db, lhotse_tpu_torch.recipes.wham, "
+        "lhotse_tpu_torch.recipes.textgrid, lhotse_tpu_torch.recipes.aishell4, "
+        "lhotse_tpu_torch.recipes.ali_meeting, lhotse_tpu_torch.recipes.icsi, "
+        "lhotse_tpu_torch.recipes.notsofar1, lhotse_tpu_torch.recipes.libricss, "
+        "lhotse_tpu_torch.recipes.chime6, lhotse_tpu_torch.recipes.dipco, "
+        "lhotse_tpu_torch.bin.modes.recipes.musan, lhotse_tpu_torch.bin.modes.recipes.rir_noise, "
+        "lhotse_tpu_torch.bin.modes.recipes.wham, lhotse_tpu_torch.bin.modes.recipes.but_reverb_db, "
+        "lhotse_tpu_torch.bin.modes.recipes.aishell4, "
+        "lhotse_tpu_torch.bin.modes.recipes.ali_meeting, lhotse_tpu_torch.bin.modes.recipes.icsi, "
+        "lhotse_tpu_torch.bin.modes.recipes.notsofar1, "
+        "lhotse_tpu_torch.bin.modes.recipes.libricss, lhotse_tpu_torch.bin.modes.recipes.chime6, "
+        "lhotse_tpu_torch.bin.modes.recipes.dipco; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
@@ -862,5 +875,96 @@ def test_simulated_and_sharded_paths_run_without_jax(tmp_path):
     jax or lhotse_tpu fails."""
     proc = subprocess.run(
         [sys.executable, "-c", SIM_SHARDED_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+NOISE_MEETING_PATH = """
+import sys
+sys.modules["jax"] = None
+sys.modules["lhotse_tpu"] = None
+import json
+from pathlib import Path
+
+import numpy as np
+
+from lhotse_tpu_torch.audio.flacio import write_flac
+from lhotse_tpu_torch.audio.wavio import write_wav
+from lhotse_tpu_torch.bin.modes import cli
+from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.dataset import SimpleCutSampler
+from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+from lhotse_tpu_torch.features import Fbank, FbankConfig
+from lhotse_tpu_torch.recipes import prepare_aishell4, prepare_chime6, prepare_musan, prepare_rir_noise
+from lhotse_tpu_torch.serialization import load_manifest
+
+root = Path(sys.argv[1])
+rng = np.random.default_rng(0)
+def wav(path, seconds, channels=1):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_wav(path, (0.1 * rng.standard_normal((channels, int(seconds * 16000)))).astype(np.float32), 16000)
+for i in range(4):
+    wav(root / "musan" / "noise" / "free-sound" / f"noise-free-sound-{i:04d}.wav", 0.5 + i)
+rir_dir = root / "RIRS_NOISES" / "real_rirs_isotropic_noises"
+for i in range(2):
+    rir_dir.mkdir(parents=True, exist_ok=True)
+    rir = rng.standard_normal(4000) * np.exp(-np.arange(4000) / 600.0)
+    rir[10] = 1.0
+    write_wav(rir_dir / f"RWCP_type{i}_rir_circle.wav", rir[None].astype(np.float32), 16000)
+for argv in (["prepare", "musan", "-p", "noise", str(root / "musan"), str(root / "m")],
+             ["prepare", "rir-noise", "-p", "real_rir", str(root / "RIRS_NOISES"), str(root / "m")]):
+    cli.main(argv, standalone_mode=False)
+noise = load_manifest(root / "m" / "musan_recordings_noise.jsonl.gz")
+rirs = load_manifest(root / "m" / "real-rir_recordings_all.jsonl.gz")
+assert len(noise) == 4 and len(rirs) == 2
+assert [r.id for r in noise] == [r.id for r in prepare_musan(root / "musan", parts="noise")["noise"]["recordings"]]
+assert len(prepare_rir_noise(root / "RIRS_NOISES", parts="real_rir")["real_rir"]["recordings"]) == 2
+pool = np.stack([np.resize(r.load_audio()[0], 48000) for r in noise])
+aug = OnDeviceAugmenter([(2.0, 4)], speed_factor=1.1, noise_pool=pool,
+                        rir=list(rirs)[0].load_audio()[0], wire_format="int16", device="cpu")
+feats, lens = aug((0.1 * rng.standard_normal((4, 32000))).astype(np.float32), [32000] * 4)
+assert tuple(feats.shape) == (4, 182, 80) and np.isfinite(feats.numpy()).all()
+session = root / "aishell4" / "train_L"
+(session / "TextGrid").mkdir(parents=True)
+(session / "wav").mkdir()
+write_flac(str(session / "wav" / "L_R003S01C02.flac"),
+           (0.1 * rng.standard_normal((8, 48000))).astype(np.float32), 16000)
+tg = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "xmin = 0", "xmax = 3",
+      "tiers? <exists>", "size = 1", "item []:", "    item [1]:", '        class = "IntervalTier"',
+      '        name = "1"', "        xmin = 0", "        xmax = 3", "        intervals: size = 2",
+      "        intervals [1]:", "            xmin = 0.5", "            xmax = 1.5",
+      '            text = "你好"', "        intervals [2]:", "            xmin = 1.5",
+      "            xmax = 2.5", '            text = "再见"']
+(session / "TextGrid" / "L_R003S01C02.TextGrid").write_text("\\n".join(tg) + "\\n")
+sessions = CutSet.from_manifests(**prepare_aishell4(root / "aishell4")["train_L"])
+monos = CutSet.from_cuts(m for c in sessions.trim_to_supervisions(keep_all_channels=True)
+                         for m in c.to_mono())
+assert len(monos) == 16
+dataset = K2SpeechRecognitionDataset(input_strategy=OnTheFlyFeatures(Fbank(FbankConfig(device="cpu"))))
+batches = [dataset[b] for b in SimpleCutSampler(monos, max_duration=8.0)]
+assert sum(len(b["supervisions"]["text"]) for b in batches) == 16
+chime = root / "CHiME6"
+for name in ("S02_U01.CH1", "S02_U01.CH2", "S09_U01.CH1"):
+    wav(chime / "audio" / "dev" / f"{name}.wav", 2.0)
+(chime / "transcriptions" / "dev").mkdir(parents=True)
+for session in ("S02", "S09"):
+    (chime / "transcriptions" / "dev" / f"{session}.json").write_text(json.dumps([
+        {"start_time": "0:00:00.50", "end_time": "0:00:01.50", "words": "ok", "speaker": "P05"}]))
+dev = prepare_chime6(chime, dataset_parts="dev")["dev"]
+assert [s.channel for s in dev["supervisions"]] == [[0, 1], [0]]
+assert not any(m.startswith(("jax.", "lhotse_tpu.")) for m in sys.modules)
+"""
+
+
+def test_noise_and_meeting_recipes_run_without_jax(tmp_path):
+    """MUSAN and RIRS_NOISES prepared through the CLI into the augmenter's
+    noise pool and RIR, an 8-channel AISHELL-4 session through
+    ``trim_to_supervisions`` and ``to_mono`` into ``OnTheFlyFeatures``, and a
+    synchronised CHiME-6 layout, on the CPU, in a process where importing jax
+    or lhotse_tpu fails."""
+    proc = subprocess.run(
+        [sys.executable, "-c", NOISE_MEETING_PATH, str(tmp_path)], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
