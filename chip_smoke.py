@@ -104,8 +104,20 @@ step, with a resume, and one batch under WHAM! noise; a session of about
 and DiPCo at its published channel count through its recipe, as function
 and CLI, ``trim_to_supervisions(keep_all_channels=True)``, ``to_mono()``
 and ``OnTheFlyFeatures`` on the kernel into the step, and the AISHELL-4
-session extracted whole into ``lilcom_chunky``); and checks what comes
-out.
+session extracted whole into ``lilcom_chunky``); then the single-stream
+ASR, TTS and speaker corpora, after a line naming MLS's Opus route as
+left out (an AISHELL layout of 256 utterances of 2-15 s through
+``prepare_aishell``, as function and CLI, into the augmenter at the
+15 s × 256 bucket with phase 23's MUSAN pool and RIR; three TED-LIUM 3
+SPHERE talks of 3-5 minutes through ``prepare_tedlium``, the lazy
+``CutSet.from_manifests``, ``trim_to_supervisions`` and
+``DynamicBucketingSampler`` into ``OnTheFlyFeatures`` on the kernel and the
+AdamW step, with a resume; YesNo, AISHELL-2, TED-LIUM 2, Libri-Light, MLS,
+People's Speech, SPGISpeech and TIMIT through their recipes into the same
+training path, LibriTTS, LibriTTS-R, LJSpeech and VCTK into
+``SpeechSynthesisDataset`` with a ``TokenCollater``, and VoxCeleb1's trial
+pairs through ``CutPairsSampler``, each resampled to 16 kHz where it is
+not); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -146,8 +158,12 @@ reads stored features), ``kaldi_on_the_fly``, ``kaldi_on_the_fly_cached``,
 ``idxpack_on_the_fly``, ``webdataset_on_the_fly``,
 ``musan_rir_device_chain``, ``musan_rir_on_the_fly``, ``meeting_aishell4``,
 ``meeting_ali_meeting``, ``meeting_icsi``, ``meeting_notsofar1``,
-``meeting_libricss``, ``meeting_chime6``, ``meeting_dipco`` and
-``meeting_aishell4_extract``); the last line is
+``meeting_libricss``, ``meeting_chime6``, ``meeting_dipco``,
+``meeting_aishell4_extract``, ``aishell_device_chain``,
+``tedlium_long_form`` and ``corpus_<name>`` for ``yesno``, ``aishell2``,
+``tedlium2``, ``librilight``, ``mls``, ``peoples_speech``, ``spgispeech``,
+``timit``, ``libritts``, ``librittsr``, ``ljspeech``, ``vctk`` and
+``voxceleb1`` (both sides' launches)); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -735,11 +751,11 @@ E2E_RECORDINGS = 160
 E2E_SECONDS = (4.0, 14.0)  # the corpus's uniform duration range
 
 
-def _tone_burst(rng, duration: float) -> np.ndarray:
+def _tone_burst(rng, duration: float, sr: int = SR) -> np.ndarray:
     """``bench.py::_synthesize_corpus``'s signal: four harmonics of an
-    80-220 Hz f0 over 0.01 white noise, ``duration`` seconds at 16 kHz."""
-    n = int(SR * duration)
-    t = np.arange(n) / SR
+    80-220 Hz f0 over 0.01 white noise, ``duration`` seconds at ``sr`` Hz."""
+    n = int(sr * duration)
+    t = np.arange(n) / sr
     f0 = rng.uniform(80, 220)
     wave = sum(np.sin(2 * np.pi * f0 * (h + 1) * t) / (h + 1) for h in range(4)) * 0.2
     wave += rng.randn(n) * 0.01
@@ -2432,7 +2448,7 @@ SURT_MAX_GROUP = 20.0  # s: the B·8·T² attention scores of a 300 s group need
 TASK_MAX_DURATION = 180.0  # the task legs' batches, in seconds of audio
 VAD_WINDOW = 15.0
 MS_MAX_DURATION = 90.0  # each source's share of a multi-source batch
-MS_ZIP_SECONDS = 300.0  # of each source in multi_source_zip: an epoch of three batches and a bit
+MS_ZIP_SECONDS = 200.0  # of each source in multi_source_zip: an epoch of three batches
 MS_RESUME_AFTER = 2
 STATELESS_BATCHES = 3
 
@@ -2446,6 +2462,19 @@ class _KeepCuts:
     def __getitem__(self, cuts):
         self.cuts.append(list(cuts))
         return self.dataset[cuts]
+
+
+def _close_and_join(it, threads_before: set) -> None:
+    """Closes a ``DataLoader`` iterator that was left mid-epoch and waits for
+    the producer thread it started (one not in ``threads_before``).
+    ``DataLoader`` waits 5 s for its producer, as the JAX package's does; a
+    producer inside a longer batch (a lowpass kernel build) outlives that
+    wait, finishes its batch, and launches the kernel while the next leg
+    counts its launches."""
+    it.close()
+    for thread in set(threading.enumerate()) - threads_before:
+        if thread.name.endswith("(_produce)"):
+            thread.join()
 
 
 def _task_epoch(batches, trainer, device, unpack, on_batch=None) -> dict:
@@ -2768,10 +2797,11 @@ def _phase_multi_source(workdir: Path, manifests: dict, device, fbank_cuda, smi:
         resumed_loader, _ = zip_loader()
         resumed_loader.load_state_dict(state["ckpt"])
         it = iter(resumed_loader)
+        threads = set(threading.enumerate())
         t = time.perf_counter()
         resumed = next(it)
         resume_s = time.perf_counter() - t
-        it.close()
+        _close_and_join(it, threads)
     finally:
         resample._sinc_resample_kernel = build_kernel
     want = run["batches"][MS_RESUME_AFTER]
@@ -4556,6 +4586,23 @@ def _same_written(a: Path, b: Path, name: str) -> list:
     return names
 
 
+def _prepare_twice(manifests: Path, name: str, function, argv: list) -> tuple:
+    """A recipe as a function and through the CLI's ``prepare`` command (in
+    this process), into ``manifests / name / "function"`` and ``.../"cli"``;
+    the manifests they write must be equal. Returns what the function made,
+    the manifests' names and the seconds of each run."""
+    from lhotse_tpu_torch.bin.modes import cli
+
+    out = manifests / name
+    t = time.perf_counter()
+    made = function(out / "function")
+    function_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cli.main(["prepare"] + [str(a) for a in argv] + [str(out / "cli")], standalone_mode=False)
+    cli_s = time.perf_counter() - t
+    return made, _same_written(out / "function", out / "cli", name), function_s, cli_s
+
+
 def _meeting_turns(rng, seconds: float, speakers: int = MEETING_SPEAKERS) -> list:
     """(speaker, start, end, words) turns of 2-5 s with 0.5-3 s gaps."""
     turns, t, spk = [], 0.5, 0
@@ -4893,7 +4940,6 @@ def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     import random
     import shutil
 
-    from lhotse_tpu_torch.bin.modes import cli
     from lhotse_tpu_torch.caching import set_caching_enabled
     from lhotse_tpu_torch.cut import CutSet, MixedCut, MonoCut, MultiCut
     from lhotse_tpu_torch.dataset import SimpleCutSampler
@@ -4923,25 +4969,11 @@ def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
           f"{time.perf_counter() - t0!r} s")
     launches, errs = {}, []
 
-    def prepare_both(name, function, argv):
-        """The recipe as a function and through the CLI, into directories of
-        their own; the manifests they write must be equal."""
-        out = root / "manifests" / name
-        t = time.perf_counter()
-        made = function(out / "function")
-        function_s = time.perf_counter() - t
-        t = time.perf_counter()
-        cli.main(["prepare"] + [str(a) for a in argv] + [str(out / "cli")],
-                 standalone_mode=False)
-        cli_s = time.perf_counter() - t
-        names = _same_written(out / "function", out / "cli", name)
-        return made, names, function_s, cli_s
-
     # -- musan_rir_device_chain ------------------------------------------------------
-    musan, musan_files, musan_s, musan_cli_s = prepare_both(
+    musan, musan_files, musan_s, musan_cli_s = _prepare_twice(root / "manifests", 
         "musan", lambda o: prepare_musan(noise_dirs["musan"], output_dir=o),
         ["musan", noise_dirs["musan"]])
-    rirs, rir_files, rir_s, rir_cli_s = prepare_both(
+    rirs, rir_files, rir_s, rir_cli_s = _prepare_twice(root / "manifests", 
         "rir_noise", lambda o: prepare_rir_noise(noise_dirs["rir_noise"], output_dir=o),
         ["rir-noise", noise_dirs["rir_noise"]])
     noise_recs = musan["noise"]["recordings"]
@@ -5030,10 +5062,10 @@ def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     errs += [kernel_err, chain_err]
 
     # -- musan_rir_on_the_fly ----------------------------------------------------------
-    but, but_files, _, _ = prepare_both(
+    but, but_files, _, _ = _prepare_twice(root / "manifests", 
         "but_reverb_db", lambda o: prepare_but_reverb_db(noise_dirs["but_reverb_db"], output_dir=o),
         ["but-reverb-db", noise_dirs["but_reverb_db"]])
-    wham, wham_files, _, _ = prepare_both(
+    wham, wham_files, _, _ = _prepare_twice(root / "manifests", 
         "wham", lambda o: prepare_wham(noise_dirs["wham"], output_dir=o),
         ["wham", noise_dirs["wham"]])
     noise_cuts = CutSet.from_manifests(recordings=noise_recs).to_eager()
@@ -5117,7 +5149,7 @@ def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     trainer = _Trainer(device)
     summary = {}
     for name, (function, argv, pick) in specs.items():
-        made, files, prepare_s, cli_s = prepare_both(name, function, argv)
+        made, files, prepare_s, cli_s = _prepare_twice(root / "manifests", name, function, argv)
         recordings, supervisions = pick(made)["recordings"], pick(made)["supervisions"]
         sessions = CutSet.from_manifests(recordings=recordings, supervisions=supervisions).to_eager()
         trimmed = sessions.trim_to_supervisions(
@@ -5201,6 +5233,704 @@ def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
         if not ok:
             raise AssertionError("ali_meeting_save_mono: the mono recordings are off")
     print(f"[{smi}] phase 23 meetings: {summary}")
+    return launches, max(errs)
+
+
+# -- 24. the single-stream ASR, TTS and speaker corpora ------------------------------------
+# Each corpus in its published layout and format (sampling rate, channel
+# count, codec, directory tree, file names, transcript files), cut in depth
+# only: CORPUS_FILES audio files each (TED-LIUM 2: 16 talks; Libri-Light: 16
+# files; MLS: 24), AISHELL at the main path's bucket (as many utterances of
+# 2 s up to the bucket's length as it has rows) and three TED-LIUM 3 talks
+# of 3-5 minutes. Tone bursts from numpy seed SINGLE_SEED.
+SINGLE_SEED = 2424
+CORPUS_FILES = 32
+AISHELL_MIN_SECONDS = 2.0
+TEDLIUM_TALKS = ("AaronHuey_2010X", "BillGates_2010", "JaneMcGonigal_2010")
+TEDLIUM_TALK_SECONDS = (180.0, 300.0)
+TEDLIUM_SEGMENT_SECONDS = (3.0, 15.0)
+TEDLIUM_RESUME_AFTER = 2
+ENGLISH = ("the", "world", "we", "have", "to", "think", "about", "energy", "climate", "people",
+           "it 's", "they 're", "change", "so", "{NOISE}", "<unk>")
+MANDARIN = ("甚至", "出现", "交易", "几乎", "停滞", "的", "情况", "一二线", "城市", "虽然",
+            "已经", "放开", "ＡＴＭ", "好'的")
+TIMIT_PHONES = ("sh", "iy", "hh", "ae", "d", "y", "er", "aa", "r", "k", "s", "uw", "t", "ix",
+                "axr", "dcl", "kcl", "tcl", "q", "pau", "epi", "ux", "el", "en")
+NUMBERS = ("zero", "one", "two", "three", "four", "five", "six", "seven", "eight", "nine")
+
+
+def _write_audio(path: Path, x: np.ndarray, sr: int) -> None:
+    """``x`` at ``sr`` Hz as FLAC (``.flac``), NIST SPHERE (``.sph``) or RIFF
+    WAV (any other suffix, TIMIT's ``.WAV`` too)."""
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.audio.sphio import write_sph
+    from lhotse_tpu_torch.audio.wavio import write_wav
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.suffix == ".flac":
+        write_flac(str(path), np.atleast_2d(x), sr)
+    elif path.suffix == ".sph":
+        write_sph(str(path), x, sr)
+    else:
+        write_wav(str(path), np.atleast_2d(x).astype(np.float32), sr)
+
+
+def _words(rng, vocabulary, lo: int = 3, hi: int = 12, sep: str = " ") -> str:
+    return sep.join(vocabulary[i] for i in rng.randint(0, len(vocabulary), rng.randint(lo, hi)))
+
+
+def _stm(rng, talk: str, seconds: float) -> str:
+    """A talk's STM lines: segments of 3-15 s after pauses of 0.2-1.5 s,
+    every 7th ``ignore_time_segment_in_scoring``."""
+    lines, start = [], round(float(rng.uniform(0.5, 2.0)), 2)
+    while True:
+        end = round(start + float(rng.uniform(*TEDLIUM_SEGMENT_SECONDS)), 2)
+        if end > seconds - 0.1:
+            return "\n".join(lines) + "\n"
+        words = "ignore_time_segment_in_scoring" if len(lines) % 7 == 6 else _words(rng, ENGLISH)
+        lines.append(f"{talk} 1 {talk} {start:.2f} {end:.2f} <o,f0,male> {words}")
+        start = round(end + float(rng.uniform(0.2, 1.5)), 2)
+
+
+def _write_aishell(root: Path, rng, n: int, max_seconds: float) -> Path:
+    """AISHELL-1 (openslr/33): ``data_aishell/wav/<split>/<speaker>/<utt>.wav``,
+    16 kHz, and one transcript file for every split; ``n`` utterances of
+    2 s to ``max_seconds``, 6 in 8 in train, speakers of up to 64."""
+    corpus = root / "aishell"
+    data = corpus / "data_aishell"
+    lines = []
+    for i in range(n):
+        split = ("train", "train", "train", "train", "train", "train", "dev", "test")[i % 8]
+        first = {"train": 2, "dev": 724, "test": 764}[split]
+        spk = f"S{first + i // 64:04d}"
+        utt = f"BAC009{spk}W{i:04d}"
+        seconds = float(rng.uniform(AISHELL_MIN_SECONDS, max_seconds))
+        _write_audio(data / "wav" / split / spk / f"{utt}.wav", _tone_burst(rng, seconds), SR)
+        lines.append(f"{utt} {_words(rng, MANDARIN, 4, 12)}")
+    (data / "transcript").mkdir(parents=True)
+    (data / "transcript" / "aishell_transcript_v0.8.txt").write_text(
+        "\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_tedlium(root: Path, rng) -> Path:
+    """TED-LIUM release 3 (openslr/51), the legacy repartition: three talks
+    of 3-5 minutes as 16 kHz SPHERE under ``legacy/train/sph`` and their STM
+    files under ``legacy/train/stm``."""
+    corpus = root / "TEDLIUM_release-3"
+    stm_dir = corpus / "legacy" / "train" / "stm"
+    stm_dir.mkdir(parents=True)
+    for talk in TEDLIUM_TALKS:
+        seconds = float(rng.uniform(*TEDLIUM_TALK_SECONDS))
+        _write_audio(corpus / "legacy" / "train" / "sph" / f"{talk}.sph",
+                     _tone_burst(rng, seconds), SR)
+        (stm_dir / f"{talk}.stm").write_text(_stm(rng, talk, seconds))
+    return corpus
+
+
+def _write_yesno(root: Path, rng) -> Path:
+    """YesNo (openslr/1): ``waves_yesno/<8 bits>.wav``, 8 kHz, 5-7 s."""
+    corpus = root / "waves_yesno"
+    for code in rng.choice(256, CORPUS_FILES, replace=False):
+        name = "_".join(str((int(code) >> k) & 1) for k in range(8))
+        _write_audio(corpus / f"{name}.wav", _tone_burst(rng, float(rng.uniform(5.0, 7.0)), 8000),
+                     8000)
+    return corpus
+
+
+def _write_aishell2(root: Path, rng) -> Path:
+    """AISHELL-2, iOS: ``AISHELL-2/iOS/{data,dev,test}/wav/<speaker>/<utt>.wav``,
+    16 kHz, and a ``trans.txt`` per split; 24 + 4 + 4 utterances of 2-6 s."""
+    ios = root / "AISHELL-2" / "iOS"
+    for split, count, first in (("data", 24, 1), ("dev", 4, 2001), ("test", 4, 2101)):
+        lines = []
+        for u in range(count):
+            spk = f"C{first + u // 8:04d}"
+            utt = f"I{spk}W{u:04d}"
+            _write_audio(ios / split / "wav" / spk / f"{utt}.wav",
+                         _tone_burst(rng, float(rng.uniform(2.0, 6.0))), SR)
+            lines.append(f"{utt}\t{_words(rng, MANDARIN, 3, 9, sep='')}")
+        (ios / split / "trans.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return root
+
+
+def _write_tedlium2(root: Path, rng) -> Path:
+    """TED-LIUM release 2 (openslr/19): ``{train,dev,test}/{sph,stm}``, 16 kHz
+    SPHERE talks of 20-40 s: 12 train, 2 dev, 2 test."""
+    corpus = root / "TEDLIUM_release2"
+    for split, count in (("train", 12), ("dev", 2), ("test", 2)):
+        (corpus / split / "stm").mkdir(parents=True)
+        for t in range(count):
+            talk, seconds = f"Speaker{split.capitalize()}{t:02d}_2009", float(rng.uniform(20, 40))
+            _write_audio(corpus / split / "sph" / f"{talk}.sph", _tone_burst(rng, seconds), SR)
+            (corpus / split / "stm" / f"{talk}.stm").write_text(_stm(rng, talk, seconds))
+    return corpus
+
+
+def _write_librilight(root: Path, rng) -> Path:
+    """Libri-Light ``small``: ``small/<speaker>/<book>/<file>.flac``, 16 kHz,
+    with the sibling JSON of speaker, book and voice activity; 16 files of
+    20-40 s, voice-activity intervals of 2-10 s."""
+    corpus = root / "librilight"
+    for f in range(16):
+        spk, book = str(100 + f // 4), f"book_{f % 4:02d}"
+        seconds = float(rng.uniform(20.0, 40.0))
+        flac = corpus / "small" / spk / book / f"chapter_{f:02d}_64kb.flac"
+        _write_audio(flac, _tone_burst(rng, seconds), SR)
+        vad, start = [], float(rng.uniform(0.1, 1.0))
+        while True:
+            end = start + float(rng.uniform(2.0, 10.0))
+            if end > seconds - 0.1:
+                break
+            vad.append([round(start, 3), round(end, 3)])
+            start = end + float(rng.uniform(0.3, 2.0))
+        flac.with_suffix(".json").write_text(json.dumps(
+            {"speaker": spk, "book_meta": {"id": book}, "snr": float(rng.uniform(5, 30)),
+             "voice_activity": vad}))
+    return corpus
+
+
+def _write_mls(root: Path, rng) -> Path:
+    """MLS Polish (openslr/94): ``mls_polish/{train,dev,test}/audio/<speaker>/
+    <book>/<speaker>_<book>_<utt>.flac``, 16 kHz, a ``transcripts.txt`` per
+    split and ``metainfo.txt``; 16 + 4 + 4 utterances of 10-20 s."""
+    corpus = root / "mls"
+    lang = corpus / "mls_polish"
+    meta = ["SPEAKER   |   GENDER   | PARTITION  |  MINUTES   |  BOOK ID   |       TITLE"]
+    for split, count, first in (("train", 16, 6892), ("dev", 4, 2364), ("test", 4, 8758)):
+        lines = []
+        for u in range(count):
+            spk, book = str(first + u // 8), str(10000 + u // 4)
+            utt = f"{spk}_{book}_{u:06d}"
+            _write_audio(lang / split / "audio" / spk / book / f"{utt}.flac",
+                         _tone_burst(rng, float(rng.uniform(10.0, 20.0))), SR)
+            lines.append(f"{utt}\t{_words(rng, ENGLISH).replace('{NOISE} ', '')}")
+            if u % 8 == 0:
+                meta.append(f"{spk} | {'FM'[u % 2]} | {split} | 30.00 | {book} | Title {book}")
+        (lang / split / "transcripts.txt").write_text("\n".join(lines) + "\n")
+    (lang / "metainfo.txt").write_text("\n".join(meta) + "\n")
+    return corpus
+
+
+def _write_peoples_speech(root: Path, rng) -> Path:
+    """The People's Speech: ``train/clean.json`` and ``validation/
+    validation.json`` (JSON lines of an ``identifier`` and ``training_data``
+    of parallel ``duration_ms``, ``label`` and ``name`` lists) over 16 kHz
+    FLAC under ``train/clean/`` and ``validation/validation/``; 24 + 8
+    utterances of 3-15 s."""
+    corpus = root / "peoples_speech"
+    for part, sessions in (("train/clean", 4), ("validation/validation", 1)):
+        items = []
+        for s in range(sessions):
+            ident = f"{part.split('/')[1]}_session_{s:03d}"
+            data = {"duration_ms": [], "label": [], "name": []}
+            for k in range(6 if part == "train/clean" else 8):
+                seconds = float(rng.uniform(3.0, 15.0))
+                name = f"{ident}/{ident}_{k:05d}.flac"
+                _write_audio(corpus / part / name, _tone_burst(rng, seconds), SR)
+                data["duration_ms"].append(int(seconds * 1000))
+                data["label"].append(_words(rng, ENGLISH[:14]))
+                data["name"].append(name)
+            items.append(json.dumps({"identifier": ident, "training_data": data}))
+        (corpus / f"{part}.json").write_text("\n".join(items) + "\n")
+    return corpus
+
+
+def _write_spgispeech(root: Path, rng) -> Path:
+    """SPGISpeech: ``{train,val}/<call hash>/<n>.wav``, 16 kHz, with
+    ``train.csv`` and ``val.csv`` (``wav_filename|wav_filesize|transcript``);
+    24 + 8 utterances of 3-15 s, punctuated and cased."""
+    corpus = root / "spgispeech"
+    for split, calls in (("train", 4), ("val", 1)):
+        rows = ["wav_filename|wav_filesize|transcript"]
+        for c in range(calls):
+            call = rng.bytes(16).hex()
+            for k in range(6 if split == "train" else 8):
+                path = corpus / split / call / f"{k + 1}.wav"
+                _write_audio(path, _tone_burst(rng, float(rng.uniform(3.0, 15.0))), SR)
+                text = _words(rng, ENGLISH[:14]).capitalize()
+                rows.append(f"{call}/{k + 1}.wav|{path.stat().st_size}|{text}, Q{c + 1} is up "
+                            f"{k + 2}%.")
+        (corpus / f"{split}.csv").write_text("\n".join(rows) + "\n")
+    return corpus
+
+
+def _write_timit(root: Path, rng) -> Path:
+    """TIMIT: ``data/{TRAIN,TEST}/<dialect>/<speaker>/<utt>.WAV``, 16 kHz, with
+    ``.TXT``, ``.WRD`` and ``.PHN`` in samples; 4 train speakers and 2 each
+    of Kaldi's dev and test core lists, SA1, SA2, an SI and an SX sentence
+    of 2-4 s each."""
+    corpus = root / "timit"
+    for part, dr, spk in (("TRAIN", "DR1", "fcjf0"), ("TRAIN", "DR1", "mcpm0"),
+                          ("TRAIN", "DR2", "fdaw0"), ("TRAIN", "DR2", "mdac0"),
+                          ("TEST", "DR1", "fadg0"), ("TEST", "DR1", "faks0"),
+                          ("TEST", "DR2", "fdhc0"), ("TEST", "DR2", "felc0")):
+        for name in ("SA1", "SA2", f"SI{rng.randint(500, 2300)}", f"SX{rng.randint(10, 450)}"):
+            d = corpus / "data" / part / dr / spk
+            x = _tone_burst(rng, float(rng.uniform(2.0, 4.0)))
+            n = x.size
+            _write_audio(d / f"{name}.WAV", x, SR)
+            words = _words(rng, ENGLISH[:14], 3, 8).split()
+            cuts = np.linspace(0, n, len(words) + 1).astype(int)
+            (d / f"{name}.TXT").write_text(f"0 {n} {' '.join(words)}.\n")
+            (d / f"{name}.WRD").write_text("".join(
+                f"{a} {b} {w}\n" for a, b, w in zip(cuts[:-1], cuts[1:], words)))
+            phones = ["h#"] + [TIMIT_PHONES[i] for i in rng.randint(0, len(TIMIT_PHONES), 12)]
+            cuts = np.linspace(0, n, len(phones) + 2).astype(int)
+            (d / f"{name}.PHN").write_text("".join(
+                f"{a} {b} {p}\n" for a, b, p in zip(cuts[:-1], cuts[1:], phones + ["h#"])))
+    return corpus
+
+
+def _write_libritts(root: Path, rng, name: str = "LibriTTS") -> Path:
+    """LibriTTS (openslr/60) or LibriTTS-R (openslr/141): ``<part>/<speaker>/
+    <chapter>/<speaker>_<chapter>_<paragraph>_<sentence>.wav``, 24 kHz, with
+    ``.trans.tsv`` (id, original text, normalized text) and ``.book.tsv``
+    per chapter and ``SPEAKERS.txt``; dev-clean and test-clean of 2 speakers
+    x 2 chapters x 4 sentences of 1-8 s."""
+    corpus = root / name
+    speakers = [";ID  |SEX| SUBSET           |MINUTES| NAME"]
+    for part, first in (("dev-clean", 84), ("test-clean", 1089)):
+        for s in range(2):
+            spk = str(first + s)
+            speakers.append(f"{spk}  | {'FM'[s]} | {part}        | 25.00 | Reader {spk}")
+            for c in range(2):
+                chapter = str(121123 + 100 * s + c)
+                where = corpus / part / spk / chapter
+                trans, book = [], []
+                for u in range(4):
+                    utt = f"{spk}_{chapter}_{u:06d}_000000"
+                    _write_audio(where / f"{utt}.wav",
+                                 _tone_burst(rng, float(rng.uniform(1.0, 8.0)), 24000), 24000)
+                    words, k = _words(rng, ENGLISH[:14]).capitalize(), int(rng.randint(0, 10))
+                    trans.append(f"{utt}\t\"{words}, {k}!\"\t\"{words}, {NUMBERS[k]}!\"")
+                    book.append(f"{utt}\t{words}\t{rng.uniform(5.0, 40.0):.4f}")
+                (where / f"{spk}_{chapter}.trans.tsv").write_text("\n".join(trans) + "\n")
+                (where / f"{spk}_{chapter}.book.tsv").write_text("\n".join(book) + "\n")
+    (corpus / "SPEAKERS.txt").write_text("\n".join(speakers) + "\n")
+    return corpus
+
+
+def _write_ljspeech(root: Path, rng) -> Path:
+    """LJ Speech 1.1: ``wavs/LJ<chapter>-<n>.wav``, 22,050 Hz, and
+    ``metadata.csv`` (``id|text|normalized text``); 32 clips of 1-10 s."""
+    corpus = root / "LJSpeech-1.1"
+    rows = []
+    for i in range(CORPUS_FILES):
+        rid = f"LJ{1 + i // 16:03d}-{1 + i % 16:04d}"
+        _write_audio(corpus / "wavs" / f"{rid}.wav",
+                     _tone_burst(rng, float(rng.uniform(1.0, 10.0)), 22050), 22050)
+        words, k = _words(rng, ENGLISH[:14]).capitalize(), int(rng.randint(0, 10))
+        rows.append(f"{rid}|{words}, in {1470 + k};|{words}, in fourteen seventy-{NUMBERS[k]};")
+    (corpus / "metadata.csv").write_text("\n".join(rows) + "\n")
+    return corpus
+
+
+def _write_vctk(root: Path, rng) -> Path:
+    """VCTK 0.92: ``wav48_silence_trimmed/<speaker>/<speaker>_<n>_mic{1,2}.flac``,
+    48 kHz, ``txt/<speaker>/<speaker>_<n>.txt`` and ``speaker-info.txt``; 4
+    speakers x 4 sentences of 1-4 s x 2 microphones."""
+    corpus = root / "VCTK-Corpus-0.92"
+    info = ["ID  AGE  GENDER  ACCENTS  REGION COMMENTS "]
+    for spk, age, gender, accent, region in (
+            ("p225", 23, "F", "English", "Southern England"),
+            ("p226", 22, "M", "English", "Surrey"), ("p227", 38, "M", "English", "Cumbria"),
+            ("p228", 22, "F", "English", "Southern England")):
+        info.append(f"{spk}  {age}  {gender}    {accent}    {region}")
+        for u in range(1, 5):
+            utt = f"{spk}_{u:03d}"
+            (corpus / "txt" / spk).mkdir(parents=True, exist_ok=True)
+            (corpus / "txt" / spk / f"{utt}.txt").write_text(
+                _words(rng, ENGLISH[:14]).capitalize() + ".\n")
+            x = _tone_burst(rng, float(rng.uniform(1.0, 4.0)), 48000)
+            for mic, gain in (("mic1", 1.0), ("mic2", 0.7)):
+                _write_audio(corpus / "wav48_silence_trimmed" / spk / f"{utt}_{mic}.flac",
+                             x * gain, 48000)
+    (corpus / "speaker-info.txt").write_text("\n".join(info) + "\n")
+    return corpus
+
+
+def _write_voxceleb1(root: Path, rng) -> tuple:
+    """VoxCeleb1: ``wav/<speaker>/<video>/<n>.wav``, 16 kHz, ``vox1_meta.csv``
+    and a trials list as openslr/49's; 4 dev and 4 test speakers x 2 videos x
+    2 utterances of 4-8 s; 12 target and 12 non-target trials among the test
+    files and one of a dev file (which the recipe skips)."""
+    corpus = root / "voxceleb1"
+    meta, test_files = ["VoxCeleb1 ID\tVGGFace1 ID\tGender\tNationality\tSet"], []
+    for k, spk in enumerate(("id10001", "id10002", "id10003", "id10004",
+                             "id10270", "id10271", "id10272", "id10273")):
+        split = "dev" if k < 4 else "test"
+        meta.append(f"{spk}\tCeleb_{k}\t{'mf'[k % 2]}\t{('USA', 'UK', 'India')[k % 3]}\t{split}")
+        for v in range(2):
+            video = rng.bytes(8).hex()[:11]
+            for u in (1, 2):
+                rel = f"{spk}/{video}/{u:05d}.wav"
+                _write_audio(corpus / "wav" / rel, _tone_burst(rng, float(rng.uniform(4, 8))), SR)
+                if split == "test":
+                    test_files.append(rel)
+    trials = []
+    while len(trials) < 24:
+        a, b = (test_files[i] for i in rng.choice(len(test_files), 2, replace=False))
+        target = int(a.split("/")[0] == b.split("/")[0])
+        if sum(t.startswith(str(target)) for t in trials) < 12:
+            trials.append(f"{target} {a} {b}")
+    trials.append(f"0 {test_files[0]} id10001/unknown/00001.wav")
+    (corpus / "vox1_meta.csv").write_text("\n".join(meta) + "\n")
+    (corpus / "trials.txt").write_text("\n".join(trials) + "\n")
+    return corpus, corpus / "trials.txt"
+
+
+def _manifest_pairs(made) -> list:
+    """The (recordings, supervisions) pairs a recipe made, at any depth of its
+    result (MLS nests languages, VoxCeleb adds trial pairs beside them)."""
+    if isinstance(made, dict):
+        if "recordings" in made:
+            return [(made["recordings"], made["supervisions"])]
+        return [p for v in made.values() for p in _manifest_pairs(v)]
+    return []
+
+
+def _single_stream_specs(root: Path, rng) -> dict:
+    """Per corpus of leg 3, in the order the legs run: the recipe's call for
+    an output directory, the CLI's command, and the training path ("asr",
+    "tts" or "pairs")."""
+    from lhotse_tpu_torch import recipes as R
+
+    yesno, aishell2 = _write_yesno(root, rng), _write_aishell2(root, rng)
+    tedlium2, librilight = _write_tedlium2(root, rng), _write_librilight(root, rng)
+    mls, peoples = _write_mls(root, rng), _write_peoples_speech(root, rng)
+    spgi, timit = _write_spgispeech(root, rng), _write_timit(root, rng)
+    libritts, librittsr = _write_libritts(root, rng), _write_libritts(root, rng, "LibriTTS_R")
+    ljspeech, vctk = _write_ljspeech(root, rng), _write_vctk(root, rng)
+    vox, trials = _write_voxceleb1(root, rng)
+    tts_parts = ("dev-clean", "test-clean")
+    specs = {
+        "yesno": (lambda o: R.prepare_yesno(yesno, output_dir=o), ["yesno", yesno], "asr"),
+        "aishell2": (lambda o: R.prepare_aishell2(aishell2, output_dir=o),
+                     ["aishell2", aishell2], "asr"),
+        "tedlium2": (lambda o: R.prepare_tedlium2(tedlium2, output_dir=o),
+                     ["tedlium2", tedlium2], "asr"),
+        "librilight": (lambda o: R.prepare_librilight(librilight, output_dir=o),
+                       ["librilight", librilight], "asr"),
+        "mls": (lambda o: R.prepare_mls(mls, output_dir=o, opus=False), ["mls", "--flac", mls],
+                "asr"),
+        "peoples_speech": (lambda o: R.prepare_peoples_speech(peoples, output_dir=o),
+                           ["peoples-speech", peoples], "asr"),
+        "spgispeech": (lambda o: R.prepare_spgispeech(spgi, o), ["spgispeech", spgi], "asr"),
+        "timit": (lambda o: R.prepare_timit(timit, output_dir=o), ["timit", timit], "asr"),
+        "libritts": (lambda o: R.prepare_libritts(libritts, dataset_parts=tts_parts, output_dir=o),
+                     ["libritts", "-p", tts_parts[0], "-p", tts_parts[1], libritts], "tts"),
+        "librittsr": (lambda o: R.prepare_librittsr(librittsr, dataset_parts=tts_parts,
+                                                    output_dir=o),
+                      ["librittsr", "-p", tts_parts[0], "-p", tts_parts[1], librittsr], "tts"),
+        "ljspeech": (lambda o: R.prepare_ljspeech(ljspeech, output_dir=o),
+                     ["ljspeech", ljspeech], "tts"),
+        "vctk": (lambda o: R.prepare_vctk(vctk, output_dir=o, use_edinburgh_vctk_url=True),
+                 ["vctk", "--use-edinburgh-vctk-url", vctk], "tts"),
+        "voxceleb1": (lambda o: R.prepare_voxceleb(voxceleb1_root=vox, trials_path=trials,
+                                                   output_dir=o),
+                      ["voxceleb", "--voxceleb1", vox, "--trials-path", trials], "pairs"),
+    }
+    return specs
+
+
+def _phase_single_stream(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """24. The single-stream ASR, TTS and speaker corpora, in phase 14's
+    directory after phase 23 (whose MUSAN noise and RIRS_NOISES manifests it
+    reads). Every recipe runs as a function and through the CLI's
+    ``prepare`` command, and their manifests must be equal.
+    ``aishell_device_chain``: an AISHELL layout of as many utterances as the
+    15 s x 256 bucket has rows → ``prepare_aishell`` → the bucket's int16
+    batch → ``OnDeviceAugmenter`` with phase 23's MUSAN noise pool and real
+    RIR, speed 1.1, SNR (10, 20) and SpecAugment (twice); the kernel against
+    its plain version on the batch it got, the features against the same
+    chain with the plain version. ``tedlium_long_form``: three TED-LIUM 3
+    talks of 3-5 minutes → ``prepare_tedlium`` → the lazy
+    ``CutSet.from_manifests`` → ``trim_to_supervisions()`` →
+    ``DynamicBucketingSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the kernel
+    → ``DataLoader`` → an AdamW step of ``Encoder(EncoderConfig())`` per
+    batch, then a resume after batch 2 whose batches must be ``torch.equal``.
+    ``corpus_<name>``: each other corpus → ``prepare_*`` →
+    ``CutSet.from_manifests`` → ``resample(16000)`` where the corpus is not
+    at 16 kHz; the ASR corpora trimmed to their supervisions →
+    ``SimpleCutSampler(max_duration=180)`` → ``K2SpeechRecognitionDataset``
+    with ``OnTheFlyFeatures`` on the kernel → an AdamW step per batch; the
+    TTS corpora → ``SpeechSynthesisDataset`` with ``OnTheFlyFeatures`` and a
+    ``TokenCollater``; VoxCeleb1's trial pairs → ``CutPairsSampler``, both
+    sides on the kernel. MLS's Opus route is held to the JAX package on the
+    CPU only, and named as left out. Returns the kernel's launches per path
+    and the largest kernel-vs-plain error."""
+    import random
+
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.audio.syscodecs import opus_available
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import CutPairsSampler, SimpleCutSampler
+    from lhotse_tpu_torch.dataset.collation import TokenCollater
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import DynamicBucketingSampler
+    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.dataset.speech_synthesis import SpeechSynthesisDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.recipes import prepare_aishell, prepare_tedlium
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    print(f"[{smi}] phase 24: corpus_mls_opus, MLS's opus=True route, is left out (the Opus and "
+          f"Ogg libraries load here: {opus_available()}; the route is held to the JAX package on "
+          "the CPU)")
+    rng = np.random.RandomState(SINGLE_SEED)
+    root = workdir / "single_stream"
+    launches, errs = {}, []
+
+    # -- aishell_device_chain --------------------------------------------------------------
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    t0 = time.perf_counter()
+    aishell_dir = _write_aishell(root, rng, bsz, sec)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        root / "manifests", "aishell",
+        lambda o: prepare_aishell(aishell_dir, output_dir=o), ["aishell", aishell_dir])
+    recordings = sorted((r for part in made.values() for r in part["recordings"]),
+                        key=lambda r: r.id)
+    made_sups = sum(len(part["supervisions"]) for part in made.values())
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    for k, rec in enumerate(recordings):
+        x = rec.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    noise_dir = workdir / "noise_meetings" / "manifests"
+    noise = RecordingSet.from_file(
+        noise_dir / "musan" / "function" / "musan_recordings_noise.jsonl.gz")
+    real_rirs = sorted(RecordingSet.from_file(
+        noise_dir / "rir_noise" / "function" / "real-rir_recordings_all.jsonl.gz"),
+        key=lambda r: r.id)
+    pool_n = int(POOL_SECONDS * SR)
+    pool = np.stack([np.resize(r.load_audio()[0], pool_n) for r in noise]).astype(np.float32)
+    rir_rec = random.Random(RIR_SEED).choice(real_rirs)
+    rir = rir_rec.load_audio()[0].astype(np.float32)
+    print(f"[{smi}] aishell_device_chain: AISHELL layout of {len(recordings)} utterances "
+          f"({float(lens.sum()) / SR!r} s) written in {write_s!r} s; prepare_aishell "
+          f"{function_s!r} s (CLI {cli_s!r} s), the CLI's {len(files)} manifests equal to the function's; "
+          f"supervisions made {made_sups}; noise pool {pool.shape} from phase 23's "
+          f"{len(noise)} MUSAN noise recordings, RIR {rir_rec.id} ({rir.size} taps)")
+    if len(recordings) != bsz or made_sups != bsz or lens.max() > n:
+        raise AssertionError("aishell_device_chain: the prepared corpus does not fill the bucket")
+    aug = OnDeviceAugmenter(
+        buckets=[BUCKET], wire_format="int16", speed_factor=SPEED, gain_range=(0.9, 1.1),
+        noise_pool=pool, snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
+        device=device)
+    aug.precompile()
+    captured = []
+    launch = fbank_cuda.fbank_logmel
+
+    def capture(x, Mc, Ms, mel_fb, **kw):
+        out = launch(x, Mc, Ms, mel_fb, **kw)
+        if not captured:
+            captured.append((x.clone(), Mc, Ms, mel_fb, out.clone()))
+        return out
+
+    staged, outs, stage_ms, compute_ms = [], [], [], []
+    fbank_cuda.fbank_logmel = capture
+    try:
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        for _ in range(2):
+            t = time.perf_counter()
+            staged.append(aug.stage(audio, lens))
+            torch.cuda.synchronize()
+            stage_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            outs.append(aug.compute(staged[-1]))
+            torch.cuda.synchronize()
+            compute_ms.append((time.perf_counter() - t) * 1e3)
+        launches["aishell_device_chain"] = fbank_cuda.LAUNCHES
+    finally:
+        fbank_cuda.fbank_logmel = launch
+    x_k, Mc, Ms, mel_fb, out_k = captured[0]
+    plain = fbank_cuda.reference_fbank(x_k, *fbank_cuda._squeeze_nyquist(
+        *(fbank_cuda._as_f32(m, x_k.device) for m in (Mc, Ms, mel_fb))))
+    kernel_err = (out_k - plain).abs().max().item()
+    frames = (math.ceil(n * 10 / 11) + 80) // 160
+    for feats, feat_lens in outs:
+        if tuple(feats.shape) != (bsz, frames, 80) or not torch.isfinite(feats).all():
+            raise AssertionError(f"aishell_device_chain: features {tuple(feats.shape)} wrong or "
+                                 "not finite")
+        if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
+            raise AssertionError("aishell_device_chain: feat_lens differ from the hop rule")
+    chain_err = _check_chain(staged[0], *outs[0], "int16", rir, device, fbank_cuda,
+                             path="aishell_device_chain")
+    mixed_rows = [int(torch.as_tensor(s.kwargs["mix_mask"]).sum()) for s in staged]
+    audio_s = 2 * float(lens.sum()) / SR
+    print(f"[{smi}] aishell_device_chain: 2 passes of the {bsz} x {sec:g} s batch, {audio_s!r} "
+          f"audio-s in {sum(stage_ms) + sum(compute_ms)!r} ms (stage + compute): "
+          f"{audio_s / (sum(stage_ms) + sum(compute_ms)) * 1e3!r} audio-s/s; stage ms {stage_ms}, "
+          f"compute ms {compute_ms}; rows mixed with MUSAN noise {mixed_rows}; fbank kernel "
+          f"launches {launches['aishell_device_chain']}; kernel vs plain on its first batch "
+          f"{kernel_err!r} (tol {KERNEL_TOL}); features vs the plain chain {chain_err!r} "
+          f"(tol {CHAIN_TOL})")
+    if launches["aishell_device_chain"] != 2 or not kernel_err <= KERNEL_TOL:
+        raise AssertionError("aishell_device_chain: launches or the kernel's result are off")
+    if not all(0 < m < bsz for m in mixed_rows):
+        raise AssertionError(f"aishell_device_chain: the mix mask is off: {mixed_rows}")
+    errs += [kernel_err, chain_err]
+
+    # -- tedlium_long_form ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    tedlium_dir = _write_tedlium(root, rng)
+    write_s = time.perf_counter() - t0
+    out = root / "manifests" / "tedlium" / "function"
+    made, files, function_s, cli_s = _prepare_twice(
+        root / "manifests", "tedlium",
+        lambda o: prepare_tedlium(tedlium_dir, output_dir=o, dataset_parts="train"),
+        ["tedlium", "-p", "train", tedlium_dir])
+    made_ids = sorted(s.id for s in made["train"]["supervisions"])
+    ignored = sum(line.endswith("ignore_time_segment_in_scoring")
+                  for p in tedlium_dir.rglob("*.stm") for line in p.read_text().splitlines())
+    talk_s = sum(r.duration for r in made["train"]["recordings"])
+
+    def tedlium_loader():
+        cuts = CutSet.from_manifests(
+            RecordingSet.from_file(out / "tedlium_recordings_train.jsonl.gz"),
+            SupervisionSet.from_file(out / "tedlium_supervisions_train.jsonl.gz"),
+            lazy=True, output_path=root / "tedlium_cuts.jsonl.gz").trim_to_supervisions()
+        fly = Fbank(FbankConfig(device=device))
+        sampler = DynamicBucketingSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
+        return DataLoader(sampler, K2SpeechRecognitionDataset(
+            return_cuts=True, input_strategy=OnTheFlyFeatures(fly)), prefetch_batches=3), fly
+
+    loader, fly = tedlium_loader()
+    recorder = _RecordFirstBatch(fly)
+    state = {}
+
+    def checkpoint(i, batch):
+        if i == TEDLIUM_RESUME_AFTER - 1:
+            state["ckpt"] = loader.state_dict()
+
+    run = _leg("tedlium_long_form", loader, _Trainer(device), device, fbank_cuda, _rows_of, smi,
+               on_batch=checkpoint)
+    launches["tedlium_long_form"] = run["launches"]
+    err = _first_batch_err(recorder, fly)
+    resumed_loader, _ = tedlium_loader()
+    resumed_loader.load_state_dict(state["ckpt"])
+    resumed = list(resumed_loader)
+    want = run["batches"][TEDLIUM_RESUME_AFTER:]
+    resume_equal = len(resumed) == len(want) and all(
+        torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
+        and a["supervisions"]["text"] == b["supervisions"]["text"] for a, b in zip(resumed, want))
+    covered = sorted(s.id for b in run["batches"] for c in b["supervisions"]["cut"]
+                     for s in c.supervisions)
+    print(f"[{smi}] tedlium_long_form: {len(TEDLIUM_TALKS)} SPHERE talks of {talk_s!r} s written "
+          f"in {write_s!r} s; prepare_tedlium {function_s!r} s (CLI {cli_s!r} s), the CLI's "
+          f"{len(files)} manifests equal to the function's; STM segments made {len(made_ids)} "
+          f"({ignored} ignore_time_segment_in_scoring lines dropped), kept {len(covered)}, every "
+          f"one once: {covered == made_ids}; first batch kernel vs plain {err!r} (tol "
+          f"{KERNEL_TOL}); resumed after batch {TEDLIUM_RESUME_AFTER} through a fresh loader: "
+          f"{len(resumed)} batches torch.equal to the uninterrupted run's: {resume_equal}")
+    if run["launches"] != len(run["batches"]) or len(run["batches"]) <= TEDLIUM_RESUME_AFTER:
+        raise AssertionError("tedlium_long_form: launches or the batch count are off")
+    if covered != made_ids or not ignored or not resume_equal or not err <= KERNEL_TOL:
+        raise AssertionError("tedlium_long_form: coverage, the resume or the kernel are off")
+    errs.append(err)
+
+    # -- corpus_<name> ----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    specs = _single_stream_specs(root / "corpora", rng)
+    print(f"[{smi}] corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s")
+    trainer, summary = _Trainer(device), {}
+    for name, (function, argv, kind) in specs.items():
+        made, files, function_s, cli_s = _prepare_twice(root / "manifests", name, function, argv)
+        pairs = _manifest_pairs(made)
+        made_ids = sorted(s.id for _, sups in pairs for s in sups)
+        cuts = CutSet.from_cuts(c for recs, sups in pairs for c in CutSet.from_manifests(
+            recordings=RecordingSet.from_recordings(recs),
+            supervisions=SupervisionSet.from_segments(sups)))
+        rates = sorted({c.sampling_rate for c in cuts})
+        fly = Fbank(FbankConfig(device=device))
+        recorder = _RecordFirstBatch(fly)
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        if kind == "pairs":
+            sides = [CutSet.from_cuts([*made["pos_trials"][k], *made["neg_trials"][k]])
+                     for k in (0, 1)]
+            target_fly = Fbank(FbankConfig(device=device))
+            target_recorder = _RecordFirstBatch(target_fly)
+            datasets = [K2SpeechRecognitionDataset(return_cuts=True,
+                                                   input_strategy=OnTheFlyFeatures(f))
+                        for f in (fly, target_fly)]
+            sampler = CutPairsSampler(*sides, max_source_duration=FLY_MAX_DURATION,
+                                      max_target_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
+            run = _task_epoch(({"source": datasets[0][s], "target": datasets[1][t]}
+                               for s, t in sampler), trainer, device,
+                              lambda b: _rows_of(b["source"]))
+            pos_ids = {c.id for c in made["pos_trials"][0]}
+            ok, kept = True, []
+            for b in run["batches"]:
+                # The dataset orders each side by duration: pair the sides by id.
+                target = {c.id: c for c in b["target"]["supervisions"]["cut"]}
+                source = b["source"]["supervisions"]["cut"]
+                ok &= sorted(target) == sorted(c.id for c in source) and all(
+                    (c.supervisions[0].speaker == target[c.id].supervisions[0].speaker)
+                    == (c.id in pos_ids) for c in source)
+                kept += [c.id for c in source]
+            ok &= sorted(kept) == sorted(c.id for c in sides[0])
+            err = max(_first_batch_err(recorder, fly),
+                      _first_batch_err(target_recorder, target_fly))
+            want_launches = 2 * len(run["batches"])
+            detail = (f"{len(sides[0])} trial pairs ({len(made['pos_trials'][0])} target), ids "
+                      f"aligned and speakers as the trials say: {ok}")
+        else:
+            if rates != [SR]:
+                cuts = cuts.resample(SR)
+            if kind == "asr":
+                cuts = cuts.trim_to_supervisions(keep_overlapping=False)
+                dataset = K2SpeechRecognitionDataset(return_cuts=True,
+                                                     input_strategy=OnTheFlyFeatures(fly))
+                unpack, cuts_of = _rows_of, (lambda b: b["supervisions"]["cut"])
+            else:
+                collater = TokenCollater(cuts)
+                dataset = SpeechSynthesisDataset(feature_input_strategy=OnTheFlyFeatures(fly),
+                                                 return_cuts=True, return_spk_ids=True)
+                unpack = (lambda b: (b["features"], b["features_lens"],
+                                     float(np.sum(b["audio_lens"])) / SR))
+                cuts_of = (lambda b: b["cut"])
+            cuts = cuts.to_eager()
+            run = _task_epoch(DataLoader(
+                SimpleCutSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0),
+                dataset, prefetch_batches=3), trainer, device, unpack)
+            kept = sorted(s.id for b in run["batches"] for c in cuts_of(b) for s in c.supervisions)
+            ok = kept == made_ids and all(c.sampling_rate == SR for b in run["batches"]
+                                          for c in cuts_of(b))
+            if kind == "tts":
+                ok = ok and all(collater.inverse(*collater(CutSet.from_cuts(b["cut"]))) == [
+                    c.supervisions[0].text for c in b["cut"]] for b in run["batches"])
+            err = _first_batch_err(recorder, fly)
+            want_launches = len(run["batches"])
+            detail = ("every supervision once at 16 kHz" + (
+                ", TokenCollater.inverse() gives back every text" if kind == "tts" else "")
+                      + f": {ok}")
+        launches[f"corpus_{name}"] = fbank_cuda.LAUNCHES
+        rate = run["audio_s"] / run["elapsed_s"]
+        summary[name] = {"made": len(made_ids), "kept": len(kept), "prepare_s": function_s,
+                         "cli_s": cli_s, "audio-s/s": rate}
+        print(f"[{smi}] corpus_{name}: {kind}, {rates} Hz; prepare {function_s!r} s, CLI "
+              f"{cli_s!r} s, its {len(files)} manifests equal; supervisions made {len(made_ids)}, "
+              f"kept {len(kept)}; {len(run['batches'])} batches, {run['audio_s']!r} audio-s in "
+              f"{run['elapsed_s']!r} s (AdamW steps included): {rate!r} audio-s/s; {detail}; "
+              f"fbank kernel launches {launches[f'corpus_{name}']}; first batch kernel vs plain "
+              f"{err!r} (tol {KERNEL_TOL})")
+        if launches[f"corpus_{name}"] != want_launches or not ok or not err <= KERNEL_TOL:
+            raise AssertionError(f"corpus_{name}: launches, coverage or the kernel are off")
+        errs.append(err)
+    print(f"[{smi}] phase 24 corpora: {summary}")
+    set_tracing_enabled(False)
     return launches, max(errs)
 
 
@@ -5618,6 +6348,12 @@ def main() -> None:
         launches_noise, noise_err = _phase_noise_meetings(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_noise)
         print(f"phase 23 took {time.perf_counter() - t0!r} s")
+        # -- 24. the single-stream ASR, TTS and speaker corpora into the main path, long-form
+        # training and on-the-fly features, after phase 23 (its MUSAN pool and RIRs)
+        t0 = time.perf_counter()
+        launches_single, single_err = _phase_single_stream(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_single)
+        print(f"phase 24 took {time.perf_counter() - t0!r} s")
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
     # signal-effects and multi-source, multi-talker training path on the same corpus
@@ -5646,7 +6382,7 @@ def main() -> None:
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
-                              noise_err]),
+                              noise_err, single_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -1,10 +1,15 @@
 """Corpus recipes of the PyTorch port, without their downloads (but
-LibriSpeech's): LibriSpeech, AMI and CommonVoice; the noise and room
-impulse response corpora MUSAN, RIRS_NOISES, the BUT Reverb DB and WHAM!;
-the far-field meeting corpora AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1,
+LibriSpeech's): the single-stream ASR corpora LibriSpeech, CommonVoice,
+YesNo, AISHELL, AISHELL-2, TED-LIUM 2 and 3, Libri-Light, MLS, People's
+Speech, SPGISpeech and TIMIT; the TTS corpora LibriTTS(-R), LJSpeech and
+VCTK; the speaker corpus VoxCeleb; AMI; the noise and room impulse
+response corpora MUSAN, RIRS_NOISES, the BUT Reverb DB and WHAM!; the
+far-field meeting corpora AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1,
 LibriCSS, CHiME-6 (an already synchronised layout) and DiPCo; and the
 manifest caching helpers. The JAX package's other recipes are not
 ported."""
+from lhotse_tpu_torch.recipes.aishell import prepare_aishell
+from lhotse_tpu_torch.recipes.aishell2 import prepare_aishell2
 from lhotse_tpu_torch.recipes.aishell4 import prepare_aishell4
 from lhotse_tpu_torch.recipes.ali_meeting import prepare_ali_meeting
 from lhotse_tpu_torch.recipes.ami import prepare_ami
@@ -14,17 +19,32 @@ from lhotse_tpu_torch.recipes.commonvoice import prepare_commonvoice
 from lhotse_tpu_torch.recipes.dipco import prepare_dipco
 from lhotse_tpu_torch.recipes.icsi import prepare_icsi
 from lhotse_tpu_torch.recipes.libricss import prepare_libricss
+from lhotse_tpu_torch.recipes.librilight import prepare_librilight
 from lhotse_tpu_torch.recipes.librispeech import download_librispeech, prepare_librispeech
+from lhotse_tpu_torch.recipes.libritts import prepare_libritts, prepare_librittsr
+from lhotse_tpu_torch.recipes.ljspeech import prepare_ljspeech
+from lhotse_tpu_torch.recipes.mls import prepare_mls
 from lhotse_tpu_torch.recipes.musan import prepare_musan
 from lhotse_tpu_torch.recipes.notsofar1 import prepare_notsofar1
+from lhotse_tpu_torch.recipes.peoples_speech import prepare_peoples_speech
 from lhotse_tpu_torch.recipes.rir_noise import prepare_rir_noise
+from lhotse_tpu_torch.recipes.spgispeech import prepare_spgispeech
+from lhotse_tpu_torch.recipes.tedlium import prepare_tedlium
+from lhotse_tpu_torch.recipes.tedlium2 import prepare_tedlium2
+from lhotse_tpu_torch.recipes.timit import prepare_timit
 from lhotse_tpu_torch.recipes.utils import (
     finalize_manifests, manifests_exist, read_manifests_if_cached)
+from lhotse_tpu_torch.recipes.vctk import prepare_vctk
+from lhotse_tpu_torch.recipes.voxceleb import prepare_voxceleb
 from lhotse_tpu_torch.recipes.wham import prepare_wham
+from lhotse_tpu_torch.recipes.yesno import prepare_yesno
 
 __all__ = [
-    "download_librispeech", "finalize_manifests", "manifests_exist", "prepare_aishell4",
-    "prepare_ali_meeting", "prepare_ami", "prepare_but_reverb_db", "prepare_chime6",
-    "prepare_commonvoice", "prepare_dipco", "prepare_icsi", "prepare_libricss",
-    "prepare_librispeech", "prepare_musan", "prepare_notsofar1", "prepare_rir_noise",
-    "prepare_wham", "read_manifests_if_cached"]
+    "download_librispeech", "finalize_manifests", "manifests_exist", "prepare_aishell",
+    "prepare_aishell2", "prepare_aishell4", "prepare_ali_meeting", "prepare_ami",
+    "prepare_but_reverb_db", "prepare_chime6", "prepare_commonvoice", "prepare_dipco",
+    "prepare_icsi", "prepare_libricss", "prepare_librilight", "prepare_librispeech",
+    "prepare_libritts", "prepare_librittsr", "prepare_ljspeech", "prepare_mls", "prepare_musan",
+    "prepare_notsofar1", "prepare_peoples_speech", "prepare_rir_noise", "prepare_spgispeech",
+    "prepare_tedlium", "prepare_tedlium2", "prepare_timit", "prepare_vctk", "prepare_voxceleb",
+    "prepare_wham", "prepare_yesno", "read_manifests_if_cached"]

@@ -521,7 +521,7 @@ def test_index_verify_pack(corpus, tmp_path):
     assert runs["port"][1].output.startswith("Verification failed: Index-pack CRC mismatch")
 
 
-# -- the prepare commands of the noise, RIR and meeting recipes ---------------------------
+# -- the prepare commands of the noise, RIR, meeting and single-stream recipes --------------
 
 def _recipe_cases():
     """(id, the function that writes the corpus layout, the command's
@@ -584,6 +584,72 @@ def _recipe_cases():
         ("dipco-ihm-chime7", dipco_tree,
          ["dipco", "--mic", "ihm", "--use-chime7-offset", "{c}"],
          lambda c, o: prepare_dipco(c, output_dir=o, mic="ihm", use_chime7_offset=True)),
+    ] + _single_stream_cases()
+
+
+def _opus_mls_tree(root):
+    from lhotse_tpu_torch.audio.syscodecs import opus_available
+    from test_torch_recipes_asr import mls_tree
+
+    if not opus_available():
+        pytest.skip("the system Opus and Ogg libraries are not present")
+    return mls_tree(root, "opus")
+
+
+def _single_stream_cases():
+    """The cases of the single-stream ASR, TTS and speaker recipes, on the
+    layouts of tests/test_torch_recipes_asr.py and
+    tests/test_torch_recipes_tts.py."""
+    from lhotse_tpu_torch.recipes import (
+        prepare_aishell, prepare_aishell2, prepare_librilight, prepare_libritts,
+        prepare_librittsr, prepare_ljspeech, prepare_mls, prepare_peoples_speech,
+        prepare_spgispeech, prepare_tedlium, prepare_tedlium2, prepare_timit, prepare_vctk,
+        prepare_voxceleb, prepare_yesno)
+    from test_torch_recipes_asr import (
+        aishell2_tree, aishell_tree, librilight_tree, mls_tree, peoples_speech_tree,
+        spgispeech_tree, tedlium2_tree, tedlium_tree, timit_tree, voxceleb1_tree, yesno_tree)
+    from test_torch_recipes_tts import libritts_tree, ljspeech_tree, vctk_tree
+
+    return [
+        ("yesno", lambda r: yesno_tree(r, "tranche6"), ["yesno", "{c}"],
+         lambda c, o: prepare_yesno(c, output_dir=o)),
+        ("aishell", aishell_tree, ["aishell", "{c}"], lambda c, o: prepare_aishell(c, output_dir=o)),
+        ("aishell2", aishell2_tree, ["aishell2", "{c}"],
+         lambda c, o: prepare_aishell2(c, output_dir=o)),
+        ("tedlium-kaldi", tedlium_tree,
+         ["tedlium", "-p", "dev", "-p", "test", "--normalize-text", "kaldi", "{c}"],
+         lambda c, o: prepare_tedlium(c, output_dir=o, dataset_parts=("dev", "test"),
+                                      normalize_text="kaldi")),
+        ("tedlium2-upper", lambda r: tedlium2_tree(r, "sphere"),
+         ["tedlium2", "--normalize-text", "upper", "{c}"],
+         lambda c, o: prepare_tedlium2(c, output_dir=o, normalize_text="upper")),
+        ("libritts-linked", lambda r: libritts_tree(r, "slice", n_chapters=2),
+         ["libritts", "-p", "dev-clean", "--link-previous-utt", "{c}"],
+         lambda c, o: prepare_libritts(c, output_dir=o, dataset_parts="dev-clean",
+                                       link_previous_utt=True)),
+        ("librittsr", lambda r: libritts_tree(r, "slice", n_chapters=2),
+         ["librittsr", "-p", "dev-clean", "-p", "test-clean", "{c}"],
+         lambda c, o: prepare_librittsr(c, output_dir=o, dataset_parts=("dev-clean", "test-clean"))),
+        ("librilight", librilight_tree, ["librilight", "{c}"],
+         lambda c, o: prepare_librilight(c, output_dir=o)),
+        ("mls-flac", lambda r: mls_tree(r, "flac"), ["mls", "--flac", "{c}"],
+         lambda c, o: prepare_mls(c, output_dir=o, opus=False)),
+        ("mls-opus", _opus_mls_tree, ["mls", "{c}"], lambda c, o: prepare_mls(c, output_dir=o)),
+        ("peoples-speech", peoples_speech_tree, ["peoples-speech", "{c}"],
+         lambda c, o: prepare_peoples_speech(c, output_dir=o)),
+        ("spgispeech-raw", spgispeech_tree, ["spgispeech", "--no-normalize-text", "{c}"],
+         lambda c, o: prepare_spgispeech(c, o, normalize_text=False)),
+        ("ljspeech", lambda r: ljspeech_tree(r, "tranche9"), ["ljspeech", "{c}"],
+         lambda c, o: prepare_ljspeech(c, output_dir=o)),
+        ("vctk-0.92-mic1", lambda r: vctk_tree(r, "0.92"),
+         ["vctk", "--use-edinburgh-vctk-url", "--mic-id", "mic1", "{c}"],
+         lambda c, o: prepare_vctk(c, output_dir=o, use_edinburgh_vctk_url=True, mic_id="mic1")),
+        ("timit-39", lambda r: timit_tree(r, "tranche7"), ["timit", "-p", "39", "{c}"],
+         lambda c, o: prepare_timit(c, output_dir=o, num_phones=39)),
+        ("voxceleb1-trials", lambda r: voxceleb1_tree(r)[0],
+         ["voxceleb", "--voxceleb1", "{c}", "--trials-path", "{c}/trials.txt"],
+         lambda c, o: prepare_voxceleb(voxceleb1_root=c, trials_path=c / "trials.txt",
+                                       output_dir=o)),
     ]
 
 

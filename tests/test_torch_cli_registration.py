@@ -24,8 +24,10 @@ LEFT_OUT = {
 # The recipes whose prepare command the port registers; their downloads
 # are left out with every other download.
 PORTED_RECIPES = {
-    "aishell4", "ali-meeting", "ami", "but-reverb-db", "chime6", "commonvoice", "dipco", "icsi",
-    "libricss", "librispeech", "musan", "notsofar1", "rir-noise", "wham"}
+    "aishell", "aishell2", "aishell4", "ali-meeting", "ami", "but-reverb-db", "chime6",
+    "commonvoice", "dipco", "icsi", "libricss", "librilight", "librispeech", "libritts",
+    "librittsr", "ljspeech", "mls", "musan", "notsofar1", "peoples-speech", "rir-noise",
+    "spgispeech", "tedlium", "tedlium2", "timit", "vctk", "voxceleb", "wham", "yesno"}
 
 
 def _walk(cmd, prefix=()):

@@ -5,8 +5,10 @@ features through a chunky archive, and an 8-channel 300 s session),
 ``OnTheFlyFeatures``, encoder, entry, WPE, and the SURT and diarization
 datasets over the zipped samplers and stored features on the card against
 the same port on the CPU; a piped Kaldi data dir through the CLI's
-``feat extract-cuts-batch`` against the kernel's plain version; and
-windows of simulated meetings through the SURT dataset on the card.
+``feat extract-cuts-batch`` against the kernel's plain version; windows
+of simulated meetings through the SURT dataset on the card; and the
+augmenter fed by the MUSAN, RIRS_NOISES and AISHELL recipes on the card
+against the CPU port.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -976,3 +978,46 @@ def test_musan_rir_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
     assert fbank_cuda.LAUNCHES == 1
     assert torch.equal(feat_lens.cpu(), cpu_lens)
     torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
+
+
+def test_aishell_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
+    """An AISHELL layout of 8 utterances of 1-2 s through ``prepare_aishell``,
+    in two batches of the 2 s x 4 bucket, into the augmenter on the card
+    against the same augmenter on the CPU port."""
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.recipes import prepare_aishell
+
+    data = tmp_path / "aishell" / "data_aishell"
+    (data / "transcript").mkdir(parents=True)
+    lines = []
+    for i in range(8):
+        part, spk = ("train", "train", "dev", "test")[i % 4], f"S{2 + i % 6:04d}"
+        utt = f"BAC009{spk}W{i:04d}"
+        (data / "wav" / part / spk).mkdir(parents=True, exist_ok=True)
+        write_wav(data / "wav" / part / spk / f"{utt}.wav",
+                  _audio((1, 16000 + 2000 * i), seed=40 + i), 16000)
+        lines.append(f"{utt} 甚至 出现 交易 几乎 停滞 的 情况")
+    (data / "transcript" / "aishell_transcript_v0.8.txt").write_text(
+        "\n".join(lines) + "\n", encoding="utf-8")
+    made = prepare_aishell(tmp_path / "aishell")
+    recs = sorted((r for part in made.values() for r in part["recordings"]), key=lambda r: r.id)
+    assert len(recs) == 8
+    n = 4800
+    rir = _audio((n,), seed=9) * np.exp(-np.arange(n) / (n / 6.0)).astype(np.float32)
+    rir[32] = 1.0
+    cfg = dict(buckets=[(2.0, 4)], speed_factor=1.1, noise_pool=_audio((4, 48000), seed=21),
+               rir=rir, snr=(10, 20), mix_prob=0.5, seed=3, wire_format="int16",
+               specaugment=SpecAugment(seed=7))
+    cpu_aug, card_aug = OnDeviceAugmenter(**cfg, device="cpu"), OnDeviceAugmenter(**cfg, device=cuda)
+    for i in (0, 4):
+        audio = [r.load_audio()[0] for r in recs[i:i + 4]]
+        lens = [len(a) for a in audio]
+        x = np.zeros((4, max(lens)), np.float32)
+        for k, a in enumerate(audio):
+            x[k, : len(a)] = a
+        cpu_feats, cpu_lens = cpu_aug(x, lens)
+        fbank_cuda.LAUNCHES = 0
+        feats, feat_lens = card_aug(x, lens)
+        assert fbank_cuda.LAUNCHES == 1
+        assert torch.equal(feat_lens.cpu(), cpu_lens)
+        torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)

@@ -115,7 +115,22 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.bin.modes.recipes.ali_meeting, lhotse_tpu_torch.bin.modes.recipes.icsi, "
         "lhotse_tpu_torch.bin.modes.recipes.notsofar1, "
         "lhotse_tpu_torch.bin.modes.recipes.libricss, lhotse_tpu_torch.bin.modes.recipes.chime6, "
-        "lhotse_tpu_torch.bin.modes.recipes.dipco; "
+        "lhotse_tpu_torch.bin.modes.recipes.dipco, lhotse_tpu_torch.recipes.yesno, "
+        "lhotse_tpu_torch.recipes.aishell, lhotse_tpu_torch.recipes.aishell2, "
+        "lhotse_tpu_torch.recipes.tedlium, lhotse_tpu_torch.recipes.tedlium2, "
+        "lhotse_tpu_torch.recipes.libritts, lhotse_tpu_torch.recipes.librilight, "
+        "lhotse_tpu_torch.recipes.mls, lhotse_tpu_torch.recipes.peoples_speech, "
+        "lhotse_tpu_torch.recipes.spgispeech, lhotse_tpu_torch.recipes.ljspeech, "
+        "lhotse_tpu_torch.recipes.vctk, lhotse_tpu_torch.recipes.timit, "
+        "lhotse_tpu_torch.recipes.voxceleb, lhotse_tpu_torch.bin.modes.recipes.yesno, "
+        "lhotse_tpu_torch.bin.modes.recipes.aishell, lhotse_tpu_torch.bin.modes.recipes.aishell2, "
+        "lhotse_tpu_torch.bin.modes.recipes.tedlium, lhotse_tpu_torch.bin.modes.recipes.tedlium2, "
+        "lhotse_tpu_torch.bin.modes.recipes.libritts, "
+        "lhotse_tpu_torch.bin.modes.recipes.librilight, lhotse_tpu_torch.bin.modes.recipes.mls, "
+        "lhotse_tpu_torch.bin.modes.recipes.peoples_speech, "
+        "lhotse_tpu_torch.bin.modes.recipes.spgispeech, "
+        "lhotse_tpu_torch.bin.modes.recipes.ljspeech, lhotse_tpu_torch.bin.modes.recipes.vctk, "
+        "lhotse_tpu_torch.bin.modes.recipes.timit, lhotse_tpu_torch.bin.modes.recipes.voxceleb; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
