@@ -117,7 +117,13 @@ People's Speech, SPGISpeech and TIMIT through their recipes into the same
 training path, LibriTTS, LibriTTS-R, LJSpeech and VCTK into
 ``SpeechSynthesisDataset`` with a ``TokenCollater``, and VoxCeleb1's trial
 pairs through ``CutPairsSampler``, each resampled to 16 kHz where it is
-not); and checks what comes out.
+not); then two corpora muxed into training (the LibriSpeech and AISHELL
+cuts through ``CutSet.mux``, ``DynamicBucketingSampler``,
+``OnTheFlyFeatures`` on the kernel, ``GlobalMVN`` and ``SpecAugment`` into
+the AdamW step, resumed from a ``DataloaderCheckpoint`` JSON file; the Shar
+shards through ``CutSet.infinite_mux`` into the step, resumed as the JAX
+package's loader resumes it; ``RandomizedSmoothing`` on the card against
+the CPU); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -163,7 +169,8 @@ reads stored features), ``kaldi_on_the_fly``, ``kaldi_on_the_fly_cached``,
 ``tedlium_long_form`` and ``corpus_<name>`` for ``yesno``, ``aishell2``,
 ``tedlium2``, ``librilight``, ``mls``, ``peoples_speech``, ``spgispeech``,
 ``timit``, ``libritts``, ``librittsr``, ``ljspeech``, ``vctk`` and
-``voxceleb1`` (both sides' launches)); the last line is
+``voxceleb1`` (both sides' launches), ``mux_on_the_fly`` and
+``infinite_mux_shar``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -5934,6 +5941,239 @@ def _phase_single_stream(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+MUX_SEED = 2525
+MUX_WEIGHTS = [1, 1]
+MUX_MVN_CUTS = 64  # cuts of the muxed stream that GlobalMVN's statistics are computed over
+MUX_RESUME_AFTER = 3
+INFINITE_BATCHES = 6  # batches of infinite_mux_shar before its checkpoint
+INFINITE_RESUMED = 2  # batches after it, uninterrupted and resumed
+SMOOTHING_CUTS = 32
+
+
+def _batches_of(cuts, n: int):
+    """Batches of ``n`` cuts taken straight off an endless CutSet: a sampler
+    with no ``state_dict``."""
+    from lhotse_tpu_torch.cut import CutSet
+
+    it = iter(cuts)
+    while True:
+        yield CutSet.from_cuts([next(it) for _ in range(n)])
+
+
+def _phase_muxed(workdir: Path, shar_dir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """25. Two corpora muxed into training, in phase 14's directory after
+    phase 24, and phase 13's Shar shards. ``mux_on_the_fly``: phase 14's
+    LibriSpeech cuts and phase 24's AISHELL cuts (both 16 kHz) →
+    ``CutSet.mux(weights=[1, 1], seed=2525)`` over their lazy manifests →
+    ``DynamicBucketingSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the kernel
+    and ``input_transforms=[GlobalMVN.from_cuts(...), SpecAugment(...)]``
+    (the statistics from the kernel's features of the stream's first 64
+    cuts) → ``DataLoader(checkpoint_objects=[specaugment])`` → an AdamW step
+    of ``Encoder(EncoderConfig())`` per batch, one epoch; after batch 3 a
+    ``DataloaderCheckpoint`` of the loader's state (the sampler's and
+    SpecAugment's) written to JSON, read back into a fresh loader, whose
+    batches must be ``torch.equal`` to the uninterrupted run's. Then
+    ``GlobalMVN`` on the card's features against its numpy apply, and
+    ``RandomizedSmoothing`` on a card batch of 32 cuts' audio against the
+    same transform's CPU result moved to the card (``torch.equal``).
+    ``infinite_mux_shar``: ``CutSet.infinite_mux`` over the 8 Shar shards
+    (one source per shard, at most 2 open) → ``DynamicCutSampler`` →
+    ``OnTheFlyFeatures`` on the kernel → the step, for 6 + 2 batches. As in
+    the JAX package, the sampler keeps no graph state over the mux and
+    ``loader.state_dict()`` falls back to replaying its batches: a
+    checkpoint after batch 6 resumes the next 2 batches ``torch.equal``; a
+    loader whose batches come straight off the mux (a sampler with no
+    state) iterates and refuses ``state_dict()``. Returns the kernel's
+    launches per path and the largest kernel-vs-plain error."""
+    import itertools
+
+    from lhotse_tpu_torch import CutSet, RecordingSet, SupervisionSet
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint
+    from lhotse_tpu_torch.dataset import (
+        DataLoader, DynamicBucketingSampler, DynamicCutSampler, GlobalMVN,
+        K2SpeechRecognitionDataset, OnTheFlyFeatures, RandomizedSmoothing, SpecAugment)
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    launches, errs = {}, []
+    trainer = _Trainer(device)
+
+    # -- mux_on_the_fly --------------------------------------------------------------------
+    libri_path = workdir / "recipe_cuts.jsonl.gz"
+    made = workdir / "single_stream" / "manifests" / "aishell" / "function"
+    aishell_path = workdir / "mux_aishell_cuts.jsonl.gz"
+    CutSet.from_cuts(c for part in ("train", "dev", "test") for c in CutSet.from_manifests(
+        RecordingSet.from_file(made / f"aishell_recordings_{part}.jsonl.gz"),
+        SupervisionSet.from_file(made / f"aishell_supervisions_{part}.jsonl.gz"))).to_file(
+        aishell_path)
+    corpora = {"librispeech": libri_path, "aishell": aishell_path}
+    ids = {name: {c.id for c in CutSet.from_jsonl_lazy(p)} for name, p in corpora.items()}
+    rates = {c.sampling_rate for p in corpora.values() for c in CutSet.from_jsonl_lazy(p)}
+
+    def muxed():
+        return CutSet.mux(*(CutSet.from_jsonl_lazy(p) for p in corpora.values()),
+                          weights=MUX_WEIGHTS, seed=MUX_SEED)
+
+    t0 = time.perf_counter()
+    mvn = GlobalMVN.from_cuts(muxed(), max_cuts=MUX_MVN_CUTS,
+                              extractor=Fbank(FbankConfig(device=device)))
+    mvn_s = time.perf_counter() - t0
+
+    def mux_loader(seed):
+        fly = Fbank(FbankConfig(device=device))
+        specaug = SpecAugment(seed=seed)
+        dataset = K2SpeechRecognitionDataset(
+            return_cuts=True, input_strategy=OnTheFlyFeatures(fly),
+            input_transforms=[mvn, specaug])
+        sampler = DynamicBucketingSampler(muxed(), max_duration=FLY_MAX_DURATION, shuffle=True,
+                                          seed=0)
+        return DataLoader(sampler, dataset, prefetch_batches=3,
+                          checkpoint_objects=[specaug]), fly
+
+    loader, fly = mux_loader(MUX_SEED)
+    recorder = _RecordFirstBatch(fly)
+    ckpt_path = workdir / "mux_checkpoint.json"
+
+    def checkpoint(i, batch):
+        if i == MUX_RESUME_AFTER - 1:
+            DataloaderCheckpoint(num_workers=0, world_size=1, rank=0,
+                                 sampler_state=loader.state_dict()).save(ckpt_path)
+
+    run = _leg("mux_on_the_fly", loader, trainer, device, fbank_cuda, _rows_of, smi,
+               on_batch=checkpoint)
+    launches["mux_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, fly)
+    ckpt = DataloaderCheckpoint.load(ckpt_path)
+    ckpt.validate(num_workers=0, world_size=1, rank=0)
+    resumed_loader, _ = mux_loader(seed=0)  # SpecAugment's state comes from the file
+    resumed_loader.load_state_dict(ckpt.sampler_state)
+    resumed = list(resumed_loader)
+    want = run["batches"][MUX_RESUME_AFTER:]
+    resume_equal = len(resumed) == len(want) and all(
+        [c.id for c in a["supervisions"]["cut"]] == [c.id for c in b["supervisions"]["cut"]]
+        and torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
+        for a, b in zip(resumed, want))
+    seen = [c.id for b in run["batches"] for c in b["supervisions"]["cut"]]
+    first = [c.id for c in run["batches"][0]["supervisions"]["cut"]]
+    mixed_batches = sum(
+        len({name for c in b["supervisions"]["cut"] for name, s in ids.items() if c.id in s}) == 2
+        for b in run["batches"])
+    items, kernel_out = recorder.first
+    mvn_err = max(float((mvn(torch.from_numpy(f).to(device)).cpu()
+                         - torch.from_numpy(mvn(f))).abs().max()) for f in kernel_out)
+    print(f"[{smi}] mux_on_the_fly: {len(ids['librispeech'])} LibriSpeech and "
+          f"{len(ids['aishell'])} AISHELL cuts at {sorted(rates)} Hz muxed with weights "
+          f"{MUX_WEIGHTS}, seed {MUX_SEED}; GlobalMVN statistics over {MUX_MVN_CUTS} cuts on the "
+          f"kernel in {mvn_s!r} s; {len(run['batches'])} batches, {mixed_batches} of them holding "
+          f"both corpora; every cut once: {sorted(seen) == sorted(set().union(*ids.values()))}; "
+          f"first batch kernel vs plain {err!r} (tol {KERNEL_TOL}); GlobalMVN on the card's "
+          f"features in their dtype vs its numpy apply {mvn_err!r}; DataloaderCheckpoint after "
+          f"batch {MUX_RESUME_AFTER} ({ckpt_path.stat().st_size} bytes of JSON) read into a fresh "
+          f"loader: {len(resumed)} batches torch.equal to the uninterrupted run's: {resume_equal}")
+    if run["launches"] != len(run["batches"]) or len(run["batches"]) <= MUX_RESUME_AFTER:
+        raise AssertionError("mux_on_the_fly: launches or the batch count are off")
+    if sorted(seen) != sorted(set().union(*ids.values())) or not mixed_batches:
+        raise AssertionError("mux_on_the_fly: the muxed epoch does not cover both corpora once")
+    if not resume_equal or not err <= KERNEL_TOL or not mvn_err <= 1e-6 or rates != {SR}:
+        raise AssertionError("mux_on_the_fly: the resume, the kernel or GlobalMVN are off")
+    errs.append(err)
+
+    audio, _ = CutSet.from_jsonl_lazy(aishell_path).subset(first=SMOOTHING_CUTS).to_eager() \
+        .load_audio(collate=True)
+    audio = torch.from_numpy(audio)
+    smoothed = RandomizedSmoothing(sigma=0.1, p=0.5, seed=MUX_SEED)(audio.to(device))
+    on_cpu = RandomizedSmoothing(sigma=0.1, p=0.5, seed=MUX_SEED)(audio)
+    smoothing_equal = (smoothed.device.type == torch.device(device).type
+                       and torch.equal(smoothed, on_cpu.to(device)))
+    print(f"[{smi}] RandomizedSmoothing on a card batch {tuple(audio.shape)} of {SMOOTHING_CUTS} "
+          f"AISHELL cuts: torch.equal to the CPU result moved to the card: {smoothing_equal}; "
+          f"rows changed {int((smoothed != audio.to(device)).any(dim=1).sum())}")
+    if not smoothing_equal:
+        raise AssertionError("RandomizedSmoothing on the card differs from the CPU")
+
+    # -- infinite_mux_shar -------------------------------------------------------------------
+    shards = sorted(shar_dir.glob("cuts.*.jsonl"))
+    tars = sorted(shar_dir.glob("recording.*.tar"))
+    shar_ids = {c.id for p in shards for c in CutSet.from_jsonl_lazy(p)}
+
+    def infinite():
+        sources = [CutSet.from_shar(fields={"cuts": [str(c)], "recording": [str(r)]})
+                   for c, r in zip(shards, tars)]
+        return CutSet.infinite_mux(*sources, seed=MUX_SEED, max_open_streams=2)
+
+    def shar_loader():
+        fly = Fbank(FbankConfig(device=device))
+        dataset = K2SpeechRecognitionDataset(return_cuts=True,
+                                             input_strategy=OnTheFlyFeatures(fly))
+        return DataLoader(DynamicCutSampler(infinite(), max_duration=FLY_MAX_DURATION), dataset,
+                          prefetch_batches=3), fly, dataset
+
+    loader, fly, dataset = shar_loader()
+    recorder = _RecordFirstBatch(fly)
+    state = {}
+
+    def keep_state(i, batch):
+        if i == INFINITE_BATCHES - 1:
+            state["ckpt"] = loader.state_dict()
+
+    threads_before = set(threading.enumerate())
+    it = iter(loader)
+    run = _leg("infinite_mux_shar", itertools.islice(it, INFINITE_BATCHES + INFINITE_RESUMED),
+               trainer, device, fbank_cuda, _rows_of, smi, on_batch=keep_state)
+    _close_and_join(it, threads_before)
+    launches["infinite_mux_shar"] = run["launches"]
+    err = _first_batch_err(recorder, fly)
+    DataloaderCheckpoint(num_workers=0, world_size=1, rank=0,
+                         sampler_state=state["ckpt"]).save(workdir / "infinite_checkpoint.json")
+    replay = "cuts_state" not in state["ckpt"]["sampler"]
+    resumed_loader, _, _ = shar_loader()
+    resumed_loader.load_state_dict(
+        DataloaderCheckpoint.load(workdir / "infinite_checkpoint.json").sampler_state)
+    threads_before = set(threading.enumerate())
+    it = iter(resumed_loader)
+    resumed = list(itertools.islice(it, INFINITE_RESUMED))
+    _close_and_join(it, threads_before)
+    want = run["batches"][INFINITE_BATCHES:]
+    resume_equal = len(resumed) == len(want) == INFINITE_RESUMED and all(
+        [c.id for c in a["supervisions"]["cut"]] == [c.id for c in b["supervisions"]["cut"]]
+        and torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
+        for a, b in zip(resumed, want))
+    drawn = [c.id for b in run["batches"] for c in b["supervisions"]["cut"]]
+    stateless = DataLoader(_batches_of(infinite(), 4), dataset, prefetch_batches=1)
+    threads_before = set(threading.enumerate())
+    it = iter(stateless)
+    next(it)
+    try:
+        stateless.state_dict()
+        refused = "nothing"
+    except AttributeError as e:
+        refused = f"AttributeError: {e}"
+    _close_and_join(it, threads_before)
+    print(f"[{smi}] infinite_mux_shar: {len(shards)} Shar shards of {len(shar_ids)} cuts, one "
+          f"source each, at most 2 open; {len(run['batches'])} batches of {len(drawn)} cuts "
+          f"({len(set(drawn))} distinct, all from the shards: {set(drawn) <= shar_ids}), "
+          f"{run['launches']} launches with the producer's prefetched batches; first "
+          f"batch kernel vs plain {err!r} (tol {KERNEL_TOL}); loader.state_dict() after batch "
+          f"{INFINITE_BATCHES} keeps no graph state (replay, as the JAX package's): {replay}; "
+          f"resumed from its JSON file: {len(resumed)} batches torch.equal to the uninterrupted "
+          f"run's: {resume_equal}; a loader over batches straight off the mux refuses "
+          f"state_dict(): {refused}")
+    # The loader's producer assembles up to its prefetch depth (and one in hand) past the
+    # batches taken before the iterator is closed.
+    if not len(drawn) or not set(drawn) <= shar_ids or not (
+            len(run["batches"]) <= run["launches"] <= len(run["batches"]) + 3 + 1):
+        raise AssertionError("infinite_mux_shar: launches or the drawn cuts are off")
+    if not replay or not resume_equal or refused == "nothing" or not err <= KERNEL_TOL:
+        raise AssertionError("infinite_mux_shar: the checkpoint, the resume or the kernel are off")
+    errs.append(err)
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -6287,6 +6527,8 @@ def main() -> None:
     # 12. the augmented training path, 13. the Shar corpus path. One FLAC
     # corpus for the four phases.
     (ROOT / "build").mkdir(exist_ok=True)
+    # Phase 13's Shar shards outlive phase 10's corpus: phase 25 muxes them.
+    kept = tempfile.TemporaryDirectory(dir=ROOT / "build")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t0 = time.perf_counter()
         cuts_path, noise_path = _synthesize_corpus(Path(tmp), E2E_RECORDINGS)
@@ -6309,6 +6551,8 @@ def main() -> None:
         t0 = time.perf_counter()
         by_path["dp_on_the_fly"], dp_err = _phase_data_parallel(cuts_path, smi)
         print(f"phase 16 took {time.perf_counter() - t0!r} s")
+        shar_dir = Path(kept.name) / "shar"
+        (Path(tmp) / "shar").rename(shar_dir)
 
     # -- 14. the recipe path, on corpora of its own --------------------------------
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -6354,6 +6598,13 @@ def main() -> None:
         launches_single, single_err = _phase_single_stream(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_single)
         print(f"phase 24 took {time.perf_counter() - t0!r} s")
+        # -- 25. two corpora muxed into training with a checkpoint in JSON, and an
+        # infinite mux over phase 13's Shar shards
+        t0 = time.perf_counter()
+        launches_muxed, muxed_err = _phase_muxed(Path(tmp), shar_dir, device, fbank_cuda, smi)
+        by_path.update(launches_muxed)
+        print(f"phase 25 took {time.perf_counter() - t0!r} s")
+    kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
     # signal-effects and multi-source, multi-talker training path on the same corpus
@@ -6382,7 +6633,7 @@ def main() -> None:
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
-                              noise_err, single_err]),
+                              noise_err, single_err, muxed_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

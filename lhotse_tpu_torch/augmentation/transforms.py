@@ -7,12 +7,11 @@ ROUND_HALF_UP), ``Tempo`` (pitch-preserving WSOLA time stretch, sox
 ``tempo``) and ``Volume`` (plain gain).
 
 ``Resample`` runs the built-in sinc resampler only: the JAX package's sox
-backend (selected with ``LHOTSE_TPU_RESAMPLING_BACKEND`` or
-``LHOTSE_RESAMPLING_BACKEND``) is not ported and raises.
+backend (selected through :mod:`lhotse_tpu_torch.audio.resampling_backend`
+or its environment variables) is not ported and raises.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from decimal import ROUND_HALF_UP
 from typing import Optional, Tuple
@@ -21,7 +20,7 @@ import numpy as np
 
 from lhotse_tpu_torch.augmentation.resample import get_or_create_resampler
 from lhotse_tpu_torch.augmentation.transform import AudioTransform
-from lhotse_tpu_torch.utils import Seconds, compute_num_samples, not_ported, perturb_num_samples
+from lhotse_tpu_torch.utils import Seconds, compute_num_samples, perturb_num_samples
 
 
 def _reverse_time_scale(
@@ -76,10 +75,9 @@ class Resample(AudioTransform):
     def __call__(self, samples: np.ndarray, *args, **kwargs) -> np.ndarray:
         if self.source_sampling_rate == self.target_sampling_rate:
             return samples
-        backend = os.environ.get("LHOTSE_TPU_RESAMPLING_BACKEND") or os.environ.get(
-            "LHOTSE_RESAMPLING_BACKEND")
-        if backend and backend != "default":
-            raise not_ported(f"The {backend!r} resampling backend")
+        from lhotse_tpu_torch.audio.resampling_backend import get_current_resampling_backend
+
+        get_current_resampling_backend()  # raises for a backend other than "default"
         resampler = get_or_create_resampler(self.source_sampling_rate, self.target_sampling_rate)
         return resampler(samples)
 

@@ -2,9 +2,25 @@
 Iterator-graph traversal and checkpoint helpers for resumable data loading
 (copied from ``lhotse_tpu/checkpoint.py``): ``detach_state`` for the
 loader's per-batch snapshots, the JSON-safe ``random.Random`` state codec,
-and ``collect_state_dict``/``restore_state_dict`` over a lazy graph.
+``collect_state_dict``/``restore_state_dict`` over a lazy graph, and
+``DataloaderCheckpoint``, a JSON file of worker states, a sampler (or
+loader) state and the topology it was taken under.
 """
 from __future__ import annotations
+
+import json
+from dataclasses import asdict, dataclass, field
+from pathlib import Path
+from typing import List
+
+from lhotse_tpu_torch.utils import Pathlike
+
+__all__ = [
+    "collect_state_dict",
+    "detach_state",
+    "restore_state_dict",
+    "DataloaderCheckpoint",
+]
 
 _ATOMIC = (int, float, bool, str, bytes, type(None))
 
@@ -145,3 +161,42 @@ def restore_state_dict(root, state: dict) -> None:
                 )
             for sub, sub_state in zip(child, saved_children):
                 restore_state_dict(sub, sub_state)
+
+
+@dataclass
+class DataloaderCheckpoint:
+    """
+    Serializable container for a full dataloader checkpoint: per-worker
+    iterator graph states plus the sampler state, with topology metadata
+    validated on restore.
+    """
+
+    num_workers: int
+    world_size: int
+    rank: int
+    worker_states: List[dict] = field(default_factory=list)
+    sampler_state: dict = field(default_factory=dict)
+
+    def save(self, path: Pathlike) -> None:
+        payload = json.dumps(asdict(self), indent=2, default=_json_serializer)
+        Path(path).write_text(payload)
+
+    @classmethod
+    def load(cls, path: Pathlike) -> "DataloaderCheckpoint":
+        return cls(**json.loads(Path(path).read_text()))
+
+    def validate(self, num_workers: int, world_size: int, rank: int = 0) -> None:
+        for name, saved, current in (
+            ("num_workers", self.num_workers, num_workers),
+            ("world_size", self.world_size, world_size), ("rank", self.rank, rank)):
+            if saved != current:
+                raise ValueError(
+                    f"Checkpoint {name}={saved} does not match current "
+                    f"{name}={current}."
+                )
+
+
+def _json_serializer(obj):
+    if isinstance(obj, tuple):
+        return list(obj)
+    raise TypeError(f"Object of type {type(obj).__name__} is not JSON serializable")

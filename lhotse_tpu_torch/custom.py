@@ -55,6 +55,12 @@ class CustomFieldMixin:
     def to_dict(self) -> Dict[str, Any]:
         return asdict_nonull(self)
 
+    def with_custom(self, name: str, value: Any):
+        """Return a copy of this object with an extra custom field assigned."""
+        dup = fastcopy(self, custom=dict(ifnone(self.custom, {})))
+        dup.custom[name] = value
+        return dup
+
     def copy_with(self, **kwargs):
         """Copy with selected fields overwritten (fastcopy convenience)."""
         return fastcopy(self, **kwargs)
@@ -93,3 +99,8 @@ class CustomFieldMixin:
     def has_custom(self, name: str) -> bool:
         return name in self.custom if self.custom is not None else False
 
+    def drop_custom(self, name: str):
+        if not self.has_custom(name):
+            return None
+        del self.custom[name]
+        return self

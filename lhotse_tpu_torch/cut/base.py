@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import math
 from bisect import bisect_left
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 
@@ -21,7 +21,7 @@ from lhotse_tpu_torch.audio.utils import VideoInfo
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
     Decibels, Seconds, add_durations, asdict_nonull, compute_num_samples, compute_num_windows,
-    compute_start_duration_for_extended_cut, fastcopy, ifnone, to_hashable)
+    compute_start_duration_for_extended_cut, fastcopy, ifnone, overlaps, to_hashable)
 
 
 class SetContainingAnything:
@@ -109,10 +109,27 @@ class Cut:
         return self.copy(**kwargs)
 
     @property
+    def has_overlapping_supervisions(self) -> bool:
+        if len(self.supervisions) < 2:
+            return False
+        sups = sorted(self.supervisions, key=lambda s: s.start)
+        for left, right in zip(sups, sups[1:]):
+            if overlaps(left, right):
+                return True
+        return False
+
+    @property
     def trimmed_supervisions(self) -> List[SupervisionSegment]:
         """Supervisions clamped to the cut bounds (caution: may corrupt ASR
         transcripts whose audio extends beyond the cut)."""
         return [s.trim(self.duration) for s in self.supervisions]
+
+    def split(self, timestamp: Seconds) -> Tuple["Cut", "Cut"]:
+        """Split at ``timestamp`` (relative to cut start) into (left, right)."""
+        assert 0 < timestamp < self.duration, f"0 < {timestamp} < {self.duration}"
+        left = self.truncate(duration=timestamp)
+        right = self.truncate(offset=timestamp)
+        return left, right
 
     def mix(
         self, other: "Cut", offset_other_by: Seconds = 0.0, allow_padding: bool = False,

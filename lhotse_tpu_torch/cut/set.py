@@ -559,6 +559,31 @@ class CutSet(Serializable, AlgorithmMixin):
             _SetOrCutOp( "cut_into_windows_balanced", min_duration=min_duration, max_duration=max_duration, overlap=overlap, keep_excessive_supervisions=keep_excessive_supervisions, ),
             num_jobs)
 
+    def load_audio(
+        self, collate: bool = False, limit: int = 1024,
+    ) -> Union[List[np.ndarray], Tuple[np.ndarray, np.ndarray]]:
+        """Read all cuts' audio into memory (mini-batch use)."""
+        assert not self.is_lazy, "Cannot load audio of cuts in a lazy CutSet."
+        assert len(self) < limit, (
+            f"Cannot load audio of a CutSet with len={len(self)} (limit={limit}); "
+            f"increase the limit if intended."
+        )
+        if collate:
+            from lhotse_tpu_torch.dataset.collation import collate_audio
+
+            audios, audio_lens = collate_audio(self)
+            return np.asarray(audios), np.asarray(audio_lens)
+        return [cut.load_audio() for cut in self]
+
+    def sample(self, n_cuts: int = 1) -> Union[Cut, "CutSet"]:
+        """Randomly sample ``n_cuts`` cuts (a single Cut when n_cuts == 1)."""
+        assert n_cuts > 0
+        cut_indices = random.sample(range(len(self)), min(n_cuts, len(self)))
+        cuts = [self[idx] for idx in cut_indices]
+        if n_cuts == 1:
+            return cuts[0]
+        return CutSet(cuts)
+
     def resample(
         self, sampling_rate: int, affix_id: bool = False, recording_field: Optional[str] = None,
     ) -> "CutSet":

@@ -280,6 +280,9 @@ def collate_audio(
         return audios, audio_lens
 
 
+collate_multi_channel_audio = collate_audio  # the JAX package's alias
+
+
 def collate_custom_field(
     cuts: CutSet, field: str, pad_value: Union[None, int, float] = None,
     pad_direction: str = "right") -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:

@@ -76,3 +76,10 @@ class ExtraPadding:
             )
         return CutSet.from_cuts(padded)
 
+
+def maybe_sample_int(value: int, sample: bool) -> int:
+    return random.randint(0, value) if sample else value
+
+
+def maybe_sample_float(value: float, sample: bool) -> float:
+    return random.uniform(0, value) if sample else value

@@ -1,9 +1,12 @@
 from lhotse_tpu_torch.dataset.sampling.base import (
-    CutSampler, SamplingConstraint, SamplingDiagnostics, TimeConstraint)
+    CutSampler, EpochDiagnostics, SamplingConstraint, SamplingDiagnostics, TimeConstraint,
+    TokenConstraint)
 from lhotse_tpu_torch.dataset.sampling.bucketing import BucketingSampler
+from lhotse_tpu_torch.dataset.sampling.checkpoint_backends import (
+    IndexedCheckpointBackend, ReplayCheckpointBackend)
 from lhotse_tpu_torch.dataset.sampling.cut_pairs import CutPairsSampler
 from lhotse_tpu_torch.dataset.sampling.data_source import DataSource, WeightedDataSource
-from lhotse_tpu_torch.dataset.sampling.dynamic import DynamicCutSampler
+from lhotse_tpu_torch.dataset.sampling.dynamic import DurationBatcher, DynamicCutSampler
 from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import (
     DynamicBucketingSampler, FixedBucketBatchSizeConstraint, estimate_duration_buckets)
 from lhotse_tpu_torch.dataset.sampling.round_robin import RoundRobinSampler
@@ -15,8 +18,10 @@ from lhotse_tpu_torch.dataset.sampling.weighted_simple import WeightedSimpleCutS
 from lhotse_tpu_torch.dataset.sampling.zip import ZipSampler
 
 __all__ = [
-    "BucketingSampler", "CutPairsSampler", "CutSampler", "DataSource", "DynamicBucketingSampler",
-    "DynamicCutSampler", "FixedBucketBatchSizeConstraint", "RoundRobinSampler",
-    "SamplingConstraint", "SamplingDiagnostics", "SimpleCutSampler", "StatelessSampler",
-    "TimeConstraint", "WeightedDataSource", "WeightedSimpleCutSampler", "ZipSampler",
-    "estimate_duration_buckets", "find_pessimistic_batches", "report_padding_ratio_estimate"]
+    "BucketingSampler", "CutPairsSampler", "CutSampler", "DataSource", "DurationBatcher",
+    "DynamicBucketingSampler", "DynamicCutSampler", "EpochDiagnostics",
+    "FixedBucketBatchSizeConstraint", "IndexedCheckpointBackend", "ReplayCheckpointBackend",
+    "RoundRobinSampler", "SamplingConstraint", "SamplingDiagnostics", "SimpleCutSampler",
+    "StatelessSampler", "TimeConstraint", "TokenConstraint", "WeightedDataSource",
+    "WeightedSimpleCutSampler", "ZipSampler", "estimate_duration_buckets",
+    "find_pessimistic_batches", "report_padding_ratio_estimate"]

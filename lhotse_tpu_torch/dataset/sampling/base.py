@@ -3,8 +3,9 @@ Sampler foundations (copied from ``lhotse_tpu/dataset/sampling/base.py``):
 the CutSampler protocol with map-style DDP semantics (every ``next()``
 draws ``world_size`` batches and this rank keeps ``batches[rank]``; at the
 end of the data the stragglers are redistributed so every rank steps the
-same number of times), the duration and cut-count constraint, and the
-sampling diagnostics. ``TokenConstraint`` (text sampling) is not ported.
+same number of times), the duration and cut-count constraint, its token
+analog for text sampling (``TokenConstraint`` over ``TextExample``s), and
+the sampling diagnostics.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from math import isclose
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple, Union
 
 from lhotse_tpu_torch.cut import Cut, CutSet
+from lhotse_tpu_torch.cut.text import TextExample
 from lhotse_tpu_torch.lazy import Dillable, IteratorNode
 from lhotse_tpu_torch.utils import Seconds, exactly_one_not_null, ifnone, is_none_or_gt
 
@@ -469,6 +471,33 @@ class TimeConstraint(_PaddedBatchBudget):
         return all(
             _caps_agree(getattr(self, k), getattr(other, k))
             for k in ("max_duration", "max_cuts", "quadratic_duration"))
+
+
+@dataclass
+class TokenConstraint(_PaddedBatchBudget):
+    """
+    Token-count analog of :class:`TimeConstraint` for text sampling: bounds
+    the padded token total and/or example count, with an optional quadratic
+    length penalty.
+    """
+
+    max_tokens: int = None
+    max_examples: int = None
+    current: int = 0
+    num_examples: int = 0
+    longest_seen: int = 0
+    quadratic_length: Optional[int] = None
+
+    _CAP_TOTAL = "max_tokens"
+    _CAP_COUNT = "max_examples"
+    _COUNT = "num_examples"
+    _QUAD = "quadratic_length"
+
+    def __post_init__(self) -> None:
+        self._validate_caps()
+
+    def measure_length(self, example: TextExample) -> float:
+        return example.num_tokens
 
 
 def _report_row(label: str, kept_c, total_c, disc_c, kept_b, total_b, disc_b) -> str:

@@ -3,9 +3,10 @@ Resume strategies for streaming samplers (copied from
 ``lhotse_tpu/dataset/sampling/checkpoint_backends.py``): **seek** jumps
 indexed sources to their saved positions in O(1); **replay** rebuilds the
 epoch iterator and pulls the batches the checkpoint had consumed.
-``plan_resume`` picks seek when every source of the sampler has constant
-time access (indexed Shar, an indexed JSONL manifest, the graphs over them)
-and replay otherwise.
+``plan_resume`` (and its builders under the JAX package's names) picks
+seek when every source of the sampler has constant time access (indexed
+Shar, an indexed JSONL manifest, the graphs over them) and replay
+otherwise.
 """
 from __future__ import annotations
 
@@ -169,3 +170,24 @@ def plan_resume(sampler: Any, kind: str, *, epoch: int, steps_done: int):
     if _sources_are_seekable(sampler):
         return SeekResume(sampler, kind, steps_done)
     return ReplayResume(sampler, epoch, steps_done)
+
+
+# -- The JAX package's names for the two plans and their builders -------------
+IndexedCheckpointBackend = SeekResume
+ReplayCheckpointBackend = ReplayResume
+
+
+def build_dynamic_cut_checkpoint_backend(
+    sampler: Any, *, current_epoch: int, num_batches_to_iter: int
+):
+    """:func:`plan_resume` for a ``DynamicCutSampler``-family checkpoint."""
+    return plan_resume(
+        sampler, "dynamic", epoch=current_epoch, steps_done=num_batches_to_iter)
+
+
+def build_dynamic_bucketing_checkpoint_backend(
+    sampler: Any, *, current_epoch: int, num_batches_to_iter: int
+):
+    """:func:`plan_resume` for a ``DynamicBucketingSampler`` checkpoint."""
+    return plan_resume(
+        sampler, "bucketing", epoch=current_epoch, steps_done=num_batches_to_iter)

@@ -17,8 +17,9 @@ from lhotse_tpu_torch.features.compliance import (
     TorchaudioSpectrogram, TorchaudioSpectrogramConfig)
 from lhotse_tpu_torch.features.io import (
     FeaturesReader, FeaturesWriter, LilcomChunkyReader, LilcomChunkyWriter, LilcomFilesReader,
-    LilcomFilesWriter, NumpyFilesReader, NumpyFilesWriter, available_storage_backends,
-    close_cached_file_handles, default_features_storage_backend, get_reader, get_writer)
+    LilcomFilesWriter, MemoryLilcomReader, MemoryLilcomWriter, MemoryRawReader, MemoryRawWriter,
+    NumpyFilesReader, NumpyFilesWriter, available_storage_backends, close_cached_file_handles,
+    default_features_storage_backend, get_memory_writer, get_reader, get_writer)
 from lhotse_tpu_torch.features.kaldi.extractors import (
     Fbank, FbankConfig, LogSpectrogram, LogSpectrogramConfig, Mfcc, MfccConfig, Spectrogram,
     SpectrogramConfig)
@@ -35,10 +36,11 @@ __all__ = [
     "KaldifeatFbankConfig", "KaldifeatFrameOptions", "KaldifeatMelOptions", "KaldifeatMfcc",
     "KaldifeatMfccConfig", "LibrosaFbank", "LibrosaFbankConfig", "LilcomChunkyReader",
     "LilcomChunkyWriter", "LilcomFilesReader", "LilcomFilesWriter", "LogSpectrogram",
-    "LogSpectrogramConfig", "Mfcc", "MfccConfig", "NumpyFilesReader", "NumpyFilesWriter",
+    "LogSpectrogramConfig", "MemoryLilcomReader", "MemoryLilcomWriter", "MemoryRawReader",
+    "MemoryRawWriter", "Mfcc", "MfccConfig", "NumpyFilesReader", "NumpyFilesWriter",
     "Spectrogram", "SpectrogramConfig", "StatsAccumulator", "TorchaudioFbank",
     "TorchaudioFbankConfig", "TorchaudioMfcc", "TorchaudioMfccConfig", "TorchaudioSpectrogram",
     "TorchaudioSpectrogramConfig", "WhisperFbank", "WhisperFbankConfig",
     "available_storage_backends", "close_cached_file_handles", "compute_global_stats",
     "create_default_feature_extractor", "default_features_storage_backend", "get_extractor_type",
-    "get_reader", "get_writer", "register_extractor", "store_feature_array"]
+    "get_memory_writer", "get_reader", "get_writer", "register_extractor", "store_feature_array"]

@@ -1,12 +1,12 @@
 """
 The streaming-iterator runtime the manifest Sets are built on (copied from
 ``lhotse_tpu/lazy.py``): the node protocol with checkpointing, graph-origin
-tokens, the JSONL leaves (streaming, and indexed through an ``.idx``
-sidecar), and the chain (with its item-level shuffle over indexed leaves),
-shuffle, filter, map, flatten (the one-to-many cut operations), repeat and
-slice combinators behind ``CutSet``'s lazy algebra.
-
-Left out: the multiplexers.
+tokens, the JSONL and text leaves (streaming, and indexed through an
+``.idx`` sidecar), the chain (with its item-level shuffle over indexed
+leaves), the weighted multiplexer and the infinite approximate one behind
+``CutSet.mux``/``infinite_mux``, and the shuffle, filter, map, flatten (the
+one-to-many cut operations), repeat and slice combinators behind
+``CutSet``'s lazy algebra.
 """
 from __future__ import annotations
 
@@ -306,6 +306,53 @@ class _Transform(IteratorNode):
 
     def load_state_dict(self, state: dict) -> None:
         _restore_child(self.source, state.get("source"))
+
+
+class LazyTxtIterator(IteratorNode):
+    """Lines of a (possibly gzipped) text file, wrapped as TextExamples."""
+
+    is_checkpointable = True
+
+    def __init__(self, path: Pathlike, as_text_example: bool = True) -> None:
+        self.path = path
+        self.as_text_example = as_text_example
+        self._len = None
+        self._position = 0
+        self._resume = False
+
+    def __iter__(self):
+        from lhotse_tpu_torch.cut.text import TextExample
+
+        # Eager state init: resets/resumes at iter() time so checkpoints
+        # taken before the first next() already reflect this pass.
+        skip = self._position if self._resume else 0
+        self._resume = False
+        self._position = skip
+
+        def gen():
+            n = 0
+            with open_best(self.path, "r") as f:
+                for raw in f:
+                    n += 1
+                    if n <= skip:
+                        continue
+                    text = raw.strip()
+                    self._position = n
+                    yield TextExample(text) if self.as_text_example else text
+            self._len = self._len or n
+
+        return gen()
+
+    def state_dict(self) -> dict: return {"position": self._position}  # noqa: E704
+
+    def load_state_dict(self, state: dict) -> None:
+        self._position = state["position"]
+        self._resume = True
+
+    def __len__(self) -> int:
+        if self._len is None:
+            self._len = count_newlines_fast(self.path)
+        return self._len
 
 
 class LazyJsonlIterator(IteratorNode):
@@ -640,6 +687,175 @@ class LazyIteratorChain(IteratorNode):
             self.num_iters = state["num_iters"]
         for src, inner in zip(self.sources, state.get("inner_states", []) or []):
             _restore_persistent_child(src, inner)
+
+
+class LazyIteratorMultiplexer(IteratorNode):
+    """
+    Weighted random interleave.  Each step draws one source (per-iteration
+    RNG); a drained source leaves the draw pool unless ``stop_early`` ends
+    the whole stream at the first exhaustion.  Checkpoints = RNG state +
+    exhaustion mask + child states.
+    """
+
+    is_checkpointable = True
+
+    def __init__(
+        self, *iterators: Iterable, stop_early: bool = False,
+        weights: Optional[List[Union[int, float]]] = None, seed: Union[int, str] = 0) -> None:
+        self.sources = [resolve_iterator_source(it) for it in iterators]
+        if len(self.sources) < 2:
+            raise AssertionError("There have to be at least two iterables to multiplex.")
+        self.stop_early = stop_early
+        self.seed = seed
+        self.weights = [1] * len(self.sources) if weights is None else weights
+        if len(self.weights) != len(self.sources):
+            raise AssertionError(
+                f"Got {len(self.sources)} sources but {len(self.weights)} weights."
+            )
+        self._rng_state = None
+        self._drained: Optional[list] = None
+        self._resume = False
+
+    @property
+    def is_indexed(self) -> bool:
+        return all(getattr(s, "is_indexed", False) for s in self.sources)
+
+    @property
+    def has_constant_time_access(self) -> bool:
+        return all(supports_graph_restore(s) for s in self.sources)
+
+    def __getitem__(self, token: Any) -> Any:
+        token = normalize_graph_token(token)
+        if not isinstance(token, tuple) or len(token) != 2:
+            raise TypeError(
+                "LazyIteratorMultiplexer expects graph tokens shaped like "
+                "(source_index, source_token)."
+            )
+        which, inner = token
+        return attach_graph_origin(self.sources[which][inner], token)
+
+    def __iter__(self):
+        from lhotse_tpu_torch.dataset.dataloading import get_worker_partition, resolve_seed
+
+        _, nworkers = get_worker_partition()
+        if nworkers > 1 and self.seed == "randomized" and self.is_indexed:
+            raise ValueError(
+                "LazyIteratorMultiplexer cannot use seed='randomized' under "
+                "multi-shard iteration with indexed sources: the weighted source "
+                "distribution would drift across ranks. Use a fixed integer seed."
+            )
+        # Eager preamble: iter() every child NOW — this resets (or resumes)
+        # each child's state at the start of the pass, so checkpoints taken
+        # before the first draw already describe this pass for all children.
+        rng = random.Random(resolve_seed(self.seed))
+        streams = [iter(s) for s in self.sources]
+        if self._resume:
+            self._resume = False
+            drained = list(self._drained) if self._drained else [False] * len(streams)
+            if self._rng_state is not None:
+                rng.setstate(self._rng_state)
+        else:
+            drained = [False] * len(streams)
+            self._rng_state = rng.getstate()
+        self._drained = drained
+        stamp = self.has_constant_time_access
+
+        def gen():
+            while (not any(drained)) if self.stop_early else (not all(drained)):
+                pool = [i for i, dead in enumerate(drained) if not dead]
+                pick = rng.choices(pool, weights=[self.weights[i] for i in pool], k=1)[0]
+                self._rng_state = rng.getstate()
+                try:
+                    item = next(streams[pick])
+                except StopIteration:
+                    drained[pick] = True
+                    continue
+                if stamp:
+                    inner = require_graph_origin(item, "LazyIteratorMultiplexer", "items")
+                    item = attach_graph_origin(item, (pick, inner))
+                yield item
+
+        return gen()
+
+    def __len__(self) -> int: return sum(len(s) for s in self.sources)  # noqa: E704
+
+    def state_dict(self) -> dict:
+        return {
+            "rng_state": self._rng_state,
+            "exhausted": list(self._drained) if self._drained is not None else None,
+            "inner_states": [_snapshot_child(s) for s in self.sources]}
+
+    def load_state_dict(self, state: dict) -> None:
+        rng_state = state["rng_state"]
+        if rng_state is not None and not isinstance(rng_state, tuple):
+            from lhotse_tpu_torch.checkpoint import _rng_state_from_json
+
+            rng_state = _rng_state_from_json(rng_state)
+        self._rng_state = rng_state
+        self._drained = state["exhausted"]
+        live = (
+            None
+            if self._drained is None
+            else {i for i, dead in enumerate(self._drained) if not dead}
+        )
+        for i, (src, inner) in enumerate(zip(self.sources, state.get("inner_states", []))):
+            if live is None or i in live:
+                _restore_child(src, inner)
+            else:
+                # drained this pass, but an enclosing repeat will iterate it
+                # again — carry cross-pass state (advancing RNGs) only
+                _restore_persistent_child(src, inner)
+        self._resume = True
+
+
+class LazyInfiniteApproximateMultiplexer(IteratorNode):
+    """
+    Endless sample-with-replacement over a (typically sharded) source pool,
+    keeping at most ``max_open_streams`` iterators alive.  Approximate and
+    infinite by design, hence not checkpointable.
+    """
+
+    def __init__(
+        self, *iterators: Iterable, stop_early: bool = False,
+        weights: Optional[List[Union[int, float]]] = None, seed: Union[int, str] = 0,
+        max_open_streams: Optional[int] = None) -> None:
+        self.sources = [resolve_iterator_source(it) for it in iterators]
+        if not self.sources:
+            raise AssertionError("infinite_mux needs at least one source.")
+        self.stop_early = stop_early
+        self.seed = seed
+        self.weights = [1] * len(self.sources) if weights is None else weights
+        if len(self.weights) != len(self.sources):
+            raise AssertionError(
+                f"Got {len(self.sources)} sources but {len(self.weights)} weights."
+            )
+        if max_open_streams is None or max_open_streams > len(self.sources):
+            max_open_streams = len(self.sources)
+        if max_open_streams < 1:
+            raise AssertionError("max_open_streams must be at least 1.")
+        self.max_open_streams = max_open_streams
+
+    def __iter__(self):
+        from lhotse_tpu_torch.dataset.dataloading import resolve_seed
+
+        rng = random.Random(resolve_seed(self.seed))
+        all_ids = range(len(self.sources))
+
+        def open_one():
+            chosen = rng.choices(all_ids, self.weights, k=1)[0]
+            return iter(self.sources[chosen]), self.weights[chosen]
+
+        slots = [open_one() for _ in range(self.max_open_streams)]
+        slot_ids = list(range(self.max_open_streams))
+        while True:
+            live_weights = [w for _, w in slots]
+            pos = rng.choices(
+                slot_ids, weights=live_weights if sum(live_weights) > 0 else None, k=1)[0]
+            try:
+                yield next(slots[pos][0])
+            except StopIteration:
+                slots[pos] = open_one()
+                yield next(slots[pos][0])
 
 
 class LazyShuffler(_Transform):
@@ -1083,6 +1299,34 @@ class AlgorithmMixin(LazyMixin, Iterable):
         cls = type(self)
         mapped = cls(LazyMapper(resolve_iterator_source(self), fn=transform_fn))
         return mapped if self.is_lazy else mapped.to_eager()
+
+    @classmethod
+    def mux(
+        cls, *manifests, stop_early: bool = False,
+        weights: Optional[List[Union[int, float]]] = None, seed: Union[int, str] = 0):
+        """Weighted random interleave of several manifests (always lazy)."""
+        return cls(
+            LazyIteratorMultiplexer(
+                *(resolve_iterator_source(m) for m in manifests),
+                stop_early=stop_early,
+                weights=weights,
+                seed=seed,
+            )
+        )
+
+    @classmethod
+    def infinite_mux(
+        cls, *manifests, weights: Optional[List[Union[int, float]]] = None,
+        seed: Union[int, str] = 0, max_open_streams: Optional[int] = None):
+        """Endless sample-with-replacement mux over a shard pool."""
+        return cls(
+            LazyInfiniteApproximateMultiplexer(
+                *(resolve_iterator_source(m) for m in manifests),
+                weights=weights,
+                seed=seed,
+                max_open_streams=max_open_streams,
+            )
+        )
 
     def shuffle(self, rng: Optional[random.Random] = None, buffer_size: int = 10000):
         """Shuffle items (streaming buffer shuffle when lazy)."""

@@ -1,7 +1,7 @@
 """
 Host helpers of the data path (copied from ``lhotse_tpu/utils/core.py``):
 time/sample/frame arithmetic, windowing and context extension, dataclass
-helpers, seeding, and the recipes' safe tar extraction and resumable
+helpers, seeding, the streaming buffer shuffle, and the recipes' safe tar extraction and resumable
 download. Only the helpers the ported host modules call are here; each body
 is the original's.
 """
@@ -556,6 +556,36 @@ def split_manifest_lazy(
 def to_hashable(item: Any) -> Any:
     """Convert a list to a tuple for hashability; pass through other types."""
     return tuple(item) if isinstance(item, list) else item
+
+
+def streaming_shuffle(data: Iterable[T], bufsize: int = 10000, rng: Optional[random.Random] = None):
+    """
+    Shuffle the data in the stream using a fixed-size buffer (webdataset-style;
+    the algorithm of :class:`lhotse_tpu_torch.lazy.LazyShuffler`):
+    during warm-up, items are pulled two at a time into the buffer; afterwards each
+    arriving item trades places with a random resident before being emitted, and the
+    tail of the buffer drains in arrival order.
+    """
+    if rng is None:
+        rng = random.Random()
+    it = iter(data)
+    buf: List[T] = []
+    warming_up = True
+    for sample in it:
+        if len(buf) < bufsize:
+            try:
+                buf.append(next(it))
+            except StopIteration:
+                pass
+        if buf:
+            k = rng.randint(0, len(buf) - 1)
+            sample, buf[k] = buf[k], sample
+        if warming_up and len(buf) < bufsize:
+            buf.append(sample)
+            continue
+        warming_up = False
+        yield sample
+    yield from buf
 
 
 def safe_extract(tar, path: Pathlike = ".", members=None, *, numeric_owner=False):

@@ -1021,3 +1021,35 @@ def test_aishell_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
         assert fbank_cuda.LAUNCHES == 1
         assert torch.equal(feat_lens.cpu(), cpu_lens)
         torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
+
+
+def test_global_mvn_and_randomized_smoothing_on_card(cuda, tmp_path):
+    """``GlobalMVN.from_cuts`` with the fbank kernel against the CPU route's
+    statistics, applied on the card in the features' dtype; and
+    ``RandomizedSmoothing`` on a card batch ``torch.equal`` to the same
+    transform's CPU result copied to the card (host draws, IEEE adds)."""
+    from lhotse_tpu_torch import CutSet, Recording
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.dataset.signal_transforms import GlobalMVN, RandomizedSmoothing
+
+    cuts = []
+    for i in range(3):
+        write_wav(tmp_path / f"m{i}.wav", _audio((8000 + 3000 * i,), seed=60 + i), 16000)
+        cuts.append(Recording.from_file(tmp_path / f"m{i}.wav").to_cut())
+    cuts = CutSet.from_cuts(cuts)
+    fbank_cuda.LAUNCHES = 0
+    mvn = GlobalMVN.from_cuts(cuts, extractor=extractors.Fbank(extractors.FbankConfig(device=cuda)))
+    assert fbank_cuda.LAUNCHES == 3
+    cpu_mvn = GlobalMVN.from_cuts(
+        cuts, extractor=extractors.Fbank(extractors.FbankConfig(device="cpu")))
+    np.testing.assert_allclose(mvn.norm_means, cpu_mvn.norm_means, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(mvn.norm_stds, cpu_mvn.norm_stds, rtol=0, atol=1e-5)
+    feats = torch.from_numpy(_audio((2, 50, 80), seed=5) * 4)
+    for dtype in (torch.float32, torch.bfloat16):
+        on_card = mvn(feats.to(cuda, dtype))
+        assert on_card.device.type == "cuda" and on_card.dtype == dtype
+        torch.testing.assert_close(on_card.cpu(), mvn(feats.to(dtype)))
+    audio = torch.from_numpy(_audio((4, 16000), seed=6))
+    smoothed = RandomizedSmoothing(sigma=0.2, p=0.8, seed=3)(audio.to(cuda))
+    expected = RandomizedSmoothing(sigma=0.2, p=0.8, seed=3)(audio)
+    assert smoothed.device.type == "cuda" and torch.equal(smoothed, expected.to(cuda))

@@ -130,7 +130,14 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.bin.modes.recipes.peoples_speech, "
         "lhotse_tpu_torch.bin.modes.recipes.spgispeech, "
         "lhotse_tpu_torch.bin.modes.recipes.ljspeech, lhotse_tpu_torch.bin.modes.recipes.vctk, "
-        "lhotse_tpu_torch.bin.modes.recipes.timit, lhotse_tpu_torch.bin.modes.recipes.voxceleb; "
+        "lhotse_tpu_torch.bin.modes.recipes.timit, lhotse_tpu_torch.bin.modes.recipes.voxceleb, "
+        "lhotse_tpu_torch.cut.text, lhotse_tpu_torch.features.kaldi; "
+        "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
+        "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "
+        "from lhotse_tpu_torch.dataset.signal_transforms import GlobalMVN, RandomizedSmoothing; "
+        "import lhotse_tpu_torch.dataset as D; "
+        "[getattr(lhotse_tpu_torch, n) for n in lhotse_tpu_torch.__all__]; "
+        "[getattr(D, n) for n in D.__all__]; "
         "import sys; "
         "assert 'jax' not in sys.modules and 'lhotse_tpu' not in sys.modules, "
         "sorted(m for m in sys.modules if m.startswith(('jax', 'lhotse_tpu.')))")
