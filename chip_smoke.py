@@ -123,7 +123,16 @@ cuts through ``CutSet.mux``, ``DynamicBucketingSampler``,
 the AdamW step, resumed from a ``DataloaderCheckpoint`` JSON file; the Shar
 shards through ``CutSet.infinite_mux`` into the step, resumed as the JAX
 package's loader resumes it; ``RandomizedSmoothing`` on the card against
-the CPU); and checks what comes out.
+the CPU); then the Chinese corpora (the members of icefall's multi_zh-hans
+mix that the port prepares, THCHS-30, ST-CMDS, Primewords, MagicData,
+aidatatang_200zh, KeSpeech, AISHELL and AISHELL-2, 32 utterances each
+through their recipes, as function and CLI, and ``CutSet.mux`` into the
+augmenter at the 15 s × 256 bucket with phase 23's MUSAN pool and RIR and
+into ``DynamicBucketingSampler`` and ``OnTheFlyFeatures`` on the kernel
+into the AdamW step; TAL-ASR, TAL-CSASR, CDSD, SpeechIO, XBMU-AMDO31 and
+MDCC through their recipes into the step, AISHELL-3, Baker and
+WenetSpeech4TTS into ``SpeechSynthesisDataset``); and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -169,8 +178,11 @@ reads stored features), ``kaldi_on_the_fly``, ``kaldi_on_the_fly_cached``,
 ``tedlium_long_form`` and ``corpus_<name>`` for ``yesno``, ``aishell2``,
 ``tedlium2``, ``librilight``, ``mls``, ``peoples_speech``, ``spgispeech``,
 ``timit``, ``libritts``, ``librittsr``, ``ljspeech``, ``vctk`` and
-``voxceleb1`` (both sides' launches), ``mux_on_the_fly`` and
-``infinite_mux_shar``); the last line is
+``voxceleb1`` (both sides' launches), ``mux_on_the_fly``,
+``infinite_mux_shar``, ``zh_multi_device_chain``, ``zh_multi_on_the_fly``
+and ``corpus_<name>`` for ``tal_asr``, ``tal_csasr``, ``cdsd``,
+``speechio``, ``xbmu_amdo31``, ``mdcc``, ``aishell3``, ``baker_zh`` and
+``wenetspeech4tts``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -4610,6 +4622,99 @@ def _prepare_twice(manifests: Path, name: str, function, argv: list) -> tuple:
     return made, _same_written(out / "function", out / "cli", name), function_s, cli_s
 
 
+def _noise_pool_and_rir(workdir: Path) -> tuple:
+    """Phase 23's MUSAN noise recordings tiled or cut to ``POOL_SECONDS``
+    (the augmenter's noise pool) and its seeded choice of a real RIR, read
+    from the manifests phase 23 wrote. Returns the pool, the RIR, the noise
+    recordings and the RIR's recording."""
+    import random
+
+    from lhotse_tpu_torch.audio import RecordingSet
+
+    noise_dir = workdir / "noise_meetings" / "manifests"
+    noise = RecordingSet.from_file(
+        noise_dir / "musan" / "function" / "musan_recordings_noise.jsonl.gz")
+    real_rirs = sorted(RecordingSet.from_file(
+        noise_dir / "rir_noise" / "function" / "real-rir_recordings_all.jsonl.gz"),
+        key=lambda r: r.id)
+    pool_n = int(POOL_SECONDS * SR)
+    pool = np.stack([np.resize(r.load_audio()[0], pool_n) for r in noise]).astype(np.float32)
+    rir_rec = random.Random(RIR_SEED).choice(real_rirs)
+    return pool, rir_rec.load_audio()[0].astype(np.float32), noise, rir_rec
+
+
+def _device_chain(name: str, batches: list, pool, rir, device, fbank_cuda, smi: str) -> tuple:
+    """``batches`` of (audio, lens) at the 15 s x 256 bucket → the int16 wire →
+    ``OnDeviceAugmenter`` with the noise pool and RIR, speed 1.1, gain, SNR
+    (10, 20) and SpecAugment: stage and compute timed apiece; the kernel
+    against its plain version on the first batch it got, the features'
+    shape and frame counts, and the first batch's features against the same
+    chain with the plain version. Returns the kernel's launches, the
+    kernel-vs-plain error and the chain's error."""
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    frames = (math.ceil(n * 10 / 11) + 80) // 160
+    aug = OnDeviceAugmenter(
+        buckets=[BUCKET], wire_format="int16", speed_factor=SPEED, gain_range=(0.9, 1.1),
+        noise_pool=pool, snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
+        device=device)
+    aug.precompile()
+    # The first launch's input and output, to hold the kernel against its
+    # plain version on the very batch the path gave it.
+    captured = []
+    launch = fbank_cuda.fbank_logmel
+
+    def capture(audio, Mc, Ms, mel_fb, **kw):
+        out = launch(audio, Mc, Ms, mel_fb, **kw)
+        if not captured:
+            captured.append((audio.clone(), Mc, Ms, mel_fb, out.clone()))
+        return out
+
+    staged, outs, stage_ms, compute_ms = [], [], [], []
+    fbank_cuda.fbank_logmel = capture
+    try:
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        for audio, lens in batches:
+            t = time.perf_counter()
+            staged.append(aug.stage(audio, lens))
+            torch.cuda.synchronize()
+            stage_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            outs.append(aug.compute(staged[-1]))
+            torch.cuda.synchronize()
+            compute_ms.append((time.perf_counter() - t) * 1e3)
+        launches = fbank_cuda.LAUNCHES
+    finally:
+        fbank_cuda.fbank_logmel = launch
+    audio_k, Mc, Ms, mel_fb, out_k = captured[0]
+    plain = fbank_cuda.reference_fbank(audio_k, *fbank_cuda._squeeze_nyquist(
+        *(fbank_cuda._as_f32(m, audio_k.device) for m in (Mc, Ms, mel_fb))))
+    kernel_err = (out_k - plain).abs().max().item()
+    for (feats, feat_lens), (_, lens) in zip(outs, batches):
+        if tuple(feats.shape) != (bsz, frames, 80) or not torch.isfinite(feats).all():
+            raise AssertionError(f"{name}: features {tuple(feats.shape)} wrong or not finite")
+        if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
+            raise AssertionError(f"{name}: feat_lens differ from the hop rule")
+    chain_err = _check_chain(staged[0], *outs[0], "int16", rir, device, fbank_cuda, path=name)
+    mixed_rows = [int(torch.as_tensor(s.kwargs["mix_mask"]).sum()) for s in staged]
+    audio_s = sum(int(lens.sum()) for _, lens in batches) / SR
+    print(f"[{smi}] {name}: {len(batches)} batches of {bsz} x {sec:g} s, {audio_s!r} audio-s in "
+          f"{sum(stage_ms) + sum(compute_ms)!r} ms (stage + compute): "
+          f"{audio_s / (sum(stage_ms) + sum(compute_ms)) * 1e3!r} audio-s/s; stage ms {stage_ms}, "
+          f"compute ms {compute_ms}; rows mixed with MUSAN noise {mixed_rows}; fbank kernel "
+          f"launches {launches}; kernel vs plain on its first batch {kernel_err!r} (tol "
+          f"{KERNEL_TOL}); features vs the plain chain {chain_err!r} (tol {CHAIN_TOL})")
+    if launches != len(batches) or not kernel_err <= KERNEL_TOL:
+        raise AssertionError(f"{name}: launches or the kernel's result are off")
+    if not all(0 < m < bsz for m in mixed_rows):
+        raise AssertionError(f"{name}: the mix mask is off: {mixed_rows}")
+    return launches, kernel_err, chain_err
+
+
 def _meeting_turns(rng, seconds: float, speakers: int = MEETING_SPEAKERS) -> list:
     """(speaker, start, end, words) turns of 2-5 s with 0.5-3 s gaps."""
     turns, t, spk = [], 0.5, 0
@@ -4951,10 +5056,8 @@ def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     from lhotse_tpu_torch.cut import CutSet, MixedCut, MonoCut, MultiCut
     from lhotse_tpu_torch.dataset import SimpleCutSampler
     from lhotse_tpu_torch.dataset.cut_transforms import CutMix, ReverbWithImpulseResponse
-    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
     from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
     from lhotse_tpu_torch.dataset.loader import DataLoader
-    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
     from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
     from lhotse_tpu_torch.features import Fbank, FbankConfig
     from lhotse_tpu_torch.features.io import LilcomChunkyWriter
@@ -5000,72 +5103,15 @@ def _phase_noise_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
           f"{len(rir_files)} manifests equal to the functions'; parts {counts}; noise pool "
           f"{pool.shape} from {len(noise_recs)} MUSAN noise recordings of "
           f"{sum(r.duration for r in noise_recs)!r} s; RIR {rir_rec.id} ({rir.shape[0]} taps)")
-    aug = OnDeviceAugmenter(
-        buckets=[BUCKET], wire_format="int16", speed_factor=SPEED, gain_range=(0.9, 1.1),
-        noise_pool=pool, snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
-        device=device)
-    aug.precompile()
     sec, bsz = BUCKET
     n = int(sec * SR)
-    frames = (math.ceil(n * 10 / 11) + 80) // 160
     batches = []
     for _ in range(2):  # phase 3's batches: 8-15 s at the full bucket
         lens = rng.integers(n * 8 // 15, n + 1, size=bsz)
         lens[0] = n
         batches.append(((rng.standard_normal((bsz, n), np.float32) * 0.1), lens))
-    # The first launch's input and output, to hold the kernel against its
-    # plain version on the very batch the path gave it.
-    captured = []
-    launch = fbank_cuda.fbank_logmel
-
-    def capture(audio, Mc, Ms, mel_fb, **kw):
-        out = launch(audio, Mc, Ms, mel_fb, **kw)
-        if not captured:
-            captured.append((audio.clone(), Mc, Ms, mel_fb, out.clone()))
-        return out
-
-    staged, outs, stage_ms, compute_ms = [], [], [], []
-    fbank_cuda.fbank_logmel = capture
-    try:
-        torch.cuda.synchronize()
-        fbank_cuda.LAUNCHES = 0
-        for audio, lens in batches:
-            t = time.perf_counter()
-            staged.append(aug.stage(audio, lens))
-            torch.cuda.synchronize()
-            stage_ms.append((time.perf_counter() - t) * 1e3)
-            t = time.perf_counter()
-            outs.append(aug.compute(staged[-1]))
-            torch.cuda.synchronize()
-            compute_ms.append((time.perf_counter() - t) * 1e3)
-        launches["musan_rir_device_chain"] = fbank_cuda.LAUNCHES
-    finally:
-        fbank_cuda.fbank_logmel = launch
-    audio_k, Mc, Ms, mel_fb, out_k = captured[0]
-    plain = fbank_cuda.reference_fbank(audio_k, *fbank_cuda._squeeze_nyquist(
-        *(fbank_cuda._as_f32(m, audio_k.device) for m in (Mc, Ms, mel_fb))))
-    kernel_err = (out_k - plain).abs().max().item()
-    for (feats, feat_lens), (_, lens) in zip(outs, batches):
-        if tuple(feats.shape) != (bsz, frames, 80) or not torch.isfinite(feats).all():
-            raise AssertionError(f"musan_rir_device_chain: features {tuple(feats.shape)} wrong "
-                                 "or not finite")
-        if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
-            raise AssertionError("musan_rir_device_chain: feat_lens differ from the hop rule")
-    chain_err = _check_chain(staged[0], *outs[0], "int16", rir, device, fbank_cuda,
-                             path="musan_rir_device_chain")
-    mixed_rows = [int(torch.as_tensor(s.kwargs["mix_mask"]).sum()) for s in staged]
-    audio_s = sum(int(lens.sum()) for _, lens in batches) / SR
-    print(f"[{smi}] musan_rir_device_chain: {len(batches)} batches of {bsz} x {sec:g} s, "
-          f"{audio_s!r} audio-s in {sum(stage_ms) + sum(compute_ms)!r} ms (stage + compute): "
-          f"{audio_s / (sum(stage_ms) + sum(compute_ms)) * 1e3!r} audio-s/s; stage ms {stage_ms}, "
-          f"compute ms {compute_ms}; rows mixed with MUSAN noise {mixed_rows}; fbank kernel "
-          f"launches {launches['musan_rir_device_chain']}; kernel vs plain on its first batch "
-          f"{kernel_err!r} (tol {KERNEL_TOL}); features vs the plain chain {chain_err!r} "
-          f"(tol {CHAIN_TOL})")
-    if launches["musan_rir_device_chain"] != len(batches) or not kernel_err <= KERNEL_TOL:
-        raise AssertionError("musan_rir_device_chain: launches or the kernel's result are off")
-    if not all(0 < m < bsz for m in mixed_rows):
-        raise AssertionError(f"musan_rir_device_chain: the mix mask is off: {mixed_rows}")
+    launches["musan_rir_device_chain"], kernel_err, chain_err = _device_chain(
+        "musan_rir_device_chain", batches, pool, rir, device, fbank_cuda, smi)
     errs += [kernel_err, chain_err]
 
     # -- musan_rir_on_the_fly ----------------------------------------------------------
@@ -5641,219 +5687,33 @@ def _single_stream_specs(root: Path, rng) -> dict:
     return specs
 
 
-def _phase_single_stream(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
-    """24. The single-stream ASR, TTS and speaker corpora, in phase 14's
-    directory after phase 23 (whose MUSAN noise and RIRS_NOISES manifests it
-    reads). Every recipe runs as a function and through the CLI's
-    ``prepare`` command, and their manifests must be equal.
-    ``aishell_device_chain``: an AISHELL layout of as many utterances as the
-    15 s x 256 bucket has rows → ``prepare_aishell`` → the bucket's int16
-    batch → ``OnDeviceAugmenter`` with phase 23's MUSAN noise pool and real
-    RIR, speed 1.1, SNR (10, 20) and SpecAugment (twice); the kernel against
-    its plain version on the batch it got, the features against the same
-    chain with the plain version. ``tedlium_long_form``: three TED-LIUM 3
-    talks of 3-5 minutes → ``prepare_tedlium`` → the lazy
-    ``CutSet.from_manifests`` → ``trim_to_supervisions()`` →
-    ``DynamicBucketingSampler(max_duration=180)`` →
-    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the kernel
-    → ``DataLoader`` → an AdamW step of ``Encoder(EncoderConfig())`` per
-    batch, then a resume after batch 2 whose batches must be ``torch.equal``.
-    ``corpus_<name>``: each other corpus → ``prepare_*`` →
+def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> tuple:
+    """The ``corpus_<name>`` legs of phases 24 and 26: each corpus of ``specs``
+    (its recipe's call for an output directory, the CLI's command and the
+    training path, "asr", "tts" or "pairs") → ``_prepare_twice`` →
     ``CutSet.from_manifests`` → ``resample(16000)`` where the corpus is not
     at 16 kHz; the ASR corpora trimmed to their supervisions →
     ``SimpleCutSampler(max_duration=180)`` → ``K2SpeechRecognitionDataset``
     with ``OnTheFlyFeatures`` on the kernel → an AdamW step per batch; the
     TTS corpora → ``SpeechSynthesisDataset`` with ``OnTheFlyFeatures`` and a
-    ``TokenCollater``; VoxCeleb1's trial pairs → ``CutPairsSampler``, both
-    sides on the kernel. MLS's Opus route is held to the JAX package on the
-    CPU only, and named as left out. Returns the kernel's launches per path
-    and the largest kernel-vs-plain error."""
-    import random
-
+    ``TokenCollater``; trial pairs → ``CutPairsSampler``, both sides on the
+    kernel. Returns the kernel's launches per leg, the kernel-vs-plain
+    errors and a summary per corpus."""
     from lhotse_tpu_torch.audio import RecordingSet
-    from lhotse_tpu_torch.audio.syscodecs import opus_available
-    from lhotse_tpu_torch.caching import set_caching_enabled
     from lhotse_tpu_torch.cut import CutSet
     from lhotse_tpu_torch.dataset import CutPairsSampler, SimpleCutSampler
     from lhotse_tpu_torch.dataset.collation import TokenCollater
-    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
     from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
     from lhotse_tpu_torch.dataset.loader import DataLoader
-    from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import DynamicBucketingSampler
-    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
     from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
     from lhotse_tpu_torch.dataset.speech_synthesis import SpeechSynthesisDataset
     from lhotse_tpu_torch.features import Fbank, FbankConfig
-    from lhotse_tpu_torch.recipes import prepare_aishell, prepare_tedlium
     from lhotse_tpu_torch.supervision import SupervisionSet
-    from lhotse_tpu_torch.tracing import set_tracing_enabled
 
-    set_caching_enabled(False)
-    set_tracing_enabled(True)
-    print(f"[{smi}] phase 24: corpus_mls_opus, MLS's opus=True route, is left out (the Opus and "
-          f"Ogg libraries load here: {opus_available()}; the route is held to the JAX package on "
-          "the CPU)")
-    rng = np.random.RandomState(SINGLE_SEED)
-    root = workdir / "single_stream"
     launches, errs = {}, []
-
-    # -- aishell_device_chain --------------------------------------------------------------
-    sec, bsz = BUCKET
-    n = int(sec * SR)
-    t0 = time.perf_counter()
-    aishell_dir = _write_aishell(root, rng, bsz, sec)
-    write_s = time.perf_counter() - t0
-    made, files, function_s, cli_s = _prepare_twice(
-        root / "manifests", "aishell",
-        lambda o: prepare_aishell(aishell_dir, output_dir=o), ["aishell", aishell_dir])
-    recordings = sorted((r for part in made.values() for r in part["recordings"]),
-                        key=lambda r: r.id)
-    made_sups = sum(len(part["supervisions"]) for part in made.values())
-    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
-    for k, rec in enumerate(recordings):
-        x = rec.load_audio()[0]
-        audio[k, : x.size], lens[k] = x, x.size
-    noise_dir = workdir / "noise_meetings" / "manifests"
-    noise = RecordingSet.from_file(
-        noise_dir / "musan" / "function" / "musan_recordings_noise.jsonl.gz")
-    real_rirs = sorted(RecordingSet.from_file(
-        noise_dir / "rir_noise" / "function" / "real-rir_recordings_all.jsonl.gz"),
-        key=lambda r: r.id)
-    pool_n = int(POOL_SECONDS * SR)
-    pool = np.stack([np.resize(r.load_audio()[0], pool_n) for r in noise]).astype(np.float32)
-    rir_rec = random.Random(RIR_SEED).choice(real_rirs)
-    rir = rir_rec.load_audio()[0].astype(np.float32)
-    print(f"[{smi}] aishell_device_chain: AISHELL layout of {len(recordings)} utterances "
-          f"({float(lens.sum()) / SR!r} s) written in {write_s!r} s; prepare_aishell "
-          f"{function_s!r} s (CLI {cli_s!r} s), the CLI's {len(files)} manifests equal to the function's; "
-          f"supervisions made {made_sups}; noise pool {pool.shape} from phase 23's "
-          f"{len(noise)} MUSAN noise recordings, RIR {rir_rec.id} ({rir.size} taps)")
-    if len(recordings) != bsz or made_sups != bsz or lens.max() > n:
-        raise AssertionError("aishell_device_chain: the prepared corpus does not fill the bucket")
-    aug = OnDeviceAugmenter(
-        buckets=[BUCKET], wire_format="int16", speed_factor=SPEED, gain_range=(0.9, 1.1),
-        noise_pool=pool, snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
-        device=device)
-    aug.precompile()
-    captured = []
-    launch = fbank_cuda.fbank_logmel
-
-    def capture(x, Mc, Ms, mel_fb, **kw):
-        out = launch(x, Mc, Ms, mel_fb, **kw)
-        if not captured:
-            captured.append((x.clone(), Mc, Ms, mel_fb, out.clone()))
-        return out
-
-    staged, outs, stage_ms, compute_ms = [], [], [], []
-    fbank_cuda.fbank_logmel = capture
-    try:
-        torch.cuda.synchronize()
-        fbank_cuda.LAUNCHES = 0
-        for _ in range(2):
-            t = time.perf_counter()
-            staged.append(aug.stage(audio, lens))
-            torch.cuda.synchronize()
-            stage_ms.append((time.perf_counter() - t) * 1e3)
-            t = time.perf_counter()
-            outs.append(aug.compute(staged[-1]))
-            torch.cuda.synchronize()
-            compute_ms.append((time.perf_counter() - t) * 1e3)
-        launches["aishell_device_chain"] = fbank_cuda.LAUNCHES
-    finally:
-        fbank_cuda.fbank_logmel = launch
-    x_k, Mc, Ms, mel_fb, out_k = captured[0]
-    plain = fbank_cuda.reference_fbank(x_k, *fbank_cuda._squeeze_nyquist(
-        *(fbank_cuda._as_f32(m, x_k.device) for m in (Mc, Ms, mel_fb))))
-    kernel_err = (out_k - plain).abs().max().item()
-    frames = (math.ceil(n * 10 / 11) + 80) // 160
-    for feats, feat_lens in outs:
-        if tuple(feats.shape) != (bsz, frames, 80) or not torch.isfinite(feats).all():
-            raise AssertionError(f"aishell_device_chain: features {tuple(feats.shape)} wrong or "
-                                 "not finite")
-        if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
-            raise AssertionError("aishell_device_chain: feat_lens differ from the hop rule")
-    chain_err = _check_chain(staged[0], *outs[0], "int16", rir, device, fbank_cuda,
-                             path="aishell_device_chain")
-    mixed_rows = [int(torch.as_tensor(s.kwargs["mix_mask"]).sum()) for s in staged]
-    audio_s = 2 * float(lens.sum()) / SR
-    print(f"[{smi}] aishell_device_chain: 2 passes of the {bsz} x {sec:g} s batch, {audio_s!r} "
-          f"audio-s in {sum(stage_ms) + sum(compute_ms)!r} ms (stage + compute): "
-          f"{audio_s / (sum(stage_ms) + sum(compute_ms)) * 1e3!r} audio-s/s; stage ms {stage_ms}, "
-          f"compute ms {compute_ms}; rows mixed with MUSAN noise {mixed_rows}; fbank kernel "
-          f"launches {launches['aishell_device_chain']}; kernel vs plain on its first batch "
-          f"{kernel_err!r} (tol {KERNEL_TOL}); features vs the plain chain {chain_err!r} "
-          f"(tol {CHAIN_TOL})")
-    if launches["aishell_device_chain"] != 2 or not kernel_err <= KERNEL_TOL:
-        raise AssertionError("aishell_device_chain: launches or the kernel's result are off")
-    if not all(0 < m < bsz for m in mixed_rows):
-        raise AssertionError(f"aishell_device_chain: the mix mask is off: {mixed_rows}")
-    errs += [kernel_err, chain_err]
-
-    # -- tedlium_long_form ----------------------------------------------------------------
-    t0 = time.perf_counter()
-    tedlium_dir = _write_tedlium(root, rng)
-    write_s = time.perf_counter() - t0
-    out = root / "manifests" / "tedlium" / "function"
-    made, files, function_s, cli_s = _prepare_twice(
-        root / "manifests", "tedlium",
-        lambda o: prepare_tedlium(tedlium_dir, output_dir=o, dataset_parts="train"),
-        ["tedlium", "-p", "train", tedlium_dir])
-    made_ids = sorted(s.id for s in made["train"]["supervisions"])
-    ignored = sum(line.endswith("ignore_time_segment_in_scoring")
-                  for p in tedlium_dir.rglob("*.stm") for line in p.read_text().splitlines())
-    talk_s = sum(r.duration for r in made["train"]["recordings"])
-
-    def tedlium_loader():
-        cuts = CutSet.from_manifests(
-            RecordingSet.from_file(out / "tedlium_recordings_train.jsonl.gz"),
-            SupervisionSet.from_file(out / "tedlium_supervisions_train.jsonl.gz"),
-            lazy=True, output_path=root / "tedlium_cuts.jsonl.gz").trim_to_supervisions()
-        fly = Fbank(FbankConfig(device=device))
-        sampler = DynamicBucketingSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
-        return DataLoader(sampler, K2SpeechRecognitionDataset(
-            return_cuts=True, input_strategy=OnTheFlyFeatures(fly)), prefetch_batches=3), fly
-
-    loader, fly = tedlium_loader()
-    recorder = _RecordFirstBatch(fly)
-    state = {}
-
-    def checkpoint(i, batch):
-        if i == TEDLIUM_RESUME_AFTER - 1:
-            state["ckpt"] = loader.state_dict()
-
-    run = _leg("tedlium_long_form", loader, _Trainer(device), device, fbank_cuda, _rows_of, smi,
-               on_batch=checkpoint)
-    launches["tedlium_long_form"] = run["launches"]
-    err = _first_batch_err(recorder, fly)
-    resumed_loader, _ = tedlium_loader()
-    resumed_loader.load_state_dict(state["ckpt"])
-    resumed = list(resumed_loader)
-    want = run["batches"][TEDLIUM_RESUME_AFTER:]
-    resume_equal = len(resumed) == len(want) and all(
-        torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
-        and a["supervisions"]["text"] == b["supervisions"]["text"] for a, b in zip(resumed, want))
-    covered = sorted(s.id for b in run["batches"] for c in b["supervisions"]["cut"]
-                     for s in c.supervisions)
-    print(f"[{smi}] tedlium_long_form: {len(TEDLIUM_TALKS)} SPHERE talks of {talk_s!r} s written "
-          f"in {write_s!r} s; prepare_tedlium {function_s!r} s (CLI {cli_s!r} s), the CLI's "
-          f"{len(files)} manifests equal to the function's; STM segments made {len(made_ids)} "
-          f"({ignored} ignore_time_segment_in_scoring lines dropped), kept {len(covered)}, every "
-          f"one once: {covered == made_ids}; first batch kernel vs plain {err!r} (tol "
-          f"{KERNEL_TOL}); resumed after batch {TEDLIUM_RESUME_AFTER} through a fresh loader: "
-          f"{len(resumed)} batches torch.equal to the uninterrupted run's: {resume_equal}")
-    if run["launches"] != len(run["batches"]) or len(run["batches"]) <= TEDLIUM_RESUME_AFTER:
-        raise AssertionError("tedlium_long_form: launches or the batch count are off")
-    if covered != made_ids or not ignored or not resume_equal or not err <= KERNEL_TOL:
-        raise AssertionError("tedlium_long_form: coverage, the resume or the kernel are off")
-    errs.append(err)
-
-    # -- corpus_<name> ----------------------------------------------------------------------
-    t0 = time.perf_counter()
-    specs = _single_stream_specs(root / "corpora", rng)
-    print(f"[{smi}] corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s")
     trainer, summary = _Trainer(device), {}
     for name, (function, argv, kind) in specs.items():
-        made, files, function_s, cli_s = _prepare_twice(root / "manifests", name, function, argv)
+        made, files, function_s, cli_s = _prepare_twice(manifests, name, function, argv)
         pairs = _manifest_pairs(made)
         made_ids = sorted(s.id for _, sups in pairs for s in sups)
         cuts = CutSet.from_cuts(c for recs, sups in pairs for c in CutSet.from_manifests(
@@ -5936,6 +5796,152 @@ def _phase_single_stream(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
         if launches[f"corpus_{name}"] != want_launches or not ok or not err <= KERNEL_TOL:
             raise AssertionError(f"corpus_{name}: launches, coverage or the kernel are off")
         errs.append(err)
+    return launches, errs, summary
+
+
+def _phase_single_stream(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """24. The single-stream ASR, TTS and speaker corpora, in phase 14's
+    directory after phase 23 (whose MUSAN noise and RIRS_NOISES manifests it
+    reads). Every recipe runs as a function and through the CLI's
+    ``prepare`` command, and their manifests must be equal.
+    ``aishell_device_chain``: an AISHELL layout of as many utterances as the
+    15 s x 256 bucket has rows → ``prepare_aishell`` → the bucket's int16
+    batch → ``OnDeviceAugmenter`` with phase 23's MUSAN noise pool and real
+    RIR, speed 1.1, SNR (10, 20) and SpecAugment (twice); the kernel against
+    its plain version on the batch it got, the features against the same
+    chain with the plain version. ``tedlium_long_form``: three TED-LIUM 3
+    talks of 3-5 minutes → ``prepare_tedlium`` → the lazy
+    ``CutSet.from_manifests`` → ``trim_to_supervisions()`` →
+    ``DynamicBucketingSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the kernel
+    → ``DataLoader`` → an AdamW step of ``Encoder(EncoderConfig())`` per
+    batch, then a resume after batch 2 whose batches must be ``torch.equal``.
+    ``corpus_<name>``: each other corpus → ``prepare_*`` →
+    ``CutSet.from_manifests`` → ``resample(16000)`` where the corpus is not
+    at 16 kHz; the ASR corpora trimmed to their supervisions →
+    ``SimpleCutSampler(max_duration=180)`` → ``K2SpeechRecognitionDataset``
+    with ``OnTheFlyFeatures`` on the kernel → an AdamW step per batch; the
+    TTS corpora → ``SpeechSynthesisDataset`` with ``OnTheFlyFeatures`` and a
+    ``TokenCollater``; VoxCeleb1's trial pairs → ``CutPairsSampler``, both
+    sides on the kernel. MLS's Opus route is held to the JAX package on the
+    CPU only, and named as left out. Returns the kernel's launches per path
+    and the largest kernel-vs-plain error."""
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.audio.syscodecs import opus_available
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.sampling.dynamic_bucketing import DynamicBucketingSampler
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.recipes import prepare_aishell, prepare_tedlium
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    print(f"[{smi}] phase 24: corpus_mls_opus, MLS's opus=True route, is left out (the Opus and "
+          f"Ogg libraries load here: {opus_available()}; the route is held to the JAX package on "
+          "the CPU)")
+    rng = np.random.RandomState(SINGLE_SEED)
+    root = workdir / "single_stream"
+    launches, errs = {}, []
+
+    # -- aishell_device_chain --------------------------------------------------------------
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    t0 = time.perf_counter()
+    aishell_dir = _write_aishell(root, rng, bsz, sec)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        root / "manifests", "aishell",
+        lambda o: prepare_aishell(aishell_dir, output_dir=o), ["aishell", aishell_dir])
+    recordings = sorted((r for part in made.values() for r in part["recordings"]),
+                        key=lambda r: r.id)
+    made_sups = sum(len(part["supervisions"]) for part in made.values())
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    for k, rec in enumerate(recordings):
+        x = rec.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] aishell_device_chain: AISHELL layout of {len(recordings)} utterances "
+          f"({float(lens.sum()) / SR!r} s) written in {write_s!r} s; prepare_aishell "
+          f"{function_s!r} s (CLI {cli_s!r} s), the CLI's {len(files)} manifests equal to the function's; "
+          f"supervisions made {made_sups}; noise pool {pool.shape} from phase 23's "
+          f"{len(noise)} MUSAN noise recordings, RIR {rir_rec.id} ({rir.size} taps)")
+    if len(recordings) != bsz or made_sups != bsz or lens.max() > n:
+        raise AssertionError("aishell_device_chain: the prepared corpus does not fill the bucket")
+    launches["aishell_device_chain"], kernel_err, chain_err = _device_chain(
+        "aishell_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- tedlium_long_form ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    tedlium_dir = _write_tedlium(root, rng)
+    write_s = time.perf_counter() - t0
+    out = root / "manifests" / "tedlium" / "function"
+    made, files, function_s, cli_s = _prepare_twice(
+        root / "manifests", "tedlium",
+        lambda o: prepare_tedlium(tedlium_dir, output_dir=o, dataset_parts="train"),
+        ["tedlium", "-p", "train", tedlium_dir])
+    made_ids = sorted(s.id for s in made["train"]["supervisions"])
+    ignored = sum(line.endswith("ignore_time_segment_in_scoring")
+                  for p in tedlium_dir.rglob("*.stm") for line in p.read_text().splitlines())
+    talk_s = sum(r.duration for r in made["train"]["recordings"])
+
+    def tedlium_loader():
+        cuts = CutSet.from_manifests(
+            RecordingSet.from_file(out / "tedlium_recordings_train.jsonl.gz"),
+            SupervisionSet.from_file(out / "tedlium_supervisions_train.jsonl.gz"),
+            lazy=True, output_path=root / "tedlium_cuts.jsonl.gz").trim_to_supervisions()
+        fly = Fbank(FbankConfig(device=device))
+        sampler = DynamicBucketingSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
+        return DataLoader(sampler, K2SpeechRecognitionDataset(
+            return_cuts=True, input_strategy=OnTheFlyFeatures(fly)), prefetch_batches=3), fly
+
+    loader, fly = tedlium_loader()
+    recorder = _RecordFirstBatch(fly)
+    state = {}
+
+    def checkpoint(i, batch):
+        if i == TEDLIUM_RESUME_AFTER - 1:
+            state["ckpt"] = loader.state_dict()
+
+    run = _leg("tedlium_long_form", loader, _Trainer(device), device, fbank_cuda, _rows_of, smi,
+               on_batch=checkpoint)
+    launches["tedlium_long_form"] = run["launches"]
+    err = _first_batch_err(recorder, fly)
+    resumed_loader, _ = tedlium_loader()
+    resumed_loader.load_state_dict(state["ckpt"])
+    resumed = list(resumed_loader)
+    want = run["batches"][TEDLIUM_RESUME_AFTER:]
+    resume_equal = len(resumed) == len(want) and all(
+        torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
+        and a["supervisions"]["text"] == b["supervisions"]["text"] for a, b in zip(resumed, want))
+    covered = sorted(s.id for b in run["batches"] for c in b["supervisions"]["cut"]
+                     for s in c.supervisions)
+    print(f"[{smi}] tedlium_long_form: {len(TEDLIUM_TALKS)} SPHERE talks of {talk_s!r} s written "
+          f"in {write_s!r} s; prepare_tedlium {function_s!r} s (CLI {cli_s!r} s), the CLI's "
+          f"{len(files)} manifests equal to the function's; STM segments made {len(made_ids)} "
+          f"({ignored} ignore_time_segment_in_scoring lines dropped), kept {len(covered)}, every "
+          f"one once: {covered == made_ids}; first batch kernel vs plain {err!r} (tol "
+          f"{KERNEL_TOL}); resumed after batch {TEDLIUM_RESUME_AFTER} through a fresh loader: "
+          f"{len(resumed)} batches torch.equal to the uninterrupted run's: {resume_equal}")
+    if run["launches"] != len(run["batches"]) or len(run["batches"]) <= TEDLIUM_RESUME_AFTER:
+        raise AssertionError("tedlium_long_form: launches or the batch count are off")
+    if covered != made_ids or not ignored or not resume_equal or not err <= KERNEL_TOL:
+        raise AssertionError("tedlium_long_form: coverage, the resume or the kernel are off")
+    errs.append(err)
+
+    # -- corpus_<name> ----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    specs = _single_stream_specs(root / "corpora", rng)
+    print(f"[{smi}] corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s")
+    corpus_launches, corpus_errs, summary = _corpus_legs(root / "manifests", specs, device,
+                                                         fbank_cuda, smi)
+    launches.update(corpus_launches)
+    errs += corpus_errs
     print(f"[{smi}] phase 24 corpora: {summary}")
     set_tracing_enabled(False)
     return launches, max(errs)
@@ -6170,6 +6176,517 @@ def _phase_muxed(workdir: Path, shar_dir: Path, device, fbank_cuda, smi: str) ->
     if not replay or not resume_equal or refused == "nothing" or not err <= KERNEL_TOL:
         raise AssertionError("infinite_mux_shar: the checkpoint, the resume or the kernel are off")
     errs.append(err)
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
+ZH_SEED = 2626
+ZH_FILES = 32  # utterances of each multi_zh-hans corpus: 8 x 32 fill the 15 s x 256 bucket
+ZH_SECONDS = (2.0, 15.0)
+ZH_CORPUS_FILES = 16  # files of each corpus_<name> leg of phase 26
+ZH_CORPUS_SECONDS = (2.0, 8.0)
+ZH_TTS_SECONDS = (2.0, 6.0)
+ZH_WEIGHTS = [1] * 8
+KESPEECH_PARTS = ("train_phase1", "dev_phase1", "test")
+KESPEECH_SUBDIALECTS = ("Mandarin", "Beijing", "Southwestern", "Zhongyuan", "Northeastern",
+                        "Lan-Yin", "Jiang-Huai", "Ji-Lu", "Jiao-Liao")
+CODE_SWITCH = MANDARIN[:11] + ("hello", "world", "Ａpp", "ＨＩ", "email")
+TIBETAN = ("བཀྲ་ཤིས་", "བདེ་ལེགས།", "ང་", "ཁྱེད་རང་", "ལ་", "དགའ་པོ་", "ཡོད།", "སློབ་གྲྭ་")
+CANTONESE = ("佢", "哋", "喺", "度", "食", "緊", "嘢", "我", "唔", "係", "好", "鍾意")
+HANZI_PINYIN = (("你", "ni3"), ("好", "hao3"), ("世", "shi4"), ("界", "jie4"), ("早", "zao3"),
+                ("上", "shang4"), ("学", "xue2"), ("生", "sheng1"), ("老", "lao3"), ("师", "shi1"))
+
+
+def _zh_split(i: int, n: int = 0, names=("train", "dev", "test")) -> str:
+    """Three in four of ``n`` (``ZH_FILES`` if 0) files in the first split,
+    one in eight in each other."""
+    n = n or ZH_FILES
+    return names[0] if i < n * 3 // 4 else names[1] if i < n * 7 // 8 else names[2]
+
+
+def _zh_burst(rng, seconds=ZH_SECONDS, sr: int = SR) -> np.ndarray:
+    return _tone_burst(rng, float(rng.uniform(*seconds)), sr)
+
+
+def _write_thchs_30(root: Path, rng) -> Path:
+    """THCHS-30 (openslr/18): ``data_thchs30/data/<speaker>_<n>.wav``, 16 kHz,
+    each with a ``.wav.trn`` of three lines (characters, pinyin, phones), and
+    the splits ``data_thchs30/{train,dev,test}`` of symbolic links into
+    ``data``; 24 + 4 + 4 utterances of 2-15 s."""
+    corpus = root / "thchs_30"
+    data = corpus / "data_thchs30" / "data"
+    for i in range(ZH_FILES):
+        utt = f"{'ABCD'[i % 4]}{(2, 11, 12, 32)[i // 8]}_{100 + i}"
+        _write_audio(data / f"{utt}.wav", _zh_burst(rng), SR)
+        (data / f"{utt}.wav.trn").write_text(
+            f"{_words(rng, MANDARIN, 4, 12)} l =\nlv4 shi4 yang2 chun1\nl v4 sh ix4\n",
+            encoding="utf-8")
+        link = corpus / "data_thchs30" / _zh_split(i) / f"{utt}.wav"
+        link.parent.mkdir(parents=True, exist_ok=True)
+        link.symlink_to(Path("..") / "data" / f"{utt}.wav")
+    return corpus
+
+
+def _write_stcmds(root: Path, rng) -> Path:
+    """ST-CMDS (openslr/38): ``ST-CMDS-20170001_1-OS/20170001P<speaker><n>.wav``,
+    16 kHz, a ``.txt`` transcript beside each; 32 utterances of 2-15 s by 4
+    speakers."""
+    corpus = root / "stcmds"
+    base = corpus / "ST-CMDS-20170001_1-OS"
+    for i in range(ZH_FILES):
+        utt = f"20170001P{241 + i % 4:05d}{'AI'[i % 2]}{i // 4 + 1:04d}"
+        _write_audio(base / f"{utt}.wav", _zh_burst(rng), SR)
+        (base / f"{utt}.txt").write_text(_words(rng, MANDARIN, 2, 8, sep="，"), encoding="utf-8")
+    return corpus
+
+
+def _write_primewords(root: Path, rng) -> Path:
+    """Primewords (openslr/47): ``primewords_md_2018_set1/audio_files/<h>/<hh>/
+    <md5>.wav``, 16 kHz, and ``set1_transcript.json`` (id, text, length,
+    file, user_id); 32 utterances of 2-15 s by 6 speakers."""
+    import hashlib
+
+    corpus = root / "primewords"
+    base = corpus / "primewords_md_2018_set1"
+    table = []
+    for i in range(ZH_FILES):
+        name = hashlib.md5(f"primewords-{i}".encode()).hexdigest()
+        _write_audio(base / "audio_files" / name[0] / name[:2] / f"{name}.wav", _zh_burst(rng), SR)
+        text = _words(rng, MANDARIN, 3, 10)
+        table.append({"id": str(i), "text": text, "length": len(text.split()),
+                      "file": f"{name}.wav", "user_id": str(1000 + i % 6)})
+    (base / "set1_transcript.json").write_text(json.dumps(table, ensure_ascii=False),
+                                               encoding="utf-8")
+    return corpus
+
+
+def _write_magicdata(root: Path, rng) -> Path:
+    """MagicData (openslr/68): ``{train,dev,test}/<speaker>/<utt>.wav``, 16 kHz,
+    and a tab-separated ``TRANS.txt`` per split (UtteranceID, SpeakerID,
+    Transcription); 24 + 4 + 4 utterances of 2-15 s."""
+    corpus = root / "magicdata"
+    rows = {}
+    for i in range(ZH_FILES):
+        split = _zh_split(i)
+        spk = f"{dict(train=38, dev=5, test=9)[split]}_{5700 + i % 4}"
+        utt = f"{spk}_{20170915093000 + i}"
+        _write_audio(corpus / split / spk / f"{utt}.wav", _zh_burst(rng), SR)
+        rows.setdefault(split, ["UtteranceID\tSpeakerID\tTranscription"]).append(
+            f"{utt}.wav\t{spk}\t{_words(rng, MANDARIN, 3, 10, sep='')}！[FIL]")
+    for split, lines in rows.items():
+        (corpus / split / "TRANS.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_aidatatang(root: Path, rng) -> Path:
+    """aidatatang_200zh (openslr/62): ``aidatatang_200zh/corpus/{train,dev,test}/
+    <speaker>/T0055<speaker>S<n>.wav``, 16 kHz, and one transcript file;
+    24 + 4 + 4 utterances of 2-15 s, 4 per speaker."""
+    corpus = root / "aidatatang"
+    d = corpus / "aidatatang_200zh"
+    lines = []
+    for i in range(ZH_FILES):
+        spk = f"G{13 + i // 4:04d}"
+        utt = f"T0055{spk}S{i % 4 + 1:04d}"
+        _write_audio(d / "corpus" / _zh_split(i) / spk / f"{utt}.wav", _zh_burst(rng), SR)
+        lines.append(f"{utt} {_words(rng, MANDARIN, 3, 10)}")
+    (d / "transcript").mkdir(parents=True)
+    (d / "transcript" / "aidatatang_200_zh_transcript.txt").write_text(
+        "\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_kespeech(root: Path, rng) -> Path:
+    """KeSpeech: ``Audio/<speaker>/phase1/<utt>.wav``, 16 kHz, and the
+    Kaldi-style ``Tasks/ASR/<part>/{wav.scp,text,utt2subdialect,utt2spk}``;
+    24 utterances in train_phase1, 4 in dev_phase1 and 4 in test, of
+    2-15 s, over the subdialects."""
+    corpus = root / "KeSpeech"
+    rows = {}
+    for i in range(ZH_FILES):
+        part = _zh_split(i, names=KESPEECH_PARTS)
+        spk = str(1000142 + i % 5)
+        utt = f"{spk}_{0x5a0e8f5d + i:08x}"
+        rel = f"Audio/{spk}/phase1/{utt}.wav"
+        _write_audio(corpus / rel, _zh_burst(rng), SR)
+        rows.setdefault(part, []).append(
+            (utt, rel, f"<SPOKEN_NOISE>{_words(rng, MANDARIN, 3, 10, sep='')}",
+             KESPEECH_SUBDIALECTS[i % len(KESPEECH_SUBDIALECTS)], spk))
+    for part, entries in rows.items():
+        task = corpus / "Tasks" / "ASR" / part
+        task.mkdir(parents=True)
+        entries.sort()
+        for name, k in (("wav.scp", 1), ("text", 2), ("utt2subdialect", 3), ("utt2spk", 4)):
+            (task / name).write_text("".join(f"{e[0]} {e[k]}\n" for e in entries),
+                                     encoding="utf-8")
+    return corpus
+
+
+def _zh_multi_specs(root: Path, rng) -> dict:
+    """The members of icefall's multi_zh-hans mix that the port prepares, in
+    its order (WenetSpeech, AISHELL-4 and AliMeeting left out): the recipe's
+    call for an output directory and the CLI's command."""
+    from lhotse_tpu_torch import recipes as R
+
+    thchs, stcmds = _write_thchs_30(root, rng), _write_stcmds(root, rng)
+    primewords, magicdata = _write_primewords(root, rng), _write_magicdata(root, rng)
+    aidatatang, kespeech = _write_aidatatang(root, rng), _write_kespeech(root, rng)
+    aishell = _write_aishell(root, rng, ZH_FILES, ZH_SECONDS[1])
+    aishell2 = _write_aishell2(root / "aishell2", rng)
+    ke_argv = [a for part in KESPEECH_PARTS for a in ("-p", part)]
+    return {
+        "thchs_30": (lambda o: R.prepare_thchs_30(thchs, output_dir=o), ["thchs-30", thchs]),
+        "stcmds": (lambda o: R.prepare_stcmds(stcmds, output_dir=o), ["stcmds", stcmds]),
+        "primewords": (lambda o: R.prepare_primewords(primewords, output_dir=o),
+                       ["primewords", primewords]),
+        "magicdata": (lambda o: R.prepare_magicdata(magicdata, output_dir=o),
+                      ["magicdata", magicdata]),
+        "aidatatang_200zh": (lambda o: R.prepare_aidatatang_200zh(aidatatang, output_dir=o),
+                             ["aidatatang-200zh", aidatatang]),
+        "kespeech": (lambda o: R.prepare_kespeech(kespeech, output_dir=o,
+                                                  dataset_parts=list(KESPEECH_PARTS)),
+                     ["kespeech", *ke_argv, kespeech]),
+        "aishell": (lambda o: R.prepare_aishell(aishell, output_dir=o), ["aishell", aishell]),
+        "aishell2": (lambda o: R.prepare_aishell2(aishell2, output_dir=o),
+                     ["aishell2", aishell2]),
+    }
+
+
+def _write_tal_asr(root: Path, rng) -> Path:
+    """TAL-ASR: ``aisolution_data/wav/{train,dev,test}/<speaker>/<utt>.wav``,
+    16 kHz, and ``aisolution_data/transcript/transcript.txt``; 12 + 2 + 2
+    utterances of 2-8 s."""
+    corpus = root / "tal_asr"
+    base = corpus / "aisolution_data"
+    lines = []
+    for i in range(ZH_CORPUS_FILES):
+        spk = f"T{i // 4:03d}"
+        utt = f"{spk}_{i:05d}"
+        _write_audio(base / "wav" / _zh_split(i, ZH_CORPUS_FILES) / spk / f"{utt}.wav",
+                     _zh_burst(rng, ZH_CORPUS_SECONDS), SR)
+        lines.append(f"{utt} {_words(rng, MANDARIN, 3, 10, sep='，')}。")
+    (base / "transcript").mkdir(parents=True)
+    (base / "transcript" / "transcript.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_tal_csasr(root: Path, rng) -> Path:
+    """TAL-CSASR: ``TALCS_corpus/{train_set,dev_set,test_set}/wav/<utt>.wav``,
+    16 kHz, and a ``label.txt`` per split of Mandarin-English text; 12 + 2 +
+    2 utterances of 2-8 s."""
+    corpus = root / "tal_csasr"
+    rows = {}
+    for i in range(ZH_CORPUS_FILES):
+        split = _zh_split(i, ZH_CORPUS_FILES, ("train_set", "dev_set", "test_set"))
+        utt = f"{split[:2]}_{i:06d}"
+        _write_audio(corpus / "TALCS_corpus" / split / "wav" / f"{utt}.wav",
+                     _zh_burst(rng, ZH_CORPUS_SECONDS), SR)
+        rows.setdefault(split, []).append(f"{utt} {_words(rng, CODE_SWITCH, 3, 10)}！")
+    for split, lines in rows.items():
+        (corpus / "TALCS_corpus" / split / "label.txt").write_text(
+            "\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_cdsd(root: Path, rng) -> Path:
+    """CDSD: ``after_catting/{1h,10h}/Audio/<speaker>/<utt>.wav``, 16 kHz, and
+    a transcript shard per speaker under ``Text/``; 8 utterances of 2-8 s by
+    4 speakers in 1h, 8 by one speaker in 10h."""
+    corpus = root / "cdsd"
+    for part, speakers in (("1h", ("S01", "S02", "S03", "S04")), ("10h", ("S05",))):
+        shards = {}
+        for k in range(ZH_CORPUS_FILES // 2):
+            spk = speakers[k % len(speakers)]
+            utt = f"{spk}_{part}_{k:04d}"
+            _write_audio(corpus / "after_catting" / part / "Audio" / spk / f"{utt}.wav",
+                         _zh_burst(rng, ZH_CORPUS_SECONDS), SR)
+            shards.setdefault(spk, []).append(f"{utt} {_words(rng, MANDARIN, 3, 10)}")
+        (corpus / "after_catting" / part / "Text").mkdir(parents=True)
+        for spk, lines in shards.items():
+            (corpus / "after_catting" / part / "Text" / f"{spk}.txt").write_text(
+                "\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_speechio(root: Path, rng) -> Path:
+    """SpeechIO: ``SPEECHIO_ASR_ZH000NN/wav/<id>.wav``, 16 kHz, with a
+    ``metadata.tsv`` of ID/AUDIO/DURATION/TEXT columns; two test sets of 8
+    utterances of 2-8 s."""
+    corpus = root / "speechio"
+    for s, part in enumerate(("SPEECHIO_ASR_ZH00000", "SPEECHIO_ASR_ZH00001")):
+        rows = ["ID\tAUDIO\tDURATION\tTEXT"]
+        for k in range(ZH_CORPUS_FILES // 2):
+            uid = f"S{s}SPK{k % 3}_{k:04d}"
+            x = _zh_burst(rng, ZH_CORPUS_SECONDS)
+            _write_audio(corpus / part / "wav" / f"{uid}.wav", x, SR)
+            text = _words(rng, MANDARIN, 3, 10, sep="")
+            rows.append(f"{uid}\twav/{uid}.wav\t{x.size / SR:.3f}\t{text}")
+        (corpus / part / "metadata.tsv").write_text("\n".join(rows) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_xbmu_amdo31(root: Path, rng) -> Path:
+    """XBMU-AMDO31: ``data/wav/{train,dev,test}/<speaker>/<speaker>-<utt>.wav``,
+    16 kHz, and ``data/transcript/transcript_clean.txt`` in Tibetan; 12 + 2
+    + 2 utterances of 2-8 s."""
+    corpus = root / "xbmu_amdo31"
+    lines = []
+    for i in range(ZH_CORPUS_FILES):
+        spk, utt = f"A{i // 4:02d}", f"U{i:05d}"
+        _write_audio(corpus / "data" / "wav" / _zh_split(i, ZH_CORPUS_FILES) / spk
+                     / f"{spk}-{utt}.wav", _zh_burst(rng, ZH_CORPUS_SECONDS), SR)
+        lines.append(f"{utt} {_words(rng, TIBETAN, 2, 8)}")
+    (corpus / "data" / "transcript").mkdir(parents=True)
+    (corpus / "data" / "transcript" / "transcript_clean.txt").write_text(
+        "\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_mdcc(root: Path, rng) -> Path:
+    """MDCC: ``dataset/audio/<name>.wav``, 16 kHz, ``transcription/<name>.txt``
+    in Cantonese and ``cnt_asr_{train,valid,test}_metadata.csv``
+    (audio_path,text_path,gender,duration); 12 + 2 + 2 utterances of 2-8 s."""
+    corpus = root / "mdcc" / "dataset"
+    rows = {}
+    for i in range(ZH_CORPUS_FILES):
+        name = f"447_{1711162210 + i}_{i:05d}"
+        x = _zh_burst(rng, ZH_CORPUS_SECONDS)
+        _write_audio(corpus / "audio" / f"{name}.wav", x, SR)
+        (corpus / "transcription").mkdir(exist_ok=True)
+        (corpus / "transcription" / f"{name}.txt").write_text(
+            _words(rng, CANTONESE, 3, 10, sep=""), encoding="utf-8")
+        rows.setdefault(_zh_split(i, ZH_CORPUS_FILES, ("train", "valid", "test")), []).append(
+            f"./audio/{name}.wav,./transcription/{name}.txt,{'MF'[i % 2]},{x.size / SR:.2f}")
+    for part, lines in rows.items():
+        (corpus / f"cnt_asr_{part}_metadata.csv").write_text(
+            "audio_path,text_path,gender,duration\n" + "\n".join(lines) + "\n")
+    return corpus
+
+
+def _write_aishell3(root: Path, rng) -> Path:
+    """AISHELL-3 (openslr/93): ``{train,test}/wav/<speaker>/<utt>.wav`` at
+    44.1 kHz, ``content.txt`` per split (hanzi and pinyin interleaved),
+    ``train/label_train-set.txt`` tone labels and ``spk-info.txt``; 12 + 4
+    utterances of 2-6 s by 4 speakers."""
+    corpus = root / "aishell3"
+    speakers = ("SSB0005", "SSB0009", "SSB0011", "SSB0016")
+    info = ["# AISHELL-3 speaker info", "# speaker\tage group\tgender\taccent"]
+    info += [f"{spk}\tB\t{'female' if k % 3 else 'male'}\tnorth" for k, spk in enumerate(speakers)]
+    (corpus / "train").mkdir(parents=True)
+    (corpus / "spk-info.txt").write_text("\n".join(info) + "\n")
+    content, labels = {}, ["# AISHELL-3 tone labels"]
+    for i in range(ZH_CORPUS_FILES):
+        split = "train" if i < 12 else "test"
+        spk = speakers[i % 4]
+        utt = f"{spk}{i:04d}"
+        _write_audio(corpus / split / "wav" / spk / f"{utt}.wav",
+                     _zh_burst(rng, ZH_TTS_SECONDS, 44100), 44100)
+        pairs = [HANZI_PINYIN[k] for k in rng.randint(0, len(HANZI_PINYIN), rng.randint(3, 9))]
+        content.setdefault(split, []).append(
+            f"{utt}.wav\t{' '.join(f'{h} {p}' for h, p in pairs)}")
+        if split == "train":
+            labels.append(f"{utt}|{' '.join(p for _, p in pairs)}|{''.join(h for h, _ in pairs)}")
+    (corpus / "train" / "label_train-set.txt").write_text("\n".join(labels) + "\n")
+    for split, lines in content.items():
+        (corpus / split / "content.txt").write_text("\n".join(lines) + "\n")
+    return corpus
+
+
+def _write_baker_zh(root: Path, rng) -> Path:
+    """Baker (BZNSYP): ``Wave/<6 digits>.wav`` at 48 kHz and
+    ``ProsodyLabeling/000001-010000.txt``, whose lines alternate the id and
+    the text with prosody marks ``#1``-``#4``, then the pinyin; 16
+    utterances of 2-6 s."""
+    corpus = root / "BZNSYP"
+    lines = []
+    for i in range(ZH_CORPUS_FILES):
+        rid = f"{i + 1:06d}"
+        _write_audio(corpus / "Wave" / f"{rid}.wav", _zh_burst(rng, ZH_TTS_SECONDS, 48000), 48000)
+        pairs = [HANZI_PINYIN[k] for k in rng.randint(0, len(HANZI_PINYIN), rng.randint(4, 10))]
+        text = "".join(h + (f"#{rng.randint(1, 4)}" if rng.rand() < 0.3 else "")
+                       for h, _ in pairs)
+        lines += [f"{rid}\t{text}#4。", f"\t{' '.join(p for _, p in pairs)}"]
+    (corpus / "ProsodyLabeling").mkdir(parents=True)
+    (corpus / "ProsodyLabeling" / "000001-010000.txt").write_text(
+        "\n".join(lines) + "\n", encoding="utf-8")
+    return corpus
+
+
+def _write_wenetspeech4tts(root: Path, rng) -> Path:
+    """WenetSpeech4TTS: ``<tier>/WenetSpeech4TTS_<tier>_<n>/{wavs,txts}/``,
+    16 kHz, ``filelists/Basic_filelist.lst`` of ``../`` paths and a DNSMOS
+    score list per tier; 4 Premium, 6 Standard and 6 Basic-only files of
+    2-6 s."""
+    corpus = root / "wenetspeech4tts"
+    listed, scores = [], {}
+    for i in range(ZH_CORPUS_FILES):
+        tier = "Premium" if i < 4 else "Standard" if i < 10 else "Basic"
+        pack = f"{tier}/WenetSpeech4TTS_{tier}_{1 + i % 2}"
+        name = f"Y{i:04d}_S{i % 3:05d}"
+        x = _zh_burst(rng, ZH_TTS_SECONDS)
+        _write_audio(corpus / pack / "wavs" / f"{name}.wav", x, SR)
+        (corpus / pack / "txts").mkdir(parents=True, exist_ok=True)
+        (corpus / pack / "txts" / f"{name}.txt").write_text(
+            f"{name}\t{_words(rng, MANDARIN, 3, 10, sep='')}\n[0.0,{x.size / SR:.2f}]\n",
+            encoding="utf-8")
+        listed.append(f"{name} ../{pack}/wavs/{name}.wav")
+        for t in ("Basic", "Standard", "Premium")[:3 if tier == "Premium" else
+                                                   2 if tier == "Standard" else 1]:
+            scores.setdefault(t, []).append(f"{name} {rng.uniform(3.0, 4.5):.4f}")
+    (corpus / "filelists").mkdir(parents=True)
+    (corpus / "filelists" / "Basic_filelist.lst").write_text("\n".join(listed) + "\n")
+    (corpus / "DNSMOS_P808Scores").mkdir()
+    for tier, lines in scores.items():
+        (corpus / "DNSMOS_P808Scores" / f"{tier}_DNSMOS.lst").write_text("\n".join(lines) + "\n")
+    return corpus
+
+
+def _zh_corpus_specs(root: Path, rng) -> dict:
+    """Per corpus of phase 26's ``corpus_<name>`` legs, in the order they
+    run: the recipe's call for an output directory, the CLI's command, and
+    the training path ("asr" or "tts")."""
+    from lhotse_tpu_torch import recipes as R
+
+    tal, talcs = _write_tal_asr(root, rng), _write_tal_csasr(root, rng)
+    cdsd = _write_cdsd(root, rng)
+    speechio, xbmu, mdcc = (_write_speechio(root, rng), _write_xbmu_amdo31(root, rng),
+                            _write_mdcc(root, rng))
+    aishell3, baker = _write_aishell3(root, rng), _write_baker_zh(root, rng)
+    wenet4tts = _write_wenetspeech4tts(root, rng)
+    return {
+        "tal_asr": (lambda o: R.prepare_tal_asr(tal, output_dir=o), ["tal-asr", tal], "asr"),
+        "tal_csasr": (lambda o: R.prepare_tal_csasr(talcs, output_dir=o), ["tal-csasr", talcs],
+                      "asr"),
+        "cdsd": (lambda o: R.prepare_cdsd(cdsd, output_dir=o), ["cdsd", cdsd], "asr"),
+        "speechio": (lambda o: R.prepare_speechio(speechio, output_dir=o),
+                     ["speechio", speechio], "asr"),
+        "xbmu_amdo31": (lambda o: R.prepare_xbmu_amdo31(xbmu, output_dir=o),
+                        ["xbmu-amdo31", xbmu], "asr"),
+        "mdcc": (lambda o: R.prepare_mdcc(mdcc, output_dir=o), ["mdcc", mdcc], "asr"),
+        "aishell3": (lambda o: R.prepare_aishell3(aishell3, output_dir=o),
+                     ["aishell3", aishell3], "tts"),
+        "baker_zh": (lambda o: R.prepare_baker_zh(baker, output_dir=o), ["baker-zh", baker],
+                     "tts"),
+        "wenetspeech4tts": (lambda o: R.prepare_wenetspeech4tts(wenet4tts, output_dir=o),
+                            ["wenetspeech4tts", wenet4tts], "tts"),
+    }
+
+
+def _phase_zh_corpora(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """26. The Chinese corpus recipes, in phase 14's directory after phase 25
+    (phase 23's MUSAN noise and RIRS_NOISES manifests feed the augmenter).
+    Every recipe runs as a function and through the CLI's ``prepare``
+    command, and their manifests must be equal. ``zh_multi_device_chain``:
+    the members of icefall's multi_zh-hans mix that the port prepares
+    (THCHS-30, ST-CMDS, Primewords, MagicData, aidatatang_200zh, KeSpeech,
+    AISHELL and AISHELL-2), 32 utterances of each at 16 kHz in its
+    published layout → ``prepare_*`` → ``CutSet.from_manifests`` → one
+    lazy manifest per corpus → ``CutSet.mux(weights=[1] * 8, seed=2626)``
+    → the 256 cuts in mux order as the 15 s x 256 bucket's int16 batch →
+    ``OnDeviceAugmenter`` with phase 23's MUSAN noise pool and real RIR,
+    speed 1.1, SNR (10, 20) and SpecAugment (twice); the kernel against its
+    plain version on the batch it got, the features against the same chain
+    with the plain version. ``zh_multi_on_the_fly``: the same mux →
+    ``DynamicBucketingSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the kernel
+    → ``DataLoader`` → an AdamW step of ``Encoder(EncoderConfig())`` per
+    batch, one epoch under ``torch.profiler``: every cut once, most
+    batches holding several corpora. ``corpus_<name>``: TAL-ASR,
+    TAL-CSASR, CDSD, SpeechIO, XBMU-AMDO31 and MDCC into the step, and
+    AISHELL-3 (44.1 kHz), Baker (48 kHz) and WenetSpeech4TTS into
+    ``SpeechSynthesisDataset`` with host resampling to 16 kHz, as phase
+    24's ``corpus_<name>`` legs. Returns the kernel's launches per path and
+    the largest kernel-vs-plain error."""
+    from lhotse_tpu_torch import CutSet, RecordingSet, SupervisionSet
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.dataset import (
+        DataLoader, DynamicBucketingSampler, K2SpeechRecognitionDataset, OnTheFlyFeatures)
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(ZH_SEED)
+    root = workdir / "zh_corpora"
+    launches, errs = {}, []
+
+    # -- zh_multi_device_chain ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    specs = _zh_multi_specs(root / "corpora", rng)
+    write_s = time.perf_counter() - t0
+    cut_paths, corpus_of, prepared = {}, {}, {}
+    for name, (function, argv) in specs.items():
+        made, files, function_s, cli_s = _prepare_twice(root / "manifests", name, function, argv)
+        cuts = CutSet.from_cuts(c for recs, sups in _manifest_pairs(made)
+                                for c in CutSet.from_manifests(
+                                    recordings=RecordingSet.from_recordings(recs),
+                                    supervisions=SupervisionSet.from_segments(sups)))
+        cut_paths[name] = root / f"{name}_cuts.jsonl.gz"
+        cuts.to_file(cut_paths[name])
+        corpus_of.update((c.id, name) for c in cuts)
+        prepared[name] = {"cuts": len(cuts), "manifests": len(files), "prepare_s": function_s,
+                          "cli_s": cli_s}
+
+    def muxed():
+        return CutSet.mux(*(CutSet.from_jsonl_lazy(p) for p in cut_paths.values()),
+                          weights=ZH_WEIGHTS, seed=ZH_SEED)
+
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    order = list(muxed())
+    t0 = time.perf_counter()
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    for k, cut in enumerate(order[:bsz]):
+        x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    load_s = time.perf_counter() - t0
+    blocks = [len({corpus_of[c.id] for c in order[i:i + 32]}) for i in range(0, len(order), 32)]
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] zh_multi_device_chain: {len(specs)} corpora of icefall's multi_zh-hans mix "
+          f"written in {write_s!r} s, each prepared as function and CLI with equal manifests: "
+          f"{prepared}; CutSet.mux(weights={ZH_WEIGHTS}, seed={ZH_SEED}) gives {len(order)} cuts "
+          f"({float(lens.sum()) / SR!r} s, loaded in {load_s!r} s), corpora per block of 32 in mux "
+          f"order {blocks}; noise pool {pool.shape} from phase 23's {len(noise)} MUSAN noise "
+          f"recordings, RIR {rir_rec.id} ({rir.size} taps)")
+    if (len(order) != bsz or sorted(c.id for c in order) != sorted(corpus_of)
+            or lens.max() > n or lens.min() < 2 * SR or min(blocks) < 4):
+        raise AssertionError("zh_multi_device_chain: the muxed corpora do not fill the bucket")
+    launches["zh_multi_device_chain"], kernel_err, chain_err = _device_chain(
+        "zh_multi_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- zh_multi_on_the_fly -----------------------------------------------------------------
+    fly = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(fly)
+    loader = DataLoader(
+        DynamicBucketingSampler(muxed(), max_duration=FLY_MAX_DURATION, shuffle=True, seed=0),
+        K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly)),
+        prefetch_batches=3)
+    run = _leg("zh_multi_on_the_fly", loader, _Trainer(device), device, fbank_cuda, _rows_of, smi)
+    launches["zh_multi_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, fly)
+    seen = sorted(c.id for b in run["batches"] for c in b["supervisions"]["cut"])
+    per_batch = [len({corpus_of[c.id] for c in b["supervisions"]["cut"]}) for b in run["batches"]]
+    several = sum(k > 1 for k in per_batch)
+    print(f"[{smi}] zh_multi_on_the_fly: corpora per batch {per_batch} ({several} of "
+          f"{len(per_batch)} batches hold several); every cut once: {seen == sorted(corpus_of)}; "
+          f"launches per batch {run['launches'] / len(run['batches'])!r}; first batch kernel vs "
+          f"plain {err!r} (tol {KERNEL_TOL})")
+    if run["launches"] != len(run["batches"]) or seen != sorted(corpus_of):
+        raise AssertionError("zh_multi_on_the_fly: launches or coverage are off")
+    if not 2 * several > len(per_batch) or not err <= KERNEL_TOL:
+        raise AssertionError("zh_multi_on_the_fly: few batches mix corpora, or the kernel is off")
+    errs.append(err)
+
+    # -- corpus_<name> -----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    corpus_specs = _zh_corpus_specs(root / "corpora", rng)
+    print(f"[{smi}] corpora ({', '.join(corpus_specs)}) written in {time.perf_counter() - t0!r} s")
+    corpus_launches, corpus_errs, summary = _corpus_legs(root / "manifests", corpus_specs, device,
+                                                         fbank_cuda, smi)
+    launches.update(corpus_launches)
+    errs += corpus_errs
+    print(f"[{smi}] phase 26 corpora: {summary}")
     set_tracing_enabled(False)
     return launches, max(errs)
 
@@ -6604,6 +7121,12 @@ def main() -> None:
         launches_muxed, muxed_err = _phase_muxed(Path(tmp), shar_dir, device, fbank_cuda, smi)
         by_path.update(launches_muxed)
         print(f"phase 25 took {time.perf_counter() - t0!r} s")
+        # -- 26. the Chinese corpora: icefall's multi_zh-hans mix into the main path and into
+        # on-the-fly training, and the other Chinese corpus recipes, after phase 23
+        t0 = time.perf_counter()
+        launches_zh, zh_err = _phase_zh_corpora(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_zh)
+        print(f"phase 26 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -6633,7 +7156,7 @@ def main() -> None:
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
-                              noise_err, single_err, muxed_err]),
+                              noise_err, single_err, muxed_err, zh_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

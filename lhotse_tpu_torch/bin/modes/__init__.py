@@ -3,9 +3,8 @@ The port's command line, mirroring ``lhotse_tpu/bin/modes``: every command of
 the JAX package's CLI whose library path the port has. Not registered (see
 ROADMAP.md): ``feat upload``, ``copy-feats``, ``install-sph2pipe``, the
 ``workflows`` commands other than ``simulate-meetings``, every ``download``
-command, and the ``prepare`` commands of the recipes the port lacks (it has
-LibriSpeech, AMI, CommonVoice, MUSAN, RIRS_NOISES, the BUT Reverb DB, WHAM!,
-AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1, LibriCSS, CHiME-6 and DiPCo).
+command, and the ``prepare`` commands of the recipes the port lacks (the
+package ``lhotse_tpu_torch.recipes`` names the recipes it has).
 
 Only this package imports click; the library modules it calls do not.
 """

@@ -5,46 +5,68 @@ Speech, SPGISpeech and TIMIT; the TTS corpora LibriTTS(-R), LJSpeech and
 VCTK; the speaker corpus VoxCeleb; AMI; the noise and room impulse
 response corpora MUSAN, RIRS_NOISES, the BUT Reverb DB and WHAM!; the
 far-field meeting corpora AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1,
-LibriCSS, CHiME-6 (an already synchronised layout) and DiPCo; and the
+LibriCSS, CHiME-6 (an already synchronised layout) and DiPCo; the Chinese
+corpora THCHS-30, ST-CMDS, Primewords, MagicData, aidatatang_200zh,
+KeSpeech, TAL-ASR, TAL-CSASR, CDSD, SpeechIO, AISHELL-3, Baker,
+WenetSpeech4TTS, XBMU-AMDO31 (Tibetan) and MDCC (Cantonese); and the
 manifest caching helpers. The JAX package's other recipes are not
 ported."""
+from lhotse_tpu_torch.recipes.aidatatang_200zh import prepare_aidatatang_200zh
 from lhotse_tpu_torch.recipes.aishell import prepare_aishell
 from lhotse_tpu_torch.recipes.aishell2 import prepare_aishell2
+from lhotse_tpu_torch.recipes.aishell3 import prepare_aishell3
 from lhotse_tpu_torch.recipes.aishell4 import prepare_aishell4
 from lhotse_tpu_torch.recipes.ali_meeting import prepare_ali_meeting
 from lhotse_tpu_torch.recipes.ami import prepare_ami
+from lhotse_tpu_torch.recipes.baker_zh import prepare_baker_zh
 from lhotse_tpu_torch.recipes.but_reverb_db import prepare_but_reverb_db
+from lhotse_tpu_torch.recipes.cdsd import prepare_cdsd
 from lhotse_tpu_torch.recipes.chime6 import prepare_chime6
 from lhotse_tpu_torch.recipes.commonvoice import prepare_commonvoice
 from lhotse_tpu_torch.recipes.dipco import prepare_dipco
 from lhotse_tpu_torch.recipes.icsi import prepare_icsi
+from lhotse_tpu_torch.recipes.kespeech import prepare_kespeech
 from lhotse_tpu_torch.recipes.libricss import prepare_libricss
 from lhotse_tpu_torch.recipes.librilight import prepare_librilight
 from lhotse_tpu_torch.recipes.librispeech import download_librispeech, prepare_librispeech
 from lhotse_tpu_torch.recipes.libritts import prepare_libritts, prepare_librittsr
 from lhotse_tpu_torch.recipes.ljspeech import prepare_ljspeech
+from lhotse_tpu_torch.recipes.magicdata import prepare_magicdata
+from lhotse_tpu_torch.recipes.mdcc import prepare_mdcc
 from lhotse_tpu_torch.recipes.mls import prepare_mls
 from lhotse_tpu_torch.recipes.musan import prepare_musan
 from lhotse_tpu_torch.recipes.notsofar1 import prepare_notsofar1
 from lhotse_tpu_torch.recipes.peoples_speech import prepare_peoples_speech
+from lhotse_tpu_torch.recipes.primewords import prepare_primewords
 from lhotse_tpu_torch.recipes.rir_noise import prepare_rir_noise
+from lhotse_tpu_torch.recipes.speechio import prepare_speechio
 from lhotse_tpu_torch.recipes.spgispeech import prepare_spgispeech
+from lhotse_tpu_torch.recipes.stcmds import prepare_stcmds
+from lhotse_tpu_torch.recipes.tal_asr import prepare_tal_asr
+from lhotse_tpu_torch.recipes.tal_csasr import prepare_tal_csasr
 from lhotse_tpu_torch.recipes.tedlium import prepare_tedlium
 from lhotse_tpu_torch.recipes.tedlium2 import prepare_tedlium2
+from lhotse_tpu_torch.recipes.thchs_30 import prepare_thchs_30
 from lhotse_tpu_torch.recipes.timit import prepare_timit
 from lhotse_tpu_torch.recipes.utils import (
     finalize_manifests, manifests_exist, read_manifests_if_cached)
 from lhotse_tpu_torch.recipes.vctk import prepare_vctk
 from lhotse_tpu_torch.recipes.voxceleb import prepare_voxceleb
+from lhotse_tpu_torch.recipes.wenetspeech4tts import prepare_wenetspeech4tts
 from lhotse_tpu_torch.recipes.wham import prepare_wham
+from lhotse_tpu_torch.recipes.xbmu_amdo31 import prepare_xbmu_amdo31
 from lhotse_tpu_torch.recipes.yesno import prepare_yesno
 
 __all__ = [
-    "download_librispeech", "finalize_manifests", "manifests_exist", "prepare_aishell",
-    "prepare_aishell2", "prepare_aishell4", "prepare_ali_meeting", "prepare_ami",
-    "prepare_but_reverb_db", "prepare_chime6", "prepare_commonvoice", "prepare_dipco",
-    "prepare_icsi", "prepare_libricss", "prepare_librilight", "prepare_librispeech",
-    "prepare_libritts", "prepare_librittsr", "prepare_ljspeech", "prepare_mls", "prepare_musan",
-    "prepare_notsofar1", "prepare_peoples_speech", "prepare_rir_noise", "prepare_spgispeech",
-    "prepare_tedlium", "prepare_tedlium2", "prepare_timit", "prepare_vctk", "prepare_voxceleb",
-    "prepare_wham", "prepare_yesno", "read_manifests_if_cached"]
+    "download_librispeech", "finalize_manifests", "manifests_exist", "prepare_aidatatang_200zh",
+    "prepare_aishell", "prepare_aishell2", "prepare_aishell3", "prepare_aishell4",
+    "prepare_ali_meeting", "prepare_ami", "prepare_baker_zh", "prepare_but_reverb_db",
+    "prepare_cdsd", "prepare_chime6", "prepare_commonvoice", "prepare_dipco", "prepare_icsi",
+    "prepare_kespeech", "prepare_libricss", "prepare_librilight", "prepare_librispeech",
+    "prepare_libritts", "prepare_librittsr", "prepare_ljspeech", "prepare_magicdata",
+    "prepare_mdcc", "prepare_mls", "prepare_musan", "prepare_notsofar1", "prepare_peoples_speech",
+    "prepare_primewords", "prepare_rir_noise", "prepare_speechio", "prepare_spgispeech",
+    "prepare_stcmds", "prepare_tal_asr", "prepare_tal_csasr", "prepare_tedlium",
+    "prepare_tedlium2", "prepare_thchs_30", "prepare_timit", "prepare_vctk", "prepare_voxceleb",
+    "prepare_wenetspeech4tts", "prepare_wham", "prepare_xbmu_amdo31", "prepare_yesno",
+    "read_manifests_if_cached"]

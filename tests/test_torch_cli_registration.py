@@ -23,11 +23,15 @@ LEFT_OUT = {
 }
 # The recipes whose prepare command the port registers; their downloads
 # are left out with every other download.
+# MDCC's command is registered twice, as "MDCC" and "mdcc", as in JAX.
 PORTED_RECIPES = {
-    "aishell", "aishell2", "aishell4", "ali-meeting", "ami", "but-reverb-db", "chime6",
-    "commonvoice", "dipco", "icsi", "libricss", "librilight", "librispeech", "libritts",
-    "librittsr", "ljspeech", "mls", "musan", "notsofar1", "peoples-speech", "rir-noise",
-    "spgispeech", "tedlium", "tedlium2", "timit", "vctk", "voxceleb", "wham", "yesno"}
+    "MDCC", "aidatatang-200zh", "aishell", "aishell2", "aishell3", "aishell4", "ali-meeting",
+    "ami", "baker-zh", "but-reverb-db", "cdsd", "chime6", "commonvoice", "dipco", "icsi",
+    "kespeech", "libricss", "librilight", "librispeech", "libritts", "librittsr", "ljspeech",
+    "magicdata", "mdcc", "mls", "musan", "notsofar1", "peoples-speech", "primewords",
+    "rir-noise", "speechio", "spgispeech", "stcmds", "tal-asr", "tal-csasr", "tedlium",
+    "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "wenetspeech4tts", "wham",
+    "xbmu-amdo31", "yesno"}
 
 
 def _walk(cmd, prefix=()):

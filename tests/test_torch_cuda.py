@@ -7,8 +7,8 @@ datasets over the zipped samplers and stored features on the card against
 the same port on the CPU; a piped Kaldi data dir through the CLI's
 ``feat extract-cuts-batch`` against the kernel's plain version; windows
 of simulated meetings through the SURT dataset on the card; and the
-augmenter fed by the MUSAN, RIRS_NOISES and AISHELL recipes on the card
-against the CPU port.
+augmenter fed by the MUSAN, RIRS_NOISES and AISHELL recipes and by a mux
+of the THCHS-30 and KeSpeech recipes on the card against the CPU port.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -1011,6 +1011,64 @@ def test_aishell_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
     cpu_aug, card_aug = OnDeviceAugmenter(**cfg, device="cpu"), OnDeviceAugmenter(**cfg, device=cuda)
     for i in (0, 4):
         audio = [r.load_audio()[0] for r in recs[i:i + 4]]
+        lens = [len(a) for a in audio]
+        x = np.zeros((4, max(lens)), np.float32)
+        for k, a in enumerate(audio):
+            x[k, : len(a)] = a
+        cpu_feats, cpu_lens = cpu_aug(x, lens)
+        fbank_cuda.LAUNCHES = 0
+        feats, feat_lens = card_aug(x, lens)
+        assert fbank_cuda.LAUNCHES == 1
+        assert torch.equal(feat_lens.cpu(), cpu_lens)
+        torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
+
+
+def test_zh_mux_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
+    """A THCHS-30 layout (its splits as symbolic links into ``data``) and a
+    KeSpeech layout of 4 utterances each through ``prepare_thchs_30`` and
+    ``prepare_kespeech``, muxed by ``CutSet.mux``, in two batches of the
+    2 s x 4 bucket, into the augmenter on the card against the same
+    augmenter on the CPU port."""
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.recipes import prepare_kespeech, prepare_thchs_30
+
+    data = tmp_path / "thchs" / "data_thchs30" / "data"
+    data.mkdir(parents=True)
+    task = tmp_path / "ke" / "Tasks" / "ASR" / "train_phase1"
+    task.mkdir(parents=True)
+    scp, text, dialect, spk = [], [], [], []
+    for i in range(4):
+        write_wav(data / f"A11_{i}.wav", _audio((1, 16000 + 3000 * i), seed=60 + i), 16000)
+        (data / f"A11_{i}.wav.trn").write_text("绿 是 阳春\nlv4 shi4\nl v4\n", encoding="utf-8")
+        split = data.parent / ("train", "train", "dev", "test")[i]
+        split.mkdir(exist_ok=True)
+        (split / f"A11_{i}.wav").symlink_to(f"../data/A11_{i}.wav")
+        utt = f"1000{i}_7{i}"
+        (tmp_path / "ke" / "Audio").mkdir(parents=True, exist_ok=True)
+        write_wav(tmp_path / "ke" / "Audio" / f"{utt}.wav",
+                  _audio((1, 18000 + 3000 * i), seed=70 + i), 16000)
+        scp.append(f"{utt} Audio/{utt}.wav")
+        text.append(f"{utt} <SPOKEN_NOISE>你好")
+        dialect.append(f"{utt} Mandarin")
+        spk.append(f"{utt} spk{i}")
+    for name, lines in (("wav.scp", scp), ("text", text), ("utt2subdialect", dialect),
+                        ("utt2spk", spk)):
+        (task / name).write_text("\n".join(lines) + "\n", encoding="utf-8")
+    sets = [CutSet.from_cuts(c for part in made.values() for c in CutSet.from_manifests(**part))
+            for made in (prepare_thchs_30(tmp_path / "thchs"),
+                         prepare_kespeech(tmp_path / "ke", dataset_parts=["train_phase1"]))]
+    cuts = list(CutSet.mux(*sets, weights=[1, 1], seed=22))
+    assert len(cuts) == 8
+    n = 4800
+    rir = _audio((n,), seed=9) * np.exp(-np.arange(n) / (n / 6.0)).astype(np.float32)
+    rir[32] = 1.0
+    cfg = dict(buckets=[(2.0, 4)], speed_factor=1.1, noise_pool=_audio((4, 48000), seed=21),
+               rir=rir, snr=(10, 20), mix_prob=0.5, seed=3, wire_format="int16",
+               specaugment=SpecAugment(seed=7))
+    cpu_aug, card_aug = OnDeviceAugmenter(**cfg, device="cpu"), OnDeviceAugmenter(**cfg, device=cuda)
+    for i in (0, 4):
+        audio = [c.load_audio()[0] for c in cuts[i:i + 4]]
         lens = [len(a) for a in audio]
         x = np.zeros((4, max(lens)), np.float32)
         for k, a in enumerate(audio):

@@ -131,7 +131,18 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.bin.modes.recipes.spgispeech, "
         "lhotse_tpu_torch.bin.modes.recipes.ljspeech, lhotse_tpu_torch.bin.modes.recipes.vctk, "
         "lhotse_tpu_torch.bin.modes.recipes.timit, lhotse_tpu_torch.bin.modes.recipes.voxceleb, "
-        "lhotse_tpu_torch.cut.text, lhotse_tpu_torch.features.kaldi; "
+        "lhotse_tpu_torch.cut.text, lhotse_tpu_torch.features.kaldi, "
+        "lhotse_tpu_torch.recipes._zh_common, lhotse_tpu_torch.recipes.thchs_30, "
+        "lhotse_tpu_torch.recipes.stcmds, lhotse_tpu_torch.recipes.primewords, "
+        "lhotse_tpu_torch.recipes.magicdata, lhotse_tpu_torch.recipes.aidatatang_200zh, "
+        "lhotse_tpu_torch.recipes.tal_asr, lhotse_tpu_torch.recipes.tal_csasr, "
+        "lhotse_tpu_torch.recipes.cdsd, lhotse_tpu_torch.recipes.kespeech, "
+        "lhotse_tpu_torch.recipes.aishell3, lhotse_tpu_torch.recipes.baker_zh, "
+        "lhotse_tpu_torch.recipes.wenetspeech4tts, lhotse_tpu_torch.recipes.speechio, "
+        "lhotse_tpu_torch.recipes.xbmu_amdo31, lhotse_tpu_torch.recipes.mdcc, "
+        "lhotse_tpu_torch.bin.modes.recipes.zh_corpora, "
+        "lhotse_tpu_torch.bin.modes.recipes.zh_corpora_extra, "
+        "lhotse_tpu_torch.bin.modes.recipes.aishell3, lhotse_tpu_torch.bin.modes.recipes.mdcc; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "
         "from lhotse_tpu_torch.dataset.signal_transforms import GlobalMVN, RandomizedSmoothing; "
