@@ -131,8 +131,14 @@ augmenter at the 15 s × 256 bucket with phase 23's MUSAN pool and RIR and
 into ``DynamicBucketingSampler`` and ``OnTheFlyFeatures`` on the kernel
 into the AdamW step; TAL-ASR, TAL-CSASR, CDSD, SpeechIO, XBMU-AMDO31 and
 MDCC through their recipes into the step, AISHELL-3, Baker and
-WenetSpeech4TTS into ``SpeechSynthesisDataset``); and checks what comes
-out.
+WenetSpeech4TTS into ``SpeechSynthesisDataset``); then the LDC telephone and
+broadcast corpora (8 Switchboard-1 conversations of 5 minutes and 8 Fisher
+English calls of 10 minutes, two-channel 8 kHz mu-law SPHERE, through their
+recipes, as function and CLI, ``trim_to_supervisions``, ``resample(16000)``
+and ``CutSet.mux`` into the augmenter at the 15 s × 256 bucket with phase
+23's MUSAN pool and RIR; Eval2000, CALLHOME English and Egyptian, Fisher
+Spanish, GALE Arabic and Mandarin, MGB-2 and 1997 Broadcast News through
+their recipes into the step); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -182,7 +188,10 @@ reads stored features), ``kaldi_on_the_fly``, ``kaldi_on_the_fly_cached``,
 ``infinite_mux_shar``, ``zh_multi_device_chain``, ``zh_multi_on_the_fly``
 and ``corpus_<name>`` for ``tal_asr``, ``tal_csasr``, ``cdsd``,
 ``speechio``, ``xbmu_amdo31``, ``mdcc``, ``aishell3``, ``baker_zh`` and
-``wenetspeech4tts``); the last line is
+``wenetspeech4tts``, ``swbd_fisher_device_chain`` and ``corpus_<name>`` for
+``eval2000``, ``callhome_english``, ``callhome_egyptian``,
+``fisher_spanish``, ``gale_arabic``, ``gale_mandarin``, ``mgb2`` and
+``broadcast_news``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -4593,14 +4602,19 @@ def _write_noise_corpora(root: Path, rng) -> dict:
 
 
 def _same_written(a: Path, b: Path, name: str) -> list:
-    """The ``.jsonl.gz`` manifests two runs wrote, equal once decompressed
-    (a gzip header carries its write time). Returns their names."""
+    """The ``.jsonl.gz`` and ``.jsonl`` manifests two runs wrote, equal (the
+    first once decompressed: a gzip header carries its write time). Returns
+    their names."""
     import gzip
 
-    names = sorted(p.name for p in a.glob("*.jsonl.gz"))
-    if not names or names != sorted(p.name for p in b.glob("*.jsonl.gz")) or any(
-            gzip.decompress((a / n).read_bytes()) != gzip.decompress((b / n).read_bytes())
-            for n in names):
+    def read(p: Path) -> bytes:
+        return gzip.decompress(p.read_bytes()) if p.suffix == ".gz" else p.read_bytes()
+
+    def listed(d: Path) -> list:
+        return sorted(p.name for pattern in ("*.jsonl.gz", "*.jsonl") for p in d.glob(pattern))
+
+    names = listed(a)
+    if not names or names != listed(b) or any(read(a / n) != read(b / n) for n in names):
         raise AssertionError(f"{name}: the CLI's manifests differ from the function's")
     return names
 
@@ -4649,8 +4663,10 @@ def _device_chain(name: str, batches: list, pool, rir, device, fbank_cuda, smi: 
     (10, 20) and SpecAugment: stage and compute timed apiece; the kernel
     against its plain version on the first batch it got, the features'
     shape and frame counts, and the first batch's features against the same
-    chain with the plain version. Returns the kernel's launches, the
-    kernel-vs-plain error and the chain's error."""
+    chain with the plain version; then the first batch once more, after the
+    launches are read, under ``torch.profiler`` for the device's busy share
+    of the wall. Returns the kernel's launches, the kernel-vs-plain error
+    and the chain's error."""
     from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
     from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
 
@@ -4700,6 +4716,7 @@ def _device_chain(name: str, batches: list, pool, rir, device, fbank_cuda, smi: 
         if not np.array_equal(feat_lens.cpu().numpy(), _expected_feat_lens(lens)):
             raise AssertionError(f"{name}: feat_lens differ from the hop rule")
     chain_err = _check_chain(staged[0], *outs[0], "int16", rir, device, fbank_cuda, path=name)
+    wall_ms, busy_ms, _ = _device_busy(lambda: aug.compute(aug.stage(*batches[0])))
     mixed_rows = [int(torch.as_tensor(s.kwargs["mix_mask"]).sum()) for s in staged]
     audio_s = sum(int(lens.sum()) for _, lens in batches) / SR
     print(f"[{smi}] {name}: {len(batches)} batches of {bsz} x {sec:g} s, {audio_s!r} audio-s in "
@@ -4707,7 +4724,9 @@ def _device_chain(name: str, batches: list, pool, rir, device, fbank_cuda, smi: 
           f"{audio_s / (sum(stage_ms) + sum(compute_ms)) * 1e3!r} audio-s/s; stage ms {stage_ms}, "
           f"compute ms {compute_ms}; rows mixed with MUSAN noise {mixed_rows}; fbank kernel "
           f"launches {launches}; kernel vs plain on its first batch {kernel_err!r} (tol "
-          f"{KERNEL_TOL}); features vs the plain chain {chain_err!r} (tol {CHAIN_TOL})")
+          f"{KERNEL_TOL}); features vs the plain chain {chain_err!r} (tol {CHAIN_TOL}); the first "
+          f"batch again under torch.profiler: wall {wall_ms!r} ms, device busy {busy_ms!r} ms "
+          f"({busy_ms / wall_ms!r} of the wall)")
     if launches != len(batches) or not kernel_err <= KERNEL_TOL:
         raise AssertionError(f"{name}: launches or the kernel's result are off")
     if not all(0 < m < bsz for m in mixed_rows):
@@ -6691,6 +6710,528 @@ def _phase_zh_corpora(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+TEL_SEED = 2727
+TEL_SR = 8000  # the LDC telephone corpora: two-channel 8 kHz mu-law SPHERE
+SWBD_CONVERSATIONS = 8
+SWBD_SECONDS = 300.0  # about the length of a Switchboard-1 conversation
+FISHER_CALLS = 8
+FISHER_SECONDS = 600.0  # a Fisher call
+TEL_TURN_SECONDS = (2.0, 15.0)
+TEL_GAP_SECONDS = (-1.0, 1.5)  # a negative gap overlaps the other side's turn
+TEL_WEIGHTS = [1, 1]
+TEL_CORPUS_FILES = 16  # files of each corpus_<name> leg of phase 27
+TEL_CORPUS_SECONDS = 40.0  # each conversation or programme of those legs
+TEL_CORPUS_TURNS = (2.0, 8.0)
+TEL_ARABIC = ("مرحبا", "بكم", "في", "نشرة", "الأخبار", "اليوم", "من", "الدوحة", "الطقس",
+              "العالم", "الرئيس", "قال")
+TEL_ROMAN = ("%ah", "Tayyib", "kalam", "ya", "$ukran", "il", "bEd", "da", "mi$", "Hilw", "ana")
+SPANISH = ("hola", "buenos", "dias", "que", "tal", "bueno", "pues", "si", "claro", "mira", "vale")
+BUCKWALTER = ("mrHbA", "bkm", "fy", "n$rp", "Al>xbAr", "Alywm", "mn", "AldwHp", "AlTqs")
+GALE_DEV = ("CCTV2_NEWS1_CMN_20080401_180000", "VOA_FOCUS_CMN_20080402_210000")
+
+
+def _ldc_sphere(path: Path, x: np.ndarray, sr: int, coding: str, **fields) -> None:
+    """``x`` (channels, frames) as SPHERE in ``coding`` ("ulaw" or "pcm16"),
+    the LDC release's own header fields (``fields``: name -> str or int)
+    added to the port's writer's."""
+    import io
+
+    from lhotse_tpu_torch.audio.sphio import write_sph
+
+    buf = io.BytesIO()
+    write_sph(buf, x, sr, coding=coding)
+    data = buf.getvalue()
+    lines = [f"{k} -i {v}" if isinstance(v, int) else f"{k} -s{len(v)} {v}"
+             for k, v in fields.items()]
+    head = data[:1024].rstrip(b"\0").replace(
+        b"end_head", "\n".join(lines + ["end_head"]).encode())
+    if len(head) > 1024:
+        raise AssertionError(f"{path}: the SPHERE header outgrows its 1024 bytes")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(head + b"\0" * (1024 - len(head)) + data[1024:])
+
+
+def _conversation(rng, seconds: float, turns=TEL_TURN_SECONDS, sr: int = TEL_SR,
+                  channels: int = 2) -> tuple:
+    """A conversation of ``seconds`` at ``sr`` Hz: turns of ``turns`` seconds
+    that alternate between the sides (with gaps and overlaps of
+    ``TEL_GAP_SECONDS``), each a tone burst on its own side's channel over
+    a quiet noise floor. With ``channels`` 1 every turn is on the one
+    channel. Returns the (channels, frames) audio and the (side, start,
+    end) turns, rounded to 10 ms."""
+    n = int(seconds * sr)
+    audio = (rng.randn(channels, n) * 0.003).astype(np.float32)
+    out, t, side = [], float(rng.uniform(0.2, 1.0)), 0
+    while True:
+        length = float(rng.uniform(*turns))
+        start, end = round(t, 2), round(t + length, 2)
+        if end > seconds - 0.2:
+            break
+        i0, i1 = int(start * sr), int(end * sr)
+        audio[side % channels, i0:i1] += _tone_burst(rng, (i1 - i0 + 1) / sr, sr)[: i1 - i0]
+        out.append((side, start, end))
+        side = 1 - side
+        t = end + float(rng.uniform(*TEL_GAP_SECONDS))
+    return np.clip(audio, -1, 1), out
+
+
+def _write_switchboard(root: Path, rng, n: int = SWBD_CONVERSATIONS,
+                       seconds: float = SWBD_SECONDS) -> tuple:
+    """Switchboard-1 (LDC97S62): two-channel 8 kHz mu-law SPHERE
+    conversations under ``swb1_d1/data``, and the MS-State transcripts
+    (``swb_ms98_transcriptions/<2 digits>/<conversation>/sw<NNNN><side>-ms98-a-trans.text``,
+    one per side, the other side's turns and the gaps as ``[silence]`` rows,
+    times to 6 decimals). Returns the audio and transcript directories and
+    the number of speech rows."""
+    audio_dir, trans = root / "LDC97S62" / "swb1_d1" / "data", root / "swb_ms98_transcriptions"
+    rows = 0
+    for k in range(n):
+        conv = f"{2001 + 7 * k}"
+        x, turns = _conversation(rng, seconds)
+        _ldc_sphere(audio_dir / f"sw0{conv}.sph", x, TEL_SR, "ulaw",
+                    database_id="SWITCHBOARD", database_version="1.0",
+                    conversation_id=conv, channels_interleaved="TRUE")
+        for s, side in enumerate("AB"):
+            lines, t, i = [], 0.0, 0
+            for who, start, end in turns:
+                if who != s:
+                    continue
+                if start > t:
+                    i += 1
+                    lines.append(f"sw{conv}{side}-ms98-a-{i:04d} {t:.6f} {start:.6f} [silence]")
+                words = _words(rng, ENGLISH, 3, 14)
+                if rng.rand() < 0.2:
+                    words = "[noise] " + words
+                i += 1
+                lines.append(f"sw{conv}{side}-ms98-a-{i:04d} {start:.6f} {end:.6f} {words}")
+                rows += 1
+                t = end
+            i += 1
+            lines.append(f"sw{conv}{side}-ms98-a-{i:04d} {t:.6f} {seconds:.6f} [silence]")
+            d = trans / conv[:2] / conv
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"sw{conv}{side}-ms98-a-trans.text").write_text("\n".join(lines) + "\n")
+    return audio_dir.parent.parent, trans, rows
+
+
+def _write_fisher_english(root: Path, rng, n: int = FISHER_CALLS,
+                          seconds: float = FISHER_SECONDS) -> tuple:
+    """Fisher English part 1 (LDC2004S13 audio, LDC2004T19 transcripts):
+    two-channel 8 kHz mu-law SPHERE calls under
+    ``LDC2004S13/fe_03_p1_sph1/audio/<3 digits>``, one transcript per call
+    under ``LDC2004T19/data/trans/<3 digits>`` (a 3-line header, then
+    ``<start> <end> <A|B>: <words>`` rows between blank lines), and the
+    ``doc/fe_03_p1_calldata.tbl`` table of each call's A and B PINs. Returns
+    the corpus directory and the number of rows."""
+    rows = 0
+    table = ["CALL_ID,DATE_TIME,TOPICID,SIG_GRADE,CNV_GRADE,APIN,ASX.DL,APHNUM,APHSET,APHTYP,"
+             "BPIN,BSX.DL,BPHNUM,BPHSET,BPHTYP"]
+    for k in range(n):
+        call = f"{1 + 13 * k:05d}"
+        x, turns = _conversation(rng, seconds)
+        _ldc_sphere(root / "LDC2004S13" / "fe_03_p1_sph1" / "audio" / call[:3] / f"fe_03_{call}.sph",
+                    x, TEL_SR, "ulaw", database_id="FISHER_ENGLISH", database_version="1.0",
+                    recording_site="LDC", channels_interleaved="TRUE")
+        lines = [f"# fe_03_{call}.sph", "# Transcribed at the LDC", ""]
+        for who, start, end in turns:
+            lines += [f"{start:.2f} {end:.2f} {'AB'[who]}: {_words(rng, ENGLISH, 3, 14)}", ""]
+            rows += 1
+        d = root / "LDC2004T19" / "data" / "trans" / call[:3]
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"fe_03_{call}.txt").write_text("\n".join(lines))
+        table.append(f"{call},2004120{k % 9 + 1}_1{k:02d}000,ENG{k % 40 + 1:02d},2.5,2.7,"
+                     f"{10000 + 2 * k},F.a,{5550000 + k},x,x,{10001 + 2 * k},M.a,{5560000 + k},x,x")
+    doc = root / "LDC2004T19" / "doc"
+    doc.mkdir(parents=True)
+    (doc / "fe_03_p1_calldata.tbl").write_text("\n".join(table) + "\n")
+    (doc / "fe_03_readme.txt").write_text("Fisher English Training Part 1 Transcripts\n")
+    return root, rows
+
+
+def _tel_rows(rng, turns, vocabulary, fmt) -> list:
+    return [fmt(who, start, end, _words(rng, vocabulary, 2, 10)) for who, start, end in turns]
+
+
+def _write_eval2000(root: Path, rng) -> Path:
+    """Eval2000 (LDC2002S09 audio under ``hub5e_00/english``, LDC2002T43
+    references under ``reference/english``): Switchboard (``sw_``) and
+    CALLHOME (``en_``) conversations of two-channel 8 kHz mu-law SPHERE,
+    ``#`` header lines and ``<start> <end> <side>: <words>`` rows."""
+    for k in range(TEL_CORPUS_FILES):
+        conv = f"{'sw' if k % 2 else 'en'}_{4156 + 11 * k}"
+        x, turns = _conversation(rng, TEL_CORPUS_SECONDS, TEL_CORPUS_TURNS)
+        _ldc_sphere(root / "LDC2002S09" / "hub5e_00" / "english" / f"{conv}.sph", x, TEL_SR,
+                    "ulaw", database_id="HUB5E_00", conversation_id=conv)
+        d = root / "LDC2002T43" / "reference" / "english"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{conv}.txt").write_text("\n".join(
+            [f"# {conv}", "# Hub5 2000 English evaluation reference", ""] + _tel_rows(
+                rng, turns, ENGLISH, lambda w, s, e, t: f"{s:.2f} {e:.2f} {'AB'[w]}: {t}")) + "\n")
+    return root
+
+
+def _callhome_split(k: int) -> str:
+    return _zh_split(k, TEL_CORPUS_FILES, ("train", "devtest", "evaltest"))
+
+
+def _write_callhome_english(root: Path, rng) -> tuple:
+    """CALLHOME American English (LDC97S42 audio under
+    ``data/{train,devtest,evltest}``, the LDC's spelling, and LDC97T14
+    transcripts under ``transcrpt/{train,devtest,evaltest}``): two-channel
+    8 kHz mu-law SPHERE, rows ``<start> <end> <A|B>: <text>`` some of which
+    wrap onto a second line."""
+    audio, trans = root / "LDC97S42", root / "LDC97T14"
+    for k in range(TEL_CORPUS_FILES):
+        split, conv = _callhome_split(k), f"en_{4065 + 31 * k}"
+        x, turns = _conversation(rng, TEL_CORPUS_SECONDS, TEL_CORPUS_TURNS)
+        _ldc_sphere(audio / "data" / split.replace("evaltest", "evltest") / f"{conv}.sph", x,
+                    TEL_SR, "ulaw", database_id="CALLHOME_ENGLISH", conversation_id=conv)
+        rows = []
+        for who, start, end in turns:
+            words = _words(rng, ENGLISH, 2, 16).split()
+            rows.append(f"{start:.2f} {end:.2f} {'AB'[who]}: {' '.join(words[:8])}")
+            if len(words) > 8:
+                rows.append(" ".join(words[8:]))
+        d = trans / "transcrpt" / split
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{conv}.txt").write_text("\n".join([f"# {conv}", ""] + rows) + "\n")
+    return audio, trans
+
+
+def _write_callhome_egyptian(root: Path, rng) -> tuple:
+    """CALLHOME Egyptian Arabic (LDC97S45 audio under
+    ``callhome/arabic/{train,devtest,evltest}``, LDC97T19 romanized
+    transcripts under ``callhome_arabic_trans_970711/transcrp/<split>/roman``):
+    two-channel 8 kHz mu-law SPHERE."""
+    audio, trans = root / "LDC97S45", root / "LDC97T19"
+    for k in range(TEL_CORPUS_FILES):
+        split, conv = _callhome_split(k), f"ar_{4170 + 29 * k}"
+        x, turns = _conversation(rng, TEL_CORPUS_SECONDS, TEL_CORPUS_TURNS)
+        _ldc_sphere(audio / "callhome" / "arabic" / split.replace("evaltest", "evltest")
+                    / f"{conv}.sph", x, TEL_SR, "ulaw", database_id="CALLHOME_ARABIC",
+                    conversation_id=conv)
+        d = trans / "callhome_arabic_trans_970711" / "transcrp" / split / "roman"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{conv}.txt").write_text("\n".join(_tel_rows(
+            rng, turns, TEL_ROMAN, lambda w, s, e, t: f"{s:.2f} {e:.2f} {'AB'[w]}: {t}")) + "\n")
+    return audio, trans
+
+
+TDF_HEADER = ("file;unicode\tchannel;int\tstart;float\tend;float\tspeaker;unicode\t"
+              "speakerType;unicode\tspeakerDialect;unicode\ttranscript;unicode\tsection;int\t"
+              "turn;int\tsegment;int\tsectionType;unicode\tsuType;unicode\n"
+              ";;MM sectionTypes\t[u'report', u'conversational']\n"
+              ";;MM sectionBoundaries\t[0.0, 9999.0]\n")
+
+
+def _tdf_rows(rng, file: str, turns, vocabulary, channel_of, speaker_of, sep=" ") -> str:
+    return "".join(
+        f"{file}\t{channel_of(w)}\t{s}\t{e}\t{speaker_of(w)}\t{('male', 'female')[w]}\tnative\t"
+        f"{_words(rng, vocabulary, 2, 10, sep)}\t0\t{i}\t{i}\treport\tstatement\n"
+        for i, (w, s, e) in enumerate(turns))
+
+
+def _write_fisher_spanish(root: Path, rng) -> tuple:
+    """Fisher Spanish (LDC2010S01 audio under ``fisher_spa/data/speech``,
+    LDC2010T04 TDF transcripts under ``fisher_spa_tr/data/transcripts`` and
+    the ``*_call.tbl`` sessions table): two-channel 8 kHz mu-law SPHERE,
+    each side's speaker from the table."""
+    audio = root / "LDC2010S01" / "fisher_spa" / "data" / "speech"
+    trans = root / "LDC2010T04" / "fisher_spa_tr"
+    table = ["CALL_ID,DATE,A_SPKR,A_SEX,A_AGE,A_DIALECT,A_EDU,A_PHONE,B_SPKR,B_SEX,B_AGE"]
+    for k in range(TEL_CORPUS_FILES):
+        call = 100 + 7 * k
+        stem = f"2005{k % 9 + 1:02d}15_1{k:02d}000_{call}_fsp"
+        x, turns = _conversation(rng, TEL_CORPUS_SECONDS, TEL_CORPUS_TURNS)
+        _ldc_sphere(audio / f"{stem}.sph", x, TEL_SR, "ulaw", database_id="FISHER_SPANISH",
+                    conversation_id=str(call))
+        d = trans / "data" / "transcripts"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f"{stem}.tdf").write_text(TDF_HEADER + _tdf_rows(
+            rng, f"{stem}.sph", turns, SPANISH, lambda w: w, lambda w: f"{stem}_{'AB'[w]}"),
+            encoding="utf-8")
+        table.append(f"{call},2005,{stem}_A,f,30,caribe,x,x,{stem}_B,m,40")
+    (trans / "doc").mkdir(parents=True)
+    (trans / "doc" / "fsp_call.tbl").write_text("\n".join(table) + "\n")
+    return audio, trans
+
+
+def _write_gale(root: Path, rng, names: tuple, programmes: tuple, vocabulary, sep) -> tuple:
+    """GALE speech and transcript corpora in matched pairs (the first pair's
+    audio 16 kHz WAV, the second's FLAC, ``TEL_CORPUS_FILES // 2`` broadcasts
+    each) with one TDF file per broadcast, its speakers marked ``*`` as in
+    the releases. Returns the speech and transcript directories and the
+    recording ids."""
+    audio_dirs, trans_dirs, ids = [], [], []
+    for (s_name, t_name), fmt in zip(names, ("wav", "flac")):
+        a, t = root / s_name / "data", root / t_name / "data" / "tdf"
+        t.mkdir(parents=True)
+        for k in range(TEL_CORPUS_FILES // 2):
+            rid = programmes[len(ids)]
+            x, turns = _conversation(rng, TEL_CORPUS_SECONDS, TEL_CORPUS_TURNS, sr=SR, channels=1)
+            _write_audio(a / f"{rid}.{fmt}", x[0], SR)
+            (t / f"{rid}.tdf").write_text(TDF_HEADER + _tdf_rows(
+                rng, f"{rid}.sph", turns, vocabulary, lambda w: 0,
+                lambda w: f"{rid[:4]}spk*{w}", sep), encoding="utf-8")
+            ids.append(rid)
+        audio_dirs.append(root / s_name)
+        trans_dirs.append(root / t_name)
+    return audio_dirs, trans_dirs, ids
+
+
+def _write_mgb2(root: Path, rng) -> Path:
+    """MGB-2: 16 kHz WAV; ``train`` as ``wav/`` and one XML file per
+    programme under ``xml/utf8`` (segments with their WMER, speaker and
+    words), ``dev`` and ``test`` as Kaldi directories
+    (``wav.scp`` with ``wav/`` paths, ``segments.non_overlap_speech`` and
+    BuckWalter ``text.non_overlap_speech``)."""
+    for k in range(TEL_CORPUS_FILES):
+        part = "train" if k < 12 else "dev" if k < 14 else "test"
+        prog = "-".join(f"{int(v):X}" for v in rng.randint(0x1000, 0xFFFF, 4)) + f"-{k:04X}"
+        x, turns = _conversation(rng, TEL_CORPUS_SECONDS, TEL_CORPUS_TURNS, sr=SR, channels=1)
+        _write_audio(root / part / "wav" / f"{prog}.wav", x[0], SR)
+        if part == "train":
+            segs = "".join(
+                f'<segment id="{prog}_utt_{i}" starttime="{s:.2f}" endtime="{e:.2f}" '
+                f'AWD="0.3" PMER="{rng.uniform(0, 40):.2f}" WMER="{(5.0, 95.0)[i % 7 == 3]}" '
+                f'who="transcript_speaker{w + 1}_align">'
+                + "".join(f'<element type="word" starttime="{s:.2f}" dur="0.30" '
+                          f'score="1">{word}</element>'
+                          for word in _words(rng, TEL_ARABIC, 2, 10).split() + ["،"])
+                + "</segment>" for i, (w, s, e) in enumerate(turns))
+            xml = root / "train" / "xml" / "utf8" / f"{prog}.xml"
+            xml.parent.mkdir(parents=True, exist_ok=True)
+            xml.write_text('<?xml version="1.0" encoding="utf-8"?>\n<transcript>'
+                           f'<head><recording filename="{prog}"/></head><body>'
+                           f'<segments annotation_id="transcript_align">{segs}</segments>'
+                           "</body></transcript>\n", encoding="utf-8")
+            continue
+        d = root / part
+        with open(d / "wav.scp", "a") as f:
+            f.write(f"{prog} wav/{prog}.wav\n")
+        with open(d / "segments.non_overlap_speech", "a") as f:
+            f.writelines(f"{prog}_{i:04d} {prog} {s:.2f} {e:.2f}\n"
+                         for i, (_, s, e) in enumerate(turns))
+        with open(d / "text.non_overlap_speech", "a", encoding="utf-8") as f:
+            f.writelines(f"{prog}_{i:04d} {_words(rng, BUCKWALTER, 2, 10)}\n"
+                         for i in range(len(turns)))
+    return root
+
+
+def _write_broadcast_news(root: Path, rng) -> tuple:
+    """1997 English Broadcast News (LDC98S71 audio, LDC98T28 transcripts):
+    16 kHz 16-bit PCM SPHERE programmes and their Hub-4 SGML (``episode``,
+    ``section``, ``turn`` and ``time`` marks; a filler section; the
+    ``startTime``/``endTime`` attributes of the release)."""
+    audio, trans = root / "LDC98S71" / "hub4e97" / "data", root / "LDC98T28" / "hub4e97_trans"
+    trans.mkdir(parents=True)
+    for k in range(TEL_CORPUS_FILES):
+        stem = f"h4e_97_{k + 1:02d}"
+        x, turns = _conversation(rng, TEL_CORPUS_SECONDS, (4.0, 12.0), sr=SR, channels=1)
+        _ldc_sphere(audio / f"{stem}.sph", x, SR, "pcm16", database_id="HUB4_1997",
+                    recording_site="LDC")
+        sgml = [f'<episode filename={stem} program="CNN Headline News" language=english '
+                f"version=1 version_date=980220>",
+                f"<section type=filler startTime=0.000 endTime={turns[0][1]:.3f}>", "</section>",
+                f"<section type=report startTime={turns[0][1]:.3f} "
+                f'endTime={turns[-1][2]:.3f} topic="news">']
+        for i, (w, s, e) in enumerate(turns):
+            sgml.append(f"<turn speaker=Speaker_{i % 3 + 1} spkrtype={('male', 'female')[w]} "
+                        f"startTime={s:.3f} endTime={e:.3f}>")
+            mid = round((s + e) / 2, 3)
+            sgml += [f"<time sec={s:.3f}>", _words(rng, ENGLISH, 3, 10), f"<time sec={mid:.3f}>",
+                     _words(rng, ENGLISH, 3, 10), "</turn>"]
+        sgml += ["</section>", "</episode>"]
+        (trans / f"{stem}.sgml").write_text("\n".join(sgml) + "\n")
+    return audio, trans
+
+
+def _tel_corpus_specs(root: Path, rng, segment_words: bool) -> dict:
+    """Per corpus of phase 27's ``corpus_<name>`` legs, in the order they
+    run: the recipe's call for an output directory, the CLI's command, and
+    the training path ("asr"). GALE Mandarin splits its words with ``jieba``
+    where ``segment_words``."""
+    from lhotse_tpu_torch import recipes as R
+    from lhotse_tpu_torch.recipes.gale_arabic import TEST
+
+    e2k = _write_eval2000(root / "eval2000", rng)
+    che_audio, che_trans = _write_callhome_english(root / "callhome_english", rng)
+    chg_audio, chg_trans = _write_callhome_egyptian(root / "callhome_egyptian", rng)
+    fsp_audio, fsp_trans = _write_fisher_spanish(root / "fisher_spanish", rng)
+    ar_audio, ar_trans, _ = _write_gale(
+        root / "gale_arabic", rng, (("LDC2013S02", "LDC2013T17"), ("LDC2013S07", "LDC2013T04")),
+        tuple(TEST[:4]) + tuple(f"ALJZ_PROG{k:02d}_ARB_2007{k + 1:02d}05_205800" for k in range(12)),
+        TEL_ARABIC, " ")
+    zh_audio, zh_trans, _ = _write_gale(
+        root / "gale_mandarin", rng, (("LDC2013S08", "LDC2013T20"), ("LDC2015S06", "LDC2015T09")),
+        GALE_DEV + tuple(f"PHOENIX_PROG{k:02d}_CMN_2008{k % 9 + 1:02d}10_143000"
+                         for k in range(14)), MANDARIN, "")
+    mgb2, bn = _write_mgb2(root / "mgb2", rng), _write_broadcast_news(root / "broadcast_news", rng)
+    bn_audio, bn_trans = bn
+    segment = ["--segment-words"] if segment_words else []
+
+    def broadcast_news(o):
+        made = R.prepare_broadcast_news(bn_audio, bn_trans, output_dir=o, absolute_paths=True)
+        return {"recordings": made["recordings"], "supervisions": made["segments"]}
+
+    def gale(flag, dirs):
+        return [v for d in dirs for v in (flag, d)]
+
+    return {
+        "eval2000": (lambda o: R.prepare_eval2000(e2k, output_dir=o, absolute_paths=True),
+                     ["eval2000", e2k, "--absolute-paths"], "asr"),
+        "callhome_english": (lambda o: R.prepare_callhome_english(
+            che_audio, transcript_dir=che_trans, output_dir=o, absolute_paths=True),
+            ["callhome-english", che_audio, "--transcript-dir", che_trans, "--absolute-paths",
+             "true"], "asr"),
+        "callhome_egyptian": (lambda o: R.prepare_callhome_egyptian(
+            chg_audio, chg_trans, output_dir=o, absolute_paths=True),
+            ["callhome-egyptian", chg_audio, chg_trans, "--absolute-paths", "true"], "asr"),
+        "fisher_spanish": (lambda o: R.prepare_fisher_spanish(
+            fsp_audio, fsp_trans, output_dir=o, absolute_paths=True),
+            ["fisher-spanish", fsp_audio, fsp_trans, "--absolute-paths", "true"], "asr"),
+        "gale_arabic": (lambda o: R.prepare_gale_arabic(ar_audio, ar_trans, output_dir=o),
+                        ["gale-arabic"] + gale("-s", ar_audio) + gale("-t", ar_trans)
+                        + ["--absolute-paths", "true"], "asr"),
+        "gale_mandarin": (lambda o: R.prepare_gale_mandarin(
+            zh_audio, zh_trans, output_dir=o, segment_words=segment_words),
+            ["gale-mandarin"] + gale("-s", zh_audio) + gale("-t", zh_trans)
+            + ["--absolute-paths", "true"] + segment, "asr"),
+        "mgb2": (lambda o: R.prepare_mgb2(mgb2, o), ["mgb2", mgb2], "asr"),
+        "broadcast_news": (broadcast_news,
+                           ["broadcast-news", bn_audio, bn_trans, "--absolute-paths", "true"],
+                           "asr"),
+    }
+
+
+def _phase_telephone(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """27. The LDC telephone and broadcast corpus recipes, in phase 14's
+    directory after phase 26 (phase 23's MUSAN noise and RIRS_NOISES
+    manifests feed the augmenter). Every recipe runs as a function and
+    through the CLI's ``prepare`` command, and their manifests must be
+    equal. ``swbd_fisher_device_chain``: the training set of Kaldi's
+    ``fisher_swbd`` recipe, 8 Switchboard-1 conversations of 5 minutes and
+    8 Fisher English calls of 10 minutes, two-channel 8 kHz mu-law SPHERE
+    in their published layouts with MS-State and LDC transcripts →
+    ``prepare_switchboard`` and ``prepare_fisher_english`` →
+    ``CutSet.from_manifests`` → ``trim_to_supervisions`` (each side of a
+    call its own channel) → ``resample(16000)`` → one lazy manifest per
+    corpus → ``CutSet.mux(weights=[1, 1], seed=2727)`` → the first 256 cuts
+    in mux order as the 15 s x 256 bucket's int16 batch →
+    ``OnDeviceAugmenter`` with phase 23's MUSAN noise pool and real RIR,
+    speed 1.1, SNR (10, 20) and SpecAugment (twice, then once under
+    ``torch.profiler`` for the device's busy share, as every
+    ``_device_chain`` leg); the kernel against its
+    plain version on the batch it got, the features against the same chain
+    with the plain version. ``corpus_<name>``: Eval2000, CALLHOME English
+    (its ASR task), CALLHOME Egyptian and Fisher Spanish (two-channel 8 kHz
+    mu-law SPHERE, resampled to 16 kHz), GALE Arabic and GALE Mandarin
+    (16 kHz WAV and FLAC with TDF transcripts; GALE Mandarin's dev ids, which
+    its recipe reads from the network, replaced by a local list, and its
+    words split by ``jieba`` where it imports), MGB-2 (16 kHz WAV, train as
+    XML, dev and test as Kaldi directories) and 1997 Broadcast News (16 kHz
+    PCM SPHERE with Hub-4 SGML), 16 files each, into the step as phase 24's
+    ``corpus_<name>`` legs. Returns the kernel's launches per path and the
+    largest kernel-vs-plain error."""
+    from lhotse_tpu_torch import CutSet, RecordingSet, SupervisionSet
+    from lhotse_tpu_torch import recipes as R
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.recipes import gale_mandarin
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+    from lhotse_tpu_torch.utils import is_module_available
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(TEL_SEED)
+    root = workdir / "telephone"
+    launches, errs = {}, []
+
+    # -- swbd_fisher_device_chain ------------------------------------------------------------
+    t0 = time.perf_counter()
+    swbd_audio, swbd_trans, swbd_rows = _write_switchboard(root / "corpora" / "switchboard", rng)
+    fisher, fisher_rows = _write_fisher_english(root / "corpora" / "fisher_english", rng)
+    write_s = time.perf_counter() - t0
+    specs = {
+        "switchboard": (lambda o: R.prepare_switchboard(
+            swbd_audio, transcripts_dir=swbd_trans, output_dir=o, absolute_paths=True),
+            ["switchboard", swbd_audio, "--transcript-dir", swbd_trans, "--absolute-paths"]),
+        "fisher_english": (lambda o: R.prepare_fisher_english(
+            fisher, o, audio_dirs=["LDC2004S13"], transcript_dirs=["LDC2004T19"],
+            absolute_paths=True),
+            ["fisher-english", fisher, "-a", "LDC2004S13", "-t", "LDC2004T19",
+             "--absolute-paths", "true"]),
+    }
+    cut_paths, corpus_of, prepared = {}, {}, {}
+    for name, (function, argv) in specs.items():
+        made, files, function_s, cli_s = _prepare_twice(root / "manifests", name, function, argv)
+        recs, sups = made["recordings"], made["supervisions"]
+        cuts = CutSet.from_manifests(
+            recordings=RecordingSet.from_recordings(recs),
+            supervisions=SupervisionSet.from_segments(sups),
+        ).trim_to_supervisions(keep_overlapping=False).resample(SR)
+        cut_paths[name] = root / f"{name}_cuts.jsonl.gz"
+        cuts.to_file(cut_paths[name])
+        corpus_of.update((c.id, name) for c in cuts)
+        prepared[name] = {"recordings": len(recs), "channels": sorted({r.num_channels for r in recs}),
+                          "rates": sorted({r.sampling_rate for r in recs}),
+                          "supervisions": len(sups), "manifests": len(files),
+                          "prepare_s": function_s, "cli_s": cli_s}
+    if [prepared[n]["supervisions"] for n in specs] != [swbd_rows, fisher_rows]:
+        raise AssertionError(f"swbd_fisher_device_chain: supervisions {prepared} differ from the "
+                             f"transcripts' rows {swbd_rows} and {fisher_rows}")
+
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    order = list(CutSet.mux(*(CutSet.from_jsonl_lazy(p) for p in cut_paths.values()),
+                            weights=TEL_WEIGHTS, seed=TEL_SEED))[:bsz]
+    t0 = time.perf_counter()
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    for k, cut in enumerate(order):
+        x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    load_s = time.perf_counter() - t0
+    shares = {name: sum(corpus_of[c.id] == name for c in order) for name in specs}
+    channels = sorted({c.channel for c in order})
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] swbd_fisher_device_chain: {SWBD_CONVERSATIONS} Switchboard-1 conversations of "
+          f"{SWBD_SECONDS:g} s and {FISHER_CALLS} Fisher English calls of {FISHER_SECONDS:g} s "
+          f"(two-channel {TEL_SR} Hz mu-law SPHERE) written in {write_s!r} s, each prepared as "
+          f"function and CLI with equal manifests: {prepared}; trimmed to their supervisions, "
+          f"resampled to {SR} Hz and CutSet.mux(weights={TEL_WEIGHTS}, seed={TEL_SEED}): the first "
+          f"{len(order)} cuts ({float(lens.sum()) / SR!r} s, loaded in {load_s!r} s) hold {shares} "
+          f"on channels {channels}; noise pool {pool.shape} from phase 23's {len(noise)} MUSAN "
+          f"noise recordings, RIR {rir_rec.id} ({rir.size} taps)")
+    if (len(order) != bsz or min(shares.values()) < bsz // 4 or channels != [0, 1]
+            or lens.max() > n or lens.min() < 2 * SR
+            or any(c.sampling_rate != SR for c in order)):
+        raise AssertionError("swbd_fisher_device_chain: the muxed corpora do not fill the bucket")
+    launches["swbd_fisher_device_chain"], kernel_err, chain_err = _device_chain(
+        "swbd_fisher_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- corpus_<name> -----------------------------------------------------------------------
+    segment_words = is_module_available("jieba")
+    print(f"[{smi}] jieba imports: {segment_words}; corpus_gale_mandarin runs "
+          f"{'with' if segment_words else 'without'} segment_words")
+    t0 = time.perf_counter()
+    corpus_specs = _tel_corpus_specs(root / "corpora", rng, segment_words)
+    print(f"[{smi}] corpora ({', '.join(corpus_specs)}) written in {time.perf_counter() - t0!r} s")
+    # GALE Mandarin's recipe reads its dev ids from the network in every call: a local list
+    # takes its place while the legs run.
+    fetch = gale_mandarin._fetch_dev_ids
+    gale_mandarin._fetch_dev_ids = lambda: list(GALE_DEV)
+    try:
+        corpus_launches, corpus_errs, summary = _corpus_legs(
+            root / "manifests", corpus_specs, device, fbank_cuda, smi)
+    finally:
+        gale_mandarin._fetch_dev_ids = fetch
+    launches.update(corpus_launches)
+    errs += corpus_errs
+    print(f"[{smi}] phase 27 corpora: {summary}")
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -7127,6 +7668,13 @@ def main() -> None:
         launches_zh, zh_err = _phase_zh_corpora(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_zh)
         print(f"phase 26 took {time.perf_counter() - t0!r} s")
+        # -- 27. the LDC telephone and broadcast corpora: Switchboard-1 and Fisher English
+        # muxed into the main path, and the other LDC recipes into on-the-fly training,
+        # after phase 23
+        t0 = time.perf_counter()
+        launches_tel, tel_err = _phase_telephone(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_tel)
+        print(f"phase 27 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -7156,7 +7704,7 @@ def main() -> None:
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
-                              noise_err, single_err, muxed_err, zh_err]),
+                              noise_err, single_err, muxed_err, zh_err, tel_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

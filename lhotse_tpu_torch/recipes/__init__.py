@@ -8,9 +8,11 @@ far-field meeting corpora AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1,
 LibriCSS, CHiME-6 (an already synchronised layout) and DiPCo; the Chinese
 corpora THCHS-30, ST-CMDS, Primewords, MagicData, aidatatang_200zh,
 KeSpeech, TAL-ASR, TAL-CSASR, CDSD, SpeechIO, AISHELL-3, Baker,
-WenetSpeech4TTS, XBMU-AMDO31 (Tibetan) and MDCC (Cantonese); and the
-manifest caching helpers. The JAX package's other recipes are not
-ported."""
+WenetSpeech4TTS, XBMU-AMDO31 (Tibetan) and MDCC (Cantonese); the LDC
+telephone and broadcast corpora Switchboard-1, Eval2000, Fisher English,
+Fisher Spanish, CALLHOME English, CALLHOME Egyptian, GALE Arabic, GALE
+Mandarin, MGB-2 and 1997 English Broadcast News; and the manifest caching
+helpers. The JAX package's other recipes are not ported."""
 from lhotse_tpu_torch.recipes.aidatatang_200zh import prepare_aidatatang_200zh
 from lhotse_tpu_torch.recipes.aishell import prepare_aishell
 from lhotse_tpu_torch.recipes.aishell2 import prepare_aishell2
@@ -19,11 +21,19 @@ from lhotse_tpu_torch.recipes.aishell4 import prepare_aishell4
 from lhotse_tpu_torch.recipes.ali_meeting import prepare_ali_meeting
 from lhotse_tpu_torch.recipes.ami import prepare_ami
 from lhotse_tpu_torch.recipes.baker_zh import prepare_baker_zh
+from lhotse_tpu_torch.recipes.broadcast_news import prepare_broadcast_news
 from lhotse_tpu_torch.recipes.but_reverb_db import prepare_but_reverb_db
+from lhotse_tpu_torch.recipes.callhome_egyptian import prepare_callhome_egyptian
+from lhotse_tpu_torch.recipes.callhome_english import prepare_callhome_english
 from lhotse_tpu_torch.recipes.cdsd import prepare_cdsd
 from lhotse_tpu_torch.recipes.chime6 import prepare_chime6
 from lhotse_tpu_torch.recipes.commonvoice import prepare_commonvoice
 from lhotse_tpu_torch.recipes.dipco import prepare_dipco
+from lhotse_tpu_torch.recipes.eval2000 import prepare_eval2000
+from lhotse_tpu_torch.recipes.fisher_english import prepare_fisher_english
+from lhotse_tpu_torch.recipes.fisher_spanish import prepare_fisher_spanish
+from lhotse_tpu_torch.recipes.gale_arabic import prepare_gale_arabic
+from lhotse_tpu_torch.recipes.gale_mandarin import prepare_gale_mandarin
 from lhotse_tpu_torch.recipes.icsi import prepare_icsi
 from lhotse_tpu_torch.recipes.kespeech import prepare_kespeech
 from lhotse_tpu_torch.recipes.libricss import prepare_libricss
@@ -33,6 +43,7 @@ from lhotse_tpu_torch.recipes.libritts import prepare_libritts, prepare_libritts
 from lhotse_tpu_torch.recipes.ljspeech import prepare_ljspeech
 from lhotse_tpu_torch.recipes.magicdata import prepare_magicdata
 from lhotse_tpu_torch.recipes.mdcc import prepare_mdcc
+from lhotse_tpu_torch.recipes.mgb2 import prepare_mgb2
 from lhotse_tpu_torch.recipes.mls import prepare_mls
 from lhotse_tpu_torch.recipes.musan import prepare_musan
 from lhotse_tpu_torch.recipes.notsofar1 import prepare_notsofar1
@@ -42,6 +53,7 @@ from lhotse_tpu_torch.recipes.rir_noise import prepare_rir_noise
 from lhotse_tpu_torch.recipes.speechio import prepare_speechio
 from lhotse_tpu_torch.recipes.spgispeech import prepare_spgispeech
 from lhotse_tpu_torch.recipes.stcmds import prepare_stcmds
+from lhotse_tpu_torch.recipes.switchboard import prepare_switchboard
 from lhotse_tpu_torch.recipes.tal_asr import prepare_tal_asr
 from lhotse_tpu_torch.recipes.tal_csasr import prepare_tal_csasr
 from lhotse_tpu_torch.recipes.tedlium import prepare_tedlium
@@ -58,15 +70,18 @@ from lhotse_tpu_torch.recipes.xbmu_amdo31 import prepare_xbmu_amdo31
 from lhotse_tpu_torch.recipes.yesno import prepare_yesno
 
 __all__ = [
-    "download_librispeech", "finalize_manifests", "manifests_exist", "prepare_aidatatang_200zh",
-    "prepare_aishell", "prepare_aishell2", "prepare_aishell3", "prepare_aishell4",
-    "prepare_ali_meeting", "prepare_ami", "prepare_baker_zh", "prepare_but_reverb_db",
-    "prepare_cdsd", "prepare_chime6", "prepare_commonvoice", "prepare_dipco", "prepare_icsi",
-    "prepare_kespeech", "prepare_libricss", "prepare_librilight", "prepare_librispeech",
-    "prepare_libritts", "prepare_librittsr", "prepare_ljspeech", "prepare_magicdata",
-    "prepare_mdcc", "prepare_mls", "prepare_musan", "prepare_notsofar1", "prepare_peoples_speech",
-    "prepare_primewords", "prepare_rir_noise", "prepare_speechio", "prepare_spgispeech",
-    "prepare_stcmds", "prepare_tal_asr", "prepare_tal_csasr", "prepare_tedlium",
-    "prepare_tedlium2", "prepare_thchs_30", "prepare_timit", "prepare_vctk", "prepare_voxceleb",
-    "prepare_wenetspeech4tts", "prepare_wham", "prepare_xbmu_amdo31", "prepare_yesno",
-    "read_manifests_if_cached"]
+    "download_librispeech", "finalize_manifests", "manifests_exist",
+    "prepare_aidatatang_200zh", "prepare_aishell", "prepare_aishell2", "prepare_aishell3",
+    "prepare_aishell4", "prepare_ali_meeting", "prepare_ami", "prepare_baker_zh",
+    "prepare_broadcast_news", "prepare_but_reverb_db", "prepare_callhome_egyptian",
+    "prepare_callhome_english", "prepare_cdsd", "prepare_chime6", "prepare_commonvoice",
+    "prepare_dipco", "prepare_eval2000", "prepare_fisher_english", "prepare_fisher_spanish",
+    "prepare_gale_arabic", "prepare_gale_mandarin", "prepare_icsi", "prepare_kespeech",
+    "prepare_libricss", "prepare_librilight", "prepare_librispeech", "prepare_libritts",
+    "prepare_librittsr", "prepare_ljspeech", "prepare_magicdata", "prepare_mdcc",
+    "prepare_mgb2", "prepare_mls", "prepare_musan", "prepare_notsofar1",
+    "prepare_peoples_speech", "prepare_primewords", "prepare_rir_noise", "prepare_speechio",
+    "prepare_spgispeech", "prepare_stcmds", "prepare_switchboard", "prepare_tal_asr",
+    "prepare_tal_csasr", "prepare_tedlium", "prepare_tedlium2", "prepare_thchs_30",
+    "prepare_timit", "prepare_vctk", "prepare_voxceleb", "prepare_wenetspeech4tts",
+    "prepare_wham", "prepare_xbmu_amdo31", "prepare_yesno", "read_manifests_if_cached"]

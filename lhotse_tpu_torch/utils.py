@@ -1,9 +1,10 @@
 """
 Host helpers of the data path (copied from ``lhotse_tpu/utils/core.py``):
 time/sample/frame arithmetic, windowing and context extension, dataclass
-helpers, seeding, the streaming buffer shuffle, and the recipes' safe tar extraction and resumable
-download. Only the helpers the ported host modules call are here; each body
-is the original's.
+helpers, seeding, the streaming buffer shuffle, and the recipes' directory
+globbing, recursion limit, safe tar extraction and resumable download. Only
+the helpers the ported host modules call are here; each body is the
+original's.
 """
 from __future__ import annotations
 
@@ -586,6 +587,29 @@ def streaming_shuffle(data: Iterable[T], bufsize: int = 10000, rng: Optional[ran
         warming_up = False
         yield sample
     yield from buf
+
+
+def check_and_rglob(path, pattern: str, strict: bool = True) -> list:
+    """Assert ``path`` is a directory, recursively glob ``pattern`` inside,
+    and (with strict=True) assert at least one match."""
+    path = Path(path)
+    assert path.is_dir(), f"No such directory: {path}"
+    matches = sorted(path.rglob(pattern))
+    if strict:
+        assert len(matches) > 0, (f"No files matching pattern '{pattern}' in directory: {path}")
+    return matches
+
+
+@contextmanager
+def recursion_limit(stack_size: int):
+    """Python's recursion limit set to ``stack_size`` inside the block, and
+    the old limit restored on the way out, also on an error."""
+    old_size = sys.getrecursionlimit()
+    sys.setrecursionlimit(stack_size)
+    try:
+        yield
+    finally:
+        sys.setrecursionlimit(old_size)
 
 
 def safe_extract(tar, path: Pathlike = ".", members=None, *, numeric_owner=False):

@@ -26,10 +26,12 @@ LEFT_OUT = {
 # MDCC's command is registered twice, as "MDCC" and "mdcc", as in JAX.
 PORTED_RECIPES = {
     "MDCC", "aidatatang-200zh", "aishell", "aishell2", "aishell3", "aishell4", "ali-meeting",
-    "ami", "baker-zh", "but-reverb-db", "cdsd", "chime6", "commonvoice", "dipco", "icsi",
-    "kespeech", "libricss", "librilight", "librispeech", "libritts", "librittsr", "ljspeech",
-    "magicdata", "mdcc", "mls", "musan", "notsofar1", "peoples-speech", "primewords",
-    "rir-noise", "speechio", "spgispeech", "stcmds", "tal-asr", "tal-csasr", "tedlium",
+    "ami", "baker-zh", "broadcast-news", "but-reverb-db", "callhome-egyptian",
+    "callhome-english", "cdsd", "chime6", "commonvoice", "dipco", "eval2000", "fisher-english",
+    "fisher-spanish", "gale-arabic", "gale-mandarin", "icsi", "kespeech", "libricss",
+    "librilight", "librispeech", "libritts", "librittsr", "ljspeech", "magicdata", "mdcc",
+    "mgb2", "mls", "musan", "notsofar1", "peoples-speech", "primewords", "rir-noise",
+    "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium",
     "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "wenetspeech4tts", "wham",
     "xbmu-amdo31", "yesno"}
 

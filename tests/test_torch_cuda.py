@@ -7,8 +7,9 @@ datasets over the zipped samplers and stored features on the card against
 the same port on the CPU; a piped Kaldi data dir through the CLI's
 ``feat extract-cuts-batch`` against the kernel's plain version; windows
 of simulated meetings through the SURT dataset on the card; and the
-augmenter fed by the MUSAN, RIRS_NOISES and AISHELL recipes and by a mux
-of the THCHS-30 and KeSpeech recipes on the card against the CPU port.
+augmenter fed by the MUSAN, RIRS_NOISES and AISHELL recipes, by a mux of
+the THCHS-30 and KeSpeech recipes and by Switchboard-1 conversations on the
+card against the CPU port.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -1080,6 +1081,104 @@ def test_zh_mux_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
         assert torch.equal(feat_lens.cpu(), cpu_lens)
         torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
 
+
+
+class _Float64Torch:
+    """``torch`` for the port's chain modules with ``float32`` read as
+    ``float64``: the same stages, in float64 (as tests/test_torch_host_loader.py)."""
+
+    def __getattr__(self, name):
+        return torch.float64 if name == "float32" else getattr(torch, name)
+
+
+class _Float64Fbank:
+    """The fbank kernel's function in float64, on the layer's float32 matrices."""
+
+    frame_shift = 0.01
+
+    def __init__(self):
+        Mc, Ms, fb, _ = Wav2LogFilterBank(device="cpu")._fused_matrices()
+        self.mats = [torch.as_tensor(m).double() for m in (Mc, Ms, fb)]
+
+    def __call__(self, x):
+        frames = fbank_cuda.edge_pad(x.double()).unfold(-1, 400, 160)
+        Mc, Ms, fb = self.mats
+        power = (frames @ Mc) ** 2 + (frames @ Ms) ** 2
+        return torch.log(torch.clamp_min(power @ fb, ops.FLT_EPS))
+
+
+def test_telephone_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
+    """Two Switchboard-1 conversations of two-channel 8 kHz mu-law SPHERE
+    with MS-State transcripts through ``prepare_switchboard``, trimmed to
+    their supervisions (each side of a call its own channel) and resampled
+    to 16 kHz, in two batches of the 2 s x 4 bucket, into the augmenter on
+    the card against the same augmenter on the CPU port: within
+    ``FEATURE_TOL`` in the mel bins below 4 kHz. Above 4 kHz the 8 kHz audio
+    holds only the int16 wire's quantization floor (log mel -8 to -13),
+    where the float32 audio stages' rounding shows: there each chain is held
+    within 2e-3 of the same stages in float64 on the CPU. On an H100 the
+    card's chain measured 1.03e-3 and 8.2e-4 from them on the two batches,
+    the CPU's 5.4e-4 and 6.0e-4 (tests/test_torch_recipes_ldc.py holds the
+    CPU port and JAX within 1e-3 there), the two chains 1.14e-3 apart, and
+    3.1e-5 apart below 4 kHz."""
+    from lhotse_tpu_torch.audio.sphio import write_sph
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.ops import augment, resample
+    from lhotse_tpu_torch.recipes import prepare_switchboard
+
+    audio_dir, trans = tmp_path / "swb1", tmp_path / "swb_ms98_transcriptions"
+    audio_dir.mkdir()
+    for k, conv in enumerate(("2001", "2005")):
+        write_sph(audio_dir / f"sw0{conv}.sph", _audio((2, 4 * 8000), seed=50 + k), 8000,
+                  coding="ulaw")
+        for side in "AB":
+            (trans / conv[:2] / conv).mkdir(parents=True, exist_ok=True)
+            (trans / conv[:2] / conv / f"sw{conv}{side}-ms98-a-trans.text").write_text("".join(
+                f"sw{conv}{side}-ms98-a-{i + 1:04d} {1.9 * i:.2f} {1.9 * i + 1.3:.2f} hello\n"
+                for i in range(2)))
+    made = prepare_switchboard(audio_dir, transcripts_dir=trans, absolute_paths=True)
+    cuts = list(CutSet.from_manifests(**made).trim_to_supervisions(keep_overlapping=False)
+                .resample(16000))
+    assert len(cuts) == 8 and {c.channel for c in cuts} == {0, 1}
+    fb = np.asarray(Wav2LogFilterBank(device="cpu")._fused_matrices()[2])
+    band = fb[fb.shape[0] // 2:].max(axis=0) == 0  # the mel bins below 4 kHz
+    n = 4800
+    rir = _audio((n,), seed=9) * np.exp(-np.arange(n) / (n / 6.0)).astype(np.float32)
+    rir[32] = 1.0
+    cfg = dict(buckets=[(2.0, 4)], speed_factor=1.1, noise_pool=_audio((4, 48000), seed=21),
+               rir=rir, snr=(10, 20), mix_prob=0.5, seed=3, wire_format="int16")
+    spec = SpecAugment(seed=7)
+    cpu_aug = OnDeviceAugmenter(**cfg, specaugment=spec, device="cpu")
+    card_aug = OnDeviceAugmenter(**cfg, specaugment=spec, device=cuda)
+    plain = OnDeviceAugmenter(**cfg, device="cpu", fbank=_Float64Fbank())
+    for i in (0, 4):
+        audio = [c.load_audio()[0] for c in cuts[i:i + 4]]
+        lens = [len(a) for a in audio]
+        x = np.zeros((4, max(lens)), np.float32)
+        for k, a in enumerate(audio):
+            x[k, : len(a)] = a
+        staged = cpu_aug.stage(x, lens)
+        cpu_feats, cpu_lens = cpu_aug.compute(staged)
+        fbank_cuda.LAUNCHES = 0
+        feats, feat_lens = card_aug(x, lens)
+        assert fbank_cuda.LAUNCHES == 1
+        assert torch.equal(feat_lens.cpu(), cpu_lens)
+        feats = feats.cpu()
+        torch.testing.assert_close(feats[..., band], cpu_feats[..., band], rtol=0,
+                                   atol=FEATURE_TOL)
+        conv_weight = resample._conv_weight
+        saved = augment.torch, resample.torch, resample._conv_weight
+        augment.torch = resample.torch = _Float64Torch()
+        resample._conv_weight = lambda *a: conv_weight(*a).double()
+        try:
+            truth, _ = plain.compute(staged)
+        finally:
+            augment.torch, resample.torch, resample._conv_weight = saved
+        # SpecAugment's masked cells are zero in both chains; the float64 stages have no masks.
+        real = (torch.arange(truth.shape[1])[None, :] < cpu_lens[:, None])[..., None]
+        kept = real & (feats != 0) & (cpu_feats != 0)
+        for chain in (feats, cpu_feats):
+            assert (chain.double() - truth).abs()[kept].max() <= 2e-3
 
 def test_global_mvn_and_randomized_smoothing_on_card(cuda, tmp_path):
     """``GlobalMVN.from_cuts`` with the fbank kernel against the CPU route's

@@ -142,7 +142,17 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.recipes.xbmu_amdo31, lhotse_tpu_torch.recipes.mdcc, "
         "lhotse_tpu_torch.bin.modes.recipes.zh_corpora, "
         "lhotse_tpu_torch.bin.modes.recipes.zh_corpora_extra, "
-        "lhotse_tpu_torch.bin.modes.recipes.aishell3, lhotse_tpu_torch.bin.modes.recipes.mdcc; "
+        "lhotse_tpu_torch.bin.modes.recipes.aishell3, lhotse_tpu_torch.bin.modes.recipes.mdcc, "
+        "lhotse_tpu_torch.recipes._tdf, lhotse_tpu_torch.recipes.switchboard, "
+        "lhotse_tpu_torch.recipes.eval2000, lhotse_tpu_torch.recipes.fisher_english, "
+        "lhotse_tpu_torch.recipes.fisher_spanish, lhotse_tpu_torch.recipes.callhome_english, "
+        "lhotse_tpu_torch.recipes.callhome_egyptian, lhotse_tpu_torch.recipes.gale_arabic, "
+        "lhotse_tpu_torch.recipes.gale_mandarin, lhotse_tpu_torch.recipes.mgb2, "
+        "lhotse_tpu_torch.recipes.broadcast_news, "
+        "lhotse_tpu_torch.bin.modes.recipes.switchboard, "
+        "lhotse_tpu_torch.bin.modes.recipes.fisher_english, "
+        "lhotse_tpu_torch.bin.modes.recipes.telephone_broadcast, "
+        "lhotse_tpu_torch.bin.modes.recipes.broadcast_news; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "
         "from lhotse_tpu_torch.dataset.signal_transforms import GlobalMVN, RandomizedSmoothing; "
