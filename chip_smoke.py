@@ -138,7 +138,16 @@ recipes, as function and CLI, ``trim_to_supervisions``, ``resample(16000)``
 and ``CutSet.mux`` into the augmenter at the 15 s × 256 bucket with phase
 23's MUSAN pool and RIR; Eval2000, CALLHOME English and Egyptian, Fisher
 Spanish, GALE Arabic and Mandarin, MGB-2 and 1997 Broadcast News through
-their recipes into the step); and checks what comes out.
+their recipes into the step); then the overlapped-speech, diarization and
+earnings-call corpora and the CHiME-6 array synchroniser (256 Libri2Mix
+rows over the LibriSpeech utterances and WHAM! noises through
+``prepare_librimix`` into the augmenter at the 15 s × 256 bucket, their
+sources and mixtures into stored features and a separation dataset,
+LibriSpeechMix into SURT training, DIHARD III and VoxConverse sessions into
+diarization training, a raw CHiME-5 dev split synchronised by
+``prepare_chime6(perform_array_sync=True)`` into the step, MiniLibriMix,
+and Spatial LibriSpeech and Earnings-21/22 where pandas and the MP3
+libraries are found); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -191,7 +200,14 @@ and ``corpus_<name>`` for ``tal_asr``, ``tal_csasr``, ``cdsd``,
 ``wenetspeech4tts``, ``swbd_fisher_device_chain`` and ``corpus_<name>`` for
 ``eval2000``, ``callhome_english``, ``callhome_egyptian``,
 ``fisher_spanish``, ``gale_arabic``, ``gale_mandarin``, ``mgb2`` and
-``broadcast_news``); the last line is
+``broadcast_news``, ``librimix_device_chain``,
+``librimix_separation_extract``, ``librimix_separation`` (0: it reads
+stored features), ``librispeechmix_surt``, ``dihard3_diarization_extract``,
+``dihard3_diarization`` and ``voxconverse_diarization`` (0: they read
+stored features), ``voxconverse_diarization_extract``,
+``chime6_array_sync``, ``corpus_librimix_mini`` and, where they run,
+``corpus_spatial_librispeech``, ``corpus_earnings21`` and
+``corpus_earnings22``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -4603,12 +4619,14 @@ def _write_noise_corpora(root: Path, rng) -> dict:
 
 def _same_written(a: Path, b: Path, name: str) -> list:
     """The ``.jsonl.gz`` and ``.jsonl`` manifests two runs wrote, equal (the
-    first once decompressed: a gzip header carries its write time). Returns
-    their names."""
+    first once decompressed: a gzip header carries its write time) with each
+    run's own directory swapped out (a recipe that writes audio names it
+    there). Returns their names."""
     import gzip
 
     def read(p: Path) -> bytes:
-        return gzip.decompress(p.read_bytes()) if p.suffix == ".gz" else p.read_bytes()
+        data = gzip.decompress(p.read_bytes()) if p.suffix == ".gz" else p.read_bytes()
+        return data.replace(str(p.parent).encode(), b"<out>")
 
     def listed(d: Path) -> list:
         return sorted(p.name for pattern in ("*.jsonl.gz", "*.jsonl") for p in d.glob(pattern))
@@ -4619,19 +4637,25 @@ def _same_written(a: Path, b: Path, name: str) -> list:
     return names
 
 
-def _prepare_twice(manifests: Path, name: str, function, argv: list) -> tuple:
+def _prepare_twice(manifests: Path, name: str, function, argv: list, seed=None) -> tuple:
     """A recipe as a function and through the CLI's ``prepare`` command (in
     this process), into ``manifests / name / "function"`` and ``.../"cli"``;
-    the manifests they write must be equal. Returns what the function made,
-    the manifests' names and the seconds of each run."""
+    the manifests they write must be equal. With ``seed``, each run starts
+    from ``fix_random_seed(seed)`` (the CLI's ``-s``): for a recipe that
+    names cuts with ``uuid4``. Returns what the function made, the manifests'
+    names and the seconds of each run."""
     from lhotse_tpu_torch.bin.modes import cli
+    from lhotse_tpu_torch.utils import fix_random_seed
 
     out = manifests / name
     t = time.perf_counter()
+    if seed is not None:
+        fix_random_seed(seed)
     made = function(out / "function")
     function_s = time.perf_counter() - t
     t = time.perf_counter()
-    cli.main(["prepare"] + [str(a) for a in argv] + [str(out / "cli")], standalone_mode=False)
+    cli.main(([] if seed is None else ["-s", str(seed)]) + ["prepare"] + [str(a) for a in argv]
+             + [str(out / "cli")], standalone_mode=False)
     cli_s = time.perf_counter() - t
     return made, _same_written(out / "function", out / "cli", name), function_s, cli_s
 
@@ -7232,6 +7256,709 @@ def _phase_telephone(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+OVERLAP_SEED = 2828
+LIBRIMIX_ROWS = 256  # Libri2Mix rows: the 15 s x 256 bucket's rows
+LIBRIMIX_GAINS = ((0.5, 1.5), (0.2, 0.8))  # the sources' and the WHAM! noise's gains
+SEPARATION_ROWS = 32  # rows whose sources and mixtures are extracted for separation
+LSMIX_ENTRIES = 64
+LSMIX_DELAY = (0.5, 3.0)  # s before the second speaker of a LibriSpeechMix entry starts
+DIAR_SESSIONS = 8
+DIAR_SECONDS = 120.0
+DIAR_SPEAKERS = (2, 6)
+DIAR_DOMAINS = ("audiobooks", "broadcast_interview", "clinical", "court", "cts", "maptask",
+                "meeting", "restaurant", "socio_field", "socio_lab", "webvideo")
+CHIME5_SESSIONS = (("S02", 120.0), ("S09", 30.0))  # the dev split; S09 only completes it
+CHIME5_ARRAYS, CHIME5_CHANNELS = 6, 4
+CHIME5_HEADSETS = {"S02": ("P05", "P06", "P07", "P08"), "S09": ("P25", "P26", "P27", "P28")}
+MINI_ROWS = 16
+MINI_SR = 8000  # MiniLibriMix's wav8k/min
+MINI_SECONDS = (3.5, 8.0)
+OVERLAP_CORPUS_FILES = 16  # files of the corpus_spatial_librispeech and corpus_earnings legs
+EARNINGS_SECONDS = 120.0  # each earnings call, cut to 2 minutes
+EARNINGS_WORDS = ("good", "morning", "everyone", "revenue", "grew", "percent", "year", "over",
+                  "quarter", "thank", "you", "operator", "margin", "guidance")
+
+
+def _write_librimix_metadata(root: Path, utterances, wham_ids: list, rng) -> Path:
+    """``metadata/Libri2Mix/libri2mix_train-100.csv`` in the published
+    columns: ``LIBRIMIX_ROWS`` rows, each two utterances of different
+    speakers (seeded choice) at gains drawn from ``LIBRIMIX_GAINS[0]`` and a
+    WHAM! train noise (plain, or its 0.8 or 1.2 speed variant) at a gain from
+    ``LIBRIMIX_GAINS[1]``; and the ``_info`` file the recipe skips."""
+    ids = sorted(c.recording_id for c in utterances)
+    rows, seen = [], set()
+    while len(rows) < LIBRIMIX_ROWS:
+        a, b = (ids[i] for i in rng.choice(len(ids), 2, replace=False))
+        if a.split("-")[0] == b.split("-")[0] or f"{a}_{b}" in seen:
+            continue
+        seen.add(f"{a}_{b}")
+        noise = wham_ids[int(rng.integers(len(wham_ids)))] + ("", "sp08", "sp12")[int(rng.integers(3))]
+        gains = [round(float(rng.uniform(*LIBRIMIX_GAINS[k > 1])), 6) for k in range(3)]
+        rows.append(",".join([
+            f"{a}_{b}", f"train-clean-100/{a.split('-')[0]}/{a.split('-')[1]}/{a}.flac",
+            str(gains[0]), f"train-clean-100/{b.split('-')[0]}/{b.split('-')[1]}/{b}.flac",
+            str(gains[1]), f"tr/{noise}.wav", str(gains[2])]))
+    meta = root / "metadata"
+    (meta / "Libri2Mix").mkdir(parents=True)
+    (meta / "Libri2Mix" / "libri2mix_train-100.csv").write_text("\n".join(
+        ["mixture_ID,source_1_path,source_1_gain,source_2_path,source_2_gain,noise_path,"
+         "noise_gain"] + rows) + "\n")
+    (meta / "Libri2Mix" / "libri2mix_train-100_info.csv").write_text("")
+    return meta
+
+
+def _write_librispeechmix(root: Path, utterances, rng) -> Path:
+    """``list/test-clean-2mix.jsonl``: ``LSMIX_ENTRIES`` entries in the
+    published format (``id``, ``wavs``, ``delays``, ``speakers``, ``texts``,
+    ``durations``), two utterances of different speakers each, the second
+    delayed by ``LSMIX_DELAY`` seconds."""
+    by_id = {c.recording_id: c for c in utterances}
+    ids = sorted(by_id)
+    lines = []
+    while len(lines) < LSMIX_ENTRIES:
+        a, b = (ids[i] for i in rng.choice(len(ids), 2, replace=False))
+        if a.split("-")[0] == b.split("-")[0]:
+            continue
+        lines.append(json.dumps({
+            "id": f"test-clean-2mix/{len(lines):05d}",
+            "wavs": [f"test-clean/{u.split('-')[0]}/{u.split('-')[1]}/{u}.flac" for u in (a, b)],
+            "delays": [0.0, round(float(rng.uniform(*LSMIX_DELAY)), 3)],
+            "speakers": [u.split("-")[0] for u in (a, b)],
+            "texts": [by_id[u].supervisions[0].text for u in (a, b)],
+            "durations": [by_id[u].duration for u in (a, b)]}))
+    (root / "list").mkdir(parents=True)
+    (root / "list" / "test-clean-2mix.jsonl").write_text("\n".join(lines) + "\n")
+    return root / "list"
+
+
+def _diarization_turns(rng, seconds: float, speakers: int) -> list:
+    """``_meeting_turns`` with a negative gap now and then, so that turns
+    overlap."""
+    turns, t, spk = [], 0.5, 0
+    while True:
+        span = round(float(rng.uniform(*MEETING_TURN_SECONDS)), 2)
+        if t + span > seconds - 0.3:
+            return turns
+        turns.append((spk, round(t, 2), round(t + span, 2), []))
+        t = round(t + span + float(rng.uniform(-1.0, 1.5)), 2)
+        spk = (spk + int(rng.integers(1, speakers))) % speakers
+
+
+def _write_diarization_corpora(root: Path, rng) -> tuple:
+    """DIHARD III's dev layout (``data/flac``, ``data/rttm``, ``data/uem``
+    and ``docs/recordings.tbl``) and VoxConverse's (``dev/*.wav`` with the
+    annotation repository's ``dev/*.rttm`` beside them), ``DIAR_SESSIONS``
+    sessions of ``DIAR_SECONDS`` each with 2-6 speakers in overlapping
+    turns. Returns both roots and the turns written."""
+    dihard, vox = root / "LDC2020E12_DIHARD_III_dev", root / "voxconverse"
+    table = ["file_id\tin_core\tlanguage\tdomain\tsource"]
+    written = 0
+    for k in range(DIAR_SESSIONS):
+        for corpus in ("dihard3", "voxconverse"):
+            speakers = int(rng.integers(DIAR_SPEAKERS[0], DIAR_SPEAKERS[1] + 1))
+            turns = _diarization_turns(rng, DIAR_SECONDS, speakers)
+            audio = _meeting_audio(rng, DIAR_SECONDS, turns, 1, speakers=speakers)[0]
+            written += len(turns)
+            if corpus == "dihard3":
+                rid = f"DH_DEV_{k + 1:04d}"
+                _write_audio(dihard / "data" / "flac" / f"{rid}.flac", audio, SR)
+                names = [f"speaker{s}" for s in range(speakers)]
+                rttm = dihard / "data" / "rttm" / f"{rid}.rttm"
+                (dihard / "data" / "uem").mkdir(parents=True, exist_ok=True)
+                (dihard / "data" / "uem" / f"{rid}.uem").write_text(
+                    f"{rid} 1 0.000 {DIAR_SECONDS:.3f}\n")
+                table.append(f"{rid}\t{k % 2 == 0}\teng\t{DIAR_DOMAINS[k % len(DIAR_DOMAINS)]}"
+                             "\tLDC")
+            else:
+                rid = "".join(chr(97 + int(c)) for c in rng.integers(0, 26, 5))
+                _wav_file(vox / "dev" / f"{rid}.wav", audio)
+                names = [f"spk{s:02d}" for s in range(speakers)]
+                rttm = vox / "dev" / f"{rid}.rttm"
+            rttm.parent.mkdir(parents=True, exist_ok=True)
+            rttm.write_text("".join(
+                f"SPEAKER {rid} 1 {start:.3f} {end - start:.3f} <NA> <NA> {names[s]} <NA> <NA>\n"
+                for s, start, end, _ in turns))
+    (dihard / "docs").mkdir(parents=True)
+    (dihard / "docs" / "recordings.tbl").write_text("\n".join(table) + "\n")
+    (vox / "test").mkdir(parents=True)
+    return dihard, vox, written
+
+
+def _fit(x: np.ndarray, n: int) -> np.ndarray:
+    """``x`` cut or zero-padded to ``n`` samples along its last axis."""
+    out = np.zeros(x.shape[:-1] + (n,), x.dtype)
+    out[..., : min(n, x.shape[-1])] = x[..., :n]
+    return out
+
+
+def _write_chime5(root: Path, rng) -> tuple:
+    """A raw CHiME-5 dev split in the published layout: per session six
+    4-channel Kinect arrays (``audio/dev/S02_U0k.CHn.wav``), four binaural
+    headsets (``S02_P05.wav``...) and ``transcriptions/dev/S02.json`` with
+    per-device ``original`` times, ``ref`` and ``location``; every device a
+    few hundred samples off the session's length. And the
+    ``chime6_audio_edits.json`` shape that makes them agree: per array,
+    frame-drop triplets (a dropped and an inserted span), ``speed`` (1.0 for
+    U01, a drift of a few 1e-4 for the others) and ``padding``; per headset,
+    ``speed`` and ``padding``. Returns the corpus root, the edits and the
+    count of transcribed turns."""
+    edits, n_turns = {}, 0
+    for session, seconds in CHIME5_SESSIONS:
+        target = int(seconds * SR)
+        headsets = CHIME5_HEADSETS[session]
+        turns = _meeting_turns(rng, seconds)
+        n_turns += len(turns)
+        arrays = _meeting_audio(rng, seconds, turns, CHIME5_ARRAYS * CHIME5_CHANNELS)
+        heads = _meeting_audio(rng, seconds, turns, len(headsets), headsets=True)
+        fits = {}
+        for u in range(CHIME5_ARRAYS):
+            raw = target + int(rng.integers(-400, 400))
+            drop, gap, a = 60 + 10 * u, 30, raw // 3
+            x = _fit(arrays[CHIME5_CHANNELS * u: CHIME5_CHANNELS * (u + 1)], raw)
+            for c in range(CHIME5_CHANNELS):
+                _wav_file(root / "audio" / "dev" / f"{session}_U0{u + 1}.CH{c + 1}.wav", x[c])
+            speed = 1.0 if u == 0 else float(rng.choice([0.9997, 0.9998, 1.0002, 1.0003]))
+            length = raw - drop + gap
+            fits[f"U0{u + 1}"] = {
+                "edits": [[1, a, 1], [a + 1 + drop, 2 * a, a + 1],
+                          [2 * a + 1, raw, 2 * a + 1 - drop + gap]],
+                "speed": speed, "padding": target - int(length / speed)}
+        for k, p in enumerate(headsets):
+            raw = target + int(rng.integers(-300, 300))
+            _wav_file(root / "audio" / "dev" / f"{session}_{p}.wav",
+                      _fit(np.stack([heads[k], heads[k]]), raw))
+            speed = float(rng.choice([0.9996, 1.0, 1.0004]))
+            fits[p] = {"speed": speed, "padding": target - int(raw / speed)}
+        edits[session] = fits
+        entries = []
+        for spk, start, end, words in turns:
+            devices = ["original"] + [f"U0{u + 1}" for u in range(CHIME5_ARRAYS)] + list(headsets)
+            entries.append({
+                "end_time": {d: _hms(end + 0.001 * i) for i, d in enumerate(devices)},
+                "start_time": {d: _hms(start + 0.001 * i) for i, d in enumerate(devices)},
+                "words": " ".join(words).lower(), "speaker": headsets[spk],
+                "ref": f"U0{1 + spk % CHIME5_ARRAYS}", "location": "kitchen",
+                "session_id": session})
+        (root / "transcriptions" / "dev").mkdir(parents=True, exist_ok=True)
+        (root / "transcriptions" / "dev" / f"{session}.json").write_text(json.dumps(entries))
+    return root, edits, n_turns
+
+
+def _write_librimix_mini(root: Path, bursts, rng) -> Path:
+    """MiniLibriMix's layout: ``metadata/mixture_train_mix_both.csv`` over
+    ``wav8k/min/train/{mix_both,s1,s2,noise}``, ``MINI_ROWS`` rows at 8 kHz
+    (two tone-burst speakers, white noise, and their sum)."""
+    base = root / "MiniLibriMix" / "wav8k" / "min" / "train"
+    rows = ["mixture_ID,mixture_path,source_1_path,source_2_path,noise_path,length"]
+    for i in range(MINI_ROWS):
+        seconds = float(rng.uniform(*MINI_SECONDS))
+        s1, s2 = (_tone_burst(bursts, seconds, MINI_SR) for _ in range(2))
+        noise = (0.05 * rng.standard_normal(len(s1))).astype(np.float32)
+        mid = f"{100 + i}-{5000 + i}-{i:04d}_{300 + i}-{7000 + i}-{i:04d}"
+        paths = {}
+        for role, x in (("mix_both", s1 + s2 + noise), ("s1", s1), ("s2", s2), ("noise", noise)):
+            paths[role] = base / role / f"{mid}.wav"
+            _write_audio(paths[role], x, MINI_SR)
+        rows.append(f"{mid},{paths['mix_both']},{paths['s1']},{paths['s2']},{paths['noise']},"
+                    f"{len(s1)}")
+    csv_path = root / "MiniLibriMix" / "metadata" / "mixture_train_mix_both.csv"
+    csv_path.parent.mkdir(parents=True)
+    csv_path.write_text("\n".join(rows) + "\n")
+    return csv_path
+
+
+def _write_spatial_librispeech(root: Path, utterances, rng) -> Path:
+    """Spatial LibriSpeech: ``OVERLAP_CORPUS_FILES`` utterances of phase 14
+    rendered to 4-channel (first-order ambisonics) FLAC under
+    ``audio_files/{train,test}`` by a seeded gain per channel, and their rows
+    of ``metadata.parquet`` (needs pandas)."""
+    import pandas as pd
+
+    frame = {k: [] for k in ("split", "sample_id", "speech/librispeech_metadata/transcription",
+                             "speech/librispeech_metadata/reader_sex",
+                             "speech/librispeech_metadata/reader_id")}
+    for i, cut in enumerate(list(utterances)[:OVERLAP_CORPUS_FILES]):
+        split = "train" if i % 4 else "test"
+        x = cut.load_audio()[0]
+        _write_audio(root / "audio_files" / split / f"{1000 + i:06}.flac",
+                     np.stack([x * float(g) for g in rng.uniform(0.3, 1.0, 4)]), SR)
+        for key, value in zip(frame, (split, 1000 + i, cut.supervisions[0].text, "FM"[i % 2],
+                                      cut.recording_id.split("-")[0])):
+            frame[key].append(value)
+    pd.DataFrame(frame).to_parquet(root / "metadata.parquet")
+    return root
+
+
+def _write_earnings(root: Path, rng, bursts, name: str) -> Path:
+    """Earnings-21 or -22: ``OVERLAP_CORPUS_FILES`` calls of
+    ``EARNINGS_SECONDS`` as MP3 (libmp3lame) under ``media/``, their
+    ``transcripts/nlp_references/*.nlp`` token tables, and for Earnings-22 a
+    ``metadata.csv`` with the language region."""
+    from lhotse_tpu_torch.audio import syscodecs
+
+    nlp = root / "transcripts" / "nlp_references"
+    nlp.mkdir(parents=True)
+    meta = ["File ID,Ticker Symbol,Country by Ticker,Un Region,Language Region,Sector,Time"]
+    regions = ("African", "Asian", "English", "European", "Latin American", "Other")
+    for i in range(OVERLAP_CORPUS_FILES):
+        call = f"{4320211 + 97 * i}"
+        (root / "media").mkdir(exist_ok=True)
+        (root / "media" / f"{call}.mp3").write_bytes(syscodecs.mp3_encode(
+            _tone_burst(bursts, EARNINGS_SECONDS)[None, :], SR))
+        tokens = [EARNINGS_WORDS[j] for j in rng.integers(0, len(EARNINGS_WORDS), 40)]
+        (nlp / f"{call}.nlp").write_text("\n".join(
+            ["token|speaker|ts|endTs|punct|case|tags|wer_tags"]
+            + [f"{t}|{1 + j % 3}|||{',' if j % 7 == 6 else ''}|LC|[]|[]"
+               for j, t in enumerate(tokens)]) + "\n")
+        meta.append(f"{call},TCK{i},Country{i},Region{i},{regions[i % len(regions)]},Sector,0:02:00")
+    if name == "earnings22":
+        (root / "metadata.csv").write_text("\n".join(meta) + "\n")
+    return root
+
+
+def _phase_overlap(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """28. The overlapped-speech, diarization and earnings-call recipes and
+    the CHiME-6 array synchroniser, in phase 14's directory after phase 27
+    (phase 14's LibriSpeech manifests and phase 23's WHAM!, MUSAN and
+    RIRS_NOISES manifests feed it). Every recipe runs as a function and
+    through the CLI's ``prepare`` command, and their manifests must be equal.
+    ``librimix_device_chain``: Libri2Mix metadata in the published columns,
+    256 rows over phase 14's 160 utterances and phase 23's WHAM! noises →
+    ``prepare_librimix(n_src=2)`` (the noise extended by its crossfade where
+    it is shorter than the mixture) → the ``_noisy`` mixtures loaded on the
+    host as the 15 s x 256 bucket's int16 batch → ``OnDeviceAugmenter`` with
+    phase 23's MUSAN pool and real RIR, speed 1.1, SNR (10, 20) and
+    SpecAugment, as every ``_device_chain`` leg.
+    ``librimix_separation_extract``: the first 32 rows' clean sources (padded
+    to their mixture) and noisy mixtures → ``compute_and_store_features_batch``
+    on the kernel into ``lilcom_chunky``; ``librimix_separation``: the stored
+    features → ``PreMixedSourceSeparationDataset`` → the AdamW step (no
+    launch). ``librispeechmix_surt``: 64 two-speaker entries of
+    ``test-clean-2mix.jsonl`` → ``prepare_librispeechmix`` →
+    ``K2SurtDataset(num_channels=2)`` with ``OnTheFlyFeatures`` → the step.
+    ``dihard3_diarization_extract`` / ``dihard3_diarization`` and
+    ``voxconverse_diarization_extract`` / ``voxconverse_diarization``: 8
+    sessions of 120 s with 2-6 speakers in overlapping turns in each corpus's
+    layout → its recipe → 15 s windows → ``compute_and_store_features_batch``
+    → ``DiarizationDataset`` → the step. ``chime6_array_sync``: a raw CHiME-5
+    dev split (S02 of 120 s and S09 of 30 s, six 4-channel arrays and four
+    binaural headsets each) and a local ``audio_edits.json`` →
+    ``prepare_chime6(perform_array_sync=True, mic="mdm")``, the U01 channels
+    against their edit splice sample by sample, ``verify_md5_checksums`` on
+    an MD5 list of the synced files (and its refusal of a changed digest),
+    then ``trim_to_supervisions(keep_all_channels=True)`` → ``to_mono()`` →
+    ``OnTheFlyFeatures`` → the step. ``corpus_librimix_mini``: the
+    MiniLibriMix layout at 8 kHz → ``prepare_librimix_mini(
+    with_precomputed_mixtures=True, sampling_rate=8000)`` → the premixed
+    mixtures resampled to 16 kHz → the step. ``corpus_spatial_librispeech``
+    (where pandas imports: 16 four-channel files, a MonoCut per channel) and
+    ``corpus_earnings21`` / ``corpus_earnings22`` (where the MP3 libraries
+    load: 16 calls of 120 s each, in 15 s windows) into the step; otherwise a
+    line names what is missing. Returns the kernel's launches per path and
+    the largest kernel-vs-plain error."""
+    import hashlib
+    import warnings
+
+    from lhotse_tpu_torch import recipes as R
+    from lhotse_tpu_torch.audio import RecordingSet, syscodecs
+    from lhotse_tpu_torch.audio.wavio import read_wav
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet, MonoCut, MultiCut
+    from lhotse_tpu_torch.dataset import (
+        DiarizationDataset, K2SurtDataset, PreMixedSourceSeparationDataset, SimpleCutSampler)
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples, OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.features.io import LilcomChunkyWriter
+    from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled, trace_span
+    from lhotse_tpu_torch.utils import fastcopy, is_module_available
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.default_rng(OVERLAP_SEED)
+    bursts = np.random.RandomState(OVERLAP_SEED)
+    root = workdir / "overlap"
+    manifests = root / "manifests"
+    launches, errs = {}, []
+
+    def fly():
+        extractor = Fbank(FbankConfig(device=device))
+        return extractor, _RecordFirstBatch(extractor)
+
+    def loader_over(cuts, dataset):
+        return DataLoader(SimpleCutSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=True,
+                                           seed=0), dataset, prefetch_batches=3)
+
+    # -- librimix_device_chain ----------------------------------------------------------------
+    ls_manifests = workdir / "manifests"
+    utterances = CutSet.from_cuts(c for split in RECIPE_SPLITS for c in CutSet.from_manifests(
+        recordings=RecordingSet.from_file(ls_manifests / f"librispeech_recordings_{split}.jsonl.gz"),
+        supervisions=SupervisionSet.from_file(
+            ls_manifests / f"librispeech_supervisions_{split}.jsonl.gz"))).to_eager()
+    ls_root = root / "librispeech"
+    ls_root.mkdir(parents=True)
+    # LibriMix strips the last '-' field of each cut id to find the source; LibriSpeechMix
+    # looks the cuts up by recording id.
+    for part in ("train-100", "test-clean"):
+        utterances.to_file(ls_root / f"librispeech_cutset_{part}.jsonl.gz")
+    wham_root = workdir / "noise_meetings" / "manifests" / "wham" / "function"
+    wham_ids = sorted(r.id for r in RecordingSet.from_file(wham_root / "wham_recordings_tr.jsonl.gz"))
+    meta = _write_librimix_metadata(root, utterances, wham_ids, rng)
+    work = root / "librimix_work"
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "librimix",
+        lambda o: R.prepare_librimix(ls_root, wham_root, meta, work, output_dir=o, n_src=2),
+        ["librimix", ls_root, wham_root, meta, work, "--n-src", "2"])
+    clean = list(made["libri2mix_train-100"]["cutset"])
+    noisy = list(made["libri2mix_train-100_noisy"]["cutset"])
+    extended = sorted(p.name for p in work.iterdir())
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    t0 = time.perf_counter()
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    for k, cut in enumerate(noisy):
+        x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    load_s = time.perf_counter() - t0
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    speeds = {s: sum(c.tracks[-1].cut.recording.id.split("_vp")[0].endswith(s) for c in noisy)
+              for s in ("sp08", "sp12")}
+    print(f"[{smi}] librimix_device_chain: Libri2Mix metadata of {LIBRIMIX_ROWS} rows over "
+          f"{len(utterances)} LibriSpeech utterances and {len(wham_ids)} WHAM! train noises "
+          f"(tripled at speeds 0.8/1.0/1.2: {speeds} rows take the 0.8 and 1.2 variants); "
+          f"prepare {function_s!r} s, CLI {cli_s!r} s, its {len(files)} manifests equal; "
+          f"{len(clean)} clean and {len(noisy)} noisy mixtures, {len(extended)} noises extended "
+          f"into the work directory; the noisy mixtures loaded in {load_s!r} s: "
+          f"{float(lens.sum()) / SR!r} audio-s, the bucket {float(lens.sum()) / (bsz * n)!r} full")
+    if (len(noisy) != bsz or [c.id for c in noisy] != [c.id for c in clean] or not extended
+            or lens.max() > n or lens.min() < 4 * SR):
+        raise AssertionError("librimix_device_chain: the mixtures do not fill the bucket")
+    launches["librimix_device_chain"], kernel_err, chain_err = _device_chain(
+        "librimix_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- librimix_separation_extract, librimix_separation --------------------------------------
+    sources, mixtures = [], []
+    for clean_mix, noisy_mix in zip(clean[:SEPARATION_ROWS], noisy[:SEPARATION_ROWS]):
+        for k, track in enumerate(clean_mix.tracks):
+            source = track.cut
+            if source.duration < clean_mix.duration:
+                source = source.pad(duration=clean_mix.duration)
+            sources.append(fastcopy(source, id=f"{clean_mix.id}-src{k}"))
+        mixtures.append(noisy_mix)
+    extractor, recorder = fly()
+    stored = {}
+
+    def extract():
+        stored["cuts"] = CutSet.from_cuts(sources + mixtures).compute_and_store_features_batch(
+            extractor, root / "separation_feats", manifest_path=root / "separation.jsonl",
+            storage_type=LilcomChunkyWriter).to_eager()
+
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    wall_ms, busy_ms, _ = _device_busy(extract)
+    launches["librimix_separation_extract"] = fbank_cuda.LAUNCHES
+    err = _first_batch_err(recorder, extractor)
+    seconds = sum(c.duration for c in sources + mixtures)
+    print(f"[{smi}] librimix_separation_extract: {len(sources)} clean sources (padded to their "
+          f"mixture) and {len(mixtures)} noisy mixtures, {seconds!r} audio-s extracted and stored "
+          f"in {wall_ms!r} ms under torch.profiler: {seconds / wall_ms * 1e3!r} audio-s/s; device "
+          f"busy {busy_ms / wall_ms!r} of the wall; fbank kernel launches "
+          f"{launches['librimix_separation_extract']}; first batch kernel vs plain {err!r} (tol "
+          f"{KERNEL_TOL})")
+    if not launches["librimix_separation_extract"] >= 1 or not err <= KERNEL_TOL:
+        raise AssertionError("librimix_separation_extract: launches or the kernel are off")
+    errs.append(err)
+
+    def premixed(featured):
+        by_id = {c.id: c for c in featured}
+        relabelled = [fastcopy(by_id[s.id], recording=None, features=fastcopy(
+            by_id[s.id].features, recording_id=s.id.rsplit("-src", 1)[0])) for s in sources]
+        return PreMixedSourceSeparationDataset(
+            CutSet.from_cuts(relabelled), CutSet.from_cuts(by_id[m.id] for m in mixtures))
+
+    def sep_batches(dataset):
+        for lo in range(0, len(dataset), SEP_BATCH):
+            with trace_span("dataset.assemble"):
+                items = [dataset[i] for i in range(lo, min(lo + SEP_BATCH, len(dataset)))]
+            yield items
+
+    def sep_rows(items):
+        feats, feat_lens = _padded([it["mixture"] for it in items])
+        return feats, feat_lens, sum(feat_lens) * 0.01
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # "not yet updated to use the new sampling mechanism"
+        dataset = premixed(stored["cuts"])
+        cpu = premixed(CutSet.from_file(root / "separation.jsonl").to_eager())
+    run = _leg("librimix_separation", sep_batches(dataset), _Trainer(device), device, fbank_cuda,
+               sep_rows, smi, unit="mixture")
+    launches["librimix_separation"] = run["launches"]
+    items = [it for b in run["batches"] for it in b]
+    mask_err = 0.0
+    for it in items:
+        power = np.exp(it["sources"]).sum(0)
+        mask_err = max(mask_err, float(np.abs(it["real_mask"].sum(0) - power / (power + 1e-10)).max()))
+    masks_equal = len(items) == len(cpu) == SEPARATION_ROWS and all(
+        np.array_equal(it["real_mask"], cpu[i]["real_mask"])
+        and np.array_equal(it["binary_mask"], cpu[i]["binary_mask"]) for i, it in enumerate(items))
+    print(f"[{smi}] librimix_separation: {len(items)} mixtures of "
+          f"{items[0]['sources'].shape[0]} sources; real_mask sums over the sources to "
+          f"P / (P + EPSILON) within {mask_err!r} (tol 1e-6); masks equal to the dataset on the "
+          f"manifest read back: {masks_equal}")
+    if run["launches"] != 0 or not mask_err <= 1e-6 or not masks_equal:
+        raise AssertionError("librimix_separation: a launch, or the masks are off")
+
+    # -- librispeechmix_surt ------------------------------------------------------------------
+    lists = _write_librispeechmix(root / "LibriSpeechMix", utterances, rng)
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "librispeechmix",
+        lambda o: R.prepare_librispeechmix(ls_root, lists, output_dir=o),
+        ["librispeechmix", ls_root, lists], seed=OVERLAP_SEED)
+    mixed = made["test-clean-2mix"]["cutset"].to_eager()
+    extractor, recorder = fly()
+    loader = loader_over(mixed, K2SurtDataset(
+        num_channels=2, return_cuts=True, input_strategy=OnTheFlyFeatures(extractor)))
+    run = _leg("librispeechmix_surt", loader, _Trainer(device), device, fbank_cuda,
+               lambda b: (b["inputs"], b["input_lens"], sum(c.duration for c in b["cuts"])), smi)
+    launches["librispeechmix_surt"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    cpu = K2SurtDataset(num_channels=2, return_cuts=True, input_strategy=AudioSamples())
+
+    def sups(batch):
+        return [[[s.to_dict() for s in ch] for ch in cut] for cut in batch["supervisions"]]
+
+    same = all(b["text"] == want["text"] and sups(b) == sups(want)
+               for b, want in ((b, cpu[b["cuts"]]) for b in run["batches"]))
+    seen = sorted(c.id for b in run["batches"] for c in b["cuts"])
+    overlapped = sum(1 for b in run["batches"] for cut in b["supervisions"] if cut[1])
+    print(f"[{smi}] librispeechmix_surt: prepare {function_s!r} s, CLI {cli_s!r} s, its "
+          f"{len(files)} manifests equal; {len(mixed)} two-speaker mixtures, every one once: "
+          f"{seen == sorted(c.id for c in mixed)}, {overlapped} with a supervision on channel 1; "
+          f"supervisions and text equal to the CPU port's dataset on the same cuts: {same}; "
+          f"first batch kernel vs plain {err!r} (tol {KERNEL_TOL})")
+    if run["launches"] != len(run["batches"]) or seen != sorted(c.id for c in mixed):
+        raise AssertionError("librispeechmix_surt: launches or the epoch's cuts are off")
+    if len(mixed) != LSMIX_ENTRIES or not same or not overlapped or not err <= KERNEL_TOL:
+        raise AssertionError("librispeechmix_surt: the supervisions, text or features are off")
+    errs.append(err)
+
+    # -- dihard3_diarization(_extract), voxconverse_diarization(_extract) -----------------------
+    t0 = time.perf_counter()
+    dihard, vox, n_turns = _write_diarization_corpora(root / "diarization", rng)
+    print(f"[{smi}] DIHARD III and VoxConverse layouts ({DIAR_SESSIONS} sessions of "
+          f"{DIAR_SECONDS:g} s each, {n_turns} turns) written in {time.perf_counter() - t0!r} s")
+    diarization = {
+        "dihard3": (lambda o: R.prepare_dihard3(dev_audio_dir=dihard, output_dir=o),
+                    ["dihard3", "--dev", dihard]),
+        "voxconverse": (lambda o: R.prepare_voxconverse(vox, output_dir=o), ["voxconverse", vox]),
+    }
+    for name, (function, argv) in diarization.items():
+        made, files, function_s, cli_s = _prepare_twice(manifests, name, function, argv)
+        sessions = CutSet.from_manifests(recordings=made["dev"]["recordings"],
+                                         supervisions=made["dev"]["supervisions"])
+        windows = sessions.cut_into_windows(VAD_WINDOW).to_eager()
+        extractor, recorder = fly()
+        stored = {}
+
+        def extract():
+            stored["cuts"] = windows.compute_and_store_features_batch(
+                extractor, root / f"{name}_feats", storage_type=LilcomChunkyWriter).to_eager()
+
+        torch.cuda.synchronize()
+        fbank_cuda.LAUNCHES = 0
+        wall_ms, busy_ms, _ = _device_busy(extract)
+        launches[f"{name}_diarization_extract"] = fbank_cuda.LAUNCHES
+        err = _first_batch_err(recorder, extractor)
+        featured = stored["cuts"]
+        seconds = sum(c.duration for c in featured)
+        print(f"[{smi}] {name}_diarization_extract: prepare {function_s!r} s, CLI {cli_s!r} s, "
+              f"its {len(files)} manifests equal; {len(made['dev']['supervisions'])} turns of "
+              f"{len(made['dev']['recordings'])} sessions; {len(featured)} windows of "
+              f"{VAD_WINDOW:g} s, {seconds!r} audio-s extracted and stored in {wall_ms!r} ms "
+              f"under torch.profiler: {seconds / wall_ms * 1e3!r} audio-s/s; device busy "
+              f"{busy_ms / wall_ms!r} of the wall; fbank kernel launches "
+              f"{launches[f'{name}_diarization_extract']}; first batch kernel vs plain {err!r} "
+              f"(tol {KERNEL_TOL})")
+        if (not launches[f"{name}_diarization_extract"] >= 1 or not err <= KERNEL_TOL
+                or len(featured) != DIAR_SESSIONS * int(DIAR_SECONDS // VAD_WINDOW)):
+            raise AssertionError(f"{name}_diarization_extract: launches, windows or the kernel "
+                                 "are off")
+        errs.append(err)
+        dataset = _KeepCuts(DiarizationDataset(featured, global_speaker_ids=True,
+                                               min_speaker_dim=4))
+        run = _leg(f"{name}_diarization", loader_over(featured, dataset), _Trainer(device),
+                   device, fbank_cuda, lambda b: (b["features"], b["features_lens"],
+                                                  float(np.sum(b["features_lens"])) * 0.01), smi)
+        launches[f"{name}_diarization"] = run["launches"]
+        speakers = dataset.dataset.speakers
+        activity_equal = all(
+            np.array_equal(b["speaker_activity"], _activity_reference(cuts, speakers))
+            for cuts, b in zip(dataset.cuts, run["batches"]))
+        overlap = float(np.mean([(b["speaker_activity"].clip(0).sum(1) > 1).mean()
+                                 for b in run["batches"]]))
+        print(f"[{smi}] {name}_diarization: {len(speakers)} speakers; speaker_activity equal to "
+              f"the raster of the supervisions: {activity_equal}; share of frames with two or "
+              f"more speakers {overlap!r}")
+        if run["launches"] != 0 or not activity_equal or not overlap > 0:
+            raise AssertionError(f"{name}_diarization: launches or the speaker activity are off")
+
+    # -- chime6_array_sync --------------------------------------------------------------------
+    t0 = time.perf_counter()
+    chime5, edits, n_turns = _write_chime5(root / "CHiME5", rng)
+    print(f"[{smi}] raw CHiME-5 dev split ({', '.join(f'{s} of {t:g} s' for s, t in CHIME5_SESSIONS)}"
+          f", {CHIME5_ARRAYS} x {CHIME5_CHANNELS}-channel arrays and 4 binaural headsets each) "
+          f"written in {time.perf_counter() - t0!r} s")
+    for where in ("function", "cli"):
+        (manifests / "chime6" / where / "CHiME6").mkdir(parents=True)
+        (manifests / "chime6" / where / "CHiME6" / "audio_edits.json").write_text(json.dumps(edits))
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "chime6",
+        lambda o: R.prepare_chime6(chime5, output_dir=o, dataset_parts="dev", mic="mdm",
+                                   perform_array_sync=True),
+        ["chime6", chime5, "-p", "dev", "--mic", "mdm", "--perform-array-sync"])
+    synced = manifests / "chime6" / "function" / "CHiME6"
+    channel_s = sum(seconds * (CHIME5_ARRAYS * CHIME5_CHANNELS + 2 * len(CHIME5_HEADSETS[s]))
+                    for s, seconds in CHIME5_SESSIONS)
+    splice_equal = True
+    for session, _ in CHIME5_SESSIONS:
+        fit = edits[session]["U01"]
+        for c in range(CHIME5_CHANNELS):
+            name = f"{session}_U01.CH{c + 1}.wav"
+            x, _ = read_wav(chime5 / "audio" / "dev" / name)
+            want = Chime6ArraySynchronizer._apply_edits(x, fit["edits"])
+            pad = fit["padding"]
+            want = np.pad(want, ((0, 0), (pad, 0))) if pad > 0 else want[:, -pad:]
+            got, _ = read_wav(synced / "audio" / "dev" / name)
+            splice_equal &= fit["speed"] == 1.0 and np.array_equal(got, want)
+    wavs = sorted(synced.rglob("*.wav"))
+    sums = root / "audio_md5sums.txt"
+    sums.write_text("".join(f"{hashlib.md5(w.read_bytes()).hexdigest()} {w.name}\n" for w in wavs))
+    verified = verify_md5_checksums(synced, num_workers=4, checksum_file=sums)
+    changed = root / "audio_md5sums_changed.txt"
+    lines = sums.read_text().splitlines()
+    lines[len(lines) // 2] = "0" * 32 + lines[len(lines) // 2][32:]
+    changed.write_text("\n".join(lines) + "\n")
+    refused = not verify_md5_checksums(synced, num_workers=4, checksum_file=changed)
+    recs, sups = made["dev"]["recordings"], made["dev"]["supervisions"]
+    sessions = CutSet.from_manifests(recordings=recs, supervisions=sups).to_eager()
+    trimmed = sessions.trim_to_supervisions(keep_overlapping=False, keep_all_channels=True).to_eager()
+    monos = CutSet.from_cuts(m for c in trimmed for m in c.to_mono())
+    extractor, recorder = fly()
+    loader = loader_over(monos, K2SpeechRecognitionDataset(
+        return_cuts=True, input_strategy=OnTheFlyFeatures(extractor)))
+    run = _leg("chime6_array_sync", loader, _Trainer(device), device, fbank_cuda, _rows_of, smi,
+               unit="channel")
+    launches["chime6_array_sync"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    rows = sum(b["inputs"].shape[0] for b in run["batches"])
+    print(f"[{smi}] chime6_array_sync: prepare_chime6(perform_array_sync=True, mic='mdm') "
+          f"{function_s!r} s, the CLI's --perform-array-sync {cli_s!r} s, its {len(files)} "
+          f"manifests equal; the synchroniser and the recipe took {function_s / channel_s!r} s "
+          f"per channel-second ({channel_s:g} channel-s); {len(wavs)} synced files, every U01 "
+          f"channel (speed 1.0) equal to its edit splice sample by sample: {splice_equal}; "
+          f"verify_md5_checksums on their MD5 list: {verified}, with one digest changed: "
+          f"{not refused}; {len(sups)} supervisions of {len(recs)} sessions of "
+          f"{sorted({r.num_channels for r in recs})} channels -> {len(trimmed)} trimmed -> "
+          f"{len(monos)} MonoCuts ({rows} rows); first batch kernel vs plain {err!r} (tol "
+          f"{KERNEL_TOL})")
+    if not splice_equal or not verified or not refused or len(recs) != len(CHIME5_SESSIONS):
+        raise AssertionError("chime6_array_sync: the splice or the checksums are off")
+    if len(sups) != n_turns or not all(isinstance(c, MultiCut) for c in sessions) or {
+            type(c) for c in monos} != {MonoCut}:
+        raise AssertionError("chime6_array_sync: the sessions or supervisions are off")
+    if run["launches"] != len(run["batches"]) or rows != len(monos) or not err <= KERNEL_TOL:
+        raise AssertionError("chime6_array_sync: launches, coverage or the kernel are off")
+    errs.append(err)
+
+    # -- corpus_librimix_mini -----------------------------------------------------------------
+    csv_path = _write_librimix_mini(root / "corpora", bursts, rng)
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "librimix_mini",
+        lambda o: R.prepare_librimix_mini(csv_path, output_dir=o, with_precomputed_mixtures=True,
+                                          sampling_rate=MINI_SR),
+        ["librimix-mini", csv_path, "--with-precomputed-mixtures", "--sampling-rate", MINI_SR])
+    premixed_cuts = CutSet.from_manifests(
+        recordings=made["premixed"]["recordings"],
+        supervisions=made["premixed"]["supervisions"]).resample(SR).to_eager()
+    extractor, recorder = fly()
+    run = _leg("corpus_librimix_mini", loader_over(premixed_cuts, K2SpeechRecognitionDataset(
+        return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))), _Trainer(device), device,
+        fbank_cuda, _rows_of, smi)
+    launches["corpus_librimix_mini"] = run["launches"]
+    err = _first_batch_err(recorder, extractor)
+    kept = sorted(c.id for b in run["batches"] for c in b["supervisions"]["cut"])
+    print(f"[{smi}] corpus_librimix_mini: prepare {function_s!r} s, CLI {cli_s!r} s, its "
+          f"{len(files)} manifests equal ({sorted(made)}); {len(premixed_cuts)} premixed "
+          f"mixtures at {MINI_SR} Hz resampled to {SR} Hz, every one once: "
+          f"{kept == sorted(c.id for c in premixed_cuts)}; first batch kernel vs plain {err!r} "
+          f"(tol {KERNEL_TOL})")
+    if (kept != sorted(c.id for c in premixed_cuts) or len(kept) != MINI_ROWS
+            or sorted(made) != ["noise", "premixed", "sources"]
+            or any(c.sampling_rate != SR for b in run["batches"] for c in b["supervisions"]["cut"])):
+        raise AssertionError("corpus_librimix_mini: coverage or the rate is off")
+    if run["launches"] != len(run["batches"]) or not err <= KERNEL_TOL:
+        raise AssertionError("corpus_librimix_mini: launches or the kernel are off")
+    errs.append(err)
+
+    # -- corpus_spatial_librispeech, corpus_earnings21, corpus_earnings22 ----------------------
+    specs = {}
+    if is_module_available("pandas"):
+        spatial = _write_spatial_librispeech(root / "corpora" / "Spatial-LibriSpeech", utterances,
+                                             rng)
+        specs["spatial_librispeech"] = (
+            lambda o: R.prepare_spatial_librispeech(spatial, output_dir=o),
+            ["spatial-librispeech", spatial], "multi")
+    else:
+        print(f"[{smi}] corpus_spatial_librispeech left out: pandas does not import here, and the "
+              "recipe reads metadata.parquet through it (ROADMAP.md A3)")
+    if syscodecs.mp3_available() and syscodecs.mp3_encode_available():
+        for name in ("earnings21", "earnings22"):
+            where = _write_earnings(root / "corpora" / name, rng, bursts, name)
+            specs[name] = ((lambda o, w=where, n=name: getattr(R, f"prepare_{n}")(w, output_dir=o)),
+                           [name, where], "long")
+    else:
+        print(f"[{smi}] corpus_earnings21 and corpus_earnings22 left out: the MP3 libraries "
+              f"(libmpg123, libmp3lame) do not load here: {syscodecs.loaded_sonames()} "
+              "(ROADMAP.md A3)")
+    for name, (function, argv, kind) in specs.items():
+        made, files, function_s, cli_s = _prepare_twice(manifests, name, function, argv)
+        pairs = _manifest_pairs(made) or [made]  # Earnings returns one (recordings, supervisions)
+        cuts = CutSet.from_cuts(c for recs, sups in pairs for c in CutSet.from_manifests(
+            recordings=recs, supervisions=sups))
+        extractor, recorder = fly()
+        if kind == "multi":  # 4-channel ambisonics: a MonoCut per channel
+            cuts = CutSet.from_cuts(m for c in cuts.trim_to_supervisions(
+                keep_all_channels=True) for m in c.to_mono())
+            dataset = K2SpeechRecognitionDataset(return_cuts=True,
+                                                 input_strategy=OnTheFlyFeatures(extractor))
+            unpack = _rows_of
+        else:  # whole calls, longer than the encoder's positions: windows of 15 s
+            cuts = cuts.cut_into_windows(VAD_WINDOW).to_eager()
+            dataset = _WindowFeatures(OnTheFlyFeatures(extractor))
+            unpack = (lambda b: (b["inputs"], b["supervisions"]["num_frames"],
+                                 sum(c.duration for c in b["supervisions"]["cut"])))
+        run = _leg(f"corpus_{name}", loader_over(cuts, dataset), _Trainer(device), device,
+                   fbank_cuda, unpack, smi)
+        launches[f"corpus_{name}"] = run["launches"]
+        err = _first_batch_err(recorder, extractor)
+        kept = sorted(c.id for b in run["batches"] for c in b["supervisions"]["cut"])
+        print(f"[{smi}] corpus_{name}: prepare {function_s!r} s, CLI {cli_s!r} s, its "
+              f"{len(files)} manifests equal; {len(cuts)} cuts, every one once: "
+              f"{kept == sorted(c.id for c in cuts)}; first batch kernel vs plain {err!r} (tol "
+              f"{KERNEL_TOL})")
+        if kept != sorted(c.id for c in cuts) or run["launches"] != len(run["batches"]):
+            raise AssertionError(f"corpus_{name}: coverage or launches are off")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"corpus_{name}: the kernel disagrees with its plain version")
+        errs.append(err)
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -7675,6 +8402,12 @@ def main() -> None:
         launches_tel, tel_err = _phase_telephone(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_tel)
         print(f"phase 27 took {time.perf_counter() - t0!r} s")
+        # -- 28. the overlapped-speech, diarization and earnings-call corpora and the CHiME-6
+        # array synchroniser: LibriMix into the main path, after phases 14 and 23
+        t0 = time.perf_counter()
+        launches_overlap, overlap_err = _phase_overlap(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_overlap)
+        print(f"phase 28 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -7691,7 +8424,8 @@ def main() -> None:
     print(f"fbank kernel launches by path: {by_path}")
     reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed",
                     "ami_diarization", "separation_premixed", "separation_dynamic",
-                    "kaldi_precomputed")
+                    "kaldi_precomputed", "librimix_separation", "dihard3_diarization",
+                    "voxconverse_diarization")
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
@@ -7704,7 +8438,7 @@ def main() -> None:
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
-                              noise_err, single_err, muxed_err, zh_err, tel_err]),
+                              noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

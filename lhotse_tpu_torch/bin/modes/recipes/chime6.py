@@ -1,7 +1,8 @@
 """The CHiME-6 ``prepare`` command (copied from
 ``lhotse_tpu/bin/modes/recipes/meetings.py``; the port has no downloads).
-``--perform-array-sync`` and ``--verify-md5-checksums`` stop with
-``NotImplementedError``: the port has no array synchroniser yet."""
+``--perform-array-sync`` reads the edits from
+``OUTPUT_DIR/CHiME6/audio_edits.json``; ``--verify-md5-checksums`` stops
+with ``NotImplementedError``, since the checksum list is downloaded."""
 import click
 
 from lhotse_tpu_torch.bin.modes.cli_base import prepare
@@ -24,11 +25,13 @@ __all__ = ["chime6"]
     "annotated reference array.")
 @click.option(
     "--perform-array-sync", is_flag=True,
-    help="Run array synchronization over a raw CHiME-5 corpus first (not ported: raises).")
+    help="Run array synchronization over a raw CHiME-5 corpus first "
+    "(writes the synchronized corpus to OUTPUT_DIR/CHiME6; the edits are read from "
+    "OUTPUT_DIR/CHiME6/audio_edits.json).")
 @click.option(
     "--verify-md5-checksums", is_flag=True,
-    help="Verify audio MD5 checksums against the official post-sync list (not ported: "
-    "raises).")
+    help="Verify audio MD5 checksums against the official post-sync list (which is "
+    "downloaded: not ported, raises).")
 @click.option("-j", "--num-jobs", type=int, default=1, help="Parallel array-sync jobs.")
 @click.option(
     "-t", "--num-threads-per-job", type=int, default=1,

@@ -5,7 +5,10 @@ Speech, SPGISpeech and TIMIT; the TTS corpora LibriTTS(-R), LJSpeech and
 VCTK; the speaker corpus VoxCeleb; AMI; the noise and room impulse
 response corpora MUSAN, RIRS_NOISES, the BUT Reverb DB and WHAM!; the
 far-field meeting corpora AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1,
-LibriCSS, CHiME-6 (an already synchronised layout) and DiPCo; the Chinese
+LibriCSS, CHiME-6 (with its array synchroniser) and DiPCo; the
+overlapped-speech corpora LibriMix, MiniLibriMix, LibriSpeechMix and
+Spatial LibriSpeech; the diarization corpora DIHARD III and VoxConverse;
+the long-form earnings calls Earnings-21 and Earnings-22; the Chinese
 corpora THCHS-30, ST-CMDS, Primewords, MagicData, aidatatang_200zh,
 KeSpeech, TAL-ASR, TAL-CSASR, CDSD, SpeechIO, AISHELL-3, Baker,
 WenetSpeech4TTS, XBMU-AMDO31 (Tibetan) and MDCC (Cantonese); the LDC
@@ -28,7 +31,10 @@ from lhotse_tpu_torch.recipes.callhome_english import prepare_callhome_english
 from lhotse_tpu_torch.recipes.cdsd import prepare_cdsd
 from lhotse_tpu_torch.recipes.chime6 import prepare_chime6
 from lhotse_tpu_torch.recipes.commonvoice import prepare_commonvoice
+from lhotse_tpu_torch.recipes.dihard3 import prepare_dihard3
 from lhotse_tpu_torch.recipes.dipco import prepare_dipco
+from lhotse_tpu_torch.recipes.earnings21 import prepare_earnings21
+from lhotse_tpu_torch.recipes.earnings22 import prepare_earnings22
 from lhotse_tpu_torch.recipes.eval2000 import prepare_eval2000
 from lhotse_tpu_torch.recipes.fisher_english import prepare_fisher_english
 from lhotse_tpu_torch.recipes.fisher_spanish import prepare_fisher_spanish
@@ -38,7 +44,10 @@ from lhotse_tpu_torch.recipes.icsi import prepare_icsi
 from lhotse_tpu_torch.recipes.kespeech import prepare_kespeech
 from lhotse_tpu_torch.recipes.libricss import prepare_libricss
 from lhotse_tpu_torch.recipes.librilight import prepare_librilight
+from lhotse_tpu_torch.recipes.librimix import prepare_librimix
+from lhotse_tpu_torch.recipes.librimix_mini import prepare_librimix_mini
 from lhotse_tpu_torch.recipes.librispeech import download_librispeech, prepare_librispeech
+from lhotse_tpu_torch.recipes.librispeechmix import prepare_librispeechmix
 from lhotse_tpu_torch.recipes.libritts import prepare_libritts, prepare_librittsr
 from lhotse_tpu_torch.recipes.ljspeech import prepare_ljspeech
 from lhotse_tpu_torch.recipes.magicdata import prepare_magicdata
@@ -50,6 +59,7 @@ from lhotse_tpu_torch.recipes.notsofar1 import prepare_notsofar1
 from lhotse_tpu_torch.recipes.peoples_speech import prepare_peoples_speech
 from lhotse_tpu_torch.recipes.primewords import prepare_primewords
 from lhotse_tpu_torch.recipes.rir_noise import prepare_rir_noise
+from lhotse_tpu_torch.recipes.spatial_librispeech import prepare_spatial_librispeech
 from lhotse_tpu_torch.recipes.speechio import prepare_speechio
 from lhotse_tpu_torch.recipes.spgispeech import prepare_spgispeech
 from lhotse_tpu_torch.recipes.stcmds import prepare_stcmds
@@ -64,6 +74,7 @@ from lhotse_tpu_torch.recipes.utils import (
     finalize_manifests, manifests_exist, read_manifests_if_cached)
 from lhotse_tpu_torch.recipes.vctk import prepare_vctk
 from lhotse_tpu_torch.recipes.voxceleb import prepare_voxceleb
+from lhotse_tpu_torch.recipes.voxconverse import prepare_voxconverse
 from lhotse_tpu_torch.recipes.wenetspeech4tts import prepare_wenetspeech4tts
 from lhotse_tpu_torch.recipes.wham import prepare_wham
 from lhotse_tpu_torch.recipes.xbmu_amdo31 import prepare_xbmu_amdo31
@@ -75,13 +86,16 @@ __all__ = [
     "prepare_aishell4", "prepare_ali_meeting", "prepare_ami", "prepare_baker_zh",
     "prepare_broadcast_news", "prepare_but_reverb_db", "prepare_callhome_egyptian",
     "prepare_callhome_english", "prepare_cdsd", "prepare_chime6", "prepare_commonvoice",
-    "prepare_dipco", "prepare_eval2000", "prepare_fisher_english", "prepare_fisher_spanish",
+    "prepare_dihard3", "prepare_dipco", "prepare_earnings21", "prepare_earnings22",
+    "prepare_eval2000", "prepare_fisher_english", "prepare_fisher_spanish",
     "prepare_gale_arabic", "prepare_gale_mandarin", "prepare_icsi", "prepare_kespeech",
-    "prepare_libricss", "prepare_librilight", "prepare_librispeech", "prepare_libritts",
-    "prepare_librittsr", "prepare_ljspeech", "prepare_magicdata", "prepare_mdcc",
-    "prepare_mgb2", "prepare_mls", "prepare_musan", "prepare_notsofar1",
-    "prepare_peoples_speech", "prepare_primewords", "prepare_rir_noise", "prepare_speechio",
+    "prepare_libricss", "prepare_librilight", "prepare_librimix", "prepare_librimix_mini",
+    "prepare_librispeech", "prepare_librispeechmix", "prepare_libritts", "prepare_librittsr",
+    "prepare_ljspeech", "prepare_magicdata", "prepare_mdcc", "prepare_mgb2", "prepare_mls",
+    "prepare_musan", "prepare_notsofar1", "prepare_peoples_speech", "prepare_primewords",
+    "prepare_rir_noise", "prepare_spatial_librispeech", "prepare_speechio",
     "prepare_spgispeech", "prepare_stcmds", "prepare_switchboard", "prepare_tal_asr",
     "prepare_tal_csasr", "prepare_tedlium", "prepare_tedlium2", "prepare_thchs_30",
-    "prepare_timit", "prepare_vctk", "prepare_voxceleb", "prepare_wenetspeech4tts",
-    "prepare_wham", "prepare_xbmu_amdo31", "prepare_yesno", "read_manifests_if_cached"]
+    "prepare_timit", "prepare_vctk", "prepare_voxceleb", "prepare_voxconverse",
+    "prepare_wenetspeech4tts", "prepare_wham", "prepare_xbmu_amdo31", "prepare_yesno",
+    "read_manifests_if_cached"]

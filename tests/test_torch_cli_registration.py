@@ -27,13 +27,14 @@ LEFT_OUT = {
 PORTED_RECIPES = {
     "MDCC", "aidatatang-200zh", "aishell", "aishell2", "aishell3", "aishell4", "ali-meeting",
     "ami", "baker-zh", "broadcast-news", "but-reverb-db", "callhome-egyptian",
-    "callhome-english", "cdsd", "chime6", "commonvoice", "dipco", "eval2000", "fisher-english",
-    "fisher-spanish", "gale-arabic", "gale-mandarin", "icsi", "kespeech", "libricss",
-    "librilight", "librispeech", "libritts", "librittsr", "ljspeech", "magicdata", "mdcc",
+    "callhome-english", "cdsd", "chime6", "commonvoice", "dihard3", "dipco", "earnings21",
+    "earnings22", "eval2000", "fisher-english", "fisher-spanish", "gale-arabic",
+    "gale-mandarin", "icsi", "kespeech", "libricss", "librilight", "librimix", "librimix-mini",
+    "librispeech", "librispeechmix", "libritts", "librittsr", "ljspeech", "magicdata", "mdcc",
     "mgb2", "mls", "musan", "notsofar1", "peoples-speech", "primewords", "rir-noise",
-    "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium",
-    "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "wenetspeech4tts", "wham",
-    "xbmu-amdo31", "yesno"}
+    "spatial-librispeech", "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr",
+    "tal-csasr", "tedlium", "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "voxconverse",
+    "wenetspeech4tts", "wham", "xbmu-amdo31", "yesno"}
 
 
 def _walk(cmd, prefix=()):

@@ -1180,6 +1180,65 @@ def test_telephone_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
         for chain in (feats, cpu_feats):
             assert (chain.double() - truth).abs()[kept].max() <= 2e-3
 
+def test_librimix_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
+    """A Libri2Mix layout (``libri2mix_train-100.csv`` over 8 utterances of
+    1-2 s and three WHAM! noises of 0.4-3 s, so that short noises are
+    extended) through ``prepare_librimix``; its 8 noisy mixtures, loaded on
+    the host, in two batches of the 2 s x 4 bucket into the augmenter on the
+    card against the same augmenter on the CPU port."""
+    from lhotse_tpu_torch.audio import Recording, RecordingSet
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.recipes import prepare_librimix
+
+    names = [f"{100 + k}-{2000 + k}-{k:04d}" for k in range(8)]
+    recs = []
+    for k, name in enumerate(names):
+        write_wav(tmp_path / f"{name}.wav", _audio((1, 16000 + 2000 * k), seed=60 + k), 16000)
+        recs.append(Recording.from_file(tmp_path / f"{name}.wav"))
+    (tmp_path / "ls").mkdir()
+    CutSet.from_manifests(recordings=RecordingSet.from_recordings(recs)).to_file(
+        tmp_path / "ls" / "librispeech_cutset_train-100.jsonl.gz")
+    noises = []
+    for k, n in enumerate((6400, 24000, 48000)):
+        write_wav(tmp_path / f"noise{k}.wav", _audio((1, n), seed=70 + k), 16000)
+        noises.append(Recording.from_file(tmp_path / f"noise{k}.wav"))
+    (tmp_path / "wham").mkdir()
+    for split in ("tr", "cv", "tt"):
+        RecordingSet.from_recordings(noises).to_file(
+            tmp_path / "wham" / f"wham_recordings_{split}.jsonl.gz")
+    rows = ["mixture_ID,source_1_path,source_1_gain,source_2_path,source_2_gain,noise_path,"
+            "noise_gain"]
+    for k in range(8):
+        a, b = names[k], names[(k + 3) % 8]
+        rows.append(f"{a}_{b},x/{a}.wav,1.1,x/{b}.wav,0.9,tr/noise{k % 3}.wav,0.5")
+    (tmp_path / "meta" / "Libri2Mix").mkdir(parents=True)
+    (tmp_path / "meta" / "Libri2Mix" / "libri2mix_train-100.csv").write_text("\n".join(rows))
+    made = prepare_librimix(tmp_path / "ls", tmp_path / "wham", tmp_path / "meta",
+                            tmp_path / "work")
+    cuts = list(made["libri2mix_train-100_noisy"]["cutset"])
+    assert len(cuts) == 8 and len(list((tmp_path / "work").iterdir())) > 0
+    n = 4800
+    rir = _audio((n,), seed=9) * np.exp(-np.arange(n) / (n / 6.0)).astype(np.float32)
+    rir[32] = 1.0
+    cfg = dict(buckets=[(2.0, 4)], speed_factor=1.1, noise_pool=_audio((4, 48000), seed=21),
+               rir=rir, snr=(10, 20), mix_prob=0.5, seed=3, wire_format="int16",
+               specaugment=SpecAugment(seed=7))
+    cpu_aug, card_aug = OnDeviceAugmenter(**cfg, device="cpu"), OnDeviceAugmenter(**cfg, device=cuda)
+    for i in (0, 4):
+        audio = [c.load_audio()[0] for c in cuts[i:i + 4]]
+        lens = [len(a) for a in audio]
+        x = np.zeros((4, max(lens)), np.float32)
+        for k, a in enumerate(audio):
+            x[k, : len(a)] = a
+        cpu_feats, cpu_lens = cpu_aug(x, lens)
+        fbank_cuda.LAUNCHES = 0
+        feats, feat_lens = card_aug(x, lens)
+        assert fbank_cuda.LAUNCHES == 1
+        assert torch.equal(feat_lens.cpu(), cpu_lens)
+        torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
+
+
 def test_global_mvn_and_randomized_smoothing_on_card(cuda, tmp_path):
     """``GlobalMVN.from_cuts`` with the fbank kernel against the CPU route's
     statistics, applied on the card in the features' dtype; and

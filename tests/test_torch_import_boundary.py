@@ -152,7 +152,16 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.bin.modes.recipes.switchboard, "
         "lhotse_tpu_torch.bin.modes.recipes.fisher_english, "
         "lhotse_tpu_torch.bin.modes.recipes.telephone_broadcast, "
-        "lhotse_tpu_torch.bin.modes.recipes.broadcast_news; "
+        "lhotse_tpu_torch.bin.modes.recipes.broadcast_news, "
+        "lhotse_tpu_torch.recipes.librimix, lhotse_tpu_torch.recipes.librimix_mini, "
+        "lhotse_tpu_torch.recipes.librispeechmix, lhotse_tpu_torch.recipes.spatial_librispeech, "
+        "lhotse_tpu_torch.recipes.dihard3, lhotse_tpu_torch.recipes.voxconverse, "
+        "lhotse_tpu_torch.recipes.earnings21, lhotse_tpu_torch.recipes.earnings22, "
+        "lhotse_tpu_torch.bin.modes.recipes.libri_variants, "
+        "lhotse_tpu_torch.bin.modes.recipes.dihard3, "
+        "lhotse_tpu_torch.bin.modes.recipes.voxconverse, "
+        "lhotse_tpu_torch.bin.modes.recipes.earnings; "
+        "from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "
         "from lhotse_tpu_torch.dataset.signal_transforms import GlobalMVN, RandomizedSmoothing; "

@@ -39,13 +39,12 @@ NOT_PORTED = {
     "bin.modes.recipes": """
         adept adept_dl aishell3_dl aishell4_dl ali_meeting_dl aspire atcosim audio_mnist
         audio_mnist_dl babel bengaliai_speech bvcc chime6_dl cmu_arctic cmu_arctic_dl cmu_indic
-        cmu_kids csj cslu_kids daily_talk daily_talk_dl dihard3 dipco_dl earnings21
-        earnings21_dl ears ears_dl edacc emilia fleurs gigaspeech gigaspeech2 gigast grid
-        heroico heroico_dl hifitts hifitts_dl himia icmcasr iwslt22_ta ksponspeech l2_arctic
-        libricss_dl librilight_dl librimix librimix_mini librispeechmix mdcc_dl medical
-        mobvoihotwords mobvoihotwords_dl mtedx must_c nsc oto_speech radio reazonspeech
-        rir_noise_dl sbcsae slu spatial_librispeech speechcommands speechcommands_dl tedlium2_dl
-        this_american_life uwb_atcc voxconverse voxconverse_dl voxpopuli voxpopuli_dl wham_dl
+        cmu_kids csj cslu_kids daily_talk daily_talk_dl dipco_dl earnings21_dl ears ears_dl
+        edacc emilia fleurs gigaspeech gigaspeech2 gigast grid heroico heroico_dl hifitts
+        hifitts_dl himia icmcasr iwslt22_ta ksponspeech l2_arctic libricss_dl librilight_dl
+        mdcc_dl medical mobvoihotwords mobvoihotwords_dl mtedx must_c nsc oto_speech radio
+        reazonspeech rir_noise_dl sbcsae slu speechcommands speechcommands_dl tedlium2_dl
+        this_american_life uwb_atcc voxconverse_dl voxpopuli voxpopuli_dl wham_dl
     """,
     "dataset": """
         UnsupervisedAudioVideoDataset collate_images collate_video plot_batch
@@ -79,16 +78,13 @@ NOT_PORTED = {
         download_wham download_xbmu_amdo31 download_yesno prepare_adept prepare_aspire
         prepare_atcosim prepare_audio_mnist prepare_bengaliai_speech prepare_bvcc
         prepare_cmu_arctic prepare_cmu_indic prepare_cmu_kids prepare_csj prepare_cslu_kids
-        prepare_daily_talk prepare_dihard3 prepare_earnings21 prepare_earnings22 prepare_ears
-        prepare_edacc prepare_emilia prepare_fleurs prepare_gigaspeech prepare_gigaspeech2
-        prepare_gigast prepare_grid prepare_heroico prepare_hifitts prepare_himia
-        prepare_icmcasr prepare_iwslt22_ta prepare_ksponspeech prepare_l2_arctic
-        prepare_librimix prepare_librimix_mini prepare_librispeechmix prepare_medical
-        prepare_mobvoihotwords prepare_mtedx prepare_must_c prepare_nsc prepare_oto_speech
-        prepare_radio prepare_reazonspeech prepare_sbcsae prepare_single_babel_language
-        prepare_slu prepare_spatial_librispeech prepare_speechcommands
-        prepare_this_american_life prepare_uwb_atcc prepare_voxconverse prepare_voxpopuli
-        prepare_wenet_speech
+        prepare_daily_talk prepare_ears prepare_edacc prepare_emilia prepare_fleurs
+        prepare_gigaspeech prepare_gigaspeech2 prepare_gigast prepare_grid prepare_heroico
+        prepare_hifitts prepare_himia prepare_icmcasr prepare_iwslt22_ta prepare_ksponspeech
+        prepare_l2_arctic prepare_medical prepare_mobvoihotwords prepare_mtedx prepare_must_c
+        prepare_nsc prepare_oto_speech prepare_radio prepare_reazonspeech prepare_sbcsae
+        prepare_single_babel_language prepare_slu prepare_speechcommands
+        prepare_this_american_life prepare_uwb_atcc prepare_voxpopuli prepare_wenet_speech
     """,
     "testing": """
         RandomCutTestCase random_cut_set

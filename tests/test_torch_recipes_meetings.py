@@ -623,8 +623,11 @@ def test_prepare_chime6_equals_jax(tmp_path, kwargs):
 
 def test_chime6_refusals_and_helpers(tmp_path):
     root = chime6_tree(tmp_path / "CHiME6")
-    for flag in ("perform_array_sync", "verify_md5_checksums"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    # Where the JAX package downloads the synchroniser's edits or the checksum
+    # list, the port raises and names the download.
+    for flag, what in (("perform_array_sync", "audio edits"),
+                       ("verify_md5_checksums", "checksum list")):
+        with pytest.raises(NotImplementedError, match=f"Downloading the CHiME-6 {what}"):
             pchime6.prepare_chime6(root, output_dir=tmp_path / "o", dataset_parts="dev",
                                    **{flag: True})
     for prepare in (pchime6.prepare_chime6, jchime6.prepare_chime6):
