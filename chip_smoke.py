@@ -40,7 +40,7 @@ AdamW step, with a mid-epoch resume; long-form sessions with RTTM turns
 extracted whole on the kernel, trimmed to their supervisions and read back
 in part from the archive through ``BucketingSampler``, and cut into 10 s
 windows through ``OnTheFlyFeatures`` on the kernel); then the
-multi-channel meeting path (an AMI-layout corpus of four 300 s meetings
+multi-channel meeting path (an AMI-layout corpus of four 240 s meetings
 with an 8-channel array and 4 headsets through ``prepare_ami``: whole
 8-channel sessions extracted on the kernel into a ``lilcom_chunky``
 archive, the array segments trimmed with ``keep_all_channels=True`` and
@@ -100,7 +100,7 @@ and through the CLI, into the augmenter's noise pool and RIR at the
 over the MUSAN noise and ``ReverbWithImpulseResponse`` over the real and
 BUT Reverb DB RIRs into ``OnTheFlyFeatures`` on the kernel and the AdamW
 step, with a resume, and one batch under WHAM! noise; a session of about
-60 s of each of AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1, LibriCSS, CHiME-6
+30 s of each of AISHELL-4, AliMeeting, ICSI, NOTSOFAR-1, LibriCSS, CHiME-6
 and DiPCo at its published channel count through its recipe, as function
 and CLI, ``trim_to_supervisions(keep_all_channels=True)``, ``to_mono()``
 and ``OnTheFlyFeatures`` on the kernel into the step, and the AISHELL-4
@@ -133,7 +133,7 @@ into the AdamW step; TAL-ASR, TAL-CSASR, CDSD, SpeechIO, XBMU-AMDO31 and
 MDCC through their recipes into the step, AISHELL-3, Baker and
 WenetSpeech4TTS into ``SpeechSynthesisDataset``); then the LDC telephone and
 broadcast corpora (8 Switchboard-1 conversations of 5 minutes and 8 Fisher
-English calls of 10 minutes, two-channel 8 kHz mu-law SPHERE, through their
+English calls cut to 5 minutes, two-channel 8 kHz mu-law SPHERE, through their
 recipes, as function and CLI, ``trim_to_supervisions``, ``resample(16000)``
 and ``CutSet.mux`` into the augmenter at the 15 s × 256 bucket with phase
 23's MUSAN pool and RIR; Eval2000, CALLHOME English and Egyptian, Fisher
@@ -147,7 +147,18 @@ LibriSpeechMix into SURT training, DIHARD III and VoxConverse sessions into
 diarization training, a raw CHiME-5 dev split synchronised by
 ``prepare_chime6(perform_array_sync=True)`` into the step, MiniLibriMix,
 and Spatial LibriSpeech and Earnings-21/22 where pandas and the MP3
-libraries are found); and checks what comes out.
+libraries are found); then the speech-translation and multilingual corpora
+(MuST-C ``en-de``, 8 talks of 300 s, through ``prepare_must_c`` and
+``trim_to_supervisions`` into the augmenter at the 15 s × 256 bucket with
+phase 23's MUSAN pool and RIR; IWSLT 2022 Tunisian Arabic calls as 8 kHz
+SPHERE through ``prepare_iwslt22_ta(normalize_text=True)``, resampled, and
+GigaST's German translations of GigaSpeech segments through
+``prepare_gigast``, both into ``K2Speech2TextTranslationDataset`` with
+``OnTheFlyFeatures`` on the kernel and the AdamW step, the first with a
+resume; mTEDx, GigaSpeech 2, CSJ (through a transcript directory), Emilia
+(into ``SpeechSynthesisDataset``), BVCC (rated utterances) and, where the
+Vorbis libraries load, VoxPopuli into the step); and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -207,7 +218,10 @@ stored features), ``librispeechmix_surt``, ``dihard3_diarization_extract``,
 stored features), ``voxconverse_diarization_extract``,
 ``chime6_array_sync``, ``corpus_librimix_mini`` and, where they run,
 ``corpus_spatial_librispeech``, ``corpus_earnings21`` and
-``corpus_earnings22``); the last line is
+``corpus_earnings22``, ``must_c_device_chain``, ``iwslt22_ta_translation``,
+``gigast_translation`` and ``corpus_<name>`` for ``mtedx``,
+``gigaspeech2``, ``csj``, ``emilia``, ``bvcc`` and, where it runs,
+``voxpopuli``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -2159,17 +2173,18 @@ def _phase_recipe(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
 
 
 # -- 15. the multi-channel meeting path ------------------------------------------
-# An AMI-layout corpus: four meetings of 300 s (two full-corpus train
+# An AMI-layout corpus: four meetings of 240 s (two full-corpus train
 # meetings, dev ES2011a, test ES2004a), each with the 8 channels of Array1
 # and 4 headsets as 16 kHz int16 WAV files, four speakers taking turns of
 # 3-8 s that overlap by up to 1 s. AMI's sessions run about 30 minutes and
-# the corpus about 100 h; 4 x 8 x 300 s = 9,600 array channel-seconds.
+# the corpus about 100 h; 4 x 8 x 240 s = 7,680 array channel-seconds (phase
+# 2 holds the kernel at a 300 s session's 8 x 30,000 frames).
 AMI_MEETINGS = ("ES2002a", "ES2002b", "ES2011a", "ES2004a")
-AMI_SECONDS = 300.0
+AMI_SECONDS = 240.0
 AMI_ARRAY, AMI_HEADSETS = 8, 4
 AMI_TURN_SECONDS = (3.0, 8.0)
 AMI_GAP_SECONDS = (-1.0, 1.5)  # a negative gap overlaps the next speaker's turn
-AMI_SIDE_SEGMENTS = 8  # the segments of the WPE and RIR fan-out legs
+AMI_SIDE_SEGMENTS = 4  # the segments of the WPE and RIR fan-out legs
 # The host numpy WPE against the device WPE (ops/wpe.py) on the same
 # audio, at tests/test_torch_wpe.py::test_matches_host_wpe's bounds: the
 # two differ in their power floor (1e-10 against 1e-6) and precision.
@@ -2288,10 +2303,10 @@ def _phase_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     ``ami_ihm_on_the_fly``: ``prepare_ami(mic="ihm")`` → 4-channel headset
     MultiCuts → ``trim_to_supervisions(keep_overlapping=False)`` → MonoCuts
     on each supervision's headset → ``_fly_with_resume``. ``ami_mdm_wpe``:
-    ``dereverb_wpe()`` on 8 MultiCut segments, the host numpy transform
+    ``dereverb_wpe()`` on 4 MultiCut segments, the host numpy transform
     over all 8 channels, then the kernel; the transform's output against
     the device WPE on the same audio. ``ami_rir_fanout``: ``prepare_ami(
-    mic="sdm")`` → 8 single-channel windows → ``reverb_rir`` with an
+    mic="sdm")`` → 4 single-channel windows → ``reverb_rir`` with an
     8-channel RIR → 8-channel MultiCuts → the kernel. Returns the kernel's
     launches per path, the largest kernel-vs-plain error and the paths of
     the manifests ``prepare_ami`` wrote, by microphone setting and
@@ -4530,7 +4545,7 @@ def _phase_sharded(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
 # layout and format, 16 kHz mono WAV, with fewer files: 32 noise files of
 # 5-30 s (MUSAN has 930), 8 music and 8 speech files; 8 point-source noises,
 # 16 real RIRs of 0.3-1.0 s and 4 isotropic noises, 4 simulated RIRs per room
-# size. The meeting corpora: one session of each of about 60 s, at the
+# size. The meeting corpora: one session of each of about 30 s, at the
 # corpus's own channel count and file names (with the short sessions a
 # recipe needs to fill its other splits).
 NOISE_SEED = 2323  # numpy seed of phase 23's corpora
@@ -4541,7 +4556,7 @@ RIR_SECONDS = (0.3, 1.0)
 RIR_SEED = 23  # the seeded choice of the device chain's real RIR
 MIX_SEED, REVERB_SEED, WHAM_SEED = 29, 31, 37
 NOISE_RESUME_AFTER = 3
-MEETING_SECONDS = 60.0
+MEETING_SECONDS = 30.0
 MEETING_SHORT_SECONDS = 6.0  # the sessions that only fill a recipe's other splits
 MEETING_TURN_SECONDS = (2.0, 5.0)
 MEETING_GAP_SECONDS = (0.5, 3.0)
@@ -4618,21 +4633,24 @@ def _write_noise_corpora(root: Path, rng) -> dict:
 
 
 def _same_written(a: Path, b: Path, name: str) -> list:
-    """The ``.jsonl.gz`` and ``.jsonl`` manifests two runs wrote, equal (the
-    first once decompressed: a gzip header carries its write time) with each
-    run's own directory swapped out (a recipe that writes audio names it
-    there). Returns their names."""
+    """The ``.jsonl.gz`` and ``.jsonl`` manifests two runs wrote (those of the
+    directories below where none lies at the top), equal (the first once
+    decompressed: a gzip header carries its write time) with each file's own
+    directory swapped out (a recipe that writes audio names it there).
+    Returns their names."""
     import gzip
 
     def read(p: Path) -> bytes:
         data = gzip.decompress(p.read_bytes()) if p.suffix == ".gz" else p.read_bytes()
         return data.replace(str(p.parent).encode(), b"<out>")
 
-    def listed(d: Path) -> list:
-        return sorted(p.name for pattern in ("*.jsonl.gz", "*.jsonl") for p in d.glob(pattern))
+    def listed(d: Path, glob) -> list:
+        return sorted(str(p.relative_to(d)) for pattern in ("*.jsonl.gz", "*.jsonl")
+                      for p in glob(d, pattern))
 
-    names = listed(a)
-    if not names or names != listed(b) or any(read(a / n) != read(b / n) for n in names):
+    names = listed(a, Path.glob) or listed(a, Path.rglob)  # mTEDx writes a directory per language
+    if not names or names != (listed(b, Path.glob) or listed(b, Path.rglob)) or any(
+            read(a / n) != read(b / n) for n in names):
         raise AssertionError(f"{name}: the CLI's manifests differ from the function's")
     return names
 
@@ -4997,7 +5015,7 @@ def _write_chime6(root: Path, rng) -> Path:
 
 def _write_dipco(root: Path, rng) -> Path:
     """audio/<part>/<session>_U0<k>.CH<c>.wav (five 7-channel arrays) and
-    <session>_P<nn>.wav (close-talk) for S02, the dev session of about 60 s,
+    <session>_P<nn>.wav (close-talk) for S02, the dev session of about 30 s,
     and the arrays of the other nine sessions at a few seconds each;
     transcriptions/<part>/<session>.json with HH:MM:SS.ff times per device."""
     from lhotse_tpu_torch.recipes.dipco import SESSIONS
@@ -5678,10 +5696,11 @@ def _write_voxceleb1(root: Path, rng) -> tuple:
 
 def _manifest_pairs(made) -> list:
     """The (recordings, supervisions) pairs a recipe made, at any depth of its
-    result (MLS nests languages, VoxCeleb adds trial pairs beside them)."""
+    result (MLS nests languages, VoxCeleb adds trial pairs beside them); a
+    part without supervisions is left out."""
     if isinstance(made, dict):
-        if "recordings" in made:
-            return [(made["recordings"], made["supervisions"])]
+        if "recordings" in made:  # BVCC's test parts hold no supervisions
+            return [(made["recordings"], made["supervisions"])] if "supervisions" in made else []
         return [p for v in made.values() for p in _manifest_pairs(v)]
     return []
 
@@ -5731,15 +5750,17 @@ def _single_stream_specs(root: Path, rng) -> dict:
 
 
 def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> tuple:
-    """The ``corpus_<name>`` legs of phases 24 and 26: each corpus of ``specs``
-    (its recipe's call for an output directory, the CLI's command and the
-    training path, "asr", "tts" or "pairs") → ``_prepare_twice`` →
-    ``CutSet.from_manifests`` → ``resample(16000)`` where the corpus is not
-    at 16 kHz; the ASR corpora trimmed to their supervisions →
+    """The ``corpus_<name>`` legs of phases 24, 26, 27 and 29: each corpus of
+    ``specs`` (its recipe's call for an output directory, the CLI's command
+    and the training path, "asr", "tts", "mos" or "pairs") →
+    ``_prepare_twice`` → ``CutSet.from_manifests`` (or the ``CutSet`` the
+    recipe made) → ``resample(16000)`` where the corpus is not at 16 kHz;
+    the ASR corpora trimmed to their supervisions →
     ``SimpleCutSampler(max_duration=180)`` → ``K2SpeechRecognitionDataset``
     with ``OnTheFlyFeatures`` on the kernel → an AdamW step per batch; the
     TTS corpora → ``SpeechSynthesisDataset`` with ``OnTheFlyFeatures`` and a
-    ``TokenCollater``; trial pairs → ``CutPairsSampler``, both sides on the
+    ``TokenCollater``; the MOS corpora's whole rated utterances →
+    ``_WindowFeatures``; trial pairs → ``CutPairsSampler``, both sides on the
     kernel. Returns the kernel's launches per leg, the kernel-vs-plain
     errors and a summary per corpus."""
     from lhotse_tpu_torch.audio import RecordingSet
@@ -5757,11 +5778,15 @@ def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> 
     trainer, summary = _Trainer(device), {}
     for name, (function, argv, kind) in specs.items():
         made, files, function_s, cli_s = _prepare_twice(manifests, name, function, argv)
-        pairs = _manifest_pairs(made)
-        made_ids = sorted(s.id for _, sups in pairs for s in sups)
-        cuts = CutSet.from_cuts(c for recs, sups in pairs for c in CutSet.from_manifests(
-            recordings=RecordingSet.from_recordings(recs),
-            supervisions=SupervisionSet.from_segments(sups)))
+        if isinstance(made, CutSet):  # Emilia makes its cuts itself
+            cuts = made
+            made_ids = sorted(s.id for c in cuts for s in c.supervisions)
+        else:
+            pairs = _manifest_pairs(made)
+            made_ids = sorted(s.id for _, sups in pairs for s in sups)
+            cuts = CutSet.from_cuts(c for recs, sups in pairs for c in CutSet.from_manifests(
+                recordings=RecordingSet.from_recordings(recs),
+                supervisions=SupervisionSet.from_segments(sups)))
         rates = sorted({c.sampling_rate for c in cuts})
         fly = Fbank(FbankConfig(device=device))
         recorder = _RecordFirstBatch(fly)
@@ -5804,6 +5829,11 @@ def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> 
                 dataset = K2SpeechRecognitionDataset(return_cuts=True,
                                                      input_strategy=OnTheFlyFeatures(fly))
                 unpack, cuts_of = _rows_of, (lambda b: b["supervisions"]["cut"])
+            elif kind == "mos":  # whole rated utterances, no transcript
+                dataset = _WindowFeatures(OnTheFlyFeatures(fly))
+                unpack = (lambda b: (b["inputs"], b["supervisions"]["num_frames"],
+                                     sum(c.duration for c in b["supervisions"]["cut"])))
+                cuts_of = (lambda b: b["supervisions"]["cut"])
             else:
                 collater = TokenCollater(cuts)
                 dataset = SpeechSynthesisDataset(feature_input_strategy=OnTheFlyFeatures(fly),
@@ -5821,10 +5851,15 @@ def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> 
             if kind == "tts":
                 ok = ok and all(collater.inverse(*collater(CutSet.from_cuts(b["cut"]))) == [
                     c.supervisions[0].text for c in b["cut"]] for b in run["batches"])
+            if kind == "mos":
+                ok = ok and all(c.supervisions[0].custom["MOS"] and all(
+                    1 <= m <= 5 for m in c.supervisions[0].custom["MOS"].values())
+                    for b in run["batches"] for c in cuts_of(b))
             err = _first_batch_err(recorder, fly)
             want_launches = len(run["batches"])
             detail = ("every supervision once at 16 kHz" + (
                 ", TokenCollater.inverse() gives back every text" if kind == "tts" else "")
+                      + (", each with its listeners' MOS ratings" if kind == "mos" else "")
                       + f": {ok}")
         launches[f"corpus_{name}"] = fbank_cuda.LAUNCHES
         rate = run["audio_s"] / run["elapsed_s"]
@@ -6739,7 +6774,7 @@ TEL_SR = 8000  # the LDC telephone corpora: two-channel 8 kHz mu-law SPHERE
 SWBD_CONVERSATIONS = 8
 SWBD_SECONDS = 300.0  # about the length of a Switchboard-1 conversation
 FISHER_CALLS = 8
-FISHER_SECONDS = 600.0  # a Fisher call
+FISHER_SECONDS = 300.0  # half a Fisher call of 10 minutes
 TEL_TURN_SECONDS = (2.0, 15.0)
 TEL_GAP_SECONDS = (-1.0, 1.5)  # a negative gap overlaps the other side's turn
 TEL_WEIGHTS = [1, 1]
@@ -7135,7 +7170,7 @@ def _phase_telephone(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     through the CLI's ``prepare`` command, and their manifests must be
     equal. ``swbd_fisher_device_chain``: the training set of Kaldi's
     ``fisher_swbd`` recipe, 8 Switchboard-1 conversations of 5 minutes and
-    8 Fisher English calls of 10 minutes, two-channel 8 kHz mu-law SPHERE
+    8 Fisher English calls cut to 5 minutes, two-channel 8 kHz mu-law SPHERE
     in their published layouts with MS-State and LDC transcripts →
     ``prepare_switchboard`` and ``prepare_fisher_english`` →
     ``CutSet.from_manifests`` → ``trim_to_supervisions`` (each side of a
@@ -7262,12 +7297,13 @@ LIBRIMIX_GAINS = ((0.5, 1.5), (0.2, 0.8))  # the sources' and the WHAM! noise's 
 SEPARATION_ROWS = 32  # rows whose sources and mixtures are extracted for separation
 LSMIX_ENTRIES = 64
 LSMIX_DELAY = (0.5, 3.0)  # s before the second speaker of a LibriSpeechMix entry starts
-DIAR_SESSIONS = 8
+DIAR_SESSIONS = 4  # of each corpus
 DIAR_SECONDS = 120.0
 DIAR_SPEAKERS = (2, 6)
 DIAR_DOMAINS = ("audiobooks", "broadcast_interview", "clinical", "court", "cts", "maptask",
                 "meeting", "restaurant", "socio_field", "socio_lab", "webvideo")
-CHIME5_SESSIONS = (("S02", 120.0), ("S09", 30.0))  # the dev split; S09 only completes it
+# The dev split (S09 only completes it).
+CHIME5_SESSIONS = (("S02", 60.0), ("S09", 30.0))
 CHIME5_ARRAYS, CHIME5_CHANNELS = 6, 4
 CHIME5_HEADSETS = {"S02": ("P05", "P06", "P07", "P08"), "S09": ("P25", "P26", "P27", "P28")}
 MINI_ROWS = 16
@@ -7537,11 +7573,11 @@ def _phase_overlap(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     ``test-clean-2mix.jsonl`` → ``prepare_librispeechmix`` →
     ``K2SurtDataset(num_channels=2)`` with ``OnTheFlyFeatures`` → the step.
     ``dihard3_diarization_extract`` / ``dihard3_diarization`` and
-    ``voxconverse_diarization_extract`` / ``voxconverse_diarization``: 8
+    ``voxconverse_diarization_extract`` / ``voxconverse_diarization``: 4
     sessions of 120 s with 2-6 speakers in overlapping turns in each corpus's
     layout → its recipe → 15 s windows → ``compute_and_store_features_batch``
     → ``DiarizationDataset`` → the step. ``chime6_array_sync``: a raw CHiME-5
-    dev split (S02 of 120 s and S09 of 30 s, six 4-channel arrays and four
+    dev split (S02 of 60 s and S09 of 30 s, six 4-channel arrays and four
     binaural headsets each) and a local ``audio_edits.json`` →
     ``prepare_chime6(perform_array_sync=True, mic="mdm")``, the U01 channels
     against their edit splice sample by sample, ``verify_md5_checksums`` on
@@ -7959,6 +7995,598 @@ def _phase_overlap(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+TRANSLATION_SEED = 2929
+MUSTC_TALKS = 8  # train talks of the MuST-C en-de layout
+MUSTC_TALK_SECONDS = 300.0
+MUSTC_SEGMENTS = 32  # segments of each train talk: 8 x 32 fill the 15 s x 256 bucket
+MUSTC_SEGMENT_SECONDS = (2.0, 15.0)
+MUSTC_GAP_SECONDS = (0.05, 0.5)
+MUSTC_EVAL_SECONDS = 60.0  # the one talk of each of dev, tst-COMMON and tst-HE
+IWSLT_CONVERSATIONS = 8
+IWSLT_SECONDS = 120.0
+IWSLT_SR = 8000  # LDC2022E01: 8 kHz telephone conversations
+IWSLT_RESUME_AFTER = 2
+GIGAST_FILES = 16
+GIGAST_SECONDS = 40.0
+TRANSLATION_CORPUS_FILES = 16  # files of each corpus_<name> leg of phase 29
+TRANSLATION_CORPUS_SECONDS = 30.0
+GERMAN = ("wir", "müssen", "über", "Energie", "nachdenken", "und", "das", "Klima", "ändert",
+          "sich", "schön", "Straße", "Menschen", "die", "Welt")
+TRANSLATION_ENGLISH = ("we", "have", "to", "think", "about", "energy", "and", "the", "climate",
+                       "is", "changing", "people", "world", "today", "good")
+TUNISIAN = ("كلام", "تونسي", "باهي", "برشا", "اليوم", "شنوة", "أحوالك", "إنشاء", "آمين", "مرحبا",
+            "يعيشك", "توة")
+VTT_SPANISH = ("hola", "mundo", "buenos", "días", "energía", "niño", "señor", "qué", "tal",
+               "clima", "personas")
+THAI = ("สวัสดี", "ครับ", "ขอบคุณ", "มาก", "วันนี้", "อากาศ", "ดี", "เรา", "ต้อง", "คิด")
+# (surface, pronunciation, part of speech) of CSJ's SDB words, some with disfluency tags.
+CSJ_WORDS = (("それ", "ソレ", "代名詞"), ("は", "ワ", "助詞"), ("です", "デス", "助動詞"),
+             ("日本", "ニッポン", "名詞"), ("語", "ゴ", "接尾辞"), ("話し", "ハナシ", "動詞"),
+             ("ます", "マス", "助動詞"), ("研究", "ケンキュー", "名詞"), ("(F えー)", "(F エー)", "感動詞"),
+             ("(D ど)", "(D ド)", "言いよどみ"), ("(W アタシ;ワタシ)", "(W アタシ;ワタシ)", "代名詞"),
+             ("(? はい)", "(? ハイ)", "感動詞"))
+
+
+def _speech_track(rng, seconds: float, segments: list, sr: int = SR) -> np.ndarray:
+    """(1, n) audio of ``seconds``: a quiet noise floor with a tone burst
+    under each (start, end) of ``segments``."""
+    n = int(seconds * sr)
+    audio = (rng.randn(1, n) * 0.003).astype(np.float32)
+    for start, end in segments:
+        i0, i1 = int(start * sr), int(end * sr)
+        audio[0, i0:i1] += _tone_burst(rng, (i1 - i0 + 1) / sr, sr)[: i1 - i0]
+    return np.clip(audio, -1, 1)
+
+
+def _segments_within(rng, seconds: float, count: int, lengths=MUSTC_SEGMENT_SECONDS,
+                     gaps=MUSTC_GAP_SECONDS) -> list:
+    """``count`` (start, end) segments of ``lengths`` seconds after gaps of
+    ``gaps``, drawn until they fit in ``seconds``; 6 decimals."""
+    while True:
+        out, t = [], float(rng.uniform(*gaps))
+        for _ in range(count):
+            length = float(rng.uniform(*lengths))
+            out.append((round(t, 6), round(t + length, 6)))
+            t += length + float(rng.uniform(*gaps))
+        if out[-1][1] < seconds - 0.05:
+            return out
+
+
+def _write_must_c(root: Path, rng) -> tuple:
+    """MuST-C release 1.0 ``en-de`` (fairseq's S2T example): ``en-de/data/
+    {train,dev,tst-COMMON,tst-HE}/wav/ted_<n>.wav`` (16 kHz talks) with
+    ``txt/<split>.yaml`` (a row per segment: duration, offset, speaker_id,
+    wav) and ``txt/<split>.de`` (the German target of each row, in order).
+    Train holds ``MUSTC_TALKS`` talks of ``MUSTC_TALK_SECONDS`` with
+    ``MUSTC_SEGMENTS`` segments of 2-15 s each; the other splits one talk of
+    ``MUSTC_EVAL_SECONDS``. Returns the corpus directory and the train
+    split's rows."""
+    talk = 767
+    for split in ("train", "dev", "tst-COMMON", "tst-HE"):
+        data = root / "en-de" / "data" / split
+        (data / "txt").mkdir(parents=True, exist_ok=True)
+        rows, texts = [], []
+        for _ in range(MUSTC_TALKS if split == "train" else 1):
+            seconds = MUSTC_TALK_SECONDS if split == "train" else MUSTC_EVAL_SECONDS
+            count = MUSTC_SEGMENTS if split == "train" else 6
+            segments = _segments_within(rng, seconds, count)
+            _write_audio(data / "wav" / f"ted_{talk}.wav", _speech_track(rng, seconds, segments),
+                         SR)
+            for start, end in segments:
+                rows.append(f"- {{duration: {round(end - start, 6)}, offset: {start}, "
+                            f"speaker_id: spk.{talk}, wav: ted_{talk}.wav}}")
+                texts.append(_words(rng, GERMAN).capitalize() + ".")
+            talk += 1
+        (data / "txt" / f"{split}.yaml").write_text("\n".join(rows) + "\n")
+        (data / "txt" / f"{split}.de").write_text("\n".join(texts) + "\n")
+        if split == "train":
+            train_rows = len(rows)
+    return root, train_rows
+
+
+def _write_iwslt22_ta(root: Path, rng) -> tuple:
+    """IWSLT 2022's dialect task (LDC2022E01 with the split lists of
+    github.com/kevinduh/iwslt22-dialect): ``data/audio/ta/<file>.sph`` (8 kHz
+    PCM SPHERE, one side of a call), ``data/transcripts/ta/<file>.ta.tsv``
+    and ``data/translations/ta/<file>.eng.tsv`` (start, end, speaker, text
+    per turn), ``splits/{train,dev,test1}.file_id.txt`` and
+    ``splits/exclude-utterance.txt``. The Tunisian turns carry the corpus's
+    noise markers and punctuation; each English translation is a capitalised
+    sentence. Returns the corpus and splits directories and each kept
+    supervision's expected translation, keyed by supervision id."""
+    corpus, splits = root / "ldc", root / "splits"
+    for d in ("audio", "transcripts", "translations"):
+        (corpus / "data" / d / "ta").mkdir(parents=True, exist_ok=True)
+    splits.mkdir(parents=True, exist_ok=True)
+    names = [f"2017{k + 1:02d}15_1{k}3000_{20000 + 17 * k}_{'AB'[k % 2]}"
+             for k in range(IWSLT_CONVERSATIONS)]
+    expected, excluded = {}, []
+    for k, name in enumerate(names):
+        audio, turns = _conversation(rng, IWSLT_SECONDS, sr=IWSLT_SR, channels=1)
+        _write_audio(corpus / "data" / "audio" / "ta" / f"{name}.sph", audio[0], IWSLT_SR)
+        src, tgt = [], []
+        for i, (_, start, end) in enumerate(turns):
+            text = _words(rng, TUNISIAN)
+            text = f"O/ {text}؟" if i % 3 == 0 else f"{text}، ٣ M/" if i % 3 == 1 else text + "!"
+            english = _words(rng, TRANSLATION_ENGLISH)
+            spk = f"spk{k}{'AB'[i % 2]}"
+            src.append(f"{start:.2f}\t{end:.2f}\t{spk}\t{text}")
+            tgt.append(f"{start:.2f}\t{end:.2f}\t{spk}\t{english.capitalize()}.")
+            if i == 4:
+                excluded.append(f"{name} {start:.2f} {end:.2f}")
+            else:
+                expected[f"{spk}_ta_eng_{name}_{int(100 * start):06}"] = english
+        (corpus / "data" / "transcripts" / "ta" / f"{name}.ta.tsv").write_text("\n".join(src) + "\n")
+        (corpus / "data" / "translations" / "ta" / f"{name}.eng.tsv").write_text(
+            "\n".join(tgt) + "\n")
+    (splits / "train.file_id.txt").write_text("\n".join(names[:6]) + "\n")
+    (splits / "dev.file_id.txt").write_text(names[6] + "\n")
+    (splits / "test1.file_id.txt").write_text(names[7] + "\n")
+    (splits / "exclude-utterance.txt").write_text("\n".join(excluded) + "\n")
+    return corpus, splits, expected
+
+
+def _write_gigast(root: Path, rng) -> tuple:
+    """GigaSpeech's manifests for ``GIGAST_FILES`` podcasts of
+    ``GIGAST_SECONDS`` (16 kHz WAV here; 12 in XL, 4 in TEST; segments of
+    2-8 s named ``<audio>_S<n>``), as GigaSpeech's own recipe writes them,
+    and ``GigaST.de.json`` with a German translation of every segment (XL's
+    with an ``extra`` field) in the audios' order. The GigaST reader runs on
+    from XL into TEST and drops the line after XL's last match, so a filler
+    line separates the parts. Returns the corpus and manifest directories
+    and each segment's translation."""
+    from lhotse_tpu_torch.audio import Recording, RecordingSet
+    from lhotse_tpu_torch.supervision import SupervisionSegment, SupervisionSet
+
+    manifests = root / "gigaspeech_manifests"
+    manifests.mkdir(parents=True, exist_ok=True)
+    translations, audios = {}, []
+    parts = {"XL": [], "TEST": []}
+    for k in range(GIGAST_FILES):
+        part = "XL" if k < GIGAST_FILES * 3 // 4 else "TEST"
+        aid = f"{'POD' if part == 'XL' else 'YOU'}{1000000000 + k}"
+        segments = _segments_within(rng, GIGAST_SECONDS, 5, lengths=(2.0, 8.0))
+        path = root / "audio" / f"{aid}.wav"
+        _write_audio(path, _speech_track(rng, GIGAST_SECONDS, segments), SR)
+        rec = Recording.from_file(path, recording_id=aid)
+        sups = []
+        for i, (start, end) in enumerate(segments):
+            sid = f"{aid}_S{i:07d}"
+            sups.append(SupervisionSegment(id=sid, recording_id=aid, start=start,
+                                           duration=round(end - start, 6), channel=0,
+                                           text=_words(rng, TRANSLATION_ENGLISH).upper()))
+            translations[sid] = _words(rng, GERMAN)
+        parts[part].append((rec, sups))
+        rows = [{"sid": s.id, "text_raw": translations[s.id]} for s in sups]
+        if part == "XL":
+            rows = [dict(r, extra={"confidence": round(float(rng.uniform(0.5, 1.0)), 3)})
+                    for r in rows]
+        audios.append({"aid": aid, "segments": rows})
+        if k == GIGAST_FILES * 3 // 4 - 1:
+            audios.append({"aid": "FILLER", "segments": [{"sid": "FILLER", "text_raw": ""}]})
+    for part, pairs in parts.items():
+        RecordingSet.from_recordings(r for r, _ in pairs).to_file(
+            manifests / f"gigaspeech_recordings_{part}.jsonl.gz")
+        SupervisionSet.from_segments(s for _, sups in pairs for s in sups).to_file(
+            manifests / f"gigaspeech_supervisions_{part}.jsonl.gz")
+    (root / "GigaST.de.json").write_text(json.dumps({"audios": audios}, ensure_ascii=False),
+                                         encoding="utf-8")
+    return root, manifests, translations
+
+
+def _write_mtedx(root: Path, rng) -> Path:
+    """mTEDx's ``es-es`` package (openslr/100): ``es-es/data/{train,valid,test}/
+    wav/<talk>.flac`` (16 kHz) and ``vtt/<talk>.es.vtt`` subtitles, numbered
+    cues of 2-6 s, a laughter cue that the recipe drops; 12 train, 2 valid
+    and 2 test talks of ``TRANSLATION_CORPUS_SECONDS``."""
+    for k in range(TRANSLATION_CORPUS_FILES):
+        split = _zh_split(k, TRANSLATION_CORPUS_FILES, ("train", "valid", "test"))
+        talk = f"{'abcdefgh'[k % 8]}TalkId{k:03d}"
+        segments = _segments_within(rng, TRANSLATION_CORPUS_SECONDS, 5, lengths=(2.0, 5.0),
+                                    gaps=(0.2, 0.8))
+        base = root / "es-es" / "data" / split
+        _write_audio(base / "wav" / f"{talk}.flac",
+                     _speech_track(rng, TRANSLATION_CORPUS_SECONDS, segments)[0], SR)
+        cues = ["WEBVTT", ""]
+        for i, (start, end) in enumerate(segments):
+            text = "(Risas)" if i == 2 else _words(rng, VTT_SPANISH).capitalize() + "."
+            cues += [str(i + 1), f"{_hms(start)} --> {_hms(end)}", text, ""]
+        (base / "vtt").mkdir(parents=True, exist_ok=True)
+        (base / "vtt" / f"{talk}.es.vtt").write_text("\n".join(cues))
+    return root
+
+
+def _write_gigaspeech2(root: Path, rng) -> Path:
+    """GigaSpeech 2's Thai set: ``data/th/{train_raw,dev,test}.tsv`` (segment
+    id TAB text) over ``data/th/{train,dev,test}/<a>/<b>/<a>-<b>-<c>.wav``
+    (16 kHz segments of 2-8 s); 12 train, 2 dev and 2 test segments."""
+    lines = {"train_raw": [], "dev": [], "test": []}
+    for k in range(TRANSLATION_CORPUS_FILES):
+        part = _zh_split(k, TRANSLATION_CORPUS_FILES, ("train_raw", "dev", "test"))
+        sid = f"{k % 3}-{1000 + k}-{k}"
+        tree = part.replace("_raw", "")
+        _write_audio(root / "data" / "th" / tree / str(k % 3) / str(1000 + k) / f"{sid}.wav",
+                     _zh_burst(rng, (2.0, 8.0)), SR)
+        lines[part].append(f"{sid}\t{_words(rng, THAI)}")
+    for part, rows in lines.items():
+        (root / "data" / "th" / f"{part}.tsv").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def _csj_sdb_rows(rng, session: str, segments: list, side: str = "L") -> list:
+    """One (start, row) per word of an SDB: 17 tab-separated columns, the
+    segment id and the word's times in the fourth (``<sgid> <start>-<end>
+    <side>:``), the surface in the sixth, the pronunciation in the eleventh
+    and the part of speech in the twelfth."""
+    rows = []
+    for s, (start, end) in enumerate(segments):
+        sgid = f"{s + 1 + (500 if side == 'R' else 0):04d}"
+        n = max(2, int((end - start) / 0.4))
+        bounds = np.linspace(start, end, n + 1)
+        for w in range(n):
+            surface, pron, pos = CSJ_WORDS[rng.randint(len(CSJ_WORDS))]
+            cols = [""] * 17
+            cols[0], cols[1], cols[2] = f"{len(rows) + 1:05d}", "1", session
+            cols[3] = f"{sgid} {bounds[w]:.3f}-{bounds[w + 1]:.3f} {side}:{s}"
+            cols[5], cols[10], cols[11], cols[14] = surface, pron, pos, "一般"
+            rows.append((float(bounds[w]), "\t".join(cols)))
+    return rows
+
+
+def _write_csj(root: Path, rng) -> Path:
+    """CSJ's layout: ``MORPH/SDB/core/<session>.sdb`` (Shift-JIS word tables)
+    and ``WAV/core/<session>.wav`` (16 kHz): 14 lectures (``A``/``S``/``R``
+    sessions) and one dialogue (``D``) whose SDB holds both sides and whose
+    audio is ``<session>-L.wav`` and ``-R.wav``; segments of 2-6 s."""
+    sessions = [f"{'ASR'[k % 3]}{k:02d}{'MF'[k % 2]}{1000 + k:04d}" for k in range(14)]
+    for session in sessions + ["D05F1001"]:
+        segments = _segments_within(rng, TRANSLATION_CORPUS_SECONDS, 5, lengths=(2.0, 6.0),
+                                    gaps=(0.3, 1.0))
+        sdb = root / "MORPH" / "SDB" / "core" / f"{session}.sdb"
+        sdb.parent.mkdir(parents=True, exist_ok=True)
+        if session[0] == "D":
+            right = _segments_within(rng, TRANSLATION_CORPUS_SECONDS, 4, lengths=(2.0, 6.0),
+                                     gaps=(0.3, 1.0))
+            rows = sorted(_csj_sdb_rows(rng, session, segments, "L")
+                          + _csj_sdb_rows(rng, session, right, "R"))
+            for side, segs in (("L", segments), ("R", right)):
+                _write_audio(root / "WAV" / "core" / f"{session}-{side}.wav",
+                             _speech_track(rng, TRANSLATION_CORPUS_SECONDS, segs), SR)
+        else:
+            rows = _csj_sdb_rows(rng, session, segments)
+            _write_audio(root / "WAV" / "core" / f"{session}.wav",
+                         _speech_track(rng, TRANSLATION_CORPUS_SECONDS, segments), SR)
+        sdb.write_text("\n".join(r for _, r in rows) + "\n", encoding="shift_jis")
+    return root
+
+
+def _write_emilia(root: Path, rng) -> Path:
+    """Emilia's English set: ``raw/EN/EN_B<n>.jsonl`` rows (id, wav, text,
+    duration, speaker, language, dnsmos) over clips of 2-8 s written as WAV
+    behind the corpus's ``.mp3`` names, as the JAX package's test writes
+    them; 16 clips in two metadata files."""
+    data = root / "raw" / "EN"
+    for b in range(2):
+        rows = []
+        for i in range(TRANSLATION_CORPUS_FILES // 2):
+            utt = f"EN_B0000{b}_S0000{i % 4}_W{i:06d}"
+            rel = f"EN_B0000{b}/EN_B0000{b}_S0000{i % 4}/mp3/{utt}.mp3"
+            clip = _zh_burst(rng, (2.0, 8.0))
+            _write_audio(data / rel, clip, SR)
+            rows.append(json.dumps({
+                "id": utt, "wav": rel, "text": " " + _words(rng, TRANSLATION_ENGLISH).capitalize(),
+                "duration": round(clip.size / SR, 3), "speaker": f"EN_B0000{b}_S0000{i % 4}",
+                "language": "en", "dnsmos": round(float(rng.uniform(3.0, 3.6)), 4)}))
+        (data / f"EN_B0000{b}.jsonl").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def _write_bvcc(root: Path, rng) -> Path:
+    """BVCC's ``phase1-main`` and ``phase1-ood`` tracks: ``DATA/wav/<sys>-
+    <utt>.wav`` (16 kHz) and ``DATA/sets/{TRAINSET,DEVSET}`` rating rows
+    (system, utterance, rating, ignored, listener info), ``test.scp`` and
+    the OOD track's ``unlabeled_mos_list.txt``; 8 rated utterances per track
+    (6 train, 2 dev), each rated by 3 listeners, and an unrated test one."""
+    for track in ("main", "ood"):
+        data = root / f"phase1-{track}" / "DATA"
+        (data / "sets").mkdir(parents=True, exist_ok=True)
+        rows = {"TRAINSET": [], "DEVSET": []}
+        for u in range(TRANSLATION_CORPUS_FILES // 2):
+            name = f"sys{u % 4:02d}-utt{rng.randint(16 ** 6):06x}"
+            _write_audio(data / "wav" / f"{name}.wav", _zh_burst(rng, (2.0, 6.0)), SR)
+            for k in range(3):
+                if track == "main":
+                    info = (f"{rng.randint(10 ** 6)}_{('18-29', '30-39', '40-49')[k]}_L{u}{k:03d}_"
+                            f"{('Male', 'Female', 'Others')[(u + k) % 3]}_x_x_"
+                            f"{('No', 'Yes')[(u * k) % 2]}")
+                else:
+                    info = f"{rng.randint(10 ** 6)}_na_L{u}{k:03d}_na_na_na_{('EE', 'EP', 'ER')[k]}"
+                rows["DEVSET" if u >= 6 else "TRAINSET"].append(
+                    f"sys{u % 4:02d},{name}.wav,{rng.randint(1, 6)},0,{info}")
+        for part, lines in rows.items():
+            (data / "sets" / part).write_text("\n".join(lines[::-1]) + "\n")
+        _write_audio(data / "wav" / f"test-{track}.wav", _zh_burst(rng, (2.0, 4.0)), SR)
+        (data / "sets" / "test.scp").write_text(f"test-{track}.wav\n")
+        if track == "ood":
+            (data / "sets" / "unlabeled_mos_list.txt").write_text(f"test-{track}.wav\n")
+    return root
+
+
+def _write_voxpopuli(root: Path, rng, syscodecs) -> tuple:
+    """VoxPopuli's ASR subset: ``raw_audios/en/<year>/<session>_en.ogg``
+    (16 kHz mono Ogg Vorbis sessions, cut to ``TRANSLATION_CORPUS_SECONDS``)
+    and the annotation table ``asr_en.tsv.gz`` (id, session, start, end,
+    speaker, gender, normalised and original text, split) that the recipe
+    reads from its output directory; 16 sessions, 12 train, 2 dev, 2 test.
+    Returns the corpus directory and the table's bytes."""
+    import gzip
+
+    rows = ["id|session_id|start_time|end_time|speaker_id|gender|normed_text|original_text|split"]
+    for k in range(TRANSLATION_CORPUS_FILES):
+        session = f"20{19 + k % 2}{k % 12 + 1:02d}{k + 1:02d}-0900-PLENARY-{k}"
+        segments = _segments_within(rng, TRANSLATION_CORPUS_SECONDS, 4, lengths=(2.0, 6.0),
+                                    gaps=(0.2, 1.0))
+        path = root / "raw_audios" / "en" / f"20{19 + k % 2}" / f"{session}_en.ogg"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(syscodecs.vorbis_encode(
+            _speech_track(rng, TRANSLATION_CORPUS_SECONDS, segments), SR))
+        split = _zh_split(k, TRANSLATION_CORPUS_FILES)
+        for i, (start, end) in enumerate(segments):
+            words = _words(rng, TRANSLATION_ENGLISH)
+            rows.append(f"{session}_{i}|{session}|{start}|{end}|{1000 + k % 5}|"
+                        f"{('female', 'male')[k % 2]}|{words}|{words.capitalize()}.|{split}")
+    return root, gzip.compress(("\n".join(rows) + "\n").encode())
+
+
+def _translation_specs(root: Path, rng, syscodecs, manifests: Path, smi: str) -> dict:
+    """Per corpus of phase 29's ``corpus_<name>`` legs, in the order they
+    run: the recipe's call for an output directory, the CLI's command and
+    the training path. VoxPopuli's only where the Vorbis libraries load
+    (its annotation table is written into both output directories first)."""
+    from lhotse_tpu_torch import recipes as R
+
+    mtedx, gs2 = _write_mtedx(root / "mtedx", rng), _write_gigaspeech2(root / "gigaspeech2", rng)
+    csj = _write_csj(root / "csj", rng)
+    emilia, bvcc = _write_emilia(root / "emilia", rng), _write_bvcc(root / "bvcc", rng)
+    trans = root / "csj_transcripts"
+    specs = {
+        "mtedx": (lambda o: R.prepare_mtedx(mtedx, o, languages="es"),
+                  ["mtedx", mtedx, "-l", "es"], "asr"),
+        "gigaspeech2": (lambda o: R.prepare_gigaspeech2(gs2, output_dir=o, languages="th"),
+                        ["gigaspeech2", gs2, "-l", "th"], "asr"),
+        "csj": (lambda o: R.prepare_csj(csj, transcript_dir=trans, manifest_dir=o,
+                                        dataset_parts=["core"]),
+                ["csj", csj, "-t", trans, "-p", "core"], "asr"),
+        "emilia": (lambda o: R.prepare_emilia(emilia, lang="en", output_dir=o),
+                   ["emilia", emilia, "--lang", "en"], "tts"),
+        "bvcc": (lambda o: R.prepare_bvcc(bvcc, output_dir=o), ["bvcc", bvcc], "mos"),
+    }
+    if syscodecs.vorbis_available() and syscodecs.vorbis_encode_available():
+        vox, table = _write_voxpopuli(root / "voxpopuli", rng, syscodecs)
+        for run in ("function", "cli"):
+            (manifests / "voxpopuli" / run).mkdir(parents=True, exist_ok=True)
+            (manifests / "voxpopuli" / run / "asr_en.tsv.gz").write_bytes(table)
+        specs["voxpopuli"] = (lambda o: R.prepare_voxpopuli(vox, output_dir=o, lang="en"),
+                              ["voxpopuli", vox, "--lang", "en"], "asr")
+    else:
+        print(f"[{smi}] corpus_voxpopuli left out: the Vorbis libraries (libvorbisfile, "
+              f"libvorbisenc, libogg) do not load here, and VoxPopuli ships Ogg Vorbis: "
+              f"{syscodecs.loaded_sonames()} (ROADMAP.md A3)")
+    return specs
+
+
+def _translation_epoch(name, cuts, tgt_of, device, fbank_cuda, smi, resume_after=None) -> tuple:
+    """``cuts`` → ``SimpleCutSampler(max_duration=FLY_MAX_DURATION)`` →
+    ``K2Speech2TextTranslationDataset`` with ``OnTheFlyFeatures`` on the card
+    → ``DataLoader`` → an AdamW step per batch (``_leg``, under
+    ``torch.profiler``). Every batch's ``tgt_text`` must be ``tgt_of`` of its
+    supervisions, and the epoch must bring each cut once. With
+    ``resume_after``, a fresh loader resumed from the state after that many
+    batches gives the rest of the epoch ``torch.equal`` to the first run's.
+    Returns the launches and the first batch's kernel-vs-plain error."""
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_translation import K2Speech2TextTranslationDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+
+    def loader_and_extractor():
+        extractor = Fbank(FbankConfig(device=device))
+        dataset = K2Speech2TextTranslationDataset(
+            return_cuts=True, input_strategy=OnTheFlyFeatures(extractor))
+        sampler = SimpleCutSampler(cuts, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0)
+        return DataLoader(sampler, dataset, prefetch_batches=3), extractor
+
+    loader, extractor = loader_and_extractor()
+    recorder = _RecordFirstBatch(extractor)
+    state = {}
+
+    def keep(i, batch):
+        if resume_after is not None and i == resume_after - 1:
+            state["ckpt"] = loader.state_dict()
+
+    run = _leg(name, loader, _Trainer(device), device, fbank_cuda, _rows_of, smi, on_batch=keep)
+    err = _first_batch_err(recorder, extractor)
+    batches = run["batches"]
+    # Each trimmed cut holds one supervision, listed once in the batch.
+    tgt_ok = all(b["supervisions"]["tgt_text"]
+                 == [tgt_of(c.supervisions[0]) for c in b["supervisions"]["cut"]]
+                 == [c.supervisions[0].custom["translated_text"] for c in b["supervisions"]["cut"]]
+                 for b in batches)
+    seen = sorted(c.id for b in batches for c in b["supervisions"]["cut"])
+    coverage = seen == sorted(c.id for c in cuts)
+    detail = ""
+    if resume_after is not None:
+        resumed_loader, _ = loader_and_extractor()
+        resumed_loader.load_state_dict(state["ckpt"])
+        fbank_cuda.LAUNCHES = 0
+        resumed = list(resumed_loader)
+        resumed_launches = fbank_cuda.LAUNCHES
+        want = batches[resume_after:]
+        resume_ok = len(resumed) == len(want) > 0 and resumed_launches == len(want) and all(
+            [c.id for c in a["supervisions"]["cut"]] == [c.id for c in b["supervisions"]["cut"]]
+            and torch.equal(torch.from_numpy(a["inputs"]), torch.from_numpy(b["inputs"]))
+            and a["supervisions"]["tgt_text"] == b["supervisions"]["tgt_text"]
+            for a, b in zip(resumed, want))
+        detail = (f"; resumed after batch {resume_after}: {len(resumed)} batches torch.equal to "
+                  f"the uninterrupted run's (ids, inputs and tgt_text): {resume_ok}, launches "
+                  f"{resumed_launches}")
+        if not resume_ok:
+            raise AssertionError(f"{name}: the resumed batches differ from the first run's")
+    print(f"[{smi}] {name}: tgt_text of every batch the translations of its supervisions: "
+          f"{tgt_ok}; every cut once: {coverage}; first batch kernel vs plain {err!r} (tol "
+          f"{KERNEL_TOL}){detail}")
+    if not (tgt_ok and coverage) or run["launches"] != len(batches) or not err <= KERNEL_TOL:
+        raise AssertionError(f"{name}: tgt_text, coverage, launches or the kernel are off")
+    return run["launches"], err
+
+
+def _phase_translation(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """29. The speech-translation and multilingual corpus recipes, in phase
+    14's directory after phase 28 (phase 23's MUSAN noise and RIRS_NOISES
+    manifests feed the augmenter). Every recipe runs as a function and
+    through the CLI's ``prepare`` command, and their manifests must be
+    equal. ``must_c_device_chain``: the input chain of fairseq's S2T MuST-C
+    example (80-dim log-mel fbank), on MuST-C ``en-de`` in its published
+    layout, 8 train talks of 300 s with 32 segments of 2-15 s each →
+    ``prepare_must_c`` → ``CutSet.from_manifests`` →
+    ``trim_to_supervisions`` → the 256 segments as the 15 s x 256 bucket's
+    int16 batch → ``OnDeviceAugmenter`` with phase 23's MUSAN pool and real
+    RIR, speed 1.1, SNR (10, 20) and SpecAugment (as every
+    ``_device_chain`` leg). ``iwslt22_ta_translation``: 8 Tunisian Arabic
+    calls of 120 s as 8 kHz SPHERE with transcripts, translations, split
+    lists and exclusions → ``prepare_iwslt22_ta(normalize_text=True)`` →
+    the train split trimmed and resampled to 16 kHz →
+    ``K2Speech2TextTranslationDataset`` with ``OnTheFlyFeatures`` on the
+    kernel → the AdamW step, with a resume after batch 2.
+    ``gigast_translation``: GigaSpeech manifests over 16 podcasts of 40 s
+    and ``GigaST.de.json`` → ``prepare_gigast`` → the translated XL and
+    TEST segments, their ``text_raw`` as ``translated_text`` → the same
+    dataset and step. ``corpus_<name>``: mTEDx (``es-es``, FLAC and VTT),
+    GigaSpeech 2 (Thai), CSJ (14 lectures and a dialogue, Shift-JIS SDBs
+    through a transcript directory), Emilia (English, into
+    ``SpeechSynthesisDataset`` with a ``TokenCollater``), BVCC (the main and
+    OOD tracks, whole utterances with their MOS ratings) and VoxPopuli (Ogg
+    Vorbis, where the Vorbis libraries load), 16 files each, into the step
+    through ``_corpus_legs``. Returns the kernel's launches per path and the
+    largest kernel-vs-plain error."""
+    from lhotse_tpu_torch import CutSet
+    from lhotse_tpu_torch import recipes as R
+    from lhotse_tpu_torch.audio import RecordingSet, syscodecs
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+    from lhotse_tpu_torch.utils import fastcopy
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(TRANSLATION_SEED)
+    root = workdir / "translation"
+    manifests = root / "manifests"
+    launches, errs = {}, []
+
+    # -- must_c_device_chain -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    must_c, train_rows = _write_must_c(root / "corpora" / "must_c", rng)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "must_c", lambda o: R.prepare_must_c(must_c, o, tgt_lang="de"),
+        ["must-c", must_c, "--tgt-lang", "de"])
+    train = made["train"]
+    cuts = CutSet.from_manifests(recordings=train["recordings"],
+                                 supervisions=train["supervisions"]).trim_to_supervisions(
+        keep_overlapping=False).to_eager()
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    order = list(cuts)[:bsz]
+    t0 = time.perf_counter()
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    for k, cut in enumerate(order):
+        x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    load_s = time.perf_counter() - t0
+    targets = sum(bool(c.supervisions[0].text) and c.supervisions[0].language == "de"
+                  for c in order)
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] must_c_device_chain: MuST-C en-de with {MUSTC_TALKS} train talks of "
+          f"{MUSTC_TALK_SECONDS:g} s ({train_rows} segments of {MUSTC_SEGMENT_SECONDS} s) written "
+          f"in {write_s!r} s; prepare {function_s!r} s, CLI {cli_s!r} s, its {len(files)} "
+          f"manifests equal; splits {sorted(made)}; {len(cuts)} train segments trimmed, the first "
+          f"{len(order)} loaded in {load_s!r} s: {float(lens.sum()) / SR!r} audio-s, the bucket "
+          f"{float(lens.sum()) / (bsz * n)!r} full, {targets} with a German target; noise pool "
+          f"{pool.shape} from phase 23's {len(noise)} MUSAN noise recordings, RIR {rir_rec.id}")
+    if (len(cuts) != train_rows or len(order) != bsz or targets != bsz or lens.max() > n
+            or lens.min() < MUSTC_SEGMENT_SECONDS[0] * SR - 1
+            or sorted(made) != ["dev", "train", "tst-COMMON", "tst-HE"]):
+        raise AssertionError("must_c_device_chain: the segments do not fill the bucket")
+    launches["must_c_device_chain"], kernel_err, chain_err = _device_chain(
+        "must_c_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- iwslt22_ta_translation --------------------------------------------------------------
+    t0 = time.perf_counter()
+    corpus, splits, expected = _write_iwslt22_ta(root / "corpora" / "iwslt22_ta", rng)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "iwslt22_ta",
+        lambda o: R.prepare_iwslt22_ta(corpus, splits, output_dir=o, normalize_text=True),
+        ["iwslt22-ta", corpus, splits, "--normalize-text"])
+    train = made["train"]
+    cuts = CutSet.from_manifests(recordings=train["recordings"],
+                                 supervisions=train["supervisions"]).trim_to_supervisions(
+        keep_overlapping=False).resample(SR).to_eager()
+    rates = sorted({r.sampling_rate for r in train["recordings"]})
+    print(f"[{smi}] iwslt22_ta_translation: {IWSLT_CONVERSATIONS} calls of {IWSLT_SECONDS:g} s "
+          f"({IWSLT_SR} Hz SPHERE) written in {write_s!r} s; prepare {function_s!r} s, CLI "
+          f"{cli_s!r} s, its {len(files)} manifests equal; supervisions per split "
+          f"{ {k: len(v['supervisions']) for k, v in made.items()} }; {len(cuts)} train cuts at "
+          f"{rates} Hz resampled to {SR} Hz")
+    if rates != [IWSLT_SR] or not len(cuts) or any(s.id not in expected for c in cuts
+                                                   for s in c.supervisions):
+        raise AssertionError("iwslt22_ta_translation: the rate or the supervisions are off")
+    launches["iwslt22_ta_translation"], err = _translation_epoch(
+        "iwslt22_ta_translation", cuts, lambda s: {"eng": expected[s.id]}, device, fbank_cuda,
+        smi, resume_after=IWSLT_RESUME_AFTER)
+    errs.append(err)
+
+    # -- gigast_translation ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    gigast, gs_manifests, translations = _write_gigast(root / "corpora" / "gigast", rng)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "gigast", lambda o: R.prepare_gigast(gigast, gs_manifests, o, languages="de"),
+        ["gigast", gigast, gs_manifests, "-l", "de"])
+    recordings = RecordingSet.from_recordings(
+        r for part in ("XL", "TEST")
+        for r in RecordingSet.from_file(gs_manifests / f"gigaspeech_recordings_{part}.jsonl.gz"))
+    sups = SupervisionSet.from_segments(
+        fastcopy(s, custom=dict(s.custom, translated_text={"de": s.custom["text_raw"]}))
+        for part in ("XL", "TEST") for s in made[f"de-{part}"]["supervisions"])
+    cuts = CutSet.from_manifests(recordings=recordings, supervisions=sups).trim_to_supervisions(
+        keep_overlapping=False).to_eager()
+    extra = sum("extra" in s.custom for s in made["de-XL"]["supervisions"])
+    print(f"[{smi}] gigast_translation: {GIGAST_FILES} podcasts of {GIGAST_SECONDS:g} s written in "
+          f"{write_s!r} s; prepare {function_s!r} s, CLI {cli_s!r} s, its {len(files)} manifests "
+          f"equal; translated segments XL {len(made['de-XL']['supervisions'])} ({extra} with "
+          f"extra), TEST {len(made['de-TEST']['supervisions'])}, of {len(translations)}")
+    if len(cuts) != len(translations) or extra != len(made["de-XL"]["supervisions"]):
+        raise AssertionError("gigast_translation: a segment was not translated")
+    launches["gigast_translation"], err = _translation_epoch(
+        "gigast_translation", cuts, lambda s: {"de": translations[s.id]}, device, fbank_cuda, smi)
+    errs.append(err)
+
+    # -- corpus_<name> -----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    specs = _translation_specs(root / "corpora", rng, syscodecs, manifests, smi)
+    print(f"[{smi}] corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s")
+    corpus_launches, corpus_errs, summary = _corpus_legs(manifests, specs, device, fbank_cuda, smi)
+    launches.update(corpus_launches)
+    errs += corpus_errs
+    print(f"[{smi}] phase 29 corpora: {summary}")
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -8172,7 +8800,7 @@ def main() -> None:
     Mc, Ms = ops.dft_analysis_matrices(400, 512)
     cases = []
     # 200 filters run in two of the kernel's 128-filter chunks; 8 x 30,000
-    # frames is a 300 s, 8-channel meeting session (phase 15).
+    # frames is a 300 s, 8-channel meeting session.
     for B, T, n_mels in [(1, 100, 23), (3, 1001, 80), (3, 1001, 200), (8, 30000, 80),
                          (256, 1364, 80)]:
         Mc_d, Ms_d, fb_d = (
@@ -8408,6 +9036,13 @@ def main() -> None:
         launches_overlap, overlap_err = _phase_overlap(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_overlap)
         print(f"phase 28 took {time.perf_counter() - t0!r} s")
+        # -- 29. the speech-translation and multilingual corpora: MuST-C into the main path,
+        # IWSLT 2022 Tunisian Arabic and GigaST into translation training, after phase 23
+        t0 = time.perf_counter()
+        launches_translation, translation_err = _phase_translation(
+            Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_translation)
+        print(f"phase 29 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -8438,7 +9073,8 @@ def main() -> None:
         "max_abs_err": max([c["max_abs_err"] for c in cases]
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
-                              noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err]),
+                              noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err,
+                              translation_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -26,14 +26,15 @@ LEFT_OUT = {
 # MDCC's command is registered twice, as "MDCC" and "mdcc", as in JAX.
 PORTED_RECIPES = {
     "MDCC", "aidatatang-200zh", "aishell", "aishell2", "aishell3", "aishell4", "ali-meeting",
-    "ami", "baker-zh", "broadcast-news", "but-reverb-db", "callhome-egyptian",
-    "callhome-english", "cdsd", "chime6", "commonvoice", "dihard3", "dipco", "earnings21",
-    "earnings22", "eval2000", "fisher-english", "fisher-spanish", "gale-arabic",
-    "gale-mandarin", "icsi", "kespeech", "libricss", "librilight", "librimix", "librimix-mini",
-    "librispeech", "librispeechmix", "libritts", "librittsr", "ljspeech", "magicdata", "mdcc",
-    "mgb2", "mls", "musan", "notsofar1", "peoples-speech", "primewords", "rir-noise",
-    "spatial-librispeech", "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr",
-    "tal-csasr", "tedlium", "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "voxconverse",
+    "ami", "baker-zh", "broadcast-news", "but-reverb-db", "bvcc", "callhome-egyptian",
+    "callhome-english", "cdsd", "chime6", "commonvoice", "csj", "dihard3", "dipco",
+    "earnings21", "earnings22", "emilia", "eval2000", "fisher-english", "fisher-spanish",
+    "gale-arabic", "gale-mandarin", "gigaspeech2", "gigast", "icsi", "iwslt22-ta", "kespeech",
+    "libricss", "librilight", "librimix", "librimix-mini", "librispeech", "librispeechmix",
+    "libritts", "librittsr", "ljspeech", "magicdata", "mdcc", "mgb2", "mls", "mtedx", "musan",
+    "must-c", "notsofar1", "peoples-speech", "primewords", "rir-noise", "spatial-librispeech",
+    "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium",
+    "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "voxconverse", "voxpopuli",
     "wenetspeech4tts", "wham", "xbmu-amdo31", "yesno"}
 
 

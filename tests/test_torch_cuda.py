@@ -8,8 +8,8 @@ the same port on the CPU; a piped Kaldi data dir through the CLI's
 ``feat extract-cuts-batch`` against the kernel's plain version; windows
 of simulated meetings through the SURT dataset on the card; and the
 augmenter fed by the MUSAN, RIRS_NOISES and AISHELL recipes, by a mux of
-the THCHS-30 and KeSpeech recipes and by Switchboard-1 conversations on the
-card against the CPU port.
+the THCHS-30 and KeSpeech recipes, by Switchboard-1 conversations, by
+LibriMix mixtures and by MuST-C segments on the card against the CPU port.
 
 Every test here needs a card and skips without one. The file imports
 neither jax nor lhotse_tpu, so on the machine with the card (which has no
@@ -1237,6 +1237,68 @@ def test_librimix_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
         assert fbank_cuda.LAUNCHES == 1
         assert torch.equal(feat_lens.cpu(), cpu_lens)
         torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
+
+
+def test_must_c_fed_augmenter_on_card_matches_cpu(cuda, tmp_path):
+    """A MuST-C ``en-de`` layout (three 12 s talks of train, one of each other
+    split, segments of 1-3 s with German targets) through ``prepare_must_c``
+    and ``trim_to_supervisions``; its first 8 train segments, loaded on the
+    host, in two batches of the 3 s x 4 bucket into the augmenter on the
+    card against the same augmenter on the CPU port, and the kernel's
+    launch against its plain version on the same audio."""
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.recipes import prepare_must_c
+
+    rng = np.random.default_rng(25)
+    data = tmp_path / "en-de" / "data"
+    for split, talks in (("train", 3), ("dev", 1), ("tst-COMMON", 1), ("tst-HE", 1)):
+        (data / split / "wav").mkdir(parents=True)
+        (data / split / "txt").mkdir(parents=True)
+        rows, texts = [], []
+        for k in range(talks):
+            name = f"ted_{split}_{k}"
+            write_wav(data / split / "wav" / f"{name}.wav", _audio((1, 12 * 16000), seed=k), 16000)
+            offset = 0.5
+            while offset + 3.0 < 12.0:
+                duration = round(float(rng.uniform(1.0, 3.0)), 3)
+                rows.append(f"- {{duration: {duration}, offset: {offset}, speaker_id: spk.{k}, "
+                            f"wav: {name}.wav}}")
+                texts.append(f"Satz {len(texts)}")
+                offset = round(offset + duration + 0.25, 3)
+        (data / split / "txt" / f"{split}.yaml").write_text("\n".join(rows) + "\n")
+        (data / split / "txt" / f"{split}.de").write_text("\n".join(texts) + "\n")
+    made = prepare_must_c(tmp_path, tmp_path / "manifests", tgt_lang="de")["train"]
+    cuts = list(CutSet.from_manifests(
+        recordings=made["recordings"], supervisions=made["supervisions"]
+    ).trim_to_supervisions(keep_overlapping=False))
+    assert len(cuts) >= 8 and all(1.0 <= c.duration <= 3.0 for c in cuts)
+    n = 4800
+    rir = _audio((n,), seed=9) * np.exp(-np.arange(n) / (n / 6.0)).astype(np.float32)
+    rir[32] = 1.0
+    cfg = dict(buckets=[(3.0, 4)], speed_factor=1.1, noise_pool=_audio((4, 48000), seed=21),
+               rir=rir, snr=(10, 20), mix_prob=0.5, seed=3, wire_format="int16",
+               specaugment=SpecAugment(seed=7))
+    cpu_aug, card_aug = OnDeviceAugmenter(**cfg, device="cpu"), OnDeviceAugmenter(**cfg, device=cuda)
+    Mc, Ms = ops.dft_analysis_matrices(400, 512)
+    dev = [torch.from_numpy(np.ascontiguousarray(m)).to(cuda)
+           for m in fbank_cuda._squeeze_nyquist(Mc, Ms, _bank(80))]
+    for i in (0, 4):
+        audio = [c.load_audio()[0] for c in cuts[i:i + 4]]
+        lens = [len(a) for a in audio]
+        x = np.zeros((4, max(lens)), np.float32)
+        for k, a in enumerate(audio):
+            x[k, : len(a)] = a
+        cpu_feats, cpu_lens = cpu_aug(x, lens)
+        fbank_cuda.LAUNCHES = 0
+        feats, feat_lens = card_aug(x, lens)
+        assert fbank_cuda.LAUNCHES == 1
+        assert torch.equal(feat_lens.cpu(), cpu_lens)
+        torch.testing.assert_close(feats.cpu(), cpu_feats, rtol=0, atol=FEATURE_TOL)
+        xt = torch.from_numpy(x).to(cuda)
+        out = fbank_cuda.fbank_cuda(xt, *dev)
+        torch.testing.assert_close(out, fbank_cuda.reference_fbank(xt, *dev), rtol=0,
+                                   atol=LOGMEL_TOL)
 
 
 def test_global_mvn_and_randomized_smoothing_on_card(cuda, tmp_path):

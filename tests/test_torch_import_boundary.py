@@ -160,7 +160,13 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.bin.modes.recipes.libri_variants, "
         "lhotse_tpu_torch.bin.modes.recipes.dihard3, "
         "lhotse_tpu_torch.bin.modes.recipes.voxconverse, "
-        "lhotse_tpu_torch.bin.modes.recipes.earnings; "
+        "lhotse_tpu_torch.bin.modes.recipes.earnings, "
+        "lhotse_tpu_torch.recipes.must_c, lhotse_tpu_torch.recipes.iwslt22_ta, "
+        "lhotse_tpu_torch.recipes.mtedx, lhotse_tpu_torch.recipes.gigast, "
+        "lhotse_tpu_torch.recipes.voxpopuli, lhotse_tpu_torch.recipes.gigaspeech2, "
+        "lhotse_tpu_torch.recipes.emilia, lhotse_tpu_torch.recipes.bvcc, "
+        "lhotse_tpu_torch.recipes.csj, lhotse_tpu_torch.bin.modes.recipes.translation_mos, "
+        "lhotse_tpu_torch.bin.modes.recipes.voxpopuli, lhotse_tpu_torch.bin.modes.recipes.csj; "
         "from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "

@@ -38,13 +38,13 @@ NOT_PORTED = {
     """,
     "bin.modes.recipes": """
         adept adept_dl aishell3_dl aishell4_dl ali_meeting_dl aspire atcosim audio_mnist
-        audio_mnist_dl babel bengaliai_speech bvcc chime6_dl cmu_arctic cmu_arctic_dl cmu_indic
-        cmu_kids csj cslu_kids daily_talk daily_talk_dl dipco_dl earnings21_dl ears ears_dl
-        edacc emilia fleurs gigaspeech gigaspeech2 gigast grid heroico heroico_dl hifitts
-        hifitts_dl himia icmcasr iwslt22_ta ksponspeech l2_arctic libricss_dl librilight_dl
-        mdcc_dl medical mobvoihotwords mobvoihotwords_dl mtedx must_c nsc oto_speech radio
-        reazonspeech rir_noise_dl sbcsae slu speechcommands speechcommands_dl tedlium2_dl
-        this_american_life uwb_atcc voxconverse_dl voxpopuli voxpopuli_dl wham_dl
+        audio_mnist_dl babel bengaliai_speech chime6_dl cmu_arctic cmu_arctic_dl cmu_indic
+        cmu_kids cslu_kids daily_talk daily_talk_dl dipco_dl earnings21_dl ears ears_dl edacc
+        fleurs gigaspeech grid heroico heroico_dl hifitts hifitts_dl himia icmcasr ksponspeech
+        l2_arctic libricss_dl librilight_dl mdcc_dl medical mobvoihotwords mobvoihotwords_dl
+        nsc oto_speech radio reazonspeech rir_noise_dl sbcsae slu speechcommands
+        speechcommands_dl tedlium2_dl this_american_life uwb_atcc voxconverse_dl voxpopuli_dl
+        wham_dl
     """,
     "dataset": """
         UnsupervisedAudioVideoDataset collate_images collate_video plot_batch
@@ -59,32 +59,30 @@ NOT_PORTED = {
         data_parallel_mesh
     """,
     "recipes": """
-        concat_csj_supervisions download_adept download_aidatatang_200zh download_aishell
-        download_aishell3 download_aishell4 download_ali_meeting download_ami download_and_untar
-        download_atcosim download_audio_mnist download_baker_zh download_but_reverb_db
-        download_bvcc download_chime6 download_cmu_arctic download_cmu_indic
-        download_commonvoice download_daily_talk download_dipco download_earnings21
-        download_earnings22 download_ears download_edacc download_fleurs download_gigaspeech
-        download_gigast download_grid download_heroico download_hifitts download_himia
-        download_icsi download_iwslt22_ta download_libricss download_librimix
-        download_librimix_mini download_librispeechmix download_libritts download_librittsr
-        download_ljspeech download_magicdata download_mdcc download_medical download_mgb2
-        download_mobvoihotwords download_mtedx download_musan download_notsofar1
-        download_oto_speech download_primewords download_reazonspeech download_rir_noise
-        download_sbcsae download_spatial_librispeech download_speechcommands download_spgispeech
-        download_stcmds download_tedlium download_tedlium2 download_thchs_30
-        download_this_american_life download_timit download_uwb_atcc download_vctk
-        download_voxceleb1 download_voxceleb2 download_voxconverse download_voxpopuli
-        download_wham download_xbmu_amdo31 download_yesno prepare_adept prepare_aspire
-        prepare_atcosim prepare_audio_mnist prepare_bengaliai_speech prepare_bvcc
-        prepare_cmu_arctic prepare_cmu_indic prepare_cmu_kids prepare_csj prepare_cslu_kids
-        prepare_daily_talk prepare_ears prepare_edacc prepare_emilia prepare_fleurs
-        prepare_gigaspeech prepare_gigaspeech2 prepare_gigast prepare_grid prepare_heroico
-        prepare_hifitts prepare_himia prepare_icmcasr prepare_iwslt22_ta prepare_ksponspeech
-        prepare_l2_arctic prepare_medical prepare_mobvoihotwords prepare_mtedx prepare_must_c
+        download_adept download_aidatatang_200zh download_aishell download_aishell3
+        download_aishell4 download_ali_meeting download_ami download_and_untar download_atcosim
+        download_audio_mnist download_baker_zh download_but_reverb_db download_bvcc
+        download_chime6 download_cmu_arctic download_cmu_indic download_commonvoice
+        download_daily_talk download_dipco download_earnings21 download_earnings22
+        download_ears download_edacc download_fleurs download_gigaspeech download_gigast
+        download_grid download_heroico download_hifitts download_himia download_icsi
+        download_libricss download_librimix download_librimix_mini download_librispeechmix
+        download_libritts download_librittsr download_ljspeech download_magicdata download_mdcc
+        download_medical download_mgb2 download_mobvoihotwords download_mtedx download_musan
+        download_notsofar1 download_oto_speech download_primewords download_reazonspeech
+        download_rir_noise download_sbcsae download_spatial_librispeech download_speechcommands
+        download_spgispeech download_stcmds download_tedlium download_tedlium2
+        download_thchs_30 download_this_american_life download_timit download_uwb_atcc
+        download_vctk download_voxceleb1 download_voxceleb2 download_voxconverse
+        download_voxpopuli download_wham download_xbmu_amdo31 download_yesno prepare_adept
+        prepare_aspire prepare_atcosim prepare_audio_mnist prepare_bengaliai_speech
+        prepare_cmu_arctic prepare_cmu_indic prepare_cmu_kids prepare_cslu_kids
+        prepare_daily_talk prepare_ears prepare_edacc prepare_fleurs prepare_gigaspeech
+        prepare_grid prepare_heroico prepare_hifitts prepare_himia prepare_icmcasr
+        prepare_ksponspeech prepare_l2_arctic prepare_medical prepare_mobvoihotwords
         prepare_nsc prepare_oto_speech prepare_radio prepare_reazonspeech prepare_sbcsae
         prepare_single_babel_language prepare_slu prepare_speechcommands
-        prepare_this_american_life prepare_uwb_atcc prepare_voxpopuli prepare_wenet_speech
+        prepare_this_american_life prepare_uwb_atcc prepare_wenet_speech
     """,
     "testing": """
         RandomCutTestCase random_cut_set
