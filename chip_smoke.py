@@ -157,8 +157,13 @@ GigaST's German translations of GigaSpeech segments through
 ``OnTheFlyFeatures`` on the kernel and the AdamW step, the first with a
 resume; mTEDx, GigaSpeech 2, CSJ (through a transcript directory), Emilia
 (into ``SpeechSynthesisDataset``), BVCC (rated utterances) and, where the
-Vorbis libraries load, VoxPopuli into the step); and checks what comes
-out.
+Vorbis libraries load, VoxPopuli into the step); then the large ASR
+training corpora (KsponSpeech, 256 headerless int16 PCM utterances of 2-15
+s, through ``prepare_ksponspeech`` into the augmenter at the 15 s × 256
+bucket; NSC parts 3 and 1, BABEL Cantonese, Heroico, ICMC-ASR ``ihm`` and
+``sdm``, ReazonSpeech and, where the MP3 libraries load, Bengali.AI Speech
+into the step; ICMC-ASR ``mdm``'s four-channel recordings through the
+multi-channel route); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -221,7 +226,10 @@ stored features), ``voxconverse_diarization_extract``,
 ``corpus_earnings22``, ``must_c_device_chain``, ``iwslt22_ta_translation``,
 ``gigast_translation`` and ``corpus_<name>`` for ``mtedx``,
 ``gigaspeech2``, ``csj``, ``emilia``, ``bvcc`` and, where it runs,
-``voxpopuli``); the last line is
+``voxpopuli``, ``ksponspeech_device_chain``, ``corpus_<name>`` for
+``nsc_part3``, ``nsc_part1``, ``babel``, ``heroico``, ``icmcasr_ihm``,
+``icmcasr_sdm``, ``reazonspeech`` and, where it runs, ``bengaliai_speech``,
+and ``icmcasr_mdm``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -283,18 +291,21 @@ def _device_ms(fn, kernel: str = "") -> float:
 
 
 def _device_busy(fn):
-    """Run ``fn`` once under ``torch.profiler``. Returns its host-clock wall
-    ms, the ms in which the device was busy (the union of the intervals of
-    its device activities: kernels, copies, sets) and the device ms by
-    activity name. ``fn`` runs once, so a window that the card's CUPTI
-    tracing hands back without its device activities (as it now and then
-    does, see ``_device_ms``) cannot be traced again: its busy ms are NaN,
-    "not measured", and the phase's own checks still decide."""
+    """Run ``fn`` once under ``torch.profiler``, tracing the device's
+    activities only (a trace of the host's operators adds seconds per
+    epoch to the wall and to the trace's processing, and the busy share
+    needs none of them). Returns its host-clock wall ms, the ms in which
+    the device was busy (the union of the intervals of its device
+    activities: kernels, copies, sets) and the device ms by activity name.
+    ``fn`` runs once, so a window that the card's CUPTI tracing hands back
+    without its device activities (as it now and then does, see
+    ``_device_ms``) cannot be traced again: its busy ms are NaN, "not
+    measured", and the phase's own checks still decide."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -307,7 +318,7 @@ def _device_busy(fn):
             reach = end
     by_name = {}
     for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
     if not busy_us > 0:
         print("torch.profiler handed back this window without device activities: its device "
               "busy share is not measured (nan)")
@@ -8587,6 +8598,482 @@ def _phase_translation(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+# -- 30. the large ASR training corpora ---------------------------------------------------
+# Each corpus in its published layout and format (sampling rate, codec,
+# directory tree, file names, transcript tables, TextGrids, zips), cut in
+# depth only: KsponSpeech's 256 train utterances of 2-15 s fill the 15 s x
+# 256 bucket (the release has 620,000), every other corpus holds minutes of
+# audio. Tone bursts from numpy seed ASR_SEED.
+ASR_SEED = 3030
+KSPON_TRAIN = 256  # train rows of the KsponSpeech layout: the 15 s x 256 bucket
+KSPON_OTHER = 8  # rows of each of dev, eval_clean and eval_other
+KSPON_SECONDS = (2.0, 15.0)
+NSC_CONVERSATIONS = 4  # PART3_SameCloseMic conversations
+NSC_SECONDS = 60.0
+NSC_SPEAKERS = 2  # PART1_CHANNEL0 speaker zips, each of NSC_SESSIONS sessions
+NSC_SESSIONS = 2
+NSC_UTTERANCES = 8  # read utterances of each session
+BABEL_CALLS = 4  # training calls of the Cantonese package, two sides each: 8 conversations
+BABEL_SECONDS = 60.0
+BABEL_SR = 8000
+HEROICO_FILES = 8  # of each of the answers, recitations and USMA
+ICMC_SECTIONS = (("train", "S0001"), ("train", "S0002"), ("dev", "S0101"))
+ICMC_SECONDS = 60.0
+REAZON_ROWS = 1116  # dev 1,000, test 100, train 16
+REAZON_SECONDS = (1.0, 2.0)
+BENGALI_FILES = 16
+BENGALI_SR = 32000
+KOREAN = ("안녕", "하세요", "오늘", "날씨", "정말", "좋네요", "그래서", "우리", "같이", "밥", "먹자",
+          "진짜", "그러니까", "아니", "근데", "내일", "학교", "가요")
+# (the spelling side, the pronunciation side) of KsponSpeech's dual transcripts
+KSPON_DUALS = (("3프로", "삼 프로"), ("10시", "열 시"), ("2개", "두 개"), ("TV", "티비"),
+               ("5분", "오 분"))
+KSPON_NOISE = ("b/", "l/", "o/", "n/", "u/")
+NSC_ENGLISH = ("okay", "can", "lah", "we", "go", "makan", "first", "then", "see", "how", "leh",
+               "the", "hawker", "centre", "open", "already")
+BABEL_TAGS = ("<breath>", "<hes>", "(())", "<click>", "<lipsmack>", "<foreign>")
+CANTONESE_WORDS = ("佢", "哋", "喺", "度", "食", "緊", "嘢", "我", "唔", "係", "好", "鍾意")
+HEROICO_SPANISH = ("hola", "amigo", "buenos", "días", "cómo", "estás", "señor", "niño", "qué",
+                   "tal", "mañana", "canción")
+ICMC_MANDARIN = ("你好", "打开", "空调", "导航", "到", "公司", "播放", "音乐", "关闭", "车窗", "调高",
+                 "温度")
+REAZON_JAPANESE = ("こんにちは", "今日は", "いい", "天気", "ですね", "１２３", "、", "。", "ＡＢＣ",
+                   "3.5", "ニュース", "です")
+BENGALI_WORDS = ("বাংলা", "বাক্য", "আমি", "তুমি", "ভালো", "আছি", "আজ", "কাল", "বই", "পড়ি")
+
+
+def _write_ksponspeech(root: Path, rng) -> tuple:
+    """KsponSpeech as AI-Hub ships it (and icefall's ``egs/ksponspeech``
+    reads it): headerless 16 kHz int16 ``.pcm`` files under
+    ``KsponSpeech_01/KsponSpeech_0001/`` (train), ``KsponSpeech_05/
+    KsponSpeech_0621/`` (dev) and ``eval_clean/``/``eval_other/``, with the
+    tables ``train.trn``, ``dev.trn``, ``eval_clean.trn`` and
+    ``eval_other.trn`` of ``path :: text`` rows (the eval rows under the
+    ``KsponSpeech_eval/`` prefix). Each text is Korean words with noise
+    labels, dual transcripts and ``*``/``+``/``/`` marks. Returns the corpus
+    and, per recording id, its samples and the text ``normalize`` should
+    make."""
+    expected, n = {}, 0
+    for part, count in (("train", KSPON_TRAIN), ("dev", KSPON_OTHER),
+                        ("eval_clean", KSPON_OTHER), ("eval_other", KSPON_OTHER)):
+        rows = []
+        for _ in range(count):
+            n += 1
+            name = f"KsponSpeech_{n:06d}" if part in ("train", "dev") else f"KsponSpeech_E{n:05d}"
+            rel = {"train": f"KsponSpeech_01/KsponSpeech_{(n - 1) // 1000 + 1:04d}/{name}.pcm",
+                   "dev": f"KsponSpeech_05/KsponSpeech_0621/{name}.pcm"}.get(
+                part, f"{part}/{name}.pcm")
+            x = _tone_burst(rng, float(rng.uniform(*KSPON_SECONDS)))
+            pcm = np.round(x * 32767).astype("<i2")
+            (root / rel).parent.mkdir(parents=True, exist_ok=True)
+            pcm.tofile(root / rel)
+            tokens, clean = [], []
+            for _ in range(rng.randint(3, 10)):
+                if rng.rand() < 0.25:
+                    tokens.append(KSPON_NOISE[rng.randint(len(KSPON_NOISE))])
+                if rng.rand() < 0.2:
+                    spelling, pronunciation = KSPON_DUALS[rng.randint(len(KSPON_DUALS))]
+                    word, text = f"({spelling})/({pronunciation})", spelling
+                else:
+                    word = text = KOREAN[rng.randint(len(KOREAN))]
+                tokens.append(word + ("*", "+", "/", "", "", "")[rng.randint(6)])
+                clean.append(text)
+            prefix = "" if part in ("train", "dev") else "KsponSpeech_eval/"
+            rows.append(f"{prefix}{rel} :: {' '.join(tokens)}")
+            expected[name] = (pcm, " ".join(clean))
+        (root / f"{part}.trn").write_text("\n".join(rows) + "\n", encoding="utf-8")
+    return root, expected
+
+
+def _nsc_part3(root: Path, rng) -> None:
+    """NSC ``PART3_SameCloseMic``: ``NSC_CONVERSATIONS`` conversations of
+    ``NSC_SECONDS`` at 16 kHz under ``PART3/Audio Same CloseMic/``, each with
+    a TextGrid in ``PART3/Scripts Same/`` whose one tier (named after the
+    file) has a text interval per turn and ``<S>``/``<Z>`` between them."""
+    from lhotse_tpu_torch.recipes.nsc import get_part_handler_map
+
+    dirs = get_part_handler_map(root)["PART3_SameCloseMic"].script_audio
+    for k in range(NSC_CONVERSATIONS):
+        stem = f"conf_{2500 + k}_{2500 + k}"
+        segments = _segments_within(rng, NSC_SECONDS, 12, lengths=(1.5, 6.0), gaps=(0.2, 1.2))
+        _write_audio(Path(dirs.audio_dir) / f"{stem}.wav", _speech_track(rng, NSC_SECONDS,
+                                                                        segments), SR)
+        intervals, t = [], 0.0
+        for start, end in segments:
+            intervals.append((t, start, ("<S>", "<Z>")[rng.randint(2)]))
+            intervals.append((start, end, _words(rng, NSC_ENGLISH, 2, 9)))
+            t = end
+        intervals.append((t, NSC_SECONDS, "<S>"))
+        Path(dirs.script_dir).mkdir(parents=True, exist_ok=True)
+        (Path(dirs.script_dir) / f"{stem}.TextGrid").write_text(
+            _textgrid({stem: intervals}, NSC_SECONDS))
+
+
+def _nsc_part1(root: Path, rng) -> int:
+    """NSC ``PART1_CHANNEL0``: ``WAVE/SPEAKER000k.zip`` per speaker, holding
+    ``SPEAKER000k/SESSION{s}/<id>.WAV`` (16 kHz read utterances of 2-5 s),
+    and a ``SCRIPT/0000ks.TXT`` per session that pairs each id row with its
+    text and then the normalised text. Returns the utterance count."""
+    import io
+    import zipfile
+
+    from lhotse_tpu_torch.audio.wavio import write_wav
+    from lhotse_tpu_torch.recipes.nsc import get_part_handler_map
+
+    dirs = get_part_handler_map(root)["PART1_CHANNEL0"].script_audio
+    audio_dir, script_dir = Path(dirs.audio_dir), Path(dirs.script_dir)
+    audio_dir.mkdir(parents=True, exist_ok=True)
+    script_dir.mkdir(parents=True, exist_ok=True)
+    for s in range(NSC_SPEAKERS):
+        spk = f"{s + 1:04d}"
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w") as zf:
+            for session in range(NSC_SESSIONS):
+                rows = []
+                for utt in range(NSC_UTTERANCES):
+                    audio_id = f"0{spk}{session}{utt:03d}"
+                    wav = io.BytesIO()
+                    write_wav(wav, _tone_burst(rng, float(rng.uniform(2.0, 5.0)))[None], SR)
+                    zf.writestr(f"SPEAKER{spk}/SESSION{session}/{audio_id}.WAV", wav.getvalue())
+                    text = _words(rng, NSC_ENGLISH, 3, 10)
+                    rows += [f"{audio_id}\t{text.capitalize()}.", f"\t{text}"]
+                (script_dir / f"0{spk}{session}.TXT").write_text(
+                    "\ufeff" + "\n".join(rows) + "\n", encoding="utf-8")
+        (audio_dir / f"SPEAKER{spk}.zip").write_bytes(buf.getvalue())
+    return NSC_SPEAKERS * NSC_SESSIONS * NSC_UTTERANCES
+
+
+def _write_babel(root: Path, rng) -> Path:
+    """One IARPA BABEL package, Cantonese (101): ``conversational/{training,
+    dev,eval}/audio/BABEL_BP_101_<speaker>_<date>_<hour>_{inLine,outLine}.sph``
+    (8 kHz mu-law SPHERE, one side of a call each, ``BABEL_SECONDS`` long)
+    and ``transcription/<same>.txt`` of ``[seconds]`` stamps alternating with
+    text lines (``<no-speech>`` between turns, noise tags within them);
+    ``BABEL_CALLS`` training calls, one dev call, and one eval call whose
+    transcripts are withheld."""
+    package = root / "IARPA_BABEL_BP_101"
+    speaker = 10033
+    for split, calls in (("training", BABEL_CALLS), ("dev", 1), ("eval", 1)):
+        conv = package / "conversational" / split
+        (conv / "transcription").mkdir(parents=True, exist_ok=True)
+        for c in range(calls):
+            speaker += 1
+            for side in ("inLine", "outLine"):
+                stem = f"BABEL_BP_101_{speaker}_2011102{c}_20{c}740_{side}"
+                segments = _segments_within(rng, BABEL_SECONDS, 10, lengths=(1.5, 5.0),
+                                            gaps=(0.3, 1.5))
+                _ldc_sphere(conv / "audio" / f"{stem}.sph",
+                            _speech_track(rng, BABEL_SECONDS, segments, BABEL_SR), BABEL_SR,
+                            "ulaw")
+                if split == "eval":
+                    continue
+                lines = ["[0.000]"]
+                for start, end in segments:
+                    tag = BABEL_TAGS[rng.randint(len(BABEL_TAGS))] + " " if rng.rand() < 0.3 else ""
+                    lines += ["<no-speech>", f"[{start:.3f}]",
+                              tag + _words(rng, CANTONESE_WORDS, 2, 8), f"[{end:.3f}]"]
+                lines += ["<no-speech>", f"[{BABEL_SECONDS:.3f}]"]
+                (conv / "transcription" / f"{stem}.txt").write_text("\n".join(lines) + "\n")
+    return package
+
+
+def _write_heroico(root: Path, rng) -> tuple:
+    """LDC2006S37 as OpenSLR 39 unpacks it: ``speech/heroico/Answers_Spanish/
+    <spk>/<prompt>.wav``, ``speech/heroico/Recordings_Spanish/<spk>/<id>.wav``
+    (ids on both sides of the 355-561 repeats) and ``speech/usma/
+    {native,nonnative}-[fm]-<name>/s<id>.wav``, ``HEROICO_FILES`` of each at
+    16 kHz, and ``transcripts/`` with the three ISO-8859-1 prompt tables.
+    Returns the speech and transcript directories."""
+    speech, trans = root / "speech", root / "transcripts"
+    trans.mkdir(parents=True, exist_ok=True)
+    answers, recitations = [], []
+    for k in range(HEROICO_FILES):
+        spk, pid = str(k % 3 + 1), k + 1
+        _write_audio(speech / "heroico" / "Answers_Spanish" / spk / f"{pid}.wav",
+                     _tone_burst(rng, float(rng.uniform(1.0, 4.0))), SR)
+        answers.append(f"{spk}/{pid}\t{_words(rng, HEROICO_SPANISH, 2, 8)}")
+        rid = (100, 354, 355, 400, 450, 561, 562, 700)[k]
+        _write_audio(speech / "heroico" / "Recordings_Spanish" / str(k % 2 + 4) / f"{rid}.wav",
+                     _tone_burst(rng, float(rng.uniform(1.0, 4.0))), SR)
+        recitations.append(f"{rid}\t{_words(rng, HEROICO_SPANISH, 2, 8)}")
+        usma = ("native-f-ana", "native-m-jose", "nonnative-f-kim", "nonnative-m-lee")[k % 4]
+        _write_audio(speech / "usma" / usma / f"s{k // 4 + 1}.wav",
+                     _tone_burst(rng, float(rng.uniform(1.0, 4.0))), SR)
+    prompts = [f"s{i}\t{_words(rng, HEROICO_SPANISH, 2, 8)}" for i in (1, 2)]
+    for name, rows in (("heroico-answers.txt", answers), ("heroico-recordings.txt", recitations),
+                       ("usma-prompts.txt", prompts)):
+        (trans / name).write_text("\n".join(rows) + "\n", encoding="iso-8859-1")
+    return speech, trans
+
+
+def _write_icmcasr(root: Path, rng) -> Path:
+    """ICMC-ASR's layout: ``{train,dev}/<section>/DA0{1-4}.wav`` (each seat's
+    headset), ``DX0{1-4}C01.wav`` (the four far-field mics, every seat at its
+    own gain) and ``DA0{1-4}.TextGrid`` (one tier per seat, a Mandarin text
+    interval per turn and empty ones between), ``ICMC_SECONDS`` per section
+    at 16 kHz; ``eval_track1/`` without sections."""
+    for part, section in ICMC_SECTIONS:
+        d = root / part / section
+        n = int(ICMC_SECONDS * SR)
+        heads, far = [], np.zeros((4, n), np.float32)
+        for seat in range(4):
+            segments = _segments_within(rng, ICMC_SECONDS, 6, lengths=(1.0, 4.0), gaps=(1.0, 5.0))
+            x = _speech_track(rng, ICMC_SECONDS, segments)[0]
+            heads.append(x)
+            far += rng.uniform(0.2, 0.6, size=(4, 1)).astype(np.float32) * x
+            intervals, t = [], 0.0
+            for start, end in segments:
+                intervals += [(t, start, ""), (start, end, _words(rng, ICMC_MANDARIN, 2, 6, ""))]
+                t = end
+            intervals.append((t, ICMC_SECONDS, ""))
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"DA0{seat + 1}.TextGrid").write_text(
+                _textgrid({f"{section}_spk{seat + 1}": intervals}, ICMC_SECONDS))
+            _write_audio(d / f"DA0{seat + 1}.wav", x, SR)
+        for k in range(4):
+            _write_audio(d / f"DX0{k + 1}C01.wav", np.clip(far[k], -1, 1), SR)
+    (root / "eval_track1").mkdir(parents=True, exist_ok=True)
+    return root
+
+
+def _write_reazonspeech(root: Path, rng) -> Path:
+    """ReazonSpeech as its download leaves it: ``audio/<id>.flac`` clips of
+    1-2 s (16 kHz) and ``dataset.json`` rows of id, path, normalised
+    Japanese text and duration, ``REAZON_ROWS`` of them."""
+    from lhotse_tpu_torch.recipes.reazonspeech import normalize
+
+    rows = []
+    for i in range(REAZON_ROWS):
+        path = root / "audio" / f"{i:06d}.flac"
+        x = _tone_burst(rng, float(rng.uniform(*REAZON_SECONDS)))
+        _write_audio(path, x, SR)
+        rows.append({"id": f"{i:06d}", "audio_filepath": str(path), "duration": x.size / SR,
+                     "text": normalize(_words(rng, REAZON_JAPANESE, 2, 8, ""))})
+    (root / "dataset.json").write_text(json.dumps(rows, ensure_ascii=False), encoding="utf-8")
+    return root
+
+
+def _write_bengaliai(root: Path, rng, syscodecs) -> Path:
+    """The Kaggle competition's layout: ``train_mp3s/<id>.mp3`` (32 kHz MP3,
+    2-6 s; three quarters train and a quarter valid in ``train.csv``) and
+    ``test_mp3s/<id>.mp3`` (no text), ``BENGALI_FILES`` clips in all."""
+    rows = ["id,sentence,split"]
+    for k in range(BENGALI_FILES):
+        part = "test_mp3s" if k >= BENGALI_FILES * 3 // 4 else "train_mp3s"
+        audio_id = f"{k:012x}"
+        x = _tone_burst(rng, float(rng.uniform(2.0, 6.0)), BENGALI_SR)
+        (root / part).mkdir(parents=True, exist_ok=True)
+        (root / part / f"{audio_id}.mp3").write_bytes(syscodecs.mp3_encode(x[None], BENGALI_SR))
+        if part == "train_mp3s":
+            rows.append(f"{audio_id},{_words(rng, BENGALI_WORDS, 2, 8)},"
+                        f"{'valid' if k % 4 == 3 else 'train'}")
+    (root / "train.csv").write_text("\n".join(rows) + "\n", encoding="utf-8")
+    return root
+
+
+def _asr_corpus_specs(root: Path, rng, syscodecs, smi: str) -> tuple:
+    """Per corpus of phase 30's ``corpus_<name>`` legs, in the order they
+    run: the recipe's call for an output directory, the CLI's command and
+    the training path. Bengali.AI Speech's only where the MP3 libraries
+    load (its test split has no text, so its train and valid splits are
+    trained on). Returns the specs and the ICMC-ASR corpus."""
+    from lhotse_tpu_torch import recipes as R
+
+    nsc = root / "nsc"
+    _nsc_part3(nsc, rng)
+    _nsc_part1(nsc, rng)
+    babel = _write_babel(root / "babel", rng)
+    speech, trans = _write_heroico(root / "heroico", rng)
+    icmc = _write_icmcasr(root / "icmcasr", rng)
+    reazon = _write_reazonspeech(root / "reazonspeech", rng)
+    specs = {
+        "nsc_part3": (lambda o: R.prepare_nsc(nsc, dataset_part="PART3_SameCloseMic",
+                                              output_dir=o),
+                      ["nsc", nsc, "-p", "PART3_SameCloseMic"], "asr"),
+        "nsc_part1": (lambda o: R.prepare_nsc(nsc, dataset_part="PART1_CHANNEL0", output_dir=o),
+                      ["nsc", nsc, "-p", "PART1_CHANNEL0"], "asr"),
+        "babel": (lambda o: R.prepare_single_babel_language(babel, output_dir=o),
+                  ["babel", babel], "asr"),
+        "heroico": (lambda o: R.prepare_heroico(speech, trans, output_dir=o),
+                    ["heroico", speech, trans], "asr"),
+        "icmcasr_ihm": (lambda o: R.prepare_icmcasr(icmc, output_dir=o, mic="ihm"),
+                        ["icmcasr", icmc, "--mic", "ihm"], "asr"),
+        "icmcasr_sdm": (lambda o: R.prepare_icmcasr(icmc, output_dir=o, mic="sdm"),
+                        ["icmcasr", icmc, "--mic", "sdm"], "asr"),
+        "reazonspeech": (lambda o: R.prepare_reazonspeech(reazon, output_dir=o),
+                         ["reazonspeech", reazon], "asr"),
+    }
+    if syscodecs.mp3_available() and syscodecs.mp3_encode_available():
+        bengali = _write_bengaliai(root / "bengaliai_speech", rng, syscodecs)
+        specs["bengaliai_speech"] = (
+            lambda o: {part: m for part, m in R.prepare_bengaliai_speech(
+                bengali, output_dir=o).items() if part != "test"},
+            ["bengaliai-speech", bengali], "asr")
+    else:
+        print(f"[{smi}] corpus_bengaliai_speech left out: the MP3 libraries (libmpg123, "
+              f"libmp3lame) do not load here, and Bengali.AI Speech ships MP3: "
+              f"{syscodecs.loaded_sonames()} (ROADMAP.md A3)")
+    return specs, icmc
+
+
+def _phase_asr_corpora(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """30. The large ASR training corpus recipes, in phase 14's directory
+    after phase 29 (phase 23's MUSAN noise and RIRS_NOISES manifests feed
+    the augmenter). Every recipe runs as a function and through the CLI's
+    ``prepare`` command, and their manifests must be equal.
+    ``ksponspeech_device_chain``: the input chain of icefall's KsponSpeech
+    recipe (80-dim log-mel fbank, MUSAN noise, speed perturbation,
+    SpecAugment) on KsponSpeech in its published layout, 256 train
+    utterances of 2-15 s as headerless int16 PCM and 8 of each other part →
+    ``prepare_ksponspeech`` (PCM to FLAC beside each file, the texts
+    normalised) → ``CutSet.from_manifests`` → the first 256 train cuts as
+    the 15 s x 256 bucket's int16 batch → ``OnDeviceAugmenter`` with phase
+    23's MUSAN pool and real RIR, speed 1.1, SNR (10, 20) and SpecAugment
+    (as every ``_device_chain`` leg); every recording's samples must equal
+    its PCM / 32768 and every text its expected normalisation.
+    ``corpus_<name>``: NSC ``PART3_SameCloseMic`` (TextGrids) and
+    ``PART1_CHANNEL0`` (speaker zips), BABEL Cantonese (8 kHz mu-law SPHERE,
+    eval transcripts withheld), Heroico (three folds), ICMC-ASR ``ihm`` and
+    ``sdm``, ReazonSpeech (1,116 rows, all three splits) and, where the MP3
+    libraries load, Bengali.AI Speech, into the step through
+    ``_corpus_legs``. ``icmcasr_mdm``: ``prepare_icmcasr(mic="mdm")`` on the
+    same sections, each recording's (4, T) audio against the four DX files
+    stacked, then one batch of its segments trimmed with every channel kept
+    → ``to_mono()`` → ``OnTheFlyFeatures`` on the kernel → the step (phase
+    23's multi-channel route). Returns the kernel's launches per path and the
+    largest kernel-vs-plain error."""
+    from lhotse_tpu_torch import CutSet
+    from lhotse_tpu_torch import recipes as R
+    from lhotse_tpu_torch.audio import Recording, syscodecs
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import MonoCut, MultiCut
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import OnTheFlyFeatures
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(ASR_SEED)
+    root = workdir / "asr_corpora"
+    manifests = root / "manifests"
+    launches, errs = {}, []
+
+    # -- ksponspeech_device_chain ------------------------------------------------------------
+    t0 = time.perf_counter()
+    kspon, expected = _write_ksponspeech(root / "corpora" / "ksponspeech", rng)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "ksponspeech", lambda o: R.prepare_ksponspeech(kspon, output_dir=o),
+        ["ksponspeech", kspon])
+    train = made["train"]
+    cuts = CutSet.from_manifests(recordings=train["recordings"],
+                                 supervisions=train["supervisions"]).to_eager()
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    order = list(cuts)[:bsz]
+    t0 = time.perf_counter()
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    loaded = {}
+    for k, cut in enumerate(order):
+        loaded[cut.recording_id] = x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    load_s = time.perf_counter() - t0
+    # Every recording's samples (the bucket's as loaded, the rest read here)
+    # against its PCM / 32768, and every text against its normalisation.
+    t0 = time.perf_counter()
+    samples_equal = texts_equal = True
+    for part in made.values():
+        for rec in part["recordings"]:
+            x = loaded[rec.id] if rec.id in loaded else rec.load_audio()[0]
+            samples_equal &= np.array_equal(x, expected[rec.id][0].astype(np.float32) / 32768.0)
+        texts_equal &= all(s.text == expected[s.id][1] and s.language == "Korean"
+                           for s in part["supervisions"])
+    check_s = time.perf_counter() - t0
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    counts = {part: len(m["supervisions"]) for part, m in made.items()}
+    print(f"[{smi}] ksponspeech_device_chain: KsponSpeech with {KSPON_TRAIN} train utterances "
+          f"of {KSPON_SECONDS} s and {KSPON_OTHER} of each other part written in {write_s!r} s; "
+          f"prepare {function_s!r} s (PCM to FLAC included), CLI {cli_s!r} s (the FLACs reused), "
+          f"its {len(files)} manifests equal; supervisions per part {counts}; every recording "
+          f"equal to its PCM / 32768: {samples_equal}, every text its expected normalisation: "
+          f"{texts_equal} (checked in {check_s!r} s; e.g. {order[0].supervisions[0].text!r}); "
+          f"the first {len(order)} train cuts loaded in {load_s!r} s: "
+          f"{float(lens.sum()) / SR!r} audio-s, the bucket {float(lens.sum()) / (bsz * n)!r} "
+          f"full; noise pool {pool.shape} from phase 23's {len(noise)} MUSAN noise recordings, "
+          f"RIR {rir_rec.id}")
+    if (counts != {"train": KSPON_TRAIN, "dev": KSPON_OTHER, "eval_clean": KSPON_OTHER,
+                   "eval_other": KSPON_OTHER} or not samples_equal or not texts_equal
+            or len(order) != bsz or lens.max() > n or lens.min() < KSPON_SECONDS[0] * SR - 1):
+        raise AssertionError("ksponspeech_device_chain: the parts, samples, texts or the bucket "
+                             "are off")
+    launches["ksponspeech_device_chain"], kernel_err, chain_err = _device_chain(
+        "ksponspeech_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- corpus_<name> -----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    specs, icmc = _asr_corpus_specs(root / "corpora", rng, syscodecs, smi)
+    print(f"[{smi}] corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s")
+    corpus_launches, corpus_errs, summary = _corpus_legs(manifests, specs, device, fbank_cuda, smi)
+    launches.update(corpus_launches)
+    errs += corpus_errs
+    print(f"[{smi}] phase 30 corpora: {summary}")
+
+    # -- icmcasr_mdm -------------------------------------------------------------------------
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "icmcasr_mdm", lambda o: R.prepare_icmcasr(icmc, output_dir=o, mic="mdm"),
+        ["icmcasr", icmc, "--mic", "mdm"])
+    stacked, shapes_ok = {}, True
+    for part in made.values():
+        for rec in part["recordings"]:
+            section = Path(rec.sources[0].source).parent
+            if section not in stacked:
+                stacked[section] = np.concatenate([
+                    Recording.from_file(section / f"DX0{k}C01.wav").load_audio()
+                    for k in range(1, 5)])
+            x = rec.load_audio()
+            shapes_ok &= x.shape == (4, rec.num_samples) and np.array_equal(x, stacked[section])
+    sessions = CutSet.from_manifests(recordings=made["train"]["recordings"],
+                                     supervisions=made["train"]["supervisions"]).to_eager()
+    trimmed = sessions.trim_to_supervisions(keep_overlapping=False,
+                                            keep_all_channels=True).to_eager()
+    monos = CutSet.from_cuts(m for c in trimmed for m in c.to_mono())
+    batch_cuts = CutSet.from_cuts(next(iter(SimpleCutSampler(
+        monos, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0))))
+    fly = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(fly)
+    dataset = K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly))
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    run = _task_epoch([dataset[batch_cuts]], _Trainer(device), device, _rows_of)
+    batch_s = time.perf_counter() - t0
+    launches["icmcasr_mdm"] = fbank_cuda.LAUNCHES
+    err = _first_batch_err(recorder, fly)
+    rows = run["batches"][0]["inputs"].shape[0]
+    print(f"[{smi}] icmcasr_mdm: prepare {function_s!r} s, CLI {cli_s!r} s, its {len(files)} "
+          f"manifests equal; {sum(len(p['recordings']) for p in made.values())} four-source "
+          f"recordings over {len(stacked)} sections, each load_audio() (4, T) and equal to the "
+          f"four DX files stacked: {shapes_ok}; {len(sessions)} train sessions "
+          f"({sorted({c.num_channels for c in sessions})} channels), "
+          f"{len(trimmed)} segments -> {len(monos)} MonoCuts; one batch of {rows} rows "
+          f"({run['audio_s']!r} channel-s) through OnTheFlyFeatures and the step in {batch_s!r} s; "
+          f"fbank kernel launches {launches['icmcasr_mdm']}; kernel vs plain {err!r} (tol "
+          f"{KERNEL_TOL})")
+    if not shapes_ok or not all(isinstance(c, MultiCut) and c.num_channels == 4
+                                for c in sessions) or {type(c) for c in monos} != {MonoCut}:
+        raise AssertionError("icmcasr_mdm: the four-channel recordings are off")
+    if len(monos) != 4 * len(trimmed) or len(trimmed) != len(made["train"]["supervisions"]):
+        raise AssertionError("icmcasr_mdm: trimming lost or split segments")
+    if launches["icmcasr_mdm"] != 1 or rows != len(batch_cuts) or not err <= KERNEL_TOL:
+        raise AssertionError("icmcasr_mdm: launches, the batch or the kernel are off")
+    errs.append(err)
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -9043,6 +9530,12 @@ def main() -> None:
             Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_translation)
         print(f"phase 29 took {time.perf_counter() - t0!r} s")
+        # -- 30. the large ASR training corpora: KsponSpeech into the main path, NSC, BABEL,
+        # Heroico, ICMC-ASR, ReazonSpeech and Bengali.AI Speech into training, after phase 23
+        t0 = time.perf_counter()
+        launches_asr, asr_err = _phase_asr_corpora(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_asr)
+        print(f"phase 30 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -9074,7 +9567,7 @@ def main() -> None:
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
                               noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err,
-                              translation_err]),
+                              translation_err, asr_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -18,8 +18,10 @@ Fisher Spanish, CALLHOME English, CALLHOME Egyptian, GALE Arabic, GALE
 Mandarin, MGB-2 and 1997 English Broadcast News; the speech-translation
 and multilingual corpora MuST-C, mTEDx, IWSLT 2022 Tunisian Arabic,
 GigaST, VoxPopuli, GigaSpeech 2, CSJ (Japanese), Emilia and BVCC (MOS
-ratings); and the manifest caching helpers. The JAX package's other
-recipes are not ported."""
+ratings); the large ASR training corpora KsponSpeech (Korean), NSC
+(Singapore English), BABEL, Heroico (Spanish), ICMC-ASR (in-car Mandarin),
+ReazonSpeech (Japanese) and Bengali.AI Speech; and the manifest caching
+helpers. The JAX package's other recipes are not ported."""
 from lhotse_tpu_torch.recipes.aidatatang_200zh import prepare_aidatatang_200zh
 from lhotse_tpu_torch.recipes.aishell import prepare_aishell
 from lhotse_tpu_torch.recipes.aishell2 import prepare_aishell2
@@ -27,10 +29,12 @@ from lhotse_tpu_torch.recipes.aishell3 import prepare_aishell3
 from lhotse_tpu_torch.recipes.aishell4 import prepare_aishell4
 from lhotse_tpu_torch.recipes.ali_meeting import prepare_ali_meeting
 from lhotse_tpu_torch.recipes.ami import prepare_ami
+from lhotse_tpu_torch.recipes.babel import prepare_single_babel_language
 from lhotse_tpu_torch.recipes.baker_zh import prepare_baker_zh
+from lhotse_tpu_torch.recipes.bengaliai_speech import prepare_bengaliai_speech
 from lhotse_tpu_torch.recipes.broadcast_news import prepare_broadcast_news
-from lhotse_tpu_torch.recipes.bvcc import prepare_bvcc
 from lhotse_tpu_torch.recipes.but_reverb_db import prepare_but_reverb_db
+from lhotse_tpu_torch.recipes.bvcc import prepare_bvcc
 from lhotse_tpu_torch.recipes.callhome_egyptian import prepare_callhome_egyptian
 from lhotse_tpu_torch.recipes.callhome_english import prepare_callhome_english
 from lhotse_tpu_torch.recipes.cdsd import prepare_cdsd
@@ -49,9 +53,12 @@ from lhotse_tpu_torch.recipes.gale_arabic import prepare_gale_arabic
 from lhotse_tpu_torch.recipes.gale_mandarin import prepare_gale_mandarin
 from lhotse_tpu_torch.recipes.gigaspeech2 import prepare_gigaspeech2
 from lhotse_tpu_torch.recipes.gigast import prepare_gigast
+from lhotse_tpu_torch.recipes.heroico import prepare_heroico
+from lhotse_tpu_torch.recipes.icmcasr import prepare_icmcasr
 from lhotse_tpu_torch.recipes.icsi import prepare_icsi
 from lhotse_tpu_torch.recipes.iwslt22_ta import download_iwslt22_ta, prepare_iwslt22_ta
 from lhotse_tpu_torch.recipes.kespeech import prepare_kespeech
+from lhotse_tpu_torch.recipes.ksponspeech import prepare_ksponspeech
 from lhotse_tpu_torch.recipes.libricss import prepare_libricss
 from lhotse_tpu_torch.recipes.librilight import prepare_librilight
 from lhotse_tpu_torch.recipes.librimix import prepare_librimix
@@ -68,8 +75,10 @@ from lhotse_tpu_torch.recipes.mtedx import prepare_mtedx
 from lhotse_tpu_torch.recipes.musan import prepare_musan
 from lhotse_tpu_torch.recipes.must_c import prepare_must_c
 from lhotse_tpu_torch.recipes.notsofar1 import prepare_notsofar1
+from lhotse_tpu_torch.recipes.nsc import prepare_nsc
 from lhotse_tpu_torch.recipes.peoples_speech import prepare_peoples_speech
 from lhotse_tpu_torch.recipes.primewords import prepare_primewords
+from lhotse_tpu_torch.recipes.reazonspeech import prepare_reazonspeech
 from lhotse_tpu_torch.recipes.rir_noise import prepare_rir_noise
 from lhotse_tpu_torch.recipes.spatial_librispeech import prepare_spatial_librispeech
 from lhotse_tpu_torch.recipes.speechio import prepare_speechio
@@ -97,18 +106,20 @@ __all__ = [
     "concat_csj_supervisions", "download_iwslt22_ta", "download_librispeech",
     "finalize_manifests", "manifests_exist", "prepare_aidatatang_200zh", "prepare_aishell",
     "prepare_aishell2", "prepare_aishell3", "prepare_aishell4", "prepare_ali_meeting",
-    "prepare_ami", "prepare_baker_zh", "prepare_broadcast_news", "prepare_but_reverb_db",
-    "prepare_bvcc", "prepare_callhome_egyptian", "prepare_callhome_english", "prepare_cdsd",
-    "prepare_chime6", "prepare_commonvoice", "prepare_csj", "prepare_dihard3", "prepare_dipco",
-    "prepare_earnings21", "prepare_earnings22", "prepare_emilia", "prepare_eval2000",
-    "prepare_fisher_english", "prepare_fisher_spanish", "prepare_gale_arabic",
-    "prepare_gale_mandarin", "prepare_gigaspeech2", "prepare_gigast", "prepare_icsi",
-    "prepare_iwslt22_ta", "prepare_kespeech", "prepare_libricss", "prepare_librilight",
-    "prepare_librimix", "prepare_librimix_mini", "prepare_librispeech",
-    "prepare_librispeechmix", "prepare_libritts", "prepare_librittsr", "prepare_ljspeech",
-    "prepare_magicdata", "prepare_mdcc", "prepare_mgb2", "prepare_mls", "prepare_mtedx",
-    "prepare_musan", "prepare_must_c", "prepare_notsofar1", "prepare_peoples_speech",
-    "prepare_primewords", "prepare_rir_noise", "prepare_spatial_librispeech",
+    "prepare_ami", "prepare_baker_zh", "prepare_bengaliai_speech", "prepare_broadcast_news",
+    "prepare_but_reverb_db", "prepare_bvcc", "prepare_callhome_egyptian",
+    "prepare_callhome_english", "prepare_cdsd", "prepare_chime6", "prepare_commonvoice",
+    "prepare_csj", "prepare_dihard3", "prepare_dipco", "prepare_earnings21",
+    "prepare_earnings22", "prepare_emilia", "prepare_eval2000", "prepare_fisher_english",
+    "prepare_fisher_spanish", "prepare_gale_arabic", "prepare_gale_mandarin",
+    "prepare_gigaspeech2", "prepare_gigast", "prepare_heroico", "prepare_icmcasr",
+    "prepare_icsi", "prepare_iwslt22_ta", "prepare_kespeech", "prepare_ksponspeech",
+    "prepare_libricss", "prepare_librilight", "prepare_librimix", "prepare_librimix_mini",
+    "prepare_librispeech", "prepare_librispeechmix", "prepare_libritts", "prepare_librittsr",
+    "prepare_ljspeech", "prepare_magicdata", "prepare_mdcc", "prepare_mgb2", "prepare_mls",
+    "prepare_mtedx", "prepare_musan", "prepare_must_c", "prepare_notsofar1", "prepare_nsc",
+    "prepare_peoples_speech", "prepare_primewords", "prepare_reazonspeech",
+    "prepare_rir_noise", "prepare_single_babel_language", "prepare_spatial_librispeech",
     "prepare_speechio", "prepare_spgispeech", "prepare_stcmds", "prepare_switchboard",
     "prepare_tal_asr", "prepare_tal_csasr", "prepare_tedlium", "prepare_tedlium2",
     "prepare_thchs_30", "prepare_timit", "prepare_vctk", "prepare_voxceleb",

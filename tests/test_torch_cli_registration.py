@@ -26,13 +26,14 @@ LEFT_OUT = {
 # MDCC's command is registered twice, as "MDCC" and "mdcc", as in JAX.
 PORTED_RECIPES = {
     "MDCC", "aidatatang-200zh", "aishell", "aishell2", "aishell3", "aishell4", "ali-meeting",
-    "ami", "baker-zh", "broadcast-news", "but-reverb-db", "bvcc", "callhome-egyptian",
-    "callhome-english", "cdsd", "chime6", "commonvoice", "csj", "dihard3", "dipco",
-    "earnings21", "earnings22", "emilia", "eval2000", "fisher-english", "fisher-spanish",
-    "gale-arabic", "gale-mandarin", "gigaspeech2", "gigast", "icsi", "iwslt22-ta", "kespeech",
-    "libricss", "librilight", "librimix", "librimix-mini", "librispeech", "librispeechmix",
-    "libritts", "librittsr", "ljspeech", "magicdata", "mdcc", "mgb2", "mls", "mtedx", "musan",
-    "must-c", "notsofar1", "peoples-speech", "primewords", "rir-noise", "spatial-librispeech",
+    "ami", "babel", "baker-zh", "bengaliai-speech", "broadcast-news", "but-reverb-db", "bvcc",
+    "callhome-egyptian", "callhome-english", "cdsd", "chime6", "commonvoice", "csj", "dihard3",
+    "dipco", "earnings21", "earnings22", "emilia", "eval2000", "fisher-english",
+    "fisher-spanish", "gale-arabic", "gale-mandarin", "gigaspeech2", "gigast", "heroico",
+    "icmcasr", "icsi", "iwslt22-ta", "kespeech", "ksponspeech", "libricss", "librilight",
+    "librimix", "librimix-mini", "librispeech", "librispeechmix", "libritts", "librittsr",
+    "ljspeech", "magicdata", "mdcc", "mgb2", "mls", "mtedx", "musan", "must-c", "notsofar1",
+    "nsc", "peoples-speech", "primewords", "reazonspeech", "rir-noise", "spatial-librispeech",
     "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium",
     "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "voxconverse", "voxpopuli",
     "wenetspeech4tts", "wham", "xbmu-amdo31", "yesno"}

@@ -166,7 +166,12 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.recipes.voxpopuli, lhotse_tpu_torch.recipes.gigaspeech2, "
         "lhotse_tpu_torch.recipes.emilia, lhotse_tpu_torch.recipes.bvcc, "
         "lhotse_tpu_torch.recipes.csj, lhotse_tpu_torch.bin.modes.recipes.translation_mos, "
-        "lhotse_tpu_torch.bin.modes.recipes.voxpopuli, lhotse_tpu_torch.bin.modes.recipes.csj; "
+        "lhotse_tpu_torch.bin.modes.recipes.voxpopuli, lhotse_tpu_torch.bin.modes.recipes.csj, "
+        "lhotse_tpu_torch.recipes.ksponspeech, lhotse_tpu_torch.recipes.nsc, "
+        "lhotse_tpu_torch.recipes.babel, lhotse_tpu_torch.recipes.heroico, "
+        "lhotse_tpu_torch.recipes.icmcasr, lhotse_tpu_torch.recipes.reazonspeech, "
+        "lhotse_tpu_torch.recipes.bengaliai_speech, "
+        "lhotse_tpu_torch.bin.modes.recipes.asr_corpora; "
         "from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "

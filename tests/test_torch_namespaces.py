@@ -38,13 +38,12 @@ NOT_PORTED = {
     """,
     "bin.modes.recipes": """
         adept adept_dl aishell3_dl aishell4_dl ali_meeting_dl aspire atcosim audio_mnist
-        audio_mnist_dl babel bengaliai_speech chime6_dl cmu_arctic cmu_arctic_dl cmu_indic
-        cmu_kids cslu_kids daily_talk daily_talk_dl dipco_dl earnings21_dl ears ears_dl edacc
-        fleurs gigaspeech grid heroico heroico_dl hifitts hifitts_dl himia icmcasr ksponspeech
-        l2_arctic libricss_dl librilight_dl mdcc_dl medical mobvoihotwords mobvoihotwords_dl
-        nsc oto_speech radio reazonspeech rir_noise_dl sbcsae slu speechcommands
-        speechcommands_dl tedlium2_dl this_american_life uwb_atcc voxconverse_dl voxpopuli_dl
-        wham_dl
+        audio_mnist_dl chime6_dl cmu_arctic cmu_arctic_dl cmu_indic cmu_kids cslu_kids
+        daily_talk daily_talk_dl dipco_dl earnings21_dl ears ears_dl edacc fleurs gigaspeech
+        grid heroico_dl hifitts hifitts_dl himia l2_arctic libricss_dl librilight_dl mdcc_dl
+        medical mobvoihotwords mobvoihotwords_dl oto_speech radio rir_noise_dl sbcsae slu
+        speechcommands speechcommands_dl tedlium2_dl this_american_life uwb_atcc voxconverse_dl
+        voxpopuli_dl wham_dl
     """,
     "dataset": """
         UnsupervisedAudioVideoDataset collate_images collate_video plot_batch
@@ -75,13 +74,11 @@ NOT_PORTED = {
         download_thchs_30 download_this_american_life download_timit download_uwb_atcc
         download_vctk download_voxceleb1 download_voxceleb2 download_voxconverse
         download_voxpopuli download_wham download_xbmu_amdo31 download_yesno prepare_adept
-        prepare_aspire prepare_atcosim prepare_audio_mnist prepare_bengaliai_speech
-        prepare_cmu_arctic prepare_cmu_indic prepare_cmu_kids prepare_cslu_kids
-        prepare_daily_talk prepare_ears prepare_edacc prepare_fleurs prepare_gigaspeech
-        prepare_grid prepare_heroico prepare_hifitts prepare_himia prepare_icmcasr
-        prepare_ksponspeech prepare_l2_arctic prepare_medical prepare_mobvoihotwords
-        prepare_nsc prepare_oto_speech prepare_radio prepare_reazonspeech prepare_sbcsae
-        prepare_single_babel_language prepare_slu prepare_speechcommands
+        prepare_aspire prepare_atcosim prepare_audio_mnist prepare_cmu_arctic prepare_cmu_indic
+        prepare_cmu_kids prepare_cslu_kids prepare_daily_talk prepare_ears prepare_edacc
+        prepare_fleurs prepare_gigaspeech prepare_grid prepare_hifitts prepare_himia
+        prepare_l2_arctic prepare_medical prepare_mobvoihotwords prepare_oto_speech
+        prepare_radio prepare_sbcsae prepare_slu prepare_speechcommands
         prepare_this_american_life prepare_uwb_atcc prepare_wenet_speech
     """,
     "testing": """
