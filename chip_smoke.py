@@ -163,7 +163,12 @@ s, through ``prepare_ksponspeech`` into the augmenter at the 15 s × 256
 bucket; NSC parts 3 and 1, BABEL Cantonese, Heroico, ICMC-ASR ``ihm`` and
 ``sdm``, ReazonSpeech and, where the MP3 libraries load, Bengali.AI Speech
 into the step; ICMC-ASR ``mdm``'s four-channel recordings through the
-multi-channel route); and checks what comes out.
+multi-channel route); then the TTS, accented-speech and children's corpora
+(CMU Kids, 256 utterances of 2-15 s as 16 kHz SPHERE from 16 children,
+through ``prepare_cmu_kids`` into the augmenter at the 15 s × 256 bucket;
+Hi-Fi TTS, EARS, DailyTalk, CMU ARCTIC, CMU Indic and ADEPT into
+``SpeechSynthesisDataset``; L2-ARCTIC's read and suitcase parts, CSLU Kids,
+GRID and otoSpeech into the step); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -229,7 +234,10 @@ stored features), ``voxconverse_diarization_extract``,
 ``voxpopuli``, ``ksponspeech_device_chain``, ``corpus_<name>`` for
 ``nsc_part3``, ``nsc_part1``, ``babel``, ``heroico``, ``icmcasr_ihm``,
 ``icmcasr_sdm``, ``reazonspeech`` and, where it runs, ``bengaliai_speech``,
-and ``icmcasr_mdm``); the last line is
+``icmcasr_mdm``, ``cmu_kids_device_chain`` and ``corpus_<name>`` for
+``hifitts``, ``ears``, ``daily_talk``, ``cmu_arctic``, ``cmu_indic``,
+``adept``, ``l2_arctic_read``, ``l2_arctic_suitcase``, ``cslu_kids``,
+``grid`` and ``oto_speech``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -9074,6 +9082,477 @@ def _phase_asr_corpora(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+# -- 31. the TTS, accented-speech and children's corpora ---------------------------------
+# Each corpus in its published layout and format (sampling rate, codec,
+# directory tree, file names, tables and JSON metadata), cut in depth only:
+# CMU Kids' 256 utterances of 2-15 s fill the 15 s x 256 bucket (the release
+# has 5,180), every other corpus holds a few minutes of audio. Tone bursts
+# from numpy seed KIDS_SEED.
+KIDS_SEED = 3131
+KIDS_SPEAKERS = 16  # 8 girls and 8 boys
+KIDS_READS = 16  # prompts each speaker reads: 16 x 16 fill the 15 s x 256 bucket
+KIDS_PROMPTS = 48  # rows of sentence.tbl
+KIDS_SECONDS = (2.0, 15.0)
+TTS_SECONDS = (2.0, 6.0)  # each clip of the TTS corpora
+L2_SUITCASE_SECONDS = (20.0, 30.0)  # each spontaneous suitcase-corpus recording
+CSLU_STORY_SECONDS = (8.0, 15.0)  # each spontaneous CSLU Kids story
+GRID_SR = 25000  # the rate of the GRID release's audio_25k copies
+GRID_VIDEOS = 8  # of each of two speakers, 3 s each as in the release
+OTO_SESSIONS = 2  # FLAC sessions in each of the two tar shards
+OTO_SECONDS = 60.0
+OTO_SR = 48000
+TTS_ENGLISH = ("author", "of", "the", "danger", "trail", "philip", "steels", "we", "have", "to",
+               "think", "about", "people", "please", "call", "stella", "ask", "her", "bring",
+               "these", "things", "with", "from", "store")
+HIFITTS_QUALITY = {"92": "clean", "6097": "other", "9017": "clean", "6670": "other",
+                   "6671": "clean", "8051": "other", "9136": "clean", "11614": "other",
+                   "11697": "clean", "12787": "other"}
+KIDS_TAGS = ("[noise]", "[breath]", "/h#/", "[begin_noise]")
+CSLU_TAGS = ("<bn>", "<ln>", "<sil>", "<br>")
+BENGALI_TTS = ("বাংলা", "বাক্য", "আমি", "তুমি", "ভালো", "আছি", "আজ", "কাল")
+TELUGU_TTS = ("తెలుగు", "వాక్యం", "నేను", "మీరు", "బాగున్నాను", "ఈరోజు")
+
+
+def _write_cmu_kids(root: Path, rng) -> tuple:
+    """CMU Kids (LDC97S63) as the LDC ships it: ``cmu_kids/tables/`` with
+    ``sentence.tbl`` (``<utt>\\t<count>\\t<prompt>``), ``speaker.tbl`` (two
+    header lines, then ``<spk>\\t<population>\\t<grade>/<age>\\t<sex>\\t<dialect>``,
+    ``NA`` where a grade or age was not taken) and ``transcrp.tbl``
+    (``<spk><utt><bin> <spoken transcript>``), and the audio at
+    ``cmu_kids/kids/<spk>/signal/<trn-id>.sph`` as 16 kHz int16 SPHERE with
+    LDC header fields. ``KIDS_SPEAKERS`` children of both sexes read
+    ``KIDS_READS`` prompts each, in bin 1 (clean) or 2 (noisy, with noise
+    tags in the spoken transcript). Returns the ``cmu_kids`` directory and,
+    per transcription id, its samples and the fields the recipe should read
+    (prompt, spoken transcript, bin, grade, age)."""
+    corpus = root / "cmu_kids"
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    prompts = {f"{letters[i // 10]}{letters[i % 10 + 10]}{1 + i % 9}":
+               _words(rng, TTS_ENGLISH, 3, 10).capitalize() + "." for i in range(KIDS_PROMPTS)}
+    (corpus / "tables").mkdir(parents=True, exist_ok=True)
+    (corpus / "tables" / "sentence.tbl").write_text("".join(
+        f"{utt}\t{1 + k % 5}\t{text}\n" for k, (utt, text) in enumerate(prompts.items())))
+    speakers, rows = [], ["SPEAKER\tPOPULATION\tGRADE/AGE\tSEX\tDIALECT", "=" * 40]
+    for i in range(KIDS_SPEAKERS):
+        sex = "fm"[i % 2]
+        spk = f"{sex}{letters[i]}{letters[(3 * i + 5) % 26]}{letters[(7 * i + 2) % 26]}"
+        grade, age = str(1 + i % 5), str(6 + i % 6)
+        if i in (3, 10):
+            grade = "NA"
+        if i in (5, 10):
+            age = "NA"
+        speakers.append((spk, grade, age))
+        rows.append(f"{spk}\t{('SUM95', 'SUM96')[i % 2]}\t{grade}/{age}\t{sex.upper()}\t"
+                    f"Pittsburgh")
+    (corpus / "tables" / "speaker.tbl").write_text("\n".join(rows) + "\n")
+    expected, transcripts, utts = {}, [], sorted(prompts)
+    for spk, grade, age in speakers:
+        for j in rng.permutation(len(utts))[:KIDS_READS]:
+            utt = utts[j]
+            tbin = 2 if rng.rand() < 0.25 else 1
+            trn = f"{spk}{utt}{tbin}"
+            spoken = prompts[utt].lower().rstrip(".")
+            if tbin == 2:
+                words = spoken.split()
+                words.insert(int(rng.randint(len(words) + 1)), KIDS_TAGS[rng.randint(4)])
+                spoken = " ".join(words)
+            pcm = np.round(_tone_burst(rng, float(rng.uniform(*KIDS_SECONDS))) * 32767).astype(
+                np.int16)
+            _ldc_sphere(corpus / "kids" / spk / "signal" / f"{trn}.sph", pcm[None], SR, "pcm16",
+                        database_id="CMU_KIDS", speaker_id=spk, utterance_id=trn)
+            transcripts.append(f"{trn} {spoken}")
+            expected[trn] = (pcm, prompts[utt], spoken, tbin,
+                             None if grade == "NA" else grade, None if age == "NA" else int(age))
+    (corpus / "tables" / "transcrp.tbl").write_text("\n".join(transcripts) + "\n")
+    return corpus, expected
+
+
+def _write_hifitts(root: Path, rng) -> Path:
+    """Hi-Fi TTS (OpenSLR 109): ``hi_fi_tts_v0/<spk>_manifest_<quality>_<split>.json``
+    jsonl rows (``audio_filepath``, ``text``, ``text_normalized``,
+    ``duration``) over ``audio/<spk>_<quality>/<book>/*.flac`` at 44.1 kHz;
+    the ten speakers, half ``clean`` and half ``other``, 2 clips of 2-6 s in
+    each of train, dev and test."""
+    corpus = root / "hi_fi_tts_v0"
+    for spk, quality in HIFITTS_QUALITY.items():
+        for split in ("train", "dev", "test"):
+            rows = []
+            for i in range(2):
+                seconds = float(rng.uniform(*TTS_SECONDS))
+                rel = (f"audio/{spk}_{quality}/{10000 + int(spk) % 97}/"
+                       f"book_{split}_{i:02d}_f000{i}.flac")
+                _write_audio(corpus / rel, _tone_burst(rng, seconds, 44100), 44100)
+                text = _words(rng, TTS_ENGLISH, 4, 12)
+                rows.append(json.dumps({"audio_filepath": rel, "text": text,
+                                        "text_normalized": text.capitalize() + ".",
+                                        "duration": round(seconds, 2)}))
+            (corpus / f"{spk}_manifest_{quality}_{split}.json").write_text("\n".join(rows) + "\n")
+    return corpus
+
+
+def _write_ears(root: Path, rng) -> Path:
+    """EARS: ``p001``-``p004`` of 4 read utterances each as 48 kHz WAV named by
+    style, ``speaker_statistics.json`` (age, ethnicity, gender, height,
+    native language, weight) and ``transcripts.json`` (style -> text)."""
+    corpus = root / "EARS"
+    styles = ("emo_adoration_sentences", "read_fast", "rainbow_01_regular",
+              "sentences_01_whisper")
+    meta = {}
+    for k, spk in enumerate(("p001", "p002", "p003", "p004")):
+        meta[spk] = {"age": ("18-25", "26-35", "36-45", "46-55")[k],
+                     "ethnicity": "white or caucasian", "gender": ("female", "male")[k % 2],
+                     "height": f"{160 + 5 * k} cm", "native language": "american english",
+                     "weight": f"{55 + 6 * k} kg"}
+        for style in styles:
+            _write_audio(corpus / spk / f"{style}.wav",
+                         _tone_burst(rng, float(rng.uniform(*TTS_SECONDS)), 48000), 48000)
+    (corpus / "speaker_statistics.json").write_text(json.dumps(meta))
+    (corpus / "transcripts.json").write_text(json.dumps(
+        {style: _words(rng, TTS_ENGLISH, 4, 12).capitalize() + "." for style in styles}))
+    return corpus
+
+
+def _write_daily_talk(root: Path, rng) -> Path:
+    """DailyTalk: ``dailytalk/data/<dialog>/<utt>_<speaker>_d<dialog>.wav`` at
+    44.1 kHz and ``metadata.json`` ({dialog: {utt: index, text, speaker,
+    turn, topic, emotion, act}}); 4 dialogues of 4 turns."""
+    corpus, meta, index = root / "dailytalk", {}, 0
+    for d in range(4):
+        meta[str(d)] = {}
+        for u in range(4):
+            spk = u % 2
+            _write_audio(corpus / "data" / str(d) / f"{u}_{spk}_d{d}.wav",
+                         _tone_burst(rng, float(rng.uniform(*TTS_SECONDS)), 44100), 44100)
+            meta[str(d)][str(u)] = {
+                "index": index, "text": _words(rng, TTS_ENGLISH, 3, 10), "speaker": spk,
+                "turn": u, "topic": ("ordinary_life", "work", "relationship", "tourism")[d],
+                "emotion": ("no emotion", "happiness", "surprise", "sadness")[u],
+                "act": ("inform", "question", "directive", "commissive")[u]}
+            index += 1
+    (corpus / "metadata.json").write_text(json.dumps(meta))
+    return corpus
+
+
+def _write_festvox(root: Path, rng, package: str, utts: list, vocabulary=TTS_ENGLISH) -> None:
+    """A festvox voice package: ``<package>/wav/<utt>.wav`` at 16 kHz and
+    ``etc/txt.done.data`` lines ``( <utt> "<prompt>" )``; ``utts`` holds
+    (utterance id, vocabulary) pairs."""
+    lines = []
+    for utt, words in utts:
+        _write_audio(root / package / "wav" / f"{utt}.wav",
+                     _tone_burst(rng, float(rng.uniform(*TTS_SECONDS))), SR)
+        lines.append(f'( {utt} "{_words(rng, words, 3, 10)}" )')
+    (root / package / "etc").mkdir(parents=True, exist_ok=True)
+    (root / package / "etc" / "txt.done.data").write_text("\n".join(lines) + "\n")
+
+
+def _write_cmu_arctic(root: Path, rng) -> Path:
+    """CMU ARCTIC: ``cmu_us_bdl_arctic`` and ``cmu_us_slt_arctic``, 8
+    utterances each (sets a and b)."""
+    corpus = root / "cmu_arctic"
+    for spk in ("bdl", "slt"):
+        _write_festvox(corpus, rng, f"cmu_us_{spk}_arctic", [
+            (f"arctic_{'ab'[i // 4]}{i % 4 + 1:04d}", TTS_ENGLISH) for i in range(8)])
+    return corpus
+
+
+def _write_cmu_indic(root: Path, rng) -> Path:
+    """CMU INDIC: ``cmu_indic_ben_rm`` (with ``etc/voice.feats``, the age) and
+    ``cmu_indic_tel_ss``, each 6 prompts in its own script and 2 English
+    arctic prompts."""
+    corpus = root / "cmu_indic"
+    for spk, words in (("ben_rm", BENGALI_TTS), ("tel_ss", TELUGU_TTS)):
+        lang = spk.split("_")[0]
+        _write_festvox(corpus, rng, f"cmu_indic_{spk}", [
+            (f"{lang}_{i:04d}", words) for i in range(1, 7)] + [
+            (f"arctic_a{i:04d}", TTS_ENGLISH) for i in (1, 2)])
+    (corpus / "cmu_indic_ben_rm" / "etc" / "voice.feats").write_text("name ben_rm\nage 29\n")
+    return corpus
+
+
+def _write_adept(root: Path, rng) -> Path:
+    """ADEPT: ``wav_44khz/<type>/<label>/<prompt>.wav`` at 44.1 kHz, the
+    ``txt/`` mirror and ``adept_prompts.json`` (interpretations of the
+    emphasis prompts only); 2 types x 2 labels x 4 prompts."""
+    corpus, interpretations = root / "ADEPT", {"emphasis": {}}
+    for kind, labels in (("emphasis", ("marked", "unmarked")),
+                         ("propositional_attitude", ("surprise", "incredulity"))):
+        for label in labels:
+            for p in range(4):
+                prompt = f"{p + 1:02d}_{'abcd'[p]}"
+                _write_audio(corpus / "wav_44khz" / kind / label / f"{prompt}.wav",
+                             _tone_burst(rng, float(rng.uniform(*TTS_SECONDS)), 44100), 44100)
+                (corpus / "txt" / kind / label).mkdir(parents=True, exist_ok=True)
+                (corpus / "txt" / kind / label / f"{prompt}.txt").write_text(
+                    _words(rng, TTS_ENGLISH, 4, 10).capitalize() + ".\n")
+                if kind == "emphasis":
+                    interpretations["emphasis"].setdefault(prompt, {})[label] = (
+                        f"stress on {_words(rng, TTS_ENGLISH, 1, 2)}")
+    (corpus / "adept_prompts.json").write_text(json.dumps(interpretations))
+    return corpus
+
+
+def _write_l2_arctic(root: Path, rng) -> Path:
+    """L2-ARCTIC: the speaker directories ``ABA``, ``BWC``, ``HJK`` and
+    ``YKWK`` with ``wav/arctic_*.wav`` at 44.1 kHz and
+    ``transcript/arctic_*.txt``, 4 utterances each, and
+    ``suitcase_corpus/{wav,transcript}/<spk>.{wav,txt}`` for ``aba`` and
+    ``hjk``, of 20-30 s."""
+    corpus = root / "l2arctic_release_v5"
+    for spk in ("ABA", "BWC", "HJK", "YKWK"):
+        for i in range(4):
+            utt = f"arctic_{'ab'[i // 2]}{i + 1:04d}"
+            _write_audio(corpus / spk / "wav" / f"{utt}.wav",
+                         _tone_burst(rng, float(rng.uniform(*TTS_SECONDS)), 44100), 44100)
+            (corpus / spk / "transcript").mkdir(parents=True, exist_ok=True)
+            (corpus / spk / "transcript" / f"{utt}.txt").write_text(
+                _words(rng, TTS_ENGLISH, 4, 10) + "\n")
+    for spk in ("aba", "hjk"):
+        _write_audio(corpus / "suitcase_corpus" / "wav" / f"{spk}.wav",
+                     _tone_burst(rng, float(rng.uniform(*L2_SUITCASE_SECONDS)), 44100), 44100)
+        (corpus / "suitcase_corpus" / "transcript").mkdir(parents=True, exist_ok=True)
+        (corpus / "suitcase_corpus" / "transcript" / f"{spk}.txt").write_text(
+            _words(rng, TTS_ENGLISH, 30, 60) + "\n")
+    return corpus
+
+
+def _write_cslu_kids(root: Path, rng) -> Path:
+    """CSLU Kids (LDC2007S18): ``speech/scripted/<prompt>/<grade>/<spk>/<utt>.wav``
+    and ``speech/spontaneous/<prompt>/<grade>/<spk>/<utt>.wav`` at 16 kHz,
+    ``docs/all.map`` (``<prompt> "<text>"``), ``docs/<prompt>-verified.txt``
+    (``<path> <label>``) and the ``trans/spontaneous/`` mirror with noise
+    tags; 4 speakers of grades 0-3, 4 scripted prompts and 1 story each."""
+    corpus = root / "cslu_kids"
+    scripted = [f"{i:02d}" for i in range(4)]
+    (corpus / "docs").mkdir(parents=True, exist_ok=True)
+    (corpus / "docs" / "all.map").write_text("".join(
+        f'{p} "{_words(rng, TTS_ENGLISH, 1, 4)}"\n' for p in scripted) + '70 "tell me a story"\n')
+    verified = {p: [] for p in scripted}
+    for grade, spk in enumerate(("ks001", "ks101", "ks201", "ks301")):
+        for k, prompt in enumerate(scripted):
+            utt = f"{spk}{prompt}0"
+            rel = f"speech/scripted/{prompt}/{grade}/{spk}/{utt}.wav"
+            _write_audio(corpus / rel, _tone_burst(rng, float(rng.uniform(2.0, 4.0))), SR)
+            if (grade + k) % 5:
+                verified[prompt].append(f"{rel} {1 + (grade + k) % 4}")
+        utt = f"{spk}xx0"
+        _write_audio(corpus / "speech" / "spontaneous" / "70" / str(grade) / spk / f"{utt}.wav",
+                     _tone_burst(rng, float(rng.uniform(*CSLU_STORY_SECONDS))), SR)
+        words = _words(rng, TTS_ENGLISH, 12, 24).split()
+        for _ in range(3):
+            words.insert(int(rng.randint(len(words) + 1)), CSLU_TAGS[rng.randint(4)])
+        trans = corpus / "trans" / "spontaneous" / "70" / str(grade) / spk
+        trans.mkdir(parents=True, exist_ok=True)
+        (trans / f"{utt}.txt").write_text(" ".join(words[:8]) + "\n" + " ".join(words[8:]) + "\n")
+    for prompt, lines in verified.items():
+        (corpus / "docs" / f"{prompt}-verified.txt").write_text("\n".join(lines) + "\n")
+    return corpus
+
+
+def _write_grid(root: Path, rng) -> Path:
+    """GRID: 2 speakers of ``GRID_VIDEOS`` 3 s command sentences,
+    ``video/<spk>/<id>.mpg`` written as the JAX package's test writes them
+    (a RIFF payload under the ``.mpg`` name, here at the 25 kHz of the
+    release's ``audio_25k`` copies), ``alignments/<spk>/<id>.align``
+    (``<start> <end> <word>`` in 1/1000 s, ``sil`` at both ends) and an
+    empty ``audio_25k/``, which the recipe requires and does not read."""
+    corpus = root / "grid"
+    (corpus / "audio_25k").mkdir(parents=True, exist_ok=True)
+    commands = (("bin", "lay", "place", "set"), ("blue", "green", "red", "white"),
+                ("at", "by", "in", "with"), tuple("abcdefghijklmnopqrstuvxyz"),
+                ("zero", "one", "two", "three", "four", "five", "six", "seven", "eight", "nine"),
+                ("again", "now", "please", "soon"))
+    for spk in ("s1", "s2"):
+        for v in range(GRID_VIDEOS):
+            words = [c[rng.randint(len(c))] for c in commands]
+            vid = "".join(w[0] for w in words[:4]) + words[4][0] + words[5][0]
+            vid = f"{vid}{v}"
+            x = _tone_burst(rng, 3.0, GRID_SR)
+            _write_audio(corpus / "video" / spk / f"{vid}.mpg", x, GRID_SR)
+            edges = np.sort(rng.choice(np.arange(300, 2700, 50), len(words) + 1, replace=False))
+            bounds = [0, *edges.tolist(), 3000]
+            items = ["sil", *words, "sil"]
+            (corpus / "alignments" / spk).mkdir(parents=True, exist_ok=True)
+            (corpus / "alignments" / spk / f"{vid}.align").write_text("".join(
+                f"{a} {b} {w}\n" for a, b, w in zip(bounds[:-1], bounds[1:], items)))
+    return corpus
+
+
+def _write_oto_speech(root: Path, rng) -> Path:
+    """otoSpeech: ``data/train/shard{0,1}.tar``, each of ``OTO_SESSIONS``
+    FLAC sessions of ``OTO_SECONDS`` at 48 kHz under nested paths, and
+    ``seglst.json``: the turns of each session (two speakers, 2-15 s, most
+    with word alignments in session time), a segment of a session that is
+    not on disk and one of zero length."""
+    import tarfile
+
+    corpus, stage, labels = root / "oto_speech", root / "oto_stage", []
+    (corpus / "data" / "train").mkdir(parents=True, exist_ok=True)
+    for shard in range(2):
+        with tarfile.open(corpus / "data" / "train" / f"shard{shard}.tar", "w") as tar:
+            for s in range(OTO_SESSIONS):
+                session = f"oto_{shard:02d}{s:02d}_full_duplex"
+                segments = _segments_within(rng, OTO_SECONDS, 8, lengths=(2.0, 7.0),
+                                            gaps=(0.2, 1.0))
+                src = stage / f"{session}.flac"
+                _write_audio(src, _speech_track(rng, OTO_SECONDS, segments, OTO_SR), OTO_SR)
+                tar.add(src, arcname=f"train/{shard:05d}/{session}.flac")
+                for k, (a, b) in enumerate(segments):
+                    a, b = round(a, 3), round(b, 3)
+                    words = _words(rng, TTS_ENGLISH, 3, 9).split()
+                    seg = {"session_id": session, "start_time": a, "end_time": b,
+                           "words": " ".join(words), "speaker": f"speaker_{k % 2}"}
+                    if k % 4:
+                        edges = np.round(np.linspace(a, b, len(words) + 1), 3)
+                        seg["word_alignment"] = [[w, float(x), float(y)] for w, x, y in
+                                                 zip(words, edges[:-1], edges[1:])]
+                    labels.append(seg)
+    labels.insert(5, {"session_id": "oto_9999_full_duplex", "start_time": 1.0, "end_time": 4.0,
+                      "words": "not on disk", "speaker": "speaker_0"})
+    labels.append({"session_id": labels[0]["session_id"], "start_time": 30.0, "end_time": 30.0,
+                   "words": "", "speaker": "speaker_1"})
+    (corpus / "seglst.json").write_text(json.dumps(labels), encoding="utf-8")
+    return corpus
+
+
+def _tts_kids_specs(root: Path, rng) -> dict:
+    """Per corpus of phase 31's ``corpus_<name>`` legs, in the order they
+    run: the recipe's call for an output directory, the CLI's command and
+    the training path. DailyTalk's recipe returns a (recordings,
+    supervisions) tuple, which the spec names; L2-ARCTIC's two parts are
+    two legs. Hi-Fi TTS and GRID run at one job: at two, their calls took
+    13.3-18.7 s on the card's machine, most of it starting the spawned
+    workers, against 0.02-0.7 s at one (the CPU tests run them at two)."""
+    from lhotse_tpu_torch import recipes as R
+
+    hifitts, ears = _write_hifitts(root, rng), _write_ears(root, rng)
+    daily, arctic = _write_daily_talk(root, rng), _write_cmu_arctic(root, rng)
+    indic, adept = _write_cmu_indic(root, rng), _write_adept(root, rng)
+    l2, cslu = _write_l2_arctic(root, rng), _write_cslu_kids(root, rng)
+    grid, oto = _write_grid(root, rng), _write_oto_speech(root, rng)
+    return {
+        "hifitts": (lambda o: R.prepare_hifitts(hifitts, output_dir=o), ["hifitts", hifitts],
+                    "tts"),
+        "ears": (lambda o: R.prepare_ears(ears, output_dir=o), ["ears", ears], "tts"),
+        "daily_talk": (lambda o: dict(zip(("recordings", "supervisions"),
+                                          R.prepare_daily_talk(daily, output_dir=o))),
+                       ["daily-talk", daily], "tts"),
+        "cmu_arctic": (lambda o: R.prepare_cmu_arctic(arctic, output_dir=o),
+                       ["cmu-arctic", arctic], "tts"),
+        "cmu_indic": (lambda o: R.prepare_cmu_indic(indic, output_dir=o),
+                      ["cmu-indic", indic], "tts"),
+        "adept": (lambda o: R.prepare_adept(adept, output_dir=o), ["adept", adept], "tts"),
+        "l2_arctic_read": (lambda o: R.prepare_l2_arctic(l2, output_dir=o)["read"],
+                           ["l2-arctic", l2], "asr"),
+        "l2_arctic_suitcase": (lambda o: R.prepare_l2_arctic(l2, output_dir=o)["suitcase"],
+                               ["l2-arctic", l2], "asr"),
+        "cslu_kids": (lambda o: R.prepare_cslu_kids(cslu, output_dir=o),
+                      ["cslu-kids", cslu], "asr"),
+        "grid": (lambda o: R.prepare_grid(grid, output_dir=o), ["grid", grid], "asr"),
+        "oto_speech": (lambda o: R.prepare_oto_speech(oto, o), ["oto-speech", oto], "asr"),
+    }
+
+
+def _phase_tts_kids(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """31. The TTS, accented-speech and children's corpus recipes, in phase
+    14's directory after phase 30 (phase 23's MUSAN noise and RIRS_NOISES
+    manifests feed the augmenter). Every recipe runs as a function and
+    through the CLI's ``prepare`` command, and their manifests must be
+    equal. ``cmu_kids_device_chain``: the input chain every
+    ``_device_chain`` leg runs (80-dim log-mel fbank, MUSAN noise, speed
+    perturbation, SpecAugment) on CMU Kids in its LDC layout, 256
+    utterances of 2-15 s as 16 kHz int16 SPHERE from 16 children →
+    ``prepare_cmu_kids`` → ``CutSet.from_manifests`` → the first 256 cuts as
+    the 15 s x 256 bucket's int16 batch → ``OnDeviceAugmenter`` (twice);
+    every recording's samples must equal the int16 written / 32768 and
+    every supervision's prompt, spoken transcript, bin, grade and age what
+    was written. ``corpus_<name>``: Hi-Fi TTS, EARS, DailyTalk, CMU ARCTIC,
+    CMU Indic and ADEPT into the TTS dataset, L2-ARCTIC's read and suitcase
+    parts, CSLU Kids, GRID and otoSpeech into the step, through
+    ``_corpus_legs``. Returns the kernel's launches per path and the
+    largest kernel-vs-plain error."""
+    import shutil
+
+    from lhotse_tpu_torch import CutSet
+    from lhotse_tpu_torch import recipes as R
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(KIDS_SEED)
+    root = workdir / "tts_kids"
+    manifests = root / "manifests"
+    launches, errs = {}, []
+
+    # -- cmu_kids_device_chain ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    kids, expected = _write_cmu_kids(root / "corpora", rng)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "cmu_kids", lambda o: R.prepare_cmu_kids(kids, output_dir=o),
+        ["cmu-kids", kids])
+    cuts = CutSet.from_manifests(recordings=made["recordings"],
+                                 supervisions=made["supervisions"]).to_eager()
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    order = list(cuts)[:bsz]
+    t0 = time.perf_counter()
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    loaded = {}
+    for k, cut in enumerate(order):
+        loaded[cut.recording_id] = x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    load_s = time.perf_counter() - t0
+    # Every recording's samples (the bucket's as loaded, the rest read here)
+    # against the int16 written / 32768, and every supervision's fields.
+    t0 = time.perf_counter()
+    samples_equal = all(np.array_equal(
+        loaded[r.id] if r.id in loaded else r.load_audio()[0],
+        expected[r.id][0].astype(np.float32) / 32768.0) for r in made["recordings"])
+    fields_equal = all(
+        (s.text, s.custom["spoken_transcript"], s.custom["bin"], s.custom["speaker_grade"],
+         s.custom["speaker_age"]) == expected[s.id][1:] and s.gender == (
+            "Male" if s.speaker[0] == "m" else "Female") for s in made["supervisions"])
+    check_s = time.perf_counter() - t0
+    bins = sorted({s.custom["bin"] for s in made["supervisions"]})
+    nas = sum(s.custom["speaker_grade"] is None or s.custom["speaker_age"] is None
+              for s in made["supervisions"])
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] cmu_kids_device_chain: CMU Kids with {len(expected)} utterances of "
+          f"{KIDS_SECONDS} s from {KIDS_SPEAKERS} children as 16 kHz SPHERE written in "
+          f"{write_s!r} s; prepare {function_s!r} s, CLI {cli_s!r} s, its {len(files)} manifests "
+          f"equal; {len(made['supervisions'])} supervisions in bins {bins}, {nas} with an NA "
+          f"grade or age; every recording equal to its int16 / 32768: {samples_equal}, every "
+          f"prompt, spoken transcript, bin, grade and age as written: {fields_equal} (checked in "
+          f"{check_s!r} s; e.g. {order[0].supervisions[0].text!r}); the first {len(order)} cuts "
+          f"loaded in {load_s!r} s: {float(lens.sum()) / SR!r} audio-s, the bucket "
+          f"{float(lens.sum()) / (bsz * n)!r} full; noise pool {pool.shape} from phase 23's "
+          f"{len(noise)} MUSAN noise recordings, RIR {rir_rec.id}")
+    if (len(made["supervisions"]) != len(expected) or not samples_equal or not fields_equal
+            or bins != [1, 2] or not nas or len(order) != bsz or lens.max() > n
+            or lens.min() < KIDS_SECONDS[0] * SR - 1):
+        raise AssertionError("cmu_kids_device_chain: the supervisions, samples, fields or the "
+                             "bucket are off")
+    launches["cmu_kids_device_chain"], kernel_err, chain_err = _device_chain(
+        "cmu_kids_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- corpus_<name> -----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    specs = _tts_kids_specs(root / "corpora", rng)
+    print(f"[{smi}] corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s; "
+          f"corpus_grid reads its videos through the RIFF payload the JAX package's test "
+          f"writes under the .mpg name: a real GRID video (MPEG) needs ffmpeg to decode "
+          f"(found here: {shutil.which('ffmpeg') is not None})")
+    corpus_launches, corpus_errs, summary = _corpus_legs(manifests, specs, device, fbank_cuda, smi)
+    launches.update(corpus_launches)
+    errs += corpus_errs
+    print(f"[{smi}] phase 31 corpora: {summary}")
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -9536,6 +10015,13 @@ def main() -> None:
         launches_asr, asr_err = _phase_asr_corpora(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_asr)
         print(f"phase 30 took {time.perf_counter() - t0!r} s")
+        # -- 31. the TTS, accented-speech and children's corpora: CMU Kids into the main
+        # path, Hi-Fi TTS, EARS, DailyTalk, CMU ARCTIC, CMU Indic and ADEPT into TTS batches,
+        # L2-ARCTIC, CSLU Kids, GRID and otoSpeech into training, after phase 23
+        t0 = time.perf_counter()
+        launches_tts, tts_err = _phase_tts_kids(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_tts)
+        print(f"phase 31 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -9567,7 +10053,7 @@ def main() -> None:
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
                               noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err,
-                              translation_err, asr_err]),
+                              translation_err, asr_err, tts_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -20,8 +20,11 @@ and multilingual corpora MuST-C, mTEDx, IWSLT 2022 Tunisian Arabic,
 GigaST, VoxPopuli, GigaSpeech 2, CSJ (Japanese), Emilia and BVCC (MOS
 ratings); the large ASR training corpora KsponSpeech (Korean), NSC
 (Singapore English), BABEL, Heroico (Spanish), ICMC-ASR (in-car Mandarin),
-ReazonSpeech (Japanese) and Bengali.AI Speech; and the manifest caching
-helpers. The JAX package's other recipes are not ported."""
+ReazonSpeech (Japanese) and Bengali.AI Speech; the TTS, accented-speech
+and children's corpora Hi-Fi TTS, EARS, DailyTalk, CMU ARCTIC, CMU Indic,
+L2-ARCTIC, CMU Kids, CSLU Kids, ADEPT, GRID and otoSpeech; and the manifest
+caching helpers. The JAX package's other recipes are not ported."""
+from lhotse_tpu_torch.recipes.adept import prepare_adept
 from lhotse_tpu_torch.recipes.aidatatang_200zh import prepare_aidatatang_200zh
 from lhotse_tpu_torch.recipes.aishell import prepare_aishell
 from lhotse_tpu_torch.recipes.aishell2 import prepare_aishell2
@@ -39,12 +42,18 @@ from lhotse_tpu_torch.recipes.callhome_egyptian import prepare_callhome_egyptian
 from lhotse_tpu_torch.recipes.callhome_english import prepare_callhome_english
 from lhotse_tpu_torch.recipes.cdsd import prepare_cdsd
 from lhotse_tpu_torch.recipes.chime6 import prepare_chime6
+from lhotse_tpu_torch.recipes.cmu_arctic import prepare_cmu_arctic
+from lhotse_tpu_torch.recipes.cmu_indic import prepare_cmu_indic
+from lhotse_tpu_torch.recipes.cmu_kids import prepare_cmu_kids
 from lhotse_tpu_torch.recipes.commonvoice import prepare_commonvoice
 from lhotse_tpu_torch.recipes.csj import concat_csj_supervisions, prepare_csj
+from lhotse_tpu_torch.recipes.cslu_kids import prepare_cslu_kids
+from lhotse_tpu_torch.recipes.daily_talk import prepare_daily_talk
 from lhotse_tpu_torch.recipes.dihard3 import prepare_dihard3
 from lhotse_tpu_torch.recipes.dipco import prepare_dipco
 from lhotse_tpu_torch.recipes.earnings21 import prepare_earnings21
 from lhotse_tpu_torch.recipes.earnings22 import prepare_earnings22
+from lhotse_tpu_torch.recipes.ears import prepare_ears
 from lhotse_tpu_torch.recipes.emilia import prepare_emilia
 from lhotse_tpu_torch.recipes.eval2000 import prepare_eval2000
 from lhotse_tpu_torch.recipes.fisher_english import prepare_fisher_english
@@ -53,12 +62,15 @@ from lhotse_tpu_torch.recipes.gale_arabic import prepare_gale_arabic
 from lhotse_tpu_torch.recipes.gale_mandarin import prepare_gale_mandarin
 from lhotse_tpu_torch.recipes.gigaspeech2 import prepare_gigaspeech2
 from lhotse_tpu_torch.recipes.gigast import prepare_gigast
+from lhotse_tpu_torch.recipes.grid import prepare_grid
 from lhotse_tpu_torch.recipes.heroico import prepare_heroico
+from lhotse_tpu_torch.recipes.hifitts import prepare_hifitts
 from lhotse_tpu_torch.recipes.icmcasr import prepare_icmcasr
 from lhotse_tpu_torch.recipes.icsi import prepare_icsi
 from lhotse_tpu_torch.recipes.iwslt22_ta import download_iwslt22_ta, prepare_iwslt22_ta
 from lhotse_tpu_torch.recipes.kespeech import prepare_kespeech
 from lhotse_tpu_torch.recipes.ksponspeech import prepare_ksponspeech
+from lhotse_tpu_torch.recipes.l2_arctic import prepare_l2_arctic
 from lhotse_tpu_torch.recipes.libricss import prepare_libricss
 from lhotse_tpu_torch.recipes.librilight import prepare_librilight
 from lhotse_tpu_torch.recipes.librimix import prepare_librimix
@@ -76,6 +88,7 @@ from lhotse_tpu_torch.recipes.musan import prepare_musan
 from lhotse_tpu_torch.recipes.must_c import prepare_must_c
 from lhotse_tpu_torch.recipes.notsofar1 import prepare_notsofar1
 from lhotse_tpu_torch.recipes.nsc import prepare_nsc
+from lhotse_tpu_torch.recipes.oto_speech import prepare_oto_speech
 from lhotse_tpu_torch.recipes.peoples_speech import prepare_peoples_speech
 from lhotse_tpu_torch.recipes.primewords import prepare_primewords
 from lhotse_tpu_torch.recipes.reazonspeech import prepare_reazonspeech
@@ -104,24 +117,26 @@ from lhotse_tpu_torch.recipes.yesno import prepare_yesno
 
 __all__ = [
     "concat_csj_supervisions", "download_iwslt22_ta", "download_librispeech",
-    "finalize_manifests", "manifests_exist", "prepare_aidatatang_200zh", "prepare_aishell",
-    "prepare_aishell2", "prepare_aishell3", "prepare_aishell4", "prepare_ali_meeting",
-    "prepare_ami", "prepare_baker_zh", "prepare_bengaliai_speech", "prepare_broadcast_news",
-    "prepare_but_reverb_db", "prepare_bvcc", "prepare_callhome_egyptian",
-    "prepare_callhome_english", "prepare_cdsd", "prepare_chime6", "prepare_commonvoice",
-    "prepare_csj", "prepare_dihard3", "prepare_dipco", "prepare_earnings21",
-    "prepare_earnings22", "prepare_emilia", "prepare_eval2000", "prepare_fisher_english",
-    "prepare_fisher_spanish", "prepare_gale_arabic", "prepare_gale_mandarin",
-    "prepare_gigaspeech2", "prepare_gigast", "prepare_heroico", "prepare_icmcasr",
-    "prepare_icsi", "prepare_iwslt22_ta", "prepare_kespeech", "prepare_ksponspeech",
+    "finalize_manifests", "manifests_exist", "prepare_adept", "prepare_aidatatang_200zh",
+    "prepare_aishell", "prepare_aishell2", "prepare_aishell3", "prepare_aishell4",
+    "prepare_ali_meeting", "prepare_ami", "prepare_baker_zh", "prepare_bengaliai_speech",
+    "prepare_broadcast_news", "prepare_but_reverb_db", "prepare_bvcc",
+    "prepare_callhome_egyptian", "prepare_callhome_english", "prepare_cdsd", "prepare_chime6",
+    "prepare_cmu_arctic", "prepare_cmu_indic", "prepare_cmu_kids", "prepare_commonvoice",
+    "prepare_csj", "prepare_cslu_kids", "prepare_daily_talk", "prepare_dihard3",
+    "prepare_dipco", "prepare_earnings21", "prepare_earnings22", "prepare_ears",
+    "prepare_emilia", "prepare_eval2000", "prepare_fisher_english", "prepare_fisher_spanish",
+    "prepare_gale_arabic", "prepare_gale_mandarin", "prepare_gigaspeech2", "prepare_gigast",
+    "prepare_grid", "prepare_heroico", "prepare_hifitts", "prepare_icmcasr", "prepare_icsi",
+    "prepare_iwslt22_ta", "prepare_kespeech", "prepare_ksponspeech", "prepare_l2_arctic",
     "prepare_libricss", "prepare_librilight", "prepare_librimix", "prepare_librimix_mini",
     "prepare_librispeech", "prepare_librispeechmix", "prepare_libritts", "prepare_librittsr",
     "prepare_ljspeech", "prepare_magicdata", "prepare_mdcc", "prepare_mgb2", "prepare_mls",
     "prepare_mtedx", "prepare_musan", "prepare_must_c", "prepare_notsofar1", "prepare_nsc",
-    "prepare_peoples_speech", "prepare_primewords", "prepare_reazonspeech",
-    "prepare_rir_noise", "prepare_single_babel_language", "prepare_spatial_librispeech",
-    "prepare_speechio", "prepare_spgispeech", "prepare_stcmds", "prepare_switchboard",
-    "prepare_tal_asr", "prepare_tal_csasr", "prepare_tedlium", "prepare_tedlium2",
-    "prepare_thchs_30", "prepare_timit", "prepare_vctk", "prepare_voxceleb",
+    "prepare_oto_speech", "prepare_peoples_speech", "prepare_primewords",
+    "prepare_reazonspeech", "prepare_rir_noise", "prepare_single_babel_language",
+    "prepare_spatial_librispeech", "prepare_speechio", "prepare_spgispeech", "prepare_stcmds",
+    "prepare_switchboard", "prepare_tal_asr", "prepare_tal_csasr", "prepare_tedlium",
+    "prepare_tedlium2", "prepare_thchs_30", "prepare_timit", "prepare_vctk", "prepare_voxceleb",
     "prepare_voxconverse", "prepare_voxpopuli", "prepare_wenetspeech4tts", "prepare_wham",
     "prepare_xbmu_amdo31", "prepare_yesno", "read_manifests_if_cached"]

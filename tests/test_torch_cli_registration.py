@@ -25,18 +25,20 @@ LEFT_OUT = {
 # are left out with every other download.
 # MDCC's command is registered twice, as "MDCC" and "mdcc", as in JAX.
 PORTED_RECIPES = {
-    "MDCC", "aidatatang-200zh", "aishell", "aishell2", "aishell3", "aishell4", "ali-meeting",
-    "ami", "babel", "baker-zh", "bengaliai-speech", "broadcast-news", "but-reverb-db", "bvcc",
-    "callhome-egyptian", "callhome-english", "cdsd", "chime6", "commonvoice", "csj", "dihard3",
-    "dipco", "earnings21", "earnings22", "emilia", "eval2000", "fisher-english",
-    "fisher-spanish", "gale-arabic", "gale-mandarin", "gigaspeech2", "gigast", "heroico",
-    "icmcasr", "icsi", "iwslt22-ta", "kespeech", "ksponspeech", "libricss", "librilight",
-    "librimix", "librimix-mini", "librispeech", "librispeechmix", "libritts", "librittsr",
-    "ljspeech", "magicdata", "mdcc", "mgb2", "mls", "mtedx", "musan", "must-c", "notsofar1",
-    "nsc", "peoples-speech", "primewords", "reazonspeech", "rir-noise", "spatial-librispeech",
-    "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium",
-    "tedlium2", "thchs-30", "timit", "vctk", "voxceleb", "voxconverse", "voxpopuli",
-    "wenetspeech4tts", "wham", "xbmu-amdo31", "yesno"}
+    "MDCC", "adept", "aidatatang-200zh", "aishell", "aishell2", "aishell3", "aishell4",
+    "ali-meeting", "ami", "babel", "baker-zh", "bengaliai-speech", "broadcast-news",
+    "but-reverb-db", "bvcc", "callhome-egyptian", "callhome-english", "cdsd", "chime6",
+    "cmu-arctic", "cmu-indic", "cmu-kids", "commonvoice", "csj", "cslu-kids", "daily-talk",
+    "dihard3", "dipco", "earnings21", "earnings22", "ears", "emilia", "eval2000",
+    "fisher-english", "fisher-spanish", "gale-arabic", "gale-mandarin", "gigaspeech2", "gigast",
+    "grid", "heroico", "hifitts", "icmcasr", "icsi", "iwslt22-ta", "kespeech", "ksponspeech",
+    "l2-arctic", "libricss", "librilight", "librimix", "librimix-mini", "librispeech",
+    "librispeechmix", "libritts", "librittsr", "ljspeech", "magicdata", "mdcc", "mgb2", "mls",
+    "mtedx", "musan", "must-c", "notsofar1", "nsc", "oto-speech", "peoples-speech",
+    "primewords", "reazonspeech", "rir-noise", "spatial-librispeech", "speechio", "spgispeech",
+    "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium", "tedlium2", "thchs-30", "timit",
+    "vctk", "voxceleb", "voxconverse", "voxpopuli", "wenetspeech4tts", "wham", "xbmu-amdo31",
+    "yesno"}
 
 
 def _walk(cmd, prefix=()):

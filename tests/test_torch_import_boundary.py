@@ -171,7 +171,13 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.recipes.babel, lhotse_tpu_torch.recipes.heroico, "
         "lhotse_tpu_torch.recipes.icmcasr, lhotse_tpu_torch.recipes.reazonspeech, "
         "lhotse_tpu_torch.recipes.bengaliai_speech, "
-        "lhotse_tpu_torch.bin.modes.recipes.asr_corpora; "
+        "lhotse_tpu_torch.bin.modes.recipes.asr_corpora, "
+        "lhotse_tpu_torch.recipes.hifitts, lhotse_tpu_torch.recipes.ears, "
+        "lhotse_tpu_torch.recipes.daily_talk, lhotse_tpu_torch.recipes.cmu_arctic, "
+        "lhotse_tpu_torch.recipes.cmu_indic, lhotse_tpu_torch.recipes.l2_arctic, "
+        "lhotse_tpu_torch.recipes.cmu_kids, lhotse_tpu_torch.recipes.cslu_kids, "
+        "lhotse_tpu_torch.recipes.adept, lhotse_tpu_torch.recipes.grid, "
+        "lhotse_tpu_torch.recipes.oto_speech, lhotse_tpu_torch.bin.modes.recipes.tts_kids; "
         "from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "

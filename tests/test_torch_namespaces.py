@@ -37,13 +37,12 @@ NOT_PORTED = {
         dereverb_wpe_torch
     """,
     "bin.modes.recipes": """
-        adept adept_dl aishell3_dl aishell4_dl ali_meeting_dl aspire atcosim audio_mnist
-        audio_mnist_dl chime6_dl cmu_arctic cmu_arctic_dl cmu_indic cmu_kids cslu_kids
-        daily_talk daily_talk_dl dipco_dl earnings21_dl ears ears_dl edacc fleurs gigaspeech
-        grid heroico_dl hifitts hifitts_dl himia l2_arctic libricss_dl librilight_dl mdcc_dl
-        medical mobvoihotwords mobvoihotwords_dl oto_speech radio rir_noise_dl sbcsae slu
-        speechcommands speechcommands_dl tedlium2_dl this_american_life uwb_atcc voxconverse_dl
-        voxpopuli_dl wham_dl
+        adept_dl aishell3_dl aishell4_dl ali_meeting_dl aspire atcosim audio_mnist
+        audio_mnist_dl chime6_dl cmu_arctic_dl daily_talk_dl dipco_dl earnings21_dl ears_dl
+        edacc fleurs gigaspeech heroico_dl hifitts_dl himia libricss_dl librilight_dl mdcc_dl
+        medical mobvoihotwords mobvoihotwords_dl radio rir_noise_dl sbcsae slu speechcommands
+        speechcommands_dl tedlium2_dl this_american_life uwb_atcc voxconverse_dl voxpopuli_dl
+        wham_dl
     """,
     "dataset": """
         UnsupervisedAudioVideoDataset collate_images collate_video plot_batch
@@ -73,13 +72,11 @@ NOT_PORTED = {
         download_spgispeech download_stcmds download_tedlium download_tedlium2
         download_thchs_30 download_this_american_life download_timit download_uwb_atcc
         download_vctk download_voxceleb1 download_voxceleb2 download_voxconverse
-        download_voxpopuli download_wham download_xbmu_amdo31 download_yesno prepare_adept
-        prepare_aspire prepare_atcosim prepare_audio_mnist prepare_cmu_arctic prepare_cmu_indic
-        prepare_cmu_kids prepare_cslu_kids prepare_daily_talk prepare_ears prepare_edacc
-        prepare_fleurs prepare_gigaspeech prepare_grid prepare_hifitts prepare_himia
-        prepare_l2_arctic prepare_medical prepare_mobvoihotwords prepare_oto_speech
-        prepare_radio prepare_sbcsae prepare_slu prepare_speechcommands
-        prepare_this_american_life prepare_uwb_atcc prepare_wenet_speech
+        download_voxpopuli download_wham download_xbmu_amdo31 download_yesno prepare_aspire
+        prepare_atcosim prepare_audio_mnist prepare_edacc prepare_fleurs prepare_gigaspeech
+        prepare_himia prepare_medical prepare_mobvoihotwords prepare_radio prepare_sbcsae
+        prepare_slu prepare_speechcommands prepare_this_american_life prepare_uwb_atcc
+        prepare_wenet_speech
     """,
     "testing": """
         RandomCutTestCase random_cut_set
