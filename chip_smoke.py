@@ -174,7 +174,14 @@ classification, SLU and evaluation-set corpora (FLEURS ``en_us`` and
 ``prepare_fleurs`` into the augmenter at the 15 s × 256 bucket; Speech
 Commands, MobvoiHotwords, HI-MIA, AudioMNIST, SLU, Medical where the MP3
 libraries load, ASpIRE, EdAcc and ATCOSIM into the step, and Radio's voice
-activity segments through ``VadDataset``); and checks what comes out.
+activity segments through ``VadDataset``); then the last five recipes
+(WenetSpeech, 16 long recordings with 256 segments of 2-15 s in nested S ⊂
+M ⊂ L subsets, through ``prepare_wenet_speech`` and
+``trim_to_supervisions`` into the augmenter at the 15 s × 256 bucket, and
+its S subset muxed with the eight corpora of the Chinese phase into
+icefall's whole multi_zh-hans mix for one epoch of the step; UWB-ATCC and
+SBCSAE into the step, This American Life where the MP3 libraries load;
+GigaSpeech's entry parser, its SDK being absent); and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -246,7 +253,9 @@ stored features), ``voxconverse_diarization_extract``,
 ``grid`` and ``oto_speech``, ``fleurs_device_chain`` and ``corpus_<name>``
 for ``speechcommands``, ``mobvoihotwords``, ``himia``, ``audio_mnist``,
 ``slu``, ``aspire``, ``edacc``, ``atcosim``, ``radio`` and, where it runs,
-``medical``); the last line is
+``medical``, ``wenet_speech_device_chain``, ``zh_multi_full_on_the_fly`` and
+``corpus_<name>`` for ``uwb_atcc``, ``sbcsae`` and, where it runs,
+``this_american_life``); the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -5792,12 +5801,13 @@ def _voiced_frames(cuts, width: int) -> np.ndarray:
 
 
 def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> tuple:
-    """The ``corpus_<name>`` legs of phases 24 and 26-32: each corpus of
+    """The ``corpus_<name>`` legs of phases 24 and 26-33: each corpus of
     ``specs`` (its recipe's call for an output directory, the CLI's command
     and the training path, "asr", "tts", "mos", "vad" or "pairs") →
     ``_prepare_twice`` → ``CutSet.from_manifests`` (or the ``CutSet`` the
     recipe made) → ``resample(16000)`` where the corpus is not at 16 kHz;
-    the ASR corpora trimmed to their supervisions →
+    the ASR corpora trimmed to their supervisions (a stereo cut downmixed
+    with ``to_mono(mono_downmix=True)``) →
     ``SimpleCutSampler(max_duration=180)`` → ``K2SpeechRecognitionDataset``
     with ``OnTheFlyFeatures`` on the kernel → an AdamW step per batch; the
     TTS corpora → ``SpeechSynthesisDataset`` with ``OnTheFlyFeatures`` and a
@@ -5871,6 +5881,11 @@ def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> 
                 cuts = cuts.resample(SR)
             if kind == "asr":
                 cuts = cuts.trim_to_supervisions(keep_overlapping=False)
+                # The extractors take one channel: a user downmixes a stereo cut first.
+                downmixed = sum(c.num_channels > 1 for c in cuts)
+                if downmixed:
+                    cuts = CutSet.from_cuts(c.to_mono(mono_downmix=True) if c.num_channels > 1
+                                            else c for c in cuts)
                 dataset = K2SpeechRecognitionDataset(return_cuts=True,
                                                      input_strategy=OnTheFlyFeatures(fly))
                 unpack, cuts_of = _rows_of, (lambda b: b["supervisions"]["cut"])
@@ -5913,6 +5928,8 @@ def _corpus_legs(manifests: Path, specs: dict, device, fbank_cuda, smi: str) -> 
             err = _first_batch_err(recorder, fly)
             want_launches = len(run["batches"])
             detail = ("every supervision once at 16 kHz" + (
+                f", {downmixed} stereo cuts downmixed with to_mono(mono_downmix=True)"
+                if kind == "asr" and downmixed else "") + (
                 ", TokenCollater.inverse() gives back every text" if kind == "tts" else "")
                       + (", each with its listeners' MOS ratings" if kind == "mos" else "")
                       + (f", is_voice exactly the frames of its supervisions: {masks_equal}, "
@@ -10100,6 +10117,395 @@ def _phase_kws_eval(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+EVAL_SEED = 3333
+WENET_TRAIN = 16  # train recordings of the WenetSpeech layout
+WENET_RECORDING_SECONDS = (150.0, 200.0)
+WENET_SEGMENTS = 16  # segments of each train recording: 16 x 16 fill the 15 s x 256 bucket
+WENET_SEGMENT_SECONDS = (2.0, 15.0)
+WENET_M, WENET_S = 8, 2  # of each recording's segments also in M, and also in S
+WENET_EVAL = (("DEV", "dev"), ("TEST_NET", "test_net"), ("TEST_MEETING", "test_meeting"))
+WENET_EVAL_SECONDS = 60.0
+WENET_EVAL_SEGMENTS = 4
+ZH_MULTI = ("thchs_30", "stcmds", "primewords", "magicdata", "aidatatang_200zh", "kespeech",
+            "aishell", "aishell2")  # phase 26's lazy cut manifests, in icefall's order
+UWB_FILES = 16  # Transcriber files of the UWB-ATCC layout
+UWB_SR = 8000
+UWB_TURNS = 6
+SBC_SECONDS = 60.0
+SBC_TURNS = 10
+TAL_EPISODES = (("train", "ep-1"), ("train", "ep-2"), ("valid", "ep-3"), ("test", "ep-4"))
+GIGA_ENTRIES = 16  # SDK audio entries of the GigaSpeech leg
+GIGA_SEGMENTS = 8
+SBC_WORDS = ("so", "you", "don't", "need", "to", "go", "borrow", "equipment", "from", "anybody",
+             "yeah", "I", "mean", "he", "said", "right", "and", "then", "@@", "X", "(H)", "..")
+
+
+def _write_wenet_speech(root: Path, rng) -> tuple:
+    """WenetSpeech in its published layout: ``WenetSpeech.json`` with
+    ``audios[].{aid, path, duration, segments[].{sid, begin_time, end_time,
+    text, subsets}}`` over 16 train recordings of 150-200 s, 16 segments of
+    2-15 s each (every one in L, the first 8 in M, the first 2 in S: S ⊂ M ⊂
+    L), and one 60 s recording each of DEV, TEST_NET and TEST_MEETING with 4
+    segments; times to 2 decimals. The audio: 16 kHz int16 WAV stand-ins at
+    the release's ``audio/<split>/<domain>/<source>/`` paths (the release's
+    Opus waits for ROADMAP.md A3). Returns the corpus, every recording's
+    int16 samples by id, and every segment's (recording, begin, end, text,
+    subsets) by id."""
+    corpus, audios, pcm, expected = root / "WenetSpeech", [], {}, {}
+    specs = [("train", "youtube", f"Y{k:010d}", ("L",), rng.uniform(*WENET_RECORDING_SECONDS),
+              WENET_SEGMENTS) for k in range(WENET_TRAIN)]
+    specs += [(split, "meeting" if "MEETING" in part else "podcast", f"{part[0]}{k:010d}",
+               (part,), WENET_EVAL_SECONDS, WENET_EVAL_SEGMENTS)
+              for k, (part, split) in enumerate(WENET_EVAL)]
+    for k, (split, domain, aid, parts, seconds, count) in enumerate(specs):
+        seconds = round(float(seconds), 2)
+        turns = [(round(a, 2), round(b, 2)) for a, b in _segments_within(
+            rng, seconds, count, lengths=WENET_SEGMENT_SECONDS, gaps=(0.05, 0.5))]
+        path = f"audio/{split}/{domain}/B{k:05d}/{aid}.wav"
+        pcm[aid] = np.round(_speech_track(rng, seconds, turns)[0] * 32767).astype(np.int16)
+        _write_audio(corpus / path, pcm[aid].astype(np.float32) / 32768.0, SR)
+        segments = []
+        for j, (a, b) in enumerate(turns):
+            subsets = list(parts) + (["M"] if split == "train" and j < WENET_M else []) + (
+                ["S"] if split == "train" and j < WENET_S else [])
+            text = _words(rng, MANDARIN, sep="")
+            sid = f"{aid}_S{j:05d}"
+            segments.append({"sid": sid, "begin_time": a, "end_time": b, "confidence": 1.0,
+                             "text": f" {text} " if j % 3 == 0 else text, "subsets": subsets})
+            expected[sid] = (aid, a, b, text, set(subsets))
+        audios.append({"aid": aid, "title": aid, "path": path, "duration": seconds,
+                       "source": domain, "segments": segments})
+    corpus.mkdir(parents=True, exist_ok=True)
+    (corpus / "WenetSpeech.json").write_text(
+        json.dumps({"dataset": "WenetSpeech", "version": "1.0", "audios": audios},
+                   ensure_ascii=False), encoding="utf8")
+    return corpus, pcm, expected
+
+
+def _write_uwb_atcc(root: Path, rng) -> Path:
+    """The unpacked UWB-ATCC archive: 16 Transcriber files (cp1250) of 30 s
+    8 kHz recordings, each with 6 turns of 2-6 s whose roles alternate
+    ``[ground]``, ``[air]`` and ``[air_|]...[|_air]``, over ATC words and
+    digits; the first file is one of the release's cut off before its
+    closing tags (``ACCU-80UXVV``)."""
+    corpus = root / "uwb_atcc"
+    corpus.mkdir(parents=True, exist_ok=True)
+    for k in range(UWB_FILES):
+        name = "ACCU-80UXVV" if k == 0 else f"{('TWR', 'APP', 'ACCU')[k % 3]}-{k:04d}Ab"
+        turns = _segments_within(rng, CONVERSATION_SECONDS, UWB_TURNS, lengths=(2.0, 6.0),
+                                 gaps=(0.3, 1.5))
+        _write_audio(corpus / f"{name}.wav",
+                     _speech_track(rng, CONVERSATION_SECONDS, turns, sr=UWB_SR), UWB_SR)
+        out = ['<?xml version="1.0" encoding="windows-1250"?>',
+               f'<Trans audio_filename="e2_{name}.wav" scribe="zcu">', "<Episode>",
+               f'<Section type="report" startTime="0" endTime="{CONVERSATION_SECONDS}">']
+        for j, (a, b) in enumerate(turns):
+            words = _words(rng, ATC_WORDS, 3, 9)
+            digits = " ".join(str(d) for d in rng.randint(0, 10, 3))
+            text = (f"[ground] {words} {digits}", f"[air] {words} FL {digits.replace(' ', '')}",
+                    f"[air_|] {words} Praha Ruzyně [|_air]")[j % 3]
+            out += [f'<Turn startTime="{round(a, 3)}" endTime="{round(b, 3)}">',
+                    f'<Sync time="{round(a, 3)}"/>', text, "</Turn>"]
+        text = "\n".join(out + ["</Section></Episode></Trans>", ""])
+        if k == 0:
+            text = text[:text.rindex("</Turn>")]
+        (corpus / f"{name}.trs").write_bytes(text.encode("cp1250"))
+    return corpus
+
+
+def _write_sbcsae(root: Path, rng) -> Path:
+    """The unpacked SBCSAE release: ``WAV/SBC<nnn>.wav`` for one stereo
+    conversation (SBC001), one mono (SBC002) and one stereo ``bad_stereo``
+    id (SBC020), 60 s each with 10 turns of 2-8 s; latin-1 ``TRN/*.trn``
+    rows ``start end<TAB>SPEAKER:<TAB>text`` in DT markup; the speaker
+    tables of ``docs/Part_1`` (SBC001, SBC002) and ``docs/Part_2``
+    (SBC020), Parts 3 and 4 empty; an unmapped speaker ``KEN`` in SBC001."""
+    corpus = root / "SBCSAE"
+    speakers = {"SBC001": (("0001", "LENORE", "F"), ("0002", "LYNNE", "F"), (None, "KEN", None)),
+                "SBC002": (("0010", "JOANNE", "F"), ("0011", "KEN", "M")),
+                "SBC020": (("0050", "JAMIE", "F"), ("0051", "HAROLD", "M"))}
+    docs = {"Part_1": ([], []), "Part_2": ([], []), "Part_3": ([], []), "Part_4": ([], [])}
+    for reco, people in speakers.items():
+        part = "Part_2" if reco == "SBC020" else "Part_1"
+        for num, name, gender in people:
+            if num is not None:
+                docs[part][0].append(f"{reco.lower()} speaker: {num} {name}")
+                docs[part][1].append(f"{num},{name.capitalize()},{gender},x,Walnut Cre CA,CA")
+        turns = _segments_within(rng, SBC_SECONDS, SBC_TURNS, lengths=(2.0, 8.0),
+                                 gaps=(0.2, 1.0))
+        channels = 1 if reco == "SBC002" else 2
+        audio = np.concatenate([_speech_track(rng, SBC_SECONDS, turns[c::channels])
+                                for c in range(channels)]) * 0.5
+        _write_audio(corpus / "WAV" / f"{reco}.wav", audio, SR)
+        rows = [f"{a:.2f} {b:.2f}\t{people[j % len(people)][1]}:\t{_words(rng, SBC_WORDS)}."
+                for j, (a, b) in enumerate(turns)]
+        (corpus / "TRN").mkdir(parents=True, exist_ok=True)
+        (corpus / "TRN" / f"{reco}.trn").write_text("\n".join(rows) + "\n", encoding="latin-1")
+    for part, (segment, speaker) in docs.items():
+        (corpus / "docs" / part).mkdir(parents=True, exist_ok=True)
+        (corpus / "docs" / part / "segment.tbl").write_text("".join(f"{x}\n" for x in segment))
+        (corpus / "docs" / part / "speaker.tbl").write_text("".join(f"{x}\n" for x in speaker))
+    return corpus
+
+
+def _write_this_american_life(root: Path, rng, syscodecs) -> Path:
+    """This American Life's layout: ``{train,valid,test}-transcripts-aligned.json``
+    (utterances with word alignments by token index) and
+    ``audio/<episode>.mp3``, four 30 s episodes as 16 kHz MP3."""
+    from lhotse_tpu_torch.recipes.this_american_life import _tokenize
+
+    corpus, parts = root / "this_american_life", {"train": {}, "valid": {}, "test": {}}
+    (corpus / "audio").mkdir(parents=True, exist_ok=True)
+    for split, ep in TAL_EPISODES:
+        turns = _turns(rng, CONVERSATION_SECONDS, 5)
+        (corpus / "audio" / f"{ep}.mp3").write_bytes(syscodecs.mp3_encode(
+            _speech_track(rng, CONVERSATION_SECONDS, turns), SR))
+        utterances = []
+        for a, b in turns:
+            text = _words(rng, KWS_ENGLISH).capitalize() + "."
+            tokens = _tokenize(text)
+            step = (b - a) / len(tokens)
+            utterances.append({
+                "utterance": text, "n_words": len(tokens), "utterance_start": round(a, 3),
+                "utterance_end": round(b, 3), "speaker": ("Ira Glass", "guest")[len(text) % 2],
+                "alignments": [[round(a + i * step, 3), round(a + (i + 1) * step, 3), i]
+                               for i in range(len(tokens))]})
+        parts[split][ep] = utterances
+    for split, episodes in parts.items():
+        (corpus / f"{split}-transcripts-aligned.json").write_text(json.dumps(episodes))
+    return corpus
+
+
+def _eval_conv_specs(root: Path, rng, syscodecs, smi: str) -> dict:
+    """Per corpus of phase 33's ``corpus_<name>`` legs, in the order they
+    run: the recipe's call for an output directory, the CLI's command and
+    the training path. SBCSAE's with ``omit_realignments=True`` (the
+    realignments need the network); This American Life's only where the
+    MP3 libraries load."""
+    from lhotse_tpu_torch import recipes as R
+
+    uwb, sbc = _write_uwb_atcc(root, rng), _write_sbcsae(root, rng)
+    specs = {
+        "uwb_atcc": (lambda o: R.prepare_uwb_atcc(uwb, output_dir=o), ["uwb-atcc", uwb], "asr"),
+        "sbcsae": (lambda o: R.prepare_sbcsae(sbc, output_dir=o, omit_realignments=True),
+                   ["sbcsae", "--omit-realignments", sbc], "asr"),
+    }
+    if syscodecs.mp3_available() and syscodecs.mp3_encode_available():
+        tal = _write_this_american_life(root, rng, syscodecs)
+        specs["this_american_life"] = (lambda o: R.prepare_this_american_life(tal, output_dir=o),
+                                       ["this-american-life", tal], "asr")
+    else:
+        print(f"[{smi}] corpus_this_american_life waits for the codec libraries (ROADMAP.md A3) "
+              f"and does not run: the release is MP3, and the MP3 libraries (libmpg123, "
+              f"libmp3lame) do not load here: {syscodecs.loaded_sonames()}")
+    return specs
+
+
+def _gigaspeech_off_card(root: Path, rng, smi: str) -> None:
+    """GigaSpeech, which goes through the ``speechcolab`` SDK: without it
+    ``prepare_gigaspeech`` must raise ``ImportError``; ``parse_utterance``
+    over 16 written SDK entries of 8 segments must give back each entry's
+    recording and segments."""
+    from lhotse_tpu_torch.recipes import gigaspeech as G
+    from lhotse_tpu_torch.utils import _module_available, compute_num_samples
+
+    corpus = root / "gigaspeech"
+    corpus.mkdir(parents=True, exist_ok=True)
+    entries = []
+    for k in range(GIGA_ENTRIES):
+        aid = f"{('POD', 'YOU', 'AUD')[k % 3]}{k:010d}"
+        seconds, channels = round(float(rng.uniform(60.0, 600.0)), 4), 1 + (k % 4 == 3)
+        turns = _segments_within(rng, seconds, GIGA_SEGMENTS, lengths=(1.0, 20.0), gaps=(0.1, 30.0))
+        entries.append({"aid": aid, "path": f"audio/{aid[:3].lower()}/P{k:04d}/{aid}.opus",
+                        "sample_rate": SR, "channels": channels, "duration": seconds,
+                        "segments": [{"sid": f"{aid}_S{j:07d}", "begin_time": round(a, 4),
+                                      "end_time": round(b, 4), "speaker": "N/A",
+                                      "text_tn": _words(rng, KWS_ENGLISH).upper() + " <PERIOD>",
+                                      "subsets": ["{XL}", "{L}"]}
+                                     for j, (a, b) in enumerate(turns)]})
+    (corpus / "GigaSpeech.json").write_text(json.dumps({"audios": entries}))
+    _module_available.cache_clear()
+    try:
+        G.prepare_gigaspeech(corpus, root / "gigaspeech_manifests")
+    except ImportError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("prepare_gigaspeech ran without the speechcolab SDK")
+    t0 = time.perf_counter()
+    ok = True
+    for entry in json.loads((corpus / "GigaSpeech.json").read_text())["audios"]:
+        rec, segs = G.parse_utterance(entry, corpus)
+        sr, dur = entry["sample_rate"], entry["duration"]
+        ok &= (rec.id, rec.sampling_rate, rec.duration, rec.num_samples, rec.channel_ids,
+               rec.sources[0].source) == (
+            entry["aid"], sr, dur, compute_num_samples(dur, sr), list(range(entry["channels"])),
+            str(corpus / entry["path"]))
+        ok &= [(s.id, s.recording_id, s.start, s.duration, s.channel, s.speaker, s.text,
+                s.language) for s in segs] == [
+            (x["sid"], entry["aid"], x["begin_time"], round(x["end_time"] - x["begin_time"], 8),
+             0, x["speaker"], x["text_tn"], "English") for x in entry["segments"]]
+    print(f"[{smi}] gigaspeech (off the card): prepare_gigaspeech without the speechcolab SDK "
+          f"raises ImportError ({raised!r}); parse_utterance over {len(entries)} written SDK "
+          f"entries of {GIGA_SEGMENTS} segments each gives back every recording and segment: "
+          f"{ok} (in {time.perf_counter() - t0!r} s); the release's audio is Opus and waits for "
+          f"ROADMAP.md A3")
+    if not ok:
+        raise AssertionError("gigaspeech: parse_utterance does not give back its entries")
+
+
+def _phase_eval_conv(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """33. The last five recipes, in phase 14's directory after phase 32
+    (phase 23's MUSAN noise and RIRS_NOISES manifests feed the augmenter;
+    phase 26's eight lazy cut manifests join the mix). Every recipe that
+    writes manifests runs as a function and through the CLI's ``prepare``
+    command, and their manifests must be equal. ``wenet_speech_device_chain``:
+    the input chain every ``_device_chain`` leg runs (80-dim log-mel fbank,
+    MUSAN noise, speed perturbation, SpecAugment) on WenetSpeech in its
+    published layout, 16 long recordings of 150-200 s with 16 segments of
+    2-15 s each → ``prepare_wenet_speech(dataset_parts="all")`` (S ⊂ M ⊂ L
+    checked) → ``CutSet.from_manifests`` over L → ``trim_to_supervisions``
+    → the 256 cuts as the 15 s x 256 bucket's int16 batch →
+    ``OnDeviceAugmenter`` (twice); every cut's samples must equal the int16
+    written / 32768. ``zh_multi_full_on_the_fly``: icefall's whole
+    multi_zh-hans mix, WenetSpeech's 32 S cuts muxed with phase 26's eight
+    corpora (``CutSet.mux(weights=[1] * 9, seed=2626)``) →
+    ``DynamicBucketingSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset`` with ``OnTheFlyFeatures`` on the kernel
+    → ``DataLoader`` → an AdamW step of ``Encoder(EncoderConfig())`` per
+    batch, one epoch under ``torch.profiler``: every cut once, most batches
+    holding several corpora. ``corpus_<name>``: UWB-ATCC (8 kHz, resampled
+    on the host), SBCSAE (stereo cuts downmixed with
+    ``to_mono(mono_downmix=True)``) and, where MP3 loads, This American
+    Life into the step through ``_corpus_legs``; GigaSpeech off the card.
+    Returns the kernel's launches per path and the largest kernel-vs-plain
+    error."""
+    from lhotse_tpu_torch import CutSet
+    from lhotse_tpu_torch import recipes as R
+    from lhotse_tpu_torch.audio import syscodecs
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.dataset import (
+        DataLoader, DynamicBucketingSampler, K2SpeechRecognitionDataset, OnTheFlyFeatures)
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+    from lhotse_tpu_torch.utils import compute_num_samples
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(EVAL_SEED)
+    root = workdir / "eval_conv"
+    manifests = root / "manifests"
+    launches, errs = {}, []
+
+    # -- wenet_speech_device_chain -----------------------------------------------------------
+    t0 = time.perf_counter()
+    corpus, pcm, expected = _write_wenet_speech(root / "corpora", rng)
+    write_s = time.perf_counter() - t0
+    made, files, function_s, cli_s = _prepare_twice(
+        manifests, "wenet_speech",
+        lambda o: R.prepare_wenet_speech(corpus, dataset_parts="all", output_dir=o, num_jobs=4),
+        ["wenet-speech", "-j", "4", corpus])
+    sups = {part: {s.id: s for s in made[part]["supervisions"]} for part in made}
+    recs = {part: {r.id for r in made[part]["recordings"]} for part in made}
+    per_part = {part: len(s) for part, s in sups.items()}
+    nested = set(sups["S"]) < set(sups["M"]) < set(sups["L"]) and (
+        recs["S"] == recs["M"] == recs["L"])
+    fields_equal = sorted((part, sid) for part, ss in sups.items() for sid in ss) == sorted(
+        (part, sid) for sid, e in expected.items() for part in e[4]) and all(
+        (s.recording_id, s.start, s.text) == (e[0], e[1], e[3])
+        and abs(s.duration - (e[2] - e[1])) < 1e-9
+        for ss in sups.values() for s in ss.values() for e in [expected[s.id]])
+    cuts = CutSet.from_manifests(recordings=made["L"]["recordings"],
+                                 supervisions=made["L"]["supervisions"]).trim_to_supervisions()
+    cuts = cuts.to_eager()
+    sec, bsz = BUCKET
+    n = int(sec * SR)
+    order = list(cuts)
+    t0 = time.perf_counter()
+    audio, lens = np.zeros((bsz, n), np.float32), np.zeros(bsz, np.int64)
+    samples_equal = len(order) == bsz
+    for k, cut in enumerate(order[:bsz]):
+        x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+        i0 = compute_num_samples(cut.start, SR)
+        samples_equal &= np.array_equal(
+            x, pcm[cut.recording_id][i0:i0 + x.size].astype(np.float32) / 32768.0)
+    load_s = time.perf_counter() - t0
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] wenet_speech_device_chain: WenetSpeech.json over {WENET_TRAIN} train "
+          f"recordings of {WENET_RECORDING_SECONDS} s ({WENET_SEGMENTS} segments of "
+          f"{WENET_SEGMENT_SECONDS} s each) and {len(WENET_EVAL)} evaluation recordings, 16 kHz "
+          f"int16 WAV stand-ins for the release's Opus, written in {write_s!r} s; "
+          f"prepare_wenet_speech(dataset_parts='all', num_jobs=4) {function_s!r} s, CLI "
+          f"{cli_s!r} s, its {len(files)} manifests equal; supervisions per part {per_part}; "
+          f"S ⊂ M ⊂ L: {nested}; every id, recording, start, duration, text and subset as "
+          f"written: {fields_equal}; L trimmed to {len(order)} cuts loaded in {load_s!r} s, each "
+          f"equal to its int16 / 32768: {samples_equal}: {float(lens.sum()) / SR!r} audio-s, the "
+          f"bucket {float(lens.sum()) / (bsz * n)!r} full; noise pool {pool.shape} from phase "
+          f"23's {len(noise)} MUSAN noise recordings, RIR {rir_rec.id}")
+    want_parts = {"L": WENET_TRAIN * WENET_SEGMENTS, "M": WENET_TRAIN * WENET_M,
+                  "S": WENET_TRAIN * WENET_S, **{p: WENET_EVAL_SEGMENTS for p, _ in WENET_EVAL}}
+    if (per_part != want_parts or not nested or not fields_equal or not samples_equal
+            or lens.max() > n or lens.min() < WENET_SEGMENT_SECONDS[0] * SR - 1):
+        raise AssertionError("wenet_speech_device_chain: the parts, fields, samples or the "
+                             "bucket are off")
+    launches["wenet_speech_device_chain"], kernel_err, chain_err = _device_chain(
+        "wenet_speech_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+
+    # -- zh_multi_full_on_the_fly ------------------------------------------------------------
+    cut_paths = {"wenet_speech": root / "wenet_speech_S_cuts.jsonl.gz"}
+    CutSet.from_manifests(recordings=made["S"]["recordings"],
+                          supervisions=made["S"]["supervisions"]).trim_to_supervisions(
+    ).to_file(cut_paths["wenet_speech"])
+    cut_paths.update((name, workdir / "zh_corpora" / f"{name}_cuts.jsonl.gz") for name in ZH_MULTI)
+    corpus_of = {c.id: name for name, p in cut_paths.items() for c in CutSet.from_jsonl_lazy(p)}
+    counts = {name: sum(v == name for v in corpus_of.values()) for name in cut_paths}
+    if sum(counts.values()) != len(corpus_of) or counts["wenet_speech"] != WENET_TRAIN * WENET_S:
+        raise AssertionError(f"zh_multi_full_on_the_fly: cut ids collide or are missing: {counts}")
+    fly = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(fly)
+    muxed = CutSet.mux(*(CutSet.from_jsonl_lazy(p) for p in cut_paths.values()),
+                       weights=[1] * len(cut_paths), seed=ZH_SEED)
+    loader = DataLoader(
+        DynamicBucketingSampler(muxed, max_duration=FLY_MAX_DURATION, shuffle=True, seed=0),
+        K2SpeechRecognitionDataset(return_cuts=True, input_strategy=OnTheFlyFeatures(fly)),
+        prefetch_batches=3)
+    run = _leg("zh_multi_full_on_the_fly", loader, _Trainer(device), device, fbank_cuda,
+               _rows_of, smi)
+    launches["zh_multi_full_on_the_fly"] = run["launches"]
+    err = _first_batch_err(recorder, fly)
+    seen = sorted(c.id for b in run["batches"] for c in b["supervisions"]["cut"])
+    per_batch = [len({corpus_of[c.id] for c in b["supervisions"]["cut"]}) for b in run["batches"]]
+    several = sum(k > 1 for k in per_batch)
+    wenet_batches = sum(any(corpus_of[c.id] == "wenet_speech" for c in b["supervisions"]["cut"])
+                        for b in run["batches"])
+    print(f"[{smi}] zh_multi_full_on_the_fly: icefall's multi_zh-hans mix, {len(cut_paths)} "
+          f"corpora {counts} through CutSet.mux(weights={[1] * len(cut_paths)}, seed={ZH_SEED}); "
+          f"{run['audio_s'] / run['wall_ms'] * 1e3!r} audio-s/s; corpora per batch {per_batch} "
+          f"({several} of {len(per_batch)} batches hold several, {wenet_batches} hold "
+          f"WenetSpeech); every cut once: {seen == sorted(corpus_of)}; launches per batch "
+          f"{run['launches'] / len(run['batches'])!r}; first batch kernel vs plain {err!r} (tol "
+          f"{KERNEL_TOL})")
+    if run["launches"] != len(run["batches"]) or seen != sorted(corpus_of) or not wenet_batches:
+        raise AssertionError("zh_multi_full_on_the_fly: launches or coverage are off")
+    if not 2 * several > len(per_batch) or not err <= KERNEL_TOL:
+        raise AssertionError("zh_multi_full_on_the_fly: few batches mix corpora, or the kernel "
+                             "is off")
+    errs.append(err)
+
+    # -- corpus_<name>, and GigaSpeech off the card ------------------------------------------
+    t0 = time.perf_counter()
+    specs = _eval_conv_specs(root / "corpora", rng, syscodecs, smi)
+    print(f"[{smi}] corpora ({', '.join(specs)}) written in {time.perf_counter() - t0!r} s")
+    corpus_launches, corpus_errs, summary = _corpus_legs(manifests, specs, device, fbank_cuda, smi)
+    launches.update(corpus_launches)
+    errs += corpus_errs
+    _gigaspeech_off_card(root / "corpora", rng, smi)
+    print(f"[{smi}] phase 33 corpora: {summary}")
+    set_tracing_enabled(False)
+    return launches, max(errs)
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -10577,6 +10983,13 @@ def main() -> None:
         launches_kws, kws_err = _phase_kws_eval(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_kws)
         print(f"phase 32 took {time.perf_counter() - t0!r} s")
+        # -- 33. the last five recipes: WenetSpeech into the main path and into icefall's full
+        # multi_zh-hans mix with phase 26's corpora, UWB-ATCC and SBCSAE into training, This
+        # American Life where MP3 loads, GigaSpeech off the card, after phases 23 and 26
+        t0 = time.perf_counter()
+        launches_eval, eval_err = _phase_eval_conv(Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_eval)
+        print(f"phase 33 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -10608,7 +11021,7 @@ def main() -> None:
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
                               noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err,
-                              translation_err, asr_err, tts_err, kws_err]),
+                              translation_err, asr_err, tts_err, kws_err, eval_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],

@@ -631,13 +631,16 @@ class MixedCut(Cut):
             _to_unmixed_cut(self, [t for t in real if t.tag == tag])]
 
     def to_mono(self, encoding: str = "wav", **kwargs) -> "Cut":
-        """Render the whole mix to a single-channel in-memory MonoCut."""
+        """Render the whole mix to a single-channel in-memory MonoCut, whose
+        supervisions point at the rendered recording (the JAX package keeps
+        their old ``recording_id``, so its result fails ``validate``)."""
         wave = self.load_audio(mono_downmix=True)
         buf = BytesIO()
         save_audio(buf, wave, self.sampling_rate, format=encoding)
         rec = Recording.from_bytes(buf.getvalue(), recording_id=self.id)
         return fastcopy(
-            rec.to_cut(), supervisions=[fastcopy(s, channel=0) for s in self.supervisions],
+            rec.to_cut(),
+            supervisions=[fastcopy(s, channel=0, recording_id=rec.id) for s in self.supervisions],
             custom=_get_first_non_padding_track(self).cut.custom)
 
     # -- loading ---------------------------------------------------------------------------------

@@ -189,7 +189,8 @@ class MultiCut(DataCut):
 
     def to_mono(self, mono_downmix: bool = False) -> Union["DataCut", List["DataCut"]]:
         """One MonoCut per channel, or a single downmixed cut when
-        ``mono_downmix=True``."""
+        ``mono_downmix=True``, which holds each supervision once (the JAX
+        package's holds a supervision once per channel it covers)."""
         from lhotse_tpu_torch.cut.mixed import MixedCut, MixTrack
 
         mono_cuts = [self._extract_channel(ch) for ch in to_list(self.channel)]
@@ -198,7 +199,8 @@ class MultiCut(DataCut):
         # Downmix: overlay every channel at offset 0 without level changes.
         mixed_cut = MixedCut(
             id=self.id, tracks=[MixTrack(cut=mc, offset=0.0, snr=None) for mc in mono_cuts])
-        return mixed_cut.to_mono()
+        mono = mixed_cut.to_mono()
+        return fastcopy(mono, supervisions=list({s.id: s for s in mono.supervisions}.values()))
 
     @staticmethod
     def from_dict(data: dict) -> "MultiCut":

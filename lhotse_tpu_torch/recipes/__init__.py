@@ -26,7 +26,10 @@ L2-ARCTIC, CMU Kids, CSLU Kids, ADEPT, GRID and otoSpeech; the
 keyword-spotting, classification and SLU corpora Speech Commands,
 MobvoiHotwords, HI-MIA, AudioMNIST, SLU (Fluent Speech Commands style),
 Radio (VAD segments, no transcript) and Medical; the evaluation sets FLEURS,
-ASpIRE, EdAcc and ATCOSIM; and the manifest caching helpers. The JAX package's other recipes are not ported."""
+ASpIRE, EdAcc and ATCOSIM; WenetSpeech, GigaSpeech (through the
+``speechcolab`` SDK), UWB-ATCC, SBCSAE (its local path: the realignments and
+geolocation need the network) and This American Life; and the manifest
+caching helpers. Every JAX recipe is ported; their downloads are not."""
 from lhotse_tpu_torch.recipes.adept import prepare_adept
 from lhotse_tpu_torch.recipes.aidatatang_200zh import prepare_aidatatang_200zh
 from lhotse_tpu_torch.recipes.aishell import prepare_aishell
@@ -69,6 +72,7 @@ from lhotse_tpu_torch.recipes.fleurs import prepare_fleurs
 from lhotse_tpu_torch.recipes.gale_arabic import prepare_gale_arabic
 from lhotse_tpu_torch.recipes.gale_mandarin import prepare_gale_mandarin
 from lhotse_tpu_torch.recipes.gigaspeech2 import prepare_gigaspeech2
+from lhotse_tpu_torch.recipes.gigaspeech import prepare_gigaspeech
 from lhotse_tpu_torch.recipes.gigast import prepare_gigast
 from lhotse_tpu_torch.recipes.grid import prepare_grid
 from lhotse_tpu_torch.recipes.heroico import prepare_heroico
@@ -105,6 +109,7 @@ from lhotse_tpu_torch.recipes.primewords import prepare_primewords
 from lhotse_tpu_torch.recipes.radio import prepare_radio
 from lhotse_tpu_torch.recipes.reazonspeech import prepare_reazonspeech
 from lhotse_tpu_torch.recipes.rir_noise import prepare_rir_noise
+from lhotse_tpu_torch.recipes.sbcsae import prepare_sbcsae
 from lhotse_tpu_torch.recipes.slu import prepare_slu
 from lhotse_tpu_torch.recipes.spatial_librispeech import prepare_spatial_librispeech
 from lhotse_tpu_torch.recipes.speechcommands import prepare_speechcommands
@@ -117,43 +122,46 @@ from lhotse_tpu_torch.recipes.tal_csasr import prepare_tal_csasr
 from lhotse_tpu_torch.recipes.tedlium import prepare_tedlium
 from lhotse_tpu_torch.recipes.tedlium2 import prepare_tedlium2
 from lhotse_tpu_torch.recipes.thchs_30 import prepare_thchs_30
+from lhotse_tpu_torch.recipes.this_american_life import prepare_this_american_life
 from lhotse_tpu_torch.recipes.timit import prepare_timit
 from lhotse_tpu_torch.recipes.utils import (
     finalize_manifests, manifests_exist, read_manifests_if_cached)
+from lhotse_tpu_torch.recipes.uwb_atcc import prepare_uwb_atcc
 from lhotse_tpu_torch.recipes.vctk import prepare_vctk
 from lhotse_tpu_torch.recipes.voxceleb import prepare_voxceleb
 from lhotse_tpu_torch.recipes.voxconverse import prepare_voxconverse
 from lhotse_tpu_torch.recipes.voxpopuli import prepare_voxpopuli
+from lhotse_tpu_torch.recipes.wenet_speech import prepare_wenet_speech
 from lhotse_tpu_torch.recipes.wenetspeech4tts import prepare_wenetspeech4tts
 from lhotse_tpu_torch.recipes.wham import prepare_wham
 from lhotse_tpu_torch.recipes.xbmu_amdo31 import prepare_xbmu_amdo31
 from lhotse_tpu_torch.recipes.yesno import prepare_yesno
 
 __all__ = [
-    "concat_csj_supervisions", "download_iwslt22_ta", "download_librispeech",
-    "finalize_manifests", "manifests_exist", "prepare_adept", "prepare_aidatatang_200zh",
-    "prepare_aishell", "prepare_aishell2", "prepare_aishell3", "prepare_aishell4",
-    "prepare_ali_meeting", "prepare_ami", "prepare_aspire", "prepare_atcosim",
-    "prepare_audio_mnist", "prepare_baker_zh", "prepare_bengaliai_speech",
-    "prepare_broadcast_news", "prepare_but_reverb_db", "prepare_bvcc",
+    "concat_csj_supervisions", "download_iwslt22_ta", "download_librispeech", "finalize_manifests",
+    "manifests_exist", "prepare_adept", "prepare_aidatatang_200zh", "prepare_aishell",
+    "prepare_aishell2", "prepare_aishell3", "prepare_aishell4", "prepare_ali_meeting",
+    "prepare_ami", "prepare_aspire", "prepare_atcosim", "prepare_audio_mnist", "prepare_baker_zh",
+    "prepare_bengaliai_speech", "prepare_broadcast_news", "prepare_but_reverb_db", "prepare_bvcc",
     "prepare_callhome_egyptian", "prepare_callhome_english", "prepare_cdsd", "prepare_chime6",
     "prepare_cmu_arctic", "prepare_cmu_indic", "prepare_cmu_kids", "prepare_commonvoice",
     "prepare_csj", "prepare_cslu_kids", "prepare_daily_talk", "prepare_dihard3", "prepare_dipco",
     "prepare_earnings21", "prepare_earnings22", "prepare_ears", "prepare_edacc", "prepare_emilia",
     "prepare_eval2000", "prepare_fisher_english", "prepare_fisher_spanish", "prepare_fleurs",
-    "prepare_gale_arabic", "prepare_gale_mandarin", "prepare_gigaspeech2", "prepare_gigast",
-    "prepare_grid", "prepare_heroico", "prepare_hifitts", "prepare_himia", "prepare_icmcasr",
-    "prepare_icsi", "prepare_iwslt22_ta", "prepare_kespeech", "prepare_ksponspeech",
-    "prepare_l2_arctic", "prepare_libricss", "prepare_librilight", "prepare_librimix",
-    "prepare_librimix_mini", "prepare_librispeech", "prepare_librispeechmix", "prepare_libritts",
-    "prepare_librittsr", "prepare_ljspeech", "prepare_magicdata", "prepare_mdcc",
-    "prepare_medical", "prepare_mgb2", "prepare_mls", "prepare_mobvoihotwords", "prepare_mtedx",
-    "prepare_musan", "prepare_must_c", "prepare_notsofar1", "prepare_nsc", "prepare_oto_speech",
-    "prepare_peoples_speech", "prepare_primewords", "prepare_radio", "prepare_reazonspeech",
-    "prepare_rir_noise", "prepare_single_babel_language", "prepare_slu",
-    "prepare_spatial_librispeech", "prepare_speechcommands", "prepare_speechio",
+    "prepare_gale_arabic", "prepare_gale_mandarin", "prepare_gigaspeech", "prepare_gigaspeech2",
+    "prepare_gigast", "prepare_grid", "prepare_heroico", "prepare_hifitts", "prepare_himia",
+    "prepare_icmcasr", "prepare_icsi", "prepare_iwslt22_ta", "prepare_kespeech",
+    "prepare_ksponspeech", "prepare_l2_arctic", "prepare_libricss", "prepare_librilight",
+    "prepare_librimix", "prepare_librimix_mini", "prepare_librispeech", "prepare_librispeechmix",
+    "prepare_libritts", "prepare_librittsr", "prepare_ljspeech", "prepare_magicdata",
+    "prepare_mdcc", "prepare_medical", "prepare_mgb2", "prepare_mls", "prepare_mobvoihotwords",
+    "prepare_mtedx", "prepare_musan", "prepare_must_c", "prepare_notsofar1", "prepare_nsc",
+    "prepare_oto_speech", "prepare_peoples_speech", "prepare_primewords", "prepare_radio",
+    "prepare_reazonspeech", "prepare_rir_noise", "prepare_sbcsae", "prepare_single_babel_language",
+    "prepare_slu", "prepare_spatial_librispeech", "prepare_speechcommands", "prepare_speechio",
     "prepare_spgispeech", "prepare_stcmds", "prepare_switchboard", "prepare_tal_asr",
     "prepare_tal_csasr", "prepare_tedlium", "prepare_tedlium2", "prepare_thchs_30",
-    "prepare_timit", "prepare_vctk", "prepare_voxceleb", "prepare_voxconverse",
-    "prepare_voxpopuli", "prepare_wenetspeech4tts", "prepare_wham", "prepare_xbmu_amdo31",
-    "prepare_yesno", "read_manifests_if_cached"]
+    "prepare_this_american_life", "prepare_timit", "prepare_uwb_atcc", "prepare_vctk",
+    "prepare_voxceleb", "prepare_voxconverse", "prepare_voxpopuli", "prepare_wenet_speech",
+    "prepare_wenetspeech4tts", "prepare_wham", "prepare_xbmu_amdo31", "prepare_yesno",
+    "read_manifests_if_cached"]

@@ -31,15 +31,15 @@ PORTED_RECIPES = {
     "callhome-english", "cdsd", "chime6", "cmu-arctic", "cmu-indic", "cmu-kids", "commonvoice",
     "csj", "cslu-kids", "daily-talk", "dihard3", "dipco", "earnings21", "earnings22", "ears",
     "edacc", "emilia", "eval2000", "fisher-english", "fisher-spanish", "fleurs", "gale-arabic",
-    "gale-mandarin", "gigaspeech2", "gigast", "grid", "heroico", "hifitts", "himia", "icmcasr",
-    "icsi", "iwslt22-ta", "kespeech", "ksponspeech", "l2-arctic", "libricss", "librilight",
-    "librimix", "librimix-mini", "librispeech", "librispeechmix", "libritts", "librittsr",
-    "ljspeech", "magicdata", "mdcc", "medical", "mgb2", "mls", "mobvoihotwords", "mtedx", "musan",
-    "must-c", "notsofar1", "nsc", "oto-speech", "peoples-speech", "primewords", "radio",
-    "reazonspeech", "rir-noise", "slu", "spatial-librispeech", "speechcommands", "speechio",
-    "spgispeech", "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium", "tedlium2",
-    "thchs-30", "timit", "vctk", "voxceleb", "voxconverse", "voxpopuli", "wenetspeech4tts", "wham",
-    "xbmu-amdo31", "yesno"}
+    "gale-mandarin", "gigaspeech", "gigaspeech2", "gigast", "grid", "heroico", "hifitts", "himia",
+    "icmcasr", "icsi", "iwslt22-ta", "kespeech", "ksponspeech", "l2-arctic", "libricss",
+    "librilight", "librimix", "librimix-mini", "librispeech", "librispeechmix", "libritts",
+    "librittsr", "ljspeech", "magicdata", "mdcc", "medical", "mgb2", "mls", "mobvoihotwords",
+    "mtedx", "musan", "must-c", "notsofar1", "nsc", "oto-speech", "peoples-speech", "primewords",
+    "radio", "reazonspeech", "rir-noise", "sbcsae", "slu", "spatial-librispeech", "speechcommands",
+    "speechio", "spgispeech", "stcmds", "switchboard", "tal-asr", "tal-csasr", "tedlium",
+    "tedlium2", "thchs-30", "this-american-life", "timit", "uwb-atcc", "vctk", "voxceleb",
+    "voxconverse", "voxpopuli", "wenet-speech", "wenetspeech4tts", "wham", "xbmu-amdo31", "yesno"}
 
 
 def _walk(cmd, prefix=()):

@@ -183,7 +183,10 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.recipes.audio_mnist, lhotse_tpu_torch.recipes.slu, "
         "lhotse_tpu_torch.recipes.radio, lhotse_tpu_torch.recipes.medical, "
         "lhotse_tpu_torch.recipes.aspire, lhotse_tpu_torch.recipes.edacc, "
-        "lhotse_tpu_torch.recipes.atcosim, lhotse_tpu_torch.bin.modes.recipes.kws_eval; "
+        "lhotse_tpu_torch.recipes.atcosim, lhotse_tpu_torch.bin.modes.recipes.kws_eval, "
+        "lhotse_tpu_torch.recipes.wenet_speech, lhotse_tpu_torch.recipes.uwb_atcc, "
+        "lhotse_tpu_torch.recipes.this_american_life, lhotse_tpu_torch.recipes.sbcsae, "
+        "lhotse_tpu_torch.recipes.gigaspeech, lhotse_tpu_torch.bin.modes.recipes.eval_conv; "
         "from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "

@@ -168,10 +168,15 @@ def test_to_mono_splits_channels(stereo):
 
 
 def test_to_mono_downmix_sums_channels(stereo):
+    """The downmix sums the channels. Its supervision is the cut's, once,
+    on channel 0 of the rendered recording; the JAX package's result holds
+    it once per channel (ROADMAP C2)."""
     path, left, right = stereo
     ours, theirs = _both(lambda pkg: _cut(pkg, path).to_mono(mono_downmix=True))
     assert isinstance(ours, PCut.MonoCut)
-    assert [_dict(s) for s in ours.supervisions] == [_dict(s) for s in theirs.supervisions]
+    (sup,) = ours.supervisions
+    assert sup.recording_id == ours.recording_id == ours.recording.id and sup.channel == 0
+    assert [_dict(s) for s in theirs.supervisions] == [_dict(sup)] * 2
     assert ours.recording.sources[0].source == theirs.recording.sources[0].source
     audio = ours.load_audio()
     assert audio.shape == (1, N)

@@ -20,8 +20,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # The names each JAX package exports that the port does not have yet, by
 # package path ("" is the top level): the HDF5, Kaldi and URL feature
 # backends, images and video, openSMILE/S3PRL, the ffmpeg and I/O backend
-# switches (ROADMAP A5, A7), the recipes still to port and every download
-# (A6), the activity-detection and alignment workflows, and a few utilities.
+# switches (ROADMAP A5, A7), every recipe download (A6), the activity-detection
+# and alignment workflows, and a few utilities.
 NOT_PORTED = {
     "": """
         ChunkedLilcomHdf5Writer Image LilcomHdf5Writer NumpyHdf5Writer OpenSmileConfig
@@ -38,9 +38,9 @@ NOT_PORTED = {
     """,
     "bin.modes.recipes": """
         adept_dl aishell3_dl aishell4_dl ali_meeting_dl audio_mnist_dl chime6_dl cmu_arctic_dl
-        daily_talk_dl dipco_dl earnings21_dl ears_dl gigaspeech heroico_dl hifitts_dl libricss_dl
-        librilight_dl mdcc_dl mobvoihotwords_dl rir_noise_dl sbcsae speechcommands_dl tedlium2_dl
-        this_american_life uwb_atcc voxconverse_dl voxpopuli_dl wham_dl
+        daily_talk_dl dipco_dl earnings21_dl ears_dl heroico_dl hifitts_dl libricss_dl
+        librilight_dl mdcc_dl mobvoihotwords_dl rir_noise_dl speechcommands_dl tedlium2_dl
+        voxconverse_dl voxpopuli_dl wham_dl
     """,
     "dataset": """
         UnsupervisedAudioVideoDataset collate_images collate_video plot_batch
@@ -70,8 +70,7 @@ NOT_PORTED = {
         download_stcmds download_tedlium download_tedlium2 download_thchs_30
         download_this_american_life download_timit download_uwb_atcc download_vctk
         download_voxceleb1 download_voxceleb2 download_voxconverse download_voxpopuli download_wham
-        download_xbmu_amdo31 download_yesno prepare_gigaspeech prepare_sbcsae
-        prepare_this_american_life prepare_uwb_atcc prepare_wenet_speech
+        download_xbmu_amdo31 download_yesno
     """,
     "testing": """
         RandomCutTestCase random_cut_set
