@@ -181,7 +181,18 @@ M ⊂ L subsets, through ``prepare_wenet_speech`` and
 its S subset muxed with the eight corpora of the Chinese phase into
 icefall's whole multi_zh-hans mix for one epoch of the step; UWB-ATCC and
 SBCSAE into the step, This American Life where the MP3 libraries load;
-GigaSpeech's entry parser, its SDK being absent); and checks what comes out.
+GigaSpeech's entry parser, its SDK being absent); then the storage and
+I/O backends (256 FLAC utterances in 8 tar shards read through ``url``
+sources that name the tar members, their manifest read from inside a tar,
+into the augmenter at the 15 s × 256 bucket, equal to the plain files'
+batch and features; their features stored on the kernel, exported to an
+indexed Shar and read back through ``AudioSamples(use_batch_loader=True)``
+with a ``LocalBatchFetcher`` into the kernel and the step, its batches
+equal to the loader-less ones; the stored features copied by
+``copy-feats`` into ``lilcom_files``, ``numpy_files``, ``lilcom_url`` and,
+where ``h5py`` or ``kaldi_native_io`` imports, the HDF5 stores and
+``kaldiio``, each copy into an epoch of the step); and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -255,7 +266,10 @@ for ``speechcommands``, ``mobvoihotwords``, ``himia``, ``audio_mnist``,
 ``slu``, ``aspire``, ``edacc``, ``atcosim``, ``radio`` and, where it runs,
 ``medical``, ``wenet_speech_device_chain``, ``zh_multi_full_on_the_fly`` and
 ``corpus_<name>`` for ``uwb_atcc``, ``sbcsae`` and, where it runs,
-``this_american_life``); the last line is
+``this_american_life``, ``tar_device_chain``, ``storage_extract``,
+``ais_batch_loader``, and ``store_<name>`` for each store that runs (0:
+they read stored features)); a line names each store that did not run,
+before the record; the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -4293,8 +4307,9 @@ def _phase_simulated_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tu
     utterances (``num_repeats=1``, seed ``SIM_SEED``, one job), and
     ``workflows simulate-meetings`` (run in this process) writes the same
     manifest; the same with ``SpeakerIndependentMeetingSimulator`` at its
-    defaults; each once more with ``num_jobs=2`` (spawned workers), held to
-    the invariants of ``_simulation_invariants``; then half the
+    defaults; the conversational simulator once more with ``num_jobs=2``
+    (spawned workers, ≈24 s on the card's host), held to the invariants of
+    ``_simulation_invariants``; then half the
     conversational meetings are reverberated with RIR groups (one per
     speaker count, see ``_write_rir_groups``) and half with the fast random
     RIRs. ``meeting_sim_surt``: the reverberated meetings →
@@ -4347,10 +4362,13 @@ def _phase_simulated_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tu
             out / f"{method}_cli.jsonl.gz")], standalone_mode=False)
         cli_equal = [m.to_dict() for m in CutSet.from_file(out / f"{method}_cli.jsonl.gz")] == [
             m.to_dict() for m in CutSet.from_file(out / f"{method}.jsonl.gz")]
-        t0 = time.perf_counter()
-        two = simulator.simulate(utterances, num_jobs=2, **kw)
-        two_s = time.perf_counter() - t0
-        invariants = _simulation_invariants(meetings, two)
+        two_jobs = "not run (the conversational run covers it)"
+        invariants = {}
+        if method == "conversational":
+            t0 = time.perf_counter()
+            two = simulator.simulate(utterances, num_jobs=2, **kw)
+            two_jobs = f"in {time.perf_counter() - t0!r} s"
+            invariants = _simulation_invariants(meetings, two)
         audio_s = float(sum(m.duration for m in meetings))
         tracks = [len(m.tracks) for m in meetings]
         by_tracks = {k: tracks.count(k) for k in sorted(set(tracks))}
@@ -4359,7 +4377,7 @@ def _phase_simulated_meetings(workdir: Path, device, fbank_cuda, smi: str) -> tu
             f"{method}{fitted}: {len(meetings)} meetings (by track count {by_tracks}), "
             f"{audio_s!r} simulated audio-s in {sim_s!r} s: {len(meetings) / sim_s!r} "
             f"meetings/s, {audio_s / sim_s!r} simulated audio-s/s (one job); the CLI's manifest "
-            f"equal to the library call's: {cli_equal}; num_jobs=2 (spawned) in {two_s!r} s, "
+            f"equal to the library call's: {cli_equal}; num_jobs=2 (spawned) {two_jobs}, "
             f"invariants {invariants}")
         if not cli_equal or not all(invariants.values()) or len(meetings) < 10:
             raise AssertionError(f"meeting_simulate: {lines[-1]}")
@@ -4736,6 +4754,19 @@ def _noise_pool_and_rir(workdir: Path) -> tuple:
     return pool, rir_rec.load_audio()[0].astype(np.float32), noise, rir_rec
 
 
+def _chain_augmenter(pool, rir, device):
+    """The ``OnDeviceAugmenter`` of the ``_device_chain`` legs: the 15 s x 256
+    bucket on the int16 wire, speed 1.1, gain, SNR (10, 20) over ``pool``
+    with half the rows mixed, ``rir`` and SpecAugment."""
+    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
+    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
+
+    return OnDeviceAugmenter(
+        buckets=[BUCKET], wire_format="int16", speed_factor=SPEED, gain_range=(0.9, 1.1),
+        noise_pool=pool, snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
+        device=device)
+
+
 def _device_chain(name: str, batches: list, pool, rir, device, fbank_cuda, smi: str) -> tuple:
     """``batches`` of (audio, lens) at the 15 s x 256 bucket → the int16 wire →
     ``OnDeviceAugmenter`` with the noise pool and RIR, speed 1.1, gain, SNR
@@ -4746,16 +4777,10 @@ def _device_chain(name: str, batches: list, pool, rir, device, fbank_cuda, smi: 
     launches are read, under ``torch.profiler`` for the device's busy share
     of the wall. Returns the kernel's launches, the kernel-vs-plain error
     and the chain's error."""
-    from lhotse_tpu_torch.dataset.device_augment import OnDeviceAugmenter
-    from lhotse_tpu_torch.dataset.signal_transforms import SpecAugment
-
     sec, bsz = BUCKET
     n = int(sec * SR)
     frames = (math.ceil(n * 10 / 11) + 80) // 160
-    aug = OnDeviceAugmenter(
-        buckets=[BUCKET], wire_format="int16", speed_factor=SPEED, gain_range=(0.9, 1.1),
-        noise_pool=pool, snr=(10, 20), mix_prob=0.5, rir=rir, specaugment=SpecAugment(seed=0),
-        device=device)
+    aug = _chain_augmenter(pool, rir, device)
     aug.precompile()
     # The first launch's input and output, to hold the kernel against its
     # plain version on the very batch the path gave it.
@@ -10506,6 +10531,266 @@ def _phase_eval_conv(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs)
 
 
+# -- 34. the storage and I/O backends ----------------------------------------------------------
+STORAGE_SEED = 3434
+STORAGE_UTTERANCES = 256  # FLAC utterances: the 15 s x 256 bucket's rows
+STORAGE_SECONDS = (2.0, 15.0)
+STORAGE_SHARDS = 8  # tar shards of 32 members
+# The stores phase 34 copies the stored features into, each with the package it needs.
+STORAGE_STORES = (("lilcom_files", None), ("numpy_files", None), ("lilcom_url", None),
+                  ("numpy_hdf5", "h5py"), ("lilcom_hdf5", "h5py"), ("chunked_lilcom_hdf5", "h5py"),
+                  ("kaldiio", "kaldi_native_io"))
+
+
+def _write_storage_corpus(root: Path, rng) -> tuple:
+    """``STORAGE_UTTERANCES`` FLAC tone bursts of 2-15 s (``_tone_burst``)
+    with one supervision each, as plain files under ``flac/`` and packed in
+    order into ``STORAGE_SHARDS`` tar shards (``shards/shard-<k>.tar``).
+    Returns the cuts over the plain files and the same cuts with ``url``
+    sources that name the tar members (``.../shard-<k>.tar/<id>.flac``)."""
+    import tarfile
+
+    from lhotse_tpu_torch.audio import AudioSource, Recording
+    from lhotse_tpu_torch.audio.flacio import write_flac
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.supervision import SupervisionSegment
+    from lhotse_tpu_torch.utils import fastcopy
+
+    flac, shards = root / "flac", root / "shards"
+    flac.mkdir(parents=True)
+    shards.mkdir()
+    per_shard = STORAGE_UTTERANCES // STORAGE_SHARDS
+    plain, tarred = [], []
+    for i in range(STORAGE_UTTERANCES):
+        uid, shard = f"store-{i:04d}", shards / f"shard-{i // per_shard}.tar"
+        x = _tone_burst(rng, float(rng.uniform(*STORAGE_SECONDS)))
+        write_flac(str(flac / f"{uid}.flac"), x, SR)
+        rec = Recording.from_file(flac / f"{uid}.flac", recording_id=uid)
+        url = fastcopy(rec, sources=[AudioSource(type="url", channels=[0],
+                                                 source=f"{shard}/{uid}.flac")])
+        for recording, cuts in ((rec, plain), (url, tarred)):
+            cut = recording.to_cut()
+            cut.supervisions.append(SupervisionSegment(
+                id=uid, recording_id=uid, start=0.0, duration=cut.duration, text="synthetic"))
+            cuts.append(cut)
+    for k in range(STORAGE_SHARDS):
+        with tarfile.open(shards / f"shard-{k}.tar", "w") as tar:
+            for cut in plain[k * per_shard:(k + 1) * per_shard]:
+                tar.add(flac / f"{cut.id}.flac", arcname=f"{cut.id}.flac")
+    return CutSet.from_cuts(plain), CutSet.from_cuts(tarred)
+
+
+def _bucket_batch(cuts) -> tuple:
+    """The cuts' audio as the 15 s x 256 bucket's (audio, lens) batch."""
+    sec, bsz = BUCKET
+    audio, lens = np.zeros((bsz, int(sec * SR)), np.float32), np.zeros(bsz, np.int64)
+    for k, cut in enumerate(list(cuts)[:bsz]):
+        x = cut.load_audio()[0]
+        audio[k, : x.size], lens[k] = x, x.size
+    return audio, lens
+
+
+def _phase_storage(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """34. The storage and I/O backends, in phase 14's directory after phase
+    33 (phase 23's MUSAN noise and RIRS_NOISES manifests feed the
+    augmenter), on 256 FLAC utterances of 2-15 s in 8 tar shards of 32.
+    ``tar_device_chain``: the cuts with ``url`` sources that name the tar
+    members (read through ``TarAsDirBackend``), their ``cuts.jsonl.gz``
+    itself read from inside a tar by ``CutSet.from_file``, as the 15 s x
+    256 bucket's int16 batch through ``OnDeviceAugmenter`` (twice, by
+    ``_device_chain``); the same batch read from the plain files must be
+    equal, and so must its features under the same draws.
+    ``storage_extract``: ``compute_and_store_features_batch`` of the tar
+    cuts on the kernel into ``lilcom_chunky``. ``ais_batch_loader``: those
+    cuts exported to an indexed Shar (FLAC audio, LTC1 features), read with
+    ``CutSet.from_shar(indexed=True, lazy=True)`` →
+    ``SimpleCutSampler(max_duration=180)`` →
+    ``K2SpeechRecognitionDataset(input_strategy=AudioSamples(use_batch_loader=True))``
+    with a ``LocalBatchFetcher`` → the kernel → an AdamW step of
+    ``Encoder(EncoderConfig())`` per batch; its audio batches must be
+    ``torch.equal`` to the same sampler's with ``use_batch_loader=False``.
+    ``store_<name>``: the stored features copied by the CLI's
+    ``copy-feats`` into each store of ``STORAGE_STORES`` whose package
+    imports (each copy equal to its source: numpy exactly, LTC1 within a
+    tick), then one epoch of ``PrecomputedFeatures`` from it into the step
+    (no launch). Returns the kernel's launches per path, the largest
+    kernel-vs-plain error and the lines of the stores that did not run."""
+    import importlib.util
+    import tarfile
+
+    from lhotse_tpu_torch.ais import LocalBatchFetcher, collect_batch_requests
+    from lhotse_tpu_torch.bin.modes import cli
+    from lhotse_tpu_torch.caching import set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(STORAGE_SEED)
+    root = workdir / "storage"
+    launches, errs, not_run = {}, [], []
+
+    # -- tar_device_chain --------------------------------------------------------------------
+    t0 = time.perf_counter()
+    plain, tarred = _write_storage_corpus(root / "corpus", rng)
+    write_s = time.perf_counter() - t0
+    tarred.to_file(root / "cuts.jsonl.gz")
+    with tarfile.open(root / "manifests.tar", "w") as tar:
+        tar.add(root / "cuts.jsonl.gz", arcname="cuts.jsonl.gz")
+    from_tar = CutSet.from_file(root / "manifests.tar" / "cuts.jsonl.gz")
+    manifest_equal = [c.to_dict() for c in from_tar] == [c.to_dict() for c in tarred]
+    t0 = time.perf_counter()
+    audio, lens = _bucket_batch(from_tar)
+    tar_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_audio, plain_lens = _bucket_batch(plain)
+    plain_load_s = time.perf_counter() - t0
+    samples_equal = np.array_equal(audio, plain_audio) and np.array_equal(lens, plain_lens)
+    sec, bsz = BUCKET
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] tar_device_chain: {len(tarred)} FLAC utterances of {STORAGE_SECONDS} s in "
+          f"{STORAGE_SHARDS} tar shards, written in {write_s!r} s; their url-source manifest "
+          f"read from inside a tar by CutSet.from_file, equal to the one written: "
+          f"{manifest_equal}; the bucket's batch read through the tar members in "
+          f"{tar_load_s!r} s and from the plain files in {plain_load_s!r} s, equal: "
+          f"{samples_equal}: {float(lens.sum()) / SR!r} audio-s, the bucket "
+          f"{float(lens.sum()) / (bsz * int(sec * SR))!r} full; noise pool {pool.shape} from "
+          f"phase 23's {len(noise)} MUSAN noise recordings, RIR {rir_rec.id}")
+    if not manifest_equal or not samples_equal or len(from_tar) != bsz:
+        raise AssertionError("tar_device_chain: the manifest or the samples read through the "
+                             "tar members are off")
+    launches["tar_device_chain"], kernel_err, chain_err = _device_chain(
+        "tar_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+    aug = _chain_augmenter(pool, rir, device)
+    draws = aug.state_dict()
+    tar_out = aug.compute(aug.stage(audio, lens))
+    aug.load_state_dict(draws)
+    plain_out = aug.compute(aug.stage(plain_audio, plain_lens))
+    features_equal = all(torch.equal(a, b) for a, b in zip(tar_out, plain_out))
+    print(f"[{smi}] tar_device_chain: features of the tar members and of the plain files under "
+          f"the same draws torch.equal: {features_equal}")
+    if not features_equal:
+        raise AssertionError("tar_device_chain: the features differ from the plain files'")
+
+    # -- storage_extract -----------------------------------------------------------------------
+    extractor = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(extractor)
+    feats_cuts = root / "feats_cuts.jsonl.gz"
+    torch.cuda.synchronize()
+    fbank_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    from_tar.compute_and_store_features_batch(
+        extractor, root / "feats", manifest_path=feats_cuts, batch_duration=600, num_workers=4)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches["storage_extract"] = fbank_cuda.LAUNCHES
+    errs.append(_first_batch_err(recorder, extractor))
+    stored = CutSet.from_file(feats_cuts)
+    audio_s = sum(c.duration for c in stored)
+    print(f"[{smi}] storage_extract: {len(stored)} cuts read through the tar members, "
+          f"{audio_s!r} audio-s extracted on the kernel and stored as lilcom_chunky in "
+          f"{extract_s!r} s: {audio_s / extract_s!r} audio-s/s; fbank kernel launches "
+          f"{launches['storage_extract']}; first batch kernel vs plain {errs[-1]!r} (tol "
+          f"{KERNEL_TOL})")
+    if (sorted(c.id for c in stored) != sorted(c.id for c in tarred)
+            or {c.features.storage_type for c in stored} != {"lilcom_chunky"}
+            or launches["storage_extract"] < 1 or not errs[-1] <= KERNEL_TOL):
+        raise AssertionError("storage_extract: the cuts, store, launches or kernel are off")
+
+    # -- ais_batch_loader ----------------------------------------------------------------------
+    t0 = time.perf_counter()
+    stored.to_shar(root / "shar", fields={"recording": "flac", "features": "lilcom"},
+                   shard_size=STORAGE_UTTERANCES // STORAGE_SHARDS, compress_jsonl=False,
+                   create_index=True)
+    export_s = time.perf_counter() - t0
+    lazy = CutSet.from_shar(in_dir=root / "shar", indexed=True, lazy=True)
+    strategy = AudioSamples(use_batch_loader=True)
+    fetcher, fetch_calls = LocalBatchFetcher(), []
+    fetch = fetcher.fetch
+    fetcher.fetch = lambda requests: (fetch_calls.append(len(requests)), fetch(requests))[1]
+    strategy.ais_batch_loader.fetcher = fetcher
+    fly = Fbank(FbankConfig(device=device))
+    recorder = _RecordFirstBatch(fly)
+    trainer = _Trainer(device)
+
+    def unpack(batch):
+        sups = batch["supervisions"]
+        rows = {int(i): c for i, c in zip(sups["sequence_idx"], sups["cut"])}
+        cuts = [rows[i] for i in range(batch["inputs"].shape[0])]
+        feats = fly.extract_batch(
+            [batch["inputs"][i, : c.num_samples] for i, c in enumerate(cuts)], SR)
+        padded, frames = _padded(feats)
+        return padded, frames, sum(c.duration for c in cuts)
+
+    def loader(input_strategy):
+        return DataLoader(
+            SimpleCutSampler(lazy, max_duration=FLY_MAX_DURATION),
+            K2SpeechRecognitionDataset(return_cuts=True, input_strategy=input_strategy),
+            prefetch_batches=3)
+
+    run = _leg("ais_batch_loader", loader(strategy), trainer, device, fbank_cuda, unpack, smi)
+    launches["ais_batch_loader"] = run["launches"]
+    errs.append(_first_batch_err(recorder, fly))
+    reference = list(loader(AudioSamples()))
+    collected = [len(collect_batch_requests(b["supervisions"]["cut"])) for b in reference]
+    batches_equal = len(reference) == len(run["batches"]) and all(
+        [c.id for c in a["supervisions"]["cut"]] == [c.id for c in b["supervisions"]["cut"]]
+        and torch.equal(torch.as_tensor(np.asarray(a["inputs"])),
+                        torch.as_tensor(np.asarray(b["inputs"])))
+        for a, b in zip(run["batches"], reference))
+    seen = sorted(c.id for b in run["batches"] for c in b["supervisions"]["cut"])
+    print(f"[{smi}] ais_batch_loader: Shar export (FLAC, LTC1, {STORAGE_SHARDS} shards with "
+          f"their .idx) in {export_s!r} s; fetcher {type(strategy.ais_batch_loader.fetcher).__name__}"
+          f", {len(fetch_calls)} fetch calls for {len(run['batches'])} batches, requests per "
+          f"batch {fetch_calls}, ranges collected {sum(collected)} of which deduplicated "
+          f"{sum(collected) - sum(fetch_calls)}; audio batches torch.equal to "
+          f"use_batch_loader=False's: {batches_equal}; every cut once: "
+          f"{seen == sorted(c.id for c in stored)}; first batch kernel vs plain {errs[-1]!r} "
+          f"(tol {KERNEL_TOL})")
+    if (not batches_equal or seen != sorted(c.id for c in stored)
+            or len(fetch_calls) != len(run["batches"]) or collected != fetch_calls
+            or run["launches"] != len(run["batches"]) or not errs[-1] <= KERNEL_TOL):
+        raise AssertionError("ais_batch_loader: batches, fetches, launches or the kernel are off")
+
+    # -- store_<name> --------------------------------------------------------------------------
+    source = {c.id: c.load_features() for c in stored}
+    (root / "stores").mkdir()
+    for name, package in STORAGE_STORES:
+        if package is not None and importlib.util.find_spec(package) is None:
+            line = f"[{smi}] store_{name}: not run: {package} does not import here"
+            print(line)
+            not_run.append(line)
+            continue
+        out = root / f"copied_{name}.jsonl.gz"
+        t0 = time.perf_counter()
+        cli.main(["copy-feats", str(feats_cuts), str(out), str(root / "stores" / name), "-t", name,
+                  "-j", "1"], standalone_mode=False)
+        copy_s = time.perf_counter() - t0
+        copied = CutSet.from_file(out)
+        worst = max(float(np.abs(c.load_features() - source[c.id]).max()) for c in copied)
+        tol = 0.0 if name.startswith("numpy") else LTC1_TICK
+        run = _leg(f"store_{name}", DataLoader(
+            SimpleCutSampler(copied, max_duration=FLY_MAX_DURATION),
+            K2SpeechRecognitionDataset(return_cuts=True), prefetch_batches=3), trainer, device,
+            fbank_cuda, _rows_of, smi)
+        launches[f"store_{name}"] = run["launches"]
+        seen = sorted(c.id for b in run["batches"] for c in b["supervisions"]["cut"])
+        print(f"[{smi}] store_{name}: copy-feats of {len(copied)} cuts in {copy_s!r} s; each "
+              f"copy vs its source: max_abs {worst!r} (tol {tol!r}); every cut once: "
+              f"{seen == sorted(source)}")
+        if ({c.features.storage_type for c in copied} != {name} or not worst <= tol
+                or seen != sorted(source) or run["launches"] != 0):
+            raise AssertionError(f"store_{name}: the copy, the epoch or the launches are off")
+    set_tracing_enabled(False)
+    return launches, max(errs), not_run
+
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -10990,6 +11275,14 @@ def main() -> None:
         launches_eval, eval_err = _phase_eval_conv(Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_eval)
         print(f"phase 33 took {time.perf_counter() - t0!r} s")
+        # -- 34. the storage and I/O backends: tar-sharded audio into the main path, the AIS
+        # batch loader over an indexed Shar into training, the stored features copied into
+        # every store whose package imports, after phase 23
+        t0 = time.perf_counter()
+        launches_storage, storage_err, storage_not_run = _phase_storage(
+            Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_storage)
+        print(f"phase 34 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -11007,7 +11300,7 @@ def main() -> None:
     reads_stored = ("precomputed_train", "precomputed_mix", "shar_precomputed", "long_form_trimmed",
                     "ami_diarization", "separation_premixed", "separation_dynamic",
                     "kaldi_precomputed", "librimix_separation", "dihard3_diarization",
-                    "voxconverse_diarization")
+                    "voxconverse_diarization", *(f"store_{name}" for name, _ in STORAGE_STORES))
     if not all(n > 0 for path, n in by_path.items() if path not in reads_stored):
         raise AssertionError(f"a path did not launch the fbank kernel: {by_path}")
 
@@ -11021,7 +11314,8 @@ def main() -> None:
                            + [pre_err, aug_err, shar_err, recipe_err, meetings_err, dp_err,
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
                               noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err,
-                              translation_err, asr_err, tts_err, kws_err, eval_err]),
+                              translation_err, asr_err, tts_err, kws_err, eval_err,
+                              storage_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -11034,6 +11328,8 @@ def main() -> None:
         "launches_by_path": by_path,
     }]}
     print(f"chip_smoke.py wall time {time.perf_counter() - start!r} s")
+    for line in storage_not_run:
+        print(line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,9 @@ Whisper and librosa fbanks, and the paired and remaining task datasets:
 ``TokenCollater``, audio tagging and the unsupervised datasets, Kaldi
 data dirs with piped ``command`` audio sources, the recipes, and the
 multiplexers ``CutSet.mux``/``infinite_mux`` with ``DataloaderCheckpoint``,
-the batch signal transforms and text sampling) is copied function by
+the batch signal transforms and text sampling, and the storage and I/O
+backends: tar members and URLs in ``open_best``, the AIS batch loader, the
+HDF5, Kaldi and ``lilcom_url`` feature stores) is copied function by
 function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.
@@ -62,6 +64,7 @@ _EXPORTS = {
         "FeatureExtractor", "FeatureSet", "FeatureSetBuilder", "Features", "Fbank", "FbankConfig",
         "KaldifeatFbank", "KaldifeatFbankConfig", "KaldifeatMfcc", "KaldifeatMfccConfig",
         "LibrosaFbank", "LibrosaFbankConfig", "LilcomChunkyWriter", "LilcomFilesWriter",
+        "LilcomHdf5Writer", "ChunkedLilcomHdf5Writer", "NumpyHdf5Writer",
         "LogSpectrogram", "LogSpectrogramConfig", "Mfcc", "MfccConfig", "NumpyFilesWriter",
         "Spectrogram", "SpectrogramConfig", "TorchaudioFbank", "TorchaudioFbankConfig",
         "TorchaudioMfcc", "TorchaudioMfccConfig", "TorchaudioSpectrogram",
@@ -73,7 +76,8 @@ _EXPORTS = {
     "qa": ("fix_manifests", "validate", "validate_recordings_and_supervisions"),
     "serialization": (
         "available_io_backends", "get_current_io_backend", "get_default_io_backend",
-        "load_manifest", "load_manifest_lazy", "load_manifest_lazy_or_eager", "store_manifest"),
+        "io_backend", "load_manifest", "load_manifest_lazy", "load_manifest_lazy_or_eager",
+        "set_current_io_backend", "store_manifest"),
     "supervision": ("AlignmentItem", "SupervisionSegment", "SupervisionSet"),
     "tracing": (
         "emit_metrics", "format_tracing_report", "is_tracing_enabled", "register_metrics_hook",
@@ -83,7 +87,7 @@ _EXPORTS = {
         "fastcopy", "fix_random_seed", "measure_overlap", "streaming_shuffle"),
 }
 _NAME_TO_MODULE = {name: module for module, names in _EXPORTS.items() for name in names}
-_SUBPACKAGES = frozenset(("dataset", "recipes"))
+_SUBPACKAGES = frozenset(("ais", "dataset", "recipes"))
 
 __all__ = sorted(_NAME_TO_MODULE)
 

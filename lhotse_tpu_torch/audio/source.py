@@ -2,14 +2,16 @@
 AudioSource: where a recording's bytes are (copied from
 ``lhotse_tpu/audio/source.py``), for the ``file``, ``command`` (a shell
 pipe whose standard output is the encoded audio, as a Kaldi ``wav.scp``
-line ending in ``|`` gives), ``memory`` and ``shar_ptr`` (a byte range in a
+line ending in ``|`` gives), ``url`` (read whole through
+:func:`lhotse_tpu_torch.serialization.open_best`: a tar member addressed
+as ``/data/shard-0.tar/utt.flac``, a ``pipe:`` command, or a URL where an
+I/O backend for it imports), ``memory`` and ``shar_ptr`` (a byte range in a
 Shar tar shard, read with
 :func:`lhotse_tpu_torch.shar.lazy_pointer.read_payload`) source types. A
-``command`` source runs its pipe on every read unless
-:class:`~lhotse_tpu_torch.caching.AudioCache` is on, and raises with the
-pipe's stderr when the pipe exits non-zero. A ``shar`` placeholder that was
-never filled raises ``RuntimeError``; ``url`` sources, and video, raise
-``NotImplementedError``.
+``command`` or ``url`` source is read anew on every load unless
+:class:`~lhotse_tpu_torch.caching.AudioCache` is on; a pipe raises with its
+stderr when it exits non-zero. A ``shar`` placeholder that was never filled
+raises ``RuntimeError``; video raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 from lhotse_tpu_torch.audio.backend import read_audio
 from lhotse_tpu_torch.audio.utils import DurationMismatchError, VideoInfo, get_audio_duration_mismatch_tolerance
 from lhotse_tpu_torch.caching import AudioCache
+from lhotse_tpu_torch.serialization import open_best
 from lhotse_tpu_torch.utils import Pathlike, Seconds, asdict_nonull, fastcopy, not_ported
 
 PathOrFilelike = Union[str, BytesIO, FileIO]
@@ -130,7 +133,18 @@ class AudioSource:
             source = BytesIO(audio_bytes)
 
         elif self.type == "url":
-            raise not_ported("Reading 'url' audio sources")
+            if (offset != 0.0 or duration is not None) and not AudioCache.enabled():
+                warnings.warn(
+                    "You requested a subset of a recording read from a URL. "
+                    "Expect large I/O overhead for many such reads; "
+                    "lhotse_tpu_torch.caching.set_caching_enabled(True) mitigates the overhead."
+                )
+            audio_bytes = AudioCache.try_cache(self.source)
+            if not audio_bytes:
+                with open_best(self.source, "rb") as f:
+                    audio_bytes = f.read()
+                AudioCache.add_to_cache(self.source, audio_bytes)
+            source = BytesIO(audio_bytes)
 
         elif self.type == "memory":
             assert isinstance(self.source, bytes), (

@@ -1,6 +1,7 @@
 """
-Feature extraction commands (copied from ``lhotse_tpu/bin/modes/features.py``;
-``upload`` waits for the ``lilcom_url`` storage backend).
+Feature extraction commands (copied from ``lhotse_tpu/bin/modes/features.py``),
+and ``upload``, which re-stores a feature manifest's matrices under a URL
+root (or a local directory) as ``lilcom_url``.
 
 The port's extractors run on the card unless their config asks for another
 device: with no ``-f`` config the extractor is ``Fbank()`` on ``"cuda"``,
@@ -148,3 +149,54 @@ def extract_cuts_batch(
         batch_duration=batch_duration, num_workers=num_jobs, storage_type=get_writer(storage_type))
     _save_cuts(cuts, output_cutset)
 
+
+
+def _upload_one(item, url: str):
+    """Copy one feature matrix to URL-backed storage, return the rewritten
+    manifest entry (module-level for ProcessPoolExecutor pickling)."""
+    from lhotse_tpu_torch.features.io import LilcomURLWriter
+    from lhotse_tpu_torch.utils import fastcopy
+
+    feats_writer = LilcomURLWriter(url)
+    new_key = feats_writer.write(key=item.storage_key, value=item.load())
+    return fastcopy(
+        item, storage_path=url, storage_key=new_key, storage_type=feats_writer.name)
+
+
+@feat.command(context_settings=dict(show_default=True))
+@click.argument("feature_manifest", type=click.Path(exists=True, dir_okay=False))
+@click.argument("url")
+@click.argument("output_manifest", type=click.Path())
+@click.option("--num-jobs", "-j", type=int, default=1)
+def upload(feature_manifest: Pathlike, url: str, output_manifest: Pathlike, num_jobs: int):
+    """
+    Read an existing FEATURE_MANIFEST, upload the feature matrices it
+    contains to a URL location (e.g. "s3://bucket/feats"), and save a new
+    OUTPUT_MANIFEST referring to the uploaded features.
+
+    Assumes write permissions on the target; credentials come from the
+    environment. With more than one job, the uploads run in spawned worker
+    processes.
+    """
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tqdm.auto import tqdm
+
+    from lhotse_tpu_torch.features import FeatureSet
+
+    output_manifest = Path(output_manifest)
+    assert ".jsonl" in output_manifest.suffixes, (
+        "This mode only supports writing to JSONL feature manifests."
+    )
+    local_features = FeatureSet.from_file(feature_manifest)
+    with FeatureSet.open_writer(output_manifest) as manifest_writer:
+        if num_jobs <= 1:
+            for item in tqdm(local_features, desc=f"Uploading features to {url}"):
+                manifest_writer.write(_upload_one(item, url))
+        else:
+            with ProcessPoolExecutor(
+                    num_jobs, mp_context=multiprocessing.get_context("spawn")) as ex:
+                futures = [ex.submit(_upload_one, item, url) for item in local_features]
+                for fut in tqdm(futures, desc=f"Uploading features to {url}"):
+                    manifest_writer.write(fut.result())

@@ -1,10 +1,15 @@
 """
 Manifest manipulation commands: copy, split, subset, combine, filter, ...
-(copied from ``lhotse_tpu/bin/modes/manipulation.py``; ``copy-feats`` waits
-for the port of ``Cut.copy_feats``).
+(copied from ``lhotse_tpu/bin/modes/manipulation.py``). ``copy-feats``
+copies the features of a CutSet one stored file per job: with one job it
+runs in this process, with more it spawns worker processes (the JAX package
+forks).
 """
 import json
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor, as_completed
+from itertools import groupby
 from pathlib import Path
 from typing import Optional
 
@@ -12,6 +17,9 @@ import click
 
 from lhotse_tpu_torch.bin.modes.cli_base import cli
 from lhotse_tpu_torch.cut import CutSet
+from lhotse_tpu_torch.features import FeatureSet
+from lhotse_tpu_torch.features.io import (
+    available_storage_backends, default_features_storage_backend_name, get_writer)
 from lhotse_tpu_torch.serialization import load_manifest_lazy_or_eager
 from lhotse_tpu_torch.utils import Pathlike
 
@@ -31,6 +39,75 @@ def copy(input_manifest, output_manifest):
     serialization formats (JSON/JSONL/YAML, with .gz compression).
     """
     load_manifest_lazy_or_eager(input_manifest).to_file(output_manifest)
+
+
+def _copy_cut_features_parallel(
+    cuts: CutSet, storage_path: str, storage_type: str, max_jobs: int, output_manifest) -> None:
+    """Group cuts by their underlying feature file and copy file-groups in
+    parallel worker processes (in this process when there is one)."""
+    from lhotse_tpu_torch.manipulation import combine as combine_manifests
+
+    by_file = [
+        CutSet.from_cuts(group)
+        for _, group in groupby(
+            sorted(cuts, key=lambda cut: cut.features.storage_path),
+            lambda cut: cut.features.storage_path,
+        )
+    ]
+    workers = len(by_file) if max_jobs <= 0 else min(len(by_file), max_jobs)
+
+    root = Path(storage_path)
+    if root.parent.is_dir():
+        root.mkdir(exist_ok=True)
+
+    jobs = [(group, f"{storage_path}/feats-{i}", storage_type, f"{storage_path}/cuts-{i}.jsonl.gz")
+            for i, group in enumerate(by_file)]
+    if workers == 1:
+        merged = combine_manifests(copy_feats_worker(*job) for job in jobs)
+    else:
+        with ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            futures = [pool.submit(copy_feats_worker, *job) for job in jobs]
+            merged = combine_manifests(f.result() for f in as_completed(futures))
+
+    with CutSet.open_writer(output_manifest) as writer:
+        for cut in merged:
+            writer.write(cut)
+
+
+@cli.command()
+@click.argument("input_manifest", type=click.Path(exists=True, dir_okay=False, allow_dash=True))
+@_OUTPUT_ARG
+@click.argument("storage_path", type=str)
+@click.option(
+    "-t", "--storage-type", type=click.Choice(available_storage_backends()),
+    default=default_features_storage_backend_name(),
+    help="Backend used to write the copied features.")
+@click.option(
+    "-j", "--max-jobs", default=-1, type=int,
+    help="Cap on parallel copy processes (default: one per existing feature file).")
+def copy_feats(
+    input_manifest: Pathlike, output_manifest: Pathlike, storage_path: str, storage_type: str,
+    max_jobs: int) -> None:
+    """
+    Read every feature matrix from INPUT_MANIFEST (FeatureSet or CutSet),
+    save them in STORAGE_PATH, and write the updated OUTPUT_MANIFEST.
+    """
+    manifests = load_manifest_lazy_or_eager(input_manifest)
+    if isinstance(manifests, FeatureSet):
+        with get_writer(storage_type)(storage_path) as writer:
+            manifests.copy_feats(writer=writer).to_file(output_manifest)
+    elif isinstance(manifests, CutSet):
+        _copy_cut_features_parallel(
+            manifests, storage_path, storage_type, max_jobs, output_manifest)
+    else:
+        raise ValueError(f"Unsupported manifest type ({type(manifests)}) at: {input_manifest}")
+
+
+def copy_feats_worker(
+    cuts: CutSet, storage_path: Pathlike, storage_type: str, output_manifest: Path) -> CutSet:
+    with get_writer(storage_type)(storage_path) as w:
+        return cuts.copy_feats(writer=w, output_path=output_manifest)
 
 
 @cli.command()

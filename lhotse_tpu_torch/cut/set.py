@@ -35,8 +35,10 @@ Many manifest files read as one lazy set through ``from_files`` (with
 item-level Feistel shuffling when every file has an ``.idx`` sidecar), and
 WebDataset tarballs through ``from_webdataset``.
 
-Left out: ``save_audios``, ``copy_data``/``copy_feats``, ``prefetch`` and
-the HuggingFace bridges.
+``copy_feats`` re-stores every feature matrix through another writer.
+
+Left out: ``save_audios``, ``copy_data``, ``prefetch`` and the HuggingFace
+bridges.
 """
 from __future__ import annotations
 
@@ -489,6 +491,25 @@ class CutSet(Serializable, AlgorithmMixin):
         for cut in self:
             groups[(cut.recording.id, cut.start, cut.end)].append(cut)
         return CutSet.from_cuts(MultiCut.from_mono(*cuts) for cuts in groups.values())
+
+    def copy_feats(
+        self, writer: FeaturesWriter, output_path: Optional[Pathlike] = None) -> "CutSet":
+        """Re-store every feature matrix with ``writer``; returns an updated manifest."""
+        with CutSet.open_writer(output_path) as manifest_writer:
+            for item in self:
+                out = item
+                if item.has_features and not isinstance(item, PaddingCut):
+                    if isinstance(item, MixedCut):
+                        # New tracks: the JAX package rewrites the input's
+                        # tracks in place (ROADMAP.md C2).
+                        out = fastcopy(item, tracks=[
+                            fastcopy(t, cut=fastcopy(
+                                t.cut, features=t.cut.features.copy_feats(writer=writer)))
+                            if isinstance(t.cut, DataCut) else t for t in item.tracks])
+                    elif isinstance(item, DataCut):
+                        out = fastcopy(item, features=item.features.copy_feats(writer=writer))
+                manifest_writer.write(out)
+        return manifest_writer.open_manifest()
 
     def modify_ids(self, transform_fn: Callable[[str], str]) -> "CutSet":
         """Transform every cut's ID with ``transform_fn``."""

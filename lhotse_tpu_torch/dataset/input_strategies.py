@@ -3,8 +3,11 @@ Input strategies: CutSet -> collated batch of audio or features (copied
 from ``lhotse_tpu/dataset/input_strategies.py``): ``BatchIO``,
 ``PrecomputedFeatures`` (read from feature storage), ``AudioSamples`` (the
 strategy of the device augmenter's path) and ``OnTheFlyFeatures``
-(extraction per batch with a :class:`FeatureExtractor`). The AIStore batch
-loader is not ported.
+(extraction per batch with a :class:`FeatureExtractor`).
+``AudioSamples(use_batch_loader=True)`` fetches every remote payload of a
+batch through :class:`~lhotse_tpu_torch.ais.AISBatchLoader` first (its
+fetcher is AIStore where the ``aistore`` package imports, else
+:class:`~lhotse_tpu_torch.ais.LocalBatchFetcher`, as in the JAX package).
 """
 import logging
 from concurrent.futures import Executor, ThreadPoolExecutor
@@ -18,7 +21,7 @@ from lhotse_tpu_torch.dataset.collation import (
     collate_audio, collate_features, collate_matrices, collate_vectors, read_audio_from_cuts)
 from lhotse_tpu_torch.features import FeatureExtractor
 from lhotse_tpu_torch.utils import (
-    LOG_EPSILON, ifnone, not_ported, supervision_to_frames, supervision_to_samples)
+    LOG_EPSILON, ifnone, supervision_to_frames, supervision_to_samples)
 
 ExecutorType = TypeVar("ExecutorType", bound=Executor)
 
@@ -142,7 +145,11 @@ class AudioSamples(BatchIO):
         self.use_batch_loader = use_batch_loader
         self.ais_batch_loader = None
         if use_batch_loader:
-            raise not_ported("AISBatchLoader (use_batch_loader=True)")
+            from lhotse_tpu_torch.ais import AISBatchLoader
+
+            self.ais_batch_loader = AISBatchLoader(
+                force_individual=ais_force_individual,
+                skip_failed_fetches=fault_tolerant)
 
     def __call__(
         self, cuts: CutSet, recording_field: Optional[str] = None,

@@ -1,20 +1,27 @@
 """
 Feature/array storage backends keyed by ``storage_type`` strings (copied
 from ``lhotse_tpu/features/io.py``): the registry, ``FeaturesWriter.store_array``,
-``FileIO``, the per-file backends ``lilcom_files`` and ``numpy_files``, the
+``FileIO``, the per-file backends ``lilcom_files`` and ``numpy_files`` (on
+local disk or behind any path ``open_best`` serves), ``lilcom_url`` (the
+per-file LTC1 store under a URL root, or a local directory), the
 flat-binary chunky archive ``lilcom_chunky`` (the default: a ``.lca`` file
 with comma-separated chunk offsets as the key and partial reads per chunk,
-through a per-process cache of read fds) and the in-memory
+through a per-process cache of read fds), the HDF5 stores ``numpy_hdf5``,
+``lilcom_hdf5`` and ``chunked_lilcom_hdf5`` (100-frame LTC1 chunks, the
+chunk size stored under ``lhotse-chunk-size``; they need ``h5py``, and the
+open read handles are cached per path until
+:func:`close_cached_file_handles`), Kaldi's ``feats.scp``/``.ark`` as
+``kaldiio`` (through ``kaldi_native_io``), the in-memory
 ``memory_lilcom``/``memory_raw``/``memory_npy``, and the Shar readers:
 ``shar_ptr_array`` (a payload named by a Shar lazy pointer, NPY or LTC1 by
-its magic bytes) and the ``shar`` placeholder, which raises when read. Env
-override:
-``LHOTSE_TPU_FEATURES_STORAGE_BACKEND`` (``LHOTSE_FEATURES_STORAGE_BACKEND``
-is honoured too).
+its magic bytes) and the ``shar`` placeholder, which raises when read. A
+store whose package does not import raises the JAX package's
+``ValueError`` when it is opened; :func:`storage_backend_statuses` says
+which. Env override: ``LHOTSE_TPU_FEATURES_STORAGE_BACKEND``
+(``LHOTSE_FEATURES_STORAGE_BACKEND`` is honoured too).
 
-The compression codec is the LTC1 codec (:mod:`lhotse_tpu_torch.codecs`).
-The HDF5 backends, ``kaldiio`` and ``lilcom_url`` are not ported:
-:func:`get_reader` and :func:`get_writer` raise for their names.
+The compression codec is the LTC1 codec (:mod:`lhotse_tpu_torch.codecs`),
+which writes the JAX package's bytes.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from functools import lru_cache
 from io import BytesIO
 from math import ceil, floor
 from pathlib import Path
-from typing import Dict, Generator, List, Optional, Type, Union
+from typing import Dict, Generator, List, NamedTuple, Optional, Type, Union
 
 import numpy as np
 
@@ -36,7 +43,7 @@ from lhotse_tpu_torch.codecs import compress as ltc_compress
 from lhotse_tpu_torch.codecs import decompress as ltc_decompress
 from lhotse_tpu_torch.codecs import decompress_concat as ltc_decompress_concat
 from lhotse_tpu_torch.serialization import open_best
-from lhotse_tpu_torch.utils import Pathlike, Seconds, is_valid_url, not_ported
+from lhotse_tpu_torch.utils import Pathlike, Seconds, is_module_available, is_valid_url
 
 
 class FeaturesWriter(metaclass=ABCMeta):
@@ -111,8 +118,55 @@ class FeaturesReader(metaclass=ABCMeta):
 READER_BACKENDS: Dict[str, Type[FeaturesReader]] = {}
 WRITER_BACKENDS: Dict[str, Type[FeaturesWriter]] = {}
 
+HDF5_STORAGE_BACKENDS = {"chunked_lilcom_hdf5", "lilcom_hdf5", "numpy_hdf5"}
+KALDI_NATIVE_IO_STORAGE_BACKENDS = {"kaldiio"}
+# Backends whose payloads are LTC1-compressed (reference: io.py:177-184).
+LILCOM_STORAGE_BACKENDS = {
+    "chunked_lilcom_hdf5",
+    "lilcom_chunky",
+    "lilcom_files",
+    "lilcom_hdf5",
+    "lilcom_url",
+    "memory_lilcom",
+}
+
+
+class StorageBackendInfo(NamedTuple):
+    name: str
+    available: bool
+    install_hint: Optional[str] = None
+
+
+def _missing_packages_for_storage_backend(backend: str) -> List[str]:
+    missing = []
+    if backend in HDF5_STORAGE_BACKENDS and not is_module_available("h5py"):
+        missing.append("h5py")
+    if backend in KALDI_NATIVE_IO_STORAGE_BACKENDS and not is_module_available("kaldi_native_io"):
+        missing.append("kaldi_native_io")
+    return missing
+
+
 def available_storage_backends() -> List[str]:
-    return sorted(set(READER_BACKENDS).intersection(WRITER_BACKENDS))
+    return [
+        backend
+        for backend in sorted(set(READER_BACKENDS).intersection(WRITER_BACKENDS))
+        if not _missing_packages_for_storage_backend(backend)
+    ]
+
+
+def storage_backend_statuses() -> List[StorageBackendInfo]:
+    backends = sorted(set(READER_BACKENDS).intersection(WRITER_BACKENDS))
+    out = []
+    for backend in backends:
+        missing = _missing_packages_for_storage_backend(backend)
+        out.append(
+            StorageBackendInfo(
+                name=backend,
+                available=not missing,
+                install_hint=None if not missing else f"pip install {' '.join(missing)}",
+            )
+        )
+    return out
 
 
 def default_features_storage_backend_name() -> str:
@@ -145,13 +199,7 @@ def register_writer(cls):
     return cls
 
 
-NOT_PORTED_STORAGE_BACKENDS = {
-    "chunked_lilcom_hdf5", "lilcom_hdf5", "numpy_hdf5", "kaldiio", "lilcom_url"}
-
-
 def get_reader(name: str) -> Type[FeaturesReader]:
-    if name in NOT_PORTED_STORAGE_BACKENDS:
-        raise not_ported(f"The {name!r} feature storage backend")
     if name not in READER_BACKENDS:
         raise KeyError(
             f"Unknown feature storage backend: '{name}'. "
@@ -161,16 +209,12 @@ def get_reader(name: str) -> Type[FeaturesReader]:
 
 
 def get_writer(name: str) -> Type[FeaturesWriter]:
-    if name in NOT_PORTED_STORAGE_BACKENDS:
-        raise not_ported(f"The {name!r} feature storage backend")
     if name not in WRITER_BACKENDS:
         raise KeyError(
             f"Unknown feature storage backend: '{name}'. "
             f"Available writers: {sorted(WRITER_BACKENDS)}"
         )
     return WRITER_BACKENDS[name]
-
-
 
 
 def is_in_memory(storage_type: str) -> bool:
@@ -319,10 +363,24 @@ class NumpyFilesWriter(_PerFileWriter):
         np.save(f, value, allow_pickle=False)
 
 
+#################################################
+# HDF5 storage
+#################################################
 
-#################################################
-# Flat-binary archive read fds
-#################################################
+
+def check_h5py_installed():
+    if not is_module_available("h5py"):
+        raise ValueError("To read and write HDF5 file formats, please 'pip install h5py' first.")
+
+
+@lru_cache(maxsize=None)
+def lookup_cache_or_open(storage_path: str):
+    """Global cache of open HDF5 read handles (freed via
+    :func:`close_cached_file_handles`)."""
+    check_h5py_installed()
+    import h5py
+
+    return h5py.File(storage_path, "r")
 
 
 @lru_cache(maxsize=None)
@@ -338,6 +396,7 @@ _OPEN_FLAT_FDS: set = set()
 
 
 def close_cached_file_handles() -> None:
+    lookup_cache_or_open.cache_clear()
     # lru_cache doesn't expose its entries; fds are tracked on the side.
     for fd in list(_OPEN_FLAT_FDS):
         try:
@@ -352,6 +411,174 @@ def _flat_pread(storage_path: str, offset: int, size: int) -> bytes:
     fd = _lookup_flat_fd(str(storage_path), os.getpid())
     _OPEN_FLAT_FDS.add(fd)
     return os.pread(fd, size, offset)
+
+
+@register_reader
+class NumpyHdf5Reader(FeaturesReader):
+    """Reads numpy arrays from a flat-layout HDF5 file (one dataset per key)."""
+
+    name = "numpy_hdf5"
+
+    def __init__(self, storage_path: Pathlike, *args, **kwargs):
+        self.hdf = lookup_cache_or_open(str(storage_path))
+
+    def read(
+        self, key: str, left_offset_frames: int = 0, right_offset_frames: Optional[int] = None,
+    ) -> np.ndarray:
+        return self.hdf[key][left_offset_frames:right_offset_frames]
+
+
+class _Hdf5Writer(FeaturesWriter):
+    """Shared HDF5-file lifecycle: '.h5'-suffixed path, open handle,
+    close/context management."""
+
+    def __init__(self, storage_path: Pathlike, mode: str = "w"):
+        check_h5py_installed()
+        import h5py
+
+        p = Path(storage_path)
+        self.storage_path_ = p if p.suffix == ".h5" else p.with_suffix(p.suffix + ".h5")
+        self.hdf = h5py.File(self.storage_path, mode=mode)
+
+    storage_path = property(lambda self: str(self.storage_path_))
+
+    def flush(self) -> None:
+        self.hdf.flush()
+
+    def close(self) -> None:
+        return self.hdf.close()
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.close()
+
+
+@register_writer
+class NumpyHdf5Writer(_Hdf5Writer):
+    """Writes numpy arrays to a flat-layout HDF5 file (one dataset per key)."""
+
+    name = "numpy_hdf5"
+
+    def __init__(self, storage_path: Pathlike, mode: str = "w", *args, **kwargs):
+        super().__init__(storage_path, mode=mode)
+
+    def write(self, key: str, value: np.ndarray) -> str:
+        self.hdf.create_dataset(key, data=value)
+        return key
+
+
+@register_reader
+class LilcomHdf5Reader(FeaturesReader):
+    """Reads whole-matrix compressed blobs from an HDF5 file."""
+
+    name = "lilcom_hdf5"
+
+    def __init__(self, storage_path: Pathlike, *args, **kwargs):
+        self.hdf = lookup_cache_or_open(str(storage_path))
+
+    @dynamic_lru_cache
+    def read(
+        self, key: str, left_offset_frames: int = 0, right_offset_frames: Optional[int] = None,
+    ) -> np.ndarray:
+        arr = ltc_decompress(self.hdf[key][()].tobytes())
+        return arr[left_offset_frames:right_offset_frames]
+
+
+@register_writer
+class LilcomHdf5Writer(_Hdf5Writer):
+    """Writes whole-matrix compressed blobs to an HDF5 file."""
+
+    name = "lilcom_hdf5"
+
+    def __init__(
+        self, storage_path: Pathlike, tick_power: int = -5, mode: str = "w", *args, **kwargs):
+        super().__init__(storage_path, mode=mode)
+        self.tick_power = tick_power
+
+    def write(self, key: str, value: np.ndarray) -> str:
+        blob = ltc_compress(value, tick_power=self.tick_power)
+        self.hdf.create_dataset(key, data=np.void(blob))
+        return key
+
+
+CHUNK_SIZE_KEY = "lhotse-chunk-size"
+HDF5_CHUNK_SIZE = 100
+
+
+def lookup_chunk_size(h5_file_handle) -> int:
+    """Retrieve the per-archive chunk size stored under ``CHUNK_SIZE_KEY``.
+
+    Parity: reference ``lhotse/features/io.py:557`` (there cached with
+    ``lru_cache``; h5py reads of a scalar dataset are cheap enough that we
+    keep it uncached and avoid pinning file handles).
+    """
+    return int(h5_file_handle[CHUNK_SIZE_KEY][()])
+
+
+@register_reader
+class ChunkedLilcomHdf5Reader(FeaturesReader):
+    """
+    Reads compressed chunks from an HDF5 file where each key maps to a group
+    of per-chunk blobs; only the chunks covering the requested frame range are
+    decoded (reference: io.py chunked_lilcom_hdf5).
+    """
+
+    name = "chunked_lilcom_hdf5"
+    CHUNK_SIZE = HDF5_CHUNK_SIZE
+
+    def __init__(self, storage_path: Pathlike, *args, **kwargs):
+        self.hdf = lookup_cache_or_open(str(storage_path))
+
+    @property
+    def chunk_size(self) -> int:
+        """The chunk size recorded in the archive (falls back to the default
+        when the writer predates the ``lhotse-chunk-size`` dataset)."""
+        try:
+            return lookup_chunk_size(self.hdf)
+        except KeyError:
+            return self.CHUNK_SIZE
+
+    @dynamic_lru_cache
+    def read(
+        self, key: str, left_offset_frames: int = 0, right_offset_frames: Optional[int] = None,
+    ) -> np.ndarray:
+        chunk_size = self.chunk_size
+        left_chunk_idx = floor(left_offset_frames / chunk_size)
+        if right_offset_frames is not None:
+            right_chunk_idx = ceil(right_offset_frames / chunk_size)
+        else:
+            right_chunk_idx = None
+        group = self.hdf[key]
+        num_chunks = len(group)
+        sel = range(num_chunks)[left_chunk_idx:right_chunk_idx]
+        decoded = [ltc_decompress(group[str(i)][()].tobytes()) for i in sel]
+        arr = np.concatenate(decoded, axis=0) if decoded else np.array([])
+        shift = chunk_size * left_chunk_idx
+        right = right_offset_frames - shift if right_offset_frames is not None else None
+        return arr[left_offset_frames - shift : right]
+
+
+@register_writer
+class ChunkedLilcomHdf5Writer(_Hdf5Writer):
+    """Writes per-chunk compressed blobs to an HDF5 file."""
+
+    name = "chunked_lilcom_hdf5"
+    CHUNK_SIZE = HDF5_CHUNK_SIZE
+
+    def __init__(
+        self, storage_path: Pathlike, tick_power: int = -5, mode: str = "w", *args, **kwargs):
+        super().__init__(storage_path, mode=mode)
+        self.hdf.create_dataset(CHUNK_SIZE_KEY, data=self.CHUNK_SIZE)
+        self.tick_power = tick_power
+
+    def write(self, key: str, value: np.ndarray) -> str:
+        from lhotse_tpu_torch.features.compression import lilcom_compress_chunked
+
+        chunks = lilcom_compress_chunked(
+            value, tick_power=self.tick_power, chunk_size=self.CHUNK_SIZE)
+        group = self.hdf.create_group(key)
+        for i, chunk in enumerate(chunks):
+            group.create_dataset(str(i), data=np.void(chunk))
+        return key
 
 
 #################################################
@@ -468,6 +695,116 @@ class LilcomChunkyWriter(FeaturesWriter):
 
     def close(self) -> None:
         self.file.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.close()
+
+
+#################################################
+# URL storage
+#################################################
+
+
+@register_reader
+class LilcomURLReader(FeaturesReader):
+    """Downloads compressed files from a URL root (requires smart_open)."""
+
+    name = "lilcom_url"
+
+    def __init__(self, *args, **kwargs):
+        self._inner = LilcomFilesReader(*args, **kwargs)
+
+    @dynamic_lru_cache
+    def read(
+        self, key: str, left_offset_frames: int = 0, right_offset_frames: Optional[int] = None,
+    ) -> np.ndarray:
+        return self._inner.read(key, left_offset_frames, right_offset_frames)
+
+
+@register_writer
+class LilcomURLWriter(FeaturesWriter):
+    """Uploads compressed files to a URL root (requires smart_open)."""
+
+    name = "lilcom_url"
+
+    def __init__(self, *args, **kwargs):
+        self._inner = LilcomFilesWriter(*args, **kwargs)
+
+    @property
+    def storage_path(self) -> str:
+        return self._inner.storage_path
+
+    def write(self, key: str, value: np.ndarray) -> str:
+        return self._inner.write(key, value)
+
+
+#################################################
+# Kaldi scp/ark storage (optional)
+#################################################
+
+
+def check_kaldi_native_io_installed():
+    if not is_module_available("kaldi_native_io"):
+        raise ValueError("To read Kaldi feats.scp, please 'pip install kaldi_native_io' first.")
+
+
+@lru_cache(maxsize=None)
+def lookup_reader_cache_or_open(storage_path: str):
+    check_kaldi_native_io_installed()
+    import kaldi_native_io
+
+    return kaldi_native_io.RandomAccessFloatMatrixReader(f"scp:{storage_path}")
+
+
+@register_reader
+class KaldiReader(FeaturesReader):
+    """Reads Kaldi's feats.scp via kaldi_native_io (optional dependency)."""
+
+    name = "kaldiio"
+
+    def __init__(self, storage_path: Pathlike, *args, **kwargs):
+        check_kaldi_native_io_installed()
+        self.storage_path = storage_path
+        self.storage = lookup_reader_cache_or_open(str(storage_path))
+
+    def read(
+        self, key: str, left_offset_frames: int = 0, right_offset_frames: Optional[int] = None,
+    ) -> np.ndarray:
+        arr = np.copy(self.storage[key])
+        return arr[left_offset_frames:right_offset_frames]
+
+
+@register_writer
+class KaldiWriter(FeaturesWriter):
+    """Writes Kaldi scp/ark pairs via kaldi_native_io (optional dependency)."""
+
+    name = "kaldiio"
+
+    def __init__(self, storage_path: Pathlike, compression_method: int = 1, *args, **kwargs):
+        check_kaldi_native_io_installed()
+        import kaldi_native_io
+
+        self.storage_dir = Path(storage_path)
+        self.storage_dir.mkdir(parents=True, exist_ok=True)
+        self.storage_path_ = str(self.storage_dir / "feats.scp")
+        self.writer = kaldi_native_io.CompressedMatrixWriter(
+            f"ark,scp:{self.storage_dir}/feats.ark,{self.storage_dir}/feats.scp"
+        )
+        self.compression_method = kaldi_native_io.CompressionMethod(compression_method)
+
+    @property
+    def storage_path(self) -> str:
+        return self.storage_path_
+
+    def write(self, key: str, value: np.ndarray) -> str:
+        self.writer.write(key, value, self.compression_method)
+        return key
+
+    def close(self) -> None:
+        self.writer.close()
 
     def __enter__(self):
         return self
@@ -611,7 +948,7 @@ class SharPtrArrayReader(FeaturesReader):
     """
     Reads Array/Features payloads referenced via a Shar lazy pointer
     (``<tar_path>?o=<offset>&e=<end_offset>``); the format (NPY vs compressed)
-    is dispatched from the payload's magic bytes.
+    is dispatched from the payload's magic bytes (reference: io.py:1403).
     """
 
     name = "shar_ptr_array"
@@ -636,7 +973,7 @@ class SharPtrArrayReader(FeaturesReader):
 @register_reader
 class DummySharReader(FeaturesReader):
     """Placeholder reader for 'shar' storage type: always raises, pointing the
-    user at the missing Shar attachment step."""
+    user at the missing Shar attachment step (reference: io.py:1436)."""
 
     name = "shar"
 

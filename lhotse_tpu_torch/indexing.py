@@ -10,10 +10,10 @@ in O(1) memory (a Feistel network with cycle-walking), sliceable into
 ``(shard_id, num_shards)`` partitions; :class:`IndexedJsonlReader` and
 :class:`IndexedTarReader` fetch one record with ``os.pread``.
 
-An index file behind a pipe (``pipe:<command>``) is read through
+An index file behind a pipe (``pipe:<command>``) or a URL is read through
 ``open_best`` and materialised into a temporary cache, as in the JAX
-package. Left out: index files behind URLs, which raise
-``NotImplementedError``.
+package; where no I/O backend serves it, ``open_best`` raises as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from lhotse_tpu_torch.serialization import decode_json_line, open_best
-from lhotse_tpu_torch.utils import Pathlike, is_valid_url, not_ported
+from lhotse_tpu_torch.utils import Pathlike, is_valid_url
 
 _OFFSET_DTYPE = np.dtype("<u8")
 _COMPRESSED_SUFFIXES = {".gz", ".bz2", ".xz", ".lz4", ".zst"}
@@ -108,18 +108,12 @@ def index_exists(data_path: Pathlike, index_path: Optional[Pathlike] = None) -> 
     local_path = _as_local_path(idx_path)
     if local_path is not None:
         return _is_valid_index_file(local_path)
-    _refuse_url(idx_path)
     try:
         with open_best(idx_path, "rb") as f:
             f.read(1)
         return True
     except Exception:
         return False
-
-
-def _refuse_url(path: Pathlike) -> None:
-    if is_valid_url(_path_str(path)):
-        raise not_ported(f"Index files behind URLs ({path})")
 
 
 def _is_valid_index_file(path: Path) -> bool:
@@ -136,7 +130,6 @@ def _write_index(offsets: list, path: Pathlike) -> None:
     payload = np.array(offsets, dtype=_OFFSET_DTYPE).tobytes()
     local_path = _as_local_path(path)
     if local_path is None:
-        _refuse_url(path)
         with open_best(path, "wb") as f:
             f.write(payload)
         return
@@ -192,8 +185,8 @@ def read_index(idx_path: Pathlike) -> np.ndarray:
         if not local_path.is_file():
             raise FileNotFoundError(f"Index file not found: {local_path}")
         return np.fromfile(local_path, dtype=_OFFSET_DTYPE)
-    _refuse_url(idx_path)
-    return np.fromfile(_materialize_remote_index(idx_path), dtype=_OFFSET_DTYPE)
+    cache_path = _materialize_remote_index(idx_path)
+    return np.fromfile(cache_path, dtype=_OFFSET_DTYPE)
 
 
 def _assert_uncompressed(path: Pathlike, kind: str) -> None:

@@ -1,16 +1,22 @@
 """
-Manifest (de)serialization for local files (copied from
+Manifest (de)serialization and the pluggable I/O backends (copied from
 ``lhotse_tpu/serialization.py``): ``open_best`` over ``-`` (stdin or
-stdout), ``pipe:<command>`` (a shell subprocess), and plain and gzipped
-files, JSON, JSONL and YAML manifests (``load_manifest``,
-``store_manifest``, the ``Json``/``Jsonl``/``Yaml`` mixins of
-``Serializable``, and ``LazyMixin`` for the Set classes), the sequential
-writers (``SequentialJsonlWriter`` with resume by ``ignore_ids``,
-``InMemoryWriter``, ``open_writer``), and ``deserialize_item`` for the
-manifest types the port has (``MonoCut``, ``PaddingCut``, ``MixedCut``,
-``Recording``, ``SupervisionSegment``, ``Features``,
-``Array``/``TemporalArray``). YAML needs PyYAML, imported where a YAML
-manifest is read or written.
+stdout), ``pipe:<command>`` (a shell subprocess), a member of a tar
+archive addressed as ``/data/shard-0.tar/utt.flac`` (``TarAsDirBackend``),
+URLs through the optional ``smart_open``, ``aistore`` and
+``multistorageclient`` packages (each backend is in the chain only where
+its package imports, and raises the JAX package's error where it does
+not), and plain and gzipped files; ``set_current_io_backend``,
+``io_backend`` and the ``LHOTSE_TPU_IO_BACKEND`` / ``LHOTSE_IO_BACKEND``
+variables choose another backend. JSON, JSONL and YAML manifests
+(``load_manifest``, ``store_manifest``, the ``Json``/``Jsonl``/``Yaml``
+mixins of ``Serializable``, and ``LazyMixin`` for the Set classes), the
+sequential writers (``SequentialJsonlWriter`` with resume by
+``ignore_ids``, ``InMemoryWriter``, ``open_writer``), and
+``deserialize_item`` for the manifest types the port has (``MonoCut``,
+``PaddingCut``, ``MixedCut``, ``Recording``, ``SupervisionSegment``,
+``Features``, ``Array``/``TemporalArray``). YAML needs PyYAML, imported
+where a YAML manifest is read or written.
 
 Indexed reads: ``from_jsonl_lazy(shuffle=True)`` and
 ``load_manifest_lazy(indexed=..., index_path=...)`` open an uncompressed
@@ -19,19 +25,21 @@ JSONL through its ``.idx`` sidecar
 ``indexed=None`` an existing sidecar is used.
 
 Left out, and raising ``NotImplementedError`` where a manifest asks for
-them: URLs (the smart_open, AIStore and MSC backends), the tar-as-directory
-backend, and images.
+them: images.
 """
 from __future__ import annotations
 
 import gzip
 import json
+import os
 import sys
 import warnings
+from functools import lru_cache
 from pathlib import Path
 from typing import Any, Dict, Generator, Iterable, List, Optional, Type, Union
 
-from lhotse_tpu_torch.utils import Pathlike, Pipe, is_valid_url, not_ported
+from lhotse_tpu_torch.utils import (
+    Pathlike, Pipe, SmartOpen, is_module_available, is_valid_url, not_ported)
 
 # Manifest is a union of all Set types; kept as Any to avoid import cycles.
 Manifest = Any
@@ -137,6 +145,175 @@ class BuiltinIOBackend(IOBackend):
         return not is_valid_url(str(identifier))
 
 
+class SmartOpenIOBackend(IOBackend):
+    """URLs/S3/GCS via the optional ``smart_open`` package (reference: serialization.py:887)."""
+
+    def open(self, identifier: str, mode: str):
+        return SmartOpen.open(identifier, mode)
+
+    @classmethod
+    def is_available(cls) -> bool:
+        return is_module_available("smart_open")
+
+    def is_applicable(self, identifier: str) -> bool:
+        return is_valid_url(str(identifier))
+
+
+AIS_ENDPOINT_ENVVAR = "AIS_ENDPOINT"
+
+
+def is_aistore_available() -> bool:
+    """AIS_ENDPOINT is set to a valid URL (reference: serialization.py:60)."""
+    return AIS_ENDPOINT_ENVVAR in os.environ and is_valid_url(
+        os.environ[AIS_ENDPOINT_ENVVAR])
+
+
+@lru_cache
+def get_aistore_client():
+    """A cached AIStore Client for the AIS_ENDPOINT env URL."""
+    if not is_module_available("aistore"):
+        raise ImportError("Please run 'pip install aistore' in order to read data from AIStore.")
+    if not is_aistore_available():
+        raise ValueError(
+            "Set a valid URL as AIS_ENDPOINT environment variable's value to "
+            "read data from AIStore."
+        )
+    from aistore import Client
+
+    return Client(os.environ[AIS_ENDPOINT_ENVVAR])
+
+
+def get_lhotse_msc_override_protocols():
+    return os.getenv("LHOTSE_MSC_OVERRIDE_PROTOCOLS", None)
+
+
+def get_lhotse_msc_profile():
+    return os.getenv("LHOTSE_MSC_PROFILE", None)
+
+
+def get_lhotse_msc_backend_forced() -> bool:
+    """True forces the MSC backend for regular URLs."""
+    return os.getenv("LHOTSE_MSC_BACKEND_FORCED", "False").lower() == "true"
+
+
+class AIStoreIOBackend(IOBackend):
+    """AIStore client reads/writes for url identifiers (gated on the
+    ``aistore`` SDK + ``AIS_ENDPOINT`` env; reference: serialization.py:894)."""
+
+    def open(self, identifier: str, mode: str):
+        client = get_aistore_client()
+        obj = client.fetch_object_by_url(identifier)
+        if "r" in mode:
+            fileobj = obj.get_reader().as_file()
+            if str(identifier).endswith(".gz"):
+                from lhotse_tpu_torch.workarounds import gzip_open_robust
+
+                fileobj = gzip_open_robust(fileobj)
+            return fileobj
+        if "w" in mode:
+            return obj.get_writer().as_file()
+        raise ValueError(f"Unsupported mode for AIStore: {mode}")
+
+    @classmethod
+    def is_available(cls) -> bool:
+        return is_module_available("aistore") and is_aistore_available()
+
+    def is_applicable(self, identifier: str) -> bool:
+        return str(identifier).startswith("ais://") or is_valid_url(str(identifier))
+
+    def handles_special_case(self, identifier: str) -> bool:
+        return str(identifier).startswith("ais://")
+
+
+MSC_PREFIX = "msc"
+
+
+class MSCIOBackend(IOBackend):
+    """NVIDIA Multi-Storage-Client for ``msc://`` URLs (gated; protocol/
+    profile overrides via LHOTSE_MSC_OVERRIDE_PROTOCOLS / LHOTSE_MSC_PROFILE /
+    LHOTSE_MSC_BACKEND_FORCED envs; reference: serialization.py:959-962)."""
+
+    PREFIX = MSC_PREFIX + "://"
+
+    def open(self, identifier: str, mode: str):
+        import multistorageclient as msc
+
+        identifier = str(identifier)
+        if not identifier.startswith(self.PREFIX):
+            overrides = get_lhotse_msc_override_protocols()
+            if overrides:
+                for proto in overrides.split(","):
+                    if identifier.startswith(proto):
+                        identifier = identifier.replace(proto, "msc", 1)
+                        break
+            profile = get_lhotse_msc_profile()
+            if profile and identifier.startswith(self.PREFIX):
+                rest = identifier[len(self.PREFIX) :].split("/", 1)
+                tail = rest[1] if len(rest) > 1 else ""
+                identifier = f"{self.PREFIX}{profile}/{tail}"
+        return msc.open(identifier, mode)
+
+    @classmethod
+    def is_available(cls) -> bool:
+        return is_module_available("multistorageclient")
+
+    def is_applicable(self, identifier: str) -> bool:
+        forced = get_lhotse_msc_backend_forced()
+        return str(identifier).startswith(self.PREFIX) or (forced and is_valid_url(str(identifier)))
+
+    @staticmethod
+    def is_msc_url(identifier) -> bool:
+        return str(identifier).startswith(MSCIOBackend.PREFIX)
+
+    def handles_special_case(self, identifier: str) -> bool:
+        return MSCIOBackend.is_msc_url(identifier)
+
+
+class TarAsDirBackend(IOBackend):
+    """Read files inside tar archives addressed as
+    ``/path/archive.tar/member/path`` (reference: serialization.py:1187); a
+    member whose name ends in ``.gz`` reads decompressed."""
+
+    TAR_EXTS = (".tar", ".tar.gz", ".tar.bz2", ".tar.xz")
+
+    @classmethod
+    def _split(cls, identifier: str):
+        for ext in cls.TAR_EXTS:
+            token = ext + "/"
+            if token in identifier:
+                tar_path, internal = identifier.split(token, 1)
+                return tar_path + ext, internal
+        return None
+
+    def open(self, identifier: str, mode: str = "r"):
+        import tarfile
+
+        split = self._split(str(identifier))
+        if split is None:
+            return open(identifier, mode)
+        tar_path, internal = split
+        if not os.path.exists(tar_path):
+            raise FileNotFoundError(f"Tar file '{tar_path}' not found")
+        try:
+            tar = tarfile.open(tar_path, "r")
+            member = tar.extractfile(internal)
+            if member is None:
+                raise KeyError(internal)
+        except (tarfile.TarError, KeyError) as e:
+            raise FileNotFoundError(f"File '{internal}' not found in '{tar_path}': {e}")
+        if internal.endswith(".gz"):
+            # A gzipped member reads decompressed, as a gzipped file does; the
+            # JAX package hands back its compressed bytes (ROADMAP.md C2).
+            return GzipIOBackend().open(member, mode)
+        return member
+
+    def is_applicable(self, identifier: str) -> bool:
+        return self._split(str(identifier)) is not None
+
+    def handles_special_case(self, identifier: str) -> bool:
+        return self._split(str(identifier)) is not None
+
+
 class CompositeIOBackend(IOBackend):
     """
     Composite backend trying its children in order for the first applicable one
@@ -172,24 +349,59 @@ def available_io_backends() -> List[str]:
     return sorted(name for name, b in IOBackend.KNOWN_BACKENDS.items() if b.is_available())
 
 
+def set_current_io_backend(backend: Union[str, IOBackend]) -> None:
+    global CURRENT_IO_BACKEND
+    if isinstance(backend, str):
+        backend = IOBackend.new(backend)
+    CURRENT_IO_BACKEND = backend
+
+
 def get_current_io_backend() -> IOBackend:
     if CURRENT_IO_BACKEND is not None:
         return CURRENT_IO_BACKEND
+    env = os.environ.get("LHOTSE_TPU_IO_BACKEND") or os.environ.get("LHOTSE_IO_BACKEND")
+    if env:
+        return IOBackend.new(env)
     return get_default_io_backend()
 
 
 def get_default_io_backend() -> IOBackend:
-    """Composite fallback chain (reference: serialization.py:1157), in the
-    JAX package's order, of the local backends the port has."""
-    backends = [RedirectIOBackend(), PipeIOBackend(), GzipIOBackend(), BuiltinIOBackend()]
+    """Composite fallback chain (reference: serialization.py:1157)."""
+    backends = [RedirectIOBackend(), PipeIOBackend(), TarAsDirBackend()]
+    if MSCIOBackend.is_available():
+        backends.append(MSCIOBackend())
+    if AIStoreIOBackend.is_available():
+        backends.append(AIStoreIOBackend())
+    if SmartOpenIOBackend.is_available():
+        backends.append(SmartOpenIOBackend())
+    backends += [GzipIOBackend(), BuiltinIOBackend()]
     return CompositeIOBackend(backends)
+
+
+class io_backend:
+    """Context manager temporarily overriding the current I/O backend."""
+
+    def __init__(self, backend: Union[str, IOBackend]):
+        self.backend = backend
+        self.prev = None
+
+    def __enter__(self):
+        global CURRENT_IO_BACKEND
+        self.prev = CURRENT_IO_BACKEND
+        set_current_io_backend(self.backend)
+        return self
+
+    def __exit__(self, *exc):
+        global CURRENT_IO_BACKEND
+        CURRENT_IO_BACKEND = self.prev
 
 
 def open_best(path: Pathlike, mode: str = "r"):
     """
     Open a path/identifier with the most appropriate strategy
     (reference: serialization.py:31): stdin/stdout redirects, subprocess
-    pipes, gzip, and plain files.
+    pipes, tar members, URLs (through smart_open, AIStore or MSC where their
+    packages import), gzip, and plain files.
     """
     return get_current_io_backend().open(str(path), mode)
 

@@ -1,8 +1,9 @@
 """
 Host helpers of the data path (copied from ``lhotse_tpu/utils/core.py``):
 time/sample/frame arithmetic, windowing and context extension, dataclass
-helpers, seeding, the streaming buffer shuffle, and the recipes' directory
-globbing, recursion limit, safe tar extraction and resumable download. Only
+helpers, seeding, the streaming buffer shuffle, the recipes' directory
+globbing, recursion limit, safe tar extraction and resumable download, and
+``SmartOpen`` (URLs through the optional ``smart_open`` package). Only
 the helpers the ported host modules call are here; each body is the
 original's.
 """
@@ -313,6 +314,45 @@ def is_module_available(*modules: str) -> bool:
     call (failed imports are never cached by Python), which is measurable
     in per-recording hot loops like backend applicability checks."""
     return all(_module_available(m) for m in modules)
+
+
+class SmartOpen:
+    """Deferred import wrapper around ``smart_open`` (optional dependency)."""
+
+    transport_params: Optional[dict] = None
+
+    @classmethod
+    def setup(cls, transport_params: Optional[dict] = None):
+        """Configure default transport params for subsequent opens (warns
+        when overwriting a prior setup)."""
+        if not is_module_available("smart_open"):
+            raise ImportError(
+                "The 'smart_open' package is required to open URLs; "
+                "pip install smart_open (not bundled in this environment)."
+            )
+        if cls.transport_params is not None and cls.transport_params != transport_params:
+            import logging
+
+            logging.warning(
+                "SmartOpen.setup second call overwrites existing transport_params "
+                f"with new version\t\n{cls.transport_params}\t\nvs\t\n{transport_params}"
+            )
+        cls.transport_params = transport_params
+
+    @classmethod
+    def open(cls, uri, mode="rb", transport_params: Optional[dict] = None, **kwargs):
+        if not is_module_available("smart_open"):
+            raise ImportError(
+                "The 'smart_open' package is required to open URLs; "
+                "pip install smart_open (not bundled in this environment)."
+            )
+        import smart_open
+
+        if transport_params is None:
+            transport_params = cls.transport_params
+        if transport_params is not None:
+            kwargs["transport_params"] = transport_params
+        return smart_open.open(uri, mode, **kwargs)
 
 
 def is_valid_url(value: str) -> bool:

@@ -13,8 +13,6 @@ from lhotse_tpu_torch.bin.modes import cli
 
 # Each left-out command with the ROADMAP.md item it waits for.
 LEFT_OUT = {
-    "copy-feats": "A7 (Cut.copy_feats)",
-    "feat.upload": "A7 (the lilcom_url storage backend)",
     "workflows.activity-detection": "A7 (the energy VAD workflow)",
     "workflows.annotate-with-whisper": "weights (Whisper)",
     "workflows.annotate-dnsmos": "weights (DNSMOS)",
@@ -69,7 +67,7 @@ def test_command_tree_equals_jax_minus_the_left_out():
     assert ours == expected
     assert set(LEFT_OUT) <= set(theirs)
     leaves = [n for n, group in ours.items() if not group]
-    assert len([n for n in leaves if not n.startswith("prepare.")]) == 41
+    assert len([n for n in leaves if not n.startswith("prepare.")]) == 43
     assert sorted(n for n in leaves if n.startswith("prepare.")) == [
         f"prepare.{r}" for r in sorted(PORTED_RECIPES)]
 

@@ -153,10 +153,12 @@ def test_backends_not_ported_raise(name):
         with pytest.raises(KeyError, match=name):
             io.get_writer(name)
         return
-    with pytest.raises(NotImplementedError, match=name):
-        io.get_reader(name)
-    with pytest.raises(NotImplementedError, match=name):
-        io.get_writer(name)
+    # The HDF5, Kaldi and URL stores are ported (their parity tests are in
+    # test_torch_features_io_backends.py): the names resolve to the port's
+    # classes, of the JAX package's class names.
+    assert io.get_reader(name).__name__ == jio.get_reader(name).__name__
+    assert io.get_writer(name).__name__ == jio.get_writer(name).__name__
+    assert io.get_reader(name).__module__ == io.get_writer(name).__module__ == io.__name__
 
 
 def test_default_backend_and_env(monkeypatch):
@@ -168,5 +170,4 @@ def test_default_backend_and_env(monkeypatch):
     assert io.default_features_storage_backend_name() == jio.default_features_storage_backend_name()
     monkeypatch.setenv("LHOTSE_TPU_FEATURES_STORAGE_BACKEND", "lilcom_files")
     assert io.default_features_storage_backend_name() == "lilcom_files"
-    assert sorted(io.available_storage_backends()) == sorted(
-        n for n in jio.available_storage_backends() if n in FILE_BACKENDS + MEMORY_BACKENDS)
+    assert io.available_storage_backends() == jio.available_storage_backends()

@@ -176,7 +176,8 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
     (jmulti,) = list(J.CutSet.from_jsonl_lazy(path))
     assert type(multi).__name__ == "MultiCut" and multi.to_dict() == jmulti.to_dict()
     # Features and custom arrays load since the precomputed-features path was
-    # ported; a storage backend the port lacks raises when the data is read.
+    # ported; the HDF5 stores are ported too, so a store that is not there
+    # raises when the data is read, as the JAX package's does.
     hdf5 = dict(line, features={
         "type": "kaldi-fbank", "num_frames": 100, "num_features": 80, "frame_shift": 0.01,
         "sampling_rate": SR, "start": 0.0, "duration": 1.0, "storage_type": "lilcom_hdf5",
@@ -186,11 +187,14 @@ def test_manifest_fields_the_port_lacks_raise(tmp_path, jax_corpus):
     path = tmp_path / "hdf5.jsonl"
     path.write_text(json.dumps(hdf5) + "\n")
     (cut,) = list(CutSet.from_jsonl_lazy(path))
+    (jcut,) = list(J.CutSet.from_jsonl_lazy(path))
     assert cut.has_features and cut.emb.shape == [4]
-    with pytest.raises(NotImplementedError, match="lilcom_hdf5"):
-        cut.load_features()
-    with pytest.raises(NotImplementedError, match="numpy_hdf5"):
-        cut.load_emb()
+    for load in ("load_features", "load_emb"):
+        with pytest.raises(FileNotFoundError) as ours:
+            getattr(cut, load)()
+        with pytest.raises(FileNotFoundError) as theirs:
+            getattr(jcut, load)()
+        assert str(ours.value) == str(theirs.value)
     # Shar is ported: an unfilled placeholder is an error of the data, not a
     # part left out.
     shar = dict(line, recording=dict(line["recording"], sources=[

@@ -186,7 +186,9 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.recipes.atcosim, lhotse_tpu_torch.bin.modes.recipes.kws_eval, "
         "lhotse_tpu_torch.recipes.wenet_speech, lhotse_tpu_torch.recipes.uwb_atcc, "
         "lhotse_tpu_torch.recipes.this_american_life, lhotse_tpu_torch.recipes.sbcsae, "
-        "lhotse_tpu_torch.recipes.gigaspeech, lhotse_tpu_torch.bin.modes.recipes.eval_conv; "
+        "lhotse_tpu_torch.recipes.gigaspeech, lhotse_tpu_torch.bin.modes.recipes.eval_conv, "
+        "lhotse_tpu_torch.ais, lhotse_tpu_torch.ais.batch_loader, "
+        "lhotse_tpu_torch.ais.range_reader, lhotse_tpu_torch.workarounds; "
         "from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "

@@ -18,16 +18,14 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 # The names each JAX package exports that the port does not have yet, by
-# package path ("" is the top level): the HDF5, Kaldi and URL feature
-# backends, images and video, openSMILE/S3PRL, the ffmpeg and I/O backend
-# switches (ROADMAP A5, A7), every recipe download (A6), the activity-detection
-# and alignment workflows, and a few utilities.
+# package path ("" is the top level): images and video, openSMILE/S3PRL, the
+# ffmpeg switches (ROADMAP A7), every recipe download (A6), the
+# activity-detection and alignment workflows, and a few utilities. The
+# storage and I/O backends of A5 are ported.
 NOT_PORTED = {
     "": """
-        ChunkedLilcomHdf5Writer Image LilcomHdf5Writer NumpyHdf5Writer OpenSmileConfig
-        OpenSmileExtractor S3PRLSSL S3PRLSSLConfig ais default_tools_cachedir
-        get_ffmpeg_torchaudio_info_enabled io_backend set_current_io_backend
-        set_ffmpeg_torchaudio_info_enabled
+        Image OpenSmileConfig OpenSmileExtractor S3PRLSSL S3PRLSSLConfig default_tools_cachedir
+        get_ffmpeg_torchaudio_info_enabled set_ffmpeg_torchaudio_info_enabled
     """,
     "audio": """
         VideoMixer get_ffmpeg_torchaudio_info_enabled set_ffmpeg_torchaudio_info_enabled
@@ -46,10 +44,7 @@ NOT_PORTED = {
         UnsupervisedAudioVideoDataset collate_images collate_video plot_batch
     """,
     "features": """
-        ChunkedLilcomHdf5Reader ChunkedLilcomHdf5Writer KaldiReader KaldiWriter LilcomHdf5Reader
-        LilcomHdf5Writer LilcomURLReader LilcomURLWriter NumpyHdf5Reader NumpyHdf5Writer
-        OpenSmileConfig OpenSmileExtractor S3PRLSSL S3PRLSSLConfig StorageBackendInfo
-        storage_backend_statuses
+        OpenSmileConfig OpenSmileExtractor S3PRLSSL S3PRLSSLConfig
     """,
     "parallel": """
         data_parallel_mesh
@@ -76,7 +71,7 @@ NOT_PORTED = {
         RandomCutTestCase random_cut_set
     """,
     "utils": """
-        INT16MAX SmartOpen during_docs_build index_by_id_and_check measure_overlap_frac
+        INT16MAX during_docs_build index_by_id_and_check measure_overlap_frac
         nullcontext safe_extract_rar
     """,
     "workflows": """
@@ -87,7 +82,7 @@ NOT_PORTED = {
     """,
 }
 # JAX subpackages with no counterpart in the port.
-NOT_PORTED_PACKAGES = ("ais", "image", "tools", "workflows.activity_detection",
+NOT_PORTED_PACKAGES = ("image", "tools", "workflows.activity_detection",
                        "workflows.forced_alignment")
 
 
