@@ -191,8 +191,21 @@ with a ``LocalBatchFetcher`` into the kernel and the step, its batches
 equal to the loader-less ones; the stored features copied by
 ``copy-feats`` into ``lilcom_files``, ``numpy_files``, ``lilcom_url`` and,
 where ``h5py`` or ``kaldi_native_io`` imports, the HDF5 stores and
-``kaldiio``, each copy into an epoch of the step); and checks what comes
-out.
+``kaldiio``, each copy into an epoch of the step); then the A7 leftovers
+(64 FLAC recordings of tone bursts and near-silence through
+``workflows activity-detection --model-name energy_vad``, its spans equal to
+``detect_activity_energy``'s; the cuts of those spans trimmed,
+``save_audios`` as FLAC, read back through ``prefetch(8)`` into the
+augmenter at the 15 s × 256 bucket, equal to the trimmed cuts' batch and
+features; per-frame labels through ``attach_tensor``, ``copy_data`` of the
+trimmed cuts (several of one recording) read back equal, the copies' labels
+into the batch; an indexed Shar of the saved cuts read
+through ``shar_ptr`` sources with ``AudioCache`` on into the kernel and the
+step, one payload read per cut; ``dereverb_wpe_torch`` of a tensor on the
+card (the host numpy WPE) against the device WPE, and
+``data_parallel_mesh(1)`` on the card; the image, HuggingFace, plot,
+playback and sox legs where their package or binary is found); and checks
+what comes out.
 
     python3 chip_smoke.py
 
@@ -267,9 +280,10 @@ for ``speechcommands``, ``mobvoihotwords``, ``himia``, ``audio_mnist``,
 ``medical``, ``wenet_speech_device_chain``, ``zh_multi_full_on_the_fly`` and
 ``corpus_<name>`` for ``uwb_atcc``, ``sbcsae`` and, where it runs,
 ``this_american_life``, ``tar_device_chain``, ``storage_extract``,
-``ais_batch_loader``, and ``store_<name>`` for each store that runs (0:
-they read stored features)); a line names each store that did not run,
-before the record; the last line is
+``ais_batch_loader``, ``store_<name>`` for each store that runs (0:
+they read stored features), ``vad_saved_device_chain`` and
+``shar_ptr_cached``); a line names each store and each leftover leg that
+did not run, before the record; the last line is
 ``{"ok": true, "device": {...}}``. The corpus, the archive and the
 libraries' builds go under ``build/`` in the checkout.
 """
@@ -10791,6 +10805,363 @@ def _phase_storage(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
     return launches, max(errs), not_run
 
 
+# -- 35. the A7 leftovers: energy VAD, cut audio I/O, attach_tensor, shar_ptr through AudioCache ----
+LEFTOVER_SEED = 3535
+VAD_RECORDINGS = 64  # FLAC recordings of tone bursts and near-silence
+VAD_SECONDS = (20.0, 40.0)
+VAD_BURSTS = 4  # one burst in each quarter of a recording: 64 x 4 segments fill the bucket's rows
+VAD_EDGE = 0.05  # seconds a detected edge may sit from its burst's (the VAD's 10 ms frames)
+WPE_CHANNELS, WPE_SECONDS = 8, 2.0  # the dereverb_wpe_torch leg's segment
+# The legs whose packages the card's machine lacks: (leg, package).
+LEFTOVER_PACKAGE_LEGS = (("images", "PIL"), ("huggingface", "datasets"), ("plots", "matplotlib"),
+                         ("playback", "IPython"))
+
+
+def _write_vad_corpus(root: Path, rng) -> tuple:
+    """``VAD_RECORDINGS`` FLAC recordings of 20-40 s at 16 kHz: each quarter
+    holds one ``_tone_burst`` of 45-85 % of it, at least 0.25 s from the
+    quarter's edges, over 1e-4 white noise. Returns the recordings, the
+    path of their manifest and each recording's (start, end) bursts."""
+    from lhotse_tpu_torch.audio import Recording, RecordingSet
+    from lhotse_tpu_torch.audio.flacio import write_flac
+
+    root.mkdir(parents=True)
+    recordings, bursts = [], {}
+    for i in range(VAD_RECORDINGS):
+        uid, seconds = f"vad-{i:03d}", float(rng.uniform(*VAD_SECONDS))
+        x = (rng.randn(int(seconds * SR)) * 1e-4).astype(np.float32)
+        slot, spans = seconds / VAD_BURSTS, []
+        for k in range(VAD_BURSTS):
+            length = float(rng.uniform(0.45, 0.85)) * slot
+            start = k * slot + 0.25 + float(rng.uniform(0.0, slot - length - 0.5))
+            lo = int(start * SR)
+            burst = _tone_burst(rng, length)
+            x[lo:lo + burst.size] = burst
+            spans.append((lo / SR, (lo + burst.size) / SR))
+        write_flac(str(root / f"{uid}.flac"), x, SR)
+        recordings.append(Recording.from_file(root / f"{uid}.flac", recording_id=uid))
+        bursts[uid] = spans
+    recordings = RecordingSet.from_recordings(recordings)
+    recordings.to_file(root / "recordings.jsonl.gz")
+    return recordings, root / "recordings.jsonl.gz", bursts
+
+
+def _frame_labels(x: np.ndarray, num_frames: int) -> np.ndarray:
+    """1 where a 10 ms frame's RMS exceeds 0.01, else 0 (int8)."""
+    hop = SR // 100
+    padded = np.zeros(num_frames * hop, np.float32)
+    padded[: min(x.size, padded.size)] = x[: padded.size]
+    rms = np.sqrt((padded.reshape(num_frames, hop).astype(np.float64) ** 2).mean(axis=1))
+    return (rms > 0.01).astype(np.int8)
+
+
+def _leftover_package_leg(leg: str, saved) -> str:
+    """The small leg of ``leg`` where its package imports (not on the card's
+    machine): an image attached to four cuts and collated, four cuts through
+    a HuggingFace dataset and back, a waveform plot, an ``Audio`` widget."""
+    from lhotse_tpu_torch.cut import CutSet
+
+    cuts = list(saved)[:4]
+    if leg == "images":
+        from lhotse_tpu_torch.dataset.collation import collate_images
+
+        pixels = [np.full((8, 8, 3), k * 40, np.uint8) for k in range(4)]
+        batch = collate_images(CutSet.from_cuts(
+            c.attach_image("image", p) for c, p in zip(cuts, pixels)))
+        ok = np.array_equal(batch, np.stack(pixels))
+    elif leg == "huggingface":
+        dataset = CutSet.from_cuts(cuts).to_huggingface_dataset()
+        back = list(CutSet.from_huggingface_dataset(dataset, text_key="text"))
+        ok = all(np.array_equal(a.load_audio(), b.load_audio()) for a, b in zip(back, cuts))
+    elif leg == "plots":
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        ax = cuts[0].plot_audio()
+        ok = len(ax.lines) == 1 and len(ax.patches) == len(cuts[0].supervisions)
+        plt.close("all")
+    else:
+        ok = len(cuts[0].play_audio().data) > 44
+    if not ok:
+        raise AssertionError(f"leftover leg {leg}: its result is off")
+    return f"{leg}: ran"
+
+
+def _phase_leftovers(workdir: Path, device, fbank_cuda, smi: str) -> tuple:
+    """35. The A7 leftovers, in phase 14's directory after phase 34 (phase
+    23's MUSAN noise and RIRS_NOISES manifests feed the augmenter), on
+    ``VAD_RECORDINGS`` FLAC recordings of tone bursts and near-silence.
+    ``workflows activity-detection --model-name energy_vad`` in the
+    script's process over their manifest, its spans equal to
+    ``detect_activity_energy``'s and each within ``VAD_EDGE`` of its burst;
+    ``vad_saved_device_chain``: the cuts of those supervisions, trimmed to
+    them, stored by ``save_audios(format="flac", num_jobs=1)``, read back
+    lazily through ``prefetch(8)`` as the 15 s x 256 bucket's batch into
+    ``OnDeviceAugmenter`` (twice, by ``_device_chain``); the same batch read
+    from the trimmed cuts in memory is equal, and so are its features under
+    the same draws; a per-frame label array attached to each trimmed cut
+    by ``attach_tensor``, ``copy_data`` of those cuts (several of one
+    recording, each stored under its ID) read back equal, and the copies'
+    labels collated into the batch;
+    ``shar_ptr_cached``: the saved cuts exported to an indexed Shar, read
+    back through ``shar_ptr`` sources with ``AudioCache`` on in an epoch of
+    ``K2SpeechRecognitionDataset`` → the kernel → an AdamW step per batch,
+    then once more against the saved audio: one payload read per cut;
+    ``dereverb_wpe_torch`` of an 8-channel segment on the card (the host
+    numpy WPE, the tensor copied to the host and back): back on the card,
+    ``torch.equal`` to the CPU's result and within ``WPE_HOST_CORR`` and
+    ``WPE_HOST_REL`` of the device WPE; ``data_parallel_mesh(1)`` on the
+    card feeding ``local_rows``. The image, HuggingFace, plot and sox legs
+    run where their package or binary is found. Returns the kernel's
+    launches per path, the largest kernel-vs-plain error and the lines of
+    the legs that did not run."""
+    import importlib.util
+    import shutil
+    from collections import Counter
+
+    import lhotse_tpu_torch.shar.lazy_pointer as lazy_pointer
+    from lhotse_tpu_torch.augmentation.wpe import dereverb_wpe_torch
+    from lhotse_tpu_torch.bin.modes import cli
+    from lhotse_tpu_torch.caching import AudioCache, set_caching_enabled
+    from lhotse_tpu_torch.cut import CutSet
+    from lhotse_tpu_torch.dataset import SimpleCutSampler
+    from lhotse_tpu_torch.dataset.collation import collate_custom_field
+    from lhotse_tpu_torch.dataset.input_strategies import AudioSamples
+    from lhotse_tpu_torch.dataset.loader import DataLoader
+    from lhotse_tpu_torch.dataset.speech_recognition import K2SpeechRecognitionDataset
+    from lhotse_tpu_torch.features import Fbank, FbankConfig
+    from lhotse_tpu_torch.ops.wpe import dereverb_wpe
+    from lhotse_tpu_torch.parallel import data_parallel_mesh, local_rows
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.tracing import set_tracing_enabled
+    from lhotse_tpu_torch.utils import compute_num_frames
+    from lhotse_tpu_torch.workflows import detect_activity_energy
+
+    set_caching_enabled(False)
+    set_tracing_enabled(True)
+    rng = np.random.RandomState(LEFTOVER_SEED)
+    root = workdir / "leftovers"
+    launches, errs, not_run = {}, [], []
+
+    # -- the energy VAD, through the CLI and the function ---------------------------------------
+    t0 = time.perf_counter()
+    recordings, manifest, bursts = _write_vad_corpus(root / "corpus", rng)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli.main(["workflows", "activity-detection", "-r", str(manifest), "-o", str(root),
+              "-m", "energy_vad", "-j", "1"], standalone_mode=False)
+    cli_s = time.perf_counter() - t0
+    from_cli = SupervisionSet.from_file(root / "recordings_supervisions_energy_vad.jsonl.gz")
+    t0 = time.perf_counter()
+    from_fn = detect_activity_energy(recordings)
+    fn_s = time.perf_counter() - t0
+
+    def spans(sups):
+        return sorted((s.recording_id, s.start, s.duration, s.channel) for s in sups)
+
+    found = {}
+    for s in from_cli:
+        found.setdefault(s.recording_id, []).append((s.start, s.end))
+    edge = max(max(abs(a - c), abs(b - d)) for uid, truth in bursts.items()
+               for (a, b), (c, d) in zip(sorted(found.get(uid, [])), truth))
+    audio_s = sum(r.duration for r in recordings)
+    print(f"[{smi}] energy_vad: {len(recordings)} FLAC recordings, {audio_s!r} audio-s written in "
+          f"{write_s!r} s; workflows activity-detection in {cli_s!r} s, detect_activity_energy in "
+          f"{fn_s!r} s: {len(from_cli)} spans ({VAD_BURSTS} bursts per recording), equal: "
+          f"{spans(from_cli) == spans(from_fn)}; largest edge off its burst {edge!r} s (tol "
+          f"{VAD_EDGE})")
+    if (spans(from_cli) != spans(from_fn) or len(from_cli) != VAD_RECORDINGS * VAD_BURSTS
+            or any(len(found.get(uid, [])) != VAD_BURSTS for uid in bursts)
+            or not edge <= VAD_EDGE):
+        raise AssertionError("energy_vad: the CLI's spans, the function's or the bursts differ")
+
+    # -- vad_saved_device_chain -------------------------------------------------------------------
+    cuts = CutSet.from_manifests(recordings=recordings, supervisions=from_cli).trim_to_supervisions(
+        keep_overlapping=False).to_eager()
+    t0 = time.perf_counter()
+    saved = cuts.save_audios(root / "saved", format="flac", num_jobs=1, progress_bar=False)
+    save_s = time.perf_counter() - t0
+    saved.to_file(root / "saved_cuts.jsonl.gz")
+    t0 = time.perf_counter()
+    prefetched = list(CutSet.from_file(root / "saved_cuts.jsonl.gz").prefetch(8))
+    audio, lens = _bucket_batch(prefetched)
+    prefetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    memory_audio, memory_lens = _bucket_batch(cuts)
+    memory_s = time.perf_counter() - t0
+    rows = [x[:n] for x, n in zip(audio, lens)]
+    sec, bsz = BUCKET
+    samples_equal = ([c.id for c in prefetched] == [c.id for c in cuts]
+                     and np.array_equal(audio, memory_audio) and np.array_equal(lens, memory_lens))
+    on_disk = all((root / "saved" / c.id[:3] / f"{c.id}.flac").is_file() for c in cuts)
+    pool, rir, noise, rir_rec = _noise_pool_and_rir(workdir)
+    print(f"[{smi}] vad_saved_device_chain: {len(cuts)} cuts trimmed to the VAD's spans, "
+          f"save_audios (FLAC, one job, {{id[:3]}}/{{id}}.flac: {on_disk}) in {save_s!r} s, read "
+          f"back through prefetch(8) in {prefetch_s!r} s and from the trimmed cuts in memory in "
+          f"{memory_s!r} s, equal: {samples_equal}: {float(lens.sum()) / SR!r} audio-s, the bucket "
+          f"{float(lens.sum()) / (bsz * int(sec * SR))!r} full; noise pool {pool.shape} from "
+          f"phase 23's {len(noise)} MUSAN noise recordings, RIR {rir_rec.id}")
+    if not samples_equal or not on_disk or len(cuts) != bsz:
+        raise AssertionError("vad_saved_device_chain: the saved cuts' samples are off")
+    launches["vad_saved_device_chain"], kernel_err, chain_err = _device_chain(
+        "vad_saved_device_chain", [(audio, lens)] * 2, pool, rir, device, fbank_cuda, smi)
+    errs += [kernel_err, chain_err]
+    aug = _chain_augmenter(pool, rir, device)
+    draws = aug.state_dict()
+    saved_out = aug.compute(aug.stage(audio, lens))
+    aug.load_state_dict(draws)
+    memory_out = aug.compute(aug.stage(memory_audio, memory_lens))
+    features_equal = all(torch.equal(a, b) for a, b in zip(saved_out, memory_out))
+    print(f"[{smi}] vad_saved_device_chain: features of the saved cuts and of the trimmed cuts in "
+          f"memory under the same draws torch.equal: {features_equal}")
+    if not features_equal:
+        raise AssertionError("vad_saved_device_chain: the saved cuts' features differ")
+
+    # -- labels through attach_tensor, copy_data of the trimmed cuts, the labels into the batch -----
+    frames = [compute_num_frames(c.duration, 0.01, SR) for c in prefetched]
+    labels = [_frame_labels(x, n) for x, n in zip(rows, frames)]
+    labeled = CutSet.from_cuts(c.attach_tensor("labels", y, frame_shift=0.01, temporal_dim=0)
+                               for c, y in zip(cuts, labels))
+    per_recording = max(Counter(c.recording_id for c in cuts).values())
+    t0 = time.perf_counter()
+    copied = labeled.copy_data(root / "copied", verbose=False).to_eager()
+    copy_s = time.perf_counter() - t0
+    copies_equal = [c.id for c in copied] == [c.id for c in cuts] and all(
+        c.recording.sources[0].source == str(root / "copied" / "audio" / c.id[:3] / f"{c.id}.wav")
+        and c.labels.array.storage_path == str(root / "copied" / "custom" / "labels")
+        and np.array_equal(c.load_audio()[0], x) and np.array_equal(c.load_labels(), y)
+        for c, x, y in zip(copied, rows, labels))
+    label_batch, label_lens = collate_custom_field(copied, "labels", pad_value=-1)
+    batch = {"inputs": saved_out[0], "input_lens": saved_out[1],
+             "labels": torch.from_numpy(np.asarray(label_batch)).to(device),
+             "label_lens": torch.as_tensor(np.asarray(label_lens), device=device)}
+    labels_equal = list(np.asarray(label_lens)) == frames and all(
+        np.array_equal(batch["labels"][i, :n].cpu().numpy(), y)
+        for i, (n, y) in enumerate(zip(frames, labels)))
+    voiced = float(sum(y.sum() for y in labels)) / sum(frames)
+    print(f"[{smi}] copy_data of the trimmed cuts (up to {per_recording} of one recording, each "
+          f"with its labels from attach_tensor) in {copy_s!r} s, each copy under its own ID and "
+          f"read back equal: {copies_equal}; the copies' labels into the batch "
+          f"{tuple(batch['labels'].shape)} on {batch['labels'].device} beside its features "
+          f"{tuple(batch['inputs'].shape)}: equal to the attached arrays {labels_equal}, "
+          f"{voiced!r} of the frames voiced")
+    if not copies_equal or not labels_equal or not voiced > 0.9 or per_recording < 2:
+        raise AssertionError("copy_data or attach_tensor: the copies or the labels are off")
+
+    # -- shar_ptr_cached ---------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    saved.to_shar(root / "shar", fields={"recording": "flac"}, shard_size=bsz // 8,
+                  compress_jsonl=False, create_index=True)
+    export_s = time.perf_counter() - t0
+    lazy = CutSet.from_shar(in_dir=root / "shar", indexed=True, lazy=True)
+    reads = []
+    read_payload = lazy_pointer.read_payload
+    lazy_pointer.read_payload = lambda source: (reads.append(1), read_payload(source))[1]
+    set_caching_enabled(True)
+    AudioCache.clear()
+    try:
+        fly = Fbank(FbankConfig(device=device))
+        recorder = _RecordFirstBatch(fly)
+
+        def unpack(b):
+            sups = b["supervisions"]
+            by_row = {int(i): c for i, c in zip(sups["sequence_idx"], sups["cut"])}
+            batch_cuts = [by_row[i] for i in range(b["inputs"].shape[0])]
+            feats = fly.extract_batch(
+                [b["inputs"][i, : c.num_samples] for i, c in enumerate(batch_cuts)], SR)
+            padded, n = _padded(feats)
+            return padded, n, sum(c.duration for c in batch_cuts)
+
+        run = _leg("shar_ptr_cached", DataLoader(
+            SimpleCutSampler(lazy, max_duration=FLY_MAX_DURATION),
+            K2SpeechRecognitionDataset(return_cuts=True, input_strategy=AudioSamples()),
+            prefetch_batches=3),
+            _Trainer(device), device, fbank_cuda, unpack, smi)
+        launches["shar_ptr_cached"] = run["launches"]
+        errs.append(_first_batch_err(recorder, fly))
+        epoch_reads = len(reads)
+        by_id = dict(zip((c.id for c in saved), rows))
+        shar_cuts = list(lazy)
+        source_types = {c.recording.sources[0].type for c in shar_cuts}
+        shar_equal = all(np.array_equal(c.load_audio()[0], by_id[c.id]) for c in shar_cuts)
+    finally:
+        lazy_pointer.read_payload = read_payload
+        set_caching_enabled(False)
+        AudioCache.clear()
+    seen = sorted(c.id for b in run["batches"] for c in b["supervisions"]["cut"])
+    per_cut = len(reads) / len(saved)
+    print(f"[{smi}] shar_ptr_cached: Shar export (FLAC, 8 shards with their .idx) in "
+          f"{export_s!r} s; sources {sorted(source_types)}; with AudioCache on, payload reads "
+          f"{epoch_reads} in the epoch and {len(reads)} after every cut was loaded again: "
+          f"{per_cut!r} per cut; the second loads equal to the saved audio: {shar_equal}; every "
+          f"cut once: {seen == sorted(by_id)}; first batch kernel vs plain {errs[-1]!r} (tol "
+          f"{KERNEL_TOL})")
+    if (source_types != {"shar_ptr"} or per_cut != 1.0 or not shar_equal or seen != sorted(by_id)
+            or run["launches"] != len(run["batches"]) or not errs[-1] <= KERNEL_TOL):
+        raise AssertionError("shar_ptr_cached: reads, samples, launches or the kernel are off")
+
+    # -- dereverb_wpe_torch of a tensor on the card, and data_parallel_mesh ----------------------------
+    n = int(WPE_SECONDS * SR)
+    x = rows[0][:n]
+    stacked = np.stack([np.roll(x, 7 * k) * (1.0 - 0.05 * k) for k in range(WPE_CHANNELS)])
+    stacked = (stacked + rng.randn(*stacked.shape) * 1e-3).astype(np.float32)
+    on_card = torch.from_numpy(stacked).to(device)
+    t0 = time.perf_counter()
+    wpe_out = dereverb_wpe_torch(on_card)
+    wpe_s = time.perf_counter() - t0
+    wpe_cpu = dereverb_wpe_torch(on_card.cpu())
+    wpe_back = (wpe_out.device == on_card.device and wpe_out.dtype == torch.float32
+                and torch.equal(wpe_out.cpu(), wpe_cpu))
+    device_wpe = dereverb_wpe(on_card).cpu().numpy()
+    host_wpe = wpe_out.cpu().numpy()
+    wpe_corr = float(np.corrcoef(host_wpe.ravel(), device_wpe.ravel())[0, 1])
+    wpe_rel = float(np.linalg.norm(host_wpe - device_wpe) / np.linalg.norm(device_wpe))
+    mesh = data_parallel_mesh(1, device=device)
+    try:
+        sharded = local_rows(saved_out[0][:4], mesh)
+        mesh_ok = (mesh.device_type == device.type and mesh.mesh_dim_names == ("data",)
+                   and torch.equal(sharded.to_local(), saved_out[0][:4]))
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"[{smi}] dereverb_wpe_torch of a {WPE_CHANNELS} x {WPE_SECONDS} s segment on "
+          f"{on_card.device}: the host numpy WPE, the tensor copied to the host and back, "
+          f"{wpe_s!r} s of host time; back on {wpe_out.device} as float32 and torch.equal to the "
+          f"result of the same tensor on the CPU: {wpe_back}; against the device WPE "
+          f"(ops/wpe.py) on the card: correlation {wpe_corr!r} (> {WPE_HOST_CORR}), relative "
+          f"error {wpe_rel!r} (< {WPE_HOST_REL}); data_parallel_mesh(1) {mesh} into local_rows: "
+          f"{mesh_ok}")
+    if (not wpe_back or not wpe_corr > WPE_HOST_CORR or not wpe_rel < WPE_HOST_REL
+            or not mesh_ok):
+        raise AssertionError("dereverb_wpe_torch or data_parallel_mesh is off on the card")
+
+    # -- the legs of the packages and the binary the card's machine lacks ---------------------------
+    for leg, package in LEFTOVER_PACKAGE_LEGS:
+        if importlib.util.find_spec(package) is None:
+            line = f"[{smi}] {leg}: not run: {package} does not import here"
+            not_run.append(line)
+        else:
+            t0 = time.perf_counter()
+            line = f"[{smi}] {_leftover_package_leg(leg, saved)} in {time.perf_counter() - t0!r} s"
+        print(line)
+    if "jax" in sys.modules or "lhotse_tpu" in sys.modules:
+        raise AssertionError("a leftover leg's package imported jax or lhotse_tpu")
+    if shutil.which("sox") is None:
+        line = f"[{smi}] sox: not run: no sox binary"
+        not_run.append(line)
+        print(line)
+    else:
+        from lhotse_tpu_torch.audio.resampling_backend import resampling_backend
+
+        with resampling_backend("sox"):
+            resampled = saved[0].resample(8000).load_audio()
+        if resampled.shape[1] != saved[0].resample(8000).num_samples:
+            raise AssertionError("sox: the resampled cut's length is off")
+        print(f"[{smi}] sox: a cut resampled to 8 kHz through the sox backend")
+    set_tracing_enabled(False)
+    return launches, max(errs), not_run
+
 DP_RANKS = 2  # data-parallel ranks of phase 16, both on the one card
 
 
@@ -11283,6 +11654,15 @@ def main() -> None:
             Path(tmp), device, fbank_cuda, smi)
         by_path.update(launches_storage)
         print(f"phase 34 took {time.perf_counter() - t0!r} s")
+        # -- 35. the A7 leftovers: the energy VAD's segments saved as FLAC and read back through
+        # prefetch into the main path, copy_data, labels through attach_tensor, a Shar read
+        # through shar_ptr sources with AudioCache on into training, WPE and a mesh on the card,
+        # after phase 23
+        t0 = time.perf_counter()
+        launches_leftover, leftover_err, leftover_not_run = _phase_leftovers(
+            Path(tmp), device, fbank_cuda, smi)
+        by_path.update(launches_leftover)
+        print(f"phase 35 took {time.perf_counter() - t0!r} s")
     kept.cleanup()
 
     # -- 15. the multi-channel meeting path, on a corpus of its own, and 17. the
@@ -11315,7 +11695,7 @@ def main() -> None:
                               ms_err, paired_err, lossy_err, kaldi_err, sim_err, sharded_err,
                               noise_err, single_err, muxed_err, zh_err, tel_err, overlap_err,
                               translation_err, asr_err, tts_err, kws_err, eval_err,
-                              storage_err]),
+                              storage_err, leftover_err]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -11328,7 +11708,7 @@ def main() -> None:
         "launches_by_path": by_path,
     }]}
     print(f"chip_smoke.py wall time {time.perf_counter() - start!r} s")
-    for line in storage_not_run:
+    for line in storage_not_run + leftover_not_run:
         print(line)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

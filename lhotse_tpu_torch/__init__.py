@@ -27,7 +27,10 @@ data dirs with piped ``command`` audio sources, the recipes, and the
 multiplexers ``CutSet.mux``/``infinite_mux`` with ``DataloaderCheckpoint``,
 the batch signal transforms and text sampling, and the storage and I/O
 backends: tar members and URLs in ``open_best``, the AIS batch loader, the
-HDF5, Kaldi and ``lilcom_url`` feature stores) is copied function by
+HDF5, Kaldi and ``lilcom_url`` feature stores, cut audio I/O
+(``save_audios``, ``copy_data``, ``prefetch``), ``attach_tensor``, image
+manifests, the energy and Silero VAD workflow, the sox resampler, the
+HuggingFace bridges and the plots) is copied function by
 function from the JAX package's modules of the same
 paths; a copied body that reaches a part not copied yet raises
 ``NotImplementedError``. The tests hold each copy to its original.
@@ -54,8 +57,8 @@ _EXPORTS = {
         "AudioSource", "Recording", "RecordingSet", "audio_backend", "available_audio_backends",
         "available_resampling_backends", "get_audio_duration_mismatch_tolerance",
         "get_current_audio_backend", "get_current_resampling_backend", "get_default_audio_backend",
-        "resampling_backend", "set_audio_duration_mismatch_tolerance", "set_current_audio_backend",
-        "set_current_resampling_backend"),
+        "get_ffmpeg_torchaudio_info_enabled", "resampling_backend", "set_audio_duration_mismatch_tolerance", "set_current_audio_backend",
+        "set_current_resampling_backend", "set_ffmpeg_torchaudio_info_enabled"),
     "caching": ("is_caching_enabled", "set_caching_enabled"),
     "cut": (
         "CutSet", "MixedCut", "MonoCut", "MultiCut", "PaddingCut", "create_cut_set_eager",
@@ -70,6 +73,7 @@ _EXPORTS = {
         "TorchaudioMfcc", "TorchaudioMfccConfig", "TorchaudioSpectrogram",
         "TorchaudioSpectrogramConfig", "WhisperFbank", "WhisperFbankConfig",
         "available_storage_backends", "create_default_feature_extractor"),
+    "image": ("Image",),
     "kaldi": ("load_kaldi_data_dir",),
     "lazy": ("dill_enabled", "is_dill_enabled", "set_dill_enabled"),
     "manipulation": ("combine", "split_parallelize_combine", "to_manifest"),
@@ -79,6 +83,7 @@ _EXPORTS = {
         "io_backend", "load_manifest", "load_manifest_lazy", "load_manifest_lazy_or_eager",
         "set_current_io_backend", "store_manifest"),
     "supervision": ("AlignmentItem", "SupervisionSegment", "SupervisionSet"),
+    "tools.env": ("default_tools_cachedir",),
     "tracing": (
         "emit_metrics", "format_tracing_report", "is_tracing_enabled", "register_metrics_hook",
         "set_tracing_enabled", "trace_span", "tracing_report", "unregister_metrics_hook"),

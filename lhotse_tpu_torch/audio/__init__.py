@@ -8,6 +8,8 @@ from lhotse_tpu_torch.audio.resampling_backend import (
     available_resampling_backends, get_current_resampling_backend, resampling_backend,
     set_current_resampling_backend)
 from lhotse_tpu_torch.audio.source import AudioSource
+from lhotse_tpu_torch.audio.backend import (
+    get_ffmpeg_torchaudio_info_enabled, set_ffmpeg_torchaudio_info_enabled)
 from lhotse_tpu_torch.audio.utils import (
     AudioLoadingError, DurationMismatchError, VideoInfo, get_audio_duration_mismatch_tolerance,
     null_result_on_audio_loading_error, set_audio_duration_mismatch_tolerance,

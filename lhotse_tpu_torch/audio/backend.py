@@ -693,6 +693,21 @@ def get_current_audio_backend() -> AudioBackend:
     return get_default_audio_backend()
 
 
+_FFMPEG_TORCHAUDIO_INFO_ENABLED = False
+
+
+def set_ffmpeg_torchaudio_info_enabled(enabled: bool) -> None:
+    """Compatibility switch: the reference toggles torchaudio's ffmpeg-based
+    info probing; this package has no ffmpeg backend, so the flag is stored
+    and read back but has no effect."""
+    global _FFMPEG_TORCHAUDIO_INFO_ENABLED
+    _FFMPEG_TORCHAUDIO_INFO_ENABLED = enabled
+
+
+def get_ffmpeg_torchaudio_info_enabled() -> bool:
+    return _FFMPEG_TORCHAUDIO_INFO_ENABLED
+
+
 def get_default_audio_backend() -> AudioBackend:
     """Composite over the package's codecs, in the JAX package's order."""
     # SphereBackend subsumes the sph2pipe subprocess backend: it decodes

@@ -50,6 +50,17 @@ def _get_lib():
         return _LIB
 
 
+def is_available() -> bool:
+    """True when the native codec is built (or can be built) on this host:
+    false where the source is missing, the compiler fails or the library
+    does not load."""
+    try:
+        _get_lib()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
 @dataclass
 class FlacInfo:
     num_channels: int

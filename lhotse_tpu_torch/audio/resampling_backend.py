@@ -6,11 +6,10 @@ with :func:`set_current_resampling_backend`, for a ``with`` block with
 environment variable (``LHOTSE_RESAMPLING_BACKEND`` as a fallback). The
 ``Resample`` audio transform consults it.
 
-The port has one backend, ``"default"``, the built-in polyphase sinc
-resampler. The JAX package also offers ``"sox"`` where libsox loads; the
-port's libsox backend is not ported, so choosing it raises
-``NotImplementedError``, and any other name raises ``ValueError`` as in the
-JAX package. Two departures, both so that the environment variable and the
+The backends are ``"default"``, the built-in polyphase sinc resampler, and
+``"sox"`` (:mod:`lhotse_tpu_torch.tools.libsox`), listed only where a
+``sox`` binary is found on ``PATH``; a name not listed raises
+``ValueError`` as in the JAX package. Two departures, both so that the environment variable and the
 switch cannot disagree: the variable is read on every call until a backend
 is set explicitly (the JAX package caches its first reading), and the
 context manager restores the explicit choice it found, or none.
@@ -21,20 +20,21 @@ import contextlib
 import os
 from typing import List, Optional
 
-from lhotse_tpu_torch.utils import not_ported
+from lhotse_tpu_torch.tools.libsox import libsox_available
 
-ResamplingBackend = str  # "default"
+ResamplingBackend = str  # "default" | "sox"
 
 CURRENT_RESAMPLING_BACKEND: Optional[ResamplingBackend] = None
 
 
 def available_resampling_backends() -> List[ResamplingBackend]:
-    return ["default"]
+    backends = ["default"]
+    if libsox_available():
+        backends.append("sox")
+    return backends
 
 
 def _check(backend: ResamplingBackend) -> ResamplingBackend:
-    if backend == "sox":
-        raise not_ported(f"The {backend!r} resampling backend")
     if backend not in available_resampling_backends():
         raise ValueError(
             f"Invalid resampling backend: {backend}. "

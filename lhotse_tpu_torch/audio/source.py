@@ -8,8 +8,8 @@ as ``/data/shard-0.tar/utt.flac``, a ``pipe:`` command, or a URL where an
 I/O backend for it imports), ``memory`` and ``shar_ptr`` (a byte range in a
 Shar tar shard, read with
 :func:`lhotse_tpu_torch.shar.lazy_pointer.read_payload`) source types. A
-``command`` or ``url`` source is read anew on every load unless
-:class:`~lhotse_tpu_torch.caching.AudioCache` is on; a pipe raises with its
+``command``, ``url`` or ``shar_ptr`` source is read anew on every load
+unless :class:`~lhotse_tpu_torch.caching.AudioCache` is on; a pipe raises with its
 stderr when it exits non-zero. A ``shar`` placeholder that was never filled
 raises ``RuntimeError``; video raises ``NotImplementedError``.
 """
@@ -160,9 +160,13 @@ class AudioSource:
             )
 
         elif self.type == "shar_ptr":
-            from lhotse_tpu_torch.shar.lazy_pointer import read_payload
+            audio_bytes = AudioCache.try_cache(self.source)
+            if not audio_bytes:
+                from lhotse_tpu_torch.shar.lazy_pointer import read_payload
 
-            source = BytesIO(read_payload(self.source))
+                audio_bytes = read_payload(self.source)
+                AudioCache.add_to_cache(self.source, audio_bytes)
+            source = BytesIO(audio_bytes)
 
         return source
 
@@ -172,9 +176,12 @@ class AudioSource:
             return os.path.splitext(self.source)[-1][1:].lower()
         elif self.type in ("memory", "shar_ptr"):
             if self.type == "shar_ptr":
-                from lhotse_tpu_torch.shar.lazy_pointer import read_payload
+                payload = AudioCache.try_cache(self.source)
+                if not payload:
+                    from lhotse_tpu_torch.shar.lazy_pointer import read_payload
 
-                payload = read_payload(self.source)
+                    payload = read_payload(self.source)
+                    AudioCache.add_to_cache(self.source, payload)
             else:
                 payload = self.source
             magic = payload[:12]

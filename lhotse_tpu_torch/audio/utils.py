@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
 import warnings
 from contextlib import contextmanager
 from dataclasses import asdict, dataclass
@@ -22,6 +23,10 @@ class NonPositiveEnergyError(ValueError):
 
 
 class AudioLoadingError(Exception):
+    pass
+
+
+class AudioSavingError(Exception):
     pass
 
 
@@ -108,3 +113,7 @@ def null_result_on_audio_loading_error(func: Callable) -> Callable:
             return func(*args, **kwargs)
 
     return wrapper
+
+
+def verbose_audio_loading_exceptions() -> bool:
+    return os.environ.get("LHOTSE_AUDIO_LOADING_EXCEPTION_VERBOSE") == "1"

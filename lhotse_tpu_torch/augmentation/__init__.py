@@ -18,7 +18,7 @@ from lhotse_tpu_torch.augmentation.transform import AudioTransform
 from lhotse_tpu_torch.augmentation.transforms import (Resample, Speed, Tempo, Volume, wsola_time_stretch)
 from lhotse_tpu_torch.augmentation.utils import (
     AugmentFn, FastRandomRIRGenerator, convolve1d, next_fast_len)
-from lhotse_tpu_torch.augmentation.wpe import DereverbWPE, dereverb_wpe_numpy
+from lhotse_tpu_torch.augmentation.wpe import DereverbWPE, dereverb_wpe_numpy, dereverb_wpe_torch
 
 __all__ = [
     "AudioTransform", "AugmentFn", "Clipping", "Compress", "DereverbWPE", "FastRandomRIRGenerator",

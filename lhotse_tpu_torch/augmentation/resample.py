@@ -137,3 +137,26 @@ def get_or_create_resampler(
     """Cached resampler lookup (reference: augmentation/torchaudio.py:74)."""
     key = (int(source_sampling_rate), int(target_sampling_rate))
     return _lru_get(_RESAMPLERS, key, lambda: SincResampler(*key))
+
+
+def resample(
+    waveform: np.ndarray,
+    orig_freq: int,
+    new_freq: int,
+    lowpass_filter_width: int = 6,
+    rolloff: float = 0.99,
+    resampling_method: str = "sinc_interp_hann",
+    beta=None,
+) -> np.ndarray:
+    """
+    Functional bandlimited-sinc resampling (the torchaudio-derived API).
+    Only the default ``sinc_interp_hann`` method is implemented.
+    """
+    if resampling_method != "sinc_interp_hann":
+        raise ValueError(
+            f"Unsupported resampling_method: {resampling_method!r} "
+            f"(only 'sinc_interp_hann' is implemented)"
+        )
+    return resample_array(
+        np.asarray(waveform), orig_freq, new_freq,
+        lowpass_filter_width=lowpass_filter_width, rolloff=rolloff)

@@ -75,9 +75,14 @@ class Resample(AudioTransform):
     def __call__(self, samples: np.ndarray, *args, **kwargs) -> np.ndarray:
         if self.source_sampling_rate == self.target_sampling_rate:
             return samples
+        # "sox" routes through the sox rate effect, "default" through the
+        # built-in polyphase sinc kernel.
         from lhotse_tpu_torch.audio.resampling_backend import get_current_resampling_backend
 
-        get_current_resampling_backend()  # raises for a backend other than "default"
+        if get_current_resampling_backend() == "sox":
+            from lhotse_tpu_torch.tools.libsox import libsox_rate
+
+            return libsox_rate(samples, self.source_sampling_rate, self.target_sampling_rate)
         resampler = get_or_create_resampler(self.source_sampling_rate, self.target_sampling_rate)
         return resampler(samples)
 

@@ -98,6 +98,23 @@ def dereverb_wpe_numpy(
     return out.astype(audio.dtype, copy=False)
 
 
+def dereverb_wpe_torch(
+    audio, n_fft: int = 512, hop_length: int = 128, taps: int = 10, delay: int = 3,
+    iterations: int = 3, statistics_mode: str = "full"):
+    """Torch-tensor front-end over the host numpy WPE of
+    :func:`dereverb_wpe_numpy`, as in the JAX package: ``audio`` (channels,
+    samples) may lie on any device; it is copied to the host, dereverberated
+    there in numpy, and the result is copied back to that device with
+    ``audio``'s dtype. The WPE that runs on the card is
+    :func:`lhotse_tpu_torch.ops.wpe.dereverb_wpe`."""
+    import torch
+
+    out = dereverb_wpe_numpy(
+        audio.detach().cpu().numpy(), n_fft=n_fft, hop_length=hop_length, taps=taps, delay=delay,
+        iterations=iterations, statistics_mode=statistics_mode)
+    return torch.from_numpy(out).to(device=audio.device, dtype=audio.dtype)
+
+
 @dataclass
 class DereverbWPE(AudioTransform):
     """Dereverberation with Weighted Prediction Error (WPE)."""

@@ -1,6 +1,6 @@
 """
 Workflow commands (copied from ``lhotse_tpu/bin/modes/workflows.py``):
-``simulate-meetings`` only. The activity-detection, Whisper, DNSMOS and
+``activity-detection`` and ``simulate-meetings``. The Whisper, DNSMOS and
 alignment commands wait for their workflows (see ROADMAP.md).
 """
 from typing import Optional
@@ -148,3 +148,79 @@ def simulate_meetings(
             mixed = simulator.reverberate(mixed)
 
     mixed.to_file(out_cuts)
+
+
+@workflows.command(context_settings=dict(show_default=True))
+@click.option(
+    "-r", "--recordings-manifest", required=True,
+    type=click.Path(exists=True, dir_okay=False, allow_dash=True),
+    help="Path to an existing recording manifest.")
+@click.option(
+    "-o", "--output-supervisions-manifest",
+    type=click.Path(exists=False, dir_okay=True, allow_dash=True), default=None,
+    help="Output supervisions manifest path (or a directory for it); defaults "
+    "to '<recordings stem>_supervisions_<model>.jsonl.gz' next to the input.")
+@click.option(
+    "-m", "--model-name",
+    type=click.Choice(["energy_vad", "silero_vad_8k", "silero_vad_16k"]),
+    default="energy_vad",
+    help="Activity detector (the Silero variants need torch.hub weights; "
+    "energy_vad is model-free).")
+@click.option("-d", "--device", default="cuda",
+              help="Inference device (energy_vad runs on the host and ignores it).")
+@click.option("-j", "--jobs", "--num-jobs", "jobs", type=int, default=1,
+              help="Parallel jobs.")
+@click.option(
+    "--force_download", "--force-download", "force_download", is_flag=True, default=False,
+    help="Clear any cached model state before running.")
+@click.option(
+    "-t", "--threshold", type=float, default=0.01,
+    help="[energy_vad] Energy threshold (fraction of peak RMS).")
+@click.option(
+    "--min-duration", type=float, default=0.25,
+    help="[energy_vad] Minimum speech segment length.")
+def activity_detection(
+    recordings_manifest: Pathlike, output_supervisions_manifest: Optional[Pathlike],
+    model_name: str, device: str, jobs: int, force_download: bool, threshold: float,
+    min_duration: float):
+    """
+    Detect speech activity in the recordings of RECORDINGS_MANIFEST and write
+    the spans as a SupervisionSet manifest.
+    """
+    from functools import partial
+    from itertools import chain
+    from pathlib import Path
+
+    from lhotse_tpu_torch.audio import RecordingSet
+    from lhotse_tpu_torch.parallel import ParallelExecutor
+    from lhotse_tpu_torch.supervision import SupervisionSet
+    from lhotse_tpu_torch.workflows import EnergyVAD, SileroVAD8k, SileroVAD16k
+
+    detectors = {
+        "energy_vad": partial(EnergyVAD, threshold=threshold, min_duration=min_duration),
+        "silero_vad_8k": SileroVAD8k,
+        "silero_vad_16k": SileroVAD16k,
+    }
+    detector_kls = detectors[model_name]
+
+    recs_path = Path(recordings_manifest).expanduser().absolute()
+    if output_supervisions_manifest is None:
+        sups_path = recs_path.parent
+    else:
+        sups_path = Path(output_supervisions_manifest).expanduser().absolute()
+    if sups_path.is_dir():
+        name = recs_path.name
+        for ext in (".gz", ".jsonl", ".json", ".yaml"):
+            if name.endswith(ext):
+                name = name[: -len(ext)]
+        sups_path = sups_path / f"{name}_supervisions_{model_name}.jsonl.gz"
+
+    recordings = RecordingSet.from_file(str(recs_path))
+    if force_download:
+        (EnergyVAD if model_name == "energy_vad" else detectors[model_name]).force_download()
+    processor = ParallelExecutor(
+        init_fn=partial(detector_kls, device=device), num_jobs=jobs,
+        description="Running VAD")
+    supervisions = SupervisionSet.from_segments(chain.from_iterable(processor(recordings)))
+    supervisions.to_file(str(sups_path))
+    click.echo(f"Results saved to: {sups_path}")

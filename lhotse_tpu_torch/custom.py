@@ -1,7 +1,7 @@
 """
 CustomFieldMixin: attribute-style access to user-defined ``custom`` fields
 (copied from ``lhotse_tpu/custom.py``). Loading a custom ``Recording``,
-``Array`` or ``TemporalArray`` is ported; custom images are not and raise.
+``Array``, ``TemporalArray`` or ``Image`` is ported; video is not.
 """
 from __future__ import annotations
 
@@ -78,18 +78,19 @@ class CustomFieldMixin:
     def load_custom(self, name: str, **kwargs) -> np.ndarray:
         """
         Load custom data as a numpy array from an Array / TemporalArray /
-        Recording manifest stored in ``custom`` — TemporalArray and Recording
-        values are sliced to this object's [start, start+duration).
+        Recording / Image manifest stored in ``custom`` — TemporalArray and
+        Recording values are sliced to this object's [start, start+duration).
         """
         from lhotse_tpu_torch.array import Array, TemporalArray
         from lhotse_tpu_torch.audio import Recording
+        from lhotse_tpu_torch.image.image import Image
 
         value = self.custom.get(name)
         if isinstance(value, Recording):
             return self._load_custom_recording(name, value, **kwargs)
         if isinstance(value, TemporalArray):
             return value.load(start=self.start, duration=self.duration, **kwargs)
-        if isinstance(value, Array):
+        if isinstance(value, (Array, Image)):
             return value.load(**kwargs)
         raise ValueError(
             f"To load {name}, the object needs field {name} (or custom['{name}']) "

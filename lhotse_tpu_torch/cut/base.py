@@ -5,14 +5,19 @@ once on the base class: ``mix``/``append``,
 ``trim_to_supervisions``, ``trim_to_alignments``,
 ``trim_to_supervision_groups``, ``cut_into_windows[_balanced]``,
 ``index_supervisions`` (over :class:`SupervisionIntervalIndex`) and the
-supervision and per-speaker activity masks over frames and samples. All
-cut operations are lazy and non-mutating. ``split``, ``save_audio`` and the
-plotting and playback helpers are not ported.
+supervision and per-speaker activity masks over frames and samples,
+``split``, ``save_audio``, and the plotting (matplotlib) and playback
+(IPython) helpers, which import their package at call time. All cut
+operations are lazy and non-mutating. ``plot_alignment`` computes its
+spectrogram with a fresh ``Fbank`` on ``device``: the card unless the
+caller asks for the CPU.
 """
 from __future__ import annotations
 
+import logging
 import math
 from bisect import bisect_left
+from pathlib import Path
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -20,7 +25,7 @@ import numpy as np
 from lhotse_tpu_torch.audio.utils import VideoInfo
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
-    Decibels, Seconds, add_durations, asdict_nonull, compute_num_samples, compute_num_windows,
+    Decibels, Pathlike, Seconds, add_durations, asdict_nonull, compute_num_samples, compute_num_windows,
     compute_start_duration_for_extended_cut, fastcopy, ifnone, overlaps, to_hashable)
 
 
@@ -131,6 +136,10 @@ class Cut:
         right = self.truncate(offset=timestamp)
         return left, right
 
+    def unmix(self, tag: Optional[str] = None) -> List["Cut"]:
+        """Compatibility no-op for non-mixed cuts: [self]."""
+        return [self]
+
     def mix(
         self, other: "Cut", offset_other_by: Seconds = 0.0, allow_padding: bool = False,
         snr: Optional[Decibels] = None, preserve_id: Optional[str] = None,
@@ -156,6 +165,71 @@ class Cut:
         if augment_fn is not None:
             samples = augment_fn(samples, self.sampling_rate)
         return extractor.extract(samples, self.sampling_rate)
+
+    def plot_audio(self, ax=None, **kwargs):
+        """Plot the waveform with supervision spans (requires matplotlib)."""
+        import matplotlib.pyplot as plt
+
+        samples = self.load_audio().sum(axis=0)
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.plot(np.linspace(0, self.duration, len(samples)), samples)
+        for supervision in self.supervisions:
+            supervision = supervision.trim(self.duration)
+            ax.axvspan(supervision.start, supervision.end, color="green", alpha=0.1)
+        return ax
+
+    def play_audio(self):
+        from IPython.display import Audio
+
+        samples = self.load_audio().squeeze()
+        return Audio(samples, rate=self.sampling_rate)
+
+    def plot_features(self):
+        import matplotlib.pyplot as plt
+
+        features = np.flip(self.load_features().transpose(1, 0), 0)
+        return plt.matshow(features)
+
+    def plot_alignment(self, alignment_type: str = "word", device="cuda"):
+        """Display the alignment items over a fresh fbank spectrogram
+        computed on ``device`` (requires matplotlib and exactly one
+        supervision carrying ``alignment[alignment_type]``)."""
+        import matplotlib.pyplot as plt
+
+        from lhotse_tpu_torch.features.kaldi.extractors import Fbank, FbankConfig
+        from lhotse_tpu_torch.utils import compute_num_frames
+
+        assert len(self.supervisions) == 1, (
+            "Cannot plot alignment: there has to be exactly one supervision in a Cut."
+        )
+        sup = self.supervisions[0]
+        assert sup.alignment is not None and alignment_type in sup.alignment, (
+            f"Cannot plot alignment: missing alignment field or alignment "
+            f"type '{alignment_type}'"
+        )
+
+        fbank = Fbank(FbankConfig(device=device))
+        sampling_rate = fbank.extractor.sampling_rate
+        feats = self.resample(sampling_rate).compute_features(fbank)
+
+        fig = plt.matshow(np.flip(feats.transpose(1, 0), 0))
+        plt.title(
+            f"Cut ID:{self.id}, Speaker:{sup.speaker or '<unknown>'}, "
+            f"Language:{sup.language or '<unknown>'}"
+        )
+        plt.tick_params(
+            axis="both", which="major",
+            labelbottom=True, labeltop=False, bottom=True, top=False)
+        for idx, item in enumerate(sup.alignment[alignment_type]):
+            end_frame = compute_num_frames(
+                item.end, frame_shift=fbank.frame_shift, sampling_rate=sampling_rate)
+            plt.text(
+                end_frame - 4, 70 if idx % 2 else 45, item.symbol,
+                fontsize=12, color="w", rotation="vertical")
+            plt.axvline(end_frame, color="k")
+        plt.show()
+        return fig
 
     def trim_to_supervisions(
         self, keep_overlapping: bool = True, min_duration: Optional[Seconds] = None,
@@ -394,6 +468,53 @@ class Cut:
                 indexed.update(track.cut.index_supervisions(
                     index_mixed_tracks=True, keep_ids=keep_ids))
         return indexed
+
+    def save_audio(
+        self, storage_path: Pathlike, format: Optional[str] = None, encoding: Optional[str] = None,
+        augment_fn=None, **kwargs) -> "Cut":
+        """Store this cut's waveform to disk and return a new Cut referencing
+        the stored recording, which is named after the file. The
+        supervisions are pointed at it (the JAX package keeps their old
+        ``recording_id``, which ``validate`` refuses: ROADMAP C2). The new
+        cut starts at 0 of the stored recording; where this cut did not,
+        its features, temporal arrays and custom recordings (except those
+        marked ``{name}_unaligned``) are read from the old recording's
+        timeline, so they are dropped with a warning (the JAX package keeps
+        them, and they then read another window: ROADMAP C2). ``CutSet.copy_data`` stores their windows with the audio."""
+        from lhotse_tpu_torch.array import TemporalArray
+        from lhotse_tpu_torch.audio import AudioSource, Recording
+        from lhotse_tpu_torch.audio.backend import save_audio
+
+        storage_path = Path(storage_path)
+        samples = self.load_audio(**kwargs)
+        if augment_fn is not None:
+            samples = augment_fn(samples, self.sampling_rate)
+        save_audio(
+            storage_path, samples, sampling_rate=self.sampling_rate, format=format,
+            encoding=encoding)
+        n = samples.shape[1]
+        source = AudioSource(
+            type="file", channels=list(range(self.num_channels)), source=str(storage_path))
+        stored = Recording(
+            id=storage_path.stem, sampling_rate=self.sampling_rate, num_samples=n,
+            duration=n / self.sampling_rate, sources=[source])
+        features = self.features if self.has_features else None
+        custom = getattr(self, "custom", None)
+        if self.start != 0:
+            timed = [k for k, v in (custom or {}).items() if isinstance(v, TemporalArray) or (
+                isinstance(v, Recording) and not custom.get(f"{k}_unaligned", False))]
+            dropped = ["features"] * (features is not None) + timed
+            if dropped:
+                logging.warning(
+                    f"Cut {self.id} starts at {self.start} s of its recording: its {dropped} "
+                    f"cannot follow it to the stored audio, which starts at 0, and are dropped.")
+            features = None
+            if custom is not None:
+                custom = {k: v for k, v in custom.items() if k not in timed} or None
+        return fastcopy(
+            stored.to_cut(), id=self.id,
+            supervisions=[fastcopy(s, recording_id=stored.id) for s in self.supervisions],
+            custom=custom, features=features)
 
     def _active_spans(self, supervision, use_alignment_if_exists: Optional[str]):
         """(start, end) second-spans of activity: the alignment items when the

@@ -13,8 +13,9 @@ round trip, optionally of custom ``Recording`` fields), ``move_to_memory``/
 ``drop_in_memory_data``, the path prefixes and the supervision merging that
 ``MonoCut.merge_supervisions`` and ``MultiCut.merge_supervisions`` use.
 Every builder returns a modified manifest copy; no audio is touched until
-``load_audio``/``load_features``. Images and ``attach_tensor`` are not
-ported.
+``load_audio``/``load_features``. ``attach_tensor`` stores an array in
+memory (raw or lilcom) under a custom name, and ``attach_image`` an image
+(Pillow).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import logging
 from abc import ABCMeta, abstractmethod
 from dataclasses import dataclass, field
 from math import isclose
+from pathlib import Path
 from typing import Any, Callable, Dict, Generator, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -32,13 +34,14 @@ from lhotse_tpu_torch.custom import CustomFieldMixin
 from lhotse_tpu_torch.cut.base import Cut
 from lhotse_tpu_torch.features.base import FeatureExtractor, Features
 from lhotse_tpu_torch.features.io import FeaturesWriter
+from lhotse_tpu_torch.image import Image
 from lhotse_tpu_torch.supervision import SupervisionSegment
 from lhotse_tpu_torch.utils import (
     LOG_EPSILON, Pathlike, Seconds, TimeSpan, add_durations, asdict_nonull, compute_num_frames,
-    compute_num_samples, fastcopy, measure_overlap, overlaps, overspans,
+    compute_num_samples, fastcopy, is_module_available, measure_overlap, overlaps, overspans,
     perturb_num_samples, rich_exception_info, uuid4)
 
-_DATA_MANIFEST_TYPES = (Recording, Features, Array, TemporalArray)
+_DATA_MANIFEST_TYPES = (Recording, Features, Array, TemporalArray, Image)
 
 
 @dataclass
@@ -87,7 +90,7 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
 
     def iter_data(
         self,
-    ) -> Generator[Tuple[str, Union[Recording, Features, Array, TemporalArray]], None, None]:
+    ) -> Generator[Tuple[str, Union[Recording, Features, Array, TemporalArray, Image]], None, None]:
         """(name, manifest) pairs for every piece of data this cut references."""
         if self.has_recording:
             yield "recording", self.recording
@@ -198,6 +201,46 @@ class DataCut(Cut, CustomFieldMixin, metaclass=ABCMeta):
             self, recording=_strip(self.recording) if self.has_recording else None,
             features=_strip(self.features) if self.has_features else None,
             custom=None if self.custom is None else {k: _strip(v) for k, v in self.custom.items()})
+
+    def attach_tensor(
+        self, name: str, data: np.ndarray, frame_shift: Optional[Seconds] = None,
+        temporal_dim: Optional[int] = None, compressed: bool = False) -> "Cut":
+        """
+        Store an ndarray in memory under ``name`` (retrievable later as
+        ``cut.load_<name>()``); temporal arrays follow truncate/pad.
+        """
+        from lhotse_tpu_torch.features.io import MemoryLilcomWriter, MemoryRawWriter
+
+        out = fastcopy(self, custom=dict(self.custom or {}))
+        with (MemoryLilcomWriter() if compressed else MemoryRawWriter()) as writer:
+            manifest = writer.store_array(
+                key=out.id, value=np.asarray(data), frame_shift=frame_shift,
+                temporal_dim=temporal_dim, start=out.start)
+        setattr(out, name, manifest)
+        return out
+
+    def attach_image(self, key: str, path_or_object: Union[str, np.ndarray, bytes]) -> "DataCut":
+        """Attach an image (file path, ndarray, or encoded bytes) under ``key``."""
+        if not is_module_available("PIL"):
+            raise AssertionError("Using images requires 'pip install pillow'.")
+        from lhotse_tpu_torch.image.image import Image
+        from lhotse_tpu_torch.image.io import PillowInMemoryWriter
+
+        out = fastcopy(self, custom=dict(self.custom or {}))
+        if isinstance(path_or_object, (str, Path)):
+            import PIL.Image as PILImage
+
+            with PILImage.open(path_or_object) as img:
+                width, height = img.size
+            p = Path(path_or_object)
+            manifest = Image(
+                storage_type="pillow_files", storage_path=str(p.parent), storage_key=str(p.name),
+                width=width, height=height)
+        else:
+            with PillowInMemoryWriter() as writer:
+                manifest = writer.store_image(key, path_or_object)
+        out.custom[key] = manifest
+        return out
 
     # -- detachment -----------------------------------------------------------------------
 

@@ -9,8 +9,8 @@ summed until ``load_audio``/``load_features``: the same MixedCut mixes in
 the waveform domain or, for precomputed log-mel features, directly in the
 feature domain via the extractor's ``mix``/``compute_energy``.
 
-Left out: ``load_video`` and the plots, which raise
-``NotImplementedError``.
+The track plots need matplotlib, imported at call time. Left out:
+``load_video``, which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -750,10 +750,29 @@ class MixedCut(Cut):
         raise not_ported("MixedCut.load_video")
 
     def plot_tracks_features(self):
-        raise not_ported("MixedCut.plot_tracks_features")
+        import matplotlib.pyplot as plt
+
+        tracks = _get_audible_tracks(self)
+        fig, axes = plt.subplots(len(tracks))
+        feats = self.load_features(mixed=False)
+        lo, hi = feats.min(), feats.max()
+        for k, ax in enumerate(axes):
+            ax.imshow(np.flip(feats[k].transpose(1, 0), 0), vmin=lo, vmax=hi)
+        return axes
 
     def plot_tracks_audio(self):
-        raise not_ported("MixedCut.plot_tracks_audio")
+        import matplotlib.pyplot as plt
+
+        waves = self.load_audio(mixed=False)
+        tracks = _get_audible_tracks(self)
+        fig, axes = plt.subplots(len(tracks), sharex=False, sharey=True)
+        for (t, ax, wave) in zip(tracks, axes, waves):
+            samples = wave.squeeze(0)
+            ax.plot(np.linspace(0, self.duration, len(samples)), samples)
+            for sup in t.cut.supervisions:
+                sup = sup.trim(t.cut.duration)
+                ax.axvspan(t.offset + sup.start, t.offset + sup.end, color="green", alpha=0.1)
+        return axes
 
     # -- detachments ------------------------------------------------------------------------------------
 

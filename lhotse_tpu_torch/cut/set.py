@@ -35,10 +35,14 @@ Many manifest files read as one lazy set through ``from_files`` (with
 item-level Feistel shuffling when every file has an ``.idx`` sidecar), and
 WebDataset tarballs through ``from_webdataset``.
 
-``copy_feats`` re-stores every feature matrix through another writer.
-
-Left out: ``save_audios``, ``copy_data``, ``prefetch`` and the HuggingFace
-bridges.
+``copy_feats`` re-stores every feature matrix through another writer;
+``save_audios`` stores each cut's waveform under ``{id[:3]}/{id}.{format}``
+(in one process or over spawned processes), ``copy_data`` copies every
+referenced audio file, feature matrix and custom array into one directory,
+and ``prefetch`` reads ahead in a bounded background thread. The
+HuggingFace bridges (``to_huggingface_dataset``,
+``from_huggingface_dataset``) need the ``datasets`` package
+(:mod:`lhotse_tpu_torch.hf`).
 """
 from __future__ import annotations
 
@@ -68,7 +72,8 @@ from lhotse_tpu_torch.cut.multi import MultiCut
 from lhotse_tpu_torch.cut.padding import PaddingCut
 from lhotse_tpu_torch.features.base import (
     FeatureExtractor, Features, FeatureSet, StatsAccumulator, compute_global_stats)
-from lhotse_tpu_torch.features.io import FeaturesWriter, default_features_storage_backend
+from lhotse_tpu_torch.features.io import (
+    FeaturesWriter, LilcomChunkyWriter, default_features_storage_backend)
 from lhotse_tpu_torch.lazy import (
     AlgorithmMixin, IteratorNode, LazyFlattener, LazyMapper, LazySlicer, _restore_child,
     _snapshot_child, attach_graph_origin, get_graph_origin, is_dill_enabled,
@@ -492,6 +497,96 @@ class CutSet(Serializable, AlgorithmMixin):
             groups[(cut.recording.id, cut.start, cut.end)].append(cut)
         return CutSet.from_cuts(MultiCut.from_mono(*cuts) for cuts in groups.values())
 
+    def copy_data(self, output_dir: Pathlike, verbose: bool = True) -> "CutSet":
+        """Copy every referenced data item (audio/features/custom arrays)
+        into ``output_dir`` and return a manifest pointing at the copies.
+
+        Each data cut's own window is stored under its ID: its audio as
+        ``audio/{id[:3]}/{id}.wav``, its features in the default feature
+        store (``features.lca`` or ``features/``) and each custom array
+        ``k`` through a ``numpy_files`` writer in ``custom/{k}/``; the copy
+        starts at 0 of its stored recording. A mixed cut's data tracks are
+        stored the same way under ``{mixed id}-track{i}``. Custom
+        recordings are not copied (``Cut.save_audio`` says which it keeps).
+        The JAX package names each audio copy after its recording, so two
+        cuts of one recording overwrite each other, and leaves mixed cuts'
+        tracks and custom arrays pointing at the originals (ROADMAP C2)."""
+        from lhotse_tpu_torch.array import Array, TemporalArray
+        from lhotse_tpu_torch.features.io import NumpyFilesWriter
+
+        output_dir = Path(output_dir)
+        audio_dir = output_dir / "audio"
+        audio_dir.mkdir(exist_ok=True, parents=True)
+        feature_writer_type = default_features_storage_backend()
+        if feature_writer_type is LilcomChunkyWriter:
+            feature_storage = output_dir / "features.lca"
+        else:
+            feature_storage = output_dir / "features"
+            feature_storage.mkdir(exist_ok=True, parents=True)
+        custom_dir = output_dir / "custom"
+        custom_dir.mkdir(exist_ok=True, parents=True)
+        custom_writers = {}
+
+        if verbose:
+            from tqdm.auto import tqdm
+
+            progbar = partial(tqdm, desc="Copying CutSet data")
+        else:
+            progbar = lambda x: x
+
+        with CutSet.open_writer(
+            output_dir / "cuts.jsonl.gz"
+        ) as manifest_writer, feature_writer_type(feature_storage) as feature_writer:
+
+            def custom_writer_for(key):
+                if key not in custom_writers:
+                    custom_writers[key] = NumpyFilesWriter(custom_dir / key)
+                return custom_writers[key]
+
+            def relocate(cut, name):
+                custom = cut.custom or {}
+                arrays = {k: v for k, v in custom.items() if isinstance(v, (Array, TemporalArray))}
+                copy = fastcopy(
+                    cut, features=None,
+                    custom={k: v for k, v in custom.items() if k not in arrays} or None)
+                if cut.has_recording:
+                    (audio_dir / name[:3]).mkdir(exist_ok=True)
+                    copy = copy.save_audio(audio_dir / name[:3] / f"{name}.wav")
+                if cut.has_features:
+                    feats = cut.features.load(start=cut.start, duration=cut.duration)
+                    if feats.ndim == 3:  # load gives (C, T, F); a store holds (T, C, F)
+                        feats = np.ascontiguousarray(feats.transpose(1, 0, 2))
+                    copy.features = fastcopy(
+                        cut.features, start=copy.start, duration=cut.duration,
+                        num_frames=feats.shape[0], recording_id=copy.recording_id,
+                        storage_type=feature_writer.name, storage_path=feature_writer.storage_path,
+                        storage_key=feature_writer.write(name, feats))
+                for k, v in arrays.items():
+                    if isinstance(v, TemporalArray):
+                        stored = custom_writer_for(k).store_array(
+                            name, cut.load_custom(k), frame_shift=v.frame_shift,
+                            temporal_dim=v.temporal_dim, start=copy.start)
+                    else:
+                        stored = custom_writer_for(k).store_array(name, v.load())
+                    copy = copy.with_custom(k, stored)
+                return copy
+
+            for item in progbar(self):
+                if isinstance(item, PaddingCut):
+                    manifest_writer.write(item)
+                elif isinstance(item, MixedCut):
+                    tracks = [
+                        fastcopy(t, cut=relocate(t.cut, f"{item.id}-track{i}"))
+                        if isinstance(t.cut, DataCut) else t
+                        for i, t in enumerate(item.tracks)]
+                    manifest_writer.write(fastcopy(item, tracks=tracks))
+                elif isinstance(item, DataCut):
+                    manifest_writer.write(relocate(item, item.id))
+                else:
+                    raise RuntimeError(f"Unexpected manifest type: {type(item)}")
+
+        return manifest_writer.open_manifest()
+
     def copy_feats(
         self, writer: FeaturesWriter, output_path: Optional[Pathlike] = None) -> "CutSet":
         """Re-store every feature matrix with ``writer``; returns an updated manifest."""
@@ -861,6 +956,53 @@ class CutSet(Serializable, AlgorithmMixin):
 
         return cuts_writer.open_manifest()
 
+    def save_audios(
+        self, storage_path: Pathlike, format: str = "wav", encoding: Optional[str] = None,
+        num_jobs: Optional[int] = None, executor: Optional[Executor] = None, augment_fn=None,
+        progress_bar: bool = True, shuffle_on_split: bool = True, **kwargs) -> "CutSet":
+        """Store each cut's waveform to disk under
+        ``{storage_path}/{id[:3]}/{id}.{format}``."""
+        from lhotse_tpu_torch.manipulation import combine as combine_manifests
+
+        num_jobs = ifnone(num_jobs, 1)
+        if num_jobs == 1 and executor is not None:
+            logging.warning("Executor argument was passed but num_jobs set to 1: ignoring it.")
+            executor = None
+
+        def target_file(cut: Cut) -> Path:
+            # Bucket files into 3-char-prefix subdirs to keep dirs small.
+            bucket = Path(storage_path) / cut.id[:3]
+            bucket.mkdir(exist_ok=True, parents=True)
+            return bucket / f"{cut.id}.{format}"
+
+        if executor is None and num_jobs == 1:
+            track = _progressbar(progress_bar, desc="Storing audio recordings")
+            return CutSet(
+                track(
+                    cut.save_audio(
+                        storage_path=target_file(cut), format=format, encoding=encoding,
+                        augment_fn=augment_fn,
+                    )
+                    for cut in self
+                )
+            ).to_eager()
+
+        if executor is None:
+            import multiprocessing
+
+            executor = ProcessPoolExecutor(
+                max_workers=num_jobs, mp_context=multiprocessing.get_context("spawn"))
+        futures = [
+            executor.submit(
+                CutSet.save_audios, piece, storage_path=storage_path, format=format,
+                encoding=encoding, augment_fn=augment_fn, progress_bar=False,
+            )
+            for piece in self.split(num_jobs, shuffle=shuffle_on_split)
+        ]
+        track = _progressbar(
+            progress_bar, desc="Storing audio recordings (chunks progress)", total=len(futures))
+        return combine_manifests(track(f.result() for f in futures))
+
     def compute_global_feature_stats(
         self, storage_path: Optional[Pathlike] = None, max_cuts: Optional[int] = None,
         extractor: Optional[FeatureExtractor] = None) -> Dict[str, np.ndarray]:
@@ -917,6 +1059,26 @@ class CutSet(Serializable, AlgorithmMixin):
     @property
     def speakers(self) -> FrozenSet[str]:
         return frozenset(s.speaker for cut in self for s in cut.supervisions)
+
+    def prefetch(self, buffer_size: int = 10) -> "CutSet":
+        """
+        Pre-fetch cuts in a background thread with a bounded buffer — enables
+        concurrent read/process/write in ETL-style jobs.
+        """
+        return CutSet(_BackgroundPrefetchIterator(self.data, buffer_size=buffer_size))
+
+    def to_huggingface_dataset(self):
+        """Convert to a HuggingFace Dataset (requires `datasets`)."""
+        from lhotse_tpu_torch.hf import export_cuts_to_hf
+
+        return export_cuts_to_hf(self)
+
+    @staticmethod
+    def from_huggingface_dataset(*args, **kwargs) -> "CutSet":
+        """Stream a HuggingFace dataset as cuts (requires `datasets`)."""
+        from lhotse_tpu_torch.hf import LazyHFDatasetIterator
+
+        return CutSet(LazyHFDatasetIterator(*args, **kwargs))
 
     @property
     def is_indexed(self) -> bool:
@@ -976,6 +1138,43 @@ class CutSet(Serializable, AlgorithmMixin):
 
     def __iter__(self) -> Iterable[Cut]:
         yield from self.cuts
+
+
+class _BackgroundPrefetchIterator:
+    """Iterate the source in a daemon thread, buffering up to ``buffer_size``
+    items in a queue."""
+
+    def __init__(self, source: Iterable, buffer_size: int = 10):
+        self.source = source
+        self.buffer_size = buffer_size
+
+    def __iter__(self):
+        import queue
+        import threading
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.buffer_size)
+        _DONE = object()
+        errors = []
+
+        def worker():
+            try:
+                for item in self.source:
+                    q.put(item)
+            except BaseException as e:  # noqa
+                errors.append(e)
+            finally:
+                q.put(_DONE)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is _DONE:
+                break
+            yield item
+        if errors:
+            raise errors[0]
+        t.join()
 
 
 def mix(

@@ -25,7 +25,7 @@ _MODULES = {
         "ReverbWithImpulseResponse", "concat_cuts"),
     "collation": (
         "TokenCollater", "collate_audio", "collate_custom_field", "collate_features",
-        "collate_matrices", "collate_multi_channel_audio", "collate_multi_channel_features",
+        "collate_images", "collate_matrices", "collate_multi_channel_audio", "collate_multi_channel_features",
         "collate_vectors"),
     "dataloading": (
         "WorkerInfo", "get_rank", "get_worker_info", "get_world_size", "make_worker_init_fn",
@@ -37,6 +37,7 @@ _MODULES = {
     "diarization": ("DiarizationDataset",),
     "iterable_dataset": ("IdentityDataset", "IterableDatasetWrapper"),
     "loader": ("DataLoader", "device_prefetch"),
+    "vis": ("plot_batch",),
     "source_separation": (
         "DynamicallyMixedSourceSeparationDataset", "PreMixedSourceSeparationDataset",
         "SourceSeparationDataset"),

@@ -6,9 +6,10 @@ Collation of CutSet mini-batches into dense numpy host arrays (copied from
 multi-channel batches, ``mono_downmix``, custom recording fields and
 fault-tolerant reads), ``collate_custom_field``,
 ``collate_multi_channel_features``, ``read_audio_from_cuts``,
-``collate_vectors`` and ``collate_matrices``.
+``read_features_from_cuts``, ``collate_vectors``, ``collate_matrices``
+and ``collate_images`` (Pillow-gated, as the images are).
 
-Left out: video and image collation.
+Left out: video collation.
 """
 import warnings
 from concurrent.futures import Executor
@@ -294,11 +295,13 @@ def collate_custom_field(
     - :class:`~lhotse_tpu_torch.array.TemporalArray` → padded along the temporal
       dim and stacked; returns ``(collated, lens)``. Integer dtypes below
       int64 are promoted to int64 (token/label targets).
+    - :class:`~lhotse_tpu_torch.image.Image` → stacked images.
     - :class:`~lhotse_tpu_torch.audio.Recording` → delegates to
       :func:`collate_audio` with ``recording_field``.
     - anything else (int/float/...) → 1-D array of the raw values.
     """
     from lhotse_tpu_torch.array import Array, TemporalArray
+    from lhotse_tpu_torch.image import Image
 
     cuts_list = list(cuts)
     first_manifest = getattr(cuts_list[0], field)
@@ -347,6 +350,8 @@ def collate_custom_field(
             tensors[indices] = a
 
         return tensors, arr_lens
+    elif isinstance(first_manifest, Image):
+        return collate_images(cuts_list, field)
     elif isinstance(first_manifest, Recording):
         return collate_audio(
             CutSet.from_cuts(cuts_list), recording_field=field, pad_direction=pad_direction)
@@ -454,6 +459,12 @@ def read_audio_from_cuts(
     return ans
 
 
+def read_features_from_cuts(
+    cuts: Iterable[Cut], executor: Optional[Executor] = None) -> List[np.ndarray]:
+    map_fn = map if executor is None else executor.map
+    return list(map_fn(_read_features, cuts))
+
+
 def _read_features(cut: Cut) -> np.ndarray:
     return np.asarray(cut.load_features())
 
@@ -475,3 +486,9 @@ def _read_audio(
         if audio.ndim == 2 and audio.shape[0] == 1:
             audio = audio[0]  # collapse channel dim if mono
         return audio
+
+
+def collate_images(cuts: CutSet, image_field: str = "image") -> np.ndarray:
+    """Load and stack images into ``(batch, height, width, channel)``."""
+    images = [np.asarray(cut.load_custom(image_field)) for cut in cuts]
+    return np.stack(images)

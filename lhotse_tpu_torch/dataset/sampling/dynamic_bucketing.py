@@ -162,6 +162,21 @@ class _DrainedBuffers(Exception):
     """Raised internally when no bin can satisfy the current predicate."""
 
 
+def pick_at_random(bucket, rng, out_indexes_used: list):
+    """Yield the items of ``bucket`` (a ``queue.Queue`` or sequence) in a
+    random order, recording each yielded index in ``out_indexes_used``."""
+    if hasattr(bucket, "mutex"):
+        with bucket.mutex:
+            bucket = list(bucket.queue)
+    else:
+        bucket = list(bucket)
+    indexes = list(range(len(bucket)))
+    rng.shuffle(indexes)
+    for idx in indexes:
+        out_indexes_used.append(idx)
+        yield bucket[idx]
+
+
 class DynamicBucketer:
     """
     Pulls cuts from a stream into duration bins and emits one batch per step.

@@ -41,7 +41,7 @@ from lhotse_tpu_torch.lazy import AlgorithmMixin
 from lhotse_tpu_torch.serialization import LazyMixin, Serializable, load_yaml, save_to_yaml
 from lhotse_tpu_torch.utils import (
     Pathlike, Seconds, asdict_nonull, compute_num_frames, compute_num_frames_from_samples,
-    exactly_one_not_null, fastcopy, ifnone, split_sequence, to_list, uuid4)
+    exactly_one_not_null, fastcopy, ifnone, split_manifest_lazy, split_sequence, to_list, uuid4)
 
 AugmentFn = Callable[[np.ndarray, int], np.ndarray]
 
@@ -395,6 +395,11 @@ class FeatureSet(Serializable, AlgorithmMixin):
                 self, num_splits=num_splits, shuffle=shuffle, drop_last=drop_last
             )
         ]
+
+    def split_lazy(
+        self, output_dir: Pathlike, chunk_size: int, prefix: str = "") -> List["FeatureSet"]:
+        return split_manifest_lazy(
+            self, output_dir=output_dir, chunk_size=chunk_size, prefix=prefix)
 
     def shuffle(self, *args, **kwargs):
         raise NotImplementedError("FeatureSet does not support shuffling.")

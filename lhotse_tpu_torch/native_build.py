@@ -22,6 +22,14 @@ NATIVE_ROOT = Path(__file__).resolve().parent / "native"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "lhotse_tpu_torch" / "native"
 
 
+def native_disabled() -> bool:
+    """True when ``LHOTSE_TPU_NO_NATIVE=1``: the JAX package's switch to its
+    pure-Python fallbacks. The port has no such fallbacks, so nothing in it
+    reads the switch; it is kept so that code written for either package
+    can ask."""
+    return os.environ.get("LHOTSE_TPU_NO_NATIVE") == "1"
+
+
 def build_native(name: str, source: str, extra_link: Optional[List[str]] = None) -> ctypes.CDLL:
     """
     Build (if needed) and load ``native/<name>/<source>`` as ``lib<name>.so``.

@@ -12,9 +12,10 @@ JAX package asks ``jax.process_count``/``process_index`` in the middle).
 A rank's batch goes to its own card (``cuda:LOCAL_RANK``) through pinned
 memory without blocking the host. Under an initialised process group with a
 ("data", "model") ``DeviceMesh``, :func:`local_rows` gives a rank its rows
-of a global batch as a ``DTensor``. The JAX package's mesh objects
-(``data_parallel_mesh``, ``batch_sharding``, ``replicated_sharding``) name
-JAX shardings and have no counterpart here.
+of a global batch as a ``DTensor``. :func:`data_parallel_mesh` builds the
+one-axis "data" ``DeviceMesh`` that :func:`local_rows` takes. The JAX
+package's ``batch_sharding`` and ``replicated_sharding`` name JAX shardings
+and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -80,6 +81,36 @@ def host_local_to_global(batch: Any, device: Optional[torch.device] = None
     JAX function returns the mesh)."""
     device = torch.device(device) if device is not None else _local_device()
     return shard_batch(batch, device), device
+
+
+def data_parallel_mesh(n_devices: Optional[int] = None, axis_name: str = "data",
+                       device="cuda"):
+    """
+    A one-axis ``DeviceMesh`` named ``axis_name`` over the first
+    ``n_devices`` ranks of the process group (all of them by default), one
+    device each: the cards unless ``device`` asks for the CPU. With no
+    process group initialised, a one-rank group over an in-memory store is
+    started (NCCL on the card, gloo on the CPU), so a single process gets a
+    mesh of its one device; a larger mesh needs one process per device,
+    joined by ``torch.distributed`` first.
+    """
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = torch.device(device).type
+    if not _distributed():
+        if n_devices not in (None, 1):
+            raise ValueError(f"a mesh of {n_devices} devices needs {n_devices} processes joined "
+                             "by torch.distributed; none is initialised")
+        if device_type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("data_parallel_mesh on the card needs CUDA; pass device='cpu'")
+        torch.distributed.init_process_group(
+            "nccl" if device_type == "cuda" else "gloo", store=torch.distributed.HashStore(),
+            rank=0, world_size=1)
+    world = torch.distributed.get_world_size()
+    n = world if n_devices is None else n_devices
+    if not 1 <= n <= world:
+        raise ValueError(f"a mesh of {n} devices does not fit a group of {world} ranks")
+    return DeviceMesh(device_type, torch.arange(n), mesh_dim_names=(axis_name,))
 
 
 def local_rows(batch: torch.Tensor, mesh) -> DTensor:

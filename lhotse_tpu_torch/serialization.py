@@ -23,13 +23,13 @@ Indexed reads: ``from_jsonl_lazy(shuffle=True)`` and
 JSONL through its ``.idx`` sidecar
 (:class:`~lhotse_tpu_torch.lazy.LazyIndexedManifestIterator`); with
 ``indexed=None`` an existing sidecar is used.
-
-Left out, and raising ``NotImplementedError`` where a manifest asks for
-them: images.
+Image manifests (:class:`~lhotse_tpu_torch.image.Image`) deserialize at the
+top level and inside ``custom`` fields.
 """
 from __future__ import annotations
 
 import gzip
+import itertools
 import json
 import os
 import sys
@@ -39,7 +39,7 @@ from pathlib import Path
 from typing import Any, Dict, Generator, Iterable, List, Optional, Type, Union
 
 from lhotse_tpu_torch.utils import (
-    Pathlike, Pipe, SmartOpen, is_module_available, is_valid_url, not_ported)
+    Pathlike, Pipe, SmartOpen, is_module_available, is_valid_url)
 
 # Manifest is a union of all Set types; kept as Any to avoid import cycles.
 Manifest = Any
@@ -485,6 +485,15 @@ def load_yaml(path: Pathlike) -> dict:
         return yaml.safe_load(f)
 
 
+def grouper(n, iterable):
+    it = iter(iterable)
+    while True:
+        chunk = tuple(itertools.islice(it, n))
+        if not chunk:
+            return
+        yield chunk
+
+
 def extension_contains(ext: str, path: Pathlike) -> bool:
     return any(ext == sfx for sfx in Path(path).suffixes)
 
@@ -562,6 +571,10 @@ class SequentialJsonlWriter:
         if self.file is not None and not self.file.closed:
             self.file.flush()
         return load_manifest_lazy(self.path)
+
+
+class InvalidPathExtension(ValueError):
+    pass
 
 
 class InMemoryWriter:
@@ -839,10 +852,11 @@ def deserialize_item(data: dict) -> Any:
     from lhotse_tpu_torch.audio import Recording
     from lhotse_tpu_torch.cut import MixedCut, MonoCut, MultiCut, PaddingCut
     from lhotse_tpu_torch.features import Features
+    from lhotse_tpu_torch.image import Image
     from lhotse_tpu_torch.supervision import SupervisionSegment
 
     if "width" in data:
-        raise not_ported("Image manifests")
+        return Image.from_dict(data)
     if "shape" in data or "array" in data:
         return deserialize_array(data)
     if "sources" in data:
@@ -870,13 +884,13 @@ def deserialize_custom_field(data: Optional[dict]) -> Optional[dict]:
     """
     Deserialize manifests inside a ``custom`` field dict in-place
     (reference: serialization.py:703). Dict values that look like Recording
-    or Array manifests are converted; Image manifests raise; everything else
-    is left as-is.
+    Image / Array manifests are converted; everything else is left as-is.
     """
     if data is None:
         return None
     from lhotse_tpu_torch.array import deserialize_array
     from lhotse_tpu_torch.audio import Recording
+    from lhotse_tpu_torch.image import Image
 
     for key, value in data.items():
         if isinstance(value, dict):
@@ -884,7 +898,8 @@ def deserialize_custom_field(data: Optional[dict]) -> Optional[dict]:
                 data[key] = Recording.from_dict(value)
                 continue
             if "width" in value:
-                raise not_ported(f"Image manifests (custom field {key!r})")
+                data[key] = Image.from_dict(value)
+                continue
             try:
                 data[key] = deserialize_array(value)
             except Exception:

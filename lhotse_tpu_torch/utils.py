@@ -2,22 +2,25 @@
 Host helpers of the data path (copied from ``lhotse_tpu/utils/core.py``):
 time/sample/frame arithmetic, windowing and context extension, dataclass
 helpers, seeding, the streaming buffer shuffle, the recipes' directory
-globbing, recursion limit, safe tar extraction and resumable download, and
-``SmartOpen`` (URLs through the optional ``smart_open`` package). Only
-the helpers the ported host modules call are here; each body is the
-original's.
+globbing, recursion limit, safe tar and RAR extraction and resumable
+download, ``SmartOpen`` (URLs through the optional ``smart_open``
+package), and the small public helpers users import directly
+(``build_rng``, ``deprecated``, ``lens_to_mask``, ``pairwise``, ...).
+Each body is the original's.
 """
 from __future__ import annotations
 
 import math
 import os
 import random
+import secrets
 import sys
 import uuid
+import warnings
 from contextlib import contextmanager
 from dataclasses import dataclass, fields
 from decimal import ROUND_HALF_DOWN, ROUND_HALF_UP, Decimal
-from functools import lru_cache
+from functools import lru_cache, wraps
 from math import ceil, isclose
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, TypeVar, Union
@@ -31,6 +34,7 @@ Seconds = float
 Decibels = float
 Channels = Union[int, List[int]]
 
+INT16MAX = 32768
 EPSILON = 1e-10
 LOG_EPSILON = math.log(EPSILON)
 DEFAULT_PADDING_VALUE = 0  # used for custom attrs
@@ -228,6 +232,10 @@ def compute_start_duration_for_extended_cut(
     return round(new_start, ndigits=15), new_duration
 
 
+def duration_to_num_samples_check(duration: Seconds, num_samples: int, sampling_rate: int) -> bool:
+    return compute_num_samples(duration, sampling_rate) == num_samples
+
+
 @dataclass(unsafe_hash=True)
 class TimeSpan:
     """A simple beginning/end time span (reference: utils.py:300)."""
@@ -274,6 +282,14 @@ def measure_overlap(lhs: Any, rhs: Any) -> float:
     return overlapped_area / dur
 
 
+def index_by_id_and_check(manifests: Iterable[T]) -> Dict[str, T]:
+    id2man = {}
+    for m in manifests:
+        assert m.id not in id2man, f"Duplicated manifest ID: {m.id}"
+        id2man[m.id] = m
+    return id2man
+
+
 def is_none_or_gt(value, threshold) -> bool:
     """True when value is None or greater than threshold."""
     return value is None or value > threshold
@@ -314,6 +330,14 @@ def is_module_available(*modules: str) -> bool:
     call (failed imports are never cached by Python), which is measurable
     in per-recording hot loops like backend applicability checks."""
     return all(_module_available(m) for m in modules)
+
+
+def measure_overlap_frac(lhs: Any, rhs: Any) -> float:
+    """Fraction of ``lhs`` covered by overlap with ``rhs``."""
+    if not overlaps(lhs, rhs):
+        return 0.0
+    dur = min(lhs.end, rhs.end) - max(lhs.start, rhs.start)
+    return dur / (lhs.end - lhs.start) if lhs.end > lhs.start else 0.0
 
 
 class SmartOpen:
@@ -484,6 +508,10 @@ def rich_exception_info(fn: Callable) -> Callable:
             ) from e
 
     return wrapper
+
+
+def during_docs_build() -> bool:
+    return bool(os.environ.get("READTHEDOCS"))
 
 
 def to_list(item: Union[Any, List[Any]]) -> List[Any]:
@@ -668,6 +696,17 @@ def safe_extract(tar, path: Pathlike = ".", members=None, *, numeric_owner=False
     tar.extractall(path, members, numeric_owner=numeric_owner)
 
 
+def safe_extract_rar(rar, path: Pathlike = ".", members=None):
+    """rar extraction guarding against path traversal."""
+    for member in rar.namelist():
+        member_path = os.path.join(path, member)
+        abs_directory = os.path.abspath(path)
+        abs_target = os.path.abspath(member_path)
+        if os.path.commonprefix([abs_directory, abs_target]) != abs_directory:
+            raise Exception("Attempted Path Traversal in RAR File")
+    rar.extractall(path, members)
+
+
 def resumable_download(
     url: str, filename: Pathlike, force_download: bool = False,
     completed_file_size: Optional[int] = None, missing_ok: bool = False,
@@ -708,6 +747,85 @@ def resumable_download(
         if missing_ok:
             return
         raise
+
+
+class nullcontext:
+    def __init__(self, enter_result=None, *args, **kwargs):
+        self.enter_result = enter_result
+
+    def __enter__(self):
+        return self.enter_result
+
+    def __exit__(self, *excinfo):
+        pass
+
+
+def build_rng(seed) -> random.Random:
+    """``random.Random(seed)``, or a true-entropy SystemRandom for "trng"."""
+    if seed == "trng":
+        return secrets.SystemRandom()
+    return random.Random(seed)
+
+
+class DeprecatedWarning(UserWarning):
+    """Category used for deprecation warnings: a ``UserWarning`` subclass so
+    it is shown by default, unlike :class:`DeprecationWarning`."""
+
+
+def deprecated(message: str):
+    """Decorator marking a function as deprecated; emits a warning per call."""
+
+    def decorator(func):
+        @wraps(func)
+        def wrapper(*args, **kwargs):
+            warnings.warn(message, DeprecatedWarning, stacklevel=2)
+            return func(*args, **kwargs)
+
+        wrapper.__doc__ = f"[DEPRECATED] {message}\n\n{func.__doc__ or ''}"
+        return wrapper
+
+    return decorator
+
+
+def lens_to_mask(lens) -> np.ndarray:
+    """(B,) integer lengths -> (B, max_len) float32 0/1 mask (accepts any
+    integer array-like)."""
+    lens = np.asarray(lens)
+    mask = np.zeros((lens.shape[0], int(lens.max())), dtype=np.float32)
+    for i, num in enumerate(lens):
+        mask[i, : int(num)] = 1.0
+    return mask
+
+
+def pairwise(iterable):
+    """s -> (s0, s1), (s1, s2), ..."""
+    from itertools import tee
+
+    a, b = tee(iterable)
+    next(b, None)
+    return zip(a, b)
+
+
+def time_diff_to_num_frames(time_diff: Seconds, frame_length: Seconds, frame_shift: Seconds) -> int:
+    """Number of whole frames fitting inside ``time_diff``."""
+    if isclose(time_diff, 0.0):
+        return 0
+    return int(ceil((time_diff - frame_length) / frame_shift))
+
+
+def is_torchaudio_available() -> bool:
+    return is_module_available("torchaudio")
+
+
+def is_torchcodec_available() -> bool:
+    return is_module_available("torchcodec")
+
+
+def replace_bucket_with_profile_name(identifier: str, profile_name: str) -> str:
+    """Swap the netloc (bucket) of a storage URL for an MSC profile name."""
+    from urllib.parse import urlparse, urlunparse
+
+    return urlunparse(urlparse(identifier)._replace(netloc=profile_name))
 
 
 def not_ported(what: str) -> NotImplementedError:

@@ -13,7 +13,6 @@ from lhotse_tpu_torch.bin.modes import cli
 
 # Each left-out command with the ROADMAP.md item it waits for.
 LEFT_OUT = {
-    "workflows.activity-detection": "A7 (the energy VAD workflow)",
     "workflows.annotate-with-whisper": "weights (Whisper)",
     "workflows.annotate-dnsmos": "weights (DNSMOS)",
     "workflows.align-with-torchaudio": "weights (torchaudio alignment)",
@@ -67,7 +66,7 @@ def test_command_tree_equals_jax_minus_the_left_out():
     assert ours == expected
     assert set(LEFT_OUT) <= set(theirs)
     leaves = [n for n, group in ours.items() if not group]
-    assert len([n for n in leaves if not n.startswith("prepare.")]) == 43
+    assert len([n for n in leaves if not n.startswith("prepare.")]) == 44
     assert sorted(n for n in leaves if n.startswith("prepare.")) == [
         f"prepare.{r}" for r in sorted(PORTED_RECIPES)]
 

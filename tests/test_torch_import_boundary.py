@@ -1,7 +1,7 @@
 """
-The port's import boundary: lhotse_tpu_torch and chip_smoke.py import
-neither jax nor lhotse_tpu, and importing the kernel's module needs no CUDA
-toolkit. Checked in subprocesses, because this test process has already
+The port's import boundary: lhotse_tpu_torch, chip_smoke.py and
+chip_phase35.py import neither jax nor lhotse_tpu, and importing the
+kernel's module needs no CUDA toolkit. Checked in subprocesses, because this test process has already
 imported jax (tests/conftest.py).
 """
 import os
@@ -15,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "lhotse_tpu_torch").rglob("*.py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "chip_phase35.py"]
 FORBIDDEN = re.compile(r"^\s*(import|from) (jax|lhotse_tpu)\b", re.MULTILINE)
 
 
@@ -188,7 +188,16 @@ def test_port_imports_neither_jax_nor_lhotse_tpu():
         "lhotse_tpu_torch.recipes.this_american_life, lhotse_tpu_torch.recipes.sbcsae, "
         "lhotse_tpu_torch.recipes.gigaspeech, lhotse_tpu_torch.bin.modes.recipes.eval_conv, "
         "lhotse_tpu_torch.ais, lhotse_tpu_torch.ais.batch_loader, "
-        "lhotse_tpu_torch.ais.range_reader, lhotse_tpu_torch.workarounds; "
+        "lhotse_tpu_torch.ais.range_reader, lhotse_tpu_torch.workarounds, "
+        "lhotse_tpu_torch.image, lhotse_tpu_torch.image.image, lhotse_tpu_torch.image.io, "
+        "lhotse_tpu_torch.hf, lhotse_tpu_torch.tools, lhotse_tpu_torch.tools.env, "
+        "lhotse_tpu_torch.tools.libsox, lhotse_tpu_torch.dataset.vis, "
+        "lhotse_tpu_torch.testing.fixtures, lhotse_tpu_torch.testing.random, "
+        "lhotse_tpu_torch.workflows.activity_detection, "
+        "lhotse_tpu_torch.workflows.activity_detection.base, "
+        "lhotse_tpu_torch.workflows.activity_detection.energy, "
+        "lhotse_tpu_torch.workflows.activity_detection.energy_vad, "
+        "lhotse_tpu_torch.workflows.activity_detection.silero_vad; "
         "from lhotse_tpu_torch.recipes.chime6 import Chime6ArraySynchronizer, verify_md5_checksums; "
         "from lhotse_tpu_torch.lazy import LazyIteratorMultiplexer, LazyTxtIterator; "
         "from lhotse_tpu_torch.checkpoint import DataloaderCheckpoint; "

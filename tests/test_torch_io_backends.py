@@ -705,3 +705,41 @@ def test_url_sources_and_file_features_are_requested_as_jax(corpus):
         ("MonoCut", got["port"][0][0][1], "features", "storage", ("file:///d/k.npy", 0, None))]
     assert got["port"][1] == path.read_bytes()
     np.testing.assert_array_equal(got["port"][2], got["jax"][2])
+
+
+# -- shar_ptr payloads through AudioCache (ROADMAP C4) ------------------------------------------
+
+
+@pytest.mark.parametrize("caching", [True, False])
+def test_shar_ptr_payload_reads_go_through_the_cache_as_jax(shar_cuts, monkeypatch, caching):
+    """Three ``load_audio()`` calls of one ``shar_ptr`` source read its
+    payload once with caching on and three times with it off, in both
+    packages, and give the same samples."""
+    import lhotse_tpu.shar.lazy_pointer as jptr
+    import lhotse_tpu_torch.shar.lazy_pointer as pptr
+    from lhotse_tpu.caching import AudioCache as JCache
+    from lhotse_tpu.caching import set_caching_enabled as jset
+    from lhotse_tpu_torch.caching import AudioCache as PCache
+    from lhotse_tpu_torch.caching import set_caching_enabled as pset
+
+    _, lazy = shar_cuts
+    audio, reads = {}, {}
+    for name, module, cache, toggle, cut in (("jax", jptr, JCache, jset, lazy["jax"][1]),
+                                             ("port", pptr, PCache, pset, lazy["port"][1])):
+        assert cut.recording.sources[0].type == "shar_ptr"
+        calls = []
+        read = module.read_payload
+        monkeypatch.setattr(module, "read_payload",
+                            lambda source, _read=read, _calls=calls: (_calls.append(1),
+                                                                      _read(source))[1])
+        toggle(caching)
+        cache.clear()
+        try:
+            audio[name] = [cut.load_audio() for _ in range(3)]
+        finally:
+            toggle(False)
+            cache.clear()
+        reads[name] = len(calls)
+    assert reads["port"] == reads["jax"] == (1 if caching else 3)
+    for ours, theirs in zip(audio["port"], audio["jax"]):
+        assert np.array_equal(ours, theirs)

@@ -280,9 +280,16 @@ def test_validate_mixed_and_padding_cuts(corpus):
 def test_left_out_methods_raise(corpus):
     cuts, noise = _cuts(corpus, "port"), _cuts(corpus, "port", "noise")
     mixed = cuts[0].mix(noise[0], snr=10)
-    for call in [mixed.load_video, mixed.plot_tracks_audio]:
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        mixed.load_video()
+    # The track plots are ported (tests/test_torch_plots.py holds them to JAX).
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    assert len(mixed.plot_tracks_audio()) == 2
+    plt.close("all")
     # Compress is ported: the same manifest as the JAX package's builder.
     jmixed = _cuts(corpus, "jax")[0].mix(_cuts(corpus, "jax", "noise")[0], snr=10)
     assert [t.cut.to_dict() for t in mixed.compress("mp3", 0.5).tracks] == [
